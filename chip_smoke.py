@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""Drive cxxnet_tpu_torch on one NVIDIA card and check what comes out.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with a CUDA card and the
+CUDA toolkit (nvcc). Phases, each of which raises on failure:
+
+1. device: the card's name and power limit;
+2. build: every kernel in cxxnet_tpu_torch/csrc/ compiled with nvcc
+   (one process per source, started together), with the -Xptxas -v
+   register and shared-memory lines;
+3. kernel vs plain: each kernel against its plain PyTorch version at
+   the main path's shapes and at ragged ones, with times (CUDA events,
+   warm and L2-cold), the one-call library yardstick and the bound;
+4. serving: examples/ImageNet/AlexNet.conf at full width (bfloat16, as
+   the file says) through the port's NetTrainer and Server - ragged
+   requests from two threads, served rows against predict_dist, the
+   LRN kernel launched twice per dispatched batch - then a float32 leg
+   (TF32 off) against the same rows through the port on the CPU;
+5. CLI: task=pred and task=serve of `python -m cxxnet_tpu_torch.main`
+   on a synthetic MNIST-format dataset with an lrn layer, on the
+   default device: identical output files, kernel launches > 0.
+
+It prints one JSON line with every kernel's numbers, then, as the last
+line, {"ok": true, "device": {...}}. With no card, or outside a
+checkout, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import re
+import struct
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM data sheet (NVIDIA): device memory rate and the float32 rate
+# outside the tensor cores - what the LRN's bound is taken against
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def say(line: str) -> None:
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 3 helpers: timing with CUDA events
+# ---------------------------------------------------------------------------
+
+def time_warm(torch, fn, iters: int = 50) -> float:
+    """Mean ms per call over `iters` back-to-back calls (L2 warm)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_cold(torch, fn, flush, iters: int = 20) -> float:
+    """Mean ms per call with the 50 MB L2 flushed before each call (a
+    256 MB buffer written between calls, outside the timed window)."""
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def lrn_bound_ms(shape, itemsize: int, n: int):
+    """Least time for one LRN: the larger of its bytes (each input read
+    once, each output written once) over the memory rate and its
+    float32 operations (window squares and adds, the norm's multiply-
+    add, pow counted as 3, the final multiply) over the float32 rate."""
+    elems = 1
+    for d in shape:
+        elems *= d
+    bytes_ms = 2 * elems * itemsize / HBM_BYTES_PER_S * 1e3
+    ops_ms = elems * (2 * n + 6) / F32_FLOPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def bf16_ulp_close(torch, got, ref) -> bool:
+    """Every element within one bfloat16 ulp of the reference (both
+    round float32 math to bfloat16; one rounding boundary apart at
+    most)."""
+    g, r = got.float(), ref.float()
+    ulp = torch.where(r == 0, torch.full_like(r, 2.0 ** -133),
+                      torch.abs(r) * 2.0 ** -7)
+    return bool(torch.all(torch.abs(g - r) <= ulp))
+
+
+def phase_kernels(torch):
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops.lrn import lrn, lrn_reference
+
+    say("== phase 3: LRN kernel vs plain version ==")
+    alpha, beta, knorm = 0.001, 0.75, 1.0
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    max_err = 0.0
+    main_rows = {}
+    cases = []
+    for shape in ((64, 96, 27, 27), (64, 256, 13, 13)):
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((shape, dt, 5))
+    for c in (3, 13):
+        for hw in ((1, 1), (5, 7)):
+            for n in (1, 2, 4, 7):
+                for dt in (torch.float32, torch.bfloat16):
+                    cases.append(((3, c) + hw, dt, n))
+    for shape, dt, n in cases:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(dt)
+        got = lrn(x, n, alpha, beta, knorm)
+        torch.cuda.synchronize()
+        ref = lrn_reference(x, n, alpha, beta, knorm)
+        lib = F.local_response_norm(x.float(), n, alpha, beta, knorm)
+        err = float((got.float() - ref.float()).abs().max())
+        rel = float(((got.float() - ref.float()).abs()
+                     / ref.float().abs().clamp_min(1e-30)).max())
+        if dt == torch.float32:
+            ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-6)
+            lib_ok = torch.allclose(got, lib, rtol=1e-5, atol=1e-6)
+        else:
+            ok = bf16_ulp_close(torch, got, ref)
+            lib_ok = bf16_ulp_close(torch, got, lib.to(dt))
+        if not (ok and lib_ok):
+            raise AssertionError(
+                f"lrn kernel disagrees at {shape} {dt} n={n}: max abs "
+                f"{err:.3e} rel {rel:.3e} (plain ok={ok}, "
+                f"local_response_norm ok={lib_ok})")
+        max_err = max(max_err, err)
+        bound, by = lrn_bound_ms(shape, x.element_size(), n)
+        t = {
+            "kernel": time_warm(torch, lambda: lrn(x, n, alpha, beta, knorm)),
+            "plain": time_warm(
+                torch, lambda: lrn_reference(x, n, alpha, beta, knorm)),
+            "library": time_warm(torch, lambda: F.local_response_norm(
+                x, n, alpha, beta, knorm)),
+            "kernel_cold": time_cold(
+                torch, lambda: lrn(x, n, alpha, beta, knorm), flush),
+            "plain_cold": time_cold(
+                torch, lambda: lrn_reference(x, n, alpha, beta, knorm), flush),
+            "library_cold": time_cold(torch, lambda: F.local_response_norm(
+                x, n, alpha, beta, knorm), flush),
+        }
+        say(f"lrn {tuple(shape)} {str(dt)[6:]} n={n}: max abs err {err:.3e} "
+            f"rel {rel:.3e}; warm L2: kernel {t['kernel']:.4f} ms, plain "
+            f"{t['plain']:.4f} ms, local_response_norm {t['library']:.4f} ms;"
+            f" cold L2: kernel {t['kernel_cold']:.4f} ms, plain "
+            f"{t['plain_cold']:.4f} ms, local_response_norm "
+            f"{t['library_cold']:.4f} ms; bound {bound:.4f} ms ({by})")
+        main_rows[(shape, dt)] = dict(t, bound=bound, by=by)
+    del flush
+    return max_err, main_rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: AlexNet serving at full width
+# ---------------------------------------------------------------------------
+
+def alexnet_trainer(overrides):
+    """The AlexNet trainer as the CLI builds it: iterator blocks split
+    off (their files are never opened), the conf file unmodified, the
+    device from `dev` (the file says tpu, which means cuda:0)."""
+    from cxxnet_tpu_torch.main import LearnTask
+    task = LearnTask()
+    task.load_conf(os.path.join(REPO, "examples", "ImageNet",
+                                "AlexNet.conf"),
+                   ["seed=7", "silent=1"] + list(overrides))
+    tr = task.create_net()
+    tr.init_model()
+    return tr
+
+
+def phase_serving(torch, card):
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.serve import Server
+
+    say("== phase 4: AlexNet (examples/ImageNet/AlexNet.conf) served at "
+        "full width ==")
+    tr = alexnet_trainer([])
+    if tr.compute_dtype != torch.bfloat16 or str(tr.device) != "cuda:0":
+        raise AssertionError(f"AlexNet.conf should run bfloat16 on "
+                             f"cuda:0, got {tr.compute_dtype} on "
+                             f"{tr.device}")
+    srv = Server(tr, max_batch=64)
+    say(f"buckets {list(srv.buckets)}; warmup {srv.warmup():.3f} s")
+    rng = np.random.RandomState(11)
+    sizes = [int(s) for s in rng.randint(1, 65, size=30)]
+    sizes[0], sizes[1] = 64, 1
+    reqs = [(rng.rand(s, 3, 227, 227) * 255.0 - 128.0).astype(np.float32)
+            for s in sizes]
+    results = [None] * len(reqs)
+    errors = []
+
+    def client(idx):
+        try:
+            futs = [(i, srv.submit(reqs[i])) for i in idx]
+            for i, f in futs:
+                results[i] = f.result(timeout=300)
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    kernels.reset_launches()
+    srv.start()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(range(k, len(reqs),
+                                                          2),))
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    stats = srv.stop()
+    launches = kernels.launches()["lrn_fwd"]
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads) or any(r is None
+                                                 for r in results):
+        raise AssertionError("a serve request never resolved")
+    if launches != 2 * stats["batches"] or stats["batches"] == 0:
+        raise AssertionError(
+            f"lrn_fwd launched {launches} times over {stats['batches']} "
+            "dispatched batches; AlexNet runs it twice per batch")
+    rows = sum(sizes)
+    say(f"served {len(reqs)} requests, {rows} rows in {stats['batches']} "
+        f"batches ({stats['padding_rows']} padding rows); lrn_fwd "
+        f"launches {launches} = 2 per batch")
+    say(f"latency p50 {stats['latency_p50_ms']} ms, p99 "
+        f"{stats['latency_p99_ms']} ms (queue p50 "
+        f"{stats['queue_p50_ms']} ms, device p50 "
+        f"{stats['device_p50_ms']} ms), {rows / wall:.1f} rows/s "
+        f"({len(reqs)} requests from 2 threads, max_batch 64, bfloat16) "
+        f"on {card}")
+
+    # where a full bucket's time goes: host staging (float32 rows to
+    # the card, cast there) against the forward alone, each synchronised
+    full = reqs[0][:64]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(10):
+        staged = tr.stage_infer_rows(full)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t1) * 100.0
+    fwd_ms = time_warm(torch, lambda: tr.infer_rows(staged), iters=10)
+    say(f"full bucket of 64: staging {stage_ms:.3f} ms (host clock), "
+        f"forward {fwd_ms:.3f} ms (CUDA events, "
+        f"{64 / fwd_ms * 1e3:.0f} rows/s device-only) on {card}")
+
+    # served rows against predict_dist of the same rows: bfloat16
+    # forwards whose cuDNN/cuBLAS algorithms may differ per bucket size,
+    # so rows agree to bfloat16 rounding, not bitwise. One bf16 ulp of a
+    # logit in [8, 16) is 2^-4, which moves its probability by up to
+    # 6.5%: rtol 0.1 allows that much, atol covers probabilities near 0
+    rtol, atol = 0.1, 2e-4
+    worst = 0.0
+    worst_rel = 0.0
+    undecided = 0
+    flipped = 0
+    for data, got in zip(reqs, results):
+        ref = tr.predict_dist(DataBatch(
+            data=data, label=np.zeros((data.shape[0], 1), np.float32)))
+        if got.shape != ref.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"served rows {got.shape} vs {ref.shape}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+        big = ref >= 1e-3  # the top class of a 1000-way softmax always is
+        worst_rel = max(worst_rel, float(
+            (np.abs(got - ref)[big] / ref[big]).max()))
+        if not np.allclose(got, ref, rtol=rtol, atol=atol):
+            raise AssertionError(
+                f"served rows differ from predict_dist: max abs "
+                f"{np.abs(got - ref).max():.3e} > rtol {rtol} atol {atol}")
+        # argmax must agree wherever the reference's top-2 margin is
+        # wider than the two entries can move within the tolerance (a
+        # narrower margin is a tie at it)
+        top2 = np.sort(ref, axis=1)[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) > 2 * (atol + rtol * top2[:, 1])
+        undecided += int((~decided).sum())
+        flipped += int((got.argmax(1) != ref.argmax(1)).sum())
+        if not np.array_equal(got.argmax(1)[decided],
+                              ref.argmax(1)[decided]):
+            raise AssertionError("served argmax differs from predict")
+    say(f"served vs predict_dist: max abs {worst:.3e}, max rel "
+        f"{worst_rel:.3e} where p >= 1e-3 (rtol {rtol}, atol "
+        f"{atol}); argmax identical on {rows - undecided}/{rows} rows "
+        f"({undecided} within the tolerance of a tie; {flipped} rows' "
+        f"argmax differ in all)")
+    if undecided * 4 > rows * 3:
+        raise AssertionError("too few decided rows for the argmax check")
+    del tr, srv
+    torch.cuda.empty_cache()
+
+    # float32 leg: the same rows on the card (TF32 off) and through the
+    # port on the CPU (plain versions), same seed -> same weights
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows4 = reqs[0][:4]
+    batch = DataBatch(data=rows4, label=np.zeros((4, 1), np.float32))
+    gpu = alexnet_trainer(["dtype=float32"]).predict_dist(batch)
+    cpu = alexnet_trainer(["dtype=float32", "dev=cpu"]).predict_dist(batch)
+    f_rtol, f_atol = 1e-3, 1e-6
+    diff = float(np.abs(gpu - cpu).max())
+    if not (np.allclose(gpu, cpu, rtol=f_rtol, atol=f_atol)
+            and np.array_equal(gpu.argmax(1), cpu.argmax(1))):
+        raise AssertionError(
+            f"float32 card vs CPU: max abs {diff:.3e} > rtol {f_rtol} atol "
+            f"{f_atol}, or argmax differs")
+    say(f"float32 (TF32 off) card vs CPU on 4 rows: max abs {diff:.3e} "
+        f"(rtol {f_rtol}, atol {f_atol}), argmax equal")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the CLI on the default device
+# ---------------------------------------------------------------------------
+
+CLI_CONF = """
+pred = {out}
+iter = mnist
+  path_img = "{d}/t10k-images-idx3-ubyte.gz"
+  path_label = "{d}/t10k-labels-idx1-ubyte.gz"
+  input_flat = 0
+iter = end
+
+netconfig=start
+layer[0->1] = conv:c1
+  kernel_size = 5
+  stride = 2
+  nchannel = 16
+layer[1->2] = relu
+layer[2->3] = max_pooling
+  kernel_size = 3
+  stride = 2
+layer[3->4] = lrn
+  local_size = 5
+  alpha = 0.001
+  beta = 0.75
+  knorm = 1
+layer[4->5] = flatten
+layer[5->6] = fullc:fc
+  nhidden = 10
+layer[6->6] = softmax
+netconfig=end
+input_shape = 1,28,28
+batch_size = 50
+random_type = xavier
+seed = 5
+silent = 1
+"""
+
+
+def write_mnist(d: str, n: int, seed: int) -> None:
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, size=n).astype(np.uint8)
+    images = np.clip(rng.randn(n, 28, 28) * 40 + 100, 0, 255)
+    for i, y in enumerate(labels):
+        r, c = divmod(int(y), 5)
+        images[i, r * 10 + 2:r * 10 + 10, c * 5 + 1:c * 5 + 6] += 120
+    images = np.clip(images, 0, 255).astype(np.uint8)
+    with gzip.open(f"{d}/t10k-images-idx3-ubyte.gz", "wb") as f:
+        f.write(struct.pack(">iiii", 2051, n, 28, 28))
+        f.write(images.tobytes())
+    with gzip.open(f"{d}/t10k-labels-idx1-ubyte.gz", "wb") as f:
+        f.write(struct.pack(">ii", 2049, n))
+        f.write(labels.tobytes())
+
+
+def phase_cli():
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    say("== phase 5: CLI task=pred vs task=serve on the default device ==")
+    with tempfile.TemporaryDirectory() as d:
+        write_mnist(d, 500, 4)
+        conf = os.path.join(d, "net.conf")
+        with open(conf, "w") as f:
+            f.write(CLI_CONF.format(out=os.path.join(d, "unused.txt"), d=d))
+        tr = NetTrainer(cfg=CLI_CONF.format(out="unused.txt", d=d))
+        tr.init_model()
+        model = os.path.join(d, "0001.model")
+        with open(model, "wb") as fo:
+            tr.save_model(fo)
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        outs = {}
+        for task in ("pred", "serve"):
+            out = os.path.join(d, f"{task}.txt")
+            proc = subprocess.run(
+                [sys.executable, "-m", "cxxnet_tpu_torch.main", conf,
+                 f"task={task}", f"model_in={model}", f"pred={out}",
+                 "serve_rows=0"],
+                cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"task={task} exited {proc.returncode}:\n"
+                    f"{proc.stdout}{proc.stderr}")
+            with open(out) as f:
+                outs[task] = f.read()
+            if task == "serve":
+                m = re.search(r"kernel launches \{'lrn_fwd': (\d+)\}",
+                              proc.stdout)
+                if not m or int(m.group(1)) == 0:
+                    raise AssertionError(
+                        f"served run launched no lrn kernel:\n"
+                        f"{proc.stdout}")
+                say("task=serve child: " + next(
+                    ln for ln in proc.stdout.splitlines()
+                    if "kernel launches" in ln))
+        n_lines = outs["pred"].count("\n")
+        if outs["pred"] != outs["serve"] or n_lines != 500:
+            raise AssertionError(
+                f"task=serve output differs from task=pred "
+                f"({n_lines} pred lines)")
+        say(f"task=pred and task=serve outputs identical ({n_lines} lines, "
+            f"{len(set(outs['pred'].split()))} distinct classes)")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        sys.stderr.write("chip_smoke: torch is not installed\n")
+        return 1
+    if not torch.cuda.is_available():
+        sys.stderr.write("chip_smoke: no CUDA device - this script needs "
+                         "one NVIDIA card\n")
+        return 1
+    if not os.path.isdir(os.path.join(REPO, "cxxnet_tpu_torch")):
+        sys.stderr.write("chip_smoke: run it from a checkout of the repo "
+                         "(cxxnet_tpu_torch/ not found beside it)\n")
+        return 1
+    sys.path.insert(0, REPO)
+    from cxxnet_tpu_torch import kernels
+
+    say("== phase 1: device ==")
+    card = card_line()
+    say(card)
+    kind = torch.cuda.get_device_name(0)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"device 0: {kind}; device count {torch.cuda.device_count()}")
+
+    say("== phase 2: build ==")
+    t0 = time.perf_counter()
+    built = kernels.build_all()
+    say(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    for name, (secs, log) in built.items():
+        say(f"{name}: {secs:.2f} s")
+        for ln in log.splitlines():
+            if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
+                say("  " + ln.strip())
+
+    max_err, main_rows = phase_kernels(torch)
+    launches = phase_serving(torch, card)
+    phase_cli()
+
+    # the kernels line: the LRN's two launches of one served AlexNet
+    # batch (b64, bfloat16), warm L2, summed - the main path's unit
+    bf = [main_rows[(s, torch.bfloat16)]
+          for s in ((64, 96, 27, 27), (64, 256, 13, 13))]
+
+    def both(key):
+        return round(sum(r[key] for r in bf), 6)
+
+    say(card)
+    say(json.dumps({"kernels": [{
+        "name": "lrn_fwd",
+        "route": "cuda",
+        "source": "cxxnet_tpu_torch/csrc/lrn_fwd.cu",
+        "replaces": "cxxnet_tpu/ops/pallas_lrn.py:61",
+        "replaces_fn": "_fwd_kernel",
+        "unit": "both LRN launches of one AlexNet batch of 64, bfloat16, "
+                "(64,96,27,27) + (64,256,13,13), L2 warm",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": both("kernel"),
+        "kernel_ms": both("kernel"),
+        "kernel_cold_ms": both("kernel_cold"),
+        "plain_ms": both("plain"),
+        "bound_ms": both("bound"),
+        "bound_by": bf[0]["by"],
+        "library_ms": both("library"),
+        "library_cold_ms": both("library_cold"),
+    }]}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,36 @@
+"""cxxnet_tpu_torch: cxxnet-tpu ported to PyTorch and CUDA on Hopper.
+
+A second package beside `cxxnet_tpu`. This slice serves: the config
+parser and NetConfig DAG, the inference forward of the AlexNet layer
+set (conv, relu/sigmoid/tanh/softplus, max/sum/avg pooling, lrn,
+flatten, fullc, dropout, softmax), checkpoints in the JAX package's
+byte format, the inference half of `NetTrainer`, the continuous-batching
+`Server` and the CLI tasks pred / pred_raw / serve.
+
+Ground rules:
+
+- The JAX package is the reference the port is held against; it is
+  never edited. Tests run both on the same numpy inputs and weights.
+- This package imports `torch` and never `jax`, and nothing of
+  `cxxnet_tpu` - not even its jax-free modules. It keeps its own copies
+  of what it needs (`utils/config.py`, `nnet/net_config.py`,
+  `nnet/checkpoint.py`, ...).
+- Module names, layouts and param keys follow the JAX package: NCHW
+  activations, OIHW conv weights, (nhidden, nin) fullc weights, params
+  as {param_key: {"wmat", "bias"}} - so weights cross unchanged
+  (`convert.py`).
+- Every TPU (Pallas) kernel on the path is a kernel written by hand for
+  Hopper (`csrc/`, built with nvcc at first use - `kernels.py`); its
+  wrapper launches it for a CUDA tensor or raises, and uses the plain
+  PyTorch version only for a tensor on the CPU. Work the JAX package
+  hands to XLA (convolutions, matmuls, pooling) goes to
+  `torch.nn.functional`.
+- Entry points (`NetTrainer`, `Server`, the CLI) run on `cuda:0` unless
+  the caller asks for the CPU (`device="cpu"`, or `dev = cpu` in a
+  conf); with no card they raise instead of carrying on on the CPU.
+- Config keys that change results and that the port does not implement
+  yet (graph_passes, quantize_int8, zero_stage, mesh,
+  steps_per_dispatch, device_augment, layer types not yet ported, ...)
+  raise NotImplementedError naming the key; they are never silently
+  ignored.
+"""

@@ -1,0 +1,360 @@
+"""The non-loss layers of this slice (counterpart of
+cxxnet_tpu/layers/common.py): fullc, conv, max/sum/avg pooling, the
+activations, lrn, dropout and flatten. Inference forward only; each
+class names the reference file it mirrors."""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from cxxnet_tpu_torch.layers.base import (
+    Layer, Params, Shape, is_mat, not_ported, register_layer)
+from cxxnet_tpu_torch.ops import conv as conv_ops
+from cxxnet_tpu_torch.ops import nn as nn_ops
+from cxxnet_tpu_torch.ops import pooling as pool_ops
+
+
+def _reject_stamp(name: str, val: str, inert: str) -> None:
+    """Keys stamped by the JAX package's graph passes change the layer's
+    result; the passes are not ported, so a non-default value raises."""
+    if val != inert:
+        raise not_ported(name, val, "the graph-pass stamp")
+
+
+# ---------------------------------------------------------------------------
+# fully connected
+# ---------------------------------------------------------------------------
+
+@register_layer
+class FullConnectLayer(Layer):
+    """fullc (src/layer/fullc_layer-inl.hpp:14-146).
+
+    out = in . W^T + bias; W shape (nhidden, num_input_node).
+    `fullc_gather` only changes how the data-parallel weight gradient is
+    reduced, so it is inert at inference.
+    """
+
+    type_name = "fullc"
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "fused_act":
+            _reject_stamp(name, val, "")
+        if name == "flatten_input":
+            _reject_stamp(name, val, "0")
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        (b, c, h, w) = in_shapes[0]
+        if not is_mat(in_shapes[0]):
+            raise ValueError("FullcLayer: input needs to be a matrix")
+        if self.param.num_hidden <= 0:
+            raise ValueError("FullcLayer: must set nhidden correctly")
+        self.param.num_input_node = c * h * w
+        return [(b, 1, 1, self.param.num_hidden)]
+
+    def param_shapes(self, in_shapes: List[Shape]) -> Dict[str, tuple]:
+        nin = in_shapes[0][1] * in_shapes[0][2] * in_shapes[0][3]
+        shapes = {"wmat": (self.param.num_hidden, nin)}
+        if self.param.no_bias == 0:
+            shapes["bias"] = (self.param.num_hidden,)
+        return shapes
+
+    def init_params(self, gen, in_shapes: List[Shape]) -> Params:
+        shapes = self.param_shapes(in_shapes)
+        nhidden, nin = shapes["wmat"]
+        params = {"wmat": self.param.rand_init_weight(
+            gen, shapes["wmat"], in_num=nin, out_num=nhidden)}
+        if "bias" in shapes:
+            params["bias"] = torch.full(shapes["bias"],
+                                        self.param.init_bias)
+        return params
+
+    def param_tags(self) -> Dict[str, str]:
+        return {"wmat": "wmat", "bias": "bias"}
+
+    def forward(self, params, inputs):
+        x = inputs[0]
+        b = x.shape[0]
+        out = x.reshape(b, -1) @ params["wmat"].t()
+        if "bias" in params:
+            out = out + params["bias"][None, :]
+        return [out.reshape(b, 1, 1, -1)]
+
+
+# ---------------------------------------------------------------------------
+# convolution
+# ---------------------------------------------------------------------------
+
+@register_layer
+class ConvolutionLayer(Layer):
+    """conv (src/layer/convolution_layer-inl.hpp:13-228).
+
+    Weight stored as OIHW (nchannel, in_ch/ngroup, ky, kx), as in the JAX
+    package; grouped conv maps to `groups`. `space_to_depth` (a TPU
+    matrix-unit rewrite that computes the same sums) is accepted and
+    inert.
+    """
+
+    type_name = "conv"
+
+    def set_param(self, name: str, val: str) -> None:
+        if name == "space_to_depth":
+            if val not in ("auto", "0", "1"):
+                raise ValueError(
+                    f"space_to_depth must be auto, 0 or 1, got {val!r}")
+            return
+        if name == "fused_act":
+            _reject_stamp(name, val, "")
+            return
+        super().set_param(name, val)
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        b, c, h, w = in_shapes[0]
+        p = self.param
+        if c % p.num_group != 0:
+            raise ValueError("input channels must divide group size")
+        if p.num_channel % p.num_group != 0:
+            raise ValueError("output channels must divide group size")
+        if p.num_channel <= 0:
+            raise ValueError("must set nchannel correctly")
+        if p.kernel_height <= 0 or p.kernel_width <= 0:
+            raise ValueError("must set kernel_size correctly")
+        if p.kernel_width > w or p.kernel_height > h:
+            raise ValueError("kernel size exceeds input")
+        p.num_input_channel = c
+        oh = conv_ops.conv_out_dim(h, p.kernel_height, p.stride, p.pad_y)
+        ow = conv_ops.conv_out_dim(w, p.kernel_width, p.stride, p.pad_x)
+        return [(b, p.num_channel, oh, ow)]
+
+    def param_shapes(self, in_shapes: List[Shape]) -> Dict[str, tuple]:
+        p = self.param
+        ipg = in_shapes[0][1] // p.num_group
+        shapes = {"wmat": (p.num_channel, ipg, p.kernel_height,
+                           p.kernel_width)}
+        if p.no_bias == 0:
+            shapes["bias"] = (p.num_channel,)
+        return shapes
+
+    def init_params(self, gen, in_shapes: List[Shape]) -> Params:
+        p = self.param
+        shapes = self.param_shapes(in_shapes)
+        ipg = shapes["wmat"][1]
+        # reference init args: in = in/g*ky*kx, out = out/g (InitModel:27-32)
+        params = {"wmat": p.rand_init_weight(
+            gen, shapes["wmat"],
+            in_num=ipg * p.kernel_height * p.kernel_width,
+            out_num=p.num_channel // p.num_group)}
+        if "bias" in shapes:
+            params["bias"] = torch.full(shapes["bias"], p.init_bias)
+        return params
+
+    def param_tags(self) -> Dict[str, str]:
+        return {"wmat": "wmat", "bias": "bias"}
+
+    def forward(self, params, inputs):
+        p = self.param
+        out = conv_ops.conv2d(inputs[0], params["wmat"], p.stride, p.pad_y,
+                              p.pad_x, p.num_group)
+        if "bias" in params:
+            # a separate add, as the JAX package rounds it under bf16
+            out = out + params["bias"][None, :, None, None]
+        return [out]
+
+
+# ---------------------------------------------------------------------------
+# pooling
+# ---------------------------------------------------------------------------
+
+class PoolingLayer(Layer):
+    """max/sum/avg pooling (src/layer/pooling_layer-inl.hpp:17-114).
+    `pool_grad` selects a backward rule only, so it is inert here."""
+
+    mode = "max"
+    pre_relu = False
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "pool_grad":
+            if val not in ("ties", "winner"):
+                raise ValueError(
+                    f"pool_grad must be 'ties' or 'winner', got {val!r}")
+            if val == "winner" and self.mode != "max":
+                raise ValueError(
+                    f"pool_grad=winner is a max-pool backward option; "
+                    f"'{self.type_name}' has no single-winner rule")
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        b, c, h, w = in_shapes[0]
+        p = self.param
+        if p.kernel_height <= 0 or p.kernel_width <= 0:
+            raise ValueError("must set kernel_size correctly")
+        if p.pad_x >= p.kernel_width or p.pad_y >= p.kernel_height:
+            raise ValueError(
+                "pooling pad must be smaller than the kernel (all-padding "
+                "windows would emit -inf/0)")
+        if (p.kernel_width > w + 2 * p.pad_x
+                or p.kernel_height > h + 2 * p.pad_y):
+            raise ValueError("kernel size exceeds input")
+        oh = pool_ops.pool_out_dim(h, p.kernel_height, p.stride, p.pad_y)
+        ow = pool_ops.pool_out_dim(w, p.kernel_width, p.stride, p.pad_x)
+        return [(b, c, oh, ow)]
+
+    def forward(self, params, inputs):
+        x = inputs[0]
+        if self.pre_relu:
+            x = nn_ops.relu(x)
+        p = self.param
+        return [pool_ops.pool2d(x, self.mode, p.kernel_height,
+                                p.kernel_width, p.stride, p.pad_y, p.pad_x)]
+
+
+@register_layer
+class MaxPoolingLayer(PoolingLayer):
+    type_name = "max_pooling"
+    mode = "max"
+
+
+@register_layer
+class SumPoolingLayer(PoolingLayer):
+    type_name = "sum_pooling"
+    mode = "sum"
+
+
+@register_layer
+class AvgPoolingLayer(PoolingLayer):
+    type_name = "avg_pooling"
+    mode = "avg"
+
+
+@register_layer
+class ReluMaxPoolingLayer(PoolingLayer):
+    """relu fused before max pooling (layer_impl-inl.hpp:55-56)."""
+    type_name = "relu_max_pooling"
+    mode = "max"
+    pre_relu = True
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+class ActivationLayer(Layer):
+    """relu/sigmoid/tanh/softplus (activation_layer-inl.hpp:12-41)."""
+
+    fn = staticmethod(nn_ops.relu)
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        return [in_shapes[0]]
+
+    def forward(self, params, inputs):
+        return [self.fn(inputs[0])]
+
+
+@register_layer
+class ReluLayer(ActivationLayer):
+    type_name = "relu"
+    fn = staticmethod(nn_ops.relu)
+
+
+@register_layer
+class SigmoidLayer(ActivationLayer):
+    type_name = "sigmoid"
+    fn = staticmethod(nn_ops.sigmoid)
+
+
+@register_layer
+class TanhLayer(ActivationLayer):
+    type_name = "tanh"
+    fn = staticmethod(nn_ops.tanh)
+
+
+@register_layer
+class SoftplusLayer(ActivationLayer):
+    type_name = "softplus"
+    fn = staticmethod(nn_ops.softplus)
+
+
+# ---------------------------------------------------------------------------
+# normalization, dropout, structure
+# ---------------------------------------------------------------------------
+
+@register_layer
+class LRNLayer(Layer):
+    """lrn (src/layer/lrn_layer-inl.hpp:12-93): the hand-written kernel
+    K1-fwd on the card (ops/lrn.py), the plain version on the CPU."""
+
+    type_name = "lrn"
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.local_size = 3
+        self.alpha = 0.001
+        self.beta = 0.75
+        self.knorm = 1.0
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "local_size":
+            self.local_size = int(val)
+        if name == "alpha":
+            self.alpha = float(val)
+        if name == "beta":
+            self.beta = float(val)
+        if name == "knorm":
+            self.knorm = float(val)
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        return [in_shapes[0]]
+
+    def forward(self, params, inputs):
+        return [nn_ops.lrn(inputs[0], self.local_size, self.alpha,
+                           self.beta, self.knorm)]
+
+
+@register_layer
+class DropoutLayer(Layer):
+    """dropout (src/layer/dropout_layer-inl.hpp:12-66): inverted dropout,
+    self-loop; the identity at inference, which is all this slice runs."""
+
+    type_name = "dropout"
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.threshold = 0.0
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "threshold":
+            self.threshold = float(val)
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        if not 0.0 <= self.threshold < 1.0:
+            raise ValueError("DropoutLayer: invalid dropout threshold")
+        return [in_shapes[0]]
+
+    def forward(self, params, inputs):
+        return [inputs[0]]
+
+
+@register_layer
+class FlattenLayer(Layer):
+    """flatten (src/layer/flatten_layer-inl.hpp): (b,c,h,w)->(b,1,1,chw)."""
+
+    type_name = "flatten"
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        b, c, h, w = in_shapes[0]
+        return [(b, 1, 1, c * h * w)]
+
+    def forward(self, params, inputs):
+        x = inputs[0]
+        return [x.reshape(x.shape[0], 1, 1, -1)]

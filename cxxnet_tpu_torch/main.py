@@ -1,0 +1,303 @@
+"""CLI task driver (counterpart of cxxnet_tpu/main.py, serving tasks):
+
+    python -m cxxnet_tpu_torch.main <config.conf> [k=v ...]
+
+- `task = pred` writes one prediction per line (argmax of the final
+  node, or its raw value when it has one column);
+- `task = pred_raw` writes the final node's full row per instance;
+- `task = serve` replays the pred iterator as a ragged request stream
+  through the continuous-batching Server; its output file matches
+  `task = pred` line for line.
+
+All three need `model_in = <checkpoint>` (the JAX package's native
+format) and a `pred = <file>` iterator block. `dev` picks the device:
+`cpu` is the CPU; `gpu`, `gpu:0`, `cuda` and `tpu` (the shipped confs'
+spelling) mean `cuda:0`, the default. Training, extract and the
+telemetry/serving-front keys are later slices and raise.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import sys
+import time
+from typing import List, Optional, Tuple
+
+from cxxnet_tpu_torch import kernels
+from cxxnet_tpu_torch.io import create_iterator
+from cxxnet_tpu_torch.nnet.trainer import NetTrainer, is_inert
+from cxxnet_tpu_torch.utils.config import parse_config_file
+from cxxnet_tpu_torch.utils.device import device_from_spec
+
+TASKS = ("pred", "pred_raw", "serve")
+
+# task-level keys of the JAX CLI that this slice does not implement;
+# any value but the inert ones raises NotImplementedError naming the key
+_NOT_PORTED = {
+    "continue": ("0",), "test_io": ("0",), "elastic": ("0",),
+    "log_file": ("",), "metrics_file": ("",), "heartbeat_secs": ("0",),
+    "metrics_port": ("0",), "alert_rules": ("",), "alert_cmd": ("",),
+    "watchdog_secs": ("0",), "flight_recorder": ("0",),
+    "tuning_cache": ("",), "publish_model": ("",),
+    "pass_calibration_iter": ("",),
+}
+
+
+class LearnTask:
+    def __init__(self) -> None:
+        self.task = "train"
+        self.name_model_in = "NULL"
+        self.name_pred = "pred.txt"
+        self.silent = 0
+        self.device = "tpu"
+        # task=serve load shape: rows per submitted request (0 = the
+        # deterministic ragged cycle that covers every bucket)
+        self.serve_rows = 1
+        self.net_trainer: Optional[NetTrainer] = None
+        self.itr_pred = None
+        self.cfg: List[Tuple[str, str]] = []
+        # index of the first command-line override pair in self.cfg;
+        # _split_blocks keeps CLI pairs out of iterator-block scanning
+        self._n_file_pairs: Optional[int] = None
+
+    # ------------------------------------------------------------------
+    def load_conf(self, path: str, overrides: List[str] = ()) -> None:
+        """Parse the conf file, then `k=v` overrides."""
+        for name, val in parse_config_file(path):
+            self.set_param(name, val)
+        self._n_file_pairs = len(self.cfg)
+        for arg in overrides:
+            if "=" in arg:
+                name, val = arg.split("=", 1)
+                self.set_param(name.strip(), val.strip())
+
+    def run(self, argv: List[str]) -> int:
+        if len(argv) < 1:
+            sys.stdout.write("Usage: <config> [k=v ...]\n")
+            return 0
+        self.load_conf(argv[0], argv[1:])
+        if self.task not in TASKS:
+            raise NotImplementedError(
+                f"task = {self.task} is not ported to cxxnet_tpu_torch yet "
+                f"(ported: {', '.join(TASKS)}; training is the next slice)")
+        self.init()
+        if not self.silent:
+            sys.stdout.write("initializing end, start working\n")
+        if self.task == "pred":
+            self.task_predict()
+        elif self.task == "pred_raw":
+            self.task_predict_raw()
+        else:
+            self.task_serve()
+        return 0
+
+    def set_param(self, name: str, val: str) -> None:
+        if val == "default":
+            return
+        if name in _NOT_PORTED and not is_inert(val, _NOT_PORTED[name]):
+            raise NotImplementedError(
+                f"{name} = {val}: not ported to cxxnet_tpu_torch yet "
+                "(see ROADMAP)")
+        if name == "model_in":
+            self.name_model_in = val
+        if name == "silent":
+            self.silent = int(val)
+        if name == "task":
+            self.task = val
+        if name == "dev":
+            device_from_spec(val)  # validates early
+            self.device = val
+        if name == "serve_rows":
+            self.serve_rows = int(val)
+        self.cfg.append((name, val))
+
+    # ------------------------------------------------------------------
+    def _split_blocks(self):
+        """Segment the flat conf into (defcfg, train, evals, pred):
+        defcfg = keys outside any iterator block, train/pred = that
+        block's keys, evals = [(eval_name, keys), ...]. Also records
+        self.name_pred from the `pred =` line; a `pred=file` on the
+        command line renames the output without opening a block."""
+        defcfg: List[Tuple[str, str]] = []
+        train = None
+        evals: List[Tuple[str, List[Tuple[str, str]]]] = []
+        pred = None
+        cur: Optional[List[Tuple[str, str]]] = None
+        evname = ""
+        flag = 0
+        for idx, (name, val) in enumerate(self.cfg):
+            cli = (self._n_file_pairs is not None
+                   and idx >= self._n_file_pairs)
+            if name in ("data", "eval", "pred") and cli:
+                if name == "pred":
+                    self.name_pred = val
+                continue  # a CLI pair is never a block marker
+            if name == "data":
+                flag, cur = 1, []
+                continue
+            if name == "eval":
+                flag, cur, evname = 2, [], val
+                continue
+            if name == "pred":
+                self.name_pred = val
+                flag, cur = 3, []
+                continue
+            if name == "iter" and val == "end":
+                if flag == 0:
+                    raise ValueError("wrong configuration file: "
+                                     "`iter = end` outside a block")
+                if flag == 1:
+                    train = cur
+                elif flag == 2:
+                    evals.append((evname, cur))
+                else:
+                    pred = cur
+                flag, cur = 0, None
+                continue
+            (defcfg if cur is None else cur).append((name, val))
+        return defcfg, train, evals, pred
+
+    def create_net(self) -> NetTrainer:
+        """The trainer from the global section + the train data block
+        (the historic spec source) + the pred block, on the `dev`
+        device. No iterator is created here, so a conf whose iterator
+        files do not exist still builds its net."""
+        defcfg, train, _evals, pred = self._split_blocks()
+        net = NetTrainer(device=device_from_spec(self.device))
+        for k, v in defcfg + (train or []) + (pred or []):
+            net.set_param(k, v)
+        return net
+
+    def init(self) -> None:
+        if self.name_model_in == "NULL":
+            raise ValueError(f"task = {self.task} needs model_in = "
+                             "<checkpoint>")
+        self.net_trainer = self.create_net()
+        with open(self.name_model_in, "rb") as fi:
+            self.net_trainer.load_model(fi)
+        defcfg, _train, _evals, pred = self._split_blocks()
+        if pred is None:
+            raise ValueError("must specify a predict iterator (pred = "
+                             "<file> block) to generate predictions")
+        self.itr_pred = create_iterator(pred)
+        for k, v in defcfg:
+            self.itr_pred.set_param(k, v)
+        self.itr_pred.init()
+
+    # ------------------------------------------------------------------
+    def _write_atomic(self, lines) -> None:
+        """Write the prediction file through a temp file + os.replace,
+        so a crash never leaves a truncated file behind."""
+        tmp = f"{self.name_pred}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as fo:
+                for line in lines:
+                    fo.write(line)
+            os.replace(tmp, self.name_pred)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
+
+    def task_predict(self) -> None:
+        sys.stdout.write("start predicting...\n")
+
+        def lines():
+            self.itr_pred.before_first()
+            while self.itr_pred.next():
+                for v in self.net_trainer.predict(self.itr_pred.value()):
+                    yield f"{v:g}\n"
+        self._write_atomic(lines())
+        sys.stdout.write(f"finished prediction, write into "
+                         f"{self.name_pred}\n")
+
+    def task_predict_raw(self) -> None:
+        sys.stdout.write("start predicting...\n")
+
+        def lines():
+            self.itr_pred.before_first()
+            while self.itr_pred.next():
+                flat = self.net_trainer.predict_dist(self.itr_pred.value())
+                for row in flat:
+                    yield " ".join(f"{v:g}" for v in row) + "\n"
+        self._write_atomic(lines())
+        sys.stdout.write(f"finished prediction, write into "
+                         f"{self.name_pred}\n")
+
+    def _serve_request_sizes(self):
+        """Row count of each submitted request: serve_rows>0 = fixed;
+        serve_rows=0 = a deterministic ragged cycle 1,2,3,5,7,... so a
+        single pass exercises every bucket size."""
+        if self.serve_rows > 0:
+            while True:
+                yield self.serve_rows
+        cycle = [1, 2, 3, 5, 7, 4, 6, 8]
+        i = 0
+        while True:
+            yield cycle[i % len(cycle)]
+            i += 1
+
+    def task_serve(self) -> None:
+        """The continuous-batching server warmed over its buckets, then
+        the pred iterator replayed as a request stream, with a bounded
+        in-flight window so results stream to the file in submission
+        order."""
+        from cxxnet_tpu_torch.serve import Server, predictions_from_rows
+        tr = self.net_trainer
+        srv = Server(tr, device=str(tr.device))
+        sys.stdout.write(f"serve: warming {len(srv.buckets)} buckets "
+                         f"{list(srv.buckets)}\n")
+        srv.warmup()
+        sys.stdout.write("serve: warmup done, start serving\n")
+        kernels.reset_launches()
+        sizes = self._serve_request_sizes()
+        futures: collections.deque = collections.deque()
+        max_inflight = 4 * srv.max_batch
+        t0 = time.monotonic()
+
+        def lines():
+            def drain(down_to: int):
+                while len(futures) > down_to:
+                    for v in predictions_from_rows(
+                            futures.popleft().result()):
+                        yield f"{v:g}\n"
+            self.itr_pred.before_first()
+            while self.itr_pred.next():
+                batch = self.itr_pred.value()
+                valid = batch.batch_size - batch.num_batch_padd
+                data = batch.data[:valid]
+                lo = 0
+                while lo < valid:
+                    n = min(next(sizes), valid - lo)
+                    futures.append(srv.submit(data[lo:lo + n]))
+                    lo += n
+                    yield from drain(max_inflight)
+            yield from drain(0)
+
+        srv.start()
+        try:
+            self._write_atomic(lines())
+        finally:
+            stats = srv.stop()
+        dt = time.monotonic() - t0
+        qps = stats["requests"] / dt if dt > 0 else 0.0
+        sys.stdout.write(
+            f"serve: {stats['requests']} requests ({stats['rows']} rows) "
+            f"in {dt:.2f} sec, {qps:.1f} req/s, "
+            f"p50 {stats['latency_p50_ms']} ms, "
+            f"p99 {stats['latency_p99_ms']} ms, "
+            f"{stats['padding_rows']} padding rows over "
+            f"{stats['batches']} batches, kernel launches "
+            f"{kernels.launches()}\n")
+        sys.stdout.write(f"finished serving, write into {self.name_pred}\n")
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    return LearnTask().run(argv)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,138 @@
+"""Network: NetConfig DAG -> inference forward (counterpart of
+cxxnet_tpu/nnet/network.py).
+
+Connections run in declaration order exactly like the reference
+(neural_net-inl.hpp Forward :107-132). A shared connection
+(`share[tag]`) reuses the primary layer's module and its entry in the
+params dict; a self-loop layer (`layer[+0]`, in == out) overwrites its
+node. Params are passed in as {param_key: {"wmat", "bias"}} - the JAX
+package's keys - so the trainer can hold a float32 master copy and a
+compute-dtype copy side by side.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from cxxnet_tpu_torch.layers import create_layer
+from cxxnet_tpu_torch.layers.base import Layer, Shape
+from cxxnet_tpu_torch.layers.loss import LossLayer
+from cxxnet_tpu_torch.nnet.net_config import NetConfig
+
+
+def param_key(cfg: NetConfig, layer_index: int) -> str:
+    """Stable key for a layer's params: its name, else its index."""
+    info = cfg.layers[layer_index]
+    return info.name if info.name else f"layer_{layer_index}"
+
+
+class Network(nn.Module):
+    """Layer modules + inferred node shapes; the inference forward."""
+
+    def __init__(self, cfg: NetConfig, batch_size: int):
+        super().__init__()
+        self.cfg = cfg
+        self.layer_objs = nn.ModuleList()
+        self.node_shapes: List[Optional[Shape]] = [None] * cfg.num_nodes
+
+        c, y, x = cfg.input_shape
+        if c * y * x == 0:
+            raise ValueError("input_shape must be set")
+        if cfg.extra_data_num:
+            raise NotImplementedError(
+                f"extra_data_num = {cfg.extra_data_num}: extra input "
+                "nodes are not ported to cxxnet_tpu_torch yet")
+        self.node_shapes[0] = (batch_size, c, y, x)
+
+        # build layer modules and run shape inference in declaration order
+        for idx, info in enumerate(cfg.layers):
+            if info.is_shared:
+                layer = self.layer_objs[info.primary_layer_index]
+            else:
+                layer = create_layer(info.type_name, info.name)
+                for k, v in cfg.defcfg:
+                    layer.set_param(k, v)
+                for k, v in cfg.layercfg[idx]:
+                    layer.set_param(k, v)
+            self.layer_objs.append(layer)
+            if isinstance(layer, LossLayer):
+                if info.nindex_in != info.nindex_out:
+                    raise ValueError(
+                        f"{info.type_name}: loss layer must be a self-loop")
+                if layer.target not in cfg.label_name_map:
+                    raise ValueError(
+                        f"LossLayer: unknown target={layer.target}")
+            in_shapes = []
+            for j in info.nindex_in:
+                if self.node_shapes[j] is None:
+                    raise ValueError(
+                        f"node {cfg.node_names[j]} used before it is "
+                        "produced")
+                in_shapes.append(self.node_shapes[j])
+            out_shapes = layer.infer_shapes(list(in_shapes))
+            if len(out_shapes) != len(info.nindex_out):
+                raise ValueError(
+                    f"{info.type_name}: produced {len(out_shapes)} outputs "
+                    f"for {len(info.nindex_out)} output nodes")
+            for j, s in zip(info.nindex_out, out_shapes):
+                self.node_shapes[j] = s
+
+    # ------------------------------------------------------------------
+    def init_params(self, seed: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Float32 CPU params from `seed`: one torch.Generator per layer,
+        seeded from (seed, layer index) - the role jax.random.fold_in
+        plays in the JAX package."""
+        params: Dict[str, Dict[str, torch.Tensor]] = {}
+        for idx, info in enumerate(self.cfg.layers):
+            if info.is_shared:
+                continue
+            gen = torch.Generator().manual_seed(seed * 1000003 + idx)
+            in_shapes = [self.node_shapes[j] for j in info.nindex_in]
+            p = self.layer_objs[idx].init_params(gen, list(in_shapes))
+            if p:
+                params[param_key(self.cfg, idx)] = p
+        return params
+
+    def param_shapes(self) -> Dict[str, Dict[str, tuple]]:
+        """{param_key: {name: shape}} - what a checkpoint must carry."""
+        out = {}
+        for idx, info in enumerate(self.cfg.layers):
+            if info.is_shared:
+                continue
+            in_shapes = [self.node_shapes[j] for j in info.nindex_in]
+            shapes = self.layer_objs[idx].param_shapes(list(in_shapes))
+            if shapes:
+                out[param_key(self.cfg, idx)] = shapes
+        return out
+
+    # ------------------------------------------------------------------
+    def forward(self, params: Dict[str, Dict[str, torch.Tensor]],
+                data: torch.Tensor) -> List[Optional[torch.Tensor]]:
+        """Run all connections in declaration order on node-0 `data`;
+        returns every node's value (None for nodes never written)."""
+        cfg = self.cfg
+        values: List[Optional[torch.Tensor]] = [None] * cfg.num_nodes
+        values[0] = data
+        for idx, info in enumerate(cfg.layers):
+            layer: Layer = self.layer_objs[idx]
+            pkey = param_key(
+                cfg, info.primary_layer_index if info.is_shared else idx)
+            outs = layer(params.get(pkey, {}),
+                         [values[j] for j in info.nindex_in])
+            for j, o in zip(info.nindex_out, outs):
+                values[j] = o
+        return values
+
+    # ------------------------------------------------------------------
+    def node_index(self, name: str) -> int:
+        """Resolve a node reference: name, or `top[-k]` counting from the
+        last node (ExtractFeature syntax, nnet_impl-inl.hpp:200-223)."""
+        if name.startswith("top[-") and name.endswith("]"):
+            k = int(name[5:-1])
+            return self.cfg.num_nodes - k
+        if name in self.cfg.node_name_map:
+            return self.cfg.node_name_map[name]
+        raise KeyError(f"unknown node name {name}")

@@ -1,0 +1,148 @@
+"""The port's LRN (cxxnet_tpu_torch/ops/lrn.py) against the JAX package:
+the plain version against ops.nn.lrn (XLA path) and against the Pallas
+kernel in interpret mode, every window size 1..7 including the even
+ones (where a flipped lo/hi window would show); the CPU dispatcher never
+reaching the kernel loader. The CUDA kernel against the plain version
+runs on the card (tests/test_torch_cuda.py)."""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax.numpy as jnp
+
+from cxxnet_tpu.ops import nn as jax_nn
+from cxxnet_tpu.ops.pallas_lrn import lrn_pallas
+from cxxnet_tpu_torch import kernels
+from cxxnet_tpu_torch.ops import lrn as lrn_ops
+from cxxnet_tpu_torch.ops import nn as port_nn
+
+# the four shapes of tests/test_pallas_lrn.py, an AlexNet-like one and
+# a channel count that is not a multiple of 8
+SHAPES = [(2, 16, 7, 9), (2, 8, 5, 5), (1, 32, 3, 3), (3, 8, 1, 1),
+          (2, 96, 7, 7), (2, 13, 4, 5)]
+WINDOWS = [1, 2, 3, 4, 5, 7]
+ALPHA, BETA, KNORM = 0.001, 0.75, 1.0
+
+# float32: the same float32 math summed in another order, and torch.pow
+# against jnp.power - a few ulp apart (the bar test_pallas_lrn.py holds
+# the Pallas kernel to)
+F32_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _x(shape, seed=0, scale=4.0):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(
+        np.float32)
+
+
+def _bf16_within_one_ulp(got, ref):
+    """Both sides round float32 math to bfloat16: at most one rounding
+    boundary apart, i.e. within one bfloat16 ulp (2^-7 relative)."""
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    assert np.all(np.abs(got - ref) <= np.abs(ref) * 2.0 ** -7 + 1e-30)
+
+
+@pytest.mark.parametrize("n", WINDOWS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_reference_matches_jax_xla(shape, n):
+    x = _x(shape)
+    want = np.asarray(jax_nn.lrn(jnp.asarray(x), n, ALPHA, BETA, KNORM))
+    got = lrn_ops.lrn_reference(torch.from_numpy(x), n, ALPHA, BETA, KNORM)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("n", WINDOWS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_reference_matches_pallas_interpret(shape, n):
+    x = _x(shape, seed=1)
+    want = np.asarray(lrn_pallas(jnp.asarray(x), n, ALPHA, BETA, KNORM,
+                                 True))
+    got = lrn_ops.lrn_reference(torch.from_numpy(x), n, ALPHA, BETA, KNORM)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("n", [2, 4, 5])
+@pytest.mark.parametrize("shape", [(2, 16, 7, 9), (2, 13, 4, 5)])
+def test_bf16_within_one_ulp_of_jax(shape, n):
+    """bfloat16 in, float32 math, bfloat16 out - as the Pallas kernel
+    (interpret mode) does it, and as the XLA path does it on the
+    float32-widened input rounded once at the end."""
+    xb = torch.from_numpy(_x(shape, seed=2)).to(torch.bfloat16)
+    got = lrn_ops.lrn_reference(xb, n, ALPHA, BETA, KNORM)
+    assert got.dtype == torch.bfloat16
+    xj = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
+    pallas = lrn_pallas(xj, n, ALPHA, BETA, KNORM, True)
+    assert pallas.dtype == jnp.bfloat16
+    _bf16_within_one_ulp(got.float().numpy(),
+                         np.asarray(pallas.astype(jnp.float32)))
+    xla = jax_nn.lrn(xj.astype(jnp.float32), n, ALPHA, BETA, KNORM)
+    _bf16_within_one_ulp(got.float().numpy(),
+                         np.asarray(xla.astype(jnp.bfloat16)
+                                    .astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_even_window_orientation(n):
+    """A single lit channel: with lo = n//2 below and hi = n-lo-1 above,
+    channel c is normalised by channels [c-lo, c+hi]. A flipped window
+    would light the other neighbours."""
+    x = np.ones((1, 9, 1, 1), np.float32)
+    x[0, 4] = 30.0
+    got = lrn_ops.lrn_reference(torch.from_numpy(x), n, 1.0, 1.0, 1.0)
+    lo, hi = n // 2, n - n // 2 - 1
+    lit = [c for c in range(9) if c - lo <= 4 <= c + hi]
+    dim = np.where(got.numpy()[0, :, 0, 0] < 0.1)[0].tolist()
+    assert dim == [c for c in lit if c != 4] or dim == lit
+    want = np.asarray(jax_nn.lrn(jnp.asarray(x), n, 1.0, 1.0, 1.0))
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_zero_knorm_matches_jax():
+    """knorm = 0 over an all-zero window: 0 * 0^-beta is nan in both
+    (matched, not guarded)."""
+    x = _x((1, 8, 3, 3), seed=3)
+    x[0, :, 1, 1] = 0.0
+    want = np.asarray(jax_nn.lrn(jnp.asarray(x), 3, ALPHA, BETA, 0.0))
+    got = lrn_ops.lrn_reference(torch.from_numpy(x), 3, ALPHA, BETA, 0.0)
+    assert np.isnan(want[0, :, 1, 1]).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+
+
+def test_torch_local_response_norm_is_the_same_window():
+    """torch's one-call LRN (the chip-run yardstick, never called by the
+    port) pads (n//2, (n-1)//2): the same window, even n included."""
+    x = _x((2, 13, 4, 5), seed=4)
+    for n in WINDOWS:
+        got = lrn_ops.lrn_reference(torch.from_numpy(x), n, ALPHA, BETA,
+                                    KNORM)
+        lib = F.local_response_norm(torch.from_numpy(x), n, ALPHA, BETA,
+                                    KNORM)
+        np.testing.assert_allclose(got.numpy(), lib.numpy(), **F32_TOL)
+
+
+def test_cpu_dispatch_never_touches_kernel_loader(monkeypatch):
+    def boom(name):
+        raise AssertionError(f"kernel loader reached for {name}")
+    monkeypatch.setattr(kernels, "load", boom)
+    before = kernels.launches()
+    x = torch.from_numpy(_x((2, 16, 7, 9)))
+    out = port_nn.lrn(x, 5, ALPHA, BETA, KNORM)
+    np.testing.assert_array_equal(
+        out.numpy(), lrn_ops.lrn_reference(x, 5, ALPHA, BETA,
+                                           KNORM).numpy())
+    assert kernels.launches() == before
+
+
+def test_kernel_wrapper_refuses_cpu_tensor():
+    """The kernel wrapper takes CUDA tensors only: a CPU tensor raises
+    instead of falling back."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lrn_ops.lrn(torch.zeros(1, 4, 2, 2), 3, ALPHA, BETA, KNORM)
+
+
+def test_backward_raises_until_training_slice():
+    with pytest.raises(NotImplementedError, match="training slice"):
+        lrn_ops._LRN.backward(None, torch.zeros(1))
