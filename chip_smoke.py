@@ -10,9 +10,10 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
 2. build: every kernel in cxxnet_tpu_torch/csrc/ compiled with nvcc
    (one process per source, started together), with the -Xptxas -v
    register and shared-memory lines;
-3. kernel vs plain: each kernel against its plain PyTorch version at
-   the main path's shapes and at ragged ones, with times (CUDA events,
-   warm and L2-cold), the one-call library yardstick and the bound;
+3. kernel vs plain: each kernel (K1-fwd, K1-bwd) against its plain
+   PyTorch version at the main paths' shapes and at ragged ones, with
+   times (CUDA events, warm and L2-cold), the one-call library
+   yardstick and the bound;
 4. serving: examples/ImageNet/AlexNet.conf at full width (bfloat16, as
    the file says) through the port's NetTrainer and Server - ragged
    requests from two threads, served rows against predict_dist, the
@@ -20,7 +21,16 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    (TF32 off) against the same rows through the port on the CPU;
 5. CLI: task=pred and task=serve of `python -m cxxnet_tpu_torch.main`
    on a synthetic MNIST-format dataset with an lrn layer, on the
-   default device: identical output files, kernel launches > 0.
+   default device: identical output files, kernel launches > 0;
+6. training: AlexNet.conf unmodified (b256, bfloat16, SGD + momentum,
+   dropout) through NetTrainer.update - 2 warm-up and 10 timed steps,
+   both LRN kernels launched twice per step, the loss finite, the
+   params moved, a repeated batch fitted; a profiler table of the
+   busiest CUDA ops and the device's idle share; then a float32 step
+   (TF32 off, batch 8) on the card against the same step on the CPU;
+7. CLI training: `task = train` for 3 rounds on the default device
+   (test error falls), `continue = 1` resumes, an empty model_dir
+   fails, `task = pred` reads the result.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -29,6 +39,7 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ast
 import gzip
 import json
 import os
@@ -46,6 +57,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # outside the tensor cores - what the LRN's bound is taken against
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+
+# the inputs of AlexNet's two LRN layers in a b256 training step
+TRAIN_LRN_SHAPES = ((256, 96, 27, 27), (256, 256, 13, 13))
 
 
 def say(line: str) -> None:
@@ -129,7 +143,9 @@ def phase_kernels(torch):
     max_err = 0.0
     main_rows = {}
     cases = []
-    for shape in ((64, 96, 27, 27), (64, 256, 13, 13)):
+    # the serving path's shapes (batches of 64) and the training path's
+    # (AlexNet's b256)
+    for shape in ((64, 96, 27, 27), (64, 256, 13, 13)) + TRAIN_LRN_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             cases.append((shape, dt, 5))
     for c in (3, 13):
@@ -179,6 +195,128 @@ def phase_kernels(torch):
             f"{t['plain_cold']:.4f} ms, local_response_norm "
             f"{t['library_cold']:.4f} ms; bound {bound:.4f} ms ({by})")
         main_rows[(shape, dt)] = dict(t, bound=bound, by=by)
+    del flush
+    return max_err, main_rows
+
+
+def lrn_bwd_bound_ms(shape, itemsize: int, n: int):
+    """Least time for one LRN backward: the larger of its bytes (x and g
+    read once, gin written once) over the memory rate and its float32
+    operations (about 4n + 12 per element: two window sums, the norm,
+    two pows counted as 3 each, the products) over the float32 rate."""
+    elems = 1
+    for d in shape:
+        elems *= d
+    bytes_ms = 3 * elems * itemsize / HBM_BYTES_PER_S * 1e3
+    ops_ms = elems * (4 * n + 12) / F32_FLOPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def lrn_bwd_close(torch, got, x, g, n, alpha, beta, knorm, loose=False):
+    """K1-bwd against the plain version. The gradient is the difference
+    of two float32 terms t1 - t2, so the bar scales with them:
+    float32 rtol 1e-5 of the result + 1e-6 x (|t1| + |t2|);
+    bfloat16 one bfloat16 ulp (2^-7) of the result + the same term bar
+    (both sides round float32 math once; their float32 values may sit
+    on either side of a rounding boundary). `loose` is the bar for the
+    library yardstick, which computes the same function by another
+    formula (x / (k + alpha * mean)^beta, differentiated by autograd):
+    rtol 1e-3 of the result + 1e-4 x (|t1| + |t2|)."""
+    from cxxnet_tpu_torch.ops.lrn import lrn_bwd_reference, lrn_bwd_terms
+    ref = lrn_bwd_reference(x, g, n, alpha, beta, knorm).float()
+    t1, t2 = lrn_bwd_terms(x, g, n, alpha, beta, knorm)
+    rtol = 1e-5 if x.dtype == torch.float32 else 2.0 ** -7
+    atol = 1e-6
+    if loose:
+        rtol, atol = max(rtol, 1e-3), 1e-4
+    bar = rtol * ref.abs() + atol * (t1.abs() + t2.abs())
+    diff = (got.detach().float() - ref).abs()
+    return bool(torch.all(diff <= bar)), float(diff.max())
+
+
+def phase_kernels_bwd(torch):
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.ops.lrn import lrn, lrn_backward, lrn_bwd_reference
+
+    say("== phase 3b: LRN backward kernel (K1-bwd) vs plain version ==")
+    alpha, beta, knorm = 0.001, 0.75, 1.0
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    max_err = 0.0
+    main_rows = {}
+    cases = [(shape, dt, 5) for shape in TRAIN_LRN_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    for c in (3, 13):
+        for hw in ((1, 1), (5, 7)):
+            for n in (1, 2, 4, 7):
+                for dt in (torch.float32, torch.bfloat16):
+                    cases.append(((3, c) + hw, dt, n))
+    cases += [((2, 40, 3, 3), torch.float32, 19),
+              ((2, 40, 3, 3), torch.bfloat16, 19)]
+    for shape, dt, n in cases:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(dt)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        before = kernels.launches()["lrn_bwd"]
+        got = lrn_backward(x, g, n, alpha, beta, knorm)
+        torch.cuda.synchronize()
+        if kernels.launches()["lrn_bwd"] != before + 1:
+            raise AssertionError("lrn_backward did not count one launch")
+        ok, err = lrn_bwd_close(torch, got, x, g, n, alpha, beta, knorm)
+        # the library's gradient (autograd of F.local_response_norm) on
+        # the float32-widened inputs, rounded to the working type
+        xl = x.detach().float().requires_grad_(True)
+        (lib,) = torch.autograd.grad(
+            F.local_response_norm(xl, n, alpha, beta, knorm), xl, g.float())
+        lib_ok, lib_err = lrn_bwd_close(torch, lib.to(dt), x, g, n, alpha,
+                                        beta, knorm, loose=True)
+        # autograd through lrn launches the same kernel: same bits
+        xg = x.clone().requires_grad_(True)
+        (auto,) = torch.autograd.grad(lrn(xg, n, alpha, beta, knorm), xg, g)
+        same = torch.equal(auto, got)
+        if not (ok and lib_ok and same):
+            raise AssertionError(
+                f"lrn_bwd kernel disagrees at {shape} {dt} n={n}: max abs "
+                f"{err:.3e} (plain ok={ok}, local_response_norm grad "
+                f"ok={lib_ok} at {lib_err:.3e}, autograd through lrn "
+                f"identical={same})")
+        max_err = max(max_err, err)
+        if shape not in TRAIN_LRN_SHAPES:
+            continue
+        say(f"lrn_bwd {tuple(shape)} {str(dt)[6:]} n={n}: max abs err "
+            f"{err:.3e} (local_response_norm backward {lib_err:.3e}); "
+            "autograd through lrn bit-identical")
+        bound, by = lrn_bwd_bound_ms(shape, x.element_size(), n)
+        xl = x.detach().clone().requires_grad_(True)
+        y = F.local_response_norm(xl, n, alpha, beta, knorm)
+
+        def kern():
+            return lrn_backward(x, g, n, alpha, beta, knorm)
+
+        def plain():
+            return lrn_bwd_reference(x, g, n, alpha, beta, knorm)
+
+        def library():
+            return torch.autograd.grad(y, xl, g, retain_graph=True)
+        t = {
+            "kernel": time_warm(torch, kern),
+            "plain": time_warm(torch, plain),
+            "library": time_warm(torch, library),
+            "kernel_cold": time_cold(torch, kern, flush),
+            "plain_cold": time_cold(torch, plain, flush),
+            "library_cold": time_cold(torch, library, flush),
+        }
+        say(f"lrn_bwd {tuple(shape)} {str(dt)[6:]} n={n}: warm L2: kernel "
+            f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+            f"local_response_norm backward {t['library']:.4f} ms; cold L2: "
+            f"kernel {t['kernel_cold']:.4f} ms, plain {t['plain_cold']:.4f} "
+            f"ms, local_response_norm backward {t['library_cold']:.4f} ms; "
+            f"bound {bound:.4f} ms ({by})")
+        main_rows[(shape, dt)] = dict(t, bound=bound, by=by)
+        del y, xl
+    say(f"lrn_bwd: {len(cases)} cases agree (f32, bf16, n = 1..7 and 19, "
+        f"C = 3, 13, 40, 96, 256); max abs err {max_err:.3e}")
     del flush
     return max_err, main_rows
 
@@ -381,7 +519,7 @@ silent = 1
 """
 
 
-def write_mnist(d: str, n: int, seed: int) -> None:
+def write_mnist(d: str, n: int, seed: int, prefix: str = "t10k") -> None:
     import numpy as np
     rng = np.random.RandomState(seed)
     labels = rng.randint(0, 10, size=n).astype(np.uint8)
@@ -390,10 +528,10 @@ def write_mnist(d: str, n: int, seed: int) -> None:
         r, c = divmod(int(y), 5)
         images[i, r * 10 + 2:r * 10 + 10, c * 5 + 1:c * 5 + 6] += 120
     images = np.clip(images, 0, 255).astype(np.uint8)
-    with gzip.open(f"{d}/t10k-images-idx3-ubyte.gz", "wb") as f:
+    with gzip.open(f"{d}/{prefix}-images-idx3-ubyte.gz", "wb") as f:
         f.write(struct.pack(">iiii", 2051, n, 28, 28))
         f.write(images.tobytes())
-    with gzip.open(f"{d}/t10k-labels-idx1-ubyte.gz", "wb") as f:
+    with gzip.open(f"{d}/{prefix}-labels-idx1-ubyte.gz", "wb") as f:
         f.write(struct.pack(">ii", 2049, n))
         f.write(labels.tobytes())
 
@@ -430,9 +568,8 @@ def phase_cli():
             with open(out) as f:
                 outs[task] = f.read()
             if task == "serve":
-                m = re.search(r"kernel launches \{'lrn_fwd': (\d+)\}",
-                              proc.stdout)
-                if not m or int(m.group(1)) == 0:
+                m = re.search(r"kernel launches (\{.*\})", proc.stdout)
+                if not m or ast.literal_eval(m.group(1))["lrn_fwd"] == 0:
                     raise AssertionError(
                         f"served run launched no lrn kernel:\n"
                         f"{proc.stdout}")
@@ -446,6 +583,327 @@ def phase_cli():
                 f"({n_lines} pred lines)")
         say(f"task=pred and task=serve outputs identical ({n_lines} lines, "
             f"{len(set(outs['pred'].split()))} distinct classes)")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: AlexNet training at full width
+# ---------------------------------------------------------------------------
+
+def numpy_keep(tr, seed: int):
+    """Dropout masks for every dropout layer of `tr`'s net, from numpy:
+    what update(keep=...) injects so two devices train alike."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = {}
+    for idx, info in enumerate(tr.net_cfg.layers):
+        if info.type_name == "dropout":
+            shape = tr.net.node_shapes[info.nindex_in[0]]
+            out[idx] = rng.rand(*shape) < 1.0 - tr.net.layer_objs[
+                idx].threshold
+    return out
+
+
+def softmax_ce(tr, batch) -> float:
+    """Mean cross-entropy of the batch's labels under predict_dist
+    (inference: dropout off)."""
+    import numpy as np
+    p = tr.predict_dist(batch)
+    picked = p[np.arange(p.shape[0]), batch.label[:, 0].astype(int)]
+    return float(-np.mean(np.log(np.maximum(picked, 1e-30))))
+
+
+def profile_steps(torch, step, n_steps: int):
+    """torch.profiler over `n_steps` calls of `step`: the ten CUDA
+    entries with the most self device time, the named groups (LRN
+    kernels, the max-pool ties backward, convolutions) and the device's
+    idle share of the traced window (1 - union of kernel, memcpy and
+    memset intervals / window from the first event to the last)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans, lo, hi = [], float("inf"), 0.0
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        ts, dur = float(e["ts"]), float(e["dur"])
+        lo, hi = min(lo, ts), max(hi, ts + dur)
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((ts, ts + dur))
+    spans.sort()
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window_ms = (hi - lo) / 1e3 if hi > lo else 0.0
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev / 1e3 / n_steps, ev.count // n_steps, ev.key))
+    rows.sort(reverse=True)
+    groups = {"lrn_fwd kernel": 0.0, "lrn_bwd kernel": 0.0,
+              "max-pool ties backward": 0.0, "convolutions (fwd+bwd)": 0.0}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        dur = float(e["dur"]) / 1e3 / n_steps
+        if e.get("cat") == "kernel" and "lrn_fwd_kernel" in name:
+            groups["lrn_fwd kernel"] += dur
+        elif e.get("cat") == "kernel" and "lrn_bwd_kernel" in name:
+            groups["lrn_bwd kernel"] += dur
+        elif e.get("cat") == "gpu_user_annotation" and \
+                name == "max_pool_ties_backward":
+            groups["max-pool ties backward"] += dur
+    for ev in prof.key_averages():
+        if ev.key in ("aten::cudnn_convolution",
+                      "aten::convolution_backward"):
+            dev = getattr(ev, "device_time_total", None)
+            if dev is None:
+                dev = getattr(ev, "cuda_time_total", 0.0)
+            groups["convolutions (fwd+bwd)"] += dev / 1e3 / n_steps
+    return rows[:10], groups, busy / 1e3, window_ms
+
+
+def phase_training(torch, card):
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+
+    say("== phase 6: AlexNet (examples/ImageNet/AlexNet.conf) trained at "
+        "full width ==")
+    tr = alexnet_trainer([])
+    if (tr.compute_dtype != torch.bfloat16 or str(tr.device) != "cuda:0"
+            or tr.batch_size != 256):
+        raise AssertionError(f"AlexNet.conf should train b256 bfloat16 on "
+                             f"cuda:0, got b{tr.batch_size} "
+                             f"{tr.compute_dtype} on {tr.device}")
+    rng = np.random.RandomState(11)
+    images = (rng.rand(256, 3, 227, 227) * 255.0 - 128.0).astype(np.float32)
+    labels = rng.randint(0, 1000, size=(256, 1)).astype(np.float32)
+    batch = DataBatch(data=images, label=labels)
+    ce_before = softmax_ce(tr, batch)
+    start = {k: {n: t.clone() for n, t in d.items()}
+             for k, d in tr.state["params"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    losses = [tr.update(batch) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        losses.append(tr.update(batch))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 100.0
+    counts = kernels.launches()
+    peak = torch.cuda.max_memory_allocated()
+    loss_vals = [float(v) for v in losses]
+    if not all(np.isfinite(loss_vals)):
+        raise AssertionError(f"non-finite training loss: {loss_vals}")
+    if counts["lrn_fwd"] != 24 or counts["lrn_bwd"] != 24:
+        raise AssertionError(f"12 steps launched {counts}; AlexNet runs "
+                             "each LRN kernel twice per step")
+    unmoved = [f"{k}/{n}" for k, d in tr.state["params"].items()
+               for n, t in d.items() if torch.equal(t, start[k][n])]
+    if unmoved:
+        raise AssertionError(f"params unchanged by 12 steps: {unmoved}")
+    del start
+    ce_after = softmax_ce(tr, batch)
+    if not ce_after < ce_before:
+        raise AssertionError(f"the repeated batch was not fitted: "
+                             f"cross-entropy {ce_before:.4f} -> "
+                             f"{ce_after:.4f}")
+    say(f"12 steps (2 warm-up + 10 timed), losses {loss_vals[0]:.4f} .. "
+        f"{loss_vals[-1]:.4f}, all finite; launches {counts} = 2 of each "
+        "per step; every param moved")
+    say(f"repeated batch, predict_dist (dropout off): cross-entropy "
+        f"{ce_before:.4f} before -> {ce_after:.4f} after the steps")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        tr._stage(batch, train=True)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t1) / 3 * 1e3
+    say(f"AlexNet b256 bfloat16 training step: {step_ms:.3f} ms "
+        f"(host clock over 10 steps, CUDA-synchronised), "
+        f"{256 / step_ms * 1e3:.1f} images/s; of which staging the batch "
+        f"(float32 rows to the card, cast there) {stage_ms:.3f} ms; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB; on {card}")
+    rows, groups, busy_ms, window_ms = profile_steps(
+        torch, lambda: tr.update(batch), 3)
+    if not rows:
+        say("profiler: no device time in key_averages() (not measured)")
+    else:
+        say("profiler, 3 steps: top 10 CUDA entries by self device time "
+            "(ms per step, calls per step, name)")
+        for ms, calls, name in rows:
+            say(f"  {ms:9.3f} ms  {calls:5d}  {name[:110]}")
+        for name, ms in groups.items():
+            say(f"  group {name}: {ms:.3f} ms per step")
+        say(f"device busy {busy_ms / 3:.3f} ms of {window_ms / 3:.3f} ms "
+            f"per step in the traced window: idle share "
+            f"{1 - busy_ms / window_ms:.4f} on {card}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # float32 leg: one step at batch 8 on the card (TF32 off) and
+    # through the port on the CPU, same weights (seed), batch and masks
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = DataBatch(data=images[:8], label=labels[:8])
+    legs = {}
+    for dev in ("gpu", "cpu"):
+        t = alexnet_trainer(["dtype=float32", "batch_size=8"]
+                            + (["dev=cpu"] if dev == "cpu" else []))
+        before = {k: {n: v.cpu().numpy().copy() for n, v in d.items()}
+                  for k, d in t.state["params"].items()}
+        loss = float(t.update(small, keep=numpy_keep(t, seed=12)))
+        after = {k: {n: v.cpu().numpy() for n, v in d.items()}
+                 for k, d in t.state["params"].items()}
+        legs[dev] = (loss, before, after)
+        del t
+    f_rtol, f_atol = 1e-3, 1e-5
+    (lg, bg, ag), (lc, bc, ac) = legs["gpu"], legs["cpu"]
+    worst = worst_delta = 0.0
+    for k in ac:
+        for n in ac[k]:
+            if not np.array_equal(bg[k][n], bc[k][n]):
+                raise AssertionError(f"{k}/{n}: the two legs started from "
+                                     "different weights")
+            if not np.allclose(ag[k][n], ac[k][n], rtol=f_rtol, atol=f_atol):
+                raise AssertionError(
+                    f"float32 step, card vs CPU: {k}/{n} max abs "
+                    f"{np.abs(ag[k][n] - ac[k][n]).max():.3e} > rtol "
+                    f"{f_rtol} atol {f_atol}")
+            worst = max(worst, float(np.abs(ag[k][n] - ac[k][n]).max()))
+            dg, dc = ag[k][n] - bg[k][n], ac[k][n] - bc[k][n]
+            worst_delta = max(worst_delta, float(
+                np.abs(dg - dc).max() / max(np.abs(dc).max(), 1e-30)))
+    if not np.isclose(lg, lc, rtol=1e-4):
+        raise AssertionError(f"float32 step loss: card {lg} vs CPU {lc}")
+    say(f"float32 (TF32 off) step at batch 8, card vs CPU, same masks: "
+        f"loss {lg:.6f} vs {lc:.6f}; updated params max abs diff "
+        f"{worst:.3e} (rtol {f_rtol}, atol {f_atol}); the updates differ "
+        f"by at most {worst_delta:.3e} of the largest update in their "
+        f"tensor")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: CLI training on the default device
+# ---------------------------------------------------------------------------
+
+TRAIN_CONF = """
+data = train
+iter = mnist
+  path_img = "{d}/train-images-idx3-ubyte.gz"
+  path_label = "{d}/train-labels-idx1-ubyte.gz"
+  input_flat = 0
+  shuffle = 1
+iter = end
+eval = test
+iter = mnist
+  path_img = "{d}/t10k-images-idx3-ubyte.gz"
+  path_label = "{d}/t10k-labels-idx1-ubyte.gz"
+  input_flat = 0
+iter = end
+pred = {d}/pred.txt
+iter = mnist
+  path_img = "{d}/t10k-images-idx3-ubyte.gz"
+  path_label = "{d}/t10k-labels-idx1-ubyte.gz"
+  input_flat = 0
+iter = end
+""" + CLI_CONF.split("iter = end", 1)[1] + """
+eta = {eta}
+momentum = 0.9
+wd = 0.0001
+metric = error
+num_round = 3
+save_model = 1
+model_dir = {d}/models
+"""
+
+
+def run_cli(args, dev_args=(), expect_ok=True):
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "cxxnet_tpu_torch.main"] + list(args)
+        + list(dev_args), cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=600)
+    if expect_ok and proc.returncode != 0:
+        raise AssertionError(f"{args[1:]} exited {proc.returncode}:\n"
+                             f"{proc.stdout}{proc.stderr}")
+    return proc
+
+
+def round_errors(stderr: str):
+    """{round: test-error} from the per-round `[N]\t...` lines."""
+    out = {}
+    for ln in stderr.splitlines():
+        m = re.match(r"\[(\d+)\].*\ttest-error:([0-9.e+-]+|nan)", ln)
+        if m:
+            out[int(m.group(1))] = float(m.group(2))
+    return out
+
+
+def phase_cli_train(dev_args=(), n_train=1000, eta=0.01):
+    say("== phase 7: CLI task=train / continue / pred on the default "
+        "device ==")
+    with tempfile.TemporaryDirectory() as d:
+        write_mnist(d, n_train, 3, "train")
+        write_mnist(d, 500, 4, "t10k")
+        conf = os.path.join(d, "train.conf")
+        with open(conf, "w") as f:
+            f.write(TRAIN_CONF.format(d=d, eta=eta))
+        proc = run_cli([conf, "silent=0"], dev_args)
+        errs = round_errors(proc.stderr)
+        m = re.search(r"kernel launches (\{.*\})", proc.stdout)
+        counts = ast.literal_eval(m.group(1)) if m else {}
+        say("task=train child: " + " | ".join(
+            ln for ln in proc.stderr.splitlines() if ln.startswith("[")))
+        say(f"task=train child: kernel launches {counts}")
+        e = [errs.get(r) for r in (1, 2, 3)]
+        if None in e or not (e[2] < e[0] and e[2] <= e[1] and e[2] < 0.2):
+            raise AssertionError(f"test-error per round {e}: should fall "
+                                 f"and end under 0.2\n{proc.stderr}")
+        if not os.path.exists(os.path.join(d, "models", "0003.model")):
+            raise AssertionError("models/0003.model was not written")
+        if counts.get("lrn_bwd", 0) <= 0 or counts.get("lrn_fwd", 0) <= 0:
+            raise AssertionError(f"CLI training launched {counts}")
+        proc = run_cli([conf, "continue=1", "num_round=4"], dev_args)
+        errs = round_errors(proc.stderr)
+        if sorted(errs) != [4] or not os.path.exists(
+                os.path.join(d, "models", "0004.model")):
+            raise AssertionError(f"continue=1 should train round 4 only:\n"
+                                 f"{proc.stdout}{proc.stderr}")
+        say(f"continue=1 num_round=4: resumed, round 4 test-error "
+            f"{errs[4]:g}, models/0004.model written")
+        proc = run_cli([conf, "continue=1", f"model_dir={d}/empty"],
+                       dev_args, expect_ok=False)
+        if proc.returncode == 0:
+            raise AssertionError("continue=1 with an empty model_dir "
+                                 "exited 0")
+        say(f"continue=1 with an empty model_dir: exit {proc.returncode}")
+        run_cli([conf, "task=pred", f"model_in={d}/models/0004.model"],
+                dev_args)
+        with open(os.path.join(d, "pred.txt")) as f:
+            preds = f.read().split()
+        if len(preds) != 500:
+            raise AssertionError(f"task=pred wrote {len(preds)} lines")
+        say(f"task=pred: {len(preds)} lines, one per test image")
+        return e
 
 
 def main() -> int:
@@ -483,17 +941,24 @@ def main() -> int:
                 say("  " + ln.strip())
 
     max_err, main_rows = phase_kernels(torch)
+    bwd_err, bwd_rows = phase_kernels_bwd(torch)
     launches = phase_serving(torch, card)
     phase_cli()
+    train_counts = phase_training(torch, card)
+    phase_cli_train()
 
     # the kernels line: the LRN's two launches of one served AlexNet
     # batch (b64, bfloat16), warm L2, summed - the main path's unit
     bf = [main_rows[(s, torch.bfloat16)]
           for s in ((64, 96, 27, 27), (64, 256, 13, 13))]
 
-    def both(key):
-        return round(sum(r[key] for r in bf), 6)
+    def both(key, rows=bf):
+        return round(sum(r[key] for r in rows), 6)
 
+    # K1-bwd: its two launches of one AlexNet training step (b256,
+    # bfloat16), warm L2, summed
+    bb = [bwd_rows[(s, torch.bfloat16)] for s in TRAIN_LRN_SHAPES]
+    tf = [main_rows[(s, torch.bfloat16)] for s in TRAIN_LRN_SHAPES]
     say(card)
     say(json.dumps({"kernels": [{
         "name": "lrn_fwd",
@@ -513,6 +978,31 @@ def main() -> int:
         "bound_by": bf[0]["by"],
         "library_ms": both("library"),
         "library_cold_ms": both("library_cold"),
+        "train_launches": train_counts["lrn_fwd"],
+        "train_unit": "both LRN launches of one AlexNet b256 bfloat16 "
+                      "training step, L2 warm",
+        "train_ms": both("kernel", tf),
+        "train_plain_ms": both("plain", tf),
+        "train_bound_ms": both("bound", tf),
+        "train_library_ms": both("library", tf),
+    }, {
+        "name": "lrn_bwd",
+        "route": "cuda",
+        "source": "cxxnet_tpu_torch/csrc/lrn_bwd.cu",
+        "replaces": "cxxnet_tpu/ops/pallas_lrn.py:70",
+        "replaces_fn": "_bwd_kernel",
+        "unit": "both LRN backward launches of one AlexNet b256 bfloat16 "
+                "step, (256,96,27,27) + (256,256,13,13), L2 warm",
+        "launches": train_counts["lrn_bwd"],
+        "max_abs_err": bwd_err,
+        "ms": both("kernel", bb),
+        "kernel_ms": both("kernel", bb),
+        "kernel_cold_ms": both("kernel_cold", bb),
+        "plain_ms": both("plain", bb),
+        "bound_ms": both("bound", bb),
+        "bound_by": bb[0]["by"],
+        "library_ms": both("library", bb),
+        "library_cold_ms": both("library_cold", bb),
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,11 +1,22 @@
 """cxxnet_tpu_torch: cxxnet-tpu ported to PyTorch and CUDA on Hopper.
 
-A second package beside `cxxnet_tpu`. This slice serves: the config
-parser and NetConfig DAG, the inference forward of the AlexNet layer
-set (conv, relu/sigmoid/tanh/softplus, max/sum/avg pooling, lrn,
-flatten, fullc, dropout, softmax), checkpoints in the JAX package's
-byte format, the inference half of `NetTrainer`, the continuous-batching
-`Server` and the CLI tasks pred / pred_raw / serve.
+A second package beside `cxxnet_tpu`, ported in slices:
+
+1. Serving: the config parser and NetConfig DAG, the forward of the
+   AlexNet layer set (conv, relu/sigmoid/tanh/softplus, max/sum/avg
+   pooling, lrn, flatten, fullc, dropout, softmax/l2_loss/
+   multi_logistic), checkpoints in the JAX package's byte format, the
+   inference half of `NetTrainer`, the continuous-batching `Server`
+   and the CLI tasks pred / pred_raw / serve. Kernel: K1-fwd, the LRN
+   forward (`csrc/lrn_fwd.cu`).
+2. Training: the updaters (`updater/`: SGD, NAG, Adam and their
+   schedules), dropout with per-(seed, step, layer) generators, the
+   loss layers' per-example losses, the tie-duplicating max-pool
+   backward, the metrics (`utils/metric.py`), `NetTrainer.update /
+   update_all / evaluate` with gradient accumulation and the
+   divergence guard, optimizer state in checkpoints, and the CLI tasks
+   train / finetune and `continue = 1`. Kernel: K1-bwd, the LRN input
+   gradient (`csrc/lrn_bwd.cu`).
 
 Ground rules:
 
@@ -29,8 +40,14 @@ Ground rules:
   the caller asks for the CPU (`device="cpu"`, or `dev = cpu` in a
   conf); with no card they raise instead of carrying on on the CPU.
 - Config keys that change results and that the port does not implement
-  yet (graph_passes, quantize_int8, zero_stage, mesh,
-  steps_per_dispatch, device_augment, layer types not yet ported, ...)
-  raise NotImplementedError naming the key; they are never silently
-  ignored.
+  yet (graph_passes, quantize_int8, zero_stage, mesh, remat,
+  steps_per_dispatch, device_augment, test_io, elastic, profile,
+  layer types and iterators not yet ported, ...) raise
+  NotImplementedError naming the key; they are never silently ignored.
+- PyTorch idiom inside: plain functions on tensors and modules with an
+  explicit device, an explicit `torch.Generator` for every random draw,
+  `torch.autograd.Function` where a kernel needs a gradient. Params
+  stay float32 master tensors in the JAX package's pytree form, and the
+  updater state mirrors its `state["ustate"]`, so checkpoints and
+  `convert.py` carry both across unchanged.
 """

@@ -1,4 +1,4 @@
-"""Carry weights between the JAX package and the port.
+"""Carry weights and training state between the JAX package and the port.
 
 Both packages keep params as {param_key: {"wmat": ..., "bias": ...}}
 with the same layouts (OIHW conv weights, (nhidden, nin) fullc weights),
@@ -7,12 +7,16 @@ so no transpose is needed: a conversion is a type change plus a check.
 tests, `jax.device_get(trainer.state["params"])`); `params_to_numpy`
 returns the port's params in the same form. Both check key sets, shapes
 and dtypes against what the receiving network expects and raise on any
-mismatch.
+mismatch. `ustate_from_numpy` / `ustate_to_numpy` do the same for the
+updater state, {param_key: {name: {"m"} or {"m1", "m2"}}} - the JAX
+trainer's `state["ustate"]` - checked against the receiving trainer's
+own state; `train_state_from_numpy` / `train_state_to_numpy` carry a
+whole train state (params, ustate and the update counter `epoch`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -73,3 +77,65 @@ def params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]],
             out[lk][pn] = t.detach().cpu().numpy().copy()
     _check(out, expected, "params_to_numpy")
     return out
+
+
+def _leaves(tree: Mapping, prefix: str = ""):
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path)
+        else:
+            yield path, v
+
+
+def ustate_from_numpy(tree: Mapping, like: Mapping,
+                      device="cpu") -> Dict[str, Any]:
+    """JAX-package updater state (nested dicts of float32 numpy arrays)
+    -> float32 tensors on `device`, with exactly the structure and
+    shapes of `like` (the receiving trainer's own ustate)."""
+    want = {p: tuple(t.shape) for p, t in _leaves(like)}
+    got = {p: np.asarray(a) for p, a in _leaves(tree)}
+    if set(got) != set(want):
+        raise ValueError(
+            f"ustate_from_numpy: leaves differ - missing "
+            f"{sorted(set(want) - set(got))}, unexpected "
+            f"{sorted(set(got) - set(want))}")
+    for p, a in got.items():
+        if a.dtype != np.float32 or tuple(a.shape) != want[p]:
+            raise ValueError(
+                f"ustate_from_numpy: {p} is {a.dtype} {tuple(a.shape)}, "
+                f"expected float32 {want[p]}")
+
+    def build(node):
+        if isinstance(node, Mapping):
+            return {k: build(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, np.float32)).to(device)
+    return build(tree)
+
+
+def ustate_to_numpy(tree: Mapping) -> Dict[str, Any]:
+    """Port updater state -> nested dicts of float32 numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: ustate_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
+def train_state_to_numpy(trainer) -> Dict[str, Any]:
+    """{"params", "ustate", "epoch"} of a port NetTrainer, as numpy."""
+    return {"params": params_to_numpy(trainer.state["params"],
+                                      trainer.net.param_shapes()),
+            "ustate": ustate_to_numpy(trainer.state["ustate"]),
+            "epoch": int(trainer.epoch)}
+
+
+def train_state_from_numpy(trainer, state: Mapping) -> None:
+    """Load {"params", "ustate", "epoch"} (e.g. the JAX trainer's state
+    through jax.device_get) into a port NetTrainer built from the same
+    conf; its gradient accumulator and counters start empty."""
+    trainer.set_train_state(
+        params_from_numpy(state["params"], trainer.net.param_shapes(),
+                          trainer.device),
+        ustate_from_numpy(state["ustate"], trainer.state["ustate"],
+                          trainer.device),
+        int(state["epoch"]))

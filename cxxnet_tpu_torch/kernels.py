@@ -31,6 +31,7 @@ BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 # kernel name -> source file in csrc/ (one shared library each)
 SOURCES: Dict[str, str] = {
     "lrn_fwd": "lrn_fwd.cu",
+    "lrn_bwd": "lrn_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -137,6 +138,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.lrn_fwd.argtypes = [vp, vp, i32, i64, i32, i64, i32, f32,
                                 f32, f32, vp]
         lib.lrn_fwd.restype = i32
+    if name == "lrn_bwd":
+        lib.lrn_bwd.argtypes = [vp, vp, vp, i32, i64, i32, i64, i32, f32,
+                                f32, f32, f32, vp]
+        lib.lrn_bwd.restype = i32
 
 
 def check(name: str, rc: int) -> None:

@@ -5,14 +5,21 @@ that holds its configuration and inferred shapes but not its weights:
 
     layer.infer_shapes(in_shapes)          shape inference (InitConnection)
     layer.init_params(gen, in_shapes)      weight init      (InitModel)
-    layer(params, inputs)                  inference forward (Forward)
+    layer(params, inputs, train, gen, keep) forward (Forward)
 
 Weights live in the trainer as {param_key: {"wmat", "bias"}} (the JAX
 package's pytree, same keys and layouts), so one layer's params serve
 every connection that shares it, the float32 master copy and the
 compute-dtype copy stay apart, and weights cross between the packages
-unchanged (convert.py). This slice is inference only: no layer keeps
-state for a backward pass.
+unchanged (convert.py). Layers hold no gradient state: the backward is
+autograd's, through the forward's torch ops (and the autograd Functions
+of ops/lrn.py and ops/pooling.py).
+
+`train` selects training semantics (dropout draws its mask); a layer
+with `uses_rng` draws from `gen`, the per-layer torch.Generator the
+network hands it, unless the caller injects the mask itself (`keep`, a
+boolean tensor - the tests inject the JAX package's masks). Inference
+(train=False) ignores both.
 
 Shapes are full NCHW tuples (batch, channel, y, x); "matrix" nodes are
 (batch, 1, 1, n) like the reference Node convention (layer.h:33-54).
@@ -21,7 +28,7 @@ Shapes are full NCHW tuples (batch, channel, y, x); "matrix" nodes are
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple, Type
+from typing import Dict, List, Optional, Sequence, Tuple, Type
 
 import torch
 from torch import nn
@@ -136,9 +143,10 @@ class LayerParam:
 
 
 class Layer(nn.Module):
-    """Base layer: a stateless inference transform with optional params."""
+    """Base layer: a stateless transform with optional params."""
 
     type_name: str = ""
+    uses_rng: bool = False  # draws random numbers when training
 
     def __init__(self, name: str = ""):
         super().__init__()
@@ -169,8 +177,9 @@ class Layer(nn.Module):
         return {}
 
     # --- compute ---------------------------------------------------------
-    def forward(self, params: Params,
-                inputs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, params: Params, inputs: List[torch.Tensor],
+                train: bool = False, gen: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         raise NotImplementedError
 
     def check_one_to_one(self, in_shapes: List[Shape]) -> None:

@@ -1,7 +1,7 @@
-"""The non-loss layers of this slice (counterpart of
+"""The non-loss layers of the port (counterpart of
 cxxnet_tpu/layers/common.py): fullc, conv, max/sum/avg pooling, the
-activations, lrn, dropout and flatten. Inference forward only; each
-class names the reference file it mirrors."""
+activations, lrn, dropout and flatten. Each class names the reference
+file it mirrors; the backward is autograd's through the forward."""
 
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ class FullConnectLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return {"wmat": "wmat", "bias": "bias"}
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         b = x.shape[0]
         out = x.reshape(b, -1) @ params["wmat"].t()
@@ -155,7 +155,7 @@ class ConvolutionLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return {"wmat": "wmat", "bias": "bias"}
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
         p = self.param
         out = conv_ops.conv2d(inputs[0], params["wmat"], p.stride, p.pad_y,
                               p.pad_x, p.num_group)
@@ -171,10 +171,15 @@ class ConvolutionLayer(Layer):
 
 class PoolingLayer(Layer):
     """max/sum/avg pooling (src/layer/pooling_layer-inl.hpp:17-114).
-    `pool_grad` selects a backward rule only, so it is inert here."""
+    `pool_grad` picks the max-pool backward: `ties` (default, the
+    reference's unpool) or `winner` (torch's native backward)."""
 
     mode = "max"
     pre_relu = False
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.pool_grad = "ties"
 
     def set_param(self, name: str, val: str) -> None:
         super().set_param(name, val)
@@ -186,6 +191,7 @@ class PoolingLayer(Layer):
                 raise ValueError(
                     f"pool_grad=winner is a max-pool backward option; "
                     f"'{self.type_name}' has no single-winner rule")
+            self.pool_grad = val
 
     def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
         self.check_one_to_one(in_shapes)
@@ -204,13 +210,14 @@ class PoolingLayer(Layer):
         ow = pool_ops.pool_out_dim(w, p.kernel_width, p.stride, p.pad_x)
         return [(b, c, oh, ow)]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         if self.pre_relu:
             x = nn_ops.relu(x)
         p = self.param
         return [pool_ops.pool2d(x, self.mode, p.kernel_height,
-                                p.kernel_width, p.stride, p.pad_y, p.pad_x)]
+                                p.kernel_width, p.stride, p.pad_y, p.pad_x,
+                                self.pool_grad)]
 
 
 @register_layer
@@ -252,7 +259,7 @@ class ActivationLayer(Layer):
         self.check_one_to_one(in_shapes)
         return [in_shapes[0]]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
         return [self.fn(inputs[0])]
 
 
@@ -313,7 +320,7 @@ class LRNLayer(Layer):
         self.check_one_to_one(in_shapes)
         return [in_shapes[0]]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
         return [nn_ops.lrn(inputs[0], self.local_size, self.alpha,
                            self.beta, self.knorm)]
 
@@ -321,9 +328,13 @@ class LRNLayer(Layer):
 @register_layer
 class DropoutLayer(Layer):
     """dropout (src/layer/dropout_layer-inl.hpp:12-66): inverted dropout,
-    self-loop; the identity at inference, which is all this slice runs."""
+    self-loop; the identity at inference. Training keeps an element where
+    u < 1 - threshold, u uniform in [0, 1) from the layer's generator
+    (or the injected `keep` mask), and scales the kept ones by
+    1 / (1 - threshold) - common.py:868-875 of the JAX package."""
 
     type_name = "dropout"
+    uses_rng = True
 
     def __init__(self, name: str = ""):
         super().__init__(name)
@@ -340,8 +351,18 @@ class DropoutLayer(Layer):
             raise ValueError("DropoutLayer: invalid dropout threshold")
         return [in_shapes[0]]
 
-    def forward(self, params, inputs):
-        return [inputs[0]]
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        x = inputs[0]
+        if not train or self.threshold == 0.0:
+            return [x]
+        pkeep = 1.0 - self.threshold
+        if keep is None:
+            u = torch.rand(x.shape, generator=gen, device=x.device)
+            keep = u < pkeep
+        elif keep.shape != x.shape:
+            raise ValueError(f"dropout: injected mask {tuple(keep.shape)} "
+                             f"!= input {tuple(x.shape)}")
+        return [x * (keep.to(x.dtype) / pkeep)]
 
 
 @register_layer
@@ -355,6 +376,6 @@ class FlattenLayer(Layer):
         b, c, h, w = in_shapes[0]
         return [(b, 1, 1, c * h * w)]
 
-    def forward(self, params, inputs):
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         return [x.reshape(x.shape[0], 1, 1, -1)]

@@ -1,7 +1,16 @@
-"""CLI task driver (counterpart of cxxnet_tpu/main.py, serving tasks):
+"""The CLI (counterpart of cxxnet_tpu/main.py):
 
     python -m cxxnet_tpu_torch.main <config.conf> [k=v ...]
 
+- `task = train` (default) trains from the `data = ...` iterator block
+  for rounds start_counter..num_round (at most max_round of them),
+  printing `[N]\ttrain-metric:x\tevalname-metric:y` to stderr after
+  each round and saving `model_dir/%04d.model` every `save_model`
+  rounds; from scratch, or from `model_in = <checkpoint>`;
+  `continue = 1` resumes from the newest checkpoint in model_dir (an
+  empty model_dir is an error);
+- `task = finetune` builds the net from the conf and copies the
+  params of the layers whose names match from `model_in`;
 - `task = pred` writes one prediction per line (argmax of the final
   node, or its raw value when it has one column);
 - `task = pred_raw` writes the final node's full row per instance;
@@ -9,17 +18,18 @@
   through the continuous-batching Server; its output file matches
   `task = pred` line for line.
 
-All three need `model_in = <checkpoint>` (the JAX package's native
-format) and a `pred = <file>` iterator block. `dev` picks the device:
-`cpu` is the CPU; `gpu`, `gpu:0`, `cuda` and `tpu` (the shipped confs'
-spelling) mean `cuda:0`, the default. Training, extract and the
-telemetry/serving-front keys are later slices and raise.
+pred / pred_raw / serve need `model_in = <checkpoint>` (the JAX
+package's native format) and a `pred = <file>` iterator block. `dev`
+picks the device: `cpu` is the CPU; `gpu`, `gpu:0`, `cuda` and `tpu`
+(the shipped confs' spelling) mean `cuda:0`, the default. extract and
+the telemetry/serving-front keys are later slices and raise.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import re
 import sys
 import time
 from typing import List, Optional, Tuple
@@ -29,13 +39,16 @@ from cxxnet_tpu_torch.io import create_iterator
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer, is_inert
 from cxxnet_tpu_torch.utils.config import parse_config_file
 from cxxnet_tpu_torch.utils.device import device_from_spec
+from cxxnet_tpu_torch.utils.fault import DivergenceError, atomic_writer
 
-TASKS = ("pred", "pred_raw", "serve")
+TASKS = ("train", "finetune", "pred", "pred_raw", "serve")
+_PRED_TASKS = ("pred", "pred_raw", "serve")
 
-# task-level keys of the JAX CLI that this slice does not implement;
+# task-level keys of the JAX CLI that the port does not implement yet;
 # any value but the inert ones raises NotImplementedError naming the key
 _NOT_PORTED = {
-    "continue": ("0",), "test_io": ("0",), "elastic": ("0",),
+    "test_io": ("0",), "elastic": ("0",), "keep_latest": ("0",),
+    "test_on_server": ("0",),
     "log_file": ("",), "metrics_file": ("",), "heartbeat_secs": ("0",),
     "metrics_port": ("0",), "alert_rules": ("",), "alert_cmd": ("",),
     "watchdog_secs": ("0",), "flight_recorder": ("0",),
@@ -49,12 +62,23 @@ class LearnTask:
         self.task = "train"
         self.name_model_in = "NULL"
         self.name_pred = "pred.txt"
+        self.name_model_dir = "models"
+        self.num_round = 10
+        self.max_round = 1 << 31
+        self.start_counter = 0
+        self.continue_training = 0
+        self.save_period = 1
+        self.print_step = 100
+        self.eval_train = 1
         self.silent = 0
         self.device = "tpu"
         # task=serve load shape: rows per submitted request (0 = the
         # deterministic ragged cycle that covers every bucket)
         self.serve_rows = 1
         self.net_trainer: Optional[NetTrainer] = None
+        self.itr_train = None
+        self.itr_evals = []
+        self.eval_names: List[str] = []
         self.itr_pred = None
         self.cfg: List[Tuple[str, str]] = []
         # index of the first command-line override pair in self.cfg;
@@ -80,11 +104,13 @@ class LearnTask:
         if self.task not in TASKS:
             raise NotImplementedError(
                 f"task = {self.task} is not ported to cxxnet_tpu_torch yet "
-                f"(ported: {', '.join(TASKS)}; training is the next slice)")
+                f"(ported: {', '.join(TASKS)})")
         self.init()
         if not self.silent:
             sys.stdout.write("initializing end, start working\n")
-        if self.task == "pred":
+        if self.task in ("train", "finetune"):
+            self.task_train()
+        elif self.task == "pred":
             self.task_predict()
         elif self.task == "pred_raw":
             self.task_predict_raw()
@@ -101,6 +127,22 @@ class LearnTask:
                 "(see ROADMAP)")
         if name == "model_in":
             self.name_model_in = val
+        if name == "model_dir":
+            self.name_model_dir = val
+        if name == "num_round":
+            self.num_round = int(val)
+        if name == "max_round":
+            self.max_round = int(val)
+        if name == "start_counter":
+            self.start_counter = int(val)
+        if name == "continue":
+            self.continue_training = int(val)
+        if name == "save_model":
+            self.save_period = int(val)
+        if name == "print_step":
+            self.print_step = int(val)
+        if name == "eval_train":
+            self.eval_train = int(val)
         if name == "silent":
             self.silent = int(val)
         if name == "task":
@@ -160,16 +202,24 @@ class LearnTask:
 
     def create_net(self) -> NetTrainer:
         """The trainer from the global section + the train data block
-        (the historic spec source) + the pred block, on the `dev`
-        device. No iterator is created here, so a conf whose iterator
-        files do not exist still builds its net."""
+        (the historic spec source), plus the pred block under the
+        pred tasks only (iterator-scoped keys like a pred batch_size
+        must not reach a training trainer), on the `dev` device. No
+        iterator is created here, so a conf whose iterator files do not
+        exist still builds its net."""
         defcfg, train, _evals, pred = self._split_blocks()
+        feed = defcfg + (train or [])
+        if self.task in _PRED_TASKS:
+            feed = feed + (pred or [])
         net = NetTrainer(device=device_from_spec(self.device))
-        for k, v in defcfg + (train or []) + (pred or []):
+        for k, v in feed:
             net.set_param(k, v)
         return net
 
     def init(self) -> None:
+        if self.task in ("train", "finetune"):
+            self._init_train()
+            return
         if self.name_model_in == "NULL":
             raise ValueError(f"task = {self.task} needs model_in = "
                              "<checkpoint>")
@@ -186,19 +236,171 @@ class LearnTask:
         self.itr_pred.init()
 
     # ------------------------------------------------------------------
-    def _write_atomic(self, lines) -> None:
-        """Write the prediction file through a temp file + os.replace,
-        so a crash never leaves a truncated file behind."""
-        tmp = f"{self.name_pred}.tmp.{os.getpid()}"
+    # training (cxxnet_tpu/main.py:524-980)
+    # ------------------------------------------------------------------
+    def _init_train(self) -> None:
+        if self.task == "train" and self.continue_training:
+            if not self._sync_latest_model():
+                # reference aborts here (cxxnet_main.cpp:109-113)
+                raise FileNotFoundError(
+                    "Init: cannot find models for continue training; "
+                    "specify model_in instead")
+            sys.stdout.write(f"Init: Continue training from round "
+                             f"{self.start_counter}\n")
+        elif self.name_model_in == "NULL":
+            if self.task != "train":
+                raise ValueError("must specify model_in if not training")
+            self.net_trainer = self.create_net()
+            self.net_trainer.init_model()
+        elif self.task == "finetune":
+            self.net_trainer = self.create_net()
+            self.net_trainer.init_model()
+            with open(self.name_model_in, "rb") as fi:
+                self.net_trainer.copy_model_from(fi)
+        else:
+            self._load_model()
+        defcfg, train, evals, _pred = self._split_blocks()
+        if train is not None:
+            self.itr_train = create_iterator(train)
+        for evname, itcfg in evals:
+            self.itr_evals.append(create_iterator(itcfg))
+            self.eval_names.append(evname)
+        for it in [self.itr_train] + self.itr_evals:
+            if it is not None:
+                for k, v in defcfg:
+                    it.set_param(k, v)
+                it.init()
+
+    def _model_name(self, counter: int) -> str:
+        return os.path.join(self.name_model_dir, f"{counter:04d}.model")
+
+    def _model_counters(self) -> List[int]:
+        """Sorted %04d.model counters present in model_dir."""
         try:
-            with open(tmp, "w") as fo:
-                for line in lines:
-                    fo.write(line)
-            os.replace(tmp, self.name_pred)
-        except BaseException:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+            names = os.listdir(self.name_model_dir)
+        except OSError:
+            return []
+        return sorted(int(m.group(1)) for m in
+                      (re.fullmatch(r"(\d{4,})\.model", n) for n in names)
+                      if m)
+
+    def _sync_latest_model(self) -> bool:
+        """Load the newest checkpoint at or past start_counter that
+        loads, walking backward past corrupt or truncated files (each
+        skip is reported on stderr)."""
+        counters = [c for c in self._model_counters()
+                    if c >= self.start_counter]
+        while counters:
+            c = counters.pop()
+            path = self._model_name(c)
+            try:
+                tr = self.create_net()
+                with open(path, "rb") as fi:
+                    tr.load_model(fi)
+            except (OSError, ValueError, KeyError) as e:
+                sys.stderr.write(f"Init: skipping invalid checkpoint "
+                                 f"{path}: {e}\n")
+                continue
+            self.net_trainer = tr
+            self.start_counter = c + 1
+            return True
+        return False
+
+    def _load_model(self) -> None:
+        base = os.path.basename(self.name_model_in)
+        try:
+            self.start_counter = int(base.split(".")[0]) + 1
+        except ValueError:
+            # one past the newest existing checkpoint, so the next save
+            # never overwrites one
+            counters = self._model_counters()
+            self.start_counter = (counters[-1] + 1 if counters
+                                  else self.start_counter + 1)
+            sys.stdout.write(
+                f"WARNING: cannot infer start_counter from model name; "
+                f"using {self.start_counter} (one past the newest "
+                f"checkpoint in {self.name_model_dir})\n")
+        self.net_trainer = self.create_net()
+        with open(self.name_model_in, "rb") as fi:
+            self.net_trainer.load_model(fi)
+
+    def _save_model(self) -> None:
+        # quirk parity: the modulo check uses the POST-incremented
+        # counter (cxxnet_main.cpp:173-176)
+        counter = self.start_counter
+        self.start_counter += 1
+        if self.save_period == 0 or self.start_counter % self.save_period:
+            return
+        os.makedirs(self.name_model_dir, exist_ok=True)
+        with atomic_writer(self._model_name(counter)) as fo:
+            self.net_trainer.save_model(fo)
+
+    def _save_rescue(self) -> str:
+        """Rescue checkpoint on a divergence abort: the last good
+        (rolled-back) params, in a file resume does not probe."""
+        os.makedirs(self.name_model_dir, exist_ok=True)
+        path = os.path.join(self.name_model_dir, "rescue.model")
+        with atomic_writer(path) as fo:
+            self.net_trainer.save_model(fo)
+        return path
+
+    def task_train(self) -> None:
+        start = time.monotonic()
+        if self.continue_training == 0 and self.name_model_in == "NULL":
+            self._save_model()
+        else:
+            line = "".join(self.net_trainer.evaluate(it, name)
+                           for it, name in zip(self.itr_evals,
+                                               self.eval_names))
+            sys.stderr.write(line + "\n")
+            sys.stderr.flush()
+        if self.itr_train is None:
+            return
+        try:
+            self._train_rounds(self.max_round, start)
+        except DivergenceError:
+            path = self._save_rescue()
+            sys.stderr.write(f"divergence guard: training aborted; rescue "
+                             f"checkpoint saved to {path}\n")
             raise
+        if not self.silent:
+            sys.stdout.write(f"\nupdating end, "
+                             f"{int(time.monotonic() - start)} sec in all\n")
+            sys.stdout.write(f"kernel launches {kernels.launches()}\n")
+
+    def _train_rounds(self, cc: int, start: float) -> None:
+        tr = self.net_trainer
+        while self.start_counter <= self.num_round and cc > 0:
+            cc -= 1
+            if not self.silent:
+                sys.stdout.write(f"update round {self.start_counter - 1}\n")
+            sample_counter = 0
+            itr = self.itr_train
+            itr.before_first()
+            while itr.next():
+                tr.update(itr.value())
+                sample_counter += 1
+                if sample_counter % self.print_step == 0 and not self.silent:
+                    sys.stdout.write(
+                        f"round {self.start_counter - 1:8d}:"
+                        f"[{sample_counter:8d}] "
+                        f"{int(time.monotonic() - start)} sec elapsed\n")
+            line = f"[{self.start_counter}]"
+            if self.eval_train:
+                line += tr.eval_train_metric()
+            for it, name in zip(self.itr_evals, self.eval_names):
+                line += tr.evaluate(it, name)
+            sys.stderr.write(line + "\n")
+            sys.stderr.flush()
+            self._save_model()
+
+    # ------------------------------------------------------------------
+    def _write_atomic(self, lines) -> None:
+        """Write the prediction file atomically, so a crash never leaves
+        a truncated file behind."""
+        with atomic_writer(self.name_pred, "w") as fo:
+            for line in lines:
+                fo.write(line)
 
     def task_predict(self) -> None:
         sys.stdout.write("start predicting...\n")

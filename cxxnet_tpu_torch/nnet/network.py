@@ -1,4 +1,4 @@
-"""Network: NetConfig DAG -> inference forward (counterpart of
+"""Network: NetConfig DAG -> forward (counterpart of
 cxxnet_tpu/nnet/network.py).
 
 Connections run in declaration order exactly like the reference
@@ -12,7 +12,7 @@ compute-dtype copy side by side.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,7 +30,7 @@ def param_key(cfg: NetConfig, layer_index: int) -> str:
 
 
 class Network(nn.Module):
-    """Layer modules + inferred node shapes; the inference forward."""
+    """Layer modules + inferred node shapes; the forward."""
 
     def __init__(self, cfg: NetConfig, batch_size: int):
         super().__init__()
@@ -109,22 +109,53 @@ class Network(nn.Module):
         return out
 
     # ------------------------------------------------------------------
-    def forward(self, params: Dict[str, Dict[str, torch.Tensor]],
-                data: torch.Tensor) -> List[Optional[torch.Tensor]]:
-        """Run all connections in declaration order on node-0 `data`;
-        returns every node's value (None for nodes never written)."""
+    def forward(
+        self, params: Dict[str, Dict[str, torch.Tensor]],
+        data: torch.Tensor, *, train: bool = False,
+        gens: Optional[Callable[[int], torch.Generator]] = None,
+        keep: Optional[Dict[int, torch.Tensor]] = None,
+        labels: Optional[Dict[str, torch.Tensor]] = None,
+        mask: Optional[torch.Tensor] = None,
+    ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
+        """Run all connections in declaration order on node-0 `data`.
+
+        train: training semantics (dropout draws a mask). A layer that
+        draws random numbers gets `gens(layer_index)` - the trainer
+        seeds one generator per (seed, step, layer index), the role
+        fold_in(rng, idx) plays in the JAX package - unless `keep`
+        holds an injected boolean mask for that layer index.
+        labels: label field -> (b, width) tensor; when given, each loss
+        layer adds grad_scale * sum(mask * per_example_loss) to the
+        total. mask: (b,) validity of the rows (padding rows 0).
+
+        Returns (every node's value - None for nodes never written -,
+        total_loss as a float32 scalar). A loss layer writes its
+        forward_transform into its node, as in the JAX package."""
         cfg = self.cfg
         values: List[Optional[torch.Tensor]] = [None] * cfg.num_nodes
         values[0] = data
+        total_loss = torch.zeros((), dtype=torch.float32,
+                                 device=data.device)
         for idx, info in enumerate(cfg.layers):
             layer: Layer = self.layer_objs[idx]
             pkey = param_key(
                 cfg, info.primary_layer_index if info.is_shared else idx)
-            outs = layer(params.get(pkey, {}),
-                         [values[j] for j in info.nindex_in])
+            xs = [values[j] for j in info.nindex_in]
+            if isinstance(layer, LossLayer) and labels is not None:
+                flat = xs[0].reshape(xs[0].shape[0], -1)
+                per_ex = layer.per_example_loss(flat, labels[layer.target])
+                if mask is not None:
+                    per_ex = per_ex * mask
+                total_loss = total_loss + layer.grad_scale * torch.sum(
+                    per_ex)
+            lkeep = keep.get(idx) if (train and keep) else None
+            gen = (gens(idx) if (train and layer.uses_rng and lkeep is None
+                                 and gens is not None) else None)
+            outs = layer(params.get(pkey, {}), xs, train=train, gen=gen,
+                         keep=lkeep)
             for j, o in zip(info.nindex_out, outs):
                 values[j] = o
-        return values
+        return values, total_loss
 
     # ------------------------------------------------------------------
     def node_index(self, name: str) -> int:

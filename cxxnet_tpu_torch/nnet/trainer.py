@@ -1,17 +1,36 @@
-"""NetTrainer, inference half (counterpart of cxxnet_tpu/nnet/trainer.py).
+"""NetTrainer (counterpart of cxxnet_tpu/nnet/trainer.py).
 
-The product surface of the JAX trainer that serving needs: set_param /
-init_model / load_model / save_model / predict / predict_dist /
-stage_infer_rows + infer_rows / get_weight / set_weight. Training
-(update, evaluate, the updaters) is the next slice.
+The product surface of the JAX trainer: set_param / init_model /
+load_model / save_model / copy_model_from / update / update_all /
+evaluate / eval_train_metric / predict / predict_dist /
+stage_infer_rows + infer_rows / get_weight / set_weight.
 
 Execution model: params live on the trainer's device as a float32
 master copy, {param_key: {"wmat", "bias"}} exactly like the JAX
-trainer's `state["params"]`. Under `dtype = bfloat16` a second copy is
-cast wholesale to bfloat16 once per weight change, the input is cast the
-same way, the forward runs in bfloat16 and the requested node is read
-out in float32 - the casting points of the JAX trainer's `_cast` and
-`eval_step`. Every forward runs under `torch.inference_mode()`.
+trainer's `state["params"]`, and the updater state beside them as
+`state["ustate"]` = {param_key: {name: {"m"} | {"m1", "m2"}}}.
+
+- Inference: under `dtype = bfloat16` a second copy of the params is
+  cast wholesale to bfloat16 once per weight change, the input is cast
+  the same way, the forward runs in bfloat16 and the requested node is
+  read out in float32 - the casting points of the JAX trainer's `_cast`
+  and `eval_step` - under `torch.inference_mode()`.
+- Training (`update`): the master params are cast to the compute dtype
+  INSIDE autograd, so the gradients land in float32 on the master (as
+  `_cast` inside the JAX `loss_fn`); the loss is scaled by
+  1/(batch_size*update_period), gradients accumulate over
+  `update_period` steps, and then one updater per weight tensor (built
+  under its `wmat`/`bias` tag) updates the master and its state in
+  place. Dropout draws from a torch.Generator seeded from (seed + 100,
+  step, layer index) - the JAX trainer folds (PRNGKey(seed + 100),
+  step) and the layer index; the two streams never agree, so tests
+  inject masks through `update(..., keep=...)`. Train metrics
+  accumulate on the device and are read back once per round
+  (`eval_train_metric`). Under `check_nan = 1` a step whose loss or
+  updated params (or gradient accumulator) are not finite leaves
+  params, updater state, accumulator, counters and train metrics as
+  they were, and `max_bad_rounds` such steps in a row raise
+  DivergenceError.
 
 The device is fixed at construction: `cuda:0` unless the caller asks
 for the CPU (`device="cpu"`, or `dev = cpu` in the constructor's conf
@@ -22,8 +41,9 @@ trainer - the CLI maps `dev` to the constructor's device.
 
 from __future__ import annotations
 
+import re
 import sys
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,16 +54,19 @@ from cxxnet_tpu_torch.layers.base import not_ported
 from cxxnet_tpu_torch.nnet import checkpoint
 from cxxnet_tpu_torch.nnet.net_config import NetConfig
 from cxxnet_tpu_torch.nnet.network import Network, param_key
+from cxxnet_tpu_torch.updater import UpdaterParam, create_updater
 from cxxnet_tpu_torch.utils.config import parse_config_string
 from cxxnet_tpu_torch.utils.device import (
     DEFAULT_DEVICE, device_from_spec, resolve_device)
+from cxxnet_tpu_torch.utils.fault import DivergenceError
+from cxxnet_tpu_torch.utils.metric import MetricSet, format_metrics
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # Config keys of the JAX trainer that change results (or the serving
-# contract) and that this slice does not implement: any value but the
+# contract) and that the port does not implement yet: any value but the
 # listed inert ones raises NotImplementedError naming the key.
 _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "mesh": (),
@@ -57,6 +80,10 @@ _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "tuning_cache": ("",),
     "param_server": ("local",),
     "extra_data_num": ("0",),
+    "remat": ("0",),
+    "profile": ("0",),
+    "profile_dir": ("",),
+    "telemetry_steps": ("0",),
     "serve_bucket_ladder": (),
     "serve_port": ("0",),
     "serve_queue_limit": ("0",),
@@ -67,6 +94,17 @@ _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "serve_max_conns": ("0",),
     "serve_max_body_bytes": ("0",),
 }
+
+
+def stream_seed(*parts: int) -> int:
+    """A 63-bit generator seed from integers (seed, step, index ...):
+    the port's stand-in for jax.random.fold_in chains (FNV-1a over the
+    parts)."""
+    h = 0xCBF29CE484222325
+    for p in parts:
+        h = ((h ^ (int(p) & 0xFFFFFFFFFFFFFFFF)) * 0x100000001B3) \
+            & 0xFFFFFFFFFFFFFFFF
+    return h & ((1 << 63) - 1)
 
 
 def is_inert(val: str, inert: Tuple[str, ...]) -> bool:
@@ -92,8 +130,20 @@ def check_ported(name: str, val: str) -> None:
         raise not_ported(name, val, "the graph-pass toggle")
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, Mapping):
+        return [t for k in sorted(tree) for t in _tree_leaves(tree[k])]
+    return [tree]
+
+
 class NetTrainer:
-    """Config-driven network, inference half."""
+    """Config-driven trainer for one network."""
 
     def __init__(self, dev: str = "", cfg: str = "",
                  device: Optional[str] = None):
@@ -109,13 +159,30 @@ class NetTrainer:
         self.net_cfg = NetConfig()
         self.net: Optional[Network] = None
         self.batch_size = 0
+        self.update_period = 1
+        self.eval_train = 1
         self.seed = 0
         self.silent = 0
-        self.epoch = 0
+        self.epoch = 0       # update counter (reference epoch_counter)
         self.compute_dtype = torch.float32
-        # {"params": float32 master params on self.device}; None until
-        # init_model / load_model
-        self.state: Optional[Dict[str, Params]] = None
+        self.metric = MetricSet()
+        self.train_metric = MetricSet()
+        # (node name or "" for the final node, node id) per metric
+        self.eval_nodes: List[Tuple[str, int]] = []
+        self.save_optimizer = 0
+        self.check_nan = 0
+        self.max_bad_rounds = 3
+        self.bad_rounds = 0   # total dropped steps (this process)
+        self._bad_consec = 0
+        self._step_counter = 0
+        # {"params": float32 master params, "ustate": updater state} on
+        # self.device; None until init_model / load_model
+        self.state: Optional[Dict[str, Any]] = None
+        self.updaters: Dict[str, Dict[str, Any]] = {}
+        self._accum: Optional[Params] = None   # update_period > 1
+        self._count = 0       # steps accumulated toward the next update
+        self._tmetric: Optional[torch.Tensor] = None  # (n, 2) float64
+        self._loaded_opt = None
         self._cparams: Optional[Params] = None
         # continuous-batching serving knobs (serve/server.py): largest
         # bucket (0 = batch_size), fill-or-timeout wait, replica count
@@ -136,10 +203,22 @@ class NetTrainer:
             device_from_spec(val)  # validates; multi-device raises
         if name == "batch_size":
             self.batch_size = int(val)
+        if name == "update_period":
+            if int(val) < 1:
+                raise ValueError("update_period must be >= 1")
+            self.update_period = int(val)
+        if name == "eval_train":
+            self.eval_train = int(val)
         if name == "seed":
             self.seed = int(val)
         if name == "silent":
             self.silent = int(val)
+        if name == "save_optimizer":
+            self.save_optimizer = int(val)
+        if name == "check_nan":
+            self.check_nan = int(val)
+        if name == "max_bad_rounds":
+            self.max_bad_rounds = int(val)
         if name == "dtype":
             if val not in _DTYPES:
                 raise ValueError(f"dtype must be float32 or bfloat16, "
@@ -157,6 +236,16 @@ class NetTrainer:
             if int(val) < 1:
                 raise ValueError("serve_replicas must be >= 1")
             self.serve_replicas = int(val)
+        if name.startswith("metric"):
+            m = re.match(r"^metric\[([^,\]]+),([^\]]+)\]$", name)
+            if m:
+                self.metric.add_metric(val, m.group(1))
+                self.train_metric.add_metric(val, m.group(1))
+                self.eval_nodes.append((m.group(2), 0))
+            elif name == "metric":
+                self.metric.add_metric(val, "label")
+                self.train_metric.add_metric(val, "label")
+                self.eval_nodes.append(("", -1))
         self.cfg_pairs.append((name, val))
 
     # ------------------------------------------------------------------
@@ -167,9 +256,11 @@ class NetTrainer:
         `seed` (float32 on the CPU, then moved to the device)."""
         self.net_cfg.configure(self.cfg_pairs)
         self._build_net()
-        self._set_params({k: {n: t.to(self.device) for n, t in d.items()}
-                          for k, d in self.net.init_params(self.seed).items()})
         self.epoch = 0
+        self._reset_counters()
+        self._init_state({k: {n: t.to(self.device) for n, t in d.items()}
+                          for k, d in self.net.init_params(
+                              self.seed).items()})
 
     def _build_net(self) -> None:
         if self.batch_size <= 0:
@@ -185,10 +276,76 @@ class NetTrainer:
             for i, s in enumerate(self.net.node_shapes):
                 sys.stdout.write(f"node[{self.net_cfg.node_names[i]}].shape: "
                                  f"{s[0]},{s[1]},{s[2]},{s[3]}\n")
+        self.eval_nodes = [
+            (name, self.net_cfg.num_nodes - 1 if name == ""
+             else self.net.node_index(name)) for name, _ in self.eval_nodes]
+        self._build_updaters()
+
+    def _build_updaters(self) -> None:
+        """One Updater per weight tensor, configured with defcfg +
+        layercfg[i] under its tag (neural_net-inl.hpp:177-204)."""
+        self.updaters = {}
+        utype = self.net_cfg.updater_type
+        for idx, info in enumerate(self.net_cfg.layers):
+            if info.is_shared:
+                continue
+            tags = self.net.layer_objs[idx].param_tags()
+            if not tags:
+                continue
+            key = param_key(self.net_cfg, idx)
+            self.updaters[key] = {}
+            for pname, tag in tags.items():
+                up = UpdaterParam(tag)
+                kwargs = {}
+                for k, v in (self.net_cfg.defcfg
+                             + self.net_cfg.layercfg[idx]):
+                    up.set_param(k, v)
+                    if utype == "adam" and k == "beta1":
+                        kwargs["decay1"] = float(v)
+                    if utype == "adam" and k == "beta2":
+                        kwargs["decay2"] = float(v)
+                self.updaters[key][pname] = create_updater(utype, up,
+                                                           **kwargs)
+
+    def _reset_counters(self) -> None:
+        self._step_counter = 0
+        self._bad_consec = 0
+        self._count = 0
+        self._accum = None
+
+    def _init_state(self, params: Params) -> None:
+        """Fresh train state around `params`: zero updater state (or
+        the state a loaded checkpoint carried), no accumulated
+        gradient, zero train metrics."""
+        ustate = {lk: {pn: up.init_state(params[lk][pn])
+                       for pn, up in d.items() if pn in params.get(lk, {})}
+                  for lk, d in self.updaters.items()}
+        if self._loaded_opt is not None:
+            ustate = convert.ustate_from_numpy(self._loaded_opt, ustate,
+                                               self.device)
+            self._loaded_opt = None
+        self.state = {"params": params, "ustate": ustate}
+        self._accum = None
+        self._count = 0
+        self._cparams = None
+        self.clear_train_metric()
+
+    def set_train_state(self, params: Params, ustate, epoch: int) -> None:
+        """Install params, updater state and the update counter (the
+        carry from a JAX train state - convert.train_state_from_numpy)."""
+        self.state = {"params": params, "ustate": ustate}
+        self.epoch = int(epoch)
+        self._reset_counters()
+        self._cparams = None
+        self.clear_train_metric()
 
     def _set_params(self, params: Params) -> None:
-        self.state = {"params": params}
-        self._cparams = None
+        """Replace the params (updater state kept, or made fresh)."""
+        if self.state is None:
+            self._init_state(params)
+        else:
+            self.state["params"] = params
+            self._cparams = None
 
     def compute_params(self) -> Params:
         """Params in the compute dtype: the master copy itself under
@@ -206,6 +363,244 @@ class NetTrainer:
         return cp
 
     # ------------------------------------------------------------------
+    # batches
+    # ------------------------------------------------------------------
+    def _pad_batch(self, batch: DataBatch, train: bool):
+        """(data, label, mask) padded up to batch_size (numpy).
+
+        `train`: every DELIVERED row is valid - num_batch_padd marks
+        round_batch wrap-fill rows, real instances the reference trains
+        and trims only from eval/pred (nnet_impl-inl.hpp:239); eval
+        masks them. Rows padded up to batch_size are always masked."""
+        b = batch.batch_size
+        if b > self.batch_size:
+            raise ValueError("batch larger than configured batch_size")
+        label = (np.zeros((b, 1), np.float32) if batch.label is None
+                 else np.asarray(batch.label, np.float32).reshape(b, -1))
+        valid = np.ones(b, np.float32)
+        if not train and batch.num_batch_padd:
+            valid[b - batch.num_batch_padd:] = 0.0
+        pad = self.batch_size - b
+        data = np.asarray(batch.data)
+        if pad:
+            data = np.concatenate(
+                [data, np.zeros((pad,) + data.shape[1:], data.dtype)])
+            label = np.concatenate(
+                [label, np.zeros((pad,) + label.shape[1:], np.float32)])
+            valid = np.concatenate([valid, np.zeros(pad, np.float32)])
+        return data, label, valid
+
+    def _stage(self, batch: DataBatch, train: bool):
+        """Device tensors (data in the compute dtype, label fields and
+        the row mask in float32) for one padded batch."""
+        data, label, valid = self._pad_batch(batch, train)
+        lab = torch.from_numpy(label).to(self.device)
+        fields = {}
+        for fname, idx in self.net_cfg.label_name_map.items():
+            a, b = self.net_cfg.label_range[idx]
+            fields[fname] = lab[:, a:b]
+        return (self.stage_infer_rows(data), fields,
+                torch.from_numpy(valid).to(self.device))
+
+    def _metric_rows(self, mset: MetricSet, values, labels, mask,
+                     seed: int, step: int, base: int) -> torch.Tensor:
+        """(n_metrics, 2) float32 rows of (sum, count) on the device;
+        metric i draws its tie-break from stream (seed, step,
+        base + i) - the JAX trainer's fold_in(rng, base + i)."""
+        rows = []
+        for i, ((_, field), fn, (_, nid)) in enumerate(
+                zip(mset.specs, mset.fns, self.eval_nodes)):
+            v = values[nid]
+            pred = v.reshape(v.shape[0], -1).float()
+            gen = torch.Generator(device=self.device).manual_seed(
+                stream_seed(seed, step, base + i))
+            s, c = fn(pred, labels[field], mask, gen)
+            rows.append(torch.stack([s, c]))
+        return torch.stack(rows)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def update(self, batch: DataBatch,
+               keep: Optional[Dict[int, Any]] = None) -> torch.Tensor:
+        """One training mini-batch (CXXNetThreadTrainer::Update).
+        `keep` injects dropout masks ({layer index: boolean array of
+        the layer's input shape}) instead of drawing them. Returns the
+        scaled loss (a device scalar; reading it syncs)."""
+        data, labels, mask = self._stage(batch, train=True)
+        if keep is not None:
+            keep = {i: torch.from_numpy(np.array(k, dtype=bool)).to(
+                self.device) for i, k in keep.items()}
+        step = self._step_counter
+        self._step_counter += 1
+        snap = self._snapshot() if self.check_nan else None
+        loss = self._train_step(data, labels, mask, step, keep)
+        if snap is not None:
+            self._guard_step(self._finite(loss), snap, step)
+        return loss
+
+    def _train_step(self, data, labels, mask, step, keep) -> torch.Tensor:
+        master = self.state["params"]
+        leaves = _tree_map(lambda t: t.detach().requires_grad_(True),
+                           master)
+        seed = self.seed + 100
+        dev = self.device
+
+        def gens(idx: int) -> torch.Generator:
+            return torch.Generator(device=dev).manual_seed(
+                stream_seed(seed, step, idx))
+
+        with torch.enable_grad():
+            # cast inside autograd: bfloat16 compute, float32 gradients
+            cparams = leaves if self.compute_dtype == torch.float32 else \
+                _tree_map(lambda t: t.to(self.compute_dtype), leaves)
+            values, total = self.net(cparams, data, train=True, gens=gens,
+                                     keep=keep, labels=labels, mask=mask)
+            loss = total.float() * (1.0 / (self.batch_size
+                                           * self.update_period))
+            flat = _tree_leaves(leaves)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        it = iter(torch.zeros_like(t) if g is None else g
+                  for t, g in zip(flat, grads))
+        gtree = {lk: {pn: next(it) for pn in sorted(leaves[lk])}
+                 for lk in sorted(leaves)}
+        if self.update_period == 1:
+            accum = gtree
+        elif self._accum is None:
+            accum = self._accum = gtree
+        else:
+            for lk, d in gtree.items():
+                for pn, g in d.items():
+                    self._accum[lk][pn].add_(g)
+            accum = self._accum
+        self._count += 1
+        if self._count >= self.update_period:
+            ustate = self.state["ustate"]
+            for lk, d in self.updaters.items():
+                for pn, up in d.items():
+                    if lk in master and pn in master[lk]:
+                        up.apply(ustate[lk][pn], master[lk][pn],
+                                 accum[lk][pn], self.epoch)
+            self._accum = None
+            self._count = 0
+            self.epoch += 1
+            self._cparams = None
+        if self.eval_train and len(self.train_metric):
+            with torch.no_grad():
+                rows = self._metric_rows(self.train_metric, values, labels,
+                                         mask, seed, step, 1000)
+                self._tmetric += rows.double()
+        return loss.detach()
+
+    def _snapshot(self):
+        """What a dropped step must leave unchanged (check_nan)."""
+        def clone(t):
+            return t.detach().clone()
+        return (_tree_map(clone, self.state["params"]),
+                _tree_map(clone, self.state["ustate"]),
+                None if self._accum is None else _tree_map(clone,
+                                                           self._accum),
+                self._count, self.epoch, self._tmetric.clone())
+
+    def _finite(self, loss: torch.Tensor) -> bool:
+        """All-finite over the loss, the params and (update_period > 1)
+        the gradient accumulator: a micro-step whose gradients go NaN
+        with a finite loss leaves the params untouched, so checking
+        params alone would commit the NaN into the accumulator."""
+        ok = torch.isfinite(loss)
+        trees = [self.state["params"]]
+        if self.update_period > 1 and self._accum is not None:
+            trees.append(self._accum)
+        for tree in trees:
+            for t in _tree_leaves(tree):
+                ok = ok & torch.isfinite(t).all()
+        return bool(ok)
+
+    def _guard_step(self, ok: bool, snap, step_idx: int) -> None:
+        """The divergence guard: roll a non-finite step back, count it,
+        and abort after max_bad_rounds CONSECUTIVE such steps."""
+        if ok:
+            self._bad_consec = 0
+            return
+        params, ustate, accum, count, epoch, tmetric = snap
+        self.state = {"params": params, "ustate": ustate}
+        self._accum, self._count, self.epoch = accum, count, epoch
+        self._tmetric = tmetric
+        self._cparams = None
+        self._bad_consec += 1
+        self.bad_rounds += 1
+        sys.stderr.write(
+            f"divergence guard: non-finite loss/params at update "
+            f"{step_idx}; batch dropped, params rolled "
+            f"back ({self._bad_consec}/{self.max_bad_rounds} "
+            f"consecutive)\n")
+        if self._bad_consec >= self.max_bad_rounds:
+            raise DivergenceError(
+                f"training diverged: {self._bad_consec} consecutive "
+                f"non-finite update rounds (loss or params hit NaN/Inf "
+                f"every round); lower eta or inspect the data pipeline "
+                f"- params remain at the last finite state")
+
+    def update_all(self, data_iter, eval_iters=None,
+                   eval_names=None) -> str:
+        """One full pass (round) over a data iterator, then evaluate
+        each of eval_iters (named by eval_names, default eval/eval2/...)
+        - the reference's per-round loop body (cxxnet_main.cpp:367-405).
+        Returns the concatenated metric string ('' with no eval
+        iterators)."""
+        data_iter.before_first()
+        while data_iter.next():
+            self.update(data_iter.value())
+        parts = []
+        for i, it in enumerate(eval_iters or ()):
+            name = (eval_names[i] if eval_names and i < len(eval_names)
+                    else ("eval" if i == 0 else f"eval{i + 1}"))
+            parts.append(self.evaluate(it, name))
+        return "".join(parts)
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+    def evaluate(self, data_iter, data_name: str) -> str:
+        """Eval metrics over an iterator: `\\tname-metric:value...`
+        (nnet_impl-inl.hpp:224-245). Per-batch (sum, count) rows stay
+        on the device; one readback per dataset, summed in float64."""
+        specs = self.metric.specs
+        if not specs:
+            return ""
+        rows = []
+        data_iter.before_first()
+        step = 0
+        params = self.compute_params()
+        while data_iter.next():
+            data, labels, mask = self._stage(data_iter.value(), train=False)
+            with torch.inference_mode():
+                values = self.net(params, data)[0]
+                rows.append(self._metric_rows(self.metric, values, labels,
+                                              mask, self.seed + 200, step,
+                                              2000))
+            step += 1
+        if not rows:
+            vals = np.zeros((len(specs), 2))
+        else:
+            vals = torch.stack(rows).double().sum(0).cpu().numpy()
+        return format_metrics(data_name, specs, vals)
+
+    def eval_train_metric(self) -> str:
+        """The round's train metrics (`\\ttrain-metric:value...`), then
+        the accumulator is cleared."""
+        if not len(self.train_metric) or self._tmetric is None:
+            return ""
+        out = format_metrics("train", self.train_metric.specs,
+                             self._tmetric.cpu().numpy())
+        self.clear_train_metric()
+        return out
+
+    def clear_train_metric(self) -> None:
+        self._tmetric = torch.zeros((len(self.train_metric), 2),
+                                    dtype=torch.float64, device=self.device)
+
+    # ------------------------------------------------------------------
     # inference
     # ------------------------------------------------------------------
     def infer_fn(self, node: int):
@@ -215,7 +610,7 @@ class NetTrainer:
         net = self.net
 
         def fn(params: Params, data: torch.Tensor) -> torch.Tensor:
-            return net(params, data)[node].float()
+            return net(params, data)[0][node].float()
         return fn
 
     def stage_infer_rows(self, data: np.ndarray) -> torch.Tensor:
@@ -261,18 +656,17 @@ class NetTrainer:
     # checkpoints
     # ------------------------------------------------------------------
     def save_model(self, fo) -> None:
-        """The JAX package's checkpoint format (no optimizer state: this
-        slice has none)."""
+        """The JAX package's checkpoint format; the updater state rides
+        along under `save_optimizer = 1`."""
         params = convert.params_to_numpy(self.state["params"],
                                          self.net.param_shapes())
+        opt = (convert.ustate_to_numpy(self.state["ustate"])
+               if self.save_optimizer else None)
         checkpoint.save_model(fo, 0, self.net_cfg.to_dict(), self.epoch,
-                              params, None)
+                              params, opt)
 
-    def load_model(self, fi) -> None:
-        """Load a checkpoint in the JAX package's native format: the file
-        supplies structure and weights, the config the layer settings.
-        Optimizer state, if the file carries any, is not needed to
-        serve and is dropped."""
+    @staticmethod
+    def _read_native(fi) -> dict:
         head = fi.read(len(checkpoint.MAGIC))
         fi.seek(-len(head), 1)
         if head != checkpoint.MAGIC:
@@ -280,13 +674,45 @@ class NetTrainer:
                 "model_format = cxxnet (reference-binary checkpoints) is "
                 "not ported to cxxnet_tpu_torch yet; load a native "
                 "checkpoint")
-        blob = checkpoint.load_model(fi)
+        return checkpoint.load_model(fi)
+
+    def load_model(self, fi) -> None:
+        """Load a checkpoint in the JAX package's native format: the file
+        supplies structure, weights, the update counter and, if it
+        carries one, the updater state (for `continue = 1`); the config
+        supplies the layer settings."""
+        blob = self._read_native(fi)
         self.net_cfg = NetConfig.from_dict(blob["net"])
         self.net_cfg.configure(self.cfg_pairs)
         self._build_net()
-        self._set_params(convert.params_from_numpy(
-            blob["params"], self.net.param_shapes(), self.device))
         self.epoch = blob["epoch"]
+        self._reset_counters()
+        self._loaded_opt = blob["opt_state"]
+        self._init_state(convert.params_from_numpy(
+            blob["params"], self.net.param_shapes(), self.device))
+
+    def copy_model_from(self, fi) -> None:
+        """Finetune: copy the params of layers whose names match
+        (nnet_impl-inl.hpp:101-134); call after init_model. The updater
+        state starts fresh."""
+        if self.state is None:
+            raise RuntimeError("copy_model_from requires init_model first")
+        blob = self._read_native(fi)
+        params = convert.params_to_numpy(self.state["params"],
+                                         self.net.param_shapes())
+        copied = []
+        for lk, d in blob["params"].items():
+            if lk.startswith("layer_"):
+                continue  # unnamed layers are not matched
+            if lk in params:
+                for pn, arr in d.items():
+                    if pn in params[lk] and arr.shape == params[lk][pn].shape:
+                        params[lk][pn] = arr
+                copied.append(lk)
+        if not self.silent:
+            sys.stdout.write(f"finetune: copied layers {copied}\n")
+        self._init_state(convert.params_from_numpy(
+            params, self.net.param_shapes(), self.device))
 
     # ------------------------------------------------------------------
     # weight access (visitor semantics)

@@ -11,7 +11,9 @@ from cxxnet_tpu_torch.ops import lrn as lrn_ops
 
 
 def relu(x):
-    return torch.clamp_min(x, 0.0)
+    """max(x, 0); like jnp.maximum, an input of exactly 0 takes half the
+    gradient (torch.clamp_min would pass all of it, torch.relu none)."""
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def sigmoid(x):
@@ -37,8 +39,9 @@ def lrn(x: torch.Tensor, local_size: int, alpha: float, beta: float,
 
     out = x * (knorm + alpha/n * sum_{window n}(x^2)) ^ (-beta)
     (lrn_layer-inl.hpp:36-56). A CUDA tensor goes to the hand-written
-    kernel (ops/lrn.py, which raises on anything it cannot take); a CPU
-    tensor goes to the plain PyTorch version."""
+    kernels K1-fwd / K1-bwd (ops/lrn.py, which raises on anything it
+    cannot take); a CPU tensor goes to the same autograd rule with the
+    plain PyTorch versions."""
     if x.is_cuda:
         return lrn_ops.lrn(x.contiguous(), local_size, alpha, beta, knorm)
-    return lrn_ops.lrn_reference(x, local_size, alpha, beta, knorm)
+    return lrn_ops.lrn_cpu(x, local_size, alpha, beta, knorm)

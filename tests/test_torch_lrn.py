@@ -2,14 +2,18 @@
 the plain version against ops.nn.lrn (XLA path) and against the Pallas
 kernel in interpret mode, every window size 1..7 including the even
 ones (where a flipped lo/hi window would show); the CPU dispatcher never
-reaching the kernel loader. The CUDA kernel against the plain version
-runs on the card (tests/test_torch_cuda.py)."""
+reaching the kernel loader. The backward's plain version
+(lrn_bwd_reference, the analytic formula K1-bwd computes) against the
+TPU kernel _bwd_kernel in interpret mode, JAX's autodiff of the XLA
+path and torch's autodiff of lrn_reference. The CUDA kernels against
+their plain versions run on the card (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+import jax
 import jax.numpy as jnp
 
 from cxxnet_tpu.ops import nn as jax_nn
@@ -143,6 +147,141 @@ def test_kernel_wrapper_refuses_cpu_tensor():
         lrn_ops.lrn(torch.zeros(1, 4, 2, 2), 3, ALPHA, BETA, KNORM)
 
 
-def test_backward_raises_until_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        lrn_ops._LRN.backward(None, torch.zeros(1))
+# ---------------------------------------------------------------------------
+# the backward (K1-bwd's plain version, lrn_bwd_reference)
+# ---------------------------------------------------------------------------
+
+BWD_WINDOWS = [1, 2, 3, 4, 5, 6, 7]
+
+
+def _xg(shape, seed):
+    rng = np.random.RandomState(seed)
+    return ((rng.randn(*shape) * 4.0).astype(np.float32),
+            rng.randn(*shape).astype(np.float32))
+
+
+def _bwd_ref(x, g, n, knorm=KNORM):
+    return lrn_ops.lrn_bwd_reference(torch.from_numpy(x), torch.from_numpy(g),
+                                     n, ALPHA, BETA, knorm).numpy()
+
+
+@pytest.mark.parametrize("n", BWD_WINDOWS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_reference_matches_pallas_vjp_interpret(shape, n):
+    """Against the TPU kernel _bwd_kernel itself (jax.vjp of lrn_pallas
+    runs it through _vjp_bwd), in interpret mode."""
+    x, g = _xg(shape, seed=5)
+    _, vjp = jax.vjp(lambda a: lrn_pallas(a, n, ALPHA, BETA, KNORM, True),
+                     jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    np.testing.assert_allclose(_bwd_ref(x, g, n), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("n", BWD_WINDOWS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_reference_matches_jax_xla_vjp(shape, n):
+    """Against JAX's autodiff of the XLA path (ops.nn.lrn)."""
+    x, g = _xg(shape, seed=6)
+    _, vjp = jax.vjp(lambda a: jax_nn.lrn(a, n, ALPHA, BETA, KNORM),
+                     jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    np.testing.assert_allclose(_bwd_ref(x, g, n), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("n", BWD_WINDOWS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_reference_matches_torch_autograd(shape, n):
+    """The analytic formula against torch's own autodiff of the plain
+    forward - two independent derivations of one gradient."""
+    x, g = _xg(shape, seed=7)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    lrn_ops.lrn_reference(xt, n, ALPHA, BETA, KNORM).backward(
+        torch.from_numpy(g))
+    np.testing.assert_allclose(_bwd_ref(x, g, n), xt.grad.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("n", [2, 4, 5])
+@pytest.mark.parametrize("shape", [(2, 16, 7, 9), (2, 13, 4, 5)])
+def test_bwd_bf16_matches_pallas_vjp(shape, n):
+    """bfloat16 x and g, float32 math, one rounding to bfloat16 at the
+    end - on both sides. Bar: one bfloat16 ulp of the result plus 8
+    float32 ulps of the larger of the two terms (the gradient is their
+    difference, and the float32 sums run in another order)."""
+    x, g = _xg(shape, seed=8)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    gb = torch.from_numpy(g).to(torch.bfloat16)
+    got = lrn_ops.lrn_bwd_reference(xb, gb, n, ALPHA, BETA, KNORM)
+    assert got.dtype == torch.bfloat16
+    t1, t2 = lrn_ops.lrn_bwd_terms(xb, gb, n, ALPHA, BETA, KNORM)
+    xj = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
+    gj = jnp.asarray(gb.float().numpy()).astype(jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a: lrn_pallas(a, n, ALPHA, BETA, KNORM, True),
+                     xj)
+    want = vjp(gj)[0]
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    bar = (np.abs(want) * 2.0 ** -7
+           + 8 * 2.0 ** -23 * np.maximum(t1.abs().numpy(), t2.abs().numpy()))
+    assert np.all(np.abs(got.float().numpy() - want) <= bar)
+
+
+def test_bwd_zero_knorm_nan_matches_jax():
+    """knorm = 0 over an all-zero window: 0 * 0^(-beta-1) is nan, in the
+    TPU kernel's formula as here (matched, not guarded)."""
+    x, g = _xg((1, 8, 3, 3), seed=9)
+    x[0, :, 1, 1] = 0.0
+    _, vjp = jax.vjp(lambda a: lrn_pallas(a, 3, ALPHA, BETA, 0.0, True),
+                     jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = _bwd_ref(x, g, 3, knorm=0.0)
+    assert np.isnan(want[0, :, 1, 1]).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_bwd_even_window_orientation(n):
+    """One lit upstream channel: the reversed window [c-hi, c+lo] sends
+    its second term to the channels whose forward window holds it. A
+    window not reversed would light the mirrored neighbours."""
+    x = np.ones((1, 9, 1, 1), np.float32)
+    g = np.zeros((1, 9, 1, 1), np.float32)
+    g[0, 4] = 1.0
+    got = lrn_ops.lrn_bwd_reference(torch.from_numpy(x), torch.from_numpy(g),
+                                    n, 1.0, 1.0, 1.0).numpy()[0, :, 0, 0]
+    lo, hi = n // 2, n - n // 2 - 1
+    # d out_4 / d x_j is nonzero for the j in channel 4's forward window
+    lit = [j for j in range(9) if 4 - lo <= j <= 4 + hi]
+    assert np.nonzero(got)[0].tolist() == lit
+    _, vjp = jax.vjp(lambda a: jax_nn.lrn(a, n, 1.0, 1.0, 1.0),
+                     jnp.asarray(x))
+    np.testing.assert_allclose(got, np.asarray(vjp(jnp.asarray(g))[0])[
+        0, :, 0, 0], **F32_TOL)
+
+
+def test_backward_through_lrn_layer_op_matches_pallas_vjp(monkeypatch):
+    """Autograd through the CPU op (ops.nn.lrn -> the _LRN Function)
+    runs lrn_bwd_reference and matches the TPU kernel's vjp; it never
+    reaches the kernel loader and launches nothing."""
+    def boom(name):
+        raise AssertionError(f"kernel loader reached for {name}")
+    monkeypatch.setattr(kernels, "load", boom)
+    before = kernels.launches()
+    x, g = _xg((2, 96, 7, 7), seed=10)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    port_nn.lrn(xt, 5, ALPHA, BETA, KNORM).backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(xt.grad.numpy(), _bwd_ref(x, g, 5))
+    _, vjp = jax.vjp(lambda a: lrn_pallas(a, 5, ALPHA, BETA, KNORM, True),
+                     jnp.asarray(x))
+    np.testing.assert_allclose(xt.grad.numpy(),
+                               np.asarray(vjp(jnp.asarray(g))[0]), **F32_TOL)
+    assert kernels.launches() == before
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensor():
+    """K1-bwd's wrapper takes CUDA tensors only: a CPU tensor raises
+    instead of falling back to the plain version."""
+    z = torch.zeros(1, 4, 2, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lrn_ops.lrn_backward(z, z, 3, ALPHA, BETA, KNORM)

@@ -370,7 +370,7 @@ def test_cli_serve_equals_pred_equals_jax(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (["task=train"], "task = train"),
+    (["task=train", "remat=1"], "remat"),
     (["task=extract"], "task = extract"),
     (["task=serve", "metrics_port=9100"], "metrics_port"),
     (["task=pred", "graph_passes=all"], "graph_passes"),

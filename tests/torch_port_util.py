@@ -3,6 +3,7 @@ fixture, a narrow AlexNet-shaped conf, and the JAX -> port weight carry
 (which imports jax only when called: the card's tests run where no jax
 is installed)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -113,3 +114,18 @@ def carry(jax_trainer, port_trainer):
     port_trainer._set_params(convert.params_from_numpy(
         jax.device_get(jax_trainer.state["params"]),
         port_trainer.net.param_shapes(), port_trainer.device))
+
+
+def numpy_keep(trainer, seed):
+    """Dropout masks for every dropout layer of `trainer`'s net, drawn
+    with numpy ({layer index: boolean array of the layer's input
+    shape}) - what `update(keep=...)` injects so that two devices train
+    with the same masks."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for idx, info in enumerate(trainer.net_cfg.layers):
+        if info.type_name == "dropout":
+            shape = trainer.net.node_shapes[info.nindex_in[0]]
+            pkeep = 1.0 - trainer.net.layer_objs[idx].threshold
+            out[idx] = rng.rand(*shape) < pkeep
+    return out
