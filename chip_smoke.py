@@ -10,10 +10,16 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
 2. build: every kernel in cxxnet_tpu_torch/csrc/ compiled with nvcc
    (one process per source, started together), with the -Xptxas -v
    register and shared-memory lines;
-3. kernel vs plain: each kernel (K1-fwd, K1-bwd) against its plain
+3. kernel vs plain (3, 3b): K1-fwd and K1-bwd each against its plain
    PyTorch version at the main paths' shapes and at ragged ones, with
    times (CUDA events, warm and L2-cold), the one-call library
    yardstick and the bound;
+3c. flash attention: K2-fwd, K2-dq and K2-dkv against their plain
+   versions at seq_mnist's shape (100,4,28,7), at ragged shapes and at
+   the JAX package's measuring shape (4,8,4096,128), with times (CUDA
+   events, warm and L2-cold), the bound and
+   scaled_dot_product_attention's forward and backward as the library
+   yardstick;
 4. serving: examples/ImageNet/AlexNet.conf at full width (bfloat16, as
    the file says) through the port's NetTrainer and Server - ragged
    requests from two threads, served rows against predict_dist, the
@@ -30,7 +36,17 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    (TF32 off, batch 8) on the card against the same step on the CPU;
 7. CLI training: `task = train` for 3 rounds on the default device
    (test error falls), `continue = 1` resumes, an empty model_dir
-   fails, `task = pred` reads the result.
+   fails, `task = pred` reads the result;
+8. the sequence family: examples/LongSeq/seq_mnist.conf unmodified
+   (b100, bfloat16) - (a) NetTrainer.update, 2 warm-up and 10 timed
+   steps, each launching every K2 kernel once, with a profiler table
+   and the device's idle share; (b) a float32 step (TF32 off, batch 8)
+   on the card against the CPU; (c) the CLI's task = train (3 rounds,
+   test error falls), continue = 1 and task = pred on synthetic
+   MNIST-format data under ./data/ of a temporary directory; (d) the
+   Server over (a)'s trainer, answering ragged requests of 1-100 rows
+   from two threads, one K2-fwd per dispatched batch. (d) runs before
+   (c).
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -58,8 +74,17 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
+# dense bfloat16 tensor-core rate of the H100 SXM (data sheet): what the
+# attention kernels' bound is taken against in bfloat16
+BF16_FLOPS_PER_S = 989.4e12
+
 # the inputs of AlexNet's two LRN layers in a b256 training step
 TRAIN_LRN_SHAPES = ((256, 96, 27, 27), (256, 256, 13, 13))
+
+# seq_mnist.conf's attention core (b100, 4 heads, 28 steps, head_dim 7)
+# and the JAX package's flash-attention measuring shape (bench.py:420)
+SEQ_ATTN_SHAPE = (100, 4, 28, 7)
+MEASURE_ATTN_SHAPE = (4, 8, 4096, 128)
 
 
 def say(line: str) -> None:
@@ -322,6 +347,189 @@ def phase_kernels_bwd(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: flash attention (K2-fwd, K2-dq, K2-dkv)
+# ---------------------------------------------------------------------------
+
+ATTN_FLOPS = {"attn_fwd": 4, "attn_dq": 6, "attn_dkv": 8}  # x B H Sq Sk D
+ATTN_TENSORS = {"attn_fwd": 4, "attn_dq": 5, "attn_dkv": 6}  # (B,H,S,D)
+ATTN_STATS = {"attn_fwd": 1, "attn_dq": 2, "attn_dkv": 2}    # (B,H,S) f32
+
+
+def attn_flops(name: str, shape, causal: bool) -> float:
+    """The kernel's operations on these inputs: 2 per multiply-add of
+    each of its products (q.k^T, p.v; q.k^T, do.v^T, ds.k; q.k^T,
+    do.v^T, p^T.do, ds^T.q). Under causal only the S(S+1)/2 visible
+    score entries need them."""
+    b, h, s, d = shape
+    work = ATTN_FLOPS[name] * b * h * s * s * d
+    return work * (s + 1) / (2 * s) if causal else work
+
+
+def attn_bound_ms(name: str, shape, itemsize: int, causal: bool):
+    """Least time for one launch: the larger of its bytes (q, k, v, do
+    and lse/delta read once, each output written once) over the memory
+    rate and its operations over the peak rate of the working type (the
+    bfloat16 tensor cores; the float32 pipes for float32)."""
+    b, h, s, d = shape
+    nbytes = (ATTN_TENSORS[name] * b * h * s * d * itemsize
+              + ATTN_STATS[name] * b * h * s * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    ops_ms = attn_flops(name, shape, causal) / peak * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def attn_close(torch, got, ref, grad=False, long=False):
+    """A kernel's output against its plain version on the same inputs.
+    float32: rtol 1e-5 / atol 1e-5 up to S = 257 and 1e-4 / 1e-4 at
+    S = 4096 (summation order over 4096 keys); gradients rtol 1e-4 /
+    atol 1e-5 (tests/test_pallas_attention.py:65). bfloat16:
+    |got - ref| <= 1e-2 |ref| + 1e-2 max|ref|, inside the JAX test's
+    5e-2 (:77), + 1e-5 where the true value is 0 and both sides are
+    float32 cancellation noise (ds = p * (do.v - delta) with one key):
+    both round p, ds and the result to bfloat16 at the same points, so
+    they part where a float32 value sits on either side of a rounding
+    boundary, or where the online softmax rounds p against a running
+    max."""
+    g, r = got.float(), ref.float()
+    if ref.dtype == torch.float32:
+        if grad:
+            return bool(torch.allclose(g, r, rtol=1e-4, atol=1e-5))
+        tol = 1e-4 if long else 1e-5
+        return bool(torch.allclose(g, r, rtol=tol, atol=tol))
+    bar = 1e-2 * r.abs() + 1e-2 * r.abs().max() + 1e-5
+    return bool(torch.all((g - r).abs() <= bar))
+
+
+def phase_attention_kernels(torch, card):
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.ops import flash_attention as FA
+
+    say("== phase 3c: flash attention kernels (K2-fwd, K2-dq, K2-dkv) vs "
+        "plain versions ==")
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    names = ("attn_fwd", "attn_dq", "attn_dkv")
+    max_err = {n: 0.0 for n in names}
+    rows = {}
+    cases = [(SEQ_ATTN_SHAPE, dt, False, None)
+             for dt in (torch.bfloat16, torch.float32)]
+    for s in (1, 12, 28, 33, 100, 257):
+        for d, h in ((7, 3), (8, 1), (16, 3), (64, 1), (96, 3), (128, 1),
+                     (256, 3)):
+            if s * d * h > 100 * 256:
+                continue  # the ragged set stays small
+            causal = (s + d) % 2 == 1
+            scale = 0.3 if d == 16 else None
+            for dt in (torch.float32, torch.bfloat16):
+                cases.append(((2, h, s, d), dt, causal, scale))
+    cases += [((1, 1, 257, 256), torch.bfloat16, True, None),
+              ((1, 1, 257, 256), torch.float32, False, 0.05)]
+    cases += [(MEASURE_ATTN_SHAPE, torch.bfloat16, c, None)
+              for c in (False, True)]
+    cases.append((MEASURE_ATTN_SHAPE, torch.float32, False, None))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for shape, dt, causal, scale in cases:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dt) for _ in range(4))
+        before = kernels.launches()
+        o, lse = FA.attn_fwd(q, k, v, causal, scale)
+        delta = FA.flash_delta(o, do)
+        dq = FA.attn_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = FA.attn_dkv(q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        after = kernels.launches()
+        if any(after[n] != before[n] + 1 for n in names):
+            raise AssertionError("each K2 wrapper must count one launch "
+                                 "per call")
+        ro, rlse = FA.flash_fwd_reference(q, k, v, causal, scale)
+        rdq = FA.flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
+        rdk, rdv = FA.flash_dkv_reference(q, k, v, do, lse, delta, causal,
+                                          scale)
+        long = shape[2] > 257
+        checks = {"attn_fwd": [("o", o, ro, False), ("lse", lse, rlse,
+                                                       False)],
+                  "attn_dq": [("dq", dq, rdq, True)],
+                  "attn_dkv": [("dk", dk, rdk, True), ("dv", dv, rdv, True)]}
+        errs = {}
+        for n, outs in checks.items():
+            for what, got, ref, grad in outs:
+                err = float((got.float() - ref.float()).abs().max())
+                errs[what] = err
+                if not attn_close(torch, got, ref, grad, long):
+                    raise AssertionError(
+                        f"{n} disagrees with its plain version at {shape} "
+                        f"{dt} causal={causal} scale={scale}: {what} max "
+                        f"abs {err:.3e} (max |ref| "
+                        f"{float(ref.float().abs().max()):.3e})")
+                max_err[n] = max(max_err[n], err)
+        del ro, rlse, rdq, rdk, rdv
+        timed = (shape in (SEQ_ATTN_SHAPE, MEASURE_ATTN_SHAPE)
+                 and dt == torch.bfloat16)
+        if not timed:
+            continue
+        say(f"{shape} bf16 causal={causal}: max abs err " + ", ".join(
+            f"{w} {e:.3e}" for w, e in errs.items()))
+        # the library yardstick: one scaled_dot_product_attention call
+        # and its backward on the same inputs (never on the port's path)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl,
+                                                 is_causal=causal,
+                                                 scale=scale)
+        fns = {
+            "attn_fwd": (lambda: FA.attn_fwd(q, k, v, causal, scale),
+                         lambda: FA.flash_fwd_reference(q, k, v, causal,
+                                                        scale),
+                         lambda: F.scaled_dot_product_attention(
+                             q, k, v, is_causal=causal, scale=scale)),
+            "attn_dq": (lambda: FA.attn_dq(q, k, v, do, lse, delta, causal,
+                                           scale),
+                        lambda: FA.flash_dq_reference(q, k, v, do, lse, delta,
+                                                      causal, scale),
+                        lambda: torch.autograd.grad(
+                            lib_out, (ql, kl, vl), do, retain_graph=True)),
+            "attn_dkv": (lambda: FA.attn_dkv(q, k, v, do, lse, delta,
+                                             causal, scale),
+                         lambda: FA.flash_dkv_reference(q, k, v, do, lse,
+                                                        delta, causal, scale),
+                         None),
+        }
+        iters = 10 if shape == MEASURE_ATTN_SHAPE else 50
+        for n, (kern, plain, lib) in fns.items():
+            bound, by = attn_bound_ms(n, shape, q.element_size(), causal)
+            t = {"kernel": time_warm(torch, kern, iters),
+                 "kernel_cold": time_cold(torch, kern, flush, 10),
+                 "plain": time_warm(torch, plain, 5 if iters == 10 else 20),
+                 "bound": bound, "by": by,
+                 "flops": attn_flops(n, shape, causal)}
+            if lib is not None:
+                t["library"] = time_warm(torch, lib, iters)
+            tflops = t["flops"] / t["kernel"] / 1e9
+            lib_txt = (f", library {t['library']:.4f} ms" if lib is not None
+                       else "")
+            say(f"{n} {shape} bf16 causal={causal}: kernel {t['kernel']:.4f}"
+                f" ms ({tflops:.2f} TFLOP/s), L2 cold {t['kernel_cold']:.4f}"
+                f" ms, plain {t['plain']:.4f} ms{lib_txt}; bound "
+                f"{bound:.4f} ms ({by}) on {card}")
+            rows[(n, shape, causal)] = t
+        del ql, kl, vl, lib_out
+    # the library's backward computes dq, dk and dv in one call: it
+    # stands beside K2-dq + K2-dkv together
+    for key in list(rows):
+        n, shape, causal = key
+        if n == "attn_dkv":
+            rows[key]["library"] = rows[("attn_dq", shape, causal)][
+                "library"]
+    del flush
+    say(f"attention kernels: {len(cases)} cases agree (f32, bf16; S = 1, "
+        f"12, 28, 33, 100, 257, 4096; D = 7 .. 256; causal and not); max "
+        "abs err " + ", ".join(f"{n} {e:.3e}" for n, e in max_err.items()))
+    return max_err, rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: AlexNet serving at full width
 # ---------------------------------------------------------------------------
 
@@ -519,14 +727,17 @@ silent = 1
 """
 
 
-def write_mnist(d: str, n: int, seed: int, prefix: str = "t10k") -> None:
+def write_mnist(d: str, n: int, seed: int, prefix: str = "t10k",
+                noise: float = 40.0, gain: float = 120.0) -> None:
+    """A synthetic MNIST-format dataset: gaussian noise around 100 plus a
+    class-dependent bright block."""
     import numpy as np
     rng = np.random.RandomState(seed)
     labels = rng.randint(0, 10, size=n).astype(np.uint8)
-    images = np.clip(rng.randn(n, 28, 28) * 40 + 100, 0, 255)
+    images = np.clip(rng.randn(n, 28, 28) * noise + 100, 0, 255)
     for i, y in enumerate(labels):
         r, c = divmod(int(y), 5)
-        images[i, r * 10 + 2:r * 10 + 10, c * 5 + 1:c * 5 + 6] += 120
+        images[i, r * 10 + 2:r * 10 + 10, c * 5 + 1:c * 5 + 6] += gain
     images = np.clip(images, 0, 255).astype(np.uint8)
     with gzip.open(f"{d}/{prefix}-images-idx3-ubyte.gz", "wb") as f:
         f.write(struct.pack(">iiii", 2051, n, 28, 28))
@@ -612,12 +823,29 @@ def softmax_ce(tr, batch) -> float:
     return float(-np.mean(np.log(np.maximum(picked, 1e-30))))
 
 
-def profile_steps(torch, step, n_steps: int):
+# named groups of a profile: (label, kind, name) - kind "kernel" sums
+# device kernels whose name contains `name`, "range" the record_function
+# ranges so named, "op" the device time under the aten op `name`
+ALEXNET_GROUPS = (
+    ("lrn_fwd kernel", "kernel", "lrn_fwd_kernel"),
+    ("lrn_bwd kernel", "kernel", "lrn_bwd_kernel"),
+    ("max-pool ties backward", "range", "max_pool_ties_backward"),
+    ("convolutions (fwd+bwd)", "op", "aten::cudnn_convolution"),
+    ("convolutions (fwd+bwd)", "op", "aten::convolution_backward"),
+)
+SEQ_GROUPS = (
+    ("attn_fwd kernel", "kernel", "attn_fwd_kernel"),
+    ("attn_dq kernel", "kernel", "attn_dq_kernel"),
+    ("attn_dkv kernel", "kernel", "attn_dkv_kernel"),
+)
+
+
+def profile_steps(torch, step, n_steps: int, group_spec=ALEXNET_GROUPS):
     """torch.profiler over `n_steps` calls of `step`: the ten CUDA
-    entries with the most self device time, the named groups (LRN
-    kernels, the max-pool ties backward, convolutions) and the device's
-    idle share of the traced window (1 - union of kernel, memcpy and
-    memset intervals / window from the first event to the last)."""
+    entries with the most self device time, the named groups of
+    `group_spec` and the device's idle share of the traced window
+    (1 - union of kernel, memcpy and memset intervals / window from the
+    first event to the last)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -652,47 +880,53 @@ def profile_steps(torch, step, n_steps: int):
         if dev > 0:
             rows.append((dev / 1e3 / n_steps, ev.count // n_steps, ev.key))
     rows.sort(reverse=True)
-    groups = {"lrn_fwd kernel": 0.0, "lrn_bwd kernel": 0.0,
-              "max-pool ties backward": 0.0, "convolutions (fwd+bwd)": 0.0}
+    groups = {label: 0.0 for label, _, _ in group_spec}
     for e in events:
         name = e.get("name", "")
         if e.get("ph") != "X" or "dur" not in e:
             continue
         dur = float(e["dur"]) / 1e3 / n_steps
-        if e.get("cat") == "kernel" and "lrn_fwd_kernel" in name:
-            groups["lrn_fwd kernel"] += dur
-        elif e.get("cat") == "kernel" and "lrn_bwd_kernel" in name:
-            groups["lrn_bwd kernel"] += dur
-        elif e.get("cat") == "gpu_user_annotation" and \
-                name == "max_pool_ties_backward":
-            groups["max-pool ties backward"] += dur
+        for label, kind, want in group_spec:
+            if (kind == "kernel" and e.get("cat") == "kernel"
+                    and want in name) or (
+                    kind == "range" and name == want
+                    and e.get("cat") == "gpu_user_annotation"):
+                groups[label] += dur
     for ev in prof.key_averages():
-        if ev.key in ("aten::cudnn_convolution",
-                      "aten::convolution_backward"):
-            dev = getattr(ev, "device_time_total", None)
-            if dev is None:
-                dev = getattr(ev, "cuda_time_total", 0.0)
-            groups["convolutions (fwd+bwd)"] += dev / 1e3 / n_steps
+        for label, kind, want in group_spec:
+            if kind == "op" and ev.key == want:
+                dev = getattr(ev, "device_time_total", None)
+                if dev is None:
+                    dev = getattr(ev, "cuda_time_total", 0.0)
+                groups[label] += dev / 1e3 / n_steps
     return rows[:10], groups, busy / 1e3, window_ms
 
 
-def phase_training(torch, card):
+def say_profile(profiled, n_steps: int, card: str) -> None:
+    rows, groups, busy_ms, window_ms = profiled
+    if not rows:
+        say("profiler: no device time in key_averages() (not measured)")
+        return
+    say(f"profiler, {n_steps} steps: top 10 CUDA entries by self device "
+        "time (ms per step, calls per step, name)")
+    for ms, calls, name in rows:
+        say(f"  {ms:9.3f} ms  {calls:5d}  {name[:110]}")
+    for name, ms in groups.items():
+        say(f"  group {name}: {ms:.3f} ms per step")
+    say(f"device busy {busy_ms / n_steps:.3f} ms of {window_ms / n_steps:.3f}"
+        f" ms per step in the traced window: idle share "
+        f"{1 - busy_ms / window_ms:.4f} on {card}")
+
+
+def train_steps(torch, tr, batch, per_step):
+    """2 warm-up and 10 timed steps of tr.update(batch) with the launch
+    counts set to 0 just before and read just after. Raises unless every
+    loss is finite, each kernel launched `per_step[name]` times per step
+    (0 for the others), every param moved and the repeated batch was
+    fitted (softmax cross-entropy under predict_dist fell). Returns
+    (counts, step ms on the host clock, peak device memory in bytes)."""
     import numpy as np
     from cxxnet_tpu_torch import kernels
-    from cxxnet_tpu_torch.io.data import DataBatch
-
-    say("== phase 6: AlexNet (examples/ImageNet/AlexNet.conf) trained at "
-        "full width ==")
-    tr = alexnet_trainer([])
-    if (tr.compute_dtype != torch.bfloat16 or str(tr.device) != "cuda:0"
-            or tr.batch_size != 256):
-        raise AssertionError(f"AlexNet.conf should train b256 bfloat16 on "
-                             f"cuda:0, got b{tr.batch_size} "
-                             f"{tr.compute_dtype} on {tr.device}")
-    rng = np.random.RandomState(11)
-    images = (rng.rand(256, 3, 227, 227) * 255.0 - 128.0).astype(np.float32)
-    labels = rng.randint(0, 1000, size=(256, 1)).astype(np.float32)
-    batch = DataBatch(data=images, label=labels)
     ce_before = softmax_ce(tr, batch)
     start = {k: {n: t.clone() for n, t in d.items()}
              for k, d in tr.state["params"].items()}
@@ -711,9 +945,9 @@ def phase_training(torch, card):
     loss_vals = [float(v) for v in losses]
     if not all(np.isfinite(loss_vals)):
         raise AssertionError(f"non-finite training loss: {loss_vals}")
-    if counts["lrn_fwd"] != 24 or counts["lrn_bwd"] != 24:
-        raise AssertionError(f"12 steps launched {counts}; AlexNet runs "
-                             "each LRN kernel twice per step")
+    want = {n: 12 * per_step.get(n, 0) for n in counts}
+    if counts != want:
+        raise AssertionError(f"12 steps launched {counts}, expected {want}")
     unmoved = [f"{k}/{n}" for k, d in tr.state["params"].items()
                for n, t in d.items() if torch.equal(t, start[k][n])]
     if unmoved:
@@ -725,50 +959,38 @@ def phase_training(torch, card):
                              f"cross-entropy {ce_before:.4f} -> "
                              f"{ce_after:.4f}")
     say(f"12 steps (2 warm-up + 10 timed), losses {loss_vals[0]:.4f} .. "
-        f"{loss_vals[-1]:.4f}, all finite; launches {counts} = 2 of each "
-        "per step; every param moved")
+        f"{loss_vals[-1]:.4f}, all finite; launches "
+        f"{ {n: c for n, c in counts.items() if c} } = {per_step} per "
+        "step; every param moved")
     say(f"repeated batch, predict_dist (dropout off): cross-entropy "
         f"{ce_before:.4f} before -> {ce_after:.4f} after the steps")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(3):
-        tr._stage(batch, train=True)
-    torch.cuda.synchronize()
-    stage_ms = (time.perf_counter() - t1) / 3 * 1e3
-    say(f"AlexNet b256 bfloat16 training step: {step_ms:.3f} ms "
-        f"(host clock over 10 steps, CUDA-synchronised), "
-        f"{256 / step_ms * 1e3:.1f} images/s; of which staging the batch "
-        f"(float32 rows to the card, cast there) {stage_ms:.3f} ms; peak "
-        f"memory {peak / 2 ** 30:.3f} GiB; on {card}")
-    rows, groups, busy_ms, window_ms = profile_steps(
-        torch, lambda: tr.update(batch), 3)
-    if not rows:
-        say("profiler: no device time in key_averages() (not measured)")
-    else:
-        say("profiler, 3 steps: top 10 CUDA entries by self device time "
-            "(ms per step, calls per step, name)")
-        for ms, calls, name in rows:
-            say(f"  {ms:9.3f} ms  {calls:5d}  {name[:110]}")
-        for name, ms in groups.items():
-            say(f"  group {name}: {ms:.3f} ms per step")
-        say(f"device busy {busy_ms / 3:.3f} ms of {window_ms / 3:.3f} ms "
-            f"per step in the traced window: idle share "
-            f"{1 - busy_ms / window_ms:.4f} on {card}")
-    del tr
-    torch.cuda.empty_cache()
+    return counts, step_ms, peak
 
-    # float32 leg: one step at batch 8 on the card (TF32 off) and
-    # through the port on the CPU, same weights (seed), batch and masks
+
+def f32_step_card_vs_cpu(torch, make_trainer, images, labels, per_step):
+    """One float32 step at batch 8 on the card (TF32 off, `per_step`
+    kernel launches) and through the port on the CPU, from the same
+    weights (seed), batch and dropout masks: the updated params within
+    rtol 1e-3 / atol 1e-5 (summation order; TF32 off), the loss within
+    rtol 1e-4."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     small = DataBatch(data=images[:8], label=labels[:8])
     legs = {}
     for dev in ("gpu", "cpu"):
-        t = alexnet_trainer(["dtype=float32", "batch_size=8"]
-                            + (["dev=cpu"] if dev == "cpu" else []))
+        t = make_trainer(["dtype=float32", "batch_size=8"]
+                         + (["dev=cpu"] if dev == "cpu" else []))
         before = {k: {n: v.cpu().numpy().copy() for n, v in d.items()}
                   for k, d in t.state["params"].items()}
+        kernels.reset_launches()
         loss = float(t.update(small, keep=numpy_keep(t, seed=12)))
+        counts = kernels.launches()
+        if dev == "gpu" and counts != {n: per_step.get(n, 0)
+                                       for n in counts}:
+            raise AssertionError(f"float32 step launched {counts}")
         after = {k: {n: v.cpu().numpy() for n, v in d.items()}
                  for k, d in t.state["params"].items()}
         legs[dev] = (loss, before, after)
@@ -797,6 +1019,41 @@ def phase_training(torch, card):
         f"{worst:.3e} (rtol {f_rtol}, atol {f_atol}); the updates differ "
         f"by at most {worst_delta:.3e} of the largest update in their "
         f"tensor")
+
+
+def phase_training(torch, card):
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+
+    say("== phase 6: AlexNet (examples/ImageNet/AlexNet.conf) trained at "
+        "full width ==")
+    tr = alexnet_trainer([])
+    if (tr.compute_dtype != torch.bfloat16 or str(tr.device) != "cuda:0"
+            or tr.batch_size != 256):
+        raise AssertionError(f"AlexNet.conf should train b256 bfloat16 on "
+                             f"cuda:0, got b{tr.batch_size} "
+                             f"{tr.compute_dtype} on {tr.device}")
+    rng = np.random.RandomState(11)
+    images = (rng.rand(256, 3, 227, 227) * 255.0 - 128.0).astype(np.float32)
+    labels = rng.randint(0, 1000, size=(256, 1)).astype(np.float32)
+    batch = DataBatch(data=images, label=labels)
+    per_step = {"lrn_fwd": 2, "lrn_bwd": 2}
+    counts, step_ms, peak = train_steps(torch, tr, batch, per_step)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        tr._stage(batch, train=True)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t1) / 3 * 1e3
+    say(f"AlexNet b256 bfloat16 training step: {step_ms:.3f} ms "
+        f"(host clock over 10 steps, CUDA-synchronised), "
+        f"{256 / step_ms * 1e3:.1f} images/s; of which staging the batch "
+        f"(float32 rows to the card, cast there) {stage_ms:.3f} ms; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB; on {card}")
+    say_profile(profile_steps(torch, lambda: tr.update(batch), 3), 3, card)
+    del tr
+    torch.cuda.empty_cache()
+    f32_step_card_vs_cpu(torch, alexnet_trainer, images, labels, per_step)
     return counts
 
 
@@ -835,12 +1092,12 @@ model_dir = {d}/models
 """
 
 
-def run_cli(args, dev_args=(), expect_ok=True):
+def run_cli(args, dev_args=(), expect_ok=True, cwd=REPO):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
         [sys.executable, "-m", "cxxnet_tpu_torch.main"] + list(args)
-        + list(dev_args), cwd=REPO, env=env, capture_output=True, text=True,
+        + list(dev_args), cwd=cwd, env=env, capture_output=True, text=True,
         timeout=600)
     if expect_ok and proc.returncode != 0:
         raise AssertionError(f"{args[1:]} exited {proc.returncode}:\n"
@@ -906,6 +1163,247 @@ def phase_cli_train(dev_args=(), n_train=1000, eta=0.01):
         return e
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the sequence family (examples/LongSeq/seq_mnist.conf)
+# ---------------------------------------------------------------------------
+
+SEQ_CONF = os.path.join(REPO, "examples", "LongSeq", "seq_mnist.conf")
+K2 = ("attn_fwd", "attn_dq", "attn_dkv")
+
+
+def seq_trainer(overrides):
+    """The seq_mnist trainer as the CLI builds it: the conf file
+    unmodified, its iterator blocks split off (their files are never
+    opened), the device from `dev` (the file says tpu: cuda:0)."""
+    from cxxnet_tpu_torch.main import LearnTask
+    task = LearnTask()
+    task.load_conf(SEQ_CONF, ["seed=7", "silent=1"] + list(overrides))
+    tr = task.create_net()
+    tr.init_model()
+    return tr
+
+
+def phase_seq_training(torch, card):
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+
+    say("== phase 8a: examples/LongSeq/seq_mnist.conf trained on the card "
+        "==")
+    tr = seq_trainer([])
+    if (tr.compute_dtype != torch.bfloat16 or str(tr.device) != "cuda:0"
+            or tr.batch_size != 100):
+        raise AssertionError(f"seq_mnist.conf should train b100 bfloat16 "
+                             f"on cuda:0, got b{tr.batch_size} "
+                             f"{tr.compute_dtype} on {tr.device}")
+    rng = np.random.RandomState(21)
+    # uniform images in [0, 1), as the mnist iterator scales them
+    images = rng.rand(100, 1, 28, 28).astype(np.float32)
+    labels = rng.randint(0, 10, size=(100, 1)).astype(np.float32)
+    batch = DataBatch(data=images, label=labels)
+    per_step = {n: 1 for n in K2}
+    counts, step_ms, peak = train_steps(torch, tr, batch, per_step)
+    say(f"seq_mnist b100 bfloat16 training step: {step_ms:.3f} ms (host "
+        f"clock over 10 steps, CUDA-synchronised), "
+        f"{100 / step_ms * 1e3:.1f} images/s; peak memory "
+        f"{peak / 2 ** 20:.1f} MiB; on {card}")
+    say_profile(profile_steps(torch, lambda: tr.update(batch), 5,
+                              SEQ_GROUPS), 5, card)
+    say("== phase 8b: a float32 seq_mnist step, card vs CPU ==")
+    f32_step_card_vs_cpu(torch, seq_trainer, images, labels, per_step)
+    return counts, step_ms, tr
+
+
+SEQ_PRED_BLOCK = """
+pred = {out}
+iter = mnist
+    input_flat = 0
+    path_img = "./data/t10k-images-idx3-ubyte.gz"
+    path_label = "./data/t10k-labels-idx1-ubyte.gz"
+iter = end
+"""
+
+
+def phase_seq_cli():
+    say("== phase 8c: seq_mnist.conf through the CLI on the default device "
+        "==")
+    with tempfile.TemporaryDirectory() as d:
+        os.makedirs(os.path.join(d, "data"))
+        # noisy data (sd 60, block +60): the error is left to fall
+        write_mnist(os.path.join(d, "data"), 300, 3, "train", 60.0, 60.0)
+        write_mnist(os.path.join(d, "data"), 200, 4, "t10k", 60.0, 60.0)
+        conf = os.path.join(d, "seq_mnist.conf")
+        with open(SEQ_CONF) as f:
+            text = f.read()
+        # the file unmodified (its ./data/ paths resolve in `d`), with a
+        # pred block appended for task = pred
+        with open(conf, "w") as f:
+            f.write(text + SEQ_PRED_BLOCK.format(out="pred.txt"))
+        proc = run_cli([conf, "silent=0", "num_round=3", "max_round=3"],
+                       cwd=d)
+        errs = round_errors(proc.stderr)
+        m = re.search(r"kernel launches (\{.*\})", proc.stdout)
+        counts = ast.literal_eval(m.group(1)) if m else {}
+        say("task=train child: " + " | ".join(
+            ln for ln in proc.stderr.splitlines() if ln.startswith("[")))
+        say(f"task=train child: kernel launches {counts}")
+        e = [errs.get(r) for r in (1, 2, 3)]
+        if None in e or not e[2] < e[0]:
+            raise AssertionError(f"test-error per round {e}: should fall\n"
+                                 f"{proc.stderr}")
+        if any(counts.get(n, 0) <= 0 for n in K2):
+            raise AssertionError(f"CLI training launched {counts}")
+        proc = run_cli([conf, "continue=1", "num_round=4", "max_round=4"],
+                       cwd=d)
+        errs = round_errors(proc.stderr)
+        if sorted(errs) != [4] or not os.path.exists(
+                os.path.join(d, "models", "0004.model")):
+            raise AssertionError(f"continue=1 should train round 4 only:\n"
+                                 f"{proc.stdout}{proc.stderr}")
+        say(f"continue=1 num_round=4: resumed, round 4 test-error "
+            f"{errs[4]:g}, models/0004.model written")
+        run_cli([conf, "task=pred", "model_in=models/0004.model"], cwd=d)
+        with open(os.path.join(d, "pred.txt")) as f:
+            preds = f.read().split()
+        if len(preds) != 200:
+            raise AssertionError(f"task=pred wrote {len(preds)} lines")
+        say(f"task=pred: {len(preds)} lines, one per test image")
+        return e
+
+
+def phase_seq_serving(torch, card, tr):
+    """The Server over `tr`, phase 8a's trained seq_mnist trainer (its
+    fitted weights give decided argmaxes to compare)."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.serve import Server
+
+    say("== phase 8d: seq_mnist.conf served (bfloat16, max_batch 100) ==")
+    srv = Server(tr, max_batch=100)
+    say(f"buckets {list(srv.buckets)}; warmup {srv.warmup():.3f} s")
+    rng = np.random.RandomState(13)
+    sizes = [int(s) for s in rng.randint(1, 101, size=40)]
+    sizes[0], sizes[1] = 100, 1
+    # uniform images in [0, 1), as the mnist iterator scales them
+    reqs = [rng.rand(s, 1, 28, 28).astype(np.float32) for s in sizes]
+    results = [None] * len(reqs)
+    errors = []
+
+    def client(idx):
+        try:
+            futs = [(i, srv.submit(reqs[i])) for i in idx]
+            for i, f in futs:
+                results[i] = f.result(timeout=300)
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    kernels.reset_launches()
+    srv.start()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client,
+                                args=(range(k, len(reqs), 2),))
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    stats = srv.stop()
+    launches = kernels.launches()["attn_fwd"]
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads) or any(r is None
+                                                 for r in results):
+        raise AssertionError("a serve request never resolved")
+    if launches != stats["batches"] or stats["batches"] == 0:
+        raise AssertionError(
+            f"attn_fwd launched {launches} times over {stats['batches']} "
+            "dispatched batches; seq_mnist runs it once per batch")
+    rows = sum(sizes)
+    say(f"served {len(reqs)} requests, {rows} rows in {stats['batches']} "
+        f"batches ({stats['padding_rows']} padding rows); attn_fwd "
+        f"launches {launches} = 1 per batch")
+    say(f"latency p50 {stats['latency_p50_ms']} ms, p99 "
+        f"{stats['latency_p99_ms']} ms (queue p50 {stats['queue_p50_ms']} "
+        f"ms, device p50 {stats['device_p50_ms']} ms), {rows / wall:.1f} "
+        f"rows/s ({len(reqs)} requests of 1-100 rows from 2 threads, "
+        f"max_batch 100, bfloat16) on {card}")
+    # PR 1's bfloat16 bar (phase 4): rtol 0.1, atol 2e-4, and the argmax
+    # wherever the top-2 margin is wider than the bar allows
+    rtol, atol = 0.1, 2e-4
+    worst = 0.0
+    undecided = 0
+    for data, got in zip(reqs, results):
+        ref = tr.predict_dist(DataBatch(
+            data=data, label=np.zeros((data.shape[0], 1), np.float32)))
+        if got.shape != ref.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"served rows {got.shape} vs {ref.shape}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+        if not np.allclose(got, ref, rtol=rtol, atol=atol):
+            raise AssertionError(
+                f"served rows differ from predict_dist: max abs "
+                f"{np.abs(got - ref).max():.3e} > rtol {rtol} atol {atol}")
+        top2 = np.sort(ref, axis=1)[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) > 2 * (atol + rtol * top2[:, 1])
+        undecided += int((~decided).sum())
+        if not np.array_equal(got.argmax(1)[decided],
+                              ref.argmax(1)[decided]):
+            raise AssertionError("served argmax differs from predict")
+    say(f"served vs predict_dist: max abs {worst:.3e} (rtol {rtol}, atol "
+        f"{atol}); argmax identical on {rows - undecided}/{rows} decided "
+        f"rows")
+    return launches, stats["batches"]
+
+
+ATTN_SOURCES = {"attn_fwd": ("attn_fwd.cu", 90, "_fwd_kernel"),
+                "attn_dq": ("attn_dq.cu", 172, "_dq_kernel"),
+                "attn_dkv": ("attn_dkv.cu", 211, "_dkv_kernel")}
+
+
+def attn_entry(name: str, rows, max_err: float, launches: int):
+    """One K2 kernel's entry of the kernels line: the unit is one launch
+    at the measuring shape (4,8,4096,128), bfloat16, non-causal, L2
+    warm; `causal_ms` the same causal; `path_ms` one launch at
+    seq_mnist's shape (100,4,28,7), where launch latency, not the bound,
+    sets the time (warm: back-to-back calls, so the host's enqueue rate;
+    `path_cold_ms`: one synchronised call)."""
+    src, line, fn = ATTN_SOURCES[name]
+    m = rows[(name, MEASURE_ATTN_SHAPE, False)]
+    c = rows[(name, MEASURE_ATTN_SHAPE, True)]
+    p = rows[(name, SEQ_ATTN_SHAPE, False)]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"cxxnet_tpu_torch/csrc/{src}",
+        "replaces": f"cxxnet_tpu/ops/pallas_attention.py:{line}",
+        "replaces_fn": fn,
+        "unit": "one launch at (4,8,4096,128) bfloat16, non-causal, L2 "
+                "warm",
+        "launches": launches,
+        "launches_unit": "seq_mnist.conf training, 12 steps (phase 8a)",
+        "max_abs_err": max_err,
+        "ms": round(m["kernel"], 6),
+        "kernel_cold_ms": round(m["kernel_cold"], 6),
+        "tflops": round(m["flops"] / m["kernel"] / 1e9, 3),
+        "plain_ms": round(m["plain"], 6),
+        "bound_ms": round(m["bound"], 6),
+        "bound_by": m["by"],
+        "library_ms": round(m["library"], 6),
+        "library_unit": ("scaled_dot_product_attention" if name == "attn_fwd"
+                         else "backward of scaled_dot_product_attention "
+                              "(dq, dk, dv in one call)"),
+        "causal_ms": round(c["kernel"], 6),
+        "causal_plain_ms": round(c["plain"], 6),
+        "causal_bound_ms": round(c["bound"], 6),
+        "causal_library_ms": round(c["library"], 6),
+        "path_ms": round(p["kernel"], 6),
+        "path_cold_ms": round(p["kernel_cold"], 6),
+        "path_plain_ms": round(p["plain"], 6),
+        "path_bound_ms": round(p["bound"], 6),
+        "path_library_ms": round(p["library"], 6),
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -942,10 +1440,15 @@ def main() -> int:
 
     max_err, main_rows = phase_kernels(torch)
     bwd_err, bwd_rows = phase_kernels_bwd(torch)
+    attn_err, attn_rows = phase_attention_kernels(torch, card)
     launches = phase_serving(torch, card)
     phase_cli()
     train_counts = phase_training(torch, card)
     phase_cli_train()
+    seq_counts, seq_step_ms, seq_tr = phase_seq_training(torch, card)
+    seq_serve_launches, seq_batches = phase_seq_serving(torch, card, seq_tr)
+    del seq_tr
+    phase_seq_cli()
 
     # the kernels line: the LRN's two launches of one served AlexNet
     # batch (b64, bfloat16), warm L2, summed - the main path's unit
@@ -1003,7 +1506,10 @@ def main() -> int:
         "bound_by": bb[0]["by"],
         "library_ms": both("library", bb),
         "library_cold_ms": both("library_cold", bb),
-    }]}))
+    }] + [attn_entry(n, attn_rows, attn_err[n], seq_counts[n])
+          for n in K2]}))
+    say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
+        f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

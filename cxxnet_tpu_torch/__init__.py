@@ -17,6 +17,17 @@ A second package beside `cxxnet_tpu`, ported in slices:
    divergence guard, optimizer state in checkpoints, and the CLI tasks
    train / finetune and `continue = 1`. Kernel: K1-bwd, the LRN input
    gradient (`csrc/lrn_bwd.cu`).
+3. The sequence family: `ops/attention.py` (naive and blockwise
+   attention, the online-softmax partials), the layers attention,
+   attention_naive, seq_fullc, layernorm, pos_embed, split and add
+   (`layers/attention.py`, `layers/common.py`), so that
+   examples/LongSeq/seq_mnist.conf trains and serves. Kernels: K2-fwd,
+   K2-dq and K2-dkv, the flash-attention forward and its two gradients
+   (`csrc/attn_fwd.cu`, `attn_dq.cu`, `attn_dkv.cu`, wrapped by the
+   autograd Function of `ops/flash_attention.py`) - on the card at
+   every head_dim up to 256 and every length, where the JAX package
+   takes its TPU kernel only for Mosaic-tileable shapes.
+   `transformer_stack` and `moe` are not ported yet.
 
 Ground rules:
 
@@ -25,11 +36,12 @@ Ground rules:
 - This package imports `torch` and never `jax`, and nothing of
   `cxxnet_tpu` - not even its jax-free modules. It keeps its own copies
   of what it needs (`utils/config.py`, `nnet/net_config.py`,
-  `nnet/checkpoint.py`, ...).
+  `nnet/checkpoint.py`, `ops/attention.py`, ...).
 - Module names, layouts and param keys follow the JAX package: NCHW
   activations, OIHW conv weights, (nhidden, nin) fullc weights, params
-  as {param_key: {"wmat", "bias"}} - so weights cross unchanged
-  (`convert.py`).
+  as {param_key: {"wmat", "bias"}} and the sequence layers' own names
+  (`wproj` of attention, `slope` of layernorm) - so weights cross
+  unchanged (`convert.py`).
 - Every TPU (Pallas) kernel on the path is a kernel written by hand for
   Hopper (`csrc/`, built with nvcc at first use - `kernels.py`); its
   wrapper launches it for a CUDA tensor or raises, and uses the plain
@@ -46,8 +58,10 @@ Ground rules:
   NotImplementedError naming the key; they are never silently ignored.
 - PyTorch idiom inside: plain functions on tensors and modules with an
   explicit device, an explicit `torch.Generator` for every random draw,
-  `torch.autograd.Function` where a kernel needs a gradient. Params
-  stay float32 master tensors in the JAX package's pytree form, and the
-  updater state mirrors its `state["ustate"]`, so checkpoints and
-  `convert.py` carry both across unchanged.
+  `torch.autograd.Function` where a kernel needs a gradient (the
+  attention core's saves (q, k, v, o, lse) and its backward launches
+  K2-dq and K2-dkv). Params stay float32 master tensors in the JAX
+  package's pytree form, and the updater state mirrors its
+  `state["ustate"]`, so checkpoints and `convert.py` carry both across
+  unchanged.
 """

@@ -1,13 +1,14 @@
 """Hand-written CUDA kernels: build, load and launch accounting.
 
 Every kernel source lives in `csrc/` as one `.cu` file with a plain C
-entry point. It is compiled with `nvcc` for `sm_90a` (Hopper) into a
-shared library under `build/` (listed in .gitignore) the first time a
-wrapper needs it, and bound with `ctypes`. The library name carries a
-hash of the source and flags, so an edited source rebuilds and a stale
-library is never loaded. Nothing here runs at import time: the package
-imports on a machine with no `nvcc` and no card, and the CPU paths never
-reach this module's loader.
+entry point; headers shared between sources are `csrc/*.cuh`. It is
+compiled with `nvcc` for `sm_90a` (Hopper) into a shared library under
+`build/` (listed in .gitignore) the first time a wrapper needs it, and
+bound with `ctypes`. The library name carries a hash of the source, the
+shared headers and the flags, so an edited source or header rebuilds
+and a stale library is never loaded. Nothing here runs at import time:
+the package imports on a machine with no `nvcc` and no card, and the
+CPU paths never reach this module's loader.
 
 Each wrapper counts its launches in `LAUNCHES` (one per kernel launch,
 nowhere else), so a run can show that its main path went through the
@@ -32,6 +33,9 @@ BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES: Dict[str, str] = {
     "lrn_fwd": "lrn_fwd.cu",
     "lrn_bwd": "lrn_bwd.cu",
+    "attn_fwd": "attn_fwd.cu",
+    "attn_dq": "attn_dq.cu",
+    "attn_dkv": "attn_dkv.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -71,8 +75,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [SOURCES[name]] + headers:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(src.encode() + b"\0" + f.read())
     return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -142,6 +149,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.lrn_bwd.argtypes = [vp, vp, vp, i32, i64, i32, i64, i32, f32,
                                 f32, f32, f32, vp]
         lib.lrn_bwd.restype = i32
+    # attention: (pointers..., dtype, B*H, Sq, Sk, D, causal, scale, stream)
+    dims = [i32, i64, i32, i32, i32, i32, f32, vp]
+    if name == "attn_fwd":
+        lib.attn_fwd.argtypes = [vp] * 5 + dims
+        lib.attn_fwd.restype = i32
+    if name == "attn_dq":
+        lib.attn_dq.argtypes = [vp] * 7 + dims
+        lib.attn_dq.restype = i32
+    if name == "attn_dkv":
+        lib.attn_dkv.argtypes = [vp] * 8 + dims
+        lib.attn_dkv.restype = i32
 
 
 def check(name: str, rc: int) -> None:

@@ -1,7 +1,8 @@
 """The non-loss layers of the port (counterpart of
 cxxnet_tpu/layers/common.py): fullc, conv, max/sum/avg pooling, the
-activations, lrn, dropout and flatten. Each class names the reference
-file it mirrors; the backward is autograd's through the forward."""
+activations, lrn, dropout, flatten, split and add. Each class names
+the reference file it mirrors; the backward is autograd's through the
+forward."""
 
 from __future__ import annotations
 
@@ -379,3 +380,42 @@ class FlattenLayer(Layer):
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         return [x.reshape(x.shape[0], 1, 1, -1)]
+
+
+@register_layer
+class SplitLayer(Layer):
+    """split (src/layer/split_layer-inl.hpp): 1 -> N copies; autograd sums
+    the output gradients, the reference backward."""
+
+    type_name = "split"
+    num_out = 1  # set by Network from the connection arity
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        return [in_shapes[0]] * self.num_out
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        return [inputs[0]] * self.num_out
+
+
+@register_layer
+class AddLayer(Layer):
+    """add: elementwise sum of N same-shape inputs (the residual
+    connection of the sequence family); autograd hands the output
+    gradient to every input."""
+
+    type_name = "add"
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        if len(in_shapes) < 2:
+            raise ValueError("add layer needs at least 2 inputs")
+        for s in in_shapes[1:]:
+            if tuple(s) != tuple(in_shapes[0]):
+                raise ValueError(
+                    f"add: input shapes differ: {in_shapes}")
+        return [in_shapes[0]]
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        out = inputs[0]
+        for x in inputs[1:]:
+            out = out + x
+        return [out]

@@ -19,6 +19,7 @@ from torch import nn
 
 from cxxnet_tpu_torch.layers import create_layer
 from cxxnet_tpu_torch.layers.base import Layer, Shape
+from cxxnet_tpu_torch.layers.common import SplitLayer
 from cxxnet_tpu_torch.layers.loss import LossLayer
 from cxxnet_tpu_torch.nnet.net_config import NetConfig
 
@@ -58,6 +59,8 @@ class Network(nn.Module):
                 for k, v in cfg.layercfg[idx]:
                     layer.set_param(k, v)
             self.layer_objs.append(layer)
+            if isinstance(layer, SplitLayer):
+                layer.num_out = len(info.nindex_out)
             if isinstance(layer, LossLayer):
                 if info.nindex_in != info.nindex_out:
                     raise ValueError(

@@ -1,7 +1,8 @@
-"""The port on the card: the CUDA kernels against their plain versions,
-and the serving and training paths through them. Every test here needs
-an NVIDIA card and skips without one (marker `cuda`). This file imports no jax, so it
-runs where only the port's dependencies are installed:
+"""The port on the card: the CUDA kernels (K1-fwd, K1-bwd, and the
+flash-attention K2-fwd, K2-dq, K2-dkv) against their plain versions, and
+the serving and training paths through them. Every test here needs an
+NVIDIA card and skips without one (marker `cuda`). This file imports no
+jax, so it runs where only the port's dependencies are installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -13,6 +14,7 @@ import torch
 from cxxnet_tpu_torch import convert, kernels
 from cxxnet_tpu_torch.io.data import DataBatch
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+from cxxnet_tpu_torch.ops import flash_attention as FA
 from cxxnet_tpu_torch.ops import lrn as lrn_ops
 from cxxnet_tpu_torch.serve import Server
 from torch_port_util import NARROW_ALEXNET, cuda_device  # noqa: F401
@@ -161,7 +163,8 @@ def test_narrow_alexnet_training_step_card_matches_cpu(cuda_device):
     kernels.reset_launches()
     lg = gpu.update(DataBatch(data=data, label=label), keep=keep)
     torch.cuda.synchronize()
-    assert kernels.launches() == {"lrn_fwd": 2, "lrn_bwd": 2}
+    assert kernels.launches() == {"lrn_fwd": 2, "lrn_bwd": 2, "attn_fwd": 0,
+                                  "attn_dq": 0, "attn_dkv": 0}
     lc = cpu.update(DataBatch(data=data, label=label), keep=keep)
     np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
     shapes = cpu.net.param_shapes()
@@ -171,3 +174,167 @@ def test_narrow_alexnet_training_step_card_matches_cpu(cuda_device):
         for pn in pc[lk]:
             np.testing.assert_allclose(pg[lk][pn], pc[lk][pn], rtol=1e-4,
                                        atol=1e-5, err_msg=f"{lk}/{pn}")
+
+
+# ---------------------------------------------------------------------------
+# flash attention: K2-fwd, K2-dq, K2-dkv
+# ---------------------------------------------------------------------------
+
+def _attn_close(got, ref, grad=False):
+    """A kernel's output against its plain version on the same inputs.
+    float32: rtol 1e-5 / atol 1e-5 (rtol 1e-4 / atol 1e-5 for gradients,
+    tests/test_pallas_attention.py:65) - summation order only. bfloat16:
+    |got - ref| <= 1e-2 |ref| + 1e-2 max|ref| + 1e-5, inside the JAX
+    test's 5e-2 (:77); the 1e-5 is float32 cancellation noise where the
+    true value is 0 (one visible key). Both round p, ds and the result
+    to bfloat16 at the same points, so they differ where a float32 value sits on either side of
+    a rounding boundary (one bfloat16 ulp, 2^-8 relative), or where the
+    online softmax rounds p against a running max."""
+    g, r = got.float(), ref.float()
+    if ref.dtype == torch.float32:
+        rtol = 1e-4 if grad else 1e-5
+        return bool(torch.allclose(g, r, rtol=rtol, atol=1e-5))
+    bar = 1e-2 * r.abs() + 1e-2 * r.abs().max() + 1e-5
+    return bool(torch.all((g - r).abs() <= bar))
+
+
+ATTN_CASES = [
+    # (B, H, S, D, causal, scale)
+    (100, 4, 28, 7, False, None),   # seq_mnist.conf's attention
+    (2, 3, 1, 7, True, None),
+    (2, 1, 12, 8, False, None),
+    (2, 3, 28, 16, True, None),
+    (1, 3, 33, 64, True, None),
+    (2, 1, 100, 96, False, 0.2),
+    (1, 3, 257, 128, True, None),
+    (1, 1, 257, 128, False, None),
+    (1, 1, 33, 256, True, 0.05),
+    (2, 3, 100, 7, True, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d,causal,scale", ATTN_CASES)
+def test_attention_kernels_match_reference(cuda_device, b, h, s, d, causal,
+                                           scale, dtype):
+    """K2-fwd (o, lse), K2-dq and K2-dkv against flash_fwd_reference /
+    flash_bwd_reference on the same inputs, one launch per call."""
+    g = torch.Generator(device=cuda_device).manual_seed(s * 31 + d)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=cuda_device)
+                   .to(dtype) for _ in range(4))
+    before = kernels.launches()
+    o, lse = FA.attn_fwd(q, k, v, causal, scale)
+    delta = FA.flash_delta(o, do)
+    dq = FA.attn_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = FA.attn_dkv(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert [after[n] - before[n] for n in ("attn_fwd", "attn_dq",
+                                           "attn_dkv")] == [1, 1, 1]
+    ro, rlse = FA.flash_fwd_reference(q, k, v, causal, scale)
+    rdq, rdk, rdv = FA.flash_bwd_reference(q, k, v, o, lse, do, causal,
+                                           scale)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert lse.shape == (b, h, s)
+    assert _attn_close(o, ro)
+    assert torch.allclose(lse, rlse, rtol=1e-5, atol=1e-5)
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                           ("dv", dv, rdv)):
+        assert got.dtype == dtype, name
+        assert _attn_close(got, ref, grad=True), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_autograd_gives_the_kernels_bits(cuda_device, dtype):
+    """flash_attention's forward and backward are the kernels called
+    directly: the same bits, one launch of each per step; a
+    non-contiguous upstream gradient is made contiguous first."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(3, 4, 28, 7, generator=g, device=cuda_device)
+               .to(dtype) for _ in range(3))
+    do = torch.randn(3, 28, 4, 7, generator=g, device=cuda_device).to(
+        dtype).transpose(1, 2)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kernels.reset_launches()
+    out = FA.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert (counts["attn_fwd"], counts["attn_dq"], counts["attn_dkv"]) == (
+        1, 1, 1)
+    o, lse = FA.attn_fwd(q, k, v, True)
+    dc = do.contiguous()
+    delta = FA.flash_delta(o, dc)
+    assert torch.equal(out, o)
+    assert torch.equal(leaves[0].grad, FA.attn_dq(q, k, v, dc, lse, delta,
+                                                  True))
+    dk, dv = FA.attn_dkv(q, k, v, dc, lse, delta, True)
+    assert torch.equal(leaves[1].grad, dk)
+    assert torch.equal(leaves[2].grad, dv)
+
+
+def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
+    x = torch.zeros(1, 2, 8, 16, device=cuda_device)
+    wide = torch.zeros(1, 2, 8, 257, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 257 exceeds"):
+        FA.attn_fwd(wide, wide, wide)
+    with pytest.raises(ValueError, match="head_dim 257 exceeds"):
+        FA.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="dtype"):
+        FA.attn_fwd(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="dtypes differ"):
+        FA.attn_fwd(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="do not fit"):
+        FA.attn_fwd(x, x[:, :1], x[:, :1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        FA.attn_fwd(x.cpu(), x, x)
+    lse = torch.zeros(1, 2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="lse must be"):
+        FA.attn_dq(x, x, x, x, lse[:, :, :4], lse)
+    with pytest.raises(ValueError, match="do must be"):
+        FA.attn_dkv(x, x, x, x.bfloat16(), lse, lse)
+
+
+def test_seq_net_training_step_card_matches_cpu(cuda_device):
+    """One step of seq_mnist.conf's net (float32, TF32 off, batch 8) on
+    the card and on the CPU from the same weights, batch and dropout
+    masks: params within rtol 1e-4 / atol 1e-5, the loss within rtol
+    1e-5; the step launches each K2 kernel once, and inference one
+    K2-fwd."""
+    import os
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conf_path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                             "LongSeq", "seq_mnist.conf")
+    with open(conf_path) as f:
+        net = "netconfig=start" + f.read().split("netconfig=start", 1)[1]
+    conf = (net.replace("batch_size = 100", "batch_size = 8")
+            .replace("dtype = bfloat16", "dtype = float32")
+            + "\nsilent = 1\nseed = 3\n")
+    gpu = NetTrainer(cfg=conf, device="cuda:0")
+    gpu.init_model()
+    cpu = NetTrainer(cfg=conf, device="cpu")
+    cpu.init_model()
+    rng = np.random.RandomState(0)
+    data = rng.rand(8, 1, 28, 28).astype(np.float32)
+    label = rng.randint(0, 10, size=(8, 1)).astype(np.float32)
+    keep = numpy_keep(cpu, seed=1)
+    kernels.reset_launches()
+    lg = gpu.update(DataBatch(data=data, label=label), keep=keep)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert (counts["attn_fwd"], counts["attn_dq"], counts["attn_dkv"]) == (
+        1, 1, 1)
+    lc = cpu.update(DataBatch(data=data, label=label), keep=keep)
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    shapes = cpu.net.param_shapes()
+    pg = convert.params_to_numpy(gpu.state["params"], shapes)
+    pc = convert.params_to_numpy(cpu.state["params"], shapes)
+    for lk in pc:
+        for pn in pc[lk]:
+            np.testing.assert_allclose(pg[lk][pn], pc[lk][pn], rtol=1e-4,
+                                       atol=1e-5, err_msg=f"{lk}/{pn}")
+    kernels.reset_launches()
+    b = DataBatch(data=data, label=label)
+    np.testing.assert_allclose(gpu.predict_dist(b), cpu.predict_dist(b),
+                               rtol=1e-4, atol=1e-6)
+    assert kernels.launches()["attn_fwd"] == 1

@@ -141,7 +141,7 @@ def test_graph_pass_stamps_raise(type_name, key, val):
 
 
 @pytest.mark.parametrize("type_name", ["batch_norm", "insanity",
-                                       "attention", "prelu"])
+                                       "transformer_stack", "moe", "prelu"])
 def test_layer_types_not_yet_ported_raise(type_name):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port_layer(type_name)
