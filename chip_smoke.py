@@ -46,7 +46,23 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    MNIST-format data under ./data/ of a temporary directory; (d) the
    Server over (a)'s trainer, answering ragged requests of 1-100 rows
    from two threads, one K2-fwd per dispatched batch. (d) runs before
-   (c).
+   (c);
+9. int8 (K3) and the graph passes: (a) K3 against its plain version,
+   bitwise, at AlexNet's fullc shapes (m = 64), bench.py's int8 MLP
+   (m = 16), ragged shapes, AlexNet b64's convolution GEMMs and the
+   measuring shape (4096,4096,4096), with times (warm, L2-cold),
+   torch._int_mm as the yardstick and the bound; (b) AlexNet.conf
+   (bfloat16, max_batch 64) with graph_passes = dead_layer_elim,
+   elim_reshape,fuse_activation,quantize_int8, calibrated on the first
+   batch and served to phase 4's 30 ragged requests from two threads:
+   served rows against predict_dist, 11 K3 launches per batch, the
+   split of latency, the int8 graph's rows against the float graph's;
+   (c) every quantized site's int32 accumulator, K3's route against
+   the plain version, and a float32 int8 forward (TF32 off, b8) on the
+   card against the CPU; (d) bench.py's int8 MLP pair at b16
+   (int8_over_fold, argmax agreement on 256 rows); (e) the CLI's task =
+   pred and task = serve with the int8 passes (identical outputs,
+   pass_calibration_batches and pass_calibration_iter).
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -610,6 +626,7 @@ def phase_serving(torch, card):
         f"{stats['device_p50_ms']} ms), {rows / wall:.1f} rows/s "
         f"({len(reqs)} requests from 2 threads, max_batch 64, bfloat16) "
         f"on {card}")
+    served = dict(stats, rows_per_s=rows / wall)
 
     # where a full bucket's time goes: host staging (float32 rows to
     # the card, cast there) against the forward alone, each synchronised
@@ -624,6 +641,7 @@ def phase_serving(torch, card):
     say(f"full bucket of 64: staging {stage_ms:.3f} ms (host clock), "
         f"forward {fwd_ms:.3f} ms (CUDA events, "
         f"{64 / fwd_ms * 1e3:.0f} rows/s device-only) on {card}")
+    served["forward_ms"] = fwd_ms
 
     # served rows against predict_dist of the same rows: bfloat16
     # forwards whose cuDNN/cuBLAS algorithms may differ per bucket size,
@@ -685,7 +703,7 @@ def phase_serving(torch, card):
             f"{f_atol}, or argmax differs")
     say(f"float32 (TF32 off) card vs CPU on 4 rows: max abs {diff:.3e} "
         f"(rtol {f_rtol}, atol {f_atol}), argmax equal")
-    return launches
+    return launches, served
 
 
 # ---------------------------------------------------------------------------
@@ -837,6 +855,13 @@ SEQ_GROUPS = (
     ("attn_fwd kernel", "kernel", "attn_fwd_kernel"),
     ("attn_dq kernel", "kernel", "attn_dq_kernel"),
     ("attn_dkv kernel", "kernel", "attn_dkv_kernel"),
+)
+
+
+INT8_GROUPS = (
+    ("int8_mm kernel", "kernel", "int8_mm_kernel"),
+    ("lrn_fwd kernel", "kernel", "lrn_fwd_kernel"),
+    ("im2col unfold", "op", "aten::im2col"),
 )
 
 
@@ -1355,6 +1380,545 @@ def phase_seq_serving(torch, card, tr):
     return launches, stats["batches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the graph passes and int8 - K3, AlexNet served int8-quantized
+# ---------------------------------------------------------------------------
+
+INT8_PASSES = "dead_layer_elim,elim_reshape,fuse_activation,quantize_int8"
+
+# dense int8 tensor-core rate of the H100 SXM (data sheet): what K3's
+# bound is taken against
+INT8_OPS_PER_S = 1.979e15
+
+# K3's shapes, (m, k, n): AlexNet's three fullc layers at a served batch
+# of 64, bench.py's int8 MLP at b16, ragged shapes, the measuring shape,
+# and AlexNet b64's int8 convolutions as the im2col GEMM of one group
+K3_PATH = {"fc6": (64, 9216, 4096), "fc7": (64, 4096, 4096),
+           "fc8": (64, 4096, 1000)}
+K3_MLP = ((16, 512, 2048), (16, 2048, 2048), (16, 2048, 10))
+K3_RAGGED = tuple((m, k, n) for m in (1, 17, 100) for k in (3, 363, 1201)
+                  for n in (1, 1000))
+K3_MEASURE = (4096, 4096, 4096)
+# name: (m, k, n, groups) - one K3 launch per group
+K3_CONV = {"conv1": (193600, 363, 96, 1), "conv2": (46656, 1200, 128, 2),
+           "conv3": (10816, 2304, 384, 1), "conv4": (10816, 1728, 192, 2),
+           "conv5": (10816, 1728, 128, 2)}
+# K3 launches of one AlexNet batch on the int8 route: 3 fullc + 8
+# convolution groups
+K3_PER_ALEXNET_BATCH = 3 + sum(g for *_, g in K3_CONV.values())
+
+
+def k3_bound_ms(m: int, k: int, n: int):
+    """Least time for one int8 product: the larger of its bytes (x and w
+    read once as int8, the int32 output written once) over the memory
+    rate and its 2mnk operations over the int8 tensor-core rate."""
+    bytes_ms = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * m * n * k / INT8_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def int_mm_call(torch, x, w):
+    """One torch._int_mm (cuBLASLt) call computing the same product - the
+    library yardstick - on operands zero-padded to its rules (more than
+    16 rows, k and n multiples of 8); zeros add nothing to the sums."""
+    m, k = x.shape
+    n = w.shape[0]
+    mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    xp = torch.zeros((mp, kp), dtype=torch.int8, device=x.device)
+    xp[:m, :k] = x
+    wp = torch.zeros((np_, kp), dtype=torch.int8, device=x.device)
+    wp[:n, :k] = w
+    wt = wp.t()  # (k, n), column-major: w as stored
+    try:
+        torch._int_mm(xp, wt)
+    except RuntimeError:
+        wt = wt.contiguous()
+    ref = torch._int_mm(xp, wt)[:m, :n]
+    return (lambda: torch._int_mm(xp, wt)), ref
+
+
+def phase_int8_kernel(torch, card):
+    """9a: K3 against its plain version, bitwise, at every shape; times
+    (CUDA events, warm and L2-cold) at the timed ones."""
+    from cxxnet_tpu_torch.ops import int8 as int8_ops
+
+    say("== phase 9a: the int8 dot K3 vs its plain version ==")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    timed = set(K3_PATH.values()) | set(K3_MLP) | {K3_MEASURE} | {
+        (m, k, n) for m, k, n, _g in K3_CONV.values()}
+    shapes = (list(K3_PATH.values()) + list(K3_MLP) + list(K3_RAGGED)
+              + [K3_MEASURE] + [(m, k, n) for m, k, n, _g
+                                in K3_CONV.values()])
+    rows = {}
+    for m, k, n in shapes:
+        x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        got = int8_ops.int8_mm(x, w)
+        ref = int8_ops.int8_matmul_reference(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            bad = int((got != ref).sum())
+            raise AssertionError(f"K3 differs from its plain version at "
+                                 f"(m,k,n)=({m},{k},{n}): {bad} entries")
+        if (m, k, n) not in timed:
+            continue
+        lib, lib_out = int_mm_call(torch, x, w)
+        if not torch.equal(lib_out, ref):
+            raise AssertionError(f"torch._int_mm differs at ({m},{k},{n})")
+        iters = 10 if m * n * k > 1e10 else 50
+        bound, by = k3_bound_ms(m, k, n)
+        rows[(m, k, n)] = r = {
+            "kernel": time_warm(torch, lambda: int8_ops.int8_mm(x, w),
+                                iters),
+            "kernel_cold": time_cold(torch, lambda: int8_ops.int8_mm(x, w),
+                                     flush, 10),
+            "plain": time_warm(
+                torch, lambda: int8_ops.int8_matmul_reference(x, w), 5),
+            "library": time_warm(torch, lib, iters),
+            "bound": bound, "by": by,
+            "splits": int8_ops.k3_splits(m, n, k)}
+        say(f"K3 ({m},{k},{n}) splits {r['splits']}: {r['kernel']:.4f} ms "
+            f"warm, {r['kernel_cold']:.4f} ms cold, "
+            f"{2.0 * m * n * k / r['kernel'] / 1e9:.2f} TOP/s; plain "
+            f"{r['plain']:.4f} ms; torch._int_mm {r['library']:.4f} ms; "
+            f"bound {bound:.4f} ms ({by})")
+    say(f"K3 bitwise equal to its plain version at all {len(shapes)} "
+        f"shapes ({len(K3_RAGGED)} ragged) on {card}")
+    return rows
+
+
+def served_run(torch, srv, reqs):
+    """Submit `reqs` from two client threads; (results, stats, wall s)."""
+    results = [None] * len(reqs)
+    errors = []
+
+    def client(idx):
+        try:
+            futs = [(i, srv.submit(reqs[i])) for i in idx]
+            for i, f in futs:
+                results[i] = f.result(timeout=300)
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    srv.start()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client,
+                                args=(range(k, len(reqs), 2),))
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    stats = srv.stop()
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads) or any(r is None
+                                                 for r in results):
+        raise AssertionError("a serve request never resolved")
+    return results, stats, wall
+
+
+def phase_int8_serving(torch, card, float_served):
+    """9b: AlexNet.conf (bfloat16, max_batch 64) with the int8 serving
+    graph passes, calibrated on the first batch, served to 30 ragged
+    requests from two threads - the main path of K3."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.serve import Server
+
+    say("== phase 9b: AlexNet.conf served int8-quantized (graph_passes = "
+        f"{INT8_PASSES}) ==")
+    tr = alexnet_trainer([f"graph_passes={INT8_PASSES}"])
+    rng = np.random.RandomState(11)  # phase 4's requests
+    sizes = [int(s) for s in rng.randint(1, 65, size=30)]
+    sizes[0], sizes[1] = 64, 1
+    reqs = [(rng.rand(s, 3, 227, 227) * 255.0 - 128.0).astype(np.float32)
+            for s in sizes]
+    t0 = time.perf_counter()
+    tr.calibrate_graph_passes(DataBatch(
+        data=reqs[0], label=np.zeros((64, 1), np.float32)))
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    graph = tr.infer_graph(tr.net_cfg.num_nodes - 1)
+    sites = [q.key for q in graph.gm.quants if q.wscale is not None]
+    if tr.passes_need_calibration() or len(sites) != 8:
+        raise AssertionError(f"calibration left quantized sites {sites}")
+    say(f"calibrated on the first batch (64 rows) in {calib_s:.3f} s: "
+        f"int8 sites {sites}")
+    for line in graph.gm.log:
+        say(f"  graph_passes: {line}")
+    srv = Server(tr, max_batch=64)
+    say(f"buckets {list(srv.buckets)}; warmup {srv.warmup():.3f} s")
+    kernels.reset_launches()
+    results, stats, wall = served_run(torch, srv, reqs)
+    counts = kernels.launches()
+    batches = stats["batches"]
+    if (counts["int8_mm"] != K3_PER_ALEXNET_BATCH * batches or batches == 0
+            or counts["lrn_fwd"] != 2 * batches):
+        raise AssertionError(
+            f"launches {counts} over {batches} batches; the int8 route "
+            f"runs K3 {K3_PER_ALEXNET_BATCH} times and K1-fwd twice per "
+            "batch")
+    rows = sum(sizes)
+    say(f"served {len(reqs)} requests, {rows} rows in {batches} batches "
+        f"({stats['padding_rows']} padding rows); int8_mm launches "
+        f"{counts['int8_mm']} = {K3_PER_ALEXNET_BATCH} per batch (3 fullc "
+        f"+ 8 conv groups), lrn_fwd {counts['lrn_fwd']} = 2 per batch")
+    say(f"int8: latency p50 {stats['latency_p50_ms']} ms, p99 "
+        f"{stats['latency_p99_ms']} ms (queue p50 {stats['queue_p50_ms']} "
+        f"ms, device p50 {stats['device_p50_ms']} ms), "
+        f"{rows / wall:.1f} rows/s on {card}")
+    f = float_served
+    say(f"float (phase 4, same requests): latency p50 "
+        f"{f['latency_p50_ms']} ms, p99 {f['latency_p99_ms']} ms (queue "
+        f"p50 {f['queue_p50_ms']} ms, device p50 {f['device_p50_ms']} ms),"
+        f" {f['rows_per_s']:.1f} rows/s")
+    staged = tr.stage_infer_rows(reqs[0])
+    fwd_ms = time_warm(torch, lambda: tr.infer_rows(staged), iters=10)
+    say(f"full bucket of 64: int8 forward {fwd_ms:.3f} ms, float forward "
+        f"{f['forward_ms']:.3f} ms (phase 4) (CUDA events)")
+    say("where the int8 forward of a full bucket goes (5 forwards "
+        "profiled):")
+    say_profile(profile_steps(torch, lambda: tr.infer_rows(staged), 5,
+                              INT8_GROUPS), 5, card)
+
+    # served rows against predict_dist: the int8 route is row-local and
+    # its products exact, so rows should agree bitwise; the gate is
+    # phase 4's bfloat16 bar, and the bitwise count is reported
+    rtol, atol = 0.1, 2e-4
+    worst = 0.0
+    exact = 0
+    preds = []
+    for data, got in zip(reqs, results):
+        ref = tr.predict_dist(DataBatch(
+            data=data, label=np.zeros((data.shape[0], 1), np.float32)))
+        preds.append(ref)
+        if got.shape != ref.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"served rows {got.shape} vs {ref.shape}")
+        if not np.allclose(got, ref, rtol=rtol, atol=atol):
+            raise AssertionError(
+                f"int8 served rows differ from predict_dist: max abs "
+                f"{np.abs(got - ref).max():.3e}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+        exact += int(np.all(got == ref, axis=1).sum())
+    say(f"int8 served vs predict_dist: {exact}/{rows} rows bitwise equal, "
+        f"max abs {worst:.3e} (bar rtol {rtol}, atol {atol})")
+
+    # the float graph's rows against the int8 graph's (reported: random
+    # weights give near-uniform logits, so argmax is near a tie)
+    trf = alexnet_trainer([])
+    fl = np.concatenate([trf.predict_dist(DataBatch(
+        data=d, label=np.zeros((d.shape[0], 1), np.float32))) for d in reqs])
+    q8 = np.concatenate(preds)
+    say(f"int8 graph vs float graph on {rows} rows: max abs "
+        f"{np.abs(q8 - fl).max():.3e}, argmax agreement "
+        f"{float((q8.argmax(1) == fl.argmax(1)).mean()):.4f} (reported, "
+        "not gated: random weights)")
+    del trf, srv
+    torch.cuda.empty_cache()
+    return tr, reqs, {"launches": counts["int8_mm"], "batches": batches,
+                      "rows_per_s": rows / wall, "stats": stats,
+                      "forward_ms": fwd_ms}
+
+
+def site_taps(torch, graph, staged):
+    """{quant site key: (layer, params, input activation)} of one
+    forward of the transformed graph."""
+    from cxxnet_tpu_torch.nnet.network import param_key
+    gm = graph.gm
+    by_live = {live: new for new, live in gm.param_map().items()}
+    idx = {param_key(gm.cfg, i): i for i, li in enumerate(gm.cfg.layers)
+           if not li.is_shared}
+    want = {q.key: idx[by_live[q.key]] for q in gm.quants
+            if q.wscale is not None}
+    taps = {i: None for i in want.values()}
+    params = graph.params()
+    with torch.inference_mode():
+        graph.net(params, staged, taps=taps)
+    return {k: (graph.net.layer_objs[i], params[by_live[k]], taps[i])
+            for k, i in want.items()}
+
+
+def site_acc(torch, layer, p, x, plain):
+    """A quant site's int32 accumulator from its input activation: K3's
+    route, or the plain version with `plain`."""
+    from cxxnet_tpu_torch.ops import int8 as int8_ops
+    xq = int8_ops.quantize_act(x, p["ascale"])
+    if p["wmat_q"].dim() == 4:
+        q = layer.param
+        conv = (int8_ops.int8_conv2d_reference if plain
+                else int8_ops.int8_conv2d)
+        return xq, conv(xq, p["wmat_q"], q.stride, q.pad_y, q.pad_x,
+                        q.num_group)
+    mm = (int8_ops.int8_matmul_reference if plain
+          else int8_ops.int8_matmul)
+    xq = xq.reshape(xq.shape[0], -1)
+    return xq, mm(xq, p["wmat_q"])
+
+
+def phase_int8_sites(torch, card, tr, reqs):
+    """9c: each quantized site's int32 accumulator, card route against
+    the plain version on the same int8 operands; then a float32-compute
+    int8 forward (TF32 off, b8) on the card against the CPU."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+
+    say("== phase 9c: per-site int32 accumulators; float32 int8 forward, "
+        "card vs CPU ==")
+    graph = tr.infer_graph(tr.net_cfg.num_nodes - 1)
+    taps = site_taps(torch, graph, tr.stage_infer_rows(reqs[0]))
+    for key, (layer, p, x) in taps.items():
+        _xq, card_acc = site_acc(torch, layer, p, x, plain=False)
+        _xq, plain_acc = site_acc(torch, layer, p, x, plain=True)
+        torch.cuda.synchronize()
+        if not torch.equal(card_acc, plain_acc):
+            raise AssertionError(f"{key}: K3-route accumulator differs "
+                                 "from the plain version's")
+        say(f"  {key}: int32 accumulator {tuple(card_acc.shape)} bitwise "
+            f"equal (|acc| max {int(card_acc.abs().max())})")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = [f"graph_passes={INT8_PASSES}", "dtype=float32", "batch_size=8"]
+    gpu = alexnet_trainer(over)
+    cpu = alexnet_trainer(over + ["dev=cpu"])
+    batch = DataBatch(data=reqs[0][:8], label=np.zeros((8, 1), np.float32))
+    cpu.calibrate_graph_passes(batch)
+    gpu.set_calibration(*cpu.calibration())  # one set of scales
+    g_rows, c_rows = gpu.predict_dist(batch), cpu.predict_dist(batch)
+    node = gpu.net_cfg.num_nodes - 1
+    gt = site_taps(torch, gpu.infer_graph(node),
+                   gpu.stage_infer_rows(batch.data))
+    ct = site_taps(torch, cpu.infer_graph(node),
+                   cpu.stage_infer_rows(batch.data))
+    differ = total = 0
+    for key in gt:
+        gq, _ = site_acc(torch, *gt[key], plain=True)
+        cq, _ = site_acc(torch, *ct[key], plain=True)
+        differ += int((gq.cpu() != cq).sum())
+        total += cq.numel()
+    # the float32 layers between the int8 products (dequantize, relu,
+    # pooling, LRN, softmax) differ by ulps between card and CPU, and an
+    # ulp can move an activation across an int8 rounding boundary: one
+    # quantum at one input of the next product. rtol 1e-2 bounds that
+    rtol, atol = 1e-2, 1e-6
+    diff = float(np.abs(g_rows - c_rows).max())
+    if not (np.allclose(g_rows, c_rows, rtol=rtol, atol=atol)
+            and np.array_equal(g_rows.argmax(1), c_rows.argmax(1))):
+        raise AssertionError(f"float32 int8 forward, card vs CPU: max abs "
+                             f"{diff:.3e} > rtol {rtol} atol {atol}, or "
+                             "argmax differs")
+    say(f"float32 int8 forward (TF32 off, b8) card vs CPU, one set of "
+        f"scales: max abs {diff:.3e} (rtol {rtol}, atol {atol}), argmax "
+        f"equal; {differ}/{total} int8 activations differ")
+    del gpu, cpu
+
+
+# bench.py's _INT8_MLP_CONF (bench.py:1284-1305), unmodified; the
+# trainer is put on the card by its constructor's device
+INT8_MLP_CONF = """
+netconfig=start
+layer[+1:fc1] = fullc:fc1
+  nhidden = 2048
+  init_sigma = 0.05
+layer[+1:bn1] = batch_norm:bn1
+layer[+1:r1] = relu
+layer[+1:fc2] = fullc:fc2
+  nhidden = 2048
+  init_sigma = 0.05
+layer[+1:bn2] = batch_norm:bn2
+layer[+1:r2] = relu
+layer[+1:fc3] = fullc:fc3
+  nhidden = 10
+  init_sigma = 0.05
+layer[+0] = softmax
+netconfig=end
+input_shape = 1,1,512
+dev = cpu
+eta = 0.1
+silent = 1
+seed = 19
+"""
+
+
+def phase_int8_mlp(torch, card):
+    """9d: the JAX package's int8 pair (bench.py _bench_int8) on the
+    card: the same predict_dist loop over the same rows, folded float
+    against folded + int8; argmax agreement on 256 held-out rows."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    say("== phase 9d: bench.py's int8 MLP pair (b16) on the card ==")
+    batch = 16
+
+    def build(extra=""):
+        tr = NetTrainer(cfg=INT8_MLP_CONF + f"batch_size = {batch}\n"
+                        "graph_passes = dead_layer_elim,fold_conv_bn,"
+                        "fuse_activation" + extra + "\n", device="cuda:0")
+        tr.init_model()
+        return tr
+
+    rng = np.random.RandomState(41)
+    db = DataBatch(data=rng.rand(batch, 1, 1, 512).astype(np.float32),
+                   label=rng.randint(0, 10, (batch, 1)).astype(np.float32))
+
+    def ips_of(tr, budget_s=1.5):
+        tr.predict_dist(db)  # calibration
+        t0 = time.perf_counter()
+        tr.predict_dist(db)
+        per = max(time.perf_counter() - t0, 1e-6)
+        n = max(3, min(256, int(budget_s / per)))
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.predict_dist(db)
+        return n * batch / (time.perf_counter() - t0)
+
+    fold_tr, int8_tr = build(), build(",quantize_int8")
+    folded = ips_of(fold_tr)
+    kernels.reset_launches()
+    int8 = ips_of(int8_tr)
+    if kernels.launches()["int8_mm"] == 0:
+        raise AssertionError("the int8 MLP launched no K3")
+    agree = total = 0
+    for i in range(256 // batch):
+        r = np.random.RandomState(900 + i)
+        eb = DataBatch(data=r.rand(batch, 1, 1, 512).astype(np.float32),
+                       label=r.randint(0, 10, (batch, 1)).astype(np.float32))
+        pf = fold_tr.predict_dist(eb)
+        pq = int8_tr.predict_dist(eb)
+        if not (np.all(np.isfinite(pq)) and pq.shape == (batch, 10)):
+            raise AssertionError("int8 MLP rows not finite")
+        agree += int((pf.argmax(1) == pq.argmax(1)).sum())
+        total += batch
+    say(f"int8 MLP b16 (predict_dist loop, host clock): int8 {int8:.1f} "
+        f"rows/s, folded float {folded:.1f} rows/s, int8_over_fold "
+        f"{int8 / folded:.4f}; argmax agreement {agree / total:.4f} on "
+        f"{total} held-out rows, on {card}")
+    return {"int8_over_fold": int8 / folded, "argmax_agree": agree / total}
+
+
+def phase_int8_cli():
+    """9e: the CLI's task = pred and task = serve with the int8 passes
+    (a conv + lrn + fullc net, MNIST-format data): identical outputs,
+    the calibration lines printed, K3 launched; pass_calibration_batches
+    = 2 and pass_calibration_iter each run once."""
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+
+    say("== phase 9e: CLI task=pred / task=serve with quantize_int8 ==")
+    with tempfile.TemporaryDirectory() as d:
+        write_mnist(d, 500, 4)
+        conf = os.path.join(d, "net.conf")
+        with open(conf, "w") as f:
+            f.write(CLI_CONF.format(out=os.path.join(d, "unused.txt"), d=d))
+        tr = NetTrainer(cfg=CLI_CONF.format(out="unused.txt", d=d))
+        tr.init_model()
+        model = os.path.join(d, "0001.model")
+        with open(model, "wb") as fo:
+            tr.save_model(fo)
+        common = [conf, f"model_in={model}", f"graph_passes={INT8_PASSES}"]
+        outs = {}
+        runs = (("pred", ["pass_calibration_batches=2"],
+                 "graph_passes: calibrated on 2 batch(es) from the pred "
+                 "iterator"),
+                ("serve", ["pass_calibration_batches=2", "serve_rows=0"],
+                 "graph_passes: calibrated on 2 batch(es) from the pred "
+                 "iterator"),
+                ("pred1", ["pass_calibration_iter=pred"],
+                 "graph_passes: calibrated on 1 batch(es) from the pred "
+                 "iterator"))
+        for name, extra, line in runs:
+            out = os.path.join(d, f"{name}.txt")
+            task = "serve" if name == "serve" else "pred"
+            proc = run_cli(common + [f"task={task}", f"pred={out}"] + extra)
+            if line not in proc.stdout:
+                raise AssertionError(f"{name}: no `{line}` line:\n"
+                                     f"{proc.stdout}")
+            with open(out) as f:
+                outs[name] = f.read()
+            if name == "serve":
+                m = re.search(r"kernel launches (\{.*\})", proc.stdout)
+                if not m or ast.literal_eval(m.group(1))["int8_mm"] == 0:
+                    raise AssertionError(f"task=serve launched no K3:\n"
+                                         f"{proc.stdout}")
+                say("task=serve child: " + next(
+                    ln for ln in proc.stdout.splitlines()
+                    if "kernel launches" in ln))
+        n_lines = outs["pred"].count("\n")
+        if outs["pred"] != outs["serve"] or n_lines != 500 or \
+                outs["pred1"].count("\n") != 500:
+            raise AssertionError("int8 task=serve output differs from "
+                                 f"task=pred ({n_lines} pred lines)")
+        say(f"int8 task=pred and task=serve outputs identical ({n_lines} "
+            f"lines); pass_calibration_batches=2 and "
+            f"pass_calibration_iter=pred each calibrated once")
+
+
+def int8_entry(k3_rows, served, max_err: int):
+    """K3's entry of the kernels line: the unit is the three fullc
+    launches of one served AlexNet batch of 64 (fc6, fc7, fc8), L2 warm,
+    summed; the other shapes ride along under their own keys."""
+    path = [k3_rows[s] for s in K3_PATH.values()]
+
+    def total(key, rows=path):
+        return round(sum(r[key] for r in rows), 6)
+
+    conv = [k3_rows[(m, k, n)] for m, k, n, _g in K3_CONV.values()]
+    groups = [g for *_, g in K3_CONV.values()]
+
+    def conv_total(key):
+        return round(sum(r[key] * g for r, g in zip(conv, groups)), 6)
+
+    meas = k3_rows[K3_MEASURE]
+    mlp = [k3_rows[s] for s in K3_MLP]
+    return {
+        "name": "int8_mm",
+        "route": "cuda",
+        "source": "cxxnet_tpu_torch/csrc/int8_mm.cu",
+        "replaces": "cxxnet_tpu/ops/int8.py:109",
+        "replaces_fn": "_mm_kernel",
+        "unit": "the three fullc launches of one AlexNet batch of 64: fc6 "
+                "(64,9216)x(4096,9216)^T, fc7 (64,4096)x(4096,4096)^T, fc8 "
+                "(64,4096)x(1000,4096)^T, L2 warm",
+        "launches": served["launches"],
+        "launches_unit": f"AlexNet.conf served int8 (phase 9b), "
+                         f"{served['batches']} batches, "
+                         f"{K3_PER_ALEXNET_BATCH} per batch",
+        "max_abs_err": max_err,
+        "ms": total("kernel"),
+        "kernel_cold_ms": total("kernel_cold"),
+        "plain_ms": total("plain"),
+        "bound_ms": total("bound"),
+        "bound_by": path[0]["by"],
+        "library_ms": total("library"),
+        "library_unit": "torch._int_mm (cuBLASLt), operands padded to its "
+                        "alignment",
+        "conv_ms": conv_total("kernel"),
+        "conv_plain_ms": conv_total("plain"),
+        "conv_bound_ms": conv_total("bound"),
+        "conv_library_ms": conv_total("library"),
+        "conv_unit": "the 8 im2col GEMMs of AlexNet b64's int8 "
+                     "convolutions, L2 warm",
+        "mlp_ms": total("kernel", mlp),
+        "mlp_plain_ms": total("plain", mlp),
+        "mlp_bound_ms": total("bound", mlp),
+        "mlp_library_ms": total("library", mlp),
+        "measure_ms": round(meas["kernel"], 6),
+        "measure_cold_ms": round(meas["kernel_cold"], 6),
+        "measure_plain_ms": round(meas["plain"], 6),
+        "measure_bound_ms": round(meas["bound"], 6),
+        "measure_library_ms": round(meas["library"], 6),
+        "measure_unit": "one launch at (m,k,n) = (4096,4096,4096)",
+    }
+
+
 ATTN_SOURCES = {"attn_fwd": ("attn_fwd.cu", 90, "_fwd_kernel"),
                 "attn_dq": ("attn_dq.cu", 172, "_dq_kernel"),
                 "attn_dkv": ("attn_dkv.cu", 211, "_dkv_kernel")}
@@ -1441,7 +2005,7 @@ def main() -> int:
     max_err, main_rows = phase_kernels(torch)
     bwd_err, bwd_rows = phase_kernels_bwd(torch)
     attn_err, attn_rows = phase_attention_kernels(torch, card)
-    launches = phase_serving(torch, card)
+    launches, float_served = phase_serving(torch, card)
     phase_cli()
     train_counts = phase_training(torch, card)
     phase_cli_train()
@@ -1449,6 +2013,16 @@ def main() -> int:
     seq_serve_launches, seq_batches = phase_seq_serving(torch, card, seq_tr)
     del seq_tr
     phase_seq_cli()
+    t9 = time.perf_counter()
+    k3_rows = phase_int8_kernel(torch, card)
+    int8_tr, int8_reqs, int8_served = phase_int8_serving(torch, card,
+                                                         float_served)
+    phase_int8_sites(torch, card, int8_tr, int8_reqs)
+    del int8_tr
+    torch.cuda.empty_cache()
+    phase_int8_mlp(torch, card)
+    phase_int8_cli()
+    say(f"phase 9 took {time.perf_counter() - t9:.1f} s")
 
     # the kernels line: the LRN's two launches of one served AlexNet
     # batch (b64, bfloat16), warm L2, summed - the main path's unit
@@ -1507,7 +2081,7 @@ def main() -> int:
         "library_ms": both("library", bb),
         "library_cold_ms": both("library_cold", bb),
     }] + [attn_entry(n, attn_rows, attn_err[n], seq_counts[n])
-          for n in K2]}))
+          for n in K2] + [int8_entry(k3_rows, int8_served, 0)]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Carry weights and training state between the JAX package and the port.
 
 Both packages keep params as {param_key: {"wmat": ..., "bias": ...}}
-with the same layouts (OIHW conv weights, (nhidden, nin) fullc weights),
+with the same layouts (OIHW conv weights, (nhidden, nin) fullc weights,
+batch_norm's per-channel `slope` and `bias`, the bias layer's `bias`),
 so no transpose is needed: a conversion is a type change plus a check.
 `params_from_numpy` takes the JAX package's params as numpy arrays (in
 tests, `jax.device_get(trainer.state["params"])`); `params_to_numpy`

@@ -36,6 +36,7 @@ SOURCES: Dict[str, str] = {
     "attn_fwd": "attn_fwd.cu",
     "attn_dq": "attn_dq.cu",
     "attn_dkv": "attn_dkv.cu",
+    "int8_mm": "int8_mm.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -160,6 +161,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "attn_dkv":
         lib.attn_dkv.argtypes = [vp] * 8 + dims
         lib.attn_dkv.restype = i32
+    if name == "int8_mm":
+        # (x, w, out, m, n, k, splits, aligned, stream)
+        lib.int8_mm.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        lib.int8_mm.restype = i32
 
 
 def check(name: str, rc: int) -> None:

@@ -69,6 +69,8 @@ class LayerParam:
         self.silent = 0
         self.num_input_channel = 0
         self.num_input_node = 0
+        self.layer_dtype = ""
+        self.layer_quant = ""
 
     def set_param(self, name: str, val: str) -> None:
         if name == "init_sigma":
@@ -112,10 +114,19 @@ class LayerParam:
             self.no_bias = int(val)
         if name == "silent":
             self.silent = int(val)
-        # per-layer graph-pass stamps (autocast dtype pin, int8 pin)
-        # change results; the graph passes are not ported yet
-        if name in ("layer_dtype", "layer_quant") and val:
-            raise not_ported(name, val, "the graph-pass per-layer pin")
+        # per-layer pins read by the graph passes (nnet/passes.py):
+        # autocast's compute dtype, quantize_int8's "float" exclusion
+        if name == "layer_dtype":
+            if val not in ("", "float32", "bfloat16"):
+                raise ValueError(
+                    f"layer_dtype must be float32 or bfloat16, "
+                    f"got {val!r}")
+            self.layer_dtype = val
+        if name == "layer_quant":
+            if val not in ("", "int8", "float"):
+                raise ValueError(
+                    f"layer_quant must be int8 or float, got {val!r}")
+            self.layer_quant = val
 
     def rand_init_weight(self, gen: torch.Generator, shape: Sequence[int],
                          in_num: int, out_num: int) -> torch.Tensor:

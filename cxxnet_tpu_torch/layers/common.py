@@ -1,8 +1,16 @@
 """The non-loss layers of the port (counterpart of
 cxxnet_tpu/layers/common.py): fullc, conv, max/sum/avg pooling, the
-activations, lrn, dropout, flatten, split and add. Each class names
-the reference file it mirrors; the backward is autograd's through the
-forward."""
+activations, lrn, batch_norm, dropout, bias, flatten, split and add.
+Each class names the reference file it mirrors; the backward is
+autograd's through the forward.
+
+fullc and conv take the graph passes' stamps (`fused_act = relu`,
+fullc's `flatten_input = 1`) and, when the quantize_int8 pass hands
+them `wmat_q` (int8) with frozen `ascale` / `wscale` instead of `wmat`,
+run the int8 route of ops/int8.py: quantize the input, an int8 x int8
+-> int32 contraction (K3 on the card), then in float32 the dequantize,
+the bias and the fused activation, and a cast back to the input's
+dtype - the JAX package's order."""
 
 from __future__ import annotations
 
@@ -11,17 +19,32 @@ from typing import Dict, List
 import torch
 
 from cxxnet_tpu_torch.layers.base import (
-    Layer, Params, Shape, is_mat, not_ported, register_layer)
+    Layer, Params, Shape, is_mat, register_layer)
 from cxxnet_tpu_torch.ops import conv as conv_ops
+from cxxnet_tpu_torch.ops import int8 as int8_ops
 from cxxnet_tpu_torch.ops import nn as nn_ops
 from cxxnet_tpu_torch.ops import pooling as pool_ops
 
 
-def _reject_stamp(name: str, val: str, inert: str) -> None:
-    """Keys stamped by the JAX package's graph passes change the layer's
-    result; the passes are not ported, so a non-default value raises."""
-    if val != inert:
-        raise not_ported(name, val, "the graph-pass stamp")
+def _fused_act(val: str) -> str:
+    """The `fused_act` stamp of the fuse_activation pass: '' or relu."""
+    if val not in ("", "relu"):
+        raise ValueError(f"fused_act must be '' or relu, got {val!r}")
+    return val
+
+
+def _int8_epilogue(acc: torch.Tensor, params: Params, fused_act: str,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """int32 accumulator -> the layer's output: dequantize, + bias and
+    the fused activation in float32, then the input's dtype."""
+    out = int8_ops.dequantize(acc, params["ascale"], params["wscale"])
+    if "bias" in params:
+        bias = params["bias"].float()
+        out = out + (bias[None, :, None, None] if out.dim() == 4
+                     else bias[None, :])
+    if fused_act == "relu":
+        out = nn_ops.relu(out)
+    return out.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -39,17 +62,24 @@ class FullConnectLayer(Layer):
 
     type_name = "fullc"
 
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.fused_act = ""
+        self.flatten_input = 0
+
     def set_param(self, name: str, val: str) -> None:
         super().set_param(name, val)
         if name == "fused_act":
-            _reject_stamp(name, val, "")
+            self.fused_act = _fused_act(val)
         if name == "flatten_input":
-            _reject_stamp(name, val, "0")
+            # stamped by elim_reshape: take a 4-D input node flattened
+            # (the forward reshapes to (b, -1) either way)
+            self.flatten_input = int(val)
 
     def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
         self.check_one_to_one(in_shapes)
         (b, c, h, w) = in_shapes[0]
-        if not is_mat(in_shapes[0]):
+        if not is_mat(in_shapes[0]) and not self.flatten_input:
             raise ValueError("FullcLayer: input needs to be a matrix")
         if self.param.num_hidden <= 0:
             raise ValueError("FullcLayer: must set nhidden correctly")
@@ -79,9 +109,18 @@ class FullConnectLayer(Layer):
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         b = x.shape[0]
-        out = x.reshape(b, -1) @ params["wmat"].t()
+        m = x.reshape(b, -1)
+        if "wmat_q" in params:
+            acc = int8_ops.int8_matmul(
+                int8_ops.quantize_act(m, params["ascale"]),
+                params["wmat_q"])
+            out = _int8_epilogue(acc, params, self.fused_act, m.dtype)
+            return [out.reshape(b, 1, 1, -1)]
+        out = m @ params["wmat"].t()
         if "bias" in params:
             out = out + params["bias"][None, :]
+        if self.fused_act == "relu":
+            out = nn_ops.relu(out)
         return [out.reshape(b, 1, 1, -1)]
 
 
@@ -101,6 +140,10 @@ class ConvolutionLayer(Layer):
 
     type_name = "conv"
 
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.fused_act = ""
+
     def set_param(self, name: str, val: str) -> None:
         if name == "space_to_depth":
             if val not in ("auto", "0", "1"):
@@ -108,7 +151,7 @@ class ConvolutionLayer(Layer):
                     f"space_to_depth must be auto, 0 or 1, got {val!r}")
             return
         if name == "fused_act":
-            _reject_stamp(name, val, "")
+            self.fused_act = _fused_act(val)
             return
         super().set_param(name, val)
 
@@ -158,11 +201,19 @@ class ConvolutionLayer(Layer):
 
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         p = self.param
+        if "wmat_q" in params:
+            x = inputs[0]
+            acc = int8_ops.int8_conv2d(
+                int8_ops.quantize_act(x, params["ascale"]),
+                params["wmat_q"], p.stride, p.pad_y, p.pad_x, p.num_group)
+            return [_int8_epilogue(acc, params, self.fused_act, x.dtype)]
         out = conv_ops.conv2d(inputs[0], params["wmat"], p.stride, p.pad_y,
                               p.pad_x, p.num_group)
         if "bias" in params:
             # a separate add, as the JAX package rounds it under bf16
             out = out + params["bias"][None, :, None, None]
+        if self.fused_act == "relu":
+            out = nn_ops.relu(out)
         return [out]
 
 
@@ -327,6 +378,80 @@ class LRNLayer(Layer):
 
 
 @register_layer
+class BatchNormLayer(Layer):
+    """batch_norm (src/layer/batch_norm_layer-inl.hpp:14-197).
+
+    Per channel for conv nodes (statistics over b, h, w), per feature
+    for matrix nodes (over b). Like the reference, it normalizes with
+    the current MINIBATCH statistics at train and eval alike - there is
+    no running mean. Statistics are float32 whatever the compute dtype,
+    eps 1e-10, one cast back to the input's dtype at the end. The port
+    runs on one device, where `global_stats` (the JAX package's
+    sync-BN switch across data shards) changes nothing: accepted and
+    inert."""
+
+    type_name = "batch_norm"
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.init_slope = 1.0
+        self.init_bias = 0.0
+        self.eps = 1e-10
+        self.global_stats = 0
+        self._conv_node = None
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "init_slope":
+            self.init_slope = float(val)
+        if name == "init_bias":
+            self.init_bias = float(val)
+        if name == "eps":
+            self.eps = float(val)
+        if name == "global_stats":
+            self.global_stats = int(val)
+
+    def _is_conv(self, shape) -> bool:
+        if self._conv_node is not None:
+            return self._conv_node
+        return shape[1] != 1
+
+    def _axes(self, shape):
+        """(statistics axes, parameter broadcast slices) for a node."""
+        if self._is_conv(shape):
+            return (0, 2, 3), (None, slice(None), None, None)
+        return (0, 1, 2), (None, None, None, slice(None))
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        self._conv_node = in_shapes[0][1] != 1
+        return [in_shapes[0]]
+
+    def param_shapes(self, in_shapes: List[Shape]) -> Dict[str, tuple]:
+        s = in_shapes[0]
+        c = s[3] if s[1] == 1 else s[1]
+        return {"slope": (c,), "bias": (c,)}
+
+    def init_params(self, gen, in_shapes: List[Shape]) -> Params:
+        (c,) = self.param_shapes(in_shapes)["slope"]
+        return {"slope": torch.full((c,), self.init_slope),
+                "bias": torch.full((c,), self.init_bias)}
+
+    def param_tags(self) -> Dict[str, str]:
+        return {"slope": "wmat", "bias": "bias"}
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        x = inputs[0]
+        axes, sl = self._axes(x.shape)
+        xf = x.float()
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
+        xhat = (xf - mean) * torch.rsqrt(var + self.eps)
+        out = xhat * params["slope"].float()[sl] + params["bias"].float()[sl]
+        return [out.to(x.dtype)]
+
+
+@register_layer
 class DropoutLayer(Layer):
     """dropout (src/layer/dropout_layer-inl.hpp:12-66): inverted dropout,
     self-loop; the identity at inference. Training keeps an element where
@@ -364,6 +489,34 @@ class DropoutLayer(Layer):
             raise ValueError(f"dropout: injected mask {tuple(keep.shape)} "
                              f"!= input {tuple(x.shape)}")
         return [x * (keep.to(x.dtype) / pkeep)]
+
+
+@register_layer
+class BiasLayer(Layer):
+    """bias (src/layer/bias_layer-inl.hpp): self-loop additive bias on
+    matrix nodes."""
+
+    type_name = "bias"
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        if not is_mat(in_shapes[0]):
+            raise ValueError("BiasLayer only works on flattened nodes")
+        self.param.num_input_node = in_shapes[0][3]
+        return [in_shapes[0]]
+
+    def param_shapes(self, in_shapes: List[Shape]) -> Dict[str, tuple]:
+        return {"bias": (in_shapes[0][3],)}
+
+    def init_params(self, gen, in_shapes: List[Shape]) -> Params:
+        return {"bias": torch.full((in_shapes[0][3],),
+                                   self.param.init_bias)}
+
+    def param_tags(self) -> Dict[str, str]:
+        return {"bias": "bias"}
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        return [inputs[0] + params["bias"][None, None, None, :]]
 
 
 @register_layer

@@ -18,6 +18,13 @@
   through the continuous-batching Server; its output file matches
   `task = pred` line for line.
 
+Graph passes (`graph_passes = a,b,...`, `pass_<name> = 0|1`) reach the
+trainer from the conf and argv. fold_conv_bn / quantize_int8 calibrate
+on the first batch the pred tasks run (task = serve: on the first pred
+batch, before the Server is built), or explicitly on
+`pass_calibration_batches` batches of the iterator that
+`pass_calibration_iter` names (pred, train, or an eval block's name).
+
 pred / pred_raw / serve need `model_in = <checkpoint>` (the JAX
 package's native format) and a `pred = <file>` iterator block. `dev`
 picks the device: `cpu` is the CPU; `gpu`, `gpu:0`, `cuda` and `tpu`
@@ -34,8 +41,10 @@ import sys
 import time
 from typing import List, Optional, Tuple
 
+import numpy as np
+
 from cxxnet_tpu_torch import kernels
-from cxxnet_tpu_torch.io import create_iterator
+from cxxnet_tpu_torch.io import DataBatch, create_iterator
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer, is_inert
 from cxxnet_tpu_torch.utils.config import parse_config_file
 from cxxnet_tpu_torch.utils.device import device_from_spec
@@ -53,7 +62,6 @@ _NOT_PORTED = {
     "metrics_port": ("0",), "alert_rules": ("",), "alert_cmd": ("",),
     "watchdog_secs": ("0",), "flight_recorder": ("0",),
     "tuning_cache": ("",), "publish_model": ("",),
-    "pass_calibration_iter": ("",),
 }
 
 
@@ -75,6 +83,10 @@ class LearnTask:
         # task=serve load shape: rows per submitted request (0 = the
         # deterministic ragged cycle that covers every bucket)
         self.serve_rows = 1
+        # explicit calibration of the graph passes: which iterator
+        # feeds `pass_calibration_batches` batches ("" = pred)
+        self.pass_calibration_iter = ""
+        self.pass_calibration_batches = 1
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
         self.itr_evals = []
@@ -152,6 +164,12 @@ class LearnTask:
             self.device = val
         if name == "serve_rows":
             self.serve_rows = int(val)
+        if name == "pass_calibration_iter":
+            self.pass_calibration_iter = val
+        if name == "pass_calibration_batches":
+            if int(val) < 1:
+                raise ValueError("pass_calibration_batches must be >= 1")
+            self.pass_calibration_batches = int(val)
         self.cfg.append((name, val))
 
     # ------------------------------------------------------------------
@@ -402,7 +420,66 @@ class LearnTask:
             for line in lines:
                 fo.write(line)
 
+    def _calibration_source(self):
+        """(iterator, name) behind `pass_calibration_iter`: pred (the
+        default), train, or an eval block's name - the latter two built
+        from their conf blocks when the task did not build them."""
+        name = self.pass_calibration_iter
+        if name in ("", "pred"):
+            return self.itr_pred, "pred"
+        defcfg, train, evals, _pred = self._split_blocks()
+        blocks = dict(evals)
+        if name == "train":
+            block = train
+        elif name in blocks:
+            block = blocks[name]
+        else:
+            raise ValueError(
+                f"pass_calibration_iter={name!r}: no such iterator (have: "
+                "train, pred" + "".join(", " + n for n, _ in evals) + ")")
+        if block is None:
+            raise ValueError(f"pass_calibration_iter={name!r}: the conf "
+                             "has no such iterator block")
+        it = create_iterator(block)
+        for k, v in defcfg:
+            it.set_param(k, v)
+        it.init()
+        return it, name
+
+    def _calibrate_passes(self) -> bool:
+        """Explicit calibration: `pass_calibration_batches` batches of
+        the calibration iterator, their statistics pooled. A no-op
+        (False) when nothing needs calibration, or when neither several
+        batches nor an iterator were asked for - the first inference
+        batch then calibrates."""
+        tr = self.net_trainer
+        if not tr.passes_need_calibration():
+            return False
+        n = self.pass_calibration_batches
+        if n <= 1 and not self.pass_calibration_iter:
+            return False
+        it, src = self._calibration_source()
+        batches = []
+        it.before_first()
+        while len(batches) < n and it.next():
+            b = it.value()
+            # iterators may reuse their buffers across next(): copy
+            batches.append(DataBatch(
+                data=np.array(b.data), label=np.array(b.label),
+                inst_index=(None if b.inst_index is None
+                            else np.array(b.inst_index)),
+                num_batch_padd=b.num_batch_padd))
+        it.before_first()
+        if not batches:
+            return False
+        tr.calibrate_graph_passes(batches if len(batches) > 1
+                                  else batches[0])
+        sys.stdout.write(f"graph_passes: calibrated on {len(batches)} "
+                         f"batch(es) from the {src} iterator\n")
+        return True
+
     def task_predict(self) -> None:
+        self._calibrate_passes()
         sys.stdout.write("start predicting...\n")
 
         def lines():
@@ -415,6 +492,7 @@ class LearnTask:
                          f"{self.name_pred}\n")
 
     def task_predict_raw(self) -> None:
+        self._calibrate_passes()
         sys.stdout.write("start predicting...\n")
 
         def lines():
@@ -447,6 +525,14 @@ class LearnTask:
         order."""
         from cxxnet_tpu_torch.serve import Server, predictions_from_rows
         tr = self.net_trainer
+        if not self._calibrate_passes() and tr.passes_need_calibration():
+            # the Server serves the graph of the calibration epoch it is
+            # built at: calibrate on the first pred batch first
+            self.itr_pred.before_first()
+            if self.itr_pred.next():
+                tr.calibrate_graph_passes(self.itr_pred.value())
+                sys.stdout.write("serve: calibrated graph passes on the "
+                                 "first pred batch\n")
         srv = Server(tr, device=str(tr.device))
         sys.stdout.write(f"serve: warming {len(srv.buckets)} buckets "
                          f"{list(srv.buckets)}\n")

@@ -259,6 +259,36 @@ class NetConfig:
         self.layercfg = [[] for _ in self.layercfg]
 
     # ------------------------------------------------------------------
+    def clone(self) -> "NetConfig":
+        """Deep structural copy INCLUDING the replayed per-layer
+        configs and label maps (to_dict is structure-only, by the
+        checkpoint contract) - what the graph-pass pipeline
+        (nnet/passes.py) transforms, so the trainer's own NetConfig
+        never mutates under an inference-only rewrite."""
+        cfg = NetConfig()
+        cfg.input_shape = tuple(self.input_shape)
+        cfg.extra_data_num = self.extra_data_num
+        cfg.extra_shape = list(self.extra_shape)
+        cfg.node_names = list(self.node_names)
+        cfg.node_name_map = dict(self.node_name_map)
+        cfg.layer_name_map = dict(self.layer_name_map)
+        cfg.updater_type = self.updater_type
+        cfg.sync_type = self.sync_type
+        cfg.label_name_map = dict(self.label_name_map)
+        cfg.label_range = list(self.label_range)
+        cfg.defcfg = list(self.defcfg)
+        cfg.layercfg = [list(c) for c in self.layercfg]
+        cfg.layers = [
+            LayerInfo(type_name=li.type_name,
+                      primary_layer_index=li.primary_layer_index,
+                      name=li.name,
+                      nindex_in=list(li.nindex_in),
+                      nindex_out=list(li.nindex_out))
+            for li in self.layers]
+        cfg.init_end = self.init_end
+        return cfg
+
+    # ------------------------------------------------------------------
     # structure (de)serialization for checkpoints
     # ------------------------------------------------------------------
     def to_dict(self) -> dict:

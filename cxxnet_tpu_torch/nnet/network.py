@@ -8,6 +8,11 @@ params dict; a self-loop layer (`layer[+0]`, in == out) overwrites its
 node. Params are passed in as {param_key: {"wmat", "bias"}} - the JAX
 package's keys - so the trainer can hold a float32 master copy and a
 compute-dtype copy side by side.
+
+`dtype_plan` ({layer index: torch dtype}, stamped by the autocast graph
+pass) casts each listed layer's floating inputs and params to its
+compute dtype before the layer runs; None (no plan) leaves the casts to
+the trainer, which casts wholesale.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ class Network(nn.Module):
         self.cfg = cfg
         self.layer_objs = nn.ModuleList()
         self.node_shapes: List[Optional[Shape]] = [None] * cfg.num_nodes
+        self.dtype_plan: Optional[Dict[int, torch.dtype]] = None
 
         c, y, x = cfg.input_shape
         if c * y * x == 0:
@@ -119,6 +125,7 @@ class Network(nn.Module):
         keep: Optional[Dict[int, torch.Tensor]] = None,
         labels: Optional[Dict[str, torch.Tensor]] = None,
         mask: Optional[torch.Tensor] = None,
+        taps: Optional[Dict[int, Optional[torch.Tensor]]] = None,
     ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
         """Run all connections in declaration order on node-0 `data`.
 
@@ -130,6 +137,11 @@ class Network(nn.Module):
         labels: label field -> (b, width) tensor; when given, each loss
         layer adds grad_scale * sum(mask * per_example_loss) to the
         total. mask: (b,) validity of the rows (padding rows 0).
+        taps: {layer index: None}, filled in place with each listed
+        layer's first INPUT as the layer receives it (after the dtype
+        plan's cast) - before a self-loop layer overwrites its node, so
+        a `layer[+0] = batch_norm` is tapped at its input, which the
+        graph passes' calibration needs.
 
         Returns (every node's value - None for nodes never written -,
         total_loss as a float32 scalar). A loss layer writes its
@@ -144,6 +156,16 @@ class Network(nn.Module):
             pkey = param_key(
                 cfg, info.primary_layer_index if info.is_shared else idx)
             xs = [values[j] for j in info.nindex_in]
+            p = params.get(pkey, {})
+            want = (self.dtype_plan.get(idx)
+                    if self.dtype_plan is not None else None)
+            if want is not None:
+                xs = [x.to(want) if x.is_floating_point() else x
+                      for x in xs]
+                p = {k: (v.to(want) if v.is_floating_point() else v)
+                     for k, v in p.items()}
+            if taps is not None and idx in taps:
+                taps[idx] = xs[0]
             if isinstance(layer, LossLayer) and labels is not None:
                 flat = xs[0].reshape(xs[0].shape[0], -1)
                 per_ex = layer.per_example_loss(flat, labels[layer.target])
@@ -154,8 +176,7 @@ class Network(nn.Module):
             lkeep = keep.get(idx) if (train and keep) else None
             gen = (gens(idx) if (train and layer.uses_rng and lkeep is None
                                  and gens is not None) else None)
-            outs = layer(params.get(pkey, {}), xs, train=train, gen=gen,
-                         keep=lkeep)
+            outs = layer(p, xs, train=train, gen=gen, keep=lkeep)
             for j, o in zip(info.nindex_out, outs):
                 values[j] = o
         return values, total_loss

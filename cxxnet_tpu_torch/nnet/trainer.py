@@ -32,6 +32,25 @@ trainer's `state["params"]`, and the updater state beside them as
   they were, and `max_bad_rounds` such steps in a row raise
   DivergenceError.
 
+- Graph passes (nnet/passes.py, `graph_passes = a,b,...` plus
+  `pass_<name> = 0|1` toggles): graph-stage passes stamp the live net
+  at build (the autocast dtype plan; under a plan the trainer casts
+  nothing wholesale - the plan casts per layer); infer-stage passes
+  build, per requested output node and calibration epoch, a
+  transformed inference graph (`infer_graph`). Its params are made from
+  the float32 master by the pass's param function and then cast as the
+  JAX package's `_cast` would, once per weight change (the JAX package
+  redoes this inside every inference call; the values are the same).
+  fold_conv_bn and quantize_int8 need calibration statistics: the
+  first inference batch supplies them (`calibrate_graph_passes` or
+  `pass_calibration_batches` set them explicitly); a weight change
+  through set_weight or a load retires them, and the next inference
+  recalibrates.
+- A short inference batch is zero-padded up to `batch_size` before the
+  forward and trimmed after it, as in the JAX package: batch_norm
+  normalizes with minibatch statistics, so its rows depend on the
+  padding.
+
 The device is fixed at construction: `cuda:0` unless the caller asks
 for the CPU (`device="cpu"`, or `dev = cpu` in the constructor's conf
 string); with no card a CUDA device raises (utils/device.py). A `dev`
@@ -43,6 +62,7 @@ from __future__ import annotations
 
 import re
 import sys
+import threading
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -54,6 +74,10 @@ from cxxnet_tpu_torch.layers.base import not_ported
 from cxxnet_tpu_torch.nnet import checkpoint
 from cxxnet_tpu_torch.nnet.net_config import NetConfig
 from cxxnet_tpu_torch.nnet.network import Network, param_key
+from cxxnet_tpu_torch.nnet.passes import (
+    GraphModule, PassContext, PassPipeline, find_fold_sites,
+    find_quant_sites, make_param_fn)
+from cxxnet_tpu_torch.ops.int8 import per_channel_scale
 from cxxnet_tpu_torch.updater import UpdaterParam, create_updater
 from cxxnet_tpu_torch.utils.config import parse_config_string
 from cxxnet_tpu_torch.utils.device import (
@@ -70,7 +94,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # listed inert ones raises NotImplementedError naming the key.
 _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "mesh": (),
-    "graph_passes": ("",),
     "zero_stage": ("0",),
     "shard_optimizer": ("0",),
     "update_on_server": ("0",),
@@ -124,10 +147,6 @@ def check_ported(name: str, val: str) -> None:
     not implement yet (shared by the trainer and the CLI)."""
     if name in _NOT_PORTED and not is_inert(val, _NOT_PORTED[name]):
         raise not_ported(name, val, f"the `{name}` option")
-    if (name.startswith("pass_")
-            and not name.startswith("pass_calibration_")
-            and not is_inert(val, ("0",))):
-        raise not_ported(name, val, "the graph-pass toggle")
 
 
 def _tree_map(fn, tree):
@@ -140,6 +159,51 @@ def _tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, Mapping):
         return [t for k in sorted(tree) for t in _tree_leaves(tree[k])]
     return [tree]
+
+
+def _masked_absmax(x: torch.Tensor, mask: torch.Tensor) -> float:
+    """Valid-row absmax of a tapped activation, in float32: the
+    quantize_int8 activation range. Padding rows carry bias/activation
+    values at depth, so the mask keeps them out of the frozen range."""
+    xf = x.float()
+    m = mask.float().reshape((-1,) + (1,) * (xf.dim() - 1)).expand(
+        xf.shape)
+    return float(torch.max(torch.abs(xf) * m))
+
+
+class InferGraph:
+    """The inference forward of one output node: a network (the
+    trainer's own, or a pass-transformed clone) and where its params
+    come from. Calling it on staged rows returns the node's float32
+    rows (a device tensor). The transformed params are made once per
+    weight change of the trainer and cached here, so a Server built on
+    one calibration epoch keeps serving that epoch's graph."""
+
+    def __init__(self, trainer: "NetTrainer", net: Network, node: int,
+                 param_fn=None, gm: Optional[GraphModule] = None):
+        self.trainer = trainer
+        self.net = net
+        self.node = node
+        self.param_fn = param_fn
+        self.gm = gm
+        self._lock = threading.Lock()
+        self._version = -1
+        self._params: Optional[Params] = None
+
+    def params(self) -> Params:
+        tr = self.trainer
+        if self.param_fn is None:
+            return tr.compute_params()
+        with self._lock:
+            if self._version != tr._wversion:
+                with torch.no_grad():
+                    self._params = tr._cast(
+                        self.param_fn(tr.state["params"]))
+                self._version = tr._wversion
+            return self._params
+
+    def __call__(self, data: torch.Tensor) -> torch.Tensor:
+        return self.net(self.params(), data)[0][self.node].float()
 
 
 class NetTrainer:
@@ -184,6 +248,24 @@ class NetTrainer:
         self._tmetric: Optional[torch.Tensor] = None  # (n, 2) float64
         self._loaded_opt = None
         self._cparams: Optional[Params] = None
+        # bumped on every weight change: InferGraph's params cache key
+        self._wversion = 0
+        # graph passes (nnet/passes.py): the spec, per-pass toggles,
+        # the pipeline built at _build_net, the autocast plan, and the
+        # calibration state - fold (mean, rstd) per bn key and quant
+        # activation absmax per conv/fullc key, the epoch they belong
+        # to, and the transformed inference graphs per (node, epoch)
+        self.graph_passes = ""
+        self._pass_toggles: Dict[str, int] = {}
+        self.pass_calibration_batches = 1
+        self._pipeline: Optional[PassPipeline] = None
+        self._graph_dtype_plan: Optional[Dict[int, torch.dtype]] = None
+        self._fold_sites: List[Tuple[int, int]] = []
+        self._quant_sites: List[int] = []
+        self._fold_stats: Optional[Dict[str, Any]] = None
+        self._quant_stats: Optional[Dict[str, float]] = None
+        self._fold_epoch = 0
+        self._infer_graph_cache: Dict[Tuple[int, int], InferGraph] = {}
         # continuous-batching serving knobs (serve/server.py): largest
         # bucket (0 = batch_size), fill-or-timeout wait, replica count
         self.serve_max_batch = 0
@@ -236,6 +318,18 @@ class NetTrainer:
             if int(val) < 1:
                 raise ValueError("serve_replicas must be >= 1")
             self.serve_replicas = int(val)
+        if name == "graph_passes":
+            self.graph_passes = val
+        if name == "pass_calibration_batches":
+            if int(val) < 1:
+                raise ValueError("pass_calibration_batches must be >= 1")
+            self.pass_calibration_batches = int(val)
+        if (name.startswith("pass_")
+                and name not in ("pass_calibration_batches",
+                                 "pass_calibration_iter")):
+            # per-pass toggles over graph_passes; the pass name is
+            # checked against the registry at _build_net
+            self._pass_toggles[name[len("pass_"):]] = int(val)
         if name.startswith("metric"):
             m = re.match(r"^metric\[([^,\]]+),([^\]]+)\]$", name)
             if m:
@@ -271,7 +365,28 @@ class NetTrainer:
             # default to TF32. The flag is process-wide (torch has no
             # per-call switch), so a float32 trainer on the card sets it.
             torch.backends.cudnn.allow_tf32 = False
+        self._pipeline = PassPipeline.from_config(self.graph_passes,
+                                                  self._pass_toggles)
+        self._graph_dtype_plan = None
+        self._fold_stats = None
+        self._quant_stats = None
+        self._fold_epoch = 0
+        self._infer_graph_cache = {}
+        # fold/quant sites depend only on the structure: matched once
+        self._fold_sites = (find_fold_sites(self.net_cfg)
+                            if self._pipeline.has("fold_conv_bn") else [])
+        self._quant_sites = (find_quant_sites(self.net_cfg)
+                             if self._pipeline.has("quantize_int8")
+                             else [])
+        if self._pipeline.graph_passes:
+            gm = self._pipeline.run_graph(GraphModule.from_net_config(
+                self.net_cfg, self.batch_size, self.compute_dtype))
+            self._graph_dtype_plan = gm.dtype_plan or None
+            if not self.silent:
+                for line in gm.log:
+                    sys.stdout.write(f"graph_passes: {line}\n")
         self.net = Network(self.net_cfg, self.batch_size)
+        self.net.dtype_plan = self._graph_dtype_plan
         if not self.silent:
             for i, s in enumerate(self.net.node_shapes):
                 sys.stdout.write(f"node[{self.net_cfg.node_names[i]}].shape: "
@@ -327,7 +442,7 @@ class NetTrainer:
         self.state = {"params": params, "ustate": ustate}
         self._accum = None
         self._count = 0
-        self._cparams = None
+        self._weights_changed(retire=True)
         self.clear_train_metric()
 
     def set_train_state(self, params: Params, ustate, epoch: int) -> None:
@@ -336,7 +451,7 @@ class NetTrainer:
         self.state = {"params": params, "ustate": ustate}
         self.epoch = int(epoch)
         self._reset_counters()
-        self._cparams = None
+        self._weights_changed(retire=True)
         self.clear_train_metric()
 
     def _set_params(self, params: Params) -> None:
@@ -345,20 +460,35 @@ class NetTrainer:
             self._init_state(params)
         else:
             self.state["params"] = params
-            self._cparams = None
+            self._weights_changed(retire=True)
+
+    def _weights_changed(self, retire: bool = False) -> None:
+        """The master params changed: drop the cached compute-dtype and
+        transformed copies. `retire` (a load or set_weight, not a
+        training step) also retires the frozen calibration statistics,
+        as the JAX package does."""
+        self._cparams = None
+        self._wversion += 1
+        if retire:
+            self._retire_calibration_state()
+
+    def _cast(self, tree):
+        """The JAX package's `_cast`: every floating leaf to the compute
+        dtype (int8 leaves stay), unless the compute dtype is float32 or
+        an autocast plan owns the casts per layer."""
+        if (self.compute_dtype == torch.float32
+                or self._graph_dtype_plan is not None):
+            return tree
+        return _tree_map(lambda t: t.to(self.compute_dtype)
+                         if t.is_floating_point() else t, tree)
 
     def compute_params(self) -> Params:
         """Params in the compute dtype: the master copy itself under
-        float32, a wholesale bfloat16 cast (made once per weight
-        change) under bfloat16."""
+        float32 or an autocast plan, a wholesale bfloat16 cast (made
+        once per weight change) under bfloat16."""
         cp = self._cparams
         if cp is None:
-            master = self.state["params"]
-            if self.compute_dtype == torch.float32:
-                cp = master
-            else:
-                cp = {k: {n: t.to(self.compute_dtype) for n, t in d.items()}
-                      for k, d in master.items()}
+            cp = self._cast(self.state["params"])
             self._cparams = cp
         return cp
 
@@ -452,8 +582,7 @@ class NetTrainer:
 
         with torch.enable_grad():
             # cast inside autograd: bfloat16 compute, float32 gradients
-            cparams = leaves if self.compute_dtype == torch.float32 else \
-                _tree_map(lambda t: t.to(self.compute_dtype), leaves)
+            cparams = self._cast(leaves)
             values, total = self.net(cparams, data, train=True, gens=gens,
                                      keep=keep, labels=labels, mask=mask)
             loss = total.float() * (1.0 / (self.batch_size
@@ -484,7 +613,7 @@ class NetTrainer:
             self._accum = None
             self._count = 0
             self.epoch += 1
-            self._cparams = None
+            self._weights_changed()
         if self.eval_train and len(self.train_metric):
             with torch.no_grad():
                 rows = self._metric_rows(self.train_metric, values, labels,
@@ -526,7 +655,7 @@ class NetTrainer:
         self.state = {"params": params, "ustate": ustate}
         self._accum, self._count, self.epoch = accum, count, epoch
         self._tmetric = tmetric
-        self._cparams = None
+        self._weights_changed()
         self._bad_consec += 1
         self.bad_rounds += 1
         sys.stderr.write(
@@ -604,14 +733,42 @@ class NetTrainer:
     # inference
     # ------------------------------------------------------------------
     def infer_fn(self, node: int):
-        """fn(params, staged_rows) -> float32 rows of `node` (a device
-        tensor; the caller decides when to read it back). `params` are
-        compute-dtype params (compute_params()); any row count works."""
+        """fn(params, staged_rows) -> float32 rows of `node` over the
+        trainer's own (untransformed) network (a device tensor; the
+        caller decides when to read it back). `params` are
+        compute-dtype params (compute_params()); any row count works.
+        The inference path proper is `infer_graph`, which applies the
+        infer-stage graph passes."""
         net = self.net
 
         def fn(params: Params, data: torch.Tensor) -> torch.Tensor:
             return net(params, data)[0][node].float()
         return fn
+
+    def infer_graph(self, node: int) -> InferGraph:
+        """The inference forward of `node`: the trainer's own network
+        when no infer-stage pass is configured, else the pass-
+        transformed graph of the current calibration epoch (built once
+        per (node, epoch); an uncalibrated fold/quant site stays
+        float)."""
+        if not self._pipeline.infer_passes:
+            return InferGraph(self, self.net, node)
+        key = (node, self._fold_epoch)
+        hit = self._infer_graph_cache.get(key)
+        if hit is not None:
+            return hit
+        gm = GraphModule.from_net_config(
+            self.net_cfg.clone(), self.batch_size, self.compute_dtype)
+        gm.dtype_plan = dict(self._graph_dtype_plan or {})
+        gm = self._pipeline.run_infer(
+            gm, PassContext(target_node=node, fold_stats=self._fold_stats,
+                            quant_stats=self._quant_stats))
+        self._fill_quant_scales(gm)
+        net2 = Network(gm.cfg, self.batch_size)
+        net2.dtype_plan = gm.dtype_plan or None
+        graph = InferGraph(self, net2, node, make_param_fn(gm), gm)
+        self._infer_graph_cache[key] = graph
+        return graph
 
     def stage_infer_rows(self, data: np.ndarray) -> torch.Tensor:
         """Host rows (n, c, y, x) -> a device tensor in the compute
@@ -627,16 +784,220 @@ class NetTrainer:
         if node < 0:
             node = self.net_cfg.num_nodes - 1
         with torch.inference_mode():
-            return self.infer_fn(node)(self.compute_params(), gdata)
+            return self.infer_graph(node)(gdata)
+
+    def _stage_padded(self, batch: DataBatch):
+        """(staged data, row mask) of a batch zero-padded up to
+        batch_size, as the JAX package pads every inference batch; the
+        mask is 0 on padding rows and on the iterator's num_batch_padd
+        rows."""
+        data, _label, valid = self._pad_batch(batch, train=False)
+        return (self.stage_infer_rows(data),
+                torch.from_numpy(valid).to(self.device))
 
     def _infer_node(self, batch: DataBatch, node: int) -> np.ndarray:
-        """One node's float32 rows for a batch, padding rows
-        (num_batch_padd) trimmed."""
-        if batch.batch_size > self.batch_size:
-            raise ValueError("batch larger than configured batch_size")
+        """One node's float32 rows for a batch: padded to batch_size,
+        calibrated first if a graph pass still needs its statistics (the
+        first inference batch is the calibration batch), run, padding
+        rows (and num_batch_padd) trimmed."""
+        gdata, gmask = self._stage_padded(batch)
+        if self.passes_need_calibration():
+            self._calibrate_staged(gdata, gmask)
         valid = batch.batch_size - batch.num_batch_padd
-        out = self.infer_rows(self.stage_infer_rows(batch.data), node)
+        out = self.infer_rows(gdata, node)
         return out[:valid].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # graph passes: calibration
+    # ------------------------------------------------------------------
+    def _fill_quant_scales(self, gm: GraphModule) -> None:
+        """Freeze each QuantSite's per-channel weight scale from the
+        TRANSFORMED float32 weights (a folded or merged weight is scaled
+        at its composed values); the int8 values themselves follow the
+        live params."""
+        sites = [s for s in gm.quants if s.wscale is None]
+        if not sites:
+            return
+        with torch.no_grad():
+            fl = make_param_fn(gm, quantize=False)(self.state["params"])
+        by_live = {live: new for new, live in gm.param_map().items()}
+        for site in sites:
+            entry = fl.get(by_live.get(site.key))
+            if entry is None or "wmat" not in entry:
+                continue  # pruned between matching and build: float
+            site.wscale = per_channel_scale(entry["wmat"])
+
+    def _needs_fold_stats(self) -> bool:
+        return self._fold_stats is None and bool(self._fold_sites)
+
+    def _needs_quant_stats(self) -> bool:
+        return self._quant_stats is None and bool(self._quant_sites)
+
+    def passes_need_calibration(self) -> bool:
+        """True when fold_conv_bn or quantize_int8 has a matched site
+        whose statistics are missing: predict then calibrates on its
+        first batch; a Server built now serves the float graph (and
+        warns)."""
+        if self._pipeline is None:
+            return False
+        return self._needs_fold_stats() or self._needs_quant_stats()
+
+    def calibrate_graph_passes(self, batch) -> bool:
+        """Capture the fold statistics and quant activation ranges from
+        one DataBatch (padded and staged as an inference batch is), or,
+        given a sequence of batches, pool them over all of them. Returns
+        True when statistics were (re)captured, False when nothing
+        needed calibration."""
+        if isinstance(batch, (list, tuple)):
+            if len(batch) == 1:
+                return self.calibrate_graph_passes(batch[0])
+            return self._calibrate_batches(list(batch))
+        if not self.passes_need_calibration():
+            return False
+        return self._calibrate_staged(*self._stage_padded(batch))
+
+    def _calibration_taps(self, gdata: torch.Tensor):
+        """One forward of the untransformed net with the fold sites'
+        batch_norm inputs and the quant sites' inputs tapped."""
+        sites = self._fold_sites if self._needs_fold_stats() else []
+        qsites = self._quant_sites if self._needs_quant_stats() else []
+        taps: Dict[int, Any] = {j: None for _i, j in sites}
+        taps.update({q: None for q in qsites})
+        with torch.inference_mode():
+            self.net(self.compute_params(), gdata, taps=taps)
+        return sites, qsites, taps
+
+    def _calibrate_staged(self, gdata: torch.Tensor,
+                          gmask: torch.Tensor) -> bool:
+        """Calibration on staged rows: each fold site's batch_norm input
+        moments with the layer's own arithmetic (float32, rsqrt(var +
+        eps)) - deliberately UNmasked, since on the single-batch path
+        the calibration batch is the inference batch, padding included,
+        and the unfolded batch_norm normalizes over all of it - and each
+        quant site's input absmax over the valid rows only."""
+        if not self.passes_need_calibration():
+            return False
+        sites, qsites, taps = self._calibration_taps(gdata)
+        if sites:
+            stats = {}
+            for _i, j in sites:
+                lay = self.net.layer_objs[j]
+                xf = taps[j].float()
+                axes, _ = lay._axes(xf.shape)
+                mean = xf.mean(dim=axes, keepdim=True)
+                var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
+                rstd = torch.rsqrt(var + lay.eps)
+                stats[param_key(self.net_cfg, j)] = (
+                    mean.reshape(-1).cpu().numpy(),
+                    rstd.reshape(-1).cpu().numpy())
+            self._fold_stats = stats
+        if qsites:
+            self._quant_stats = {
+                param_key(self.net_cfg, q): _masked_absmax(taps[q], gmask)
+                for q in qsites}
+        self._fold_epoch += 1
+        self._evict_stale_infer_caches()
+        return True
+
+    def _calibrate_batches(self, batches: List[DataBatch]) -> bool:
+        """Calibration over several batches: per batch, the fold sites'
+        moments over the VALID rows (mean, var) and the quant sites'
+        masked absmax; then on the host the moments pooled weighted by
+        valid-row count (var from the pooled second moment), rstd = 1 /
+        sqrt(var + eps), and the ranges pooled by max."""
+        if not batches:
+            raise ValueError("calibration needs at least one batch")
+        if not self.passes_need_calibration():
+            return False
+        eps = {param_key(self.net_cfg, j): self.net.layer_objs[j].eps
+               for _i, j in self._fold_sites}
+        per_batch: List[Dict[str, Any]] = []
+        q_batch: List[Dict[str, float]] = []
+        weights: List[float] = []
+        sites: List[Tuple[int, int]] = []
+        qsites: List[int] = []
+        for b in batches:
+            gdata, gmask = self._stage_padded(b)
+            sites, qsites, taps = self._calibration_taps(gdata)
+            res = {}
+            for _i, j in sites:
+                lay = self.net.layer_objs[j]
+                xf = taps[j].float()
+                axes, _ = lay._axes(xf.shape)
+                m = gmask.float().reshape(
+                    (-1,) + (1,) * (xf.dim() - 1)).expand(xf.shape)
+                denom = m.sum(dim=axes, keepdim=True)
+                mean = (xf * m).sum(dim=axes, keepdim=True) / denom
+                var = (m * (xf - mean) ** 2).sum(dim=axes,
+                                                 keepdim=True) / denom
+                res[param_key(self.net_cfg, j)] = (
+                    mean.reshape(-1).cpu().numpy(),
+                    var.reshape(-1).cpu().numpy())
+            per_batch.append(res)
+            q_batch.append({param_key(self.net_cfg, q):
+                            _masked_absmax(taps[q], gmask) for q in qsites})
+            weights.append(float(gmask.sum()))
+        w = np.asarray(weights, np.float64)
+        w = w / w.sum()
+        stats: Dict[str, Any] = {}
+        for key in per_batch[0]:
+            means = np.stack([pb[key][0] for pb in per_batch])
+            variances = np.stack([pb[key][1] for pb in per_batch])
+            mean = (means * w[:, None]).sum(axis=0)
+            var = ((variances + means ** 2)
+                   * w[:, None]).sum(axis=0) - mean ** 2
+            rstd = 1.0 / np.sqrt(np.maximum(var, 0.0) + eps[key])
+            stats[key] = (mean.astype(np.float32), rstd.astype(np.float32))
+        if sites:
+            self._fold_stats = stats
+        if qsites:
+            self._quant_stats = {k: max(qb[k] for qb in q_batch)
+                                 for k in q_batch[0]}
+        self._fold_epoch += 1
+        self._evict_stale_infer_caches()
+        return True
+
+    def calibration(self) -> Tuple[Optional[Dict[str, Any]],
+                                   Optional[Dict[str, float]]]:
+        """(fold statistics, quant activation ranges) as frozen now -
+        copies; None where not calibrated."""
+        fold = (None if self._fold_stats is None else
+                {k: (m.copy(), r.copy())
+                 for k, (m, r) in self._fold_stats.items()})
+        quant = None if self._quant_stats is None else dict(
+            self._quant_stats)
+        return fold, quant
+
+    def set_calibration(self, fold_stats, quant_stats) -> None:
+        """Install frozen statistics (another trainer's `calibration()`,
+        e.g. one on another device) as a new calibration epoch."""
+        self._fold_stats = (None if fold_stats is None else
+                            {k: (np.asarray(m, np.float32).copy(),
+                                 np.asarray(r, np.float32).copy())
+                             for k, (m, r) in fold_stats.items()})
+        self._quant_stats = (None if quant_stats is None
+                             else {k: float(v)
+                                   for k, v in quant_stats.items()})
+        self._fold_epoch += 1
+        self._evict_stale_infer_caches()
+
+    def _retire_calibration_state(self) -> None:
+        """Weights changed (set_weight, a load): frozen fold statistics
+        and quant scales describe the OLD weights - drop them and the
+        graphs built on them; the next inference recalibrates. A running
+        Server keeps the graph it was built on."""
+        if self._fold_stats is not None or self._quant_stats is not None:
+            self._fold_stats = None
+            self._quant_stats = None
+            self._fold_epoch += 1
+            self._evict_stale_infer_caches()
+
+    def _evict_stale_infer_caches(self) -> None:
+        """Keep only the current calibration epoch's graphs."""
+        epoch = self._fold_epoch
+        self._infer_graph_cache = {
+            k: v for k, v in self._infer_graph_cache.items()
+            if k[1] == epoch}
 
     def predict(self, batch: DataBatch) -> np.ndarray:
         """Prediction = argmax of the final node (or the raw scalar of a
@@ -732,7 +1093,7 @@ class NetTrainer:
         cur = params[lk][pn]
         arr = np.asarray(weight, dtype=np.float32).reshape(tuple(cur.shape))
         params[lk][pn] = torch.from_numpy(arr.copy()).to(self.device)
-        self._cparams = None
+        self._weights_changed(retire=True)
 
     def _weight_key(self, layer_name: str, tag: str) -> Tuple[str, str]:
         idx = self.net_cfg.get_layer_index(layer_name)

@@ -8,13 +8,28 @@ the port hands it to cuDNN through `F.conv2d`, grouped convs through
 
 The JAX package's space-to-depth rewrite of the input conv is a TPU
 matrix-unit trick that computes the same sums regrouped; the port
-accepts the `space_to_depth` key and leaves it inert.
+accepts the `space_to_depth` key and leaves it inert. `s2d_auto` is the
+port's copy of that rewrite's predicate: the `space_to_depth` graph
+pass stamps its decision, which the port's convolution then ignores.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+# the input-channel cap of the space-to-depth auto heuristic
+_S2D_MAX_IN_CH = 4
+
+
+def s2d_auto(in_ch: int, stride: int, ky: int, kx: int,
+             num_group: int = 1) -> bool:
+    """The space-to-depth auto predicate (cxxnet_tpu/ops/conv.py):
+    ungrouped, strided, the kernel covers the stride, and a tiny input
+    channel count."""
+    return (num_group == 1 and stride > 1
+            and min(ky, kx) >= stride and in_ch <= _S2D_MAX_IN_CH)
 
 
 def conv_out_dim(in_dim: int, ksize: int, stride: int, pad: int) -> int:

@@ -20,7 +20,15 @@ cxxnet_tpu/serve/server.py, its core without the production front).
   `max_wait_ms` past the first item's submit for the bucket to fill,
   then ships what it has, so p99 latency stays bounded under low load;
 - `stop()` (drain first, or fail the queue) and `drain()`; `stats()`
-  with request/row/batch/padding counts and p50/p99 latency.
+  with request/row/batch/padding counts and p50/p99 latency;
+- **graph passes**: the Server serves `trainer.infer_graph(node)` as it
+  stands when the Server is built - a calibrated trainer's transformed
+  graph (folded, int8-quantized) of that calibration epoch, which the
+  Server keeps even if the trainer recalibrates later. A trainer whose
+  fold_conv_bn / quantize_int8 sites have no statistics yet gets a
+  warning and the float graph: warmup rows of zeros must never become
+  the calibration batch. `task = serve` calibrates on the first pred
+  batch before it builds the Server.
 
 The HTTP front, load shedding, deadlines, hot-swap, canary and the
 flight recorder are later slices.
@@ -179,7 +187,13 @@ class Server:
             raise ValueError("serve_replicas must be >= 1")
         self.node = node if node >= 0 else trainer.net_cfg.num_nodes - 1
         self.buckets = bucket_sizes(self.max_batch)
-        self._fn = trainer.infer_fn(self.node)
+        if trainer.passes_need_calibration():
+            sys.stderr.write(
+                "serve: graph passes (fold_conv_bn/quantize_int8) have "
+                "no calibration stats; serving the unoptimized float "
+                "graph (calibrate before Server creation to "
+                "fold/quantize)\n")
+        self._graph = trainer.infer_graph(self.node)
         self._input_dims = tuple(trainer.net_cfg.input_shape)
         self._cond = threading.Condition()
         # admission state: the queue and the drain flag, under the
@@ -210,11 +224,10 @@ class Server:
         """Run every bucket once on zero rows, so steady-state serving
         pays no first-use setup. Returns the wall seconds spent."""
         t0 = time.perf_counter()
-        params = self.trainer.compute_params()
         with torch.inference_mode():
             for b in self.buckets:
                 data = np.zeros((b,) + self._input_dims, np.float32)
-                self._fn(params, self.trainer.stage_infer_rows(data)).cpu()
+                self._graph(self.trainer.stage_infer_rows(data)).cpu()
         self.warmup_s = time.perf_counter() - t0
         return self.warmup_s
 
@@ -338,8 +351,7 @@ class Server:
                 [data, np.zeros((bucket - total,) + data.shape[1:],
                                 data.dtype)], axis=0)
         t_dispatch = time.monotonic()
-        params = self.trainer.compute_params()
-        out = self._fn(params, self.trainer.stage_infer_rows(data))
+        out = self._graph(self.trainer.stage_infer_rows(data))
         rows = out.cpu().numpy().reshape(bucket, -1)  # the sync point
         t_done = time.monotonic()
         off = 0

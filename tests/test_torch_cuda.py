@@ -1,6 +1,6 @@
-"""The port on the card: the CUDA kernels (K1-fwd, K1-bwd, and the
-flash-attention K2-fwd, K2-dq, K2-dkv) against their plain versions, and
-the serving and training paths through them. Every test here needs an
+"""The port on the card: the CUDA kernels (K1-fwd, K1-bwd, the
+flash-attention K2-fwd, K2-dq, K2-dkv, and the int8 dot K3) against
+their plain versions, and the serving and training paths through them. Every test here needs an
 NVIDIA card and skips without one (marker `cuda`). This file imports no
 jax, so it runs where only the port's dependencies are installed:
 
@@ -15,6 +15,7 @@ from cxxnet_tpu_torch import convert, kernels
 from cxxnet_tpu_torch.io.data import DataBatch
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.ops import flash_attention as FA
+from cxxnet_tpu_torch.ops import int8 as int8_ops
 from cxxnet_tpu_torch.ops import lrn as lrn_ops
 from cxxnet_tpu_torch.serve import Server
 from torch_port_util import NARROW_ALEXNET, cuda_device  # noqa: F401
@@ -164,7 +165,8 @@ def test_narrow_alexnet_training_step_card_matches_cpu(cuda_device):
     lg = gpu.update(DataBatch(data=data, label=label), keep=keep)
     torch.cuda.synchronize()
     assert kernels.launches() == {"lrn_fwd": 2, "lrn_bwd": 2, "attn_fwd": 0,
-                                  "attn_dq": 0, "attn_dkv": 0}
+                                  "attn_dq": 0, "attn_dkv": 0,
+                                  "int8_mm": 0}
     lc = cpu.update(DataBatch(data=data, label=label), keep=keep)
     np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
     shapes = cpu.net.param_shapes()
@@ -338,3 +340,114 @@ def test_seq_net_training_step_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(gpu.predict_dist(b), cpu.predict_dist(b),
                                rtol=1e-4, atol=1e-6)
     assert kernels.launches()["attn_fwd"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the int8 dot: K3
+# ---------------------------------------------------------------------------
+
+# AlexNet's fullc layers at 64 rows, bench.py's int8 MLP at 16, ragged
+# shapes (odd k: rows not 4-byte aligned), a conv im2col GEMM
+K3_CASES = [(64, 9216, 4096), (64, 4096, 1000), (16, 512, 2048),
+            (16, 2048, 10), (1, 3, 1), (17, 363, 1000), (100, 1201, 1),
+            (1936, 363, 96), (33, 1200, 128), (65, 64, 65)]
+
+
+@pytest.mark.parametrize("m,k,n", K3_CASES)
+def test_int8_kernel_matches_reference(cuda_device, m, k, n):
+    """Integer sums are exact: K3 equals its plain version bitwise,
+    extreme values (all +-127) included, and counts one launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m * 7 + n)
+    x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                      device=cuda_device, generator=gen)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                      device=cuda_device, generator=gen)
+    x[0] = 127
+    w[0] = -127
+    before = kernels.launches()["int8_mm"]
+    got = int8_ops.int8_matmul(x, w)
+    torch.cuda.synchronize()
+    assert kernels.launches()["int8_mm"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, int8_ops.int8_matmul_reference(x, w))
+    assert int(got[0, 0]) == -127 * 127 * k
+
+
+def test_int8_conv_route_matches_reference(cuda_device):
+    """The im2col route on the card (one K3 launch per group) against the
+    same route with the plain GEMM, and against the CPU."""
+    gen = np.random.RandomState(3)
+    x = torch.from_numpy(gen.randint(-127, 128, (2, 8, 13, 13)).astype(
+        np.int8))
+    w = torch.from_numpy(gen.randint(-127, 128, (16, 4, 5, 5)).astype(
+        np.int8))
+    before = kernels.launches()["int8_mm"]
+    got = int8_ops.int8_conv2d(x.to(cuda_device), w.to(cuda_device), 1, 2,
+                               2, 2)
+    torch.cuda.synchronize()
+    assert kernels.launches()["int8_mm"] == before + 2
+    assert torch.equal(got.cpu(), int8_ops.int8_conv2d(x, w, 1, 2, 2, 2))
+    assert torch.equal(got, int8_ops.int8_conv2d_reference(
+        x.to(cuda_device), w.to(cuda_device), 1, 2, 2, 2))
+
+
+def test_int8_kernel_refuses_what_it_cannot_take(cuda_device):
+    x = torch.zeros(4, 32, dtype=torch.int8, device=cuda_device)
+    w = torch.zeros(8, 32, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="int8"):
+        int8_ops.int8_mm(x.float(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_ops.int8_mm(x.t(), w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        int8_ops.int8_mm(x.cpu(), w.cpu())
+    with pytest.raises(ValueError, match="share k"):
+        int8_ops.int8_mm(x, w[:, :16].contiguous())
+
+
+def test_int8_kernel_build_failure_raises(cuda_device, monkeypatch,
+                                          tmp_path):
+    """A K3 that does not build raises; the CUDA path never falls back
+    to the plain version."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "int8_mm.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    monkeypatch.setattr(kernels, "BUILD", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "_libs", {})
+    x = torch.zeros(4, 32, dtype=torch.int8, device=cuda_device)
+    before = kernels.launches()["int8_mm"]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        int8_ops.int8_matmul(x, x)
+    assert kernels.launches()["int8_mm"] == before
+
+
+def test_narrow_alexnet_int8_card_matches_cpu_and_serves(cuda_device):
+    """NARROW_ALEXNET under the int8 passes, float32 (TF32 off), one set
+    of calibration statistics on both devices: the card and the CPU
+    agree to rtol 1e-3 / atol 1e-6 (an ulp of a float32 layer between
+    two int8 products can move one activation across a rounding
+    boundary); each inference batch launches K3 3 + 8 times (three
+    fullc, eight conv groups), and the Server's rows equal predict's."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conf = NARROW_ALEXNET + (
+        "graph_passes = dead_layer_elim,elim_reshape,fuse_activation,"
+        "quantize_int8\n")
+    gpu = NetTrainer(cfg=conf, device="cuda:0")
+    gpu.init_model()
+    cpu = NetTrainer(cfg=conf, device="cpu")
+    cpu.init_model()
+    data = (np.random.RandomState(0).randn(8, 3, 35, 35) * 3).astype(
+        np.float32)
+    b = DataBatch(data=data, label=np.zeros((8, 1), np.float32))
+    cpu.calibrate_graph_passes(b)
+    gpu.set_calibration(*cpu.calibration())
+    kernels.reset_launches()
+    got = gpu.predict_dist(b)
+    torch.cuda.synchronize()
+    assert kernels.launches()["int8_mm"] == 11
+    np.testing.assert_allclose(got, cpu.predict_dist(b), rtol=1e-3,
+                               atol=1e-6)
+    with Server(gpu, max_batch=8, max_wait_ms=0.0) as srv:
+        rows = srv.submit(data[:5]).result(timeout=120)
+    np.testing.assert_array_equal(rows, got[:5])

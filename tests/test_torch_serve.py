@@ -373,7 +373,7 @@ def test_cli_serve_equals_pred_equals_jax(tmp_path):
     (["task=train", "remat=1"], "remat"),
     (["task=extract"], "task = extract"),
     (["task=serve", "metrics_port=9100"], "metrics_port"),
-    (["task=pred", "graph_passes=all"], "graph_passes"),
+    (["task=pred", "tuning_cache=tc.json"], "tuning_cache"),
     (["task=pred", "zero_stage=3"], "zero_stage"),
     (["task=serve", "dev=tpu:0-63"], "multi-device"),
 ])
