@@ -15,11 +15,15 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    times (CUDA events, warm and L2-cold), the one-call library
    yardstick and the bound;
 3c. flash attention: K2-fwd, K2-dq and K2-dkv against their plain
-   versions at seq_mnist's shape (100,4,28,7), at ragged shapes and at
-   the JAX package's measuring shape (4,8,4096,128), with times (CUDA
-   events, warm and L2-cold), the bound and
-   scaled_dot_product_attention's forward and backward as the library
-   yardstick;
+   versions at seq_mnist's shape (100,4,28,7), at ragged shapes, at
+   head_dim 12 and 200, at Sq != Sk, on 2-byte-aligned views and at the
+   JAX package's measuring shape (4,8,4096,128); K2-dq and K2-dkv
+   launched twice give the same bits. Times (CUDA events, warm and
+   L2-cold), the bound and scaled_dot_product_attention's forward and
+   backward as the library yardstick, the backward pair's factor
+   against that one backward call, and forward + backward through
+   autograd beside SDPA's; phase 2 also prints each tensor-core
+   instance's tile plan, registers, spills and shared memory;
 4. serving: examples/ImageNet/AlexNet.conf at full width (bfloat16, as
    the file says) through the port's NetTrainer and Server - ragged
    requests from two threads, served rows against predict_dist, the
@@ -418,6 +422,70 @@ def attn_close(torch, got, ref, grad=False, long=False):
     return bool(torch.all((g - r).abs() <= bar))
 
 
+def misaligned_view(torch, t):
+    """A contiguous copy of t that is a view one element into its
+    storage: 2-byte aligned in bfloat16, so the kernels must take their
+    element load path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    if t.dtype == torch.bfloat16 and view.data_ptr() % 16 == 0:
+        raise AssertionError("misaligned_view is 16-byte aligned")
+    return view
+
+
+def time_fwd_bwd(torch, F, FA, q, k, v, do, causal, iters: int = 10):
+    """ms of one forward + backward through autograd: the port's
+    flash_attention (K2-fwd, K2-dq, K2-dkv and the delta reduction)
+    beside scaled_dot_product_attention's (CUDA events, L2 warm)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    def port():
+        torch.autograd.grad(FA.flash_attention(*leaves, causal), leaves, do)
+
+    def library():
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            *leaves, is_causal=causal), leaves, do)
+
+    return {"port": time_warm(torch, port, iters),
+            "library": time_warm(torch, library, iters)}
+
+
+def say_tc_instances(built) -> None:
+    """For every tensor-core (bfloat16) instance of K2-dq and K2-dkv: its
+    DP and load path, the dynamic shared memory the C entry asks for, and
+    the registers and spills that nvcc -Xptxas -v reported."""
+    from cxxnet_tpu_torch.ops import flash_attention as FA
+    pat = re.compile(r"attn_(dq|dkv)_tcILi(\d+)ELb([01])E")
+    for name in ("attn_dq", "attn_dkv"):
+        log = built.get(name, (0.0, ""))[1]
+        if log == "cached":
+            say(f"{name}: library cached, no ptxas report")
+            continue
+        smem = {}
+        for d in (64, 128, 256):
+            plan = FA.tc_plan(name, d)
+            smem[plan["dp"]] = plan["smem_bytes"]
+        cur, spill = None, ("?", "?")
+        for ln in log.splitlines():
+            if "Compiling entry" in ln:
+                m = pat.search(ln)
+                cur = m if m and f"attn_{m.group(1)}" == name else None
+                spill = ("?", "?")
+            elif cur is not None and "spill stores" in ln:
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", ln).groups()
+            elif cur is not None and "registers" in ln:
+                regs = re.search(r"Used (\d+) registers", ln).group(1)
+                dp, vec = (int(x) for x in cur.groups()[1:])
+                path = "cp.async" if vec else "element"
+                say(f"{name} tensor-core instance DP={dp} load={path}: "
+                    f"{regs} registers, spill stores {spill[0]} B, spill "
+                    f"loads {spill[1]} B, dynamic shared memory {smem[dp]} "
+                    f"B")
+                cur = None
+
+
 def phase_attention_kernels(torch, card):
     import torch.nn.functional as F
     from cxxnet_tpu_torch import kernels
@@ -429,7 +497,9 @@ def phase_attention_kernels(torch, card):
     names = ("attn_fwd", "attn_dq", "attn_dkv")
     max_err = {n: 0.0 for n in names}
     rows = {}
-    cases = [(SEQ_ATTN_SHAPE, dt, False, None)
+    fwd_bwd = {}
+    # (q shape, dtype, causal, scale, Sk (None: Sq), misaligned view)
+    cases = [(SEQ_ATTN_SHAPE, dt, False, None, None, False)
              for dt in (torch.bfloat16, torch.float32)]
     for s in (1, 12, 28, 33, 100, 257):
         for d, h in ((7, 3), (8, 1), (16, 3), (64, 1), (96, 3), (128, 1),
@@ -439,16 +509,30 @@ def phase_attention_kernels(torch, card):
             causal = (s + d) % 2 == 1
             scale = 0.3 if d == 16 else None
             for dt in (torch.float32, torch.bfloat16):
-                cases.append(((2, h, s, d), dt, causal, scale))
-    cases += [((1, 1, 257, 256), torch.bfloat16, True, None),
-              ((1, 1, 257, 256), torch.float32, False, 0.05)]
-    cases += [(MEASURE_ATTN_SHAPE, torch.bfloat16, c, None)
+                cases.append(((2, h, s, d), dt, causal, scale, None, False))
+    cases += [((1, 1, 257, 256), torch.bfloat16, True, None, None, False),
+              ((1, 1, 257, 256), torch.float32, False, 0.05, None, False)]
+    # the tensor-core instances' other edges: head_dim 12 and 200 (not
+    # multiples of 8 / 16), Sq != Sk under both masks, and contiguous
+    # views whose storage offset breaks 16-byte alignment
+    for c in (False, True):
+        cases += [((2, 3, 100, 12), torch.bfloat16, c, None, None, False),
+                  ((1, 2, 257, 200), torch.bfloat16, c, None, None, False),
+                  ((1, 2, 100, 64), torch.bfloat16, c, None, 257, False),
+                  ((1, 2, 100, 64), torch.float32, c, None, 257, False),
+                  ((1, 2, 257, 128), torch.bfloat16, c, None, None, True),
+                  ((2, 3, 33, 7), torch.bfloat16, c, None, None, True)]
+    cases += [(MEASURE_ATTN_SHAPE, torch.bfloat16, c, None, None, False)
               for c in (False, True)]
-    cases.append((MEASURE_ATTN_SHAPE, torch.float32, False, None))
+    cases.append((MEASURE_ATTN_SHAPE, torch.float32, False, None, None,
+                  False))
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for shape, dt, causal, scale in cases:
-        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                       .to(dt) for _ in range(4))
+    for shape, dt, causal, scale, sk, misaligned in cases:
+        kshape = shape[:2] + (sk or shape[2], shape[3])
+        q, k, v, do = (torch.randn(sh, generator=gen, device="cuda").to(dt)
+                       for sh in (shape, kshape, kshape, shape))
+        if misaligned:
+            q, k, v, do = (misaligned_view(torch, t) for t in (q, k, v, do))
         before = kernels.launches()
         o, lse = FA.attn_fwd(q, k, v, causal, scale)
         delta = FA.flash_delta(o, do)
@@ -459,6 +543,15 @@ def phase_attention_kernels(torch, card):
         if any(after[n] != before[n] + 1 for n in names):
             raise AssertionError("each K2 wrapper must count one launch "
                                  "per call")
+        # no atomics: a second launch of each backward kernel gives the
+        # same bits
+        dk2, dv2 = FA.attn_dkv(q, k, v, do, lse, delta, causal, scale)
+        if not (torch.equal(FA.attn_dq(q, k, v, do, lse, delta, causal,
+                                       scale), dq)
+                and torch.equal(dk2, dk) and torch.equal(dv2, dv)):
+            raise AssertionError(f"K2-dq / K2-dkv are not bitwise "
+                                 f"repeatable at {shape} {dt}")
+        del dk2, dv2
         ro, rlse = FA.flash_fwd_reference(q, k, v, causal, scale)
         rdq = FA.flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
         rdk, rdv = FA.flash_dkv_reference(q, k, v, do, lse, delta, causal,
@@ -476,13 +569,17 @@ def phase_attention_kernels(torch, card):
                 if not attn_close(torch, got, ref, grad, long):
                     raise AssertionError(
                         f"{n} disagrees with its plain version at {shape} "
-                        f"{dt} causal={causal} scale={scale}: {what} max "
+                        f"Sk={sk} misaligned={misaligned} {dt} "
+                        f"causal={causal} scale={scale}: {what} max "
                         f"abs {err:.3e} (max |ref| "
                         f"{float(ref.float().abs().max()):.3e})")
                 max_err[n] = max(max_err[n], err)
         del ro, rlse, rdq, rdk, rdv
         timed = (shape in (SEQ_ATTN_SHAPE, MEASURE_ATTN_SHAPE)
                  and dt == torch.bfloat16)
+        if shape == MEASURE_ATTN_SHAPE and dt == torch.bfloat16:
+            fwd_bwd[causal] = time_fwd_bwd(torch, F, FA, q, k, v, do,
+                                           causal)
         if not timed:
             continue
         say(f"{shape} bf16 causal={causal}: max abs err " + ", ".join(
@@ -539,9 +636,29 @@ def phase_attention_kernels(torch, card):
             rows[key]["library"] = rows[("attn_dq", shape, causal)][
                 "library"]
     del flush
-    say(f"attention kernels: {len(cases)} cases agree (f32, bf16; S = 1, "
-        f"12, 28, 33, 100, 257, 4096; D = 7 .. 256; causal and not); max "
-        "abs err " + ", ".join(f"{n} {e:.3e}" for n, e in max_err.items()))
+    say(f"attention kernels: {len(cases)} cases agree and K2-dq / K2-dkv "
+        f"repeat bitwise (f32, bf16; S = 1, 12, 28, 33, 100, 257, 4096; "
+        f"D = 7 .. 256 incl. 12, 200; Sq != Sk; 2-byte-aligned views; "
+        f"causal and not); max abs err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in max_err.items()))
+    for causal in (False, True):
+        m = MEASURE_ATTN_SHAPE
+        pair = rows[("attn_dq", m, causal)]["kernel"] + rows[
+            ("attn_dkv", m, causal)]["kernel"]
+        lib_bwd = rows[("attn_dq", m, causal)]["library"]
+        flops = (attn_flops("attn_dq", m, causal)
+                 + attn_flops("attn_dkv", m, causal))
+        say(f"K2-dq + K2-dkv {m} bf16 causal={causal}: {pair:.4f} ms "
+            f"({flops / pair / 1e9:.2f} TFLOP/s) = "
+            f"{pair / lib_bwd:.3f} x the backward of "
+            f"scaled_dot_product_attention ({lib_bwd:.4f} ms) on {card}")
+        fb = fwd_bwd[causal]
+        say(f"flash_attention forward+backward (autograd) {m} bf16 "
+            f"causal={causal}: {fb['port']:.4f} ms; "
+            f"scaled_dot_product_attention forward+backward "
+            f"{fb['library']:.4f} ms ({fb['port'] / fb['library']:.3f} x) "
+            f"on {card}")
+        rows[("attn_dkv", m, causal)]["fwd_bwd"] = fb
     return max_err, rows
 
 
@@ -851,10 +968,12 @@ ALEXNET_GROUPS = (
     ("convolutions (fwd+bwd)", "op", "aten::cudnn_convolution"),
     ("convolutions (fwd+bwd)", "op", "aten::convolution_backward"),
 )
+# "attn_dq_" matches both instances of K2-dq (attn_dq_kernel, float32;
+# attn_dq_tc, bfloat16 on the tensor cores), and so on
 SEQ_GROUPS = (
-    ("attn_fwd kernel", "kernel", "attn_fwd_kernel"),
-    ("attn_dq kernel", "kernel", "attn_dq_kernel"),
-    ("attn_dkv kernel", "kernel", "attn_dkv_kernel"),
+    ("attn_fwd kernel", "kernel", "attn_fwd_"),
+    ("attn_dq kernel", "kernel", "attn_dq_"),
+    ("attn_dkv kernel", "kernel", "attn_dkv_"),
 )
 
 
@@ -1935,7 +2054,7 @@ def attn_entry(name: str, rows, max_err: float, launches: int):
     m = rows[(name, MEASURE_ATTN_SHAPE, False)]
     c = rows[(name, MEASURE_ATTN_SHAPE, True)]
     p = rows[(name, SEQ_ATTN_SHAPE, False)]
-    return {
+    entry = {
         "name": name,
         "route": "cuda",
         "source": f"cxxnet_tpu_torch/csrc/{src}",
@@ -1966,6 +2085,19 @@ def attn_entry(name: str, rows, max_err: float, launches: int):
         "path_bound_ms": round(p["bound"], 6),
         "path_library_ms": round(p["library"], 6),
     }
+    if name != "attn_fwd":
+        # the backward pair against the library's one backward call, and
+        # forward + backward through autograd (phase 3c)
+        pair = (rows[("attn_dq", MEASURE_ATTN_SHAPE, False)]["kernel"]
+                + rows[("attn_dkv", MEASURE_ATTN_SHAPE, False)]["kernel"])
+        fb = rows[("attn_dkv", MEASURE_ATTN_SHAPE, False)]["fwd_bwd"]
+        entry.update({
+            "pair_ms": round(pair, 6),
+            "pair_over_library": round(pair / m["library"], 4),
+            "fwd_bwd_ms": round(fb["port"], 6),
+            "library_fwd_bwd_ms": round(fb["library"], 6),
+        })
+    return entry
 
 
 def main() -> int:
@@ -2001,6 +2133,7 @@ def main() -> int:
         for ln in log.splitlines():
             if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
                 say("  " + ln.strip())
+    say_tc_instances(built)
 
     max_err, main_rows = phase_kernels(torch)
     bwd_err, bwd_rows = phase_kernels_bwd(torch)

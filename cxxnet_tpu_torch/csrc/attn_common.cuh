@@ -1,5 +1,7 @@
-// Tile helpers shared by the flash-attention kernels (attn_fwd.cu,
-// attn_dq.cu, attn_dkv.cu) for Hopper (sm_90a), float32 and bfloat16.
+// Tile helpers shared by the flash-attention kernels on the CUDA cores
+// for Hopper (sm_90a): attn_fwd.cu (float32 and bfloat16) and the
+// float32 instances of attn_dq.cu and attn_dkv.cu (their bfloat16
+// instances run on the tensor cores, attn_tc.cuh).
 //
 // Every kernel works on 64 x 64 tiles: a block of 256 threads, seen as
 // 16 x 16 (ty, tx), holds a resident 64-row tile of one operand in

@@ -158,9 +158,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "attn_dq":
         lib.attn_dq.argtypes = [vp] * 7 + dims
         lib.attn_dq.restype = i32
+        lib.attn_dq_plan.argtypes = [i32, vp]  # (d, int[3] out)
+        lib.attn_dq_plan.restype = i32
     if name == "attn_dkv":
         lib.attn_dkv.argtypes = [vp] * 8 + dims
         lib.attn_dkv.restype = i32
+        lib.attn_dkv_plan.argtypes = [i32, vp]
+        lib.attn_dkv_plan.restype = i32
     if name == "int8_mm":
         # (x, w, out, m, n, k, splits, aligned, stream)
         lib.int8_mm.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]

@@ -25,6 +25,12 @@ The rounding points above (p and ds rounded to the working type before
 their products, l summed from the unrounded p) are where bfloat16
 results round; the plain versions round at the same places.
 
+On the card the backward kernels have two instances, picked by dtype:
+bfloat16 runs on the tensor cores (wgmma with float32 accumulators,
+csrc/attn_tc.cuh), float32 on the CUDA cores, whose float32 products
+keep the float32 bar of the plain versions (TF32 would not). A bfloat16
+CUDA tensor always takes the tensor-core instance; nothing falls back.
+
 `flash_attention` is the public entry, one autograd Function for both
 devices: a CUDA tensor runs the kernels (its backward launches K2-dq
 and K2-dkv) or raises; a CPU tensor runs the plain versions
@@ -38,6 +44,7 @@ length is taken and any head_dim up to 256; a longer head_dim raises.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -235,6 +242,22 @@ def attn_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *_dims(q, k, causal, scale), stream)
     kernels.check("attn_dkv", rc)
     return dk, dv
+
+
+def tc_plan(name: str, d: int) -> dict:
+    """The tile plan of the bfloat16 (tensor-core) instance of `name`
+    ("attn_dq" or "attn_dkv") at head_dim d, as its C entry reports it:
+    DP (d rounded up to a power of two of at least 64), threads per block
+    and dynamic shared memory bytes. Needs the card's toolchain (it loads
+    the kernel's library)."""
+    if name not in ("attn_dq", "attn_dkv"):
+        raise ValueError(f"tc_plan: no tensor-core plan for {name}")
+    lib = kernels.load(name)
+    out = (ctypes.c_int * 3)()
+    rc = getattr(lib, f"{name}_plan")(int(d), out)
+    if rc != 0:
+        raise ValueError(f"tc_plan: {name} takes no head_dim {d}")
+    return dict(zip(("dp", "threads", "smem_bytes"), list(out)))
 
 
 # ---------------------------------------------------------------------------

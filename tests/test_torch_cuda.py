@@ -275,6 +275,87 @@ def test_attention_autograd_gives_the_kernels_bits(cuda_device, dtype):
     assert torch.equal(leaves[2].grad, dv)
 
 
+# the bfloat16 backward on the tensor cores: every DP bucket (16 .. 256),
+# head_dim 7 and 12 (the element load path: rows not a whole number of
+# 16-byte pieces), Sq != Sk under both masks, and contiguous views whose
+# storage offset breaks 16-byte alignment
+TC_CASES = [
+    # (B, H, Sq, Sk, D, causal, misaligned)
+    (2, 2, 130, 130, 16, False, False),
+    (2, 2, 130, 130, 32, True, False),
+    (1, 3, 100, 100, 64, False, False),
+    (1, 2, 257, 257, 128, True, False),
+    (1, 2, 200, 200, 256, False, False),
+    (1, 1, 70, 70, 200, True, False),
+    (2, 2, 65, 65, 7, True, False),
+    (2, 2, 65, 65, 12, False, False),
+    (1, 2, 100, 257, 64, False, False),
+    (1, 2, 100, 257, 64, True, False),
+    (1, 2, 257, 100, 32, True, False),
+    (1, 2, 96, 96, 64, False, True),
+    (1, 2, 96, 96, 128, True, True),
+]
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t that is a view one element into its
+    storage: 2-byte aligned in bfloat16."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,misaligned", TC_CASES)
+def test_bf16_backward_kernels_on_the_tensor_cores(cuda_device, b, h, sq,
+                                                   sk, d, causal,
+                                                   misaligned):
+    """K2-dq and K2-dkv in bfloat16 (the tensor-core instances) against
+    flash_dq_reference / flash_dkv_reference on the same inputs: one
+    launch per call, and a second launch gives the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(sq * 7 + sk + d)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda_device)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, h, sk, d, generator=g, device=cuda_device)
+            .bfloat16() for _ in range(2))
+    if misaligned:
+        q, k, v, do = (_misaligned(t) for t in (q, k, v, do))
+    o, lse = FA.attn_fwd(q, k, v, causal)
+    delta = FA.flash_delta(o, do)
+    before = kernels.launches()
+    dq = FA.attn_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = FA.attn_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert [after[n] - before[n] for n in ("attn_dq", "attn_dkv")] == [1, 1]
+    rdq = FA.flash_dq_reference(q, k, v, do, lse, delta, causal)
+    rdk, rdv = FA.flash_dkv_reference(q, k, v, do, lse, delta, causal)
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                           ("dv", dv, rdv)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        assert _attn_close(got, ref, grad=True), name
+    assert torch.equal(FA.attn_dq(q, k, v, do, lse, delta, causal), dq)
+    dk2, dv2 = FA.attn_dkv(q, k, v, do, lse, delta, causal)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def test_bf16_backward_tile_plans(cuda_device):
+    """The tensor-core instances' plans: DP is d rounded up to a power of
+    two of at least 64 (one 128-byte swizzle row), 2 warpgroups a block,
+    shared memory within a block's 232,448 bytes, and head_dim 257
+    refused."""
+    for d, dp in ((7, 64), (12, 64), (32, 64), (64, 64), (96, 128),
+                  (128, 128), (200, 256), (256, 256)):
+        for name in ("attn_dq", "attn_dkv"):
+            plan = FA.tc_plan(name, d)
+            assert plan["dp"] == dp, (name, d)
+            assert plan["threads"] == 256
+            assert 0 < plan["smem_bytes"] <= 232448
+    with pytest.raises(ValueError, match="head_dim 257"):
+        FA.tc_plan("attn_dq", 257)
+
+
 def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
     x = torch.zeros(1, 2, 8, 16, device=cuda_device)
     wide = torch.zeros(1, 2, 8, 257, device=cuda_device)
