@@ -9,7 +9,10 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
 1. device: the card's name and power limit;
 2. build: every kernel in cxxnet_tpu_torch/csrc/ compiled with nvcc
    (one process per source, started together), with the -Xptxas -v
-   register and shared-memory lines;
+   register and shared-memory lines; each tensor-core instance (K2-fwd,
+   K2-dq, K2-dkv in bfloat16, K3 in int8) with its tile plan, registers,
+   spills (none allowed) and shared memory, and the count of HGMMA /
+   IGMMA instructions in each library's SASS (cuobjdump);
 3. kernel vs plain (3, 3b): K1-fwd and K1-bwd each against its plain
    PyTorch version at the main paths' shapes and at ragged ones, with
    times (CUDA events, warm and L2-cold), the one-call library
@@ -17,13 +20,12 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
 3c. flash attention: K2-fwd, K2-dq and K2-dkv against their plain
    versions at seq_mnist's shape (100,4,28,7), at ragged shapes, at
    head_dim 12 and 200, at Sq != Sk, on 2-byte-aligned views and at the
-   JAX package's measuring shape (4,8,4096,128); K2-dq and K2-dkv
-   launched twice give the same bits. Times (CUDA events, warm and
+   JAX package's measuring shape (4,8,4096,128); every K2 kernel
+   launched twice gives the same bits. Times (CUDA events, warm and
    L2-cold), the bound and scaled_dot_product_attention's forward and
    backward as the library yardstick, the backward pair's factor
    against that one backward call, and forward + backward through
-   autograd beside SDPA's; phase 2 also prints each tensor-core
-   instance's tile plan, registers, spills and shared memory;
+   autograd beside SDPA's; K2-fwd's tile plan at each timed shape;
 4. serving: examples/ImageNet/AlexNet.conf at full width (bfloat16, as
    the file says) through the port's NetTrainer and Server - ragged
    requests from two threads, served rows against predict_dist, the
@@ -43,19 +45,21 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    fails, `task = pred` reads the result;
 8. the sequence family: examples/LongSeq/seq_mnist.conf unmodified
    (b100, bfloat16) - (a) NetTrainer.update, 2 warm-up and 10 timed
-   steps, each launching every K2 kernel once, with a profiler table
-   and the device's idle share; (b) a float32 step (TF32 off, batch 8)
-   on the card against the CPU; (c) the CLI's task = train (3 rounds,
-   test error falls), continue = 1 and task = pred on synthetic
-   MNIST-format data under ./data/ of a temporary directory; (d) the
+   steps, each launching every K2 kernel once, with a profiler table,
+   the device's idle share and K2-fwd's device time per step; (b) a
+   float32 step (TF32 off, batch 8) on the card against the CPU; (c)
+   the CLI's task = train (3 rounds, test error falls), continue = 1
+   and task = pred on synthetic MNIST-format data under ./data/ of a
+   temporary directory; (d) the
    Server over (a)'s trainer, answering ragged requests of 1-100 rows
    from two threads, one K2-fwd per dispatched batch. (d) runs before
    (c);
 9. int8 (K3) and the graph passes: (a) K3 against its plain version,
    bitwise, at AlexNet's fullc shapes (m = 64), bench.py's int8 MLP
-   (m = 16), ragged shapes, AlexNet b64's convolution GEMMs and the
-   measuring shape (4096,4096,4096), with times (warm, L2-cold),
-   torch._int_mm as the yardstick and the bound; (b) AlexNet.conf
+   (m = 16), ragged shapes, AlexNet b64's convolution GEMMs, the
+   measuring shape (4096,4096,4096) and views one byte off alignment,
+   with times (warm, L2-cold), torch._int_mm as the yardstick and the
+   bound, summed over fc6-8 and over the 8 conv GEMMs; (b) AlexNet.conf
    (bfloat16, max_batch 64) with graph_passes = dead_layer_elim,
    elim_reshape,fuse_activation,quantize_int8, calibrated on the first
    batch and served to phase 4's 30 ragged requests from two threads:
@@ -451,39 +455,80 @@ def time_fwd_bwd(torch, F, FA, q, k, v, do, causal, iters: int = 10):
             "library": time_warm(torch, library, iters)}
 
 
-def say_tc_instances(built) -> None:
-    """For every tensor-core (bfloat16) instance of K2-dq and K2-dkv: its
-    DP and load path, the dynamic shared memory the C entry asks for, and
-    the registers and spills that nvcc -Xptxas -v reported."""
+# the tensor-core instances in the compiler's report: kernel name ->
+# (mangled-name pattern, fields of its template arguments)
+TC_INSTANCES = {
+    "attn_fwd": (re.compile(r"attn_fwd_tcILi(\d+)ELb([01])ELi([12])E"),
+                 ("DP", "load", "warpgroups")),
+    "attn_dq": (re.compile(r"attn_dq_tcILi(\d+)ELb([01])E"),
+                ("DP", "load")),
+    "attn_dkv": (re.compile(r"attn_dkv_tcILi(\d+)ELb([01])E"),
+                 ("DP", "load")),
+    "int8_mm": (re.compile(r"int8_mm_tcILi(\d+)ELb([01])E"),
+                ("BN", "load")),
+}
+# the SASS opcode of each library's tensor-core products: bf16 (HGMMA)
+# for the attention kernels, int8 (IGMMA) for K3
+TC_OPCODE = {"attn_fwd": "HGMMA", "attn_dq": "HGMMA", "attn_dkv": "HGMMA",
+             "int8_mm": "IGMMA"}
+
+
+def tc_smem(name: str, fields) -> str:
+    """Dynamic shared memory of one tensor-core instance: K2's as its C
+    entry reports it, K3's from its tile (csrc/int8_mm.cu: 4 stages of
+    128 + BN rows of 128 bytes, and 1 KB of alignment slack)."""
     from cxxnet_tpu_torch.ops import flash_attention as FA
-    pat = re.compile(r"attn_(dq|dkv)_tcILi(\d+)ELb([01])E")
-    for name in ("attn_dq", "attn_dkv"):
+    if name == "int8_mm":
+        return str(4 * (128 + fields["BN"]) * 128 + 1024)
+    sq = 28 if fields.get("warpgroups") == 1 else 4096
+    return str(FA.tc_plan(name, fields["DP"], sq)["smem_bytes"])
+
+
+def say_tc_instances(built) -> None:
+    """For every tensor-core instance of K2-fwd, K2-dq, K2-dkv (bfloat16)
+    and K3 (int8): its tile parameters and load path, the dynamic shared
+    memory it asks for, the registers and spills that nvcc -Xptxas -v
+    reported; then the count of warpgroup tensor-core instructions
+    (HGMMA / IGMMA) in each library's SASS, which must not be 0."""
+    for name, (pat, keys) in TC_INSTANCES.items():
         log = built.get(name, (0.0, ""))[1]
         if log == "cached":
             say(f"{name}: library cached, no ptxas report")
             continue
-        smem = {}
-        for d in (64, 128, 256):
-            plan = FA.tc_plan(name, d)
-            smem[plan["dp"]] = plan["smem_bytes"]
         cur, spill = None, ("?", "?")
         for ln in log.splitlines():
             if "Compiling entry" in ln:
-                m = pat.search(ln)
-                cur = m if m and f"attn_{m.group(1)}" == name else None
+                cur = pat.search(ln)
                 spill = ("?", "?")
             elif cur is not None and "spill stores" in ln:
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                   r"spill loads", ln).groups()
             elif cur is not None and "registers" in ln:
                 regs = re.search(r"Used (\d+) registers", ln).group(1)
-                dp, vec = (int(x) for x in cur.groups()[1:])
-                path = "cp.async" if vec else "element"
-                say(f"{name} tensor-core instance DP={dp} load={path}: "
+                fields = dict(zip(keys, (int(x) for x in cur.groups())))
+                path = "cp.async" if fields.pop("load") else "element"
+                desc = " ".join(f"{k}={v}" for k, v in fields.items())
+                say(f"{name} tensor-core instance {desc} load={path}: "
                     f"{regs} registers, spill stores {spill[0]} B, spill "
-                    f"loads {spill[1]} B, dynamic shared memory {smem[dp]} "
-                    f"B")
+                    f"loads {spill[1]} B, dynamic shared memory "
+                    f"{tc_smem(name, fields)} B")
+                if spill != ("0", "0"):
+                    raise AssertionError(f"{name} {desc} spills registers")
                 cur = None
+    from cxxnet_tpu_torch import kernels
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        say("cuobjdump not found beside nvcc: SASS not inspected")
+        return
+    for name, op in TC_OPCODE.items():
+        sass = subprocess.run([tool, "-sass", kernels._lib_path(name)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        n = sass.count(op)
+        say(f"{name}: {n} {op} instructions in the library's SASS")
+        if n == 0:
+            raise AssertionError(f"{name} has no {op} instruction: not on "
+                                 f"the tensor cores")
 
 
 def phase_attention_kernels(torch, card):
@@ -543,15 +588,16 @@ def phase_attention_kernels(torch, card):
         if any(after[n] != before[n] + 1 for n in names):
             raise AssertionError("each K2 wrapper must count one launch "
                                  "per call")
-        # no atomics: a second launch of each backward kernel gives the
-        # same bits
+        # no atomics: a second launch of each kernel gives the same bits
+        o2, lse2 = FA.attn_fwd(q, k, v, causal, scale)
         dk2, dv2 = FA.attn_dkv(q, k, v, do, lse, delta, causal, scale)
-        if not (torch.equal(FA.attn_dq(q, k, v, do, lse, delta, causal,
-                                       scale), dq)
+        if not (torch.equal(o2, o) and torch.equal(lse2, lse)
+                and torch.equal(FA.attn_dq(q, k, v, do, lse, delta, causal,
+                                           scale), dq)
                 and torch.equal(dk2, dk) and torch.equal(dv2, dv)):
-            raise AssertionError(f"K2-dq / K2-dkv are not bitwise "
-                                 f"repeatable at {shape} {dt}")
-        del dk2, dv2
+            raise AssertionError(f"K2 is not bitwise repeatable at {shape} "
+                                 f"{dt}")
+        del o2, lse2, dk2, dv2
         ro, rlse = FA.flash_fwd_reference(q, k, v, causal, scale)
         rdq = FA.flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
         rdk, rdv = FA.flash_dkv_reference(q, k, v, do, lse, delta, causal,
@@ -583,7 +629,8 @@ def phase_attention_kernels(torch, card):
         if not timed:
             continue
         say(f"{shape} bf16 causal={causal}: max abs err " + ", ".join(
-            f"{w} {e:.3e}" for w, e in errs.items()))
+            f"{w} {e:.3e}" for w, e in errs.items()) + "; K2-fwd plan "
+            + str(FA.tc_plan("attn_fwd", shape[3], shape[2])))
         # the library yardstick: one scaled_dot_product_attention call
         # and its backward on the same inputs (never on the port's path)
         ql, kl, vl = (t.detach().clone().requires_grad_(True)
@@ -636,9 +683,9 @@ def phase_attention_kernels(torch, card):
             rows[key]["library"] = rows[("attn_dq", shape, causal)][
                 "library"]
     del flush
-    say(f"attention kernels: {len(cases)} cases agree and K2-dq / K2-dkv "
-        f"repeat bitwise (f32, bf16; S = 1, 12, 28, 33, 100, 257, 4096; "
-        f"D = 7 .. 256 incl. 12, 200; Sq != Sk; 2-byte-aligned views; "
+    say(f"attention kernels: {len(cases)} cases agree and K2-fwd / K2-dq "
+        f"/ K2-dkv repeat bitwise (f32, bf16; S = 1, 12, 28, 33, 100, 257, "
+        f"4096; D = 7 .. 256 incl. 12, 200; Sq != Sk; 2-byte-aligned views; "
         f"causal and not); max abs err "
         + ", ".join(f"{n} {e:.3e}" for n, e in max_err.items()))
     for causal in (False, True):
@@ -678,6 +725,31 @@ def alexnet_trainer(overrides):
     tr = task.create_net()
     tr.init_model()
     return tr
+
+
+def staging_ms(torch, tr, stage, n: int):
+    """Host-clock ms of one synchronised `stage()` under each
+    stage_dtype: "" (bfloat16 here: cast on the host, half the bytes
+    across - the default) and "float32" (float32 across, cast on the
+    card)."""
+    out, keep = {}, tr.stage_dtype
+    for sd in ("", "float32"):
+        tr.stage_dtype = sd
+        stage()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            stage()
+        torch.cuda.synchronize()
+        out[sd or "bfloat16"] = (time.perf_counter() - t1) / n * 1e3
+    tr.stage_dtype = keep
+    return out
+
+
+def stage_txt(stage) -> str:
+    return (f"{stage['bfloat16']:.3f} ms (host clock; cast on the host, "
+            f"the default) or {stage['float32']:.3f} ms (stage_dtype = "
+            f"float32: cast on the card)")
 
 
 def phase_serving(torch, card):
@@ -745,19 +817,15 @@ def phase_serving(torch, card):
         f"on {card}")
     served = dict(stats, rows_per_s=rows / wall)
 
-    # where a full bucket's time goes: host staging (float32 rows to
-    # the card, cast there) against the forward alone, each synchronised
+    # where a full bucket's time goes: host staging against the forward
+    # alone, each synchronised
     full = reqs[0][:64]
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(10):
-        staged = tr.stage_infer_rows(full)
-    torch.cuda.synchronize()
-    stage_ms = (time.perf_counter() - t1) * 100.0
+    stage = staging_ms(torch, tr, lambda: tr.stage_infer_rows(full), 10)
+    staged = tr.stage_infer_rows(full)
     fwd_ms = time_warm(torch, lambda: tr.infer_rows(staged), iters=10)
-    say(f"full bucket of 64: staging {stage_ms:.3f} ms (host clock), "
-        f"forward {fwd_ms:.3f} ms (CUDA events, "
-        f"{64 / fwd_ms * 1e3:.0f} rows/s device-only) on {card}")
+    say(f"full bucket of 64: staging {stage_txt(stage)}, forward "
+        f"{fwd_ms:.3f} ms (CUDA events, {64 / fwd_ms * 1e3:.0f} rows/s "
+        f"device-only) on {card}")
     served["forward_ms"] = fwd_ms
 
     # served rows against predict_dist of the same rows: bfloat16
@@ -978,7 +1046,7 @@ SEQ_GROUPS = (
 
 
 INT8_GROUPS = (
-    ("int8_mm kernel", "kernel", "int8_mm_kernel"),
+    ("int8_mm kernel", "kernel", "int8_mm_"),
     ("lrn_fwd kernel", "kernel", "lrn_fwd_kernel"),
     ("im2col unfold", "op", "aten::im2col"),
 )
@@ -1183,17 +1251,12 @@ def phase_training(torch, card):
     batch = DataBatch(data=images, label=labels)
     per_step = {"lrn_fwd": 2, "lrn_bwd": 2}
     counts, step_ms, peak = train_steps(torch, tr, batch, per_step)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(3):
-        tr._stage(batch, train=True)
-    torch.cuda.synchronize()
-    stage_ms = (time.perf_counter() - t1) / 3 * 1e3
+    stage = staging_ms(torch, tr, lambda: tr._stage(batch, train=True), 3)
     say(f"AlexNet b256 bfloat16 training step: {step_ms:.3f} ms "
         f"(host clock over 10 steps, CUDA-synchronised), "
         f"{256 / step_ms * 1e3:.1f} images/s; of which staging the batch "
-        f"(float32 rows to the card, cast there) {stage_ms:.3f} ms; peak "
-        f"memory {peak / 2 ** 30:.3f} GiB; on {card}")
+        f"{stage_txt(stage)}; peak memory {peak / 2 ** 30:.3f} GiB; on "
+        f"{card}")
     say_profile(profile_steps(torch, lambda: tr.update(batch), 3), 3, card)
     del tr
     torch.cuda.empty_cache()
@@ -1350,8 +1413,14 @@ def phase_seq_training(torch, card):
         f"clock over 10 steps, CUDA-synchronised), "
         f"{100 / step_ms * 1e3:.1f} images/s; peak memory "
         f"{peak / 2 ** 20:.1f} MiB; on {card}")
-    say_profile(profile_steps(torch, lambda: tr.update(batch), 5,
-                              SEQ_GROUPS), 5, card)
+    profiled = profile_steps(torch, lambda: tr.update(batch), 5,
+                             SEQ_GROUPS)
+    say_profile(profiled, 5, card)
+    if profiled[0]:
+        say(f"K2-fwd device time per seq_mnist step: "
+            f"{profiled[1]['attn_fwd kernel']:.4f} ms (the tensor-core "
+            f"instance, one warpgroup and 64 query rows a block) on "
+            f"{card}")
     say("== phase 8b: a float32 seq_mnist step, card vs CPU ==")
     f32_step_card_vs_cpu(torch, seq_trainer, images, labels, per_step)
     return counts, step_ms, tr
@@ -1522,6 +1591,11 @@ K3_MEASURE = (4096, 4096, 4096)
 K3_CONV = {"conv1": (193600, 363, 96, 1), "conv2": (46656, 1200, 128, 2),
            "conv3": (10816, 2304, 384, 1), "conv4": (10816, 1728, 192, 2),
            "conv5": (10816, 1728, 128, 2)}
+# operands that take K3's element-load path on views one byte into their
+# storage (16-byte alignment broken), with odd n, split-k and m up to an
+# im2col GEMM's 193600 rows
+K3_UNALIGNED = ((1, 9216, 1001), (64, 9216, 4096), (64, 4096, 1001),
+                (100, 363, 97), (193600, 3, 97), (193600, 363, 96))
 # K3 launches of one AlexNet batch on the int8 route: 3 fullc + 8
 # convolution groups
 K3_PER_ALEXNET_BATCH = 3 + sum(g for *_, g in K3_CONV.values())
@@ -1605,8 +1679,32 @@ def phase_int8_kernel(torch, card):
             f"{2.0 * m * n * k / r['kernel'] / 1e9:.2f} TOP/s; plain "
             f"{r['plain']:.4f} ms; torch._int_mm {r['library']:.4f} ms; "
             f"bound {bound:.4f} ms ({by})")
-    say(f"K3 bitwise equal to its plain version at all {len(shapes)} "
-        f"shapes ({len(K3_RAGGED)} ragged) on {card}")
+    for m, k, n in K3_UNALIGNED:
+        xs = torch.empty(m * k + 1, dtype=torch.int8, device="cuda")
+        ws = torch.empty(n * k + 1, dtype=torch.int8, device="cuda")
+        x, w = xs[1:].view(m, k), ws[1:].view(n, k)
+        x.copy_(torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                              device="cuda", generator=gen))
+        w.copy_(torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                              device="cuda", generator=gen))
+        if not torch.equal(int8_ops.int8_mm(x, w),
+                           int8_ops.int8_matmul_reference(x, w)):
+            raise AssertionError(f"K3 differs from its plain version on "
+                                 f"unaligned views at ({m},{k},{n})")
+    say(f"K3 bitwise equal to its plain version at all "
+        f"{len(shapes) + len(K3_UNALIGNED)} shapes ({len(K3_RAGGED)} "
+        f"ragged, {len(K3_UNALIGNED)} on views 1 byte off alignment) on "
+        f"{card}")
+    for label, group in (
+            ("fc6 + fc7 + fc8 at 64 rows",
+             [(s_, 1) for s_ in K3_PATH.values()]),
+            ("AlexNet b64's 8 conv GEMMs",
+             [((m, k, n), g) for m, k, n, g in K3_CONV.values()])):
+        tot = {key: sum(rows[sh][key] * g for sh, g in group)
+               for key in ("kernel", "library", "bound")}
+        say(f"K3 {label}: {tot['kernel']:.4f} ms; torch._int_mm "
+            f"{tot['library']:.4f} ms ({tot['kernel'] / tot['library']:.3f}"
+            f" x); bound {tot['bound']:.4f} ms on {card}")
     return rows
 
 

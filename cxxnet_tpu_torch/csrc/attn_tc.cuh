@@ -1,5 +1,6 @@
-// Tensor-core tile machinery of the bfloat16 flash-attention backward
-// kernels (attn_dq.cu: K2-dq, attn_dkv.cu: K2-dkv) for Hopper (sm_90a).
+// Tensor-core tile machinery of the bfloat16 flash-attention kernels
+// (attn_fwd.cu: K2-fwd, attn_dq.cu: K2-dq, attn_dkv.cu: K2-dkv) for
+// Hopper (sm_90a); the primitives under it are tc_common.cuh's.
 //
 // Products run on the bf16 tensor cores as warpgroup-wide
 // wgmma.mma_async m64nNk16 (bf16 in, float32 accumulators). The score
@@ -7,11 +8,12 @@
 // accumulating products take their A operand - p or ds, rounded to bf16
 // - from registers and their B operand from shared memory through the
 // instruction's transpose flag (MN-major). The float32 instances of the
-// two kernels keep the CUDA-core code of attn_common.cuh: their bar
+// kernels keep the CUDA-core code of attn_common.cuh: their bar
 // against the plain versions (rtol 1e-4, atol 1e-5) rules out TF32.
 //
-// A block owns 128 rows of the output (64 at head_dim > 128) - query
-// rows of dq, key rows of dk/dv - so no atomics are needed and the
+// A block owns 128 rows of the output (64 at head_dim > 128; K2-fwd: 64
+// with one warpgroup for a sequence of at most 64) - query rows of o and
+// dq, key rows of dk/dv - so no atomics are needed and the
 // result is the same bits from run to run. Its 2 warpgroups (4 warps,
 // 128 threads each) own 64 rows each and share the streamed tiles; at
 // head_dim > 128 they split the accumulator columns of the block's 64
@@ -46,19 +48,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 #include <initializer_list>
 
 namespace attn_tc {
+
+using namespace tc;
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;     // rows of every tile, owned or streamed
 constexpr int kStages = 2;    // depth of the streamed ring
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // A block is 2 warpgroups (256 threads). Up to DP 128 each owns 64 of
 // the block's 128 rows (rowg = 2); at DP 256 both take the block's 64
@@ -94,12 +96,6 @@ constexpr size_t smem_bytes(int stat_floats) {
          (size_t)stat_floats * sizeof(float) + 1024;
 }
 
-// The dynamic shared memory base rounded up to 1,024 bytes.
-__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
 // Byte offset of element (r, c) in a staged tile: the 128-byte swizzle -
 // 16-byte piece c / 8 of row r sits at piece (c / 8) ^ (r % 8) of its
 // 128-byte row within the row's 64-column block.
@@ -108,94 +104,19 @@ __device__ __forceinline__ int swz(int r, int c) {
          ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
 }
 
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid (no
-// byte of src is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
+// K-major operand: the 64 rows of a tile, its first 16 columns as the
+// contraction. 8-row groups are 1,024 bytes apart; k-step kk starts
+// kstep(kk) further (32 bytes a step inside a 64-column block).
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile) {
+  return desc(tile, 16, 1024);
 }
 
-// 4 bytes global -> shared, asynchronous; zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Make this thread's shared-memory writes (stores, cp.async) visible to
-// the tensor cores' asynchronous proxy; a barrier follows.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Registers an asynchronous wgmma reads or writes: pinned so that the
-// compiler neither reuses them nor reads them before wg_wait returns.
-template <int R>
-__device__ __forceinline__ void keep(float (&x)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(x[i][e])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void keep(uint32_t (&x)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(x[i][e])::"memory");
-}
-
-// A shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-// K-major operand: the 64 rows of a tile, columns [16 kk, 16 kk + 16) as
-// the contraction. 8-row groups are 1,024 bytes apart; a k-step inside a
-// 64-column block moves the start 32 bytes.
-__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int kk) {
-  return desc(reinterpret_cast<const char*>(tile) + (kk >> 2) * kBlkBytes +
-                  (kk & 3) * 32,
-              16, 1024);
-}
-
-// MN-major operand (transposed B): rows [krow0, krow0 + 16) as the
+// MN-major operand (transposed B): the tile's first 16 rows as the
 // contraction, columns [col0, col0 + N) as N. 8-row groups are 1,024
-// bytes apart (stride offset), 64-column blocks kBlkBytes (leading).
-__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int krow0,
-                                            int col0) {
-  return desc(reinterpret_cast<const char*>(tile) + (col0 >> 6) * kBlkBytes +
-                  krow0 * 128,
+// bytes apart (stride offset), 64-column blocks kBlkBytes (leading); a
+// k-step of 16 rows moves the start 2,048 bytes.
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int col0) {
+  return desc(reinterpret_cast<const char*>(tile) + (col0 >> 6) * kBlkBytes,
               kBlkBytes, 1024);
 }
 
@@ -356,19 +277,40 @@ __device__ __forceinline__ void load_stats(float* __restrict__ dst,
   }
 }
 
+// The start-address step (16-byte units, added to a descriptor) of
+// k-step kk of a K-major tile: the start field holds at most 14 bits of a
+// shared address, so the addition never carries out of it.
+__host__ __device__ constexpr uint64_t kstep(int kk) {
+  return (uint64_t)(((kk >> 2) * kBlkBytes + (kk & 3) * 32) >> 4);
+}
+
 // The score products of one warpgroup, issued, not waited on: acc
 // (64 x 64) = A[64 rows] . B[64 rows]^T over DP columns, both K-major.
 // The accumulator fragment of thread (warp w of the warpgroup, lane
 // 4 g + t): acc[j] holds rows 16 w + g, 16 w + g + 8 and columns 8 j + 2 t,
 // 8 j + 2 t + 1, as {(g, c), (g, c+1), (g+8, c), (g+8, c+1)} - per warp,
-// the m16n8 accumulator layout of mma.sync.
+// the m16n8 accumulator layout of mma.sync. a and b are the tiles' base
+// descriptors, desc_k(A) and desc_k(B).
 template <int DP>
 __device__ __forceinline__ void wg_score(float (&acc)[kRows / 8][4],
-                                         const bf16* A, const bf16* B) {
+                                         uint64_t a, uint64_t b) {
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk)
-    wgmma_ss(acc, desc_k(A, kk), desc_k(B, kk), kk > 0);
+    wgmma_ss(acc, a + kstep(kk), b + kstep(kk), kk > 0);
+}
+template <int DP>
+__device__ __forceinline__ void wg_score(float (&acc)[kRows / 8][4],
+                                         const bf16* A, const bf16* B) {
+  wg_score<DP>(acc, desc_k(A), desc_k(B));
+}
+
+// A descriptor laundered through an empty asm, so that the compiler
+// cannot hoist the k-step descriptors derived from it out of a loop:
+// the loop keeps one 64-bit base live instead of one per k-step.
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
 }
 
 // P (64 x 64 float32, a score accumulator) rounded to bf16 in registers
@@ -389,14 +331,21 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[kRows / 16][4],
 // The accumulating product of one warpgroup, issued, not waited on:
 // acc (64 x DC) += P (64 x 64, packed) . X[64 rows, columns col0 ..
 // col0 + DC), X row-major over the contraction (MN-major B, the
-// instruction's transpose flag).
+// instruction's transpose flag). x is the base descriptor
+// desc_mn(X, col0); k-step ks starts 16 rows of 128 bytes further.
+template <int DC>
+__device__ __forceinline__ void wg_acc(float (&acc)[DC / 8][4],
+                                       const uint32_t (&a)[kRows / 16][4],
+                                       uint64_t x) {
+#pragma unroll
+  for (int ks = 0; ks < kRows / 16; ++ks)
+    wgmma_rs(acc, a[ks], x + (uint64_t)(ks * 16 * 128 >> 4));
+}
 template <int DC>
 __device__ __forceinline__ void wg_acc(float (&acc)[DC / 8][4],
                                        const uint32_t (&a)[kRows / 16][4],
                                        const bf16* X, int col0) {
-#pragma unroll
-  for (int ks = 0; ks < kRows / 16; ++ks)
-    wgmma_rs(acc, a[ks], desc_mn(X, 16 * ks, col0));
+  wg_acc<DC>(acc, a, desc_mn(X, col0));
 }
 
 // Store one warp's 16 x DC accumulator rows, times `mul`, rounded to
@@ -437,20 +386,6 @@ inline bool vec_ok(int d, std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return true;
-}
-
-// Launch `kernel` on `blocks` blocks of `threads` with `smem` bytes of
-// dynamic shared memory, raising the instance's limit at its first
-// launch. Returns cudaGetLastError() (0 = launched).
-template <auto kernel, typename... Args>
-int launch(long long blocks, int threads, size_t smem, cudaStream_t stream,
-           Args... args) {
-  if (blocks <= 0) return (int)cudaGetLastError();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
-  kernel<<<(unsigned int)blocks, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
 }
 
 // The instance for head_dim d: DP and the load path; CALL sees DP and

@@ -18,7 +18,8 @@ import sys
 import numpy as np
 
 from cxxnet_tpu_torch.io.data import DataBatch
-from cxxnet_tpu_torch.io.iterators import DataIter
+from cxxnet_tpu_torch.io.iterators import _NOT_PORTED, DataIter
+from cxxnet_tpu_torch.utils.config import check_ported
 
 
 def _read_idx_images(path: str) -> np.ndarray:
@@ -50,6 +51,7 @@ class MNISTIterator(DataIter):
         self.loc = 0
 
     def set_param(self, name: str, val: str) -> None:
+        check_ported(_NOT_PORTED, name, val)
         if name == "silent":
             self.silent = int(val)
         if name == "batch_size":

@@ -155,6 +155,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "attn_fwd":
         lib.attn_fwd.argtypes = [vp] * 5 + dims
         lib.attn_fwd.restype = i32
+        lib.attn_fwd_plan.argtypes = [i32, i32, vp]  # (d, Sq, int[4] out)
+        lib.attn_fwd_plan.restype = i32
     if name == "attn_dq":
         lib.attn_dq.argtypes = [vp] * 7 + dims
         lib.attn_dq.restype = i32
@@ -166,8 +168,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.attn_dkv_plan.argtypes = [i32, vp]
         lib.attn_dkv_plan.restype = i32
     if name == "int8_mm":
-        # (x, w, out, m, n, k, splits, aligned, stream)
-        lib.int8_mm.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        # (x, w, out, m, n, k, bn, splits, aligned, stream)
+        lib.int8_mm.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                vp]
         lib.int8_mm.restype = i32
 
 

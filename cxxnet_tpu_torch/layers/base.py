@@ -33,6 +33,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Type
 import torch
 from torch import nn
 
+from cxxnet_tpu_torch.utils.config import check_ported
+
 Shape = Tuple[int, int, int, int]
 Params = Dict[str, torch.Tensor]
 
@@ -42,10 +44,21 @@ def is_mat(shape: Sequence[int]) -> bool:
     return shape[1] == 1 and shape[2] == 1
 
 
-def not_ported(key: str, val: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{key} = {val}: {what} is not ported to cxxnet_tpu_torch yet "
-        "(see ROADMAP)")
+# Layer keys of the JAX package whose layer or option the port does not
+# implement yet: any value but the listed inert ones raises
+# NotImplementedError naming the key (the layer types themselves raise at
+# creation). fullc_gather is the tensor-parallel fullc's gather; the rest
+# belong to xelu (b), insanity (lb, ub, calm_start, calm_end), prelu
+# (random, random_slope), insanity_max_pooling (keep), fixconn,
+# transformer_stack, moe, pairtest and the torch plugin layer.
+_NOT_PORTED: Dict[str, Tuple[str, ...]] = {
+    "fullc_gather": ("0",),
+    "b": (), "lb": (), "ub": (), "calm_start": (), "calm_end": (),
+    "random": (), "random_slope": (), "keep": (), "fixconn_weight": (),
+    "microbatch": (), "nlayer": (),
+    "moe_aux": (), "moe_capacity": (), "moe_top_k": (), "nexpert": (),
+    "pairtest_print": (), "pairtest_tol": (), "torch_module": (),
+}
 
 
 class LayerParam:
@@ -166,6 +179,7 @@ class Layer(nn.Module):
 
     # --- configuration ---------------------------------------------------
     def set_param(self, name: str, val: str) -> None:
+        check_ported(_NOT_PORTED, name, val)
         self.param.set_param(name, val)
 
     # --- structure -------------------------------------------------------

@@ -45,8 +45,9 @@ import numpy as np
 
 from cxxnet_tpu_torch import kernels
 from cxxnet_tpu_torch.io import DataBatch, create_iterator
-from cxxnet_tpu_torch.nnet.trainer import NetTrainer, is_inert
-from cxxnet_tpu_torch.utils.config import parse_config_file
+from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+from cxxnet_tpu_torch.utils.config import (check_ported, parse_config_file,
+                                           validate_known_keys)
 from cxxnet_tpu_torch.utils.device import device_from_spec
 from cxxnet_tpu_torch.utils.fault import DivergenceError, atomic_writer
 
@@ -62,6 +63,15 @@ _NOT_PORTED = {
     "metrics_port": ("0",), "alert_rules": ("",), "alert_cmd": ("",),
     "watchdog_secs": ("0",), "flight_recorder": ("0",),
     "tuning_cache": ("",), "publish_model": ("",),
+    "net_type": ("0",), "prefetch_stage": ("1",),
+    "extract_node_name": ("",), "output_format": ("txt",),
+    "log_format": ("json",), "metrics_host": ("",),
+    "barrier_secs": ("30",), "leader_lease_secs": ("10",),
+    "coord_dir": ("",),
+    "elastic_nproc": ("2",), "elastic_respawn": ("1",),
+    "elastic_max_generations": ("8",), "elastic_grace_secs": ("5",),
+    "elastic_poll_secs": ("0.2",), "elastic_absence_secs": ("60",),
+    "elastic_stale_secs": ("60",), "elastic_fault": ("",),
 }
 
 
@@ -87,6 +97,10 @@ class LearnTask:
         # feeds `pass_calibration_batches` batches ("" = pred)
         self.pass_calibration_iter = ""
         self.pass_calibration_batches = 1
+        # the config schema check (analysis/schema.py): an unknown key
+        # raises ConfigError with a did-you-mean; schema_check = 0
+        # bypasses it
+        self.schema_check = 1
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
         self.itr_evals = []
@@ -99,14 +113,21 @@ class LearnTask:
 
     # ------------------------------------------------------------------
     def load_conf(self, path: str, overrides: List[str] = ()) -> None:
-        """Parse the conf file, then `k=v` overrides."""
+        """Parse the conf file, then `k=v` overrides; then, unless
+        `schema_check = 0`, reject unknown keys - the file's and the
+        command line's separately, so the error names where the typo
+        is."""
         for name, val in parse_config_file(path):
             self.set_param(name, val)
-        self._n_file_pairs = len(self.cfg)
+        n_file = self._n_file_pairs = len(self.cfg)
         for arg in overrides:
             if "=" in arg:
                 name, val = arg.split("=", 1)
                 self.set_param(name.strip(), val.strip())
+        if self.schema_check:
+            validate_known_keys(self.cfg[:n_file], source=path)
+            validate_known_keys(self.cfg[n_file:],
+                                source="command-line override")
 
     def run(self, argv: List[str]) -> int:
         if len(argv) < 1:
@@ -133,10 +154,7 @@ class LearnTask:
     def set_param(self, name: str, val: str) -> None:
         if val == "default":
             return
-        if name in _NOT_PORTED and not is_inert(val, _NOT_PORTED[name]):
-            raise NotImplementedError(
-                f"{name} = {val}: not ported to cxxnet_tpu_torch yet "
-                "(see ROADMAP)")
+        check_ported(_NOT_PORTED, name, val)
         if name == "model_in":
             self.name_model_in = val
         if name == "model_dir":
@@ -164,6 +182,8 @@ class LearnTask:
             self.device = val
         if name == "serve_rows":
             self.serve_rows = int(val)
+        if name == "schema_check":
+            self.schema_check = int(val)
         if name == "pass_calibration_iter":
             self.pass_calibration_iter = val
         if name == "pass_calibration_batches":

@@ -70,7 +70,6 @@ import torch
 
 from cxxnet_tpu_torch import convert
 from cxxnet_tpu_torch.io.data import DataBatch
-from cxxnet_tpu_torch.layers.base import not_ported
 from cxxnet_tpu_torch.nnet import checkpoint
 from cxxnet_tpu_torch.nnet.net_config import NetConfig
 from cxxnet_tpu_torch.nnet.network import Network, param_key
@@ -79,7 +78,7 @@ from cxxnet_tpu_torch.nnet.passes import (
     find_quant_sites, make_param_fn)
 from cxxnet_tpu_torch.ops.int8 import per_channel_scale
 from cxxnet_tpu_torch.updater import UpdaterParam, create_updater
-from cxxnet_tpu_torch.utils.config import parse_config_string
+from cxxnet_tpu_torch.utils.config import check_ported, parse_config_string
 from cxxnet_tpu_torch.utils.device import (
     DEFAULT_DEVICE, device_from_spec, resolve_device)
 from cxxnet_tpu_torch.utils.fault import DivergenceError
@@ -116,6 +115,11 @@ _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "serve_conn_timeout_ms": ("0",),
     "serve_max_conns": ("0",),
     "serve_max_body_bytes": ("0",),
+    "serve_shed_clear_ms": ("1000",),
+    "swap_poll_ms": ("200",),
+    "swap_canary_window": ("10",),
+    "compile_cache": ("",),
+    "trace_round": ("1",),
 }
 
 
@@ -128,25 +132,6 @@ def stream_seed(*parts: int) -> int:
         h = ((h ^ (int(p) & 0xFFFFFFFFFFFFFFFF)) * 0x100000001B3) \
             & 0xFFFFFFFFFFFFFFFF
     return h & ((1 << 63) - 1)
-
-
-def is_inert(val: str, inert: Tuple[str, ...]) -> bool:
-    for want in inert:
-        if val == want:
-            return True
-        try:
-            if float(val) == float(want):
-                return True
-        except ValueError:
-            pass
-    return False
-
-
-def check_ported(name: str, val: str) -> None:
-    """Raise NotImplementedError for a result-changing key the port does
-    not implement yet (shared by the trainer and the CLI)."""
-    if name in _NOT_PORTED and not is_inert(val, _NOT_PORTED[name]):
-        raise not_ported(name, val, f"the `{name}` option")
 
 
 def _tree_map(fn, tree):
@@ -229,6 +214,9 @@ class NetTrainer:
         self.silent = 0
         self.epoch = 0       # update counter (reference epoch_counter)
         self.compute_dtype = torch.float32
+        # the dtype batches cross to the card in ("" = follow the
+        # compute dtype; float32 under bfloat16 = cast on the card)
+        self.stage_dtype = ""
         self.metric = MetricSet()
         self.train_metric = MetricSet()
         # (node name or "" for the final node, node id) per metric
@@ -280,7 +268,15 @@ class NetTrainer:
     # configuration
     # ------------------------------------------------------------------
     def set_param(self, name: str, val: str) -> None:
-        check_ported(name, val)
+        # the JAX trainer's range checks come first, also for keys the
+        # port then refuses, so that a bad value fails the same way
+        if name == "serve_shed_clear_ms" and float(val) < 0:
+            raise ValueError("serve_shed_clear_ms must be >= 0")
+        if name == "swap_poll_ms" and float(val) <= 0:
+            raise ValueError("swap_poll_ms must be > 0")
+        if name == "swap_canary_window" and float(val) <= 0:
+            raise ValueError("swap_canary_window must be > 0")
+        check_ported(_NOT_PORTED, name, val)
         if name == "dev":
             device_from_spec(val)  # validates; multi-device raises
         if name == "batch_size":
@@ -301,6 +297,23 @@ class NetTrainer:
             self.check_nan = int(val)
         if name == "max_bad_rounds":
             self.max_bad_rounds = int(val)
+        if name == "stage_dtype":
+            if val not in ("", "float32", "bfloat16"):
+                raise ValueError("stage_dtype must be float32 or bfloat16")
+            self.stage_dtype = val
+        if name == "eval_inflight" and int(val) < 0:
+            # the JAX trainer's window of evaluation batches in flight;
+            # the port reads each batch's metric rows in turn, which
+            # gives the same numbers for any window
+            raise ValueError("eval_inflight must be >= 0")
+        if name in ("image_mean", "mean_value", "scale", "divideby",
+                    "rand_crop", "rand_mirror", "mirror",
+                    "crop_y_start", "crop_x_start",
+                    "max_random_contrast", "max_random_illumination"):
+            # the augment spec the JAX trainer reads for device_augment
+            # = 1 only, which the port refuses; the host augmenter that
+            # also reads it belongs to the image iterators, which raise
+            pass
         if name == "dtype":
             if val not in _DTYPES:
                 raise ValueError(f"dtype must be float32 or bfloat16, "
@@ -348,6 +361,11 @@ class NetTrainer:
     def init_model(self) -> None:
         """Build the net from the config and draw its params from
         `seed` (float32 on the CPU, then moved to the device)."""
+        if (self.stage_dtype == "bfloat16"
+                and self.compute_dtype == torch.float32):
+            raise ValueError(
+                "stage_dtype=bfloat16 requires dtype=bfloat16 "
+                "(f32 compute always stages f32)")
         self.net_cfg.configure(self.cfg_pairs)
         self._build_net()
         self.epoch = 0
@@ -772,10 +790,15 @@ class NetTrainer:
 
     def stage_infer_rows(self, data: np.ndarray) -> torch.Tensor:
         """Host rows (n, c, y, x) -> a device tensor in the compute
-        dtype (float32 copy to the device, then the cast on the
-        device: round-to-nearest-even like the JAX package's host
-        cast)."""
+        dtype. Under bfloat16 the rows cross to the device in bfloat16,
+        cast on the host, unless `stage_dtype = float32` (float32 across,
+        the cast on the device) - the JAX package's `_host_input`. Both
+        casts round to nearest even, so the staged values are the same
+        bits either way."""
         t = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))
+        if (self.compute_dtype == torch.bfloat16
+                and self.stage_dtype != "float32"):
+            t = t.to(torch.bfloat16)
         return t.to(self.device).to(self.compute_dtype)
 
     def infer_rows(self, gdata: torch.Tensor, node: int = -1) -> torch.Tensor:

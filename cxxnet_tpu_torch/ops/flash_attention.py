@@ -25,8 +25,8 @@ The rounding points above (p and ds rounded to the working type before
 their products, l summed from the unrounded p) are where bfloat16
 results round; the plain versions round at the same places.
 
-On the card the backward kernels have two instances, picked by dtype:
-bfloat16 runs on the tensor cores (wgmma with float32 accumulators,
+On the card every kernel has two instances, picked by dtype: bfloat16
+runs on the tensor cores (wgmma with float32 accumulators,
 csrc/attn_tc.cuh), float32 on the CUDA cores, whose float32 products
 keep the float32 bar of the plain versions (TF32 would not). A bfloat16
 CUDA tensor always takes the tensor-core instance; nothing falls back.
@@ -244,20 +244,29 @@ def attn_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
-def tc_plan(name: str, d: int) -> dict:
+def tc_plan(name: str, d: int, sq: Optional[int] = None) -> dict:
     """The tile plan of the bfloat16 (tensor-core) instance of `name`
-    ("attn_dq" or "attn_dkv") at head_dim d, as its C entry reports it:
-    DP (d rounded up to a power of two of at least 64), threads per block
-    and dynamic shared memory bytes. Needs the card's toolchain (it loads
-    the kernel's library)."""
-    if name not in ("attn_dq", "attn_dkv"):
+    ("attn_fwd", "attn_dq" or "attn_dkv") at head_dim d, as its C entry
+    reports it: DP (d rounded up to a power of two of at least 64),
+    threads per block and dynamic shared memory bytes; for attn_fwd also
+    the query rows a block owns at `sq` query rows (default: a long
+    sequence), since a sequence of at most 64 takes one warpgroup. Needs
+    the card's toolchain (it loads the kernel's library)."""
+    if name not in ("attn_fwd", "attn_dq", "attn_dkv"):
         raise ValueError(f"tc_plan: no tensor-core plan for {name}")
     lib = kernels.load(name)
-    out = (ctypes.c_int * 3)()
-    rc = getattr(lib, f"{name}_plan")(int(d), out)
+    keys = ["dp", "threads", "smem_bytes"]
+    if name == "attn_fwd":
+        keys.append("rows")
+        out = (ctypes.c_int * 4)()
+        rc = lib.attn_fwd_plan(int(d), int(1 << 30 if sq is None else sq),
+                               out)
+    else:
+        out = (ctypes.c_int * 3)()
+        rc = getattr(lib, f"{name}_plan")(int(d), out)
     if rc != 0:
         raise ValueError(f"tc_plan: {name} takes no head_dim {d}")
-    return dict(zip(("dp", "threads", "smem_bytes"), list(out)))
+    return dict(zip(keys, list(out)))
 
 
 # ---------------------------------------------------------------------------

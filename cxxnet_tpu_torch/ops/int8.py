@@ -46,11 +46,13 @@ from cxxnet_tpu_torch import kernels
 # an all-zero channel/tensor must quantize to zeros, not divide by zero
 SCALE_FLOOR = 1e-8
 
-# K3's output tile (csrc/int8_mm.cu) and the card's SM count: split-k
-# aims at two blocks per SM when the output alone has too few tiles
-_TILE = 64
-_TARGET_BLOCKS = 2 * 132
-_MIN_STAGES_PER_SPLIT = 4
+# K3's output tile (csrc/int8_mm.cu): 128 rows by 128 or 256 columns,
+# k in stages of 128 bytes; the card's SM count, one block each: split-k
+# aims at one wave when the output alone has too few tiles
+_TILE_M = 128
+_STAGE_K = 128
+_SMS = 132
+_MIN_STAGES_PER_SPLIT = 2
 
 
 def per_channel_scale(w) -> np.ndarray:
@@ -135,22 +137,32 @@ def _check(xq: torch.Tensor, wq: torch.Tensor) -> None:
         raise ValueError(
             f"int8_mm kernel: x {tuple(xq.shape)} on {xq.device} and w "
             f"{tuple(wq.shape)} on {wq.device} must share k and a device")
+    if xq.device.index != torch.cuda.current_device():
+        # the C entry launches on the calling thread's current device
+        raise ValueError(f"int8_mm kernel: x and w on {xq.device}, not on "
+                         f"the current device cuda:"
+                         f"{torch.cuda.current_device()}")
     if min(xq.shape[0], wq.shape[0], xq.shape[1]) < 1:
         raise ValueError("int8_mm kernel: empty operand")
     if max(xq.shape[0], wq.shape[0], xq.shape[1]) >= 2 ** 31:
         raise ValueError("int8_mm kernel: a dimension exceeds int32")
 
 
+def k3_tile_n(n: int) -> int:
+    """K3's tile width for n output columns: 256 or 128, whichever pads
+    n less (256 on a tie: half the x re-reads)."""
+    return 256 if -(-n // 256) * 256 <= -(-n // 128) * 128 else 128
+
+
 def k3_splits(m: int, n: int, k: int) -> int:
-    """Split-k factor: 1 when the output has enough 64 x 64 tiles to
-    fill the card; else enough k ranges (each of at least four 64-byte
-    stages) to reach about two blocks per SM."""
-    tiles = -(-m // _TILE) * -(-n // _TILE)
-    stages = -(-k // _TILE)
-    if tiles >= _TARGET_BLOCKS:
+    """Split-k factor: 1 when the output has enough 128 x k3_tile_n
+    tiles to fill the card's SMs; else enough k ranges (each of at least
+    two 128-byte stages) to reach about one block per SM."""
+    tiles = -(-m // _TILE_M) * -(-n // k3_tile_n(n))
+    if tiles >= _SMS:
         return 1
-    return max(1, min(stages // _MIN_STAGES_PER_SPLIT,
-                      -(-_TARGET_BLOCKS // tiles)))
+    return max(1, min(-(-k // _STAGE_K) // _MIN_STAGES_PER_SPLIT,
+                      _SMS // tiles))
 
 
 def int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -160,16 +172,15 @@ def int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     m, k = xq.shape
     n = wq.shape[0]
     lib = kernels.load("int8_mm")
-    splits = k3_splits(m, n, k)
-    # split-k adds its partial sums into the output with atomics
-    out = (torch.zeros if splits > 1 else torch.empty)(
-        (m, n), dtype=torch.int32, device=xq.device)
+    # under split-k the C entry zeroes `out` before the atomic adds
+    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
     aligned = int(k % 16 == 0 and xq.data_ptr() % 16 == 0
                   and wq.data_ptr() % 16 == 0)
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        rc = lib.int8_mm(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, n,
-                         k, splits, aligned, stream)
+    # the raw handle of the current stream: fc7 / fc8 at 64 rows take
+    # about as long on the card as this call takes to enqueue them
+    rc = lib.int8_mm(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, n, k,
+                     k3_tile_n(n), k3_splits(m, n, k), aligned,
+                     torch._C._cuda_getCurrentRawStream(xq.device.index))
     kernels.check("int8_mm", rc)
     return out
 

@@ -1,5 +1,6 @@
-"""`key = value` config tokenizer (own copy of cxxnet_tpu/utils/config.py;
-the schema check of the JAX package does not come across).
+"""`key = value` config tokenizer and the schema check's entry (own copy
+of cxxnet_tpu/utils/config.py; the key registry is the port's own,
+analysis/schema.py).
 
 Behavioral parity with the reference tokenizer (src/utils/config.h:20-186):
 
@@ -17,11 +18,37 @@ Behavioral parity with the reference tokenizer (src/utils/config.h:20-186):
 from __future__ import annotations
 
 import io
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Mapping, Tuple
 
 
 class ConfigError(ValueError):
     """Raised on malformed config input."""
+
+
+def is_inert(val: str, inert: Tuple[str, ...]) -> bool:
+    """True when `val` is one of the inert values (equal as text or as
+    numbers)."""
+    for want in inert:
+        if val == want:
+            return True
+        try:
+            if float(val) == float(want):
+                return True
+        except ValueError:
+            pass
+    return False
+
+
+def check_ported(table: Mapping[str, Tuple[str, ...]], name: str,
+                 val: str) -> None:
+    """Raise NotImplementedError naming `name` when it is a key of
+    `table` - a key of the JAX package the port does not implement yet,
+    mapped to its inert values - set to anything else. The tables are the
+    module-level `_NOT_PORTED` dicts the schema registry also reads."""
+    if name in table and not is_inert(val, table[name]):
+        raise NotImplementedError(
+            f"{name} = {val}: not ported to cxxnet_tpu_torch yet (see "
+            "ROADMAP)")
 
 
 _EOF = ""
@@ -149,3 +176,15 @@ def parse_config_file(fname: str) -> List[Tuple[str, str]]:
     with open(fname, "r", encoding="utf-8") as f:
         return list(ConfigIterator(f))
 
+
+def validate_known_keys(pairs: List[Tuple[str, str]],
+                        source: str = "") -> None:
+    """Schema check on parsed pairs: every key must be recognized by
+    some component of the port - a set_param handler, a structural key,
+    or a key the port lists as not ported yet (that one raises
+    NotImplementedError where it is set). An unknown key raises
+    ConfigError with a did-you-mean suggestion instead of silently
+    configuring nothing. The CLI runs this on every parsed config unless
+    `schema_check = 0`."""
+    from cxxnet_tpu_torch.analysis import schema
+    schema.validate_pairs(pairs, source=source)

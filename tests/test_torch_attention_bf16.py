@@ -1,13 +1,14 @@
-"""The bfloat16 rounding points of the flash-attention backward, on the
-CPU: the plain versions flash_dq_reference and flash_dkv_reference
+"""The bfloat16 rounding points of flash attention, on the CPU: the plain
+versions flash_fwd_reference, flash_dq_reference and flash_dkv_reference
 (cxxnet_tpu_torch/ops/flash_attention.py) on bfloat16 inputs, held to
-the JAX package's TPU kernels _dq_kernel and _dkv_kernel
+the JAX package's TPU kernels _fwd_kernel, _dq_kernel and _dkv_kernel
 (cxxnet_tpu/ops/pallas_attention.py) run in interpret mode with 8-row
-tiles, through jax.vjp of flash_attention, on the same numpy-seeded
-inputs. The tensor-core kernels K2-dq and K2-dkv (csrc/attn_dq.cu,
-csrc/attn_dkv.cu) are held to these plain versions on the card, so
-this pins what they must compute: p and ds rounded to bfloat16 as the
-operands of their products, float32 sums, the result rounded once.
+tiles (the backward through jax.vjp of flash_attention), on the same
+numpy-seeded inputs. The tensor-core kernels K2-fwd, K2-dq and K2-dkv
+(csrc/attn_fwd.cu, attn_dq.cu, attn_dkv.cu) are held to these plain
+versions on the card, so this pins what they must compute: p and ds
+rounded to bfloat16 as the operands of their products, float32 sums,
+the result rounded once.
 
 Tolerance, the bfloat16 bar of chip_smoke.py's attn_close:
 |got - want| <= 1e-2 |want| + 1e-2 max|want| + 1e-5. Both sides round
@@ -75,6 +76,28 @@ def test_bf16_dq_dkv_references_match_jax_kernels(small_blocks, sq, sk, d,
         assert got.shape == w.shape, name
         err = np.abs(got.float().numpy() - np.asarray(w, np.float32)).max()
         assert _bf16_close(got, w), f"{name}: max abs {err:.3e}"
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,scale", BF16_GRAD_CASES)
+def test_bf16_fwd_reference_matches_jax_kernel(small_blocks, sq, sk, d,
+                                               causal, scale):
+    """K2-fwd's rounding points: flash_fwd_reference on bfloat16 inputs
+    (o and lse) against the TPU kernel _fwd_kernel run in interpret mode
+    over 8-row tiles - p rounded to bfloat16 as the operand of p.v
+    against a running max, float32 sums, o rounded once."""
+    rng = np.random.RandomState(2000 + 7 * sq + sk + d)
+    q = rng.randn(1, 2, sq, d).astype(np.float32)
+    k, v = (rng.randn(1, 2, sk, d).astype(np.float32) for _ in range(2))
+    sc = d ** -0.5 if scale is None else scale
+    jo, jlse = PA._fwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                       sc, causal, True)
+    o, lse = FA.flash_fwd_reference(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal, scale)
+    assert o.dtype == torch.bfloat16 and jo.dtype == jnp.bfloat16
+    assert o.shape == jo.shape and lse.dtype == torch.float32
+    err = np.abs(o.float().numpy() - np.asarray(jo, np.float32)).max()
+    assert _bf16_close(o, jo), f"o: max abs {err:.3e}"
+    assert _bf16_close(lse, np.asarray(jlse)[..., 0])
 
 
 def test_bf16_references_round_p_and_ds_before_their_products():

@@ -356,6 +356,116 @@ def test_bf16_backward_tile_plans(cuda_device):
         FA.tc_plan("attn_dq", 257)
 
 
+# the K2-fwd tensor-core instance's edges: head_dim 7, 12, 64, 128, 200
+# and 256 (every DP bucket, both load paths), Sq != Sk under both masks,
+# sequences of at most 64 queries (the one-warpgroup plan) and views 2
+# bytes off alignment
+FWD_TC_CASES = [
+    # (B, H, Sq, Sk, D, causal, misaligned)
+    (100, 4, 28, 28, 7, False, False),
+    (2, 3, 33, 33, 7, True, True),
+    (2, 2, 65, 65, 12, True, False),
+    (1, 3, 130, 130, 64, False, False),
+    (1, 2, 64, 64, 64, True, False),
+    (1, 2, 257, 257, 128, True, False),
+    (2, 2, 1, 1, 128, False, False),
+    (1, 1, 70, 70, 200, True, False),
+    (1, 2, 200, 200, 256, False, False),
+    (2, 1, 12, 12, 256, True, True),
+    (1, 2, 100, 257, 64, False, False),
+    (1, 2, 100, 257, 64, True, False),
+    (1, 2, 257, 100, 128, True, False),
+    (1, 2, 40, 300, 128, True, False),
+    (1, 2, 96, 96, 128, False, True),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,misaligned", FWD_TC_CASES)
+def test_bf16_forward_kernel_on_the_tensor_cores(cuda_device, b, h, sq, sk,
+                                                 d, causal, misaligned):
+    """K2-fwd in bfloat16 (the tensor-core instance) against
+    flash_fwd_reference on the same inputs: o within the bf16 bar, lse
+    within rtol 1e-5; one launch per call, and a second launch gives the
+    same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(sq * 5 + sk + d)
+    q = torch.randn(b, h, sq, d, generator=g, device=cuda_device).bfloat16()
+    k, v = (torch.randn(b, h, sk, d, generator=g, device=cuda_device)
+            .bfloat16() for _ in range(2))
+    if misaligned:
+        q, k, v = (_misaligned(t) for t in (q, k, v))
+    before = kernels.launches()["attn_fwd"]
+    o, lse = FA.attn_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert kernels.launches()["attn_fwd"] == before + 1
+    ro, rlse = FA.flash_fwd_reference(q, k, v, causal)
+    assert o.dtype == torch.bfloat16 and o.shape == ro.shape
+    assert _attn_close(o, ro)
+    assert torch.allclose(lse, rlse, rtol=1e-5, atol=1e-5)
+    o2, lse2 = FA.attn_fwd(q, k, v, causal)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+def test_bf16_forward_tile_plans(cuda_device):
+    """K2-fwd's plans: DP as for the backward kernels; 2 warpgroups and
+    128 query rows a block (64 at DP 256, where they split the output
+    columns), one warpgroup and 64 rows for a sequence of at most 64 up
+    to DP 128; shared memory within a block's 232,448 bytes."""
+    for d, dp in ((7, 64), (12, 64), (64, 64), (96, 128), (128, 128),
+                  (200, 256), (256, 256)):
+        long = FA.tc_plan("attn_fwd", d)
+        assert long["dp"] == dp and long["threads"] == 256, d
+        assert long["rows"] == (64 if dp == 256 else 128), d
+        short = FA.tc_plan("attn_fwd", d, 28)
+        assert short["dp"] == dp, d
+        assert (short["threads"], short["rows"]) == (
+            (256, 64) if dp == 256 else (128, 64)), d
+        for plan in (long, short):
+            assert 0 < plan["smem_bytes"] <= 232448
+    assert FA.tc_plan("attn_fwd", 128, 65)["rows"] == 128
+    assert FA.tc_plan("attn_fwd", 128, 64)["rows"] == 64
+    with pytest.raises(ValueError, match="head_dim 257"):
+        FA.tc_plan("attn_fwd", 257)
+
+
+@pytest.mark.parametrize("name", ["attn_fwd", "int8_mm"])
+def test_refused_launch_raises_and_counts_nothing(cuda_device, name):
+    """A launch the C entry refuses (an unknown dtype for K2-fwd, an
+    unknown tile width for K3) comes back as an error code, and
+    kernels.check raises on it without counting a launch."""
+    lib = kernels.load(name)
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.zeros(1, 1, 64, 64, dtype=torch.bfloat16, device=cuda_device)
+    lse = torch.zeros(1, 1, 64, device=cuda_device)
+    if name == "attn_fwd":
+        rc = lib.attn_fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                          x.data_ptr(), lse.data_ptr(), 7, 1, 64, 64, 64, 0,
+                          0.125, stream)
+    else:
+        rc = lib.int8_mm(x.data_ptr(), x.data_ptr(), lse.data_ptr(), 8, 8,
+                         64, 64, 1, 1, stream)
+    assert rc != 0
+    before = kernels.launches()[name]
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kernels.check(name, rc)
+    assert kernels.launches()[name] == before
+
+
+def test_attn_fwd_build_failure_raises(cuda_device, monkeypatch, tmp_path):
+    """A K2-fwd that does not build raises; the CUDA path never falls
+    back to the plain version."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "attn_fwd.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    monkeypatch.setattr(kernels, "BUILD", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "_libs", {})
+    q = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16, device=cuda_device)
+    before = kernels.launches()["attn_fwd"]
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        FA.flash_attention(q, q, q)
+    assert kernels.launches()["attn_fwd"] == before
+
+
 def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
     x = torch.zeros(1, 2, 8, 16, device=cuda_device)
     wide = torch.zeros(1, 2, 8, 257, device=cuda_device)
@@ -452,6 +562,44 @@ def test_int8_kernel_matches_reference(cuda_device, m, k, n):
     assert got.dtype == torch.int32 and got.shape == (m, n)
     assert torch.equal(got, int8_ops.int8_matmul_reference(x, w))
     assert int(got[0, 0]) == -127 * 127 * k
+
+
+# K3's tensor-core edges: m in {1, 64, 193600}, k in {3, 363, 4096,
+# 9216}, odd n, split-k (m = 64) and views one byte off alignment (the
+# element-load path)
+K3_TC_CASES = [
+    # (m, k, n, misaligned)
+    (1, 3, 7, False), (1, 9216, 1001, True), (64, 4096, 4097, False),
+    (64, 9216, 4096, True), (64, 363, 1001, False), (64, 4096, 1000, True),
+    (193600, 3, 5, False), (193600, 363, 96, True), (257, 4096, 255, False),
+    (130, 9216, 129, True),
+]
+
+
+@pytest.mark.parametrize("m,k,n,misaligned", K3_TC_CASES)
+def test_int8_tensor_core_kernel_edges(cuda_device, m, k, n, misaligned):
+    """K3 on the int8 tensor cores equals its plain version bitwise at
+    the edges of its tiles, split-k and load paths."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + 3 * k + n)
+
+    def operand(rows):
+        t = torch.randint(-127, 128, (rows, k), dtype=torch.int8,
+                          device=cuda_device, generator=gen)
+        if not misaligned:
+            return t
+        buf = torch.empty(rows * k + 1, dtype=torch.int8,
+                          device=cuda_device)
+        view = buf[1:].view(rows, k)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    x, w = operand(m), operand(n)
+    before = kernels.launches()["int8_mm"]
+    got = int8_ops.int8_mm(x, w)
+    torch.cuda.synchronize()
+    assert kernels.launches()["int8_mm"] == before + 1
+    assert torch.equal(got, int8_ops.int8_matmul_reference(x, w))
 
 
 def test_int8_conv_route_matches_reference(cuda_device):

@@ -234,10 +234,10 @@ def test_layer_int8_branch_matches_jax(layer, pairs, in_shape, w_shape,
 
 
 def test_k3_splits_fill_the_card():
-    """Split-k only where the output has too few 64 x 64 tiles: fc6 /
+    """Split-k only where the output has too few 128 x 256 tiles: fc6 /
     fc7 / fc8 at 64 rows, not the im2col GEMMs of the convolutions."""
-    assert P.k3_splits(64, 4096, 9216) == 5
-    assert P.k3_splits(64, 4096, 4096) == 5
+    assert P.k3_splits(64, 4096, 9216) == 8
+    assert P.k3_splits(64, 4096, 4096) == 8
     assert P.k3_splits(64, 1000, 4096) == 16
     assert P.k3_splits(193600, 96, 363) == 1
     assert P.k3_splits(4096, 4096, 4096) == 1
