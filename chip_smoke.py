@@ -12,10 +12,19 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    register and shared-memory lines; each tensor-core instance (K2-fwd,
    K2-dq, K2-dkv in bfloat16, K3 in int8) with its tile plan, registers,
    spills (none allowed) and shared memory, and the count of HGMMA /
-   IGMMA instructions in each library's SASS (cuobjdump);
+   IGMMA instructions in each library's SASS (cuobjdump); each LRN
+   instance (K1-fwd, K1-bwd in each dtype: the n = 5 ring, the generic
+   and the direct instance) with its registers, stack frame and spills
+   (none allowed), and lrn_plan's launch plan at
+   AlexNet's and GoogLeNet's LRN shapes;
 3. kernel vs plain (3, 3b): K1-fwd and K1-bwd each against its plain
-   PyTorch version at the main paths' shapes and at ragged ones, with
-   times (CUDA events, warm and L2-cold), the one-call library
+   PyTorch version at the main paths' shapes, at ragged ones, at the
+   slab cases (GoogLeNet's 56 x 56, C below the halo, batch 1, windows
+   wider than the chunk, H*W cut into segments), at a window too wide
+   for any slab (the direct instance) and on a view off
+   16-byte alignment, with times (CUDA events, warm and L2-cold; at the
+   main paths' shapes also the kernel's device time from
+   torch.profiler, apart from the enqueue rate), the one-call library
    yardstick and the bound;
 3c. flash attention: K2-fwd, K2-dq and K2-dkv against their plain
    versions at seq_mnist's shape (100,4,28,7), at ragged shapes, at
@@ -105,6 +114,28 @@ BF16_FLOPS_PER_S = 989.4e12
 # the inputs of AlexNet's two LRN layers in a b256 training step
 TRAIN_LRN_SHAPES = ((256, 96, 27, 27), (256, 256, 13, 13))
 
+# the inputs of AlexNet's two LRN layers at a served batch of 64
+SERVE_LRN_SHAPES = ((64, 96, 27, 27), (64, 256, 13, 13))
+
+# the LRN kernels' slab cases (tests/test_torch_cuda.py: SLAB_CASES):
+# GoogLeNet's LRN inputs (even H*W; the backward's rows cut into
+# segments), C below the halo, C not a multiple of the chunk, batch 1,
+# windows wider than the chunk (the generic instances) and H*W cut
+# into many segments; each in float32 and bfloat16
+GOOGLENET_LRN_SHAPES = ((32, 64, 56, 56), (32, 192, 56, 56))
+SLAB_CASES = tuple((shape, 5) for shape in GOOGLENET_LRN_SHAPES) + (
+    ((3, 2, 4, 4), 7), ((2, 40, 3, 3), 5), ((1, 96, 27, 27), 5),
+    ((2, 40, 3, 3), 41), ((2, 70, 5, 5), 9), ((1, 16, 300, 300), 3))
+# windows over so many channels that no slab fits shared memory: the
+# direct instances (lrn_plan's seg 0), forward and backward
+NO_SLAB_FWD = ((1, 8000, 4, 4), 7501)
+NO_SLAB_BWD = ((1, 8000, 4, 4), 2501)
+UNTIMED_LRN_SHAPES = tuple(shape for shape, _ in SLAB_CASES[2:]) + (
+    NO_SLAB_FWD[0],)
+# a contiguous view whose base is 2 (bfloat16) or 4 (float32) bytes past
+# a 16-byte boundary: x[1:] of this shape
+VIEW_BASE = (2, 13, 5, 7)
+
 # seq_mnist.conf's attention core (b100, 4 heads, 28 steps, head_dim 7)
 # and the JAX package's flash-attention measuring shape (bench.py:420)
 SEQ_ATTN_SHAPE = (100, 4, 28, 7)
@@ -181,6 +212,105 @@ def bf16_ulp_close(torch, got, ref) -> bool:
     return bool(torch.all(torch.abs(g - r) <= ulp))
 
 
+def lrn_cases(torch, main_shapes, no_slab):
+    """(shape, dtype, n, view) of phases 3 and 3b: the main paths'
+    shapes, the ragged ones, the slab cases, the `no_slab` case (the
+    direct instance) and the view off 16-byte alignment (view=True:
+    x[1:] of VIEW_BASE)."""
+    dts = (torch.float32, torch.bfloat16)
+    cases = [(shape, dt, 5, False) for shape in main_shapes for dt in dts]
+    for c in (3, 13):
+        for hw in ((1, 1), (5, 7)):
+            for n in (1, 2, 4, 7):
+                for dt in dts:
+                    cases.append(((3, c) + hw, dt, n, False))
+    cases += [(shape, dt, n, False) for shape, n in SLAB_CASES + (no_slab,)
+              for dt in dts]
+    cases += [((1,) + VIEW_BASE[1:], dt, n, True) for n in (2, 5, 19)
+              for dt in dts]
+    return cases
+
+
+def lrn_input(torch, gen, shape, dt, view, scale=4.0):
+    """A random CUDA tensor of `shape`; with view, x[1:] of a fresh
+    (2, ...) tensor - contiguous, 16-byte alignment broken."""
+    if not view:
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+    base = (torch.randn((2,) + tuple(shape[1:]), generator=gen,
+                        device="cuda") * scale).to(dt)
+    x = base[1:]
+    if not x.is_contiguous() or x.data_ptr() % 16 == 0:
+        raise AssertionError("the view should be contiguous and off "
+                             "16-byte alignment")
+    return x
+
+
+def lrn_device_ms(torch, fn, kernel: str, iters: int = 20) -> float:
+    """The kernel's own device time per call (torch.profiler's kernel
+    events), apart from the host's enqueue rate that back-to-back
+    CUDA-event times include at small shapes."""
+    _, groups, _, _ = profile_steps(torch, fn, iters,
+                                    (("k", "kernel", kernel),))
+    return groups["k"]
+
+
+def say_lrn_plans(torch) -> None:
+    """Phase 2: the plan of each LRN launch on the main paths and of
+    GoogLeNet's LRN inputs."""
+    from cxxnet_tpu_torch.ops.lrn import lrn_plan
+    for shape in SERVE_LRN_SHAPES + TRAIN_LRN_SHAPES + GOOGLENET_LRN_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            for bw in (False, True):
+                p = lrn_plan(shape, 5, dt, bw)
+                say(f"{'lrn_bwd' if bw else 'lrn_fwd'} plan {shape} "
+                    f"{str(dt)[6:]} n=5: chunk {p['chunk']}, segment "
+                    f"{p['seg']} ({'whole H*W' if p['whole'] else 'rows'})"
+                    f", {p['threads']} threads, {p['smem_bytes']} B "
+                    f"shared, {p['blocks']} blocks")
+
+
+LRN_INSTANCE = re.compile(r"(lrn_(?:fwd|bwd))_(kernel|direct)"
+                          r"I(f|13__nv_bfloat16)(?:Li(\d+)E)?E")
+
+
+def say_lrn_instances(built) -> None:
+    """Phase 2: each LRN kernel instance (dtype; the ring instance of
+    n = 5, the generic slab instance or the direct one) with its
+    registers, stack frame and spills from nvcc -Xptxas -v; a spill
+    raises."""
+    for name in ("lrn_fwd", "lrn_bwd"):
+        log = built.get(name, (0.0, ""))[1]
+        if log == "cached":
+            say(f"{name}: library cached, no ptxas report")
+            continue
+        cur, frame, seen = None, ("?", "?", "?"), 0
+        for ln in log.splitlines():
+            if "Compiling entry" in ln:
+                cur = LRN_INSTANCE.search(ln)
+            elif cur is not None and "stack frame" in ln:
+                frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes "
+                                  r"spill stores, (\d+) bytes spill loads",
+                                  ln).groups()
+            elif cur is not None and "registers" in ln:
+                regs = re.search(r"Used (\d+) registers", ln).group(1)
+                dt = "float32" if cur.group(3) == "f" else "bfloat16"
+                n = cur.group(4)
+                kind = ("direct" if cur.group(2) == "direct" else
+                        f"n={n}" if n != "0" else "generic")
+                say(f"{name} instance {dt} {kind}: {regs} registers, stack "
+                    f"frame {frame[0]} B, spill stores {frame[1]} B, spill "
+                    f"loads {frame[2]} B")
+                if frame[1:] != ("0", "0"):
+                    raise AssertionError(f"{name} {dt} {kind} spills")
+                cur, frame = None, ("?", "?", "?")
+                seen += 1
+        # (n = 5, generic, direct) x 2 dtypes
+        if seen != 6:
+            raise AssertionError(f"{name}: {seen} instances in the ptxas "
+                                 "report, expected 6")
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
     from cxxnet_tpu_torch.ops.lrn import lrn, lrn_reference
@@ -191,19 +321,12 @@ def phase_kernels(torch):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     max_err = 0.0
     main_rows = {}
-    cases = []
     # the serving path's shapes (batches of 64) and the training path's
-    # (AlexNet's b256)
-    for shape in ((64, 96, 27, 27), (64, 256, 13, 13)) + TRAIN_LRN_SHAPES:
-        for dt in (torch.float32, torch.bfloat16):
-            cases.append((shape, dt, 5))
-    for c in (3, 13):
-        for hw in ((1, 1), (5, 7)):
-            for n in (1, 2, 4, 7):
-                for dt in (torch.float32, torch.bfloat16):
-                    cases.append(((3, c) + hw, dt, n))
-    for shape, dt, n in cases:
-        x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(dt)
+    # (AlexNet's b256), the ragged and slab cases, the misaligned view
+    cases = lrn_cases(torch, SERVE_LRN_SHAPES + TRAIN_LRN_SHAPES,
+                      NO_SLAB_FWD)
+    for shape, dt, n, view in cases:
+        x = lrn_input(torch, gen, shape, dt, view)
         got = lrn(x, n, alpha, beta, knorm)
         torch.cuda.synchronize()
         ref = lrn_reference(x, n, alpha, beta, knorm)
@@ -223,6 +346,12 @@ def phase_kernels(torch):
                 f"{err:.3e} rel {rel:.3e} (plain ok={ok}, "
                 f"local_response_norm ok={lib_ok})")
         max_err = max(max_err, err)
+        # timed: the main paths' shapes, the ragged ones and GoogLeNet's
+        if view or shape in UNTIMED_LRN_SHAPES:
+            say(f"lrn {tuple(shape)} {str(dt)[6:]} n={n}"
+                f"{' (view off 16-byte alignment)' if view else ''}: max "
+                f"abs err {err:.3e} rel {rel:.3e}")
+            continue
         bound, by = lrn_bound_ms(shape, x.element_size(), n)
         t = {
             "kernel": time_warm(torch, lambda: lrn(x, n, alpha, beta, knorm)),
@@ -237,10 +366,17 @@ def phase_kernels(torch):
             "library_cold": time_cold(torch, lambda: F.local_response_norm(
                 x, n, alpha, beta, knorm), flush),
         }
+        dev = ""
+        if shape in SERVE_LRN_SHAPES + TRAIN_LRN_SHAPES:
+            t["kernel_device"] = lrn_device_ms(
+                torch, lambda: lrn(x, n, alpha, beta, knorm),
+                "lrn_fwd_kernel")
+            dev = f", device time {t['kernel_device']:.4f} ms (profiler)"
         say(f"lrn {tuple(shape)} {str(dt)[6:]} n={n}: max abs err {err:.3e} "
-            f"rel {rel:.3e}; warm L2: kernel {t['kernel']:.4f} ms, plain "
-            f"{t['plain']:.4f} ms, local_response_norm {t['library']:.4f} ms;"
-            f" cold L2: kernel {t['kernel_cold']:.4f} ms, plain "
+            f"rel {rel:.3e}; warm L2: kernel {t['kernel']:.4f} ms{dev}, "
+            f"plain {t['plain']:.4f} ms, local_response_norm "
+            f"{t['library']:.4f} ms; cold L2: kernel "
+            f"{t['kernel_cold']:.4f} ms, plain "
             f"{t['plain_cold']:.4f} ms, local_response_norm "
             f"{t['library_cold']:.4f} ms; bound {bound:.4f} ms ({by})")
         main_rows[(shape, dt)] = dict(t, bound=bound, by=by)
@@ -295,18 +431,12 @@ def phase_kernels_bwd(torch):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     max_err = 0.0
     main_rows = {}
-    cases = [(shape, dt, 5) for shape in TRAIN_LRN_SHAPES
-             for dt in (torch.float32, torch.bfloat16)]
-    for c in (3, 13):
-        for hw in ((1, 1), (5, 7)):
-            for n in (1, 2, 4, 7):
-                for dt in (torch.float32, torch.bfloat16):
-                    cases.append(((3, c) + hw, dt, n))
-    cases += [((2, 40, 3, 3), torch.float32, 19),
-              ((2, 40, 3, 3), torch.bfloat16, 19)]
-    for shape, dt, n in cases:
-        x = (torch.randn(shape, generator=gen, device="cuda") * 4).to(dt)
-        g = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    cases = lrn_cases(torch, TRAIN_LRN_SHAPES, NO_SLAB_BWD)
+    cases += [((2, 40, 3, 3), torch.float32, 19, False),
+              ((2, 40, 3, 3), torch.bfloat16, 19, False)]
+    for shape, dt, n, view in cases:
+        x = lrn_input(torch, gen, shape, dt, view)
+        g = lrn_input(torch, gen, shape, dt, view, scale=1.0)
         before = kernels.launches()["lrn_bwd"]
         got = lrn_backward(x, g, n, alpha, beta, knorm)
         torch.cuda.synchronize()
@@ -332,6 +462,11 @@ def phase_kernels_bwd(torch):
                 f"identical={same})")
         max_err = max(max_err, err)
         if shape not in TRAIN_LRN_SHAPES:
+            if view or shape in [c[0] for c in SLAB_CASES + (NO_SLAB_BWD,)]:
+                say(f"lrn_bwd {tuple(shape)} {str(dt)[6:]} n={n}"
+                    f"{' (view off 16-byte alignment)' if view else ''}: "
+                    f"max abs err {err:.3e}; autograd through lrn "
+                    "bit-identical")
             continue
         say(f"lrn_bwd {tuple(shape)} {str(dt)[6:]} n={n}: max abs err "
             f"{err:.3e} (local_response_norm backward {lib_err:.3e}); "
@@ -355,17 +490,20 @@ def phase_kernels_bwd(torch):
             "kernel_cold": time_cold(torch, kern, flush),
             "plain_cold": time_cold(torch, plain, flush),
             "library_cold": time_cold(torch, library, flush),
+            "kernel_device": lrn_device_ms(torch, kern, "lrn_bwd_kernel"),
         }
         say(f"lrn_bwd {tuple(shape)} {str(dt)[6:]} n={n}: warm L2: kernel "
-            f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+            f"{t['kernel']:.4f} ms, device time {t['kernel_device']:.4f} ms "
+            f"(profiler), plain {t['plain']:.4f} ms, "
             f"local_response_norm backward {t['library']:.4f} ms; cold L2: "
             f"kernel {t['kernel_cold']:.4f} ms, plain {t['plain_cold']:.4f} "
             f"ms, local_response_norm backward {t['library_cold']:.4f} ms; "
             f"bound {bound:.4f} ms ({by})")
         main_rows[(shape, dt)] = dict(t, bound=bound, by=by)
         del y, xl
-    say(f"lrn_bwd: {len(cases)} cases agree (f32, bf16, n = 1..7 and 19, "
-        f"C = 3, 13, 40, 96, 256); max abs err {max_err:.3e}")
+    say(f"lrn_bwd: {len(cases)} cases agree (f32, bf16, n = 1..7, 9, 19, "
+        f"41, 2501 without a slab, C = 2..8000, GoogLeNet's 56 x 56, a "
+        f"view off 16-byte alignment); max abs err {max_err:.3e}")
     del flush
     return max_err, main_rows
 
@@ -2232,6 +2370,8 @@ def main() -> int:
             if "registers" in ln or "Compiling entry" in ln or "spill" in ln:
                 say("  " + ln.strip())
     say_tc_instances(built)
+    say_lrn_instances(built)
+    say_lrn_plans(torch)
 
     max_err, main_rows = phase_kernels(torch)
     bwd_err, bwd_rows = phase_kernels_bwd(torch)
@@ -2286,10 +2426,13 @@ def main() -> int:
         "bound_by": bf[0]["by"],
         "library_ms": both("library"),
         "library_cold_ms": both("library_cold"),
+        "kernel_device_ms": both("kernel_device"),
         "train_launches": train_counts["lrn_fwd"],
         "train_unit": "both LRN launches of one AlexNet b256 bfloat16 "
                       "training step, L2 warm",
         "train_ms": both("kernel", tf),
+        "train_cold_ms": both("kernel_cold", tf),
+        "train_device_ms": both("kernel_device", tf),
         "train_plain_ms": both("plain", tf),
         "train_bound_ms": both("bound", tf),
         "train_library_ms": both("library", tf),
@@ -2306,6 +2449,7 @@ def main() -> int:
         "ms": both("kernel", bb),
         "kernel_ms": both("kernel", bb),
         "kernel_cold_ms": both("kernel_cold", bb),
+        "kernel_device_ms": both("kernel_device", bb),
         "plain_ms": both("plain", bb),
         "bound_ms": both("bound", bb),
         "bound_by": bb[0]["by"],

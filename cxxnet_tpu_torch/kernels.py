@@ -142,14 +142,21 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     cut them)."""
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_longlong, ctypes.c_float)
+    # LRN: (..., chunk, seg, threads, smem bytes, stream) - the plan of
+    # ops/lrn.py:lrn_plan; *_smem(dtype, C, H*W, n, chunk, seg) -> bytes
+    plan = [i32, i32, i32, i32, vp]
     if name == "lrn_fwd":
         lib.lrn_fwd.argtypes = [vp, vp, i32, i64, i32, i64, i32, f32,
-                                f32, f32, vp]
+                                f32, f32] + plan
         lib.lrn_fwd.restype = i32
     if name == "lrn_bwd":
         lib.lrn_bwd.argtypes = [vp, vp, vp, i32, i64, i32, i64, i32, f32,
-                                f32, f32, f32, vp]
+                                f32, f32, f32] + plan
         lib.lrn_bwd.restype = i32
+    if name in ("lrn_fwd", "lrn_bwd"):
+        smem = getattr(lib, f"{name}_smem")
+        smem.argtypes = [i32, i32, i64, i32, i32, i32]
+        smem.restype = i64
     # attention: (pointers..., dtype, B*H, Sq, Sk, D, causal, scale, stream)
     dims = [i32, i64, i32, i32, i32, i32, f32, vp]
     if name == "attn_fwd":

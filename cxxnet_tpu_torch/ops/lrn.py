@@ -17,13 +17,18 @@ reversed window. The math is float32; tensors are float32 or bfloat16
 and results keep x's type.
 
 Both kernels (`csrc/lrn_fwd.cu`, `csrc/lrn_bwd.cu`) are bound by memory
-traffic. Their design keeps every access coalesced - one thread per
-(batch, spatial position) column walking a chunk of channels, so
-neighbouring threads read neighbouring addresses of the contiguous H*W
-axis - and re-reads each window from cache instead of keeping a
-subtracting running sum (which drifts in float32). The backward
-recomputes norm from x, as the TPU kernel does: the forward saves only
-x.
+traffic. A block takes one image and a chunk of channels, copies the
+chunk's slab (the chunk and its window's halo, all of H*W: one
+contiguous range in NCHW) into shared memory with 16-byte copies,
+computes in float32 from there with each window sum added afresh from
+a register ring (never a subtracting running sum, which drifts in
+float32), and writes the output range back with 16-byte stores
+(`csrc/lrn_slab.cuh`). `lrn_plan` picks each launch's chunk, spatial
+segment, threads and shared memory; the wrappers pass it to the C
+entries. A window over so many channels that no slab fits shared
+memory takes the kernels' direct instances, which read device memory.
+The backward recomputes norm from x, as the TPU kernel does:
+the forward saves only x.
 
 `lrn` takes a CUDA tensor only and launches K1-fwd, and its backward
 launches K1-bwd, or raises; `lrn_backward` is K1-bwd's own wrapper.
@@ -35,7 +40,8 @@ kernels' tests use.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -116,18 +122,182 @@ def _check_n(local_size: int, what: str) -> None:
                          f"got {local_size}")
 
 
+# ---------------------------------------------------------------------------
+# the launch plan: which block takes which slab
+# ---------------------------------------------------------------------------
+
+# streaming multiprocessors of the H100 SXM: the plan wants two blocks
+# for each
+SMS = 132
+# shared memory a block may ask for so that two share an SM: (228 KB -
+# 1 KB the card keeps for each block) / 2
+SMEM_BUDGET = 113 * 1024
+# a block's dynamic shared memory limit on sm_90 (one block an SM)
+SMEM_MAX = 232448
+# the window of AlexNet's and GoogLeNet's LRN layers: the one n with a
+# kernel instance that knows it at compile time (register rings); every
+# other n takes the generic instance
+RING_N = 5
+# a slab that lets three blocks share an SM: what the plan's first
+# choices fit in (on the H100, at AlexNet's shapes, these ran fastest)
+SMEM_THREE = 75 * 1024
+# channel chunks tried in order (the first that fits three blocks an SM
+# and still gives two blocks an SM), then the small ones for wide
+# windows and large H*W
+CHUNKS = (32, 16, 8)
+SMALL_CHUNKS = (8, 4, 2, 1)
+MAX_THREADS = 256
+# the direct instances (no slab): channels a grid row, threads a block;
+# a grid has at most 65535 rows
+DIRECT_CHUNK = 8
+DIRECT_THREADS = 128
+MAX_GRID_Y = 65535
+
+
+def _align16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def lrn_smem_bytes(shape, n: int, dtype: torch.dtype, backward: bool,
+                   chunk: int, seg: int) -> int:
+    """Shared memory of one block under the plan (chunk, seg): the slab
+    regions at the most rows a chunk reaches. A region holds its rows
+    as one range (seg = H*W: L bytes, which start up to 16 - size bytes
+    past a 16-byte boundary, take align16(L + 16 - size)) or row by row
+    (each row at its global alignment mod 16).
+    The generic instances (n != RING_N) add the forward's output
+    region, and the backward's float32 u and norm^-beta of phase 1.
+    The C entries (lrn_fwd_smem, lrn_bwd_smem) compute the same."""
+    channels = shape[1]
+    hw = shape[2] * shape[3]
+    size = 4 if dtype == torch.float32 else 2
+    ch = min(chunk, channels)
+
+    def region(rows):
+        if seg == hw:
+            return _align16(rows * hw * size + 16 - size)
+        # a row's pieces (<= seg * size + 30 bytes) at the tensor's row
+        # step mod 16
+        return _align16(rows * (_align16(seg * size + 30)
+                                + hw * size % 16))
+
+    span = n - 1
+    generic = n != RING_N
+    if not backward:
+        need = region(min(channels, ch + span)) + (region(ch) if generic
+                                                   else 0)
+    else:
+        rg = min(channels, ch + span)
+        need = (region(min(channels, ch + 2 * span)) + region(rg)
+                 + (4 * seg * (rg + ch) if generic else 0))
+    return _align16(need)
+
+
+def _max_seg(shape, n, dtype, backward, chunk, room) -> int:
+    """The longest segment shorter than H*W whose row-by-row slab fits
+    `room` bytes (0 if not even one position does)."""
+    hw = shape[2] * shape[3]
+    lo_s, hi_s = 0, hw - 1
+    while lo_s < hi_s:
+        mid = (lo_s + hi_s + 1) // 2
+        if lrn_smem_bytes(shape, n, dtype, backward, chunk, mid) <= room:
+            lo_s = mid
+        else:
+            hi_s = mid - 1
+    return lo_s
+
+
+@functools.lru_cache(maxsize=256)
+def lrn_plan(shape: Tuple[int, int, int, int], n: int, dtype: torch.dtype,
+             backward: bool) -> Dict[str, int]:
+    """The launch plan of K1-fwd (backward=False) or K1-bwd for an NCHW
+    `shape`. A block takes one image x `chunk` channels x `seg`
+    positions of H*W (H*W itself unless a row and its halo do not fit);
+    `blocks` of them; `threads` a block; `smem_bytes` of dynamic shared
+    memory (<= SMEM_BUDGET, which lets two blocks share an SM; up to
+    SMEM_MAX only where a window is too wide for that). The chunk is the
+    first of CHUNKS whose slab lets three blocks share an SM and that
+    still gives two blocks an SM; else the largest of SMALL_CHUNKS whose
+    slab fits with whole rows or, cutting H*W into equal segments loaded
+    row by row, with segments. Where even one channel at one position
+    does not fit, `seg` is 0: no slab, the direct instances read every
+    window from device memory, one thread an (image, position) column
+    and `chunk` channels a grid row."""
+    b, channels, h, w = (int(d) for d in shape)
+    hw = h * w
+    shape = (b, channels, h, w)
+    if min(b, channels, hw) == 0:
+        return {"chunk": 1, "seg": max(hw, 1), "threads": 32,
+                "smem_bytes": 0, "blocks": 0, "whole": 1}
+
+    def fits(ch, seg, room=SMEM_BUDGET):
+        return lrn_smem_bytes(shape, n, dtype, backward, ch, seg) <= room
+
+    def blocks(ch, seg):
+        return b * -(-channels // ch) * -(-hw // seg)
+
+    chunk, seg = 0, hw
+    for cand in CHUNKS:
+        ch = min(cand, channels)
+        if fits(ch, hw, SMEM_THREE) and blocks(ch, hw) >= 2 * SMS:
+            chunk = ch
+            break
+    # else the largest small chunk whose whole rows fit, or whose rows cut
+    # into segments of H*W fit; a window so wide that no slab lets two
+    # blocks share an SM gets up to a block's whole shared memory
+    for room in (SMEM_BUDGET, SMEM_MAX):
+        for cand in SMALL_CHUNKS:
+            if chunk:
+                break
+            ch = min(cand, channels)
+            if fits(ch, hw, room):
+                chunk = ch
+            else:
+                cut = _max_seg(shape, n, dtype, backward, ch, room)
+                if cut:
+                    chunk, seg = ch, cut
+    if not chunk:
+        chunk = max(DIRECT_CHUNK, -(-channels // MAX_GRID_Y))
+        return {"chunk": chunk, "seg": 0, "threads": DIRECT_THREADS,
+                "smem_bytes": 0, "whole": 0,
+                "blocks": -(-b * hw // DIRECT_THREADS) * -(-channels // chunk)}
+    if seg < hw:
+        nseg = -(-hw // seg)
+        seg = -(-hw // nseg)  # equal segments, none longer than before
+    return {"chunk": chunk, "seg": seg,
+            "threads": min(MAX_THREADS, -(-seg // 32) * 32),
+            "smem_bytes": lrn_smem_bytes(shape, n, dtype, backward, chunk,
+                                         seg),
+            "blocks": blocks(chunk, seg), "whole": int(seg == hw)}
+
+
+def _plan_args(x: torch.Tensor, n: int, backward: bool):
+    p = lrn_plan(tuple(x.shape), n, x.dtype, backward)
+    return p["chunk"], p["seg"], p["threads"], p["smem_bytes"]
+
+
+def _on_device(x: torch.Tensor, launch):
+    """Call `launch(stream)` with the raw handle of x's device's current
+    stream. The C entry launches on the current device: only a tensor on
+    another card enters a device context."""
+    idx = x.device.index
+    if idx == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return launch(torch._C._cuda_getCurrentRawStream(idx))
+
+
 def _launch(x: torch.Tensor, local_size: int, alpha: float, beta: float,
             knorm: float) -> torch.Tensor:
-    _check(x, "lrn kernel")
+    # x passed lrn's _check
     _check_n(local_size, "lrn kernel")
     lib = kernels.load("lrn_fwd")
     y = torch.empty_like(x)
     b, c, h, w = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.lrn_fwd(x.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype],
-                         b, c, h * w, local_size, alpha / local_size,
-                         -beta, knorm, stream)
+    plan = _plan_args(x, local_size, False)
+    rc = _on_device(x, lambda stream: lib.lrn_fwd(
+        x.data_ptr(), y.data_ptr(), _DTYPE_CODE[x.dtype], b, c, h * w,
+        local_size, alpha / local_size, -beta, knorm, *plan, stream))
     kernels.check("lrn_fwd", rc)
     return y
 
@@ -147,12 +317,11 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, local_size: int,
     lib = kernels.load("lrn_bwd")
     gin = torch.empty_like(x)
     b, c, h, w = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.lrn_bwd(x.data_ptr(), g.data_ptr(), gin.data_ptr(),
-                         _DTYPE_CODE[x.dtype], b, c, h * w, local_size,
-                         alpha / local_size, -beta,
-                         2.0 * alpha * beta / local_size, knorm, stream)
+    plan = _plan_args(x, local_size, True)
+    rc = _on_device(x, lambda stream: lib.lrn_bwd(
+        x.data_ptr(), g.data_ptr(), gin.data_ptr(), _DTYPE_CODE[x.dtype],
+        b, c, h * w, local_size, alpha / local_size, -beta,
+        2.0 * alpha * beta / local_size, knorm, *plan, stream))
     kernels.check("lrn_bwd", rc)
     return gin
 

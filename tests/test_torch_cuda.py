@@ -31,11 +31,26 @@ def _x(shape, seed):
         np.float32)
 
 
+# the slab cases of both kernels: GoogLeNet's even H*W (56 x 56; row by
+# row segments where a row and its halo do not fit), C below the halo,
+# C not a multiple of the chunk, batch 1, windows wider than the chunk
+# (generic instance) and H*W cut into many segments
+SLAB_CASES = [((32, 64, 56, 56), 5), ((32, 192, 56, 56), 5),
+              ((3, 2, 4, 4), 7), ((2, 40, 3, 3), 5), ((1, 96, 27, 27), 5),
+              ((2, 40, 3, 3), 41), ((2, 70, 5, 5), 9),
+              ((1, 16, 300, 300), 3)]
+# windows over so many channels that no slab fits shared memory: the
+# direct instances (the plan's seg 0), forward and backward
+NO_SLAB_FWD = ((1, 8000, 4, 4), 7501)
+NO_SLAB_BWD = ((1, 8000, 4, 4), 2501)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,n", [((64, 96, 27, 27), 5),
                                      ((64, 256, 13, 13), 5),
                                      ((3, 13, 5, 7), 2), ((2, 3, 1, 1), 7),
-                                     ((3, 13, 1, 1), 4), ((1, 9, 3, 3), 1)])
+                                     ((3, 13, 1, 1), 4), ((1, 9, 3, 3), 1)]
+                         + SLAB_CASES + [NO_SLAB_FWD])
 def test_lrn_kernel_matches_reference(cuda_device, shape, n, dtype):
     """float32: rtol 1e-5 / atol 1e-6 (powf against torch.pow, another
     summation order); bfloat16: within one bfloat16 ulp (both round the
@@ -75,6 +90,61 @@ def test_lrn_kernel_refuses_what_it_cannot_take(cuda_device):
         lrn_ops.lrn_backward(x, g.bfloat16(), 3, ALPHA, BETA, KNORM)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 5, 19])
+def test_lrn_kernels_on_a_view_off_16_byte_alignment(cuda_device, n, dtype):
+    """x[1:] of a (2, 13, 5, 7) tensor: a contiguous view whose base is
+    2 (bfloat16) or 4 (float32) bytes past a 16-byte boundary. Both
+    kernels copy its slab in 16-byte pieces from the aligned address
+    below and write a fresh (aligned) output: the same bars as above."""
+    base = torch.from_numpy(_x((2, 13, 5, 7), 7)).to(cuda_device).to(dtype)
+    x = base[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = lrn_ops.lrn(x, n, ALPHA, BETA, KNORM)
+    torch.cuda.synchronize()
+    ref = lrn_ops.lrn_reference(x, n, ALPHA, BETA, KNORM)
+    g, r = got.float().cpu().numpy(), ref.float().cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-6)
+    else:
+        assert np.all(np.abs(g - r) <= np.abs(r) * 2.0 ** -7 + 1e-30)
+    gbase = torch.from_numpy(_x((2, 13, 5, 7), 8) / 4).to(cuda_device).to(
+        dtype)
+    up = gbase[1:]
+    gin = lrn_ops.lrn_backward(x, up, n, ALPHA, BETA, KNORM)
+    torch.cuda.synchronize()
+    assert _bwd_close(gin, x, up, n)
+
+
+@pytest.mark.parametrize("name", ["lrn_fwd", "lrn_bwd"])
+def test_lrn_plan_matches_the_c_entries(cuda_device, name):
+    """lrn_plan's shared memory is what the C entry computes for the
+    same plan, and the C entry refuses a plan given less."""
+    lib = kernels.load(name)
+    smem = getattr(lib, f"{name}_smem")
+    backward = name == "lrn_bwd"
+    for shape, n in [((256, 96, 27, 27), 5), ((64, 256, 13, 13), 5),
+                     ((32, 192, 56, 56), 5), ((2, 40, 3, 3), 41),
+                     ((3, 2, 4, 4), 7), ((1, 16, 300, 300), 3)]:
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            p = lrn_ops.lrn_plan(shape, n, dtype, backward)
+            hw = shape[2] * shape[3]
+            assert smem(code, shape[1], hw, n, p["chunk"],
+                        p["seg"]) == p["smem_bytes"], (shape, n, dtype)
+    x = torch.zeros(2, 8, 4, 4, device=cuda_device)
+    p = lrn_ops.lrn_plan(tuple(x.shape), 3, x.dtype, backward)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (2, 8, 16, 3, 1e-3, -0.75)
+    plan = (p["chunk"], p["seg"], p["threads"], p["smem_bytes"] - 16)
+    if backward:
+        rc = lib.lrn_bwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), 0,
+                         *args, 1e-3, 1.0, *plan, stream)
+    else:
+        rc = lib.lrn_fwd(x.data_ptr(), x.data_ptr(), 0, *args, 1.0, *plan,
+                         stream)
+    assert rc != 0
+
+
 def _bwd_close(got, x, g, n):
     """K1-bwd against lrn_bwd_reference. The gradient is the difference
     of two terms, so the bar scales with their magnitude:
@@ -94,11 +164,13 @@ def _bwd_close(got, x, g, n):
                                      ((256, 256, 13, 13), 5),
                                      ((3, 13, 5, 7), 2), ((2, 3, 1, 1), 7),
                                      ((3, 13, 1, 1), 4), ((1, 9, 3, 3), 1),
-                                     ((2, 40, 3, 3), 19)])
+                                     ((2, 40, 3, 3), 19)] + SLAB_CASES
+                         + [NO_SLAB_BWD])
 def test_lrn_bwd_kernel_matches_reference(cuda_device, shape, n, dtype):
-    """K1-bwd at the AlexNet b256 shapes and ragged ones (n = 19 takes
-    the wide-window loop), one launch per call; autograd through lrn
-    launches it once and gives the same gradient."""
+    """K1-bwd at the AlexNet b256 shapes and ragged ones (every n but 5
+    takes the generic instance; NO_SLAB_BWD the direct one), one launch
+    per call; autograd through lrn launches it once and gives the same
+    gradient."""
     rng = np.random.RandomState(6)
     x = torch.from_numpy(_x(shape, 5)).to(cuda_device).to(dtype)
     g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(

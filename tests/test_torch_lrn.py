@@ -285,3 +285,207 @@ def test_backward_kernel_wrapper_refuses_cpu_tensor():
     z = torch.zeros(1, 4, 2, 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
         lrn_ops.lrn_backward(z, z, 3, ALPHA, BETA, KNORM)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch plan (lrn_plan): which block takes which slab
+# ---------------------------------------------------------------------------
+
+# AlexNet's LRN inputs at a served batch (b64) and a training step
+# (b256), GoogLeNet's ((32, 64, 56, 56), (32, 192, 56, 56)), and the
+# ragged shapes of chip_smoke.py's phases 3 and 3b
+PLAN_SHAPES = [(64, 96, 27, 27), (64, 256, 13, 13), (256, 96, 27, 27),
+               (256, 256, 13, 13), (32, 64, 56, 56), (32, 192, 56, 56),
+               (3, 3, 1, 1), (3, 3, 5, 7), (3, 13, 1, 1), (3, 13, 5, 7),
+               (2, 40, 3, 3)]
+# 41 is wider than the largest chunk (32)
+PLAN_WINDOWS = [1, 2, 3, 4, 5, 6, 7, 19, 41]
+
+
+def _blocks(shape, plan):
+    """The (c0, c1, s0, s1) of every block of one image, in the order
+    csrc/lrn_slab.cuh:block_of decomposes blockIdx.x."""
+    _, c, h, w = shape
+    hw = h * w
+    chunk, seg = plan["chunk"], plan["seg"]
+    nchunks, nsegs = -(-c // chunk), -(-hw // seg)
+    for i in range(nchunks * nsegs):
+        c0 = (i // nsegs) * chunk
+        s0 = (i % nsegs) * seg
+        yield c0, min(c0 + chunk, c), s0, min(s0 + seg, hw)
+
+
+def _slab_rows(c0, c1, channels, n, backward):
+    """The channel rows the kernels copy for a chunk [c0, c1), clipped
+    to [0, C) (csrc/lrn_fwd.cu, csrc/lrn_bwd.cu): the forward's x over
+    the chunk's windows, [c0 - lo, c1 + hi); the backward's g over the
+    reversed windows, [c0 - hi, c1 + lo), and x over the windows of
+    those g rows, [c0 - lo - hi, c1 + lo + hi)."""
+    lo = n // 2
+    hi = n - lo - 1
+    if not backward:
+        return (max(0, c0 - lo), min(channels, c1 + hi)), None
+    return ((max(0, c0 - lo - hi), min(channels, c1 + lo + hi)),
+            (max(0, c0 - hi), min(channels, c1 + lo)))
+
+
+def _window(c, below, above, channels):
+    return set(range(max(0, c - below), min(channels, c + above + 1)))
+
+
+@pytest.mark.parametrize("n", PLAN_WINDOWS)
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_lrn_plan_covers_every_channel_with_its_window(shape, n):
+    """Every (channel, position) in exactly one block; each block's x
+    rows hold the windows of its chunk (for the backward: g's rows hold
+    the reversed windows, x's rows the windows of those g rows - both
+    halos); the shared memory the plan asks for holds every block's
+    regions and stays within the two-blocks-an-SM budget."""
+    b, c, h, w = shape
+    hw = h * w
+    lo, hi = n // 2, n - n // 2 - 1
+    for dtype in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            plan = lrn_ops.lrn_plan(shape, n, dtype, backward)
+            assert plan["smem_bytes"] <= lrn_ops.SMEM_BUDGET
+            assert plan["smem_bytes"] == lrn_ops.lrn_smem_bytes(
+                shape, n, dtype, backward, plan["chunk"], plan["seg"])
+            assert 1 <= plan["seg"] <= hw and plan["whole"] == (
+                plan["seg"] == hw)
+            assert plan["threads"] % 32 == 0
+            assert plan["threads"] <= lrn_ops.MAX_THREADS
+            seen = np.zeros((c, hw), np.int64)
+            blocks = list(_blocks(shape, plan))
+            assert plan["blocks"] == b * len(blocks)
+            for c0, c1, s0, s1 in blocks:
+                seen[c0:c1, s0:s1] += 1
+                (x0, x1), grows = _slab_rows(c0, c1, c, n, backward)
+                xrows = set(range(x0, x1))
+                # this block's regions fit the plan's shared memory
+                ch = c1 - c0
+                assert lrn_ops.lrn_smem_bytes(
+                    shape, n, dtype, backward, ch,
+                    plan["seg"]) <= plan["smem_bytes"]
+                for cc in range(c0, c1):
+                    assert _window(cc, lo, hi, c) <= xrows
+                if not backward:
+                    assert x1 - x0 <= min(c, plan["chunk"] + n - 1)
+                    continue
+                gset = set(range(*grows))
+                assert grows[1] - grows[0] <= min(c, plan["chunk"] + n - 1)
+                assert x1 - x0 <= min(c, plan["chunk"] + 2 * (n - 1))
+                for cc in range(c0, c1):
+                    assert _window(cc, hi, lo, c) <= gset
+                for j in gset:
+                    assert _window(j, lo, hi, c) <= xrows
+            assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lrn_plan_cuts_large_rows_into_segments(dtype, backward):
+    """H*W so large that one channel row and its halo do not fit: the
+    plan cuts H*W into equal segments (loaded row by row) and stays in
+    budget; AlexNet's shapes keep the whole of H*W (one range)."""
+    shape = (1, 64, 512, 512)
+    plan = lrn_ops.lrn_plan(shape, 5, dtype, backward)
+    hw = 512 * 512
+    assert not plan["whole"] and plan["seg"] < hw
+    nseg = -(-hw // plan["seg"])
+    assert plan["seg"] * (nseg - 1) < hw <= plan["seg"] * nseg
+    assert plan["smem_bytes"] <= lrn_ops.SMEM_BUDGET
+    for alex in ((64, 96, 27, 27), (256, 96, 27, 27), (64, 256, 13, 13),
+                 (256, 256, 13, 13)):
+        assert lrn_ops.lrn_plan(alex, 5, dtype, backward)["whole"]
+
+
+def test_lrn_plan_takes_a_block_of_shared_memory_only_for_wide_windows():
+    """A window over thousands of channels gets up to a block's whole
+    shared memory (one block an SM); one whose slab does not fit even
+    one channel at one position gets the plan without a slab (seg 0)."""
+    plan = lrn_ops.lrn_plan((1, 20000, 1, 1), 20001, torch.bfloat16, True)
+    assert lrn_ops.SMEM_BUDGET < plan["smem_bytes"] <= lrn_ops.SMEM_MAX
+    assert lrn_ops.lrn_plan((1, 20000, 1, 1), 20001, torch.float32,
+                            True)["seg"] == 0
+
+
+# the direct instances' shapes of tests/test_torch_cuda.py (the forward
+# at n = 7501, the backward at n = 2501, over 8000 channels of 4 x 4),
+# float32's backward at 20000 channels, and channels enough that a chunk
+# of DIRECT_CHUNK would need more than MAX_GRID_Y grid rows
+@pytest.mark.parametrize("shape,n,backward,dtype", [
+    ((1, 8000, 4, 4), 7501, False, torch.float32),
+    ((1, 8000, 4, 4), 7501, False, torch.bfloat16),
+    ((1, 8000, 4, 4), 2501, True, torch.float32),
+    ((1, 8000, 4, 4), 2501, True, torch.bfloat16),
+    ((1, 20000, 1, 1), 20001, True, torch.float32),
+    ((3, 600000, 1, 1), 1200001, False, torch.bfloat16)])
+def test_lrn_plan_reads_device_memory_where_no_slab_fits(shape, n,
+                                                         backward, dtype):
+    """Where even one channel at one position of a slab does not fit a
+    block's shared memory, the plan has no slab (seg 0, no shared
+    memory): a grid row takes `chunk` channels (at most MAX_GRID_Y
+    rows), a block DIRECT_THREADS (image, position) columns - every
+    channel of every column in one block."""
+    b, c, h, w = shape
+    plan = lrn_ops.lrn_plan(shape, n, dtype, backward)
+    for seg in range(1, h * w + 1):
+        assert lrn_ops.lrn_smem_bytes(shape, n, dtype, backward, 1,
+                                      seg) > lrn_ops.SMEM_MAX
+    assert plan["seg"] == 0 and plan["smem_bytes"] == 0
+    assert not plan["whole"]
+    assert plan["threads"] == lrn_ops.DIRECT_THREADS
+    rows = -(-c // plan["chunk"])
+    assert rows <= lrn_ops.MAX_GRID_Y
+    assert plan["chunk"] == max(lrn_ops.DIRECT_CHUNK,
+                                -(-c // lrn_ops.MAX_GRID_Y))
+    assert plan["blocks"] == rows * -(-b * h * w // plan["threads"])
+
+
+def _by_slabs(x, g, n, alpha, beta, knorm, plan, backward):
+    """The plain versions evaluated slab by slab over the plan's blocks
+    (all images at once: a block's slab is the same rows of each)."""
+    b, c, h, w = x.shape
+    x4 = x.reshape(b, c, h * w, 1)
+    g4 = None if g is None else g.reshape(b, c, h * w, 1)
+    out = torch.full_like(x4, float("nan"))
+    for c0, c1, s0, s1 in _blocks(x.shape, plan):
+        (x0, x1), grows = _slab_rows(c0, c1, c, n, backward)
+        xs = x4[:, x0:x1, s0:s1]
+        if not backward:
+            r = lrn_ops.lrn_reference(xs, n, alpha, beta, knorm)
+        else:
+            # g outside the block's g rows is not read: zero it
+            gs = torch.zeros_like(xs)
+            gs[:, grows[0] - x0:grows[1] - x0] = g4[:, grows[0]:grows[1],
+                                                    s0:s1]
+            r = lrn_ops.lrn_bwd_reference(xs, gs, n, alpha, beta, knorm)
+        out[:, c0:c1, s0:s1] = r[:, c0 - x0:c1 - x0]
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 5, 7, 19])
+@pytest.mark.parametrize("shape", [
+    (2, 40, 3, 3),      # one range, several chunks
+    (3, 13, 5, 7),      # C not a multiple of a chunk
+    (2, 9, 120, 120),   # H*W cut into segments
+])
+def test_slab_by_slab_equals_whole_tensor_bitwise(shape, n, backward):
+    """The plain versions on each block's slab give the whole tensor's
+    result bitwise (CPU, float32): the plan's halos are the rows the
+    math reads. beta = 1 makes every power of the plain versions a
+    division (torch's CPU pow rounds a general exponent differently in
+    its vector and scalar loops, so an element's place in the tensor
+    would move its last bit)."""
+    alpha, beta, knorm = 0.01, 1.0, 1.0
+    x, g = (torch.from_numpy(a) for a in _xg(shape, seed=11))
+    plan = lrn_ops.lrn_plan(shape, n, torch.float32, backward)
+    assert plan["whole"] == (shape[2] * shape[3] < 120 * 120)
+    if backward:
+        want = lrn_ops.lrn_bwd_reference(x, g, n, alpha, beta, knorm)
+    else:
+        want = lrn_ops.lrn_reference(x, n, alpha, beta, knorm)
+    got = _by_slabs(x, g if backward else None, n, alpha, beta, knorm,
+                    plan, backward)
+    assert torch.equal(got, want)
