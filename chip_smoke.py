@@ -79,7 +79,24 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    card against the CPU; (d) bench.py's int8 MLP pair at b16
    (int8_over_fold, argmax agreement on 256 rows); (e) the CLI's task =
    pred and task = serve with the int8 passes (identical outputs,
-   pass_calibration_batches and pass_calibration_iter).
+   pass_calibration_batches and pass_calibration_iter);
+10. the image data pipeline: (a) whether PIL imports, scipy's version,
+   the CPU count and the synthetic set's format (JPEG where PIL is
+   present, else binary P6); (b) 256 x 256 imgbin sets packed with the
+   port's im2bin; (c) examples/ImageNet/AlexNet.conf through the CLI,
+   unedited (b256, bfloat16, imgbin + threadbuffer, the mean image made
+   on the first run): 2 rounds with their eval lines, K1-fwd and K1-bwd
+   launched, `continue = 1`, and `task = pred` (256 lines) with a pred
+   block appended; (d) ResNet18.conf and kaggle_bowl/bowl.conf, 2 rounds
+   each, then kaggle_bowl/pred.conf (task = pred_raw) on bowl's model;
+   (e) StagedPrefetcher's tensors (pinned ring, side stream) against
+   streamed staging, bitwise, for two AlexNet batches under stage_dtype
+   bfloat16 and float32 and device_augment = 1; (f) ops/augment.py on
+   the card against the host augmenter given its replayed draws,
+   bitwise; (g) AlexNet b256 bfloat16 from AlexNet.conf's train block
+   over 3,072 images, streamed, prefetch_stage = 1 and prefetch_stage =
+   1 + device_augment = 1: step time, images/s, staging, the device's
+   idle share, the iterator's own rate, and which of them sets the pace.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -2336,6 +2353,656 @@ def attn_entry(name: str, rows, max_err: float, launches: int):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the image pipeline on the card (imgbin through the CLI)
+# ---------------------------------------------------------------------------
+
+IMAGENET_CONFS = os.path.join(REPO, "examples", "ImageNet")
+BOWL_CONFS = os.path.join(REPO, "examples", "kaggle_bowl")
+# AlexNet.conf's test block again, as a pred block (phase 7 appends one
+# to its conf the same way)
+ALEXNET_PRED_BLOCK = """
+pred = pred.txt
+iter = imgbin
+  image_list = "./data/test.lst"
+  image_bin = "./data/test.bin"
+  image_root = "./data/resize256/"
+  image_mean = "models/image_net_mean.bin"
+iter = end
+"""
+
+
+def image_format_used():
+    """JPEG (quality 90, written with PIL) where PIL imports, else binary
+    P6 written with numpy; with PIL's version or None."""
+    try:
+        import PIL
+        from PIL import Image  # noqa: F401
+        return "JPEG", PIL.__version__
+    except ImportError:
+        return "PPM", None
+
+
+def write_image_set(d: str, sub: str, lst: str, n: int, size: int,
+                    classes: int, seed: int, fmt: str) -> None:
+    """n size x size RGB images under d/sub/ with a class signal (a
+    bright square whose place and channel follow the label, over
+    noise), their .lst at d/lst.lst, packed into d/lst.bin by the port's
+    im2bin."""
+    import io
+    import numpy as np
+    from cxxnet_tpu_torch.tools.im2bin import im2bin
+    rng = np.random.RandomState(seed)
+    root = os.path.join(d, sub)
+    os.makedirs(root, exist_ok=True)
+    side = max(4, size // 6)
+    lines = []
+    for i in range(n):
+        cls = i % classes
+        img = rng.randint(0, 150, (size, size, 3)).astype(np.uint8)
+        r, c = divmod(cls % 16, 4)
+        y0, x0 = r * size // 4, c * size // 4
+        img[y0:y0 + side, x0:x0 + side, cls % 3] = 250
+        name = f"{i:05d}." + ("jpg" if fmt == "JPEG" else "ppm")
+        if fmt == "JPEG":
+            from PIL import Image
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG", quality=90)
+            blob = buf.getvalue()
+        else:
+            blob = (f"P6\n{size} {size}\n255\n".encode()
+                    + img.tobytes())
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(blob)
+        lines.append(f"{i}\t{cls}\t{name}")
+    os.makedirs(os.path.dirname(os.path.join(d, lst)) or d, exist_ok=True)
+    with open(os.path.join(d, lst + ".lst"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    devnull = open(os.devnull, "w")
+    keep, sys.stdout = sys.stdout, devnull
+    try:
+        im2bin(os.path.join(d, lst + ".lst"), root + "/",
+               os.path.join(d, lst + ".bin"))
+    finally:
+        sys.stdout = keep
+        devnull.close()
+
+
+def round_metrics(stderr: str):
+    """{round: {metric: value}} from the per-round `[N]\t...` lines."""
+    out = {}
+    for ln in stderr.splitlines():
+        m = re.match(r"\[(\d+)\]((\t[\w@-]+:[0-9.e+-]+|\t[\w@-]+:nan)*)$",
+                     ln.strip("\n"))
+        if m:
+            out[int(m.group(1))] = {
+                k: float(v) for k, v in
+                (t.rsplit(":", 1) for t in m.group(2).split("\t") if t)}
+    return out
+
+
+def cli_launches(stdout: str):
+    m = re.search(r"kernel launches (\{.*\})", stdout)
+    return ast.literal_eval(m.group(1)) if m else {}
+
+
+def cli_train_checked(conf, cwd, rounds, label, extra=()):
+    """`task = train` from scratch for `rounds` rounds in `cwd`: every
+    round's line, finite values, models/000<rounds>.model written.
+    Returns (metrics per round, kernel launches, seconds)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    proc = run_cli([conf, f"num_round={rounds}", f"max_round={rounds}",
+                    "silent=0"] + list(extra), cwd=cwd)
+    secs = time.perf_counter() - t0
+    mets = round_metrics(proc.stderr)
+    counts = cli_launches(proc.stdout)
+    say(f"{label}: " + " | ".join(
+        ln for ln in proc.stderr.splitlines() if ln.startswith("[")))
+    if sorted(mets) != list(range(1, rounds + 1)):
+        raise AssertionError(f"{label}: rounds {sorted(mets)}:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    vals = [v for r in mets.values() for v in r.values()]
+    if not vals or not all(np.isfinite(vals)):
+        raise AssertionError(f"{label}: non-finite metrics {mets}")
+    model = os.path.join(cwd, "models", f"{rounds:04d}.model")
+    if not os.path.exists(model):
+        raise AssertionError(f"{label}: {model} was not written")
+    say(f"{label}: {rounds} rounds in {secs:.1f} s (process, first "
+        f"run creates the mean image); kernel launches {counts}")
+    return mets, counts, secs
+
+
+def stage_equal(torch, got, want) -> bool:
+    return (got.data.dtype == want.data.dtype
+            and torch.equal(got.data, want.data)
+            and torch.equal(got.mask, want.mask)
+            and all(torch.equal(got.labels[k], want.labels[k])
+                    for k in want.labels))
+
+
+class ListIter:
+    """A DataIter over a list (of DataBatch or DataInst)."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def set_param(self, name, val):
+        pass
+
+    def before_first(self):
+        self.i = -1
+
+    def next(self):
+        self.i += 1
+        return self.i < len(self.items)
+
+    def value(self):
+        return self.items[self.i]
+
+
+def alexnet_train_block():
+    """(global pairs, train block) of AlexNet.conf, split as the CLI
+    splits it (the block keeps its `iter = end`)."""
+    from cxxnet_tpu_torch.main import LearnTask
+    task = LearnTask()
+    task.load_conf(os.path.join(IMAGENET_CONFS, "AlexNet.conf"))
+    defcfg, train, _evals, _pred = task._split_blocks()
+    return defcfg, train + [("iter", "end")]
+
+
+def make_iter(conf, cwd, extra=()):
+    """The iterator the CLI builds from a (global pairs, block) conf run
+    in `cwd`: the block's chain, the global pairs set on it (batch_size,
+    input_shape, ...), relative file paths resolved from `cwd`."""
+    from cxxnet_tpu_torch.io import create_iterator
+    defcfg, block = conf
+    paths = ("image_list", "image_bin", "image_root", "image_mean")
+
+    def fix(pairs):
+        return [(k, os.path.join(cwd, v) if k in paths else v)
+                for k, v in pairs]
+    it = create_iterator(fix(block[:-1]) + list(extra) + block[-1:])
+    for k, v in fix(defcfg) + [("silent", "1")]:
+        it.set_param(k, v)
+    it.init()
+    return it
+
+
+def pull(it, n):
+    """n batches of an iterator (rewinding at the end of a pass), their
+    arrays copied."""
+    from cxxnet_tpu_torch.io.data import DataBatch
+    out = []
+    it.before_first()
+    while len(out) < n:
+        if not it.next():
+            it.before_first()
+            continue
+        b = it.value()
+        out.append(DataBatch(data=b.data.copy(), label=b.label.copy(),
+                             num_batch_padd=b.num_batch_padd))
+    return out
+
+
+def replay_host_draws(torch, seed, n, yy_max, xx_max, rand_crop,
+                      rand_mirror):
+    """The host AugmentIterator's draws for its first n instances,
+    replayed from its RandomState(0 + seed_data) in its order."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    yy, xx, con, ill, mir = [], [], [], [], []
+    for _ in range(n):
+        a = b = 0
+        if rand_crop and (yy_max or xx_max):
+            a, b = rng.randint(0, yy_max + 1), rng.randint(0, xx_max + 1)
+        yy.append(a)
+        xx.append(b)
+        con.append(rng.uniform())
+        ill.append(rng.uniform())
+        mir.append(bool(rand_mirror and rng.uniform() < 0.5))
+    return {"yy": torch.tensor(yy), "xx": torch.tensor(xx),
+            "mirror": torch.tensor(mir),
+            "contrast": torch.tensor(con, dtype=torch.float64),
+            "illumination": torch.tensor(ill, dtype=torch.float64)}
+
+
+def phase_image_cli(d: str, fmt: str):
+    """(c) and (d): AlexNet.conf, ResNet18.conf and bowl.conf through the
+    CLI on their own imgbin data, each in a directory of its own whose
+    ./data/ links to the shared set (the confs' relative paths resolve
+    unedited). Returns AlexNet's kernel launches."""
+    import numpy as np
+    say("== phase 10c: examples/ImageNet/AlexNet.conf through the CLI on "
+        "imgbin data (b256, bfloat16, full width) ==")
+    alex = os.path.join(d, "alexnet")
+    os.makedirs(alex)
+    os.symlink(os.path.join(d, "shared", "data"), os.path.join(alex, "data"))
+    conf = os.path.join(IMAGENET_CONFS, "AlexNet.conf")
+    mets, counts, _ = cli_train_checked(conf, alex, 2, "AlexNet.conf",
+                                        ["metric=logloss"])
+    for r, m in mets.items():
+        for k in ("test-error", "test-rec@1", "test-rec@5",
+                  "train-logloss", "test-logloss"):
+            if k not in m:
+                raise AssertionError(f"round {r} lacks {k}: {m}")
+    if counts.get("lrn_fwd", 0) <= 0 or counts.get("lrn_bwd", 0) <= 0:
+        raise AssertionError(f"AlexNet.conf CLI training launched {counts}")
+    if not os.path.exists(os.path.join(alex, "models",
+                                       "image_net_mean.bin")):
+        raise AssertionError("the first run did not create the mean image")
+    proc = run_cli([conf, "continue=1", "num_round=3", "max_round=3"],
+                   cwd=alex)
+    got = round_metrics(proc.stderr)
+    if sorted(got) != [3] or not os.path.exists(
+            os.path.join(alex, "models", "0003.model")):
+        raise AssertionError(f"continue=1 should train round 3 only:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    if "image_net_mean" in proc.stdout and "cannot find" in proc.stdout:
+        raise AssertionError("continue=1 recreated the mean image")
+    say(f"continue=1 num_round=3: resumed past models/image_net_mean.bin, "
+        f"round 3 {got[3]}")
+    pconf = os.path.join(alex, "alexnet_pred.conf")
+    with open(conf) as f, open(pconf, "w") as g:
+        g.write(f.read() + ALEXNET_PRED_BLOCK)
+    proc = run_cli([pconf, "task=pred", "model_in=models/0003.model"],
+                   cwd=alex)
+    with open(os.path.join(alex, "pred.txt")) as f:
+        preds = f.read().split()
+    if len(preds) != 256:
+        raise AssertionError(f"task=pred wrote {len(preds)} lines")
+    say(f"task=pred: {len(preds)} lines, {len(set(preds))} distinct "
+        "classes")
+
+    say("== phase 10d: ResNet18.conf and kaggle_bowl/bowl.conf + pred.conf "
+        "through the CLI ==")
+    res = os.path.join(d, "resnet18")
+    os.makedirs(res)
+    os.symlink(os.path.join(d, "shared", "data"), os.path.join(res, "data"))
+    cli_train_checked(os.path.join(IMAGENET_CONFS, "ResNet18.conf"), res, 2,
+                      "ResNet18.conf")
+    bowl = os.path.join(d, "bowl")
+    write_image_set(bowl, "img_tr", "tr", 256, 64, 12, 31, fmt)
+    write_image_set(bowl, "img_va", "va", 128, 64, 12, 32, fmt)
+    write_image_set(bowl, "img_te", "te", 128, 64, 12, 33, fmt)
+    cli_train_checked(os.path.join(BOWL_CONFS, "bowl.conf"), bowl, 2,
+                      "bowl.conf")
+    run_cli([os.path.join(BOWL_CONFS, "pred.conf"),
+             "model_in=models/0002.model"], cwd=bowl)
+    with open(os.path.join(bowl, "test.txt")) as f:
+        rows = [ln.split() for ln in f.read().splitlines()]
+    vals = np.asarray(rows, dtype=np.float64)
+    if vals.shape != (128, 121) or not np.allclose(vals.sum(1), 1.0,
+                                                    atol=1e-3):
+        raise AssertionError(f"pred.conf (pred_raw) wrote {vals.shape}, "
+                             f"row sums {vals.sum(1)[:4]}")
+    say(f"pred.conf (task = pred_raw): {vals.shape[0]} rows of "
+        f"{vals.shape[1]} probabilities, each summing to 1")
+    return counts
+
+
+def phase_staged_vs_streamed(torch, d: str):
+    """(e): two AlexNet batches of AlexNet.conf's train block; the
+    prefetcher's tensors (pinned ring, side stream) against stage_batch's
+    streamed ones, bitwise, under stage_dtype bfloat16 (the default) and
+    float32 and under device_augment = 1 (raw uint8)."""
+    say("== phase 10e: StagedPrefetcher (pinned ring, side stream) vs "
+        "streamed staging, two AlexNet batches ==")
+    alex = os.path.join(d, "alexnet")
+    block = alexnet_train_block()
+    host = pull(make_iter(block, alex), 2)
+    raw = pull(make_iter(block, alex, [("device_augment", "1")]), 2)
+    tr = alexnet_trainer([])
+    for label, sd, daug, batches in (("stage_dtype bfloat16", "", 0, host),
+                                     ("stage_dtype float32", "float32", 0,
+                                      host),
+                                     ("device_augment = 1", "", 1, raw)):
+        tr.stage_dtype, tr.device_augment = sd, daug
+        pf = tr.prefetch(ListIter(batches), 1)
+        pf.before_first()
+        n = 0
+        while pf.next():
+            got = pf.value()
+            tr._await(got)
+            if got.ready is None or not stage_equal(
+                    torch, got, tr.stage_batch(batches[n])):
+                raise AssertionError(f"{label}: staged batch {n} differs "
+                                     "from the streamed one")
+            n += 1
+        pf.close()
+        if n != 2:
+            raise AssertionError(f"{label}: {n} staged batches")
+        say(f"{label}: 2 staged batches ({got.data.dtype}, "
+            f"{tuple(got.data.shape)}) bitwise equal to the streamed ones")
+    tr.stage_dtype, tr.device_augment = "", 0
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_device_augment_vs_host(torch, d: str):
+    """(f): ops/augment.py on the card, given the host AugmentIterator's
+    draws replayed from its RandomState, against the host pipeline's
+    float32 instances: AlexNet.conf's train spec (rand_crop, rand_mirror,
+    the crop-sized mean image of 10c) and a spec with every jitter key
+    (mean_value, contrast, illumination, divideby). Bar: bitwise (the
+    same float32 operations in the same order)."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.augment import AugmentIterator, load_mean_image
+    from cxxnet_tpu_torch.io.data import DataInst
+    from cxxnet_tpu_torch.ops.augment import make_device_augment
+    say("== phase 10f: device augment on the card vs the host pipeline ==")
+    alex = os.path.join(d, "alexnet")
+    block = alexnet_train_block()
+    raw = pull(make_iter(block, alex, [("device_augment", "1")]), 1)[0]
+    n = 32
+    mean = load_mean_image(os.path.join(alex, "models", "image_net_mean.bin"))
+    specs = {
+        "AlexNet.conf train block": (
+            dict(rand_crop=1, rand_mirror=1), mean, None),
+        "mean_value + contrast + illumination + divideby": (
+            dict(rand_crop=1, rand_mirror=1, max_random_contrast=0.3,
+                 max_random_illumination=20.0, scale=1 / 256), None,
+            (104.0, 117.0, 123.0)),
+    }
+
+    class Base:
+        def __init__(self):
+            self.i = -1
+
+        def set_param(self, k, v):
+            pass
+
+        def before_first(self):
+            self.i = -1
+
+        def next(self):
+            self.i += 1
+            return self.i < n
+
+        def value(self):
+            return DataInst(index=self.i, data=raw.data[self.i],
+                            label=raw.label[self.i])
+
+    for label, (kw, meanimg, mv) in specs.items():
+        host = AugmentIterator(Base())
+        host.set_param("input_shape", "3,227,227")
+        host.set_param("seed_data", "5")
+        for k, v in kw.items():
+            host.set_param(k, repr(float(v)) if k == "scale" else str(v))
+        if mv is not None:
+            host.set_param("mean_value", ",".join(str(t) for t in mv))
+        host.meanimg = meanimg
+        host.before_first()
+        want = []
+        while host.next():
+            want.append(host.value().data)
+        want = np.stack(want)
+        fn = make_device_augment(
+            (3, 227, 227), mean_loader=(lambda m=meanimg: m)
+            if meanimg is not None else None, mean_values=mv, **kw)
+        draws = replay_host_draws(torch, 5, n, 256 - 227, 256 - 227,
+                                  kw.get("rand_crop", 0),
+                                  kw.get("rand_mirror", 0))
+        got = fn(torch.from_numpy(raw.data[:n]).cuda(), True,
+                 draws={k: v.cuda() for k, v in draws.items()})
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        if got.shape != want.shape:
+            raise AssertionError(f"{label}: card {got.shape}, host "
+                                 f"{want.shape}")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: card vs host max abs diff "
+                                 f"{np.abs(got - want).max()}")
+        say(f"{label}: {n} instances, card == host pipeline bitwise "
+            f"(float32, {tuple(got.shape)})")
+
+
+def timed_setting(torch, tr, itr, prefetch):
+    """2 warm-up and 10 timed steps of tr.update over itr's batches (the
+    12 batches of one pass), then 3 profiled ones: step ms and images/s
+    by the host clock (CUDA-synchronised), the device's idle share."""
+    it = tr.prefetch(itr, 1) if prefetch else itr
+    it.before_first()
+
+    def step():
+        if not it.next():
+            it.before_first()
+            if not it.next():
+                raise AssertionError("empty iterator")
+        tr.update(it.value())
+
+    try:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 100.0
+        profiled = profile_steps(torch, step, 3)
+    finally:
+        if prefetch:
+            it.close()
+    rows, groups, busy_ms, window_ms = profiled
+    idle = (1 - busy_ms / window_ms) if window_ms else float("nan")
+    return step_ms, idle
+
+
+def iterator_rate(itr) -> float:
+    """Images/s of one pass of the iterator alone (decode, augment,
+    batch; no trainer)."""
+    itr.before_first()
+    n, t0 = 0, time.perf_counter()
+    while itr.next():
+        n += itr.value().data.shape[0] - itr.value().num_batch_padd
+    return n / (time.perf_counter() - t0)
+
+
+def stop_iter(it) -> None:
+    """Stop a threadbuffer chain's producer thread (it would otherwise
+    go on decoding the next batches while something else is timed)."""
+    shutdown = getattr(it, "_shutdown", None)
+    if shutdown is not None:
+        shutdown()
+
+
+def say_setting(results, label, step_ms, idle, device_ms, card,
+                rate=None, stage=None, staged_as="bfloat16"):
+    """One setting's line: step, images/s, idle share, what sets the
+    pace; and its entry in `results`."""
+    ips = 256 / step_ms * 1e3
+    if ips >= 0.85 * (256 / device_ms * 1e3):
+        pace = "the step itself (its device work and host dispatch)"
+    elif rate is not None and rate < 1.15 * ips:
+        pace = "the iterator (decode, augment, batch on the host)"
+    else:
+        pace = "staging and the step's host work"
+    results[label] = dict(step_ms=step_ms, images_s=ips, idle=idle)
+    extra = ""
+    if rate is not None:
+        results[label].update(iterator_images_s=rate,
+                              staging_ms=stage["bfloat16"],
+                              staging_f32_ms=stage["float32"])
+        extra = (f"; staging {stage['bfloat16']:.3f} ms ({staged_as} "
+                 f"across) or {stage['float32']:.3f} ms (stage_dtype = "
+                 f"float32); iterator alone {rate:.1f} images/s")
+    say(f"[{label}] step {step_ms:.3f} ms, {ips:.1f} images/s (host "
+        f"clock over 10 steps, CUDA-synchronised); device idle share "
+        f"{idle:.4f} (torch.profiler, 3 steps){extra}; the pace is set by "
+        f"{pace}; on {card}")
+
+
+def host_stage_rates(tdir: str, card: str):
+    """Images/s of each host stage of the iterator alone, over the first
+    512 images of the timing set: decode on one thread and on the
+    iterator's pool of 4, the host augmenter with AlexNet.conf's train
+    spec (crop, mirror, the mean image; one thread, as in the chain),
+    and the batch adapter's collation of 256 augmented instances."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from cxxnet_tpu_torch.io.augment import AugmentIterator, load_mean_image
+    from cxxnet_tpu_torch.io.data import DataInst
+    from cxxnet_tpu_torch.io.iter_batch import BatchAdaptIterator
+    from cxxnet_tpu_torch.io.iter_img import decode_image
+    from cxxnet_tpu_torch.utils.binary_page import iter_page_blobs
+    with open(os.path.join(tdir, "data", "train.bin"), "rb") as f:
+        blobs = next(iter_page_blobs(f))[:512]
+    n = len(blobs)
+    t0 = time.perf_counter()
+    imgs = [decode_image(b) for b in blobs]
+    decode1 = n / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(4) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(decode_image, blobs))
+        decode4 = n / (time.perf_counter() - t0)
+    insts = [DataInst(index=i, data=im, label=np.zeros(1, np.float32))
+             for i, im in enumerate(imgs)]
+    aug = AugmentIterator(ListIter(insts))
+    for k, v in (("input_shape", "3,227,227"), ("rand_crop", "1"),
+                 ("rand_mirror", "1")):
+        aug.set_param(k, v)
+    aug.meanimg = load_mean_image(os.path.join(tdir, "models",
+                                               "image_net_mean.bin"))
+    aug.before_first()
+    out = []
+    t0 = time.perf_counter()
+    while aug.next():
+        out.append(aug.value())
+    augment = n / (time.perf_counter() - t0)
+    batcher = BatchAdaptIterator(ListIter(out))
+    batcher.set_param("batch_size", "256")
+    batcher.before_first()
+    t0 = time.perf_counter()
+    while batcher.next():
+        pass
+    collate = n / (time.perf_counter() - t0)
+    say(f"[host stages, images/s] decode {decode1:.1f} on one thread, "
+        f"{decode4:.1f} on the pool of 4; host augment (AlexNet.conf's "
+        f"spec, one thread) {augment:.1f}; batch collation {collate:.1f}; "
+        f"os.cpu_count() {os.cpu_count()}; host clock; on {card}")
+    return dict(decode_1_thread=decode1, decode_4_threads=decode4,
+                augment=augment, collate=collate)
+
+
+def phase_image_timing(torch, d: str, fmt: str, card: str):
+    """(g): AlexNet b256 bfloat16 through NetTrainer and create_iterator
+    on AlexNet.conf's own train block over 3,072 images (12 batches), in
+    three settings: streamed (prefetch_stage = 0), prefetch_stage = 1,
+    and prefetch_stage = 1 + device_augment = 1; beside them the device
+    alone (one staged batch repeated) and the same 12 batches decoded
+    once and held in memory, streamed and prefetched (the staging
+    overlap without the iterator in the way)."""
+    import shutil
+    say("== phase 10g: AlexNet b256 bfloat16 training from imgbin: where "
+        "the time goes ==")
+    tdir = os.path.join(d, "timing")
+    write_image_set(tdir, "data/resize256", "data/train", 3072, 256, 10, 41,
+                    fmt)
+    os.makedirs(os.path.join(tdir, "models"))
+    shutil.copy(os.path.join(d, "alexnet", "models", "image_net_mean.bin"),
+                os.path.join(tdir, "models", "image_net_mean.bin"))
+    block = alexnet_train_block()
+    results = {}
+    tr = alexnet_trainer([])
+    itr = make_iter(block, tdir)
+    cached = pull(itr, 12)
+    stop_iter(itr)
+    stage = staging_ms(torch, tr, lambda: tr.stage_batch(cached[0]), 3)
+    staged = tr.stage_batch(cached[0])
+    for _ in range(2):
+        tr.update(staged)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        tr.update(staged)
+    torch.cuda.synchronize()
+    device_ms = (time.perf_counter() - t0) * 100.0
+    del staged
+    say(f"the step alone (one staged batch, repeated): {device_ms:.3f} ms, "
+        f"{256 / device_ms * 1e3:.1f} images/s; staging one batch "
+        f"{stage_txt(stage)}; on {card}")
+    for label, prefetch in (("cached batches, streamed", False),
+                            ("cached batches, prefetch_stage = 1", True)):
+        step_ms, idle = timed_setting(torch, tr, ListIter(cached),
+                                      prefetch)
+        say_setting(results, label, step_ms, idle, device_ms, card)
+    del cached
+    settings = (("streamed (prefetch_stage = 0)", False, 0),
+                ("prefetch_stage = 1", True, 0),
+                ("prefetch_stage = 1 + device_augment = 1", True, 1))
+    for label, prefetch, daug in settings:
+        if daug:
+            del tr
+            torch.cuda.empty_cache()
+            # the trainer reads the train block's image_mean
+            # (models/image_net_mean.bin) relative to the working
+            # directory, as in a CLI run from tdir
+            keep = os.getcwd()
+            os.chdir(tdir)
+            try:
+                tr = alexnet_trainer(["device_augment=1"])
+                # the first augment loads (and caches) the mean image
+                tr._model_input(torch.zeros((1, 3, 256, 256),
+                                            dtype=torch.uint8,
+                                            device=tr.device))
+            finally:
+                os.chdir(keep)
+        extra = [("device_augment", "1")] if daug else []
+        itr = make_iter(block, tdir, extra)
+        b = pull(itr, 1)[0]
+        stop_iter(itr)
+        st = staging_ms(torch, tr, lambda: tr.stage_batch(b), 3)
+        rate = iterator_rate(itr)
+        step_ms, idle = timed_setting(torch, tr, itr, prefetch)
+        stop_iter(itr)
+        say_setting(results, label, step_ms, idle, device_ms, card, rate, st,
+                    "uint8" if daug else "bfloat16")
+    del tr
+    torch.cuda.empty_cache()
+    results["host stages"] = host_stage_rates(tdir, card)
+    results["step alone"] = dict(step_ms=device_ms,
+                                   images_s=256 / device_ms * 1e3,
+                                   staging_ms=stage["bfloat16"],
+                                   staging_f32_ms=stage["float32"])
+    say("phase 10g summary " + json.dumps(
+        {k: {kk: round(vv, 4) for kk, vv in v.items()}
+         for k, v in results.items()}))
+    return results
+
+
+def phase_image_pipeline(torch, card):
+    """Phase 10: the image data pipeline on the card."""
+    import scipy
+    say("== phase 10a: environment of the image pipeline ==")
+    fmt, pil = image_format_used()
+    say(f"PIL: {'imports, version ' + pil if pil else 'not installed'}")
+    say(f"scipy {scipy.__version__}")
+    say(f"os.cpu_count() = {os.cpu_count()}")
+    say(f"synthetic image format: {fmt}"
+        + (" (quality 90, written with PIL)" if fmt == "JPEG"
+           else " (binary P6, written with numpy)"))
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        say("== phase 10b: synthetic imgbin sets ==")
+        shared = os.path.join(d, "shared")
+        write_image_set(shared, "data/resize256", "data/train", 512, 256,
+                        10, 11, fmt)
+        write_image_set(shared, "data/resize256_test", "data/test", 256,
+                        256, 10, 12, fmt)
+        # AlexNet.conf names image_root ./data/resize256/ for both blocks;
+        # imgbin reads the packed .bin and never opens the loose files
+        say(f"512 train + 256 test images, 256 x 256 {fmt}, packed with "
+            f"cxxnet_tpu_torch.tools.im2bin in "
+            f"{time.perf_counter() - t10:.1f} s")
+        counts = phase_image_cli(d, fmt)
+        phase_staged_vs_streamed(torch, d)
+        phase_device_augment_vs_host(torch, d)
+        timing = phase_image_timing(torch, d, fmt, card)
+    say(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+    return counts, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -2394,6 +3061,7 @@ def main() -> int:
     phase_int8_mlp(torch, card)
     phase_int8_cli()
     say(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+    cli_counts, _timing = phase_image_pipeline(torch, card)
 
     # the kernels line: the LRN's two launches of one served AlexNet
     # batch (b64, bfloat16), warm L2, summed - the main path's unit
@@ -2436,6 +3104,9 @@ def main() -> int:
         "train_plain_ms": both("plain", tf),
         "train_bound_ms": both("bound", tf),
         "train_library_ms": both("library", tf),
+        "imgbin_cli_launches": cli_counts["lrn_fwd"],
+        "imgbin_cli_unit": "AlexNet.conf task = train through the CLI on "
+                           "imgbin data, 2 rounds (phase 10c)",
     }, {
         "name": "lrn_bwd",
         "route": "cuda",
@@ -2455,6 +3126,7 @@ def main() -> int:
         "bound_by": bb[0]["by"],
         "library_ms": both("library", bb),
         "library_cold_ms": both("library_cold", bb),
+        "imgbin_cli_launches": cli_counts["lrn_bwd"],
     }] + [attn_entry(n, attn_rows, attn_err[n], seq_counts[n])
           for n in K2] + [int8_entry(k3_rows, int8_served, 0)]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "

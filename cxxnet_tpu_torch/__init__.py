@@ -28,6 +28,15 @@ A second package beside `cxxnet_tpu`, ported in slices:
    every head_dim up to 256 and every length, where the JAX package
    takes its TPU kernel only for Mosaic-tileable shapes.
    `transformer_stack` and `moe` are not ported yet.
+4. The graph passes and int8 serving (`nnet/passes.py`, K3
+   `csrc/int8_mm.cu`).
+5. The image data pipeline (`io/`: img, imgbin / imgbinx, the host
+   augmenter, threadbuffer, membuffer, attachtxt, the retry wrapper;
+   `utils/binary_page.py`, `tools/im2bin.py`,
+   `tools/imgbin_partition.py`), the staged prefetch
+   (`io/prefetch.py`: pinned buffers and a side stream on the card) and
+   `device_augment` (`ops/augment.py`), so that the ImageNet-family and
+   kaggle_bowl confs train through the CLI on their own data.
 
 Ground rules:
 
@@ -52,9 +61,9 @@ Ground rules:
   the caller asks for the CPU (`device="cpu"`, or `dev = cpu` in a
   conf); with no card they raise instead of carrying on on the CPU.
 - Config keys that change results and that the port does not implement
-  yet (graph_passes, quantize_int8, zero_stage, mesh, remat,
-  steps_per_dispatch, device_augment, test_io, elastic, profile,
-  layer types and iterators not yet ported, ...) raise
+  yet (zero_stage, mesh, remat, steps_per_dispatch, use_native,
+  dist_num_worker, test_io, elastic, profile, layer types not yet
+  ported, ...) raise
   NotImplementedError naming the key; they are never silently ignored.
 - PyTorch idiom inside: plain functions on tensors and modules with an
   explicit device, an explicit `torch.Generator` for every random draw,

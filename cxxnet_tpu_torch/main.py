@@ -18,6 +18,15 @@
   through the continuous-batching Server; its output file matches
   `task = pred` line for line.
 
+Iterator blocks (`data =`, `eval = <name>`, `pred = <file>`, each ended
+by `iter = end`) build the io/ chains: mnist, img, imgbin / imgbinx with
+the host augmenter, threadbuffer, membuffer, attachtxt. The train loop
+stages each batch one ahead on a worker thread (`prefetch_stage = N`,
+default 1: io/prefetch.py, pinned buffers and a side stream on the
+card; 0 streams, staging inside the step). Under `device_augment = 1`
+every block the task builds must carry the trainer's normalization
+spec, or the CLI raises, as the JAX CLI does.
+
 Graph passes (`graph_passes = a,b,...`, `pass_<name> = 0|1`) reach the
 trainer from the conf and argv. fold_conv_bn / quantize_int8 calibrate
 on the first batch the pred tasks run (task = serve: on the first pred
@@ -63,7 +72,7 @@ _NOT_PORTED = {
     "metrics_port": ("0",), "alert_rules": ("",), "alert_cmd": ("",),
     "watchdog_secs": ("0",), "flight_recorder": ("0",),
     "tuning_cache": ("",), "publish_model": ("",),
-    "net_type": ("0",), "prefetch_stage": ("1",),
+    "net_type": ("0",),
     "extract_node_name": ("",), "output_format": ("txt",),
     "log_format": ("json",), "metrics_host": ("",),
     "barrier_secs": ("30",), "leader_lease_secs": ("10",),
@@ -90,6 +99,9 @@ class LearnTask:
         self.eval_train = 1
         self.silent = 0
         self.device = "tpu"
+        # depth of the staging prefetch of the train loop
+        # (io/prefetch.py); 0 streams batches on the update thread
+        self.prefetch_stage = 1
         # task=serve load shape: rows per submitted request (0 = the
         # deterministic ragged cycle that covers every bucket)
         self.serve_rows = 1
@@ -182,6 +194,8 @@ class LearnTask:
             self.device = val
         if name == "serve_rows":
             self.serve_rows = int(val)
+        if name == "prefetch_stage":
+            self.prefetch_stage = int(val)
         if name == "schema_check":
             self.schema_check = int(val)
         if name == "pass_calibration_iter":
@@ -245,14 +259,80 @@ class LearnTask:
         must not reach a training trainer), on the `dev` device. No
         iterator is created here, so a conf whose iterator files do not
         exist still builds its net."""
-        defcfg, train, _evals, pred = self._split_blocks()
+        defcfg, train, evals, pred = self._split_blocks()
         feed = defcfg + (train or [])
         if self.task in _PRED_TASKS:
             feed = feed + (pred or [])
         net = NetTrainer(device=device_from_spec(self.device))
         for k, v in feed:
             net.set_param(k, v)
+        self._check_daug_blocks(net, feed, defcfg, train, evals, pred)
         return net
+
+    @staticmethod
+    def _daug_spec(pairs) -> dict:
+        """Canonical device-augment normalization spec from conf pairs
+        (last-writer-wins): divideby folds into scale exactly as the
+        trainer's own alias does, and defaults are filled so an
+        explicit `mirror = 0` compares equal to an absent one."""
+        spec = {"scale": 1.0, "mirror": "0", "crop_y_start": "-1",
+                "crop_x_start": "-1", "image_mean": "", "mean_value": "",
+                "input_shape": "", "device_augment": "0"}
+        for k, v in pairs:
+            if k == "divideby":
+                spec["scale"] = 1.0 / float(v)
+            elif k == "scale":
+                spec["scale"] = float(v)
+            elif k == "mean_value":
+                # parse so `0, 0, 0` == `0,0,0`, and all-zero == OFF
+                # == absent (make_device_augment's own rule)
+                vals = tuple(float(t) for t in v.split(","))
+                spec[k] = "" if not any(vals) else \
+                    ",".join(f"{t:g}" for t in vals)
+            elif k in spec:
+                spec[k] = v
+        return spec
+
+    def _check_daug_blocks(self, net, feed, defcfg, train, evals, pred):
+        """device_augment applies ONE normalization spec (the trainer's)
+        on the device, but every iterator block feeds it raw pixels. A
+        block whose effective spec diverges from the trainer's would be
+        silently normalized with the WRONG spec - fail loudly instead
+        (the JAX CLI's check, with its messages). Only blocks the
+        current task instantiates are checked. `feed` is exactly what
+        create_net fed the trainer, so eff IS the trainer's spec."""
+        active = []
+        if self.task in _PRED_TASKS:
+            if pred is not None:
+                active.append(("pred", pred))
+        else:
+            if train is not None:
+                active.append(("data", train))
+            active.extend((name or "eval", keys) for name, keys in evals)
+        eff = self._daug_spec(feed)
+        want = "1" if net.device_augment else "0"
+        for tag, keys in active:
+            bs = self._daug_spec(defcfg + keys)
+            flag = "1" if int(bs["device_augment"] or "0") else "0"
+            if flag != want:
+                raise ValueError(
+                    f"device_augment mismatch: the trainer compiled "
+                    f"with device_augment={want} but iterator block "
+                    f"'{tag}' has device_augment={flag} - raw pixels "
+                    "and the in-step augment must agree. Set "
+                    "device_augment globally, not per block.")
+            if not net.device_augment:
+                continue
+            for k in ("scale", "mirror", "crop_y_start", "crop_x_start",
+                      "image_mean", "mean_value", "input_shape"):
+                if bs[k] != eff[k]:
+                    raise ValueError(
+                        f"device_augment: block '{tag}' has {k}="
+                        f"{bs[k]!r} but the trainer's compiled spec "
+                        f"has {k}={eff[k]!r}; the in-step augment is "
+                        "compiled once - per-block normalization "
+                        "divergence cannot be honored (use the host "
+                        "pipeline, device_augment=0, for that)")
 
     def init(self) -> None:
         if self.task in ("train", "finetune"):
@@ -414,15 +494,27 @@ class LearnTask:
                 sys.stdout.write(f"update round {self.start_counter - 1}\n")
             sample_counter = 0
             itr = self.itr_train
-            itr.before_first()
-            while itr.next():
-                tr.update(itr.value())
-                sample_counter += 1
-                if sample_counter % self.print_step == 0 and not self.silent:
-                    sys.stdout.write(
-                        f"round {self.start_counter - 1:8d}:"
-                        f"[{sample_counter:8d}] "
-                        f"{int(time.monotonic() - start)} sec elapsed\n")
+            if self.prefetch_stage > 0:
+                # stage batch k+1 (pad + cast + copy) on a worker thread
+                # while step k runs (io/prefetch.py)
+                itr = tr.prefetch(itr, self.prefetch_stage)
+            try:
+                itr.before_first()
+                while itr.next():
+                    tr.update(itr.value())
+                    sample_counter += 1
+                    if (sample_counter % self.print_step == 0
+                            and not self.silent):
+                        sys.stdout.write(
+                            f"round {self.start_counter - 1:8d}:"
+                            f"[{sample_counter:8d}] "
+                            f"{int(time.monotonic() - start)} sec "
+                            "elapsed\n")
+            finally:
+                if self.prefetch_stage > 0:
+                    # an update() error mid-round must not leak the
+                    # worker and its staged device batches
+                    itr.close()
             line = f"[{self.start_counter}]"
             if self.eval_train:
                 line += tr.eval_train_metric()

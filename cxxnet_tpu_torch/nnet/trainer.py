@@ -50,6 +50,18 @@ trainer's `state["params"]`, and the updater state beside them as
   forward and trimmed after it, as in the JAX package: batch_norm
   normalizes with minibatch statistics, so its rows depend on the
   padding.
+- Staging (`stage_batch`, the JAX package's): pad to batch_size, cast
+  on the host or not (`stage_dtype`; under `device_augment = 1` raw
+  uint8 batches cross as uint8), copy to the device and cast there to
+  the compute dtype. `update()` takes a DataBatch (streamed: one
+  stage_batch call) or a StagedBatch; `prefetch()` stages a batch ahead
+  on a worker thread (io/prefetch.py: pinned buffers and a side stream
+  on the card).
+- `device_augment = 1`: crop / mean / contrast / illumination / mirror /
+  scale run on the device at the head of every forward
+  (ops/augment.py), from the augment keys of the conf, with draws from
+  stream (seed + 100, step, AUGMENT_STREAM) in training and the
+  deterministic variant in evaluation and inference.
 
 The device is fixed at construction: `cuda:0` unless the caller asks
 for the CPU (`device="cpu"`, or `dev = cpu` in the constructor's conf
@@ -60,10 +72,11 @@ trainer - the CLI maps `dev` to the constructor's device.
 
 from __future__ import annotations
 
+import os
 import re
 import sys
 import threading
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +89,7 @@ from cxxnet_tpu_torch.nnet.network import Network, param_key
 from cxxnet_tpu_torch.nnet.passes import (
     GraphModule, PassContext, PassPipeline, find_fold_sites,
     find_quant_sites, make_param_fn)
+from cxxnet_tpu_torch.ops.augment import AUGMENT_STREAM, make_device_augment
 from cxxnet_tpu_torch.ops.int8 import per_channel_scale
 from cxxnet_tpu_torch.updater import UpdaterParam, create_updater
 from cxxnet_tpu_torch.utils.config import check_ported, parse_config_string
@@ -97,7 +111,6 @@ _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "shard_optimizer": ("0",),
     "update_on_server": ("0",),
     "steps_per_dispatch": ("1",),
-    "device_augment": ("0",),
     "model_format": ("native",),
     "tuning_cache": ("",),
     "param_server": ("local",),
@@ -121,6 +134,18 @@ _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "compile_cache": ("",),
     "trace_round": ("1",),
 }
+
+
+class StagedBatch(NamedTuple):
+    """A training batch staged on the trainer's device (stage_batch):
+    data (compute dtype; raw uint8 or float32 under device_augment), the
+    label fields and the row mask. `ready` is the event after its copies
+    when they were issued on a prefetcher's side stream (None when
+    staged on the consumer's stream); update() waits on it."""
+    data: torch.Tensor
+    labels: Dict[str, torch.Tensor]
+    mask: torch.Tensor
+    ready: Any = None
 
 
 def stream_seed(*parts: int) -> int:
@@ -188,7 +213,8 @@ class InferGraph:
             return self._params
 
     def __call__(self, data: torch.Tensor) -> torch.Tensor:
-        return self.net(self.params(), data)[0][self.node].float()
+        return self.net(self.params(), self.trainer._model_input(data))[0][
+            self.node].float()
 
 
 class NetTrainer:
@@ -217,6 +243,11 @@ class NetTrainer:
         # the dtype batches cross to the card in ("" = follow the
         # compute dtype; float32 under bfloat16 = cast on the card)
         self.stage_dtype = ""
+        # device-side augmentation (ops/augment.py): the flag, the
+        # augment keys of the conf, and the function built at _build_net
+        self.device_augment = 0
+        self._daug_cfg: Dict[str, str] = {}
+        self._augment_fn = None
         self.metric = MetricSet()
         self.train_metric = MetricSet()
         # (node name or "" for the final node, node id) per metric
@@ -306,14 +337,19 @@ class NetTrainer:
             # the port reads each batch's metric rows in turn, which
             # gives the same numbers for any window
             raise ValueError("eval_inflight must be >= 0")
+        if name == "device_augment":
+            self.device_augment = int(val)
         if name in ("image_mean", "mean_value", "scale", "divideby",
                     "rand_crop", "rand_mirror", "mirror",
                     "crop_y_start", "crop_x_start",
                     "max_random_contrast", "max_random_illumination"):
-            # the augment spec the JAX trainer reads for device_augment
-            # = 1 only, which the port refuses; the host augmenter that
-            # also reads it belongs to the image iterators, which raise
-            pass
+            # crop/mirror/mean/scale spec for device_augment = 1 (the
+            # key names the host AugmentIterator consumes; unread unless
+            # device_augment is set). divideby is the reciprocal-scale
+            # alias, like augment.py's handler.
+            if name == "divideby":
+                name, val = "scale", str(1.0 / float(val))
+            self._daug_cfg[name] = val
         if name == "dtype":
             if val not in _DTYPES:
                 raise ValueError(f"dtype must be float32 or bfloat16, "
@@ -412,7 +448,43 @@ class NetTrainer:
         self.eval_nodes = [
             (name, self.net_cfg.num_nodes - 1 if name == ""
              else self.net.node_index(name)) for name, _ in self.eval_nodes]
+        self._augment_fn = (self._make_augment() if self.device_augment
+                            else None)
         self._build_updaters()
+
+    def _make_augment(self):
+        """The device augment of the conf's spec (the JAX trainer's
+        make_device_augment call)."""
+        dc = self._daug_cfg
+        mean_loader = None
+        if dc.get("image_mean"):
+            def mean_loader(path=dc["image_mean"]):
+                # lazy: called at the first augment, after the
+                # iterator's init had its chance to create the mean file
+                if not os.path.exists(path):
+                    raise FileNotFoundError(
+                        f"device_augment: mean image '{path}' not "
+                        "found; run the data pipeline once (the "
+                        "iterator creates it) or point image_mean "
+                        "at an existing mean file")
+                from cxxnet_tpu_torch.io.augment import load_mean_image
+                return load_mean_image(path)
+        mean_values = None
+        if dc.get("mean_value"):
+            b_, g_, r_ = (float(t) for t in dc["mean_value"].split(","))
+            mean_values = (b_, g_, r_)
+        return make_device_augment(
+            tuple(self.net_cfg.input_shape),
+            mean_loader=mean_loader, mean_values=mean_values,
+            scale=float(dc.get("scale", "1.0")),
+            rand_crop=int(dc.get("rand_crop", "0")),
+            rand_mirror=int(dc.get("rand_mirror", "0")),
+            mirror=int(dc.get("mirror", "0")),
+            crop_y_start=int(dc.get("crop_y_start", "-1")),
+            crop_x_start=int(dc.get("crop_x_start", "-1")),
+            max_random_contrast=float(dc.get("max_random_contrast", "0")),
+            max_random_illumination=float(
+                dc.get("max_random_illumination", "0")))
 
     def _build_updaters(self) -> None:
         """One Updater per weight tensor, configured with defcfg +
@@ -538,17 +610,104 @@ class NetTrainer:
             valid = np.concatenate([valid, np.zeros(pad, np.float32)])
         return data, label, valid
 
-    def _stage(self, batch: DataBatch, train: bool):
-        """Device tensors (data in the compute dtype, label fields and
-        the row mask in float32) for one padded batch."""
+    def _staged_dtype(self, data: np.ndarray) -> torch.dtype:
+        """The dtype a batch crosses to the device in (the JAX package's
+        `_host_input`). Under bfloat16 the rows are cast on the host
+        (half the bytes across) unless `stage_dtype = float32` (float32
+        across, the cast on the device); both round to nearest even, so
+        the staged values are the same bits either way. Under
+        device_augment raw uint8 pixels stage as uint8 (1/4 the float32
+        bytes, no host arithmetic), anything else as float32 unless
+        `stage_dtype = bfloat16` asks for the host cast."""
+        if self.device_augment and data.dtype == np.uint8:
+            return torch.uint8
+        if (self.compute_dtype == torch.float32
+                or self.stage_dtype == "float32"
+                or (self.device_augment
+                    and self.stage_dtype != "bfloat16")):
+            return torch.float32
+        return torch.bfloat16
+
+    def _on_device(self, data: torch.Tensor) -> torch.Tensor:
+        """Staged rows on the device -> what the step reads: cast to the
+        compute dtype, or left raw under device_augment (the forward
+        augments, then casts)."""
+        return data if self.device_augment else data.to(self.compute_dtype)
+
+    def _stage(self, batch: DataBatch, train: bool,
+               ring=None) -> StagedBatch:
+        """Pad, cast on the host or not, copy to the device: data, label
+        fields and the row mask of one batch. With a PinnedRing
+        (io/prefetch.py) the host arrays are written into its next
+        slot's pinned buffers and copied, with the device cast, on its
+        side stream; without one they are copied on the current
+        stream. The two give the same values."""
         data, label, valid = self._pad_batch(batch, train)
-        lab = torch.from_numpy(label).to(self.device)
+        ready = None
+        if ring is None:
+            gdata = self.stage_infer_rows(data)
+            lab, mask = (torch.from_numpy(a).to(self.device)
+                         for a in (label, valid))
+        else:
+            data = self._host_rows(data)
+            slot = ring.acquire()
+            host = [slot.fill(i, a, dt) for i, (a, dt) in enumerate((
+                (data, self._staged_dtype(data)), (label, torch.float32),
+                (valid, torch.float32)))]
+            with torch.cuda.stream(ring.stream):
+                gdata, lab, mask = (h.to(self.device, non_blocking=True)
+                                    for h in host)
+                gdata = self._on_device(gdata)
+            ready = slot.release()
         fields = {}
         for fname, idx in self.net_cfg.label_name_map.items():
             a, b = self.net_cfg.label_range[idx]
             fields[fname] = lab[:, a:b]
-        return (self.stage_infer_rows(data), fields,
-                torch.from_numpy(valid).to(self.device))
+        return StagedBatch(gdata, fields, mask, ready)
+
+    def stage_batch(self, batch: DataBatch, ring=None) -> StagedBatch:
+        """Stage a training batch (see _stage) for update(). The staging
+        is the streamed step's own, so a staged update is
+        trajectory-identical to a streamed one."""
+        return self._stage(batch, train=True, ring=ring)
+
+    def prefetch(self, data_iter, depth: int = 1, chunk: int = 1):
+        """Wrap a DataIter so batch k+1 is staged on a worker thread
+        while step k runs (io/prefetch.py); update() consumes the staged
+        values. chunk > 1 (the fused dispatch of steps_per_dispatch) is
+        not ported."""
+        if chunk > 1:
+            raise NotImplementedError(
+                f"steps_per_dispatch = {chunk}: fused dispatch is not "
+                "ported to cxxnet_tpu_torch yet (see ROADMAP)")
+        from cxxnet_tpu_torch.io.prefetch import StagedPrefetcher
+        return StagedPrefetcher(self.stage_batch, data_iter, depth,
+                                device=self.device)
+
+    def _await(self, staged: StagedBatch) -> None:
+        """A batch staged on a side stream: make the current stream wait
+        for its copies and keep its memory from being reused before the
+        step that reads it is done."""
+        if staged.ready is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(staged.ready)
+        for t in (staged.data, staged.mask, *staged.labels.values()):
+            t.record_stream(stream)
+
+    def _model_input(self, data: torch.Tensor, train: bool = False,
+                     step: int = 0) -> torch.Tensor:
+        """The net's input from staged rows: as staged, or under
+        device_augment augmented (random draws from stream (seed + 100,
+        step, AUGMENT_STREAM) in training, the deterministic variant
+        otherwise) and cast to the compute dtype."""
+        if self._augment_fn is None:
+            return data
+        gen = None
+        if train:
+            gen = torch.Generator(device=self.device).manual_seed(
+                stream_seed(self.seed + 100, step, AUGMENT_STREAM))
+        return self._augment_fn(data, train, gen).to(self.compute_dtype)
 
     def _metric_rows(self, mset: MetricSet, values, labels, mask,
                      seed: int, step: int, base: int) -> torch.Tensor:
@@ -569,13 +728,21 @@ class NetTrainer:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
-    def update(self, batch: DataBatch,
+    def update(self, batch,
                keep: Optional[Dict[int, Any]] = None) -> torch.Tensor:
-        """One training mini-batch (CXXNetThreadTrainer::Update).
-        `keep` injects dropout masks ({layer index: boolean array of
-        the layer's input shape}) instead of drawing them. Returns the
-        scaled loss (a device scalar; reading it syncs)."""
-        data, labels, mask = self._stage(batch, train=True)
+        """One training mini-batch (CXXNetThreadTrainer::Update): a
+        DataBatch (streamed) or a StagedBatch (stage_batch, or a
+        prefetcher's value). `keep` injects dropout masks ({layer index:
+        boolean array of the layer's input shape}) instead of drawing
+        them. Returns the scaled loss (a device scalar; reading it
+        syncs)."""
+        if not isinstance(batch, StagedBatch):
+            # the streamed path IS one stage_batch call - structural
+            # guarantee of the staged/streamed trajectory equivalence;
+            # a rejected batch raises before the step counter moves
+            batch = self.stage_batch(batch)
+        self._await(batch)
+        data, labels, mask = batch.data, batch.labels, batch.mask
         if keep is not None:
             keep = {i: torch.from_numpy(np.array(k, dtype=bool)).to(
                 self.device) for i, k in keep.items()}
@@ -598,6 +765,7 @@ class NetTrainer:
             return torch.Generator(device=dev).manual_seed(
                 stream_seed(seed, step, idx))
 
+        data = self._model_input(data, train=True, step=step)
         with torch.enable_grad():
             # cast inside autograd: bfloat16 compute, float32 gradients
             cparams = self._cast(leaves)
@@ -720,9 +888,10 @@ class NetTrainer:
         step = 0
         params = self.compute_params()
         while data_iter.next():
-            data, labels, mask = self._stage(data_iter.value(), train=False)
+            staged = self._stage(data_iter.value(), train=False)
+            labels, mask = staged.labels, staged.mask
             with torch.inference_mode():
-                values = self.net(params, data)[0]
+                values = self.net(params, self._model_input(staged.data))[0]
                 rows.append(self._metric_rows(self.metric, values, labels,
                                               mask, self.seed + 200, step,
                                               2000))
@@ -760,7 +929,7 @@ class NetTrainer:
         net = self.net
 
         def fn(params: Params, data: torch.Tensor) -> torch.Tensor:
-            return net(params, data)[0][node].float()
+            return net(params, self._model_input(data))[0][node].float()
         return fn
 
     def infer_graph(self, node: int) -> InferGraph:
@@ -789,17 +958,22 @@ class NetTrainer:
         return graph
 
     def stage_infer_rows(self, data: np.ndarray) -> torch.Tensor:
-        """Host rows (n, c, y, x) -> a device tensor in the compute
-        dtype. Under bfloat16 the rows cross to the device in bfloat16,
-        cast on the host, unless `stage_dtype = float32` (float32 across,
-        the cast on the device) - the JAX package's `_host_input`. Both
-        casts round to nearest even, so the staged values are the same
-        bits either way."""
-        t = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))
-        if (self.compute_dtype == torch.bfloat16
-                and self.stage_dtype != "float32"):
-            t = t.to(torch.bfloat16)
-        return t.to(self.device).to(self.compute_dtype)
+        """Host rows (n, c, y, x), any row count -> the device tensor the
+        inference forward reads: crossed in the staged dtype
+        (_staged_dtype) and cast on the device to the compute dtype, or
+        left raw under device_augment."""
+        arr = self._host_rows(data)
+        return self._on_device(torch.from_numpy(arr).to(
+            self._staged_dtype(arr)).to(self.device))
+
+    @staticmethod
+    def _host_rows(data) -> np.ndarray:
+        """Contiguous host rows as they are staged: uint8 or float32 as
+        given, any other dtype as float32."""
+        data = np.asarray(data)
+        return np.ascontiguousarray(
+            data, None if data.dtype in (np.uint8, np.float32)
+            else np.float32)
 
     def infer_rows(self, gdata: torch.Tensor, node: int = -1) -> torch.Tensor:
         """Run the inference forward on staged rows; node=-1 is the
@@ -887,7 +1061,8 @@ class NetTrainer:
         taps: Dict[int, Any] = {j: None for _i, j in sites}
         taps.update({q: None for q in qsites})
         with torch.inference_mode():
-            self.net(self.compute_params(), gdata, taps=taps)
+            self.net(self.compute_params(), self._model_input(gdata),
+                     taps=taps)
         return sites, qsites, taps
 
     def _calibrate_staged(self, gdata: torch.Tensor,

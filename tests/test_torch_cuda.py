@@ -752,3 +752,112 @@ def test_narrow_alexnet_int8_card_matches_cpu_and_serves(cuda_device):
     with Server(gpu, max_batch=8, max_wait_ms=0.0) as srv:
         rows = srv.submit(data[:5]).result(timeout=120)
     np.testing.assert_array_equal(rows, got[:5])
+
+
+# ---------------------------------------------------------------------------
+# the image pipeline's staging and device augment on the card
+# ---------------------------------------------------------------------------
+
+def _raw_batches(n, rows, shape, dtype, seed):
+    rng = np.random.RandomState(seed)
+    return [DataBatch(
+        data=(rng.randint(0, 256, (rows,) + shape).astype(np.uint8)
+              if dtype == np.uint8 else
+              (rng.randn(rows, *shape) * 3).astype(np.float32)),
+        label=rng.randint(0, 10, (rows, 1)).astype(np.float32))
+        for _ in range(n)]
+
+
+class _ListIter:
+    def __init__(self, items):
+        self.items = items
+
+    def before_first(self):
+        self.i = -1
+
+    def next(self):
+        self.i += 1
+        return self.i < len(self.items)
+
+    def value(self):
+        return self.items[self.i]
+
+
+@pytest.mark.parametrize("extra,dtype", [
+    ("dtype = bfloat16\n", np.float32),
+    ("dtype = bfloat16\nstage_dtype = float32\n", np.float32),
+    ("dtype = float32\n", np.float32),
+    ("device_augment = 1\ninput_shape = 3,31,31\n", np.uint8)])
+def test_pinned_ring_staging_equals_streamed(cuda_device, extra, dtype):
+    """The prefetcher's pinned ring and side stream hand update() the
+    bits a streamed stage_batch gives; a ring of depth + 1 slots is
+    reused across more batches than it has slots."""
+    tr = NetTrainer(cfg=NARROW_ALEXNET.replace("dev = cpu", "dev = gpu")
+                    + extra)
+    tr.init_model()
+    items = _raw_batches(5, 8, (3, 35, 35), dtype, 3)
+    pf = tr.prefetch(_ListIter(items), depth=1)
+    pf.before_first()
+    n = 0
+    while pf.next():
+        got = pf.value()
+        assert got.ready is not None
+        tr._await(got)
+        want = tr.stage_batch(items[n])
+        assert want.ready is None and got.data.dtype == want.data.dtype
+        assert torch.equal(got.data, want.data)
+        assert torch.equal(got.mask, want.mask)
+        for k in want.labels:
+            assert torch.equal(got.labels[k], want.labels[k])
+        n += 1
+    assert n == 5 and len(pf._ring._slots) == 2
+    assert all(b.is_pinned() for s in pf._ring._slots
+               for b in s.bufs.values())
+
+
+def test_record_stream_keeps_a_staged_tensor_alive(cuda_device):
+    """A staged batch dropped right after its step is enqueued: the
+    allocator must not hand its memory to the side stream before the
+    (delayed) step has read it, also across torch.cuda.empty_cache()."""
+    from cxxnet_tpu_torch.io.prefetch import PinnedRing
+    tr = NetTrainer(cfg=NARROW_ALEXNET.replace("dev = cpu", "dev = gpu"))
+    tr.init_model()
+    ring = PinnedRing(2, cuda_device)
+    batch = _raw_batches(1, 8, (3, 35, 35), np.float32, 4)[0]
+    want = torch.from_numpy(batch.data).sum()
+    staged = tr.stage_batch(batch, ring)
+    tr._await(staged)
+    torch.cuda._sleep(200_000_000)  # hold the current stream back
+    total = staged.data.double().sum()
+    del staged
+    torch.cuda.empty_cache()
+    with torch.cuda.stream(ring.stream):
+        junk = [torch.full((8, 3, 35, 35), 7.0, device=cuda_device)
+                for _ in range(4)]
+    torch.cuda.synchronize()
+    assert torch.isclose(total.cpu(), want.double(), rtol=1e-6)
+    del junk
+
+
+def test_device_augment_on_the_card_equals_cpu(cuda_device):
+    """ops/augment.py on the card gives its CPU result bit for bit,
+    given the same (injected) draws, in the train and eval paths."""
+    from cxxnet_tpu_torch.ops.augment import make_device_augment
+    rng = np.random.RandomState(5)
+    raw = torch.from_numpy(rng.randint(0, 256, (16, 3, 40, 37)).astype(
+        np.uint8))
+    mean = rng.uniform(0, 200, (3, 40, 37)).astype(np.float32)
+    draws = {"yy": torch.from_numpy(rng.randint(0, 9, 16)),
+             "xx": torch.from_numpy(rng.randint(0, 6, 16)),
+             "mirror": torch.from_numpy(rng.rand(16) < 0.5),
+             "contrast": torch.from_numpy(rng.rand(16)),
+             "illumination": torch.from_numpy(rng.rand(16))}
+    fn = make_device_augment((3, 32, 32), mean_loader=lambda: mean,
+                             scale=1 / 256, rand_crop=1, rand_mirror=1,
+                             max_random_contrast=0.3,
+                             max_random_illumination=8.0)
+    for train in (True, False):
+        cpu = fn(raw, train, draws=draws)
+        gpu = fn(raw.to(cuda_device), train,
+                 draws={k: v.to(cuda_device) for k, v in draws.items()})
+        assert torch.equal(gpu.cpu(), cpu), train

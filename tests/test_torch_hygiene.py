@@ -105,7 +105,7 @@ def test_multi_device_specs_raise(spec):
 @pytest.mark.parametrize("key,val", [
     ("tuning_cache", "tc.json"), ("remat", "1"),
     ("profile", "1"), ("zero_stage", "2"), ("mesh", "data:2"),
-    ("steps_per_dispatch", "4"), ("device_augment", "1"),
+    ("steps_per_dispatch", "4"), ("telemetry_steps", "10"),
     ("model_format", "cxxnet"), ("extra_data_num", "1"),
     ("serve_port", "8080"), ("swap_watch", "m.model"),
 ])
@@ -133,9 +133,15 @@ def test_layer_not_yet_ported_raises_at_net_build():
 
 
 def test_iterator_not_yet_ported_raises():
+    """The routes of the data pipeline the port has not: the native
+    decoder and multi-worker sharding."""
     from cxxnet_tpu_torch.io import create_iterator
-    with pytest.raises(NotImplementedError, match="imgbin"):
-        create_iterator([("iter", "imgbin"), ("iter", "end")])
+    with pytest.raises(NotImplementedError, match="use_native"):
+        create_iterator([("iter", "imgbin"), ("use_native", "1"),
+                         ("iter", "end")])
+    with pytest.raises(NotImplementedError, match="dist_num_worker"):
+        create_iterator([("iter", "imgbin"), ("dist_num_worker", "2"),
+                         ("iter", "threadbuffer"), ("iter", "end")])
 
 
 def test_kernels_are_not_built_at_import():
