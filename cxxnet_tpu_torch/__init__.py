@@ -27,7 +27,6 @@ A second package beside `cxxnet_tpu`, ported in slices:
    autograd Function of `ops/flash_attention.py`) - on the card at
    every head_dim up to 256 and every length, where the JAX package
    takes its TPU kernel only for Mosaic-tileable shapes.
-   `transformer_stack` and `moe` are not ported yet.
 4. The graph passes and int8 serving (`nnet/passes.py`, K3
    `csrc/int8_mm.cu`).
 5. The image data pipeline (`io/`: img, imgbin / imgbinx, the host
@@ -37,6 +36,14 @@ A second package beside `cxxnet_tpu`, ported in slices:
    (`io/prefetch.py`: pinned buffers and a side stream on the card) and
    `device_augment` (`ops/augment.py`), so that the ImageNet-family and
    kaggle_bowl confs train through the CLI on their own data.
+6. The remaining layer types: concat / ch_concat, gelu, xelu,
+   insanity, prelu, insanity_max_pooling, fixconn (`layers/common.py`),
+   transformer_stack (`layers/transformer_stack.py`, its attention core
+   K2), moe (`layers/moe.py`, with the network's auxiliary-loss
+   protocol), conv_im2col and `pairtest-A-B` (`layers/pairtest.py`)
+   and the `torch` module type (`layers/torch_module.py`), so that
+   examples/ImageNet/GoogLeNet.conf and examples/LongSeq/stack_moe.conf
+   train and serve.
 
 Ground rules:
 
@@ -62,8 +69,7 @@ Ground rules:
   conf); with no card they raise instead of carrying on on the CPU.
 - Config keys that change results and that the port does not implement
   yet (zero_stage, mesh, remat, steps_per_dispatch, use_native,
-  dist_num_worker, test_io, elastic, profile, layer types not yet
-  ported, ...) raise
+  dist_num_worker, test_io, elastic, profile, fullc_gather, ...) raise
   NotImplementedError naming the key; they are never silently ignored.
 - PyTorch idiom inside: plain functions on tensors and modules with an
   explicit device, an explicit `torch.Generator` for every random draw,

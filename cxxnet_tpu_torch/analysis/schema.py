@@ -21,8 +21,8 @@ Key classes:
   yet. They are recognized (a conf written for the JAX package passes
   the check) and raise NotImplementedError naming the key where they are
   set to anything but their inert value;
-- **prefix** keys, from ``name.startswith(...)`` handlers, and the
-  pairtest layer's ``master:`` / ``slave:`` scopes;
+- **prefix** keys, from ``name.startswith(...)`` handlers (the
+  pairtest layer's ``master:`` / ``slave:`` scopes among them);
 - **pattern** keys (regexes) for the structured key grammars:
   ``layer[...]``, ``metric[name,node]``, ``extra_data_shape[i]``,
   ``label_vec[a,b)``, ``lr:schedule`` and tag-scoped updater params
@@ -77,13 +77,6 @@ _BUILTIN_KEYS: Dict[str, str] = {
     "dist_init_backoff": "distributed bootstrap (param_server = dist)",
     "dist_init_deadline": "distributed bootstrap (param_server = dist)",
 }
-
-# key scopes of the pairtest layer, a type the port does not implement
-# yet (creating it raises)
-_BUILTIN_PREFIXES: Tuple[Tuple[str, str], ...] = (
-    ("master:", "pairtest layer (not ported)"),
-    ("slave:", "pairtest layer (not ported)"),
-)
 
 # updater param names a "<tag>:" prefix may scope (updater/param.py
 # strips the tag and processes the rest)
@@ -203,7 +196,6 @@ def build_registry(root: str = _PKG_ROOT) -> KeyRegistry:
     reg = KeyRegistry()
     for key, where in _BUILTIN_KEYS.items():
         reg.add_exact(key, where)
-    reg.prefixes.extend(_BUILTIN_PREFIXES)
     for rx, where in _PATTERNS:
         reg.patterns.append((re.compile(rx), where))
     for dirpath, dirnames, filenames in os.walk(root):

@@ -17,9 +17,15 @@ of ops/lrn.py and ops/pooling.py).
 
 `train` selects training semantics (dropout draws its mask); a layer
 with `uses_rng` draws from `gen`, the per-layer torch.Generator the
-network hands it, unless the caller injects the mask itself (`keep`, a
-boolean tensor - the tests inject the JAX package's masks). Inference
-(train=False) ignores both.
+network hands it, unless the caller injects the draw itself (`keep`:
+dropout's boolean mask, or the uniform tensor that insanity, prelu's
+noise and insanity_max_pooling draw - the tests inject the JAX
+package's draws). Inference (train=False) ignores both.
+
+A layer with `has_aux` (moe) also returns an auxiliary loss term from
+`forward_with_aux`, which the network adds into the training loss; a
+layer whose behaviour follows training progress (insanity's anneal)
+reads the update counter the trainer binds with `active_step`.
 
 Shapes are full NCHW tuples (batch, channel, y, x); "matrix" nodes are
 (batch, 1, 1, n) like the reference Node convention (layer.h:33-54).
@@ -44,20 +50,12 @@ def is_mat(shape: Sequence[int]) -> bool:
     return shape[1] == 1 and shape[2] == 1
 
 
-# Layer keys of the JAX package whose layer or option the port does not
+# Layer keys of the JAX package whose option the port does not
 # implement yet: any value but the listed inert ones raises
-# NotImplementedError naming the key (the layer types themselves raise at
-# creation). fullc_gather is the tensor-parallel fullc's gather; the rest
-# belong to xelu (b), insanity (lb, ub, calm_start, calm_end), prelu
-# (random, random_slope), insanity_max_pooling (keep), fixconn,
-# transformer_stack, moe, pairtest and the torch plugin layer.
+# NotImplementedError naming the key. fullc_gather is the
+# tensor-parallel fullc's gather, which needs a mesh.
 _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "fullc_gather": ("0",),
-    "b": (), "lb": (), "ub": (), "calm_start": (), "calm_end": (),
-    "random": (), "random_slope": (), "keep": (), "fixconn_weight": (),
-    "microbatch": (), "nlayer": (),
-    "moe_aux": (), "moe_capacity": (), "moe_top_k": (), "nexpert": (),
-    "pairtest_print": (), "pairtest_tol": (), "torch_module": (),
 }
 
 
@@ -171,6 +169,11 @@ class Layer(nn.Module):
 
     type_name: str = ""
     uses_rng: bool = False  # draws random numbers when training
+    # returns an auxiliary loss term from forward_with_aux (moe); the
+    # network adds it into the training loss, which the trainer scales
+    # by 1/(batch*update_period); `mask` (the (b,) row validity) must
+    # keep padding rows out of the statistics the term uses
+    has_aux: bool = False
 
     def __init__(self, name: str = ""):
         super().__init__()
@@ -207,10 +210,65 @@ class Layer(nn.Module):
                 keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         raise NotImplementedError
 
+    def forward_with_aux(self, params: Params, inputs: List[torch.Tensor],
+                         train: bool = False,
+                         gen: Optional[torch.Generator] = None,
+                         keep: Optional[torch.Tensor] = None,
+                         mask: Optional[torch.Tensor] = None,
+                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """(outputs, float32 aux scalar) of a `has_aux` layer."""
+        raise NotImplementedError
+
     def check_one_to_one(self, in_shapes: List[Shape]) -> None:
         if len(in_shapes) != 1:
             raise ValueError(
                 f"{self.type_name}: layer only supports 1-1 connection")
+
+
+def uniform_draw(shape, dtype: torch.dtype, device,
+                 gen: Optional[torch.Generator],
+                 inject: Optional[torch.Tensor], what: str) -> torch.Tensor:
+    """A training layer's uniform [0, 1) draw: the injected tensor when
+    the caller gives one (checked against `shape`, cast to `dtype`),
+    else drawn from `gen` on `device`."""
+    if inject is None:
+        return torch.rand(tuple(shape), generator=gen, dtype=dtype,
+                          device=device)
+    if tuple(inject.shape) != tuple(shape):
+        raise ValueError(f"{what}: injected draw {tuple(inject.shape)} "
+                         f"!= {tuple(shape)}")
+    return inject.to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# ambient training-step binding
+# ---------------------------------------------------------------------------
+
+_ACTIVE_STEP: List[Optional[int]] = [None]
+
+
+class active_step:
+    """Context binding the update counter a training forward runs at
+    (epoch * update_period + steps accumulated), so a layer whose
+    behaviour follows training progress (insanity's anneal,
+    insanity_layer-inl.hpp:52-63) reads it without a step argument
+    through every forward - the JAX package's `active_step`. The
+    trainer enters it around the training forward."""
+
+    def __init__(self, step: Optional[int]):
+        self.step = step
+
+    def __enter__(self):
+        _ACTIVE_STEP.append(self.step)
+        return self.step
+
+    def __exit__(self, *exc):
+        _ACTIVE_STEP.pop()
+        return False
+
+
+def get_active_step() -> Optional[int]:
+    return _ACTIVE_STEP[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -226,14 +284,20 @@ def register_layer(cls: Type[Layer]) -> Type[Layer]:
 
 
 def create_layer(type_name: str, name: str = "") -> Layer:
-    """Factory: config layer type string -> Layer instance. A type the
-    JAX package knows but this port does not raises NotImplementedError
-    (it must never be skipped silently)."""
+    """Factory: config layer type string -> Layer instance
+    (GetLayerType, layer.h:322-361). `pairtest-A-B` builds the
+    differential-testing wrapper of master A and slave B
+    (layer.h:354-358); an unknown type raises ValueError."""
+    if type_name.startswith("pairtest-"):
+        from cxxnet_tpu_torch.layers.pairtest import PairTestLayer
+        parts = type_name.split("-", 2)
+        if len(parts) != 3 or not parts[1] or not parts[2]:
+            raise ValueError(
+                f'unknown layer type: "{type_name}" '
+                "(pairtest syntax is pairtest-<master>-<slave>)")
+        return PairTestLayer(parts[1], parts[2], name)
     if type_name not in LAYER_REGISTRY:
-        raise NotImplementedError(
-            f'layer type "{type_name}" is not yet ported to '
-            f"cxxnet_tpu_torch (ported: {', '.join(known_layer_types())};"
-            " see ROADMAP)")
+        raise ValueError(f'unknown layer type: "{type_name}"')
     return LAYER_REGISTRY[type_name](name)
 
 

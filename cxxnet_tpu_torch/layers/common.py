@@ -1,8 +1,15 @@
 """The non-loss layers of the port (counterpart of
-cxxnet_tpu/layers/common.py): fullc, conv, max/sum/avg pooling, the
-activations, lrn, batch_norm, dropout, bias, flatten, split and add.
-Each class names the reference file it mirrors; the backward is
-autograd's through the forward.
+cxxnet_tpu/layers/common.py): fullc, fixconn, conv, max/sum/avg
+pooling, insanity_max_pooling, the activations (relu, sigmoid, tanh,
+softplus, gelu, xelu, insanity, prelu), lrn, batch_norm, dropout, bias,
+flatten, split, concat / ch_concat and add. Each class names the
+reference file it mirrors; the backward is autograd's through the
+forward.
+
+The layers that draw random numbers in training (dropout, insanity,
+prelu with `random > 0`, insanity_max_pooling) draw from the
+generator the network hands them, or take the caller's injected draw
+(`keep`): dropout's boolean mask, the others' uniform tensor.
 
 fullc and conv take the graph passes' stamps (`fused_act = relu`,
 fullc's `flatten_input = 1`) and, when the quantize_int8 pass hands
@@ -14,12 +21,14 @@ dtype - the JAX package's order."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from cxxnet_tpu_torch.layers.base import (
-    Layer, Params, Shape, is_mat, register_layer)
+    Layer, Params, Shape, get_active_step, is_mat, register_layer,
+    uniform_draw)
 from cxxnet_tpu_torch.ops import conv as conv_ops
 from cxxnet_tpu_torch.ops import int8 as int8_ops
 from cxxnet_tpu_torch.ops import nn as nn_ops
@@ -121,6 +130,65 @@ class FullConnectLayer(Layer):
             out = out + params["bias"][None, :]
         if self.fused_act == "relu":
             out = nn_ops.relu(out)
+        return [out.reshape(b, 1, 1, -1)]
+
+
+@register_layer
+class FixConnectLayer(Layer):
+    """fixconn (src/layer/fixconn_layer-inl.hpp:14-100): fully connected
+    with a frozen weight read from a sparse text file (`fixconn_weight`:
+    nrow ncol nonzero, then `row col value` triples) at shape
+    inference. The weight is no param: it lives on the layer (one copy
+    per device it has run on) and takes no gradient."""
+
+    type_name = "fixconn"
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.fname_weight = "NULL"
+        self._wmat: Optional[torch.Tensor] = None
+        self._on_device: Dict[torch.device, torch.Tensor] = {}
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "fixconn_weight":
+            self.fname_weight = val
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        if not is_mat(in_shapes[0]):
+            raise ValueError("FixConnLayer: input needs to be a matrix")
+        if self.param.num_hidden <= 0:
+            raise ValueError("FixConnLayer: must set nhidden correctly")
+        if self.fname_weight == "NULL":
+            raise ValueError("FixConnLayer: must specify fixconn_weight")
+        w = np.zeros((self.param.num_hidden, in_shapes[0][3]),
+                     dtype=np.float32)
+        with open(self.fname_weight, "r", encoding="utf-8") as f:
+            toks = f.read().split()
+        nrow, ncol, nonzero = int(toks[0]), int(toks[1]), int(toks[2])
+        if (nrow, ncol) != w.shape:
+            raise ValueError(
+                "FixConnLayer: fixconn_weight shape does not match "
+                "architecture")
+        vals = toks[3:3 + 3 * nonzero]
+        for i in range(nonzero):
+            w[int(vals[3 * i]), int(vals[3 * i + 1])] = float(
+                vals[3 * i + 2])
+        self._wmat = torch.from_numpy(w)
+        self._on_device = {}
+        return [(in_shapes[0][0], 1, 1, self.param.num_hidden)]
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        x = inputs[0]
+        b = x.shape[0]
+        w = self._on_device.get(x.device)
+        if w is None:
+            w = self._on_device[x.device] = self._wmat.to(x.device)
+        # the float32 weight promotes the product as jnp's matmul does
+        m = x.reshape(b, -1)
+        dt = torch.promote_types(m.dtype, w.dtype)
+        out = m.to(dt) @ w.to(dt).t()
         return [out.reshape(b, 1, 1, -1)]
 
 
@@ -233,13 +301,17 @@ class PoolingLayer(Layer):
         super().__init__(name)
         self.pool_grad = "ties"
 
+    def _winner_ok(self) -> bool:
+        """winner mode only exists for the max backward."""
+        return self.mode == "max"
+
     def set_param(self, name: str, val: str) -> None:
         super().set_param(name, val)
         if name == "pool_grad":
             if val not in ("ties", "winner"):
                 raise ValueError(
                     f"pool_grad must be 'ties' or 'winner', got {val!r}")
-            if val == "winner" and self.mode != "max":
+            if val == "winner" and not self._winner_ok():
                 raise ValueError(
                     f"pool_grad=winner is a max-pool backward option; "
                     f"'{self.type_name}' has no single-winner rule")
@@ -298,6 +370,51 @@ class ReluMaxPoolingLayer(PoolingLayer):
     pre_relu = True
 
 
+@register_layer
+class InsanityPoolingLayer(PoolingLayer):
+    """insanity_max_pooling (src/layer/insanity_pooling_layer-inl.hpp):
+    stochastic displaced max pooling in training (ops/pooling.py
+    insanity_pool2d, one uniform draw per source pixel), plain max
+    pooling at eval. `keep` is the probability that a source pixel is
+    read in place. No `pad` (the jitter clamps at the true border) and
+    no `pool_grad = winner` (the backward is the slot rule)."""
+
+    type_name = "insanity_max_pooling"
+    mode = "max"
+    uses_rng = True
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.p_keep = 1.0
+
+    def _winner_ok(self) -> bool:
+        return False
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "keep":
+            self.p_keep = float(val)
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        if self.param.pad_x or self.param.pad_y:
+            raise ValueError(
+                "insanity_max_pooling does not support pad (the jitter "
+                "clamps at the true image border)")
+        return super().infer_shapes(in_shapes)
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        x = inputs[0]
+        p = self.param
+        if train:
+            flag = uniform_draw(x.shape, torch.float32, x.device, gen, keep,
+                                self.type_name)
+            return [pool_ops.insanity_pool2d(x, flag, p.kernel_height,
+                                             p.kernel_width, p.stride,
+                                             self.p_keep)]
+        return [pool_ops.pool2d(x, "max", p.kernel_height, p.kernel_width,
+                                p.stride)]
+
+
 # ---------------------------------------------------------------------------
 # activations
 # ---------------------------------------------------------------------------
@@ -337,6 +454,169 @@ class TanhLayer(ActivationLayer):
 class SoftplusLayer(ActivationLayer):
     type_name = "softplus"
     fn = staticmethod(nn_ops.softplus)
+
+
+@register_layer
+class GeluLayer(ActivationLayer):
+    """gelu, tanh approximation (the JAX package's extension for the
+    transformer family)."""
+    type_name = "gelu"
+    fn = staticmethod(nn_ops.gelu)
+
+
+@register_layer
+class XeluLayer(ActivationLayer):
+    """xelu: x > 0 ? x : x / b, b default 5.0 (xelu_layer-inl.hpp:15-53)."""
+
+    type_name = "xelu"
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.b = 5.0
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "b":
+            self.b = float(val)
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        return [nn_ops.xelu(inputs[0], self.b)]
+
+
+@register_layer
+class InsanityLayer(ActivationLayer):
+    """insanity / RReLU (insanity_layer-inl.hpp:14-102).
+
+    Training: xelu with a per-element divisor u * (ub - lb) + lb, u
+    uniform in [0, 1) in the input's dtype; eval: the fixed divisor
+    (lb + ub) / 2. The [lb, ub] range anneals toward its midpoint once
+    per training forward, in the closed form of the JAX package
+    (`_range`), from the update counter the trainer binds
+    (base.active_step) - including the reference's freeze quirk: its
+    counter only moves inside (calm_start, calm_end), so with
+    calm_start >= 0 nothing ever anneals. The midpoint is
+    anneal-invariant, so eval needs no step."""
+
+    type_name = "insanity"
+    uses_rng = True
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.lb = 5.0
+        self.ub = 10.0
+        self.saturation_start = 0
+        self.saturation_end = 0
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "lb":
+            self.lb = float(val)
+        if name == "ub":
+            self.ub = float(val)
+        if name == "calm_start":
+            self.saturation_start = int(val)
+        if name == "calm_end":
+            self.saturation_end = int(val)
+
+    def _range(self):
+        """(lb, ub) at the bound training step: Python floats when
+        nothing anneals, else float32 numbers (the JAX package's traced
+        float32 arithmetic). Event t of the reference (shift by delta *
+        counter, then counter++) comes before the mask of the same
+        forward, so step t reflects m = min(t + 1, calm_end) events:
+        a shift of delta * m (m - 1) / 2."""
+        step = get_active_step()
+        s0, e = self.saturation_start, self.saturation_end
+        span = e - s0
+        if step is None or s0 >= 0 or span <= 0 or e <= 0:
+            return self.lb, self.ub
+        delta = np.float32((self.ub - (self.ub + self.lb) / 2.0) / span)
+        m = np.float32(min(max(step + 1, 0), e))
+        adj = delta * m * (m - np.float32(1.0)) / np.float32(2.0)
+        return np.float32(self.lb) + adj, np.float32(self.ub) - adj
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        x = inputs[0]
+        if not train:
+            return [nn_ops.xelu(x, (self.lb + self.ub) / 2.0)]
+        lb, ub = self._range()
+        u = uniform_draw(x.shape, x.dtype, x.device, gen, keep,
+                         self.type_name)
+        if isinstance(lb, float):
+            divisor = u * (ub - lb) + lb
+        else:
+            # float32 bounds in the compute dtype (they must not promote
+            # a bfloat16 activation)
+            lo = torch.tensor(float(lb), dtype=x.dtype, device=x.device)
+            hi = torch.tensor(float(ub), dtype=x.dtype, device=x.device)
+            divisor = u * (hi - lo) + lo
+        return [nn_ops.xelu(x, divisor)]
+
+
+@register_layer
+class PReluLayer(Layer):
+    """prelu (src/layer/prelu_layer-inl.hpp:48-173).
+
+    A learnable slope per channel (per feature on matrix nodes), tagged
+    `bias` as the reference visits it; `random_slope = 1` draws it
+    uniform in [0, init_slope) at init. In training `random > 0`
+    multiplies it by noise uniform in [1 - random, 1 + random] (one
+    draw per element, in the input's dtype); the slope is clipped to
+    [0, 1]. out = x > 0 ? x : x * slope."""
+
+    type_name = "prelu"
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self.init_slope = 0.25
+        self.init_random = 0
+        self.random = 0.0
+
+    def set_param(self, name: str, val: str) -> None:
+        super().set_param(name, val)
+        if name == "init_slope":
+            self.init_slope = float(val)
+        if name == "random_slope":
+            self.init_random = int(val)
+        if name == "random":
+            self.random = float(val)
+            # draws only when the noise is on
+            self.uses_rng = self.random > 0
+
+    @staticmethod
+    def _channels(shape: Shape) -> int:
+        return shape[3] if shape[1] == 1 else shape[1]
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        self.check_one_to_one(in_shapes)
+        return [in_shapes[0]]
+
+    def param_shapes(self, in_shapes: List[Shape]) -> Dict[str, tuple]:
+        return {"slope": (self._channels(in_shapes[0]),)}
+
+    def init_params(self, gen, in_shapes: List[Shape]) -> Params:
+        (c,) = self.param_shapes(in_shapes)["slope"]
+        if self.init_random == 0:
+            return {"slope": torch.full((c,), self.init_slope)}
+        return {"slope": self.init_slope * torch.rand((c,), generator=gen)}
+
+    def param_tags(self) -> Dict[str, str]:
+        return {"slope": "bias"}
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        x = inputs[0]
+        slope = params["slope"]
+        mask = (slope[None, :, None, None] if x.shape[1] != 1
+                else slope[None, None, None, :]).expand(x.shape)
+        if train and self.random > 0:
+            u = uniform_draw(x.shape, x.dtype, x.device, gen, keep,
+                             self.type_name)
+            mask = mask * (1 + (u * self.random * 2.0 - self.random))
+        # minimum/maximum: a slope exactly at a bound takes half the
+        # gradient, as under jnp.clip
+        mask = torch.minimum(torch.maximum(mask, mask.new_zeros(())),
+                             mask.new_ones(()))
+        return [nn_ops.mxelu(x, mask)]
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +828,46 @@ class SplitLayer(Layer):
 
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         return [inputs[0]] * self.num_out
+
+
+class ConcatBase(Layer):
+    """Join 2-4 inputs along `dim` (concat_layer-inl.hpp); the other
+    dims must agree. Inputs of different dtypes promote as in
+    jnp.concatenate."""
+
+    dim = 3
+
+    def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
+        if len(in_shapes) < 2:
+            raise ValueError("Concat layer only supports n-1 connection")
+        if len(in_shapes) > 4:
+            raise ValueError("more than 4 input nodes is unsupported")
+        out = list(in_shapes[0])
+        total = 0
+        for s in in_shapes:
+            total += s[self.dim]
+            for j in range(4):
+                if j != self.dim and s[j] != out[j]:
+                    raise ValueError("Concat shape doesn't match")
+        out[self.dim] = total
+        return [tuple(out)]
+
+    def forward(self, params, inputs, train=False, gen=None, keep=None):
+        return [torch.cat(inputs, dim=self.dim)]
+
+
+@register_layer
+class ConcatLayer(ConcatBase):
+    """concat along the feature dim (concat_layer-inl.hpp, dim=3)."""
+    type_name = "concat"
+    dim = 3
+
+
+@register_layer
+class ChConcatLayer(ConcatBase):
+    """ch_concat along the channel dim (concat_layer-inl.hpp, dim=1)."""
+    type_name = "ch_concat"
+    dim = 1
 
 
 @register_layer

@@ -129,14 +129,18 @@ class Network(nn.Module):
     ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
         """Run all connections in declaration order on node-0 `data`.
 
-        train: training semantics (dropout draws a mask). A layer that
-        draws random numbers gets `gens(layer_index)` - the trainer
-        seeds one generator per (seed, step, layer index), the role
-        fold_in(rng, idx) plays in the JAX package - unless `keep`
-        holds an injected boolean mask for that layer index.
+        train: training semantics (dropout draws a mask, a `has_aux`
+        layer's auxiliary loss joins the total; inference runs every
+        layer's plain forward). A layer that draws random numbers gets
+        `gens(layer_index)` - the trainer seeds one generator per
+        (seed, step, layer index), the role fold_in(rng, idx) plays in
+        the JAX package - unless `keep` holds an injected draw for that
+        layer index (dropout's boolean mask, or the uniform tensor of
+        insanity, prelu and insanity_max_pooling).
         labels: label field -> (b, width) tensor; when given, each loss
         layer adds grad_scale * sum(mask * per_example_loss) to the
-        total. mask: (b,) validity of the rows (padding rows 0).
+        total. mask: (b,) validity of the rows (padding rows 0), also
+        handed to `has_aux` layers.
         taps: {layer index: None}, filled in place with each listed
         layer's first INPUT as the layer receives it (after the dtype
         plan's cast) - before a self-loop layer overwrites its node, so
@@ -176,7 +180,14 @@ class Network(nn.Module):
             lkeep = keep.get(idx) if (train and keep) else None
             gen = (gens(idx) if (train and layer.uses_rng and lkeep is None
                                  and gens is not None) else None)
-            outs = layer(p, xs, train=train, gen=gen, keep=lkeep)
+            if train and layer.has_aux:
+                # an auxiliary loss term (moe's load balance) joins the
+                # total the loss layers accumulate
+                outs, aux = layer.forward_with_aux(
+                    p, xs, train=train, gen=gen, keep=lkeep, mask=mask)
+                total_loss = total_loss + aux
+            else:
+                outs = layer(p, xs, train=train, gen=gen, keep=lkeep)
             for j, o in zip(info.nindex_out, outs):
                 values[j] = o
         return values, total_loss

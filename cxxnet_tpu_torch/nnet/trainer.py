@@ -83,6 +83,7 @@ import torch
 
 from cxxnet_tpu_torch import convert
 from cxxnet_tpu_torch.io.data import DataBatch
+from cxxnet_tpu_torch.layers.base import active_step
 from cxxnet_tpu_torch.nnet import checkpoint
 from cxxnet_tpu_torch.nnet.net_config import NetConfig
 from cxxnet_tpu_torch.nnet.network import Network, param_key
@@ -732,10 +733,11 @@ class NetTrainer:
                keep: Optional[Dict[int, Any]] = None) -> torch.Tensor:
         """One training mini-batch (CXXNetThreadTrainer::Update): a
         DataBatch (streamed) or a StagedBatch (stage_batch, or a
-        prefetcher's value). `keep` injects dropout masks ({layer index:
-        boolean array of the layer's input shape}) instead of drawing
-        them. Returns the scaled loss (a device scalar; reading it
-        syncs)."""
+        prefetcher's value). `keep` injects the random draws ({layer
+        index: array of the layer's input shape}: dropout's boolean
+        mask, the uniform float32 draw of insanity, prelu's noise and
+        insanity_max_pooling) instead of drawing them. Returns the
+        scaled loss (a device scalar; reading it syncs)."""
         if not isinstance(batch, StagedBatch):
             # the streamed path IS one stage_batch call - structural
             # guarantee of the staged/streamed trajectory equivalence;
@@ -744,8 +746,8 @@ class NetTrainer:
         self._await(batch)
         data, labels, mask = batch.data, batch.labels, batch.mask
         if keep is not None:
-            keep = {i: torch.from_numpy(np.array(k, dtype=bool)).to(
-                self.device) for i, k in keep.items()}
+            keep = {i: torch.from_numpy(np.asarray(k)).to(self.device)
+                    for i, k in keep.items()}
         step = self._step_counter
         self._step_counter += 1
         snap = self._snapshot() if self.check_nan else None
@@ -766,7 +768,10 @@ class NetTrainer:
                 stream_seed(seed, step, idx))
 
         data = self._model_input(data, train=True, step=step)
-        with torch.enable_grad():
+        # the update counter a progress-following layer reads (insanity's
+        # anneal), as the JAX train step binds it
+        progress = self.epoch * self.update_period + self._count
+        with torch.enable_grad(), active_step(progress):
             # cast inside autograd: bfloat16 compute, float32 gradients
             cparams = self._cast(leaves)
             values, total = self.net(cparams, data, train=True, gens=gens,

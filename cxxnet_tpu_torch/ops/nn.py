@@ -4,15 +4,23 @@ src/layer/lrn_layer-inl.hpp:12-93)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from cxxnet_tpu_torch.ops import lrn as lrn_ops
+from cxxnet_tpu_torch.ops.routing import Routing
 
 
 def relu(x):
     """max(x, 0); like jnp.maximum, an input of exactly 0 takes half the
-    gradient (torch.clamp_min would pass all of it, torch.relu none)."""
+    gradient (torch.clamp_min would pass all of it, torch.relu none).
+    Under an active Routing (ops/routing.py) a training step's gate is
+    recorded or replayed."""
+    if (Routing.active is not None and torch.is_grad_enabled()
+            and x.requires_grad):
+        return Routing.active.relu(x)
     return torch.maximum(x, x.new_zeros(()))
 
 
@@ -26,6 +34,27 @@ def tanh(x):
 
 def softplus(x):
     return F.softplus(x)
+
+
+def gelu(x):
+    """gelu, tanh approximation, written as jax.nn.gelu(approximate=True)
+    writes it, so that autograd's gradient takes the JAX package's
+    rounding path (F.gelu's fused backward differs by a few ulp)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3)))
+    return x * cdf
+
+
+def xelu(x, b):
+    """Leaky relu variant: x > 0 ? x : x / b (op.h:50-55); `b` a number
+    or a tensor broadcast against x."""
+    return torch.where(x > 0, x, x / b)
+
+
+def mxelu(x, b):
+    """Multiplicative leaky relu: x > 0 ? x : x * b
+    (prelu_layer-inl.hpp:11-15)."""
+    return torch.where(x > 0, x, x * b)
 
 
 def softmax(x):

@@ -32,6 +32,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cxxnet_tpu_torch.ops.routing import Routing
+
 _NEG_INF = float("-inf")
 
 
@@ -90,10 +92,12 @@ def _cover_lookup(a: torch.Tensor, s: int, d: int, length: int, axis: int,
 
 
 def _unpool_1d(vals: torch.Tensor, pooled: torch.Tensor, g: torch.Tensor,
-               k: int, s: int, axis: int) -> torch.Tensor:
+               k: int, s: int, axis: int, route=None) -> torch.Tensor:
     """One-axis ties unpool: gin[p] = sum over windows o covering p of
     g[o] * (vals[p] == pooled[o]); `vals` is neutrally padded along
-    `axis`. ceil(k/s) passes, one per candidate window offset d."""
+    `axis`. ceil(k/s) passes, one per candidate window offset d.
+    `route` = (Routing, key) records or replays the covered positions'
+    tie decisions (ops/routing.py)."""
     length = vals.shape[axis]
     shape = [1, 1, 1, 1]
     shape[axis] = length
@@ -103,9 +107,11 @@ def _unpool_1d(vals: torch.Tensor, pooled: torch.Tensor, g: torch.Tensor,
         m = _cover_lookup(pooled, s, d, length, axis, _NEG_INF)
         gd = _cover_lookup(g, s, d, length, axis, 0.0)
         covers = phase + d * s < k
-        gin = gin + torch.where(covers & (vals == m), gd,
-                                torch.zeros((), dtype=g.dtype,
-                                            device=g.device))
+        hit = covers & (vals == m)
+        if route is not None:
+            hit = route[0].decide(route[1] + (d,), hit)
+        gin = gin + torch.where(hit, gd, torch.zeros((), dtype=g.dtype,
+                                                     device=g.device))
     return gin
 
 
@@ -123,6 +129,9 @@ class _MaxPoolTies(torch.autograd.Function):
         out = F.max_pool2d(rp, (ky, 1), (stride, 1))
         ctx.save_for_backward(x, r, out)
         ctx.geom = (ky, kx, stride, pad_y, pad_x, hi_y, hi_x)
+        routing = Routing.active
+        ctx.route = ((routing, routing.next_key("max-pool")) if routing
+                     else None)
         return out
 
     @staticmethod
@@ -134,10 +143,50 @@ class _MaxPoolTies(torch.autograd.Function):
             # step 1: g through the column max, out -> r (padded rows
             # exist only inside the unpool)
             rp = F.pad(r, (0, 0, pad_y, hi_y), value=_NEG_INF)
-            gr = _unpool_1d(rp, out, g, ky, stride, axis=2)
+            route = ctx.route
+            gr = _unpool_1d(rp, out, g, ky, stride, axis=2,
+                            route=route and (route[0], route[1] + (2,)))
             gr = gr[:, :, pad_y:pad_y + x.shape[2]]
             # step 2: gr through the row max, r -> x
             xp = F.pad(x, (pad_x, hi_x, 0, 0), value=_NEG_INF)
-            gin = _unpool_1d(xp, r, gr, kx, stride, axis=3)
+            gin = _unpool_1d(xp, r, gr, kx, stride, axis=3,
+                             route=route and (route[0], route[1] + (3,)))
             gin = gin[:, :, :, pad_x:pad_x + x.shape[3]]
         return (gin.to(x.dtype),) + (None,) * 7
+
+
+def insanity_pool2d(x: torch.Tensor, flag: torch.Tensor, ksize_y: int,
+                    ksize_x: int, stride: int, p_keep: float) -> torch.Tensor:
+    """Stochastic displaced max pooling (insanity_max_pooling; JAX
+    package `ops/pooling.py:189-231`, reference
+    insanity_pooling_layer-inl.hpp:13-101).
+
+    `flag` holds one uniform draw in [0, 1) per source pixel (float32,
+    x's shape). With probability p_keep a pixel is read in place,
+    otherwise from the neighbour one pixel up / down / left / right
+    (each (1 - p_keep) / 4, clamped at the border); max pooling then
+    runs over the displaced reads. The backward credits the window SLOT
+    whose displaced read won (ties duplicated), not the displaced source
+    pixel: the displacement is straight-through (jittered.detach() +
+    (x - x.detach()), whose value is exactly the jittered view, which
+    the unpool's exact tie comparisons need), so the ties unpool lands
+    the gradient at slot positions."""
+    b, c, h, w = x.shape
+    delta = (1.0 - p_keep) / 4.0
+    zero = torch.zeros((), dtype=torch.long, device=x.device)
+    one = torch.ones((), dtype=torch.long, device=x.device)
+    yd = torch.where((flag >= p_keep) & (flag < p_keep + delta), -one,
+                     torch.where((flag >= p_keep + delta)
+                                 & (flag < p_keep + 2 * delta), one, zero))
+    xd = torch.where((flag >= p_keep + 2 * delta)
+                     & (flag < p_keep + 3 * delta), -one,
+                     torch.where(flag >= p_keep + 3 * delta, one, zero))
+    ys = torch.arange(h, device=x.device).reshape(1, 1, h, 1)
+    xs = torch.arange(w, device=x.device).reshape(1, 1, 1, w)
+    y_src = (ys + yd).clamp(0, h - 1)
+    x_src = (xs + xd).clamp(0, w - 1)
+    idx = (y_src * w + x_src).reshape(b, c, h * w)
+    jittered = torch.gather(x.detach().reshape(b, c, h * w), 2,
+                            idx).reshape(b, c, h, w)
+    jittered = jittered + (x - x.detach())
+    return pool2d(jittered, "max", ksize_y, ksize_x, stride)

@@ -1,6 +1,8 @@
 """The port on the card: the CUDA kernels (K1-fwd, K1-bwd, the
 flash-attention K2-fwd, K2-dq, K2-dkv, and the int8 dot K3) against
-their plain versions, and the serving and training paths through them. Every test here needs an
+their plain versions, and the serving and training paths through them
+(AlexNet-shaped, seq_mnist, GoogLeNet.conf and stack_moe.conf steps
+against the CPU). Every test here needs an
 NVIDIA card and skips without one (marker `cuda`). This file imports no
 jax, so it runs where only the port's dependencies are installed:
 
@@ -17,6 +19,7 @@ from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.ops import flash_attention as FA
 from cxxnet_tpu_torch.ops import int8 as int8_ops
 from cxxnet_tpu_torch.ops import lrn as lrn_ops
+from cxxnet_tpu_torch.ops.routing import Routing
 from cxxnet_tpu_torch.serve import Server
 from torch_port_util import NARROW_ALEXNET, cuda_device  # noqa: F401
 from torch_port_util import numpy_keep
@@ -186,6 +189,176 @@ def test_lrn_bwd_kernel_matches_reference(cuda_device, shape, n, dtype):
                                  g)
     assert kernels.launches()["lrn_bwd"] == before + 2
     assert torch.equal(gin, got)
+
+
+# GoogLeNet.conf's two LRN inputs at its batch of 256 (n1 after pool1,
+# n2 after conv2): the main path's shapes
+GOOGLENET_LRN = [(256, 64, 56, 56), (256, 192, 56, 56)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GOOGLENET_LRN)
+def test_lrn_kernels_at_googlenet_shapes(cuda_device, shape, dtype):
+    """K1-fwd and K1-bwd at GoogLeNet's b256 LRN shapes (local_size 5,
+    alpha 1e-4 as the conf has it) against their plain versions: the
+    forward within test_lrn_kernel_matches_reference's bar, the
+    backward within _bwd_close's."""
+    alpha = 0.0001
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(_x(shape, 8)).to(cuda_device).to(dtype)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        cuda_device).to(dtype)
+    before = kernels.launches()
+    got = lrn_ops.lrn(x, 5, alpha, BETA, KNORM)
+    gin = lrn_ops.lrn_backward(x, g, 5, alpha, BETA, KNORM)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert (after["lrn_fwd"] - before["lrn_fwd"],
+            after["lrn_bwd"] - before["lrn_bwd"]) == (1, 1)
+    ref = lrn_ops.lrn_reference(x, 5, alpha, BETA, KNORM).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    else:
+        assert bool(torch.all((got.float() - ref).abs()
+                              <= ref.abs() * 2.0 ** -7 + 1e-30))
+    t1, t2 = lrn_ops.lrn_bwd_terms(x, g, 5, alpha, BETA, KNORM)
+    gref = lrn_ops.lrn_bwd_reference(x, g, 5, alpha, BETA, KNORM).float()
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    bar = rtol * gref.abs() + 1e-6 * (t1.abs() + t2.abs())
+    assert bool(torch.all((gin.float() - gref).abs() <= bar))
+
+
+def _conf_on(path_parts, batch, extra=""):
+    """A shipped conf's netconfig on (no iterator blocks) at `batch`,
+    float32."""
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", *path_parts)
+    with open(path) as f:
+        net = "netconfig=start" + f.read().split("netconfig=start", 1)[1]
+    net = net.replace("dtype = bfloat16", "dtype = float32")
+    for k in ("batch_size",):
+        net = "\n".join(ln for ln in net.splitlines()
+                        if not ln.startswith(k))
+    return net + f"\nbatch_size = {batch}\nsilent = 1\nseed = 3\n" + extra
+
+
+def _rel_update_diff(before, a, b):
+    """||(a - before) - (b - before)|| / ||b - before|| per tensor."""
+    out = {}
+    for lk in before:
+        for pn in before[lk]:
+            da = a[lk][pn] - before[lk][pn]
+            db = b[lk][pn] - before[lk][pn]
+            den = float(np.linalg.norm(db))
+            out[f"{lk}/{pn}"] = (float(np.linalg.norm(da - db)) / den
+                                 if den else float(np.linalg.norm(da)))
+    return out
+
+
+def test_googlenet_training_step_card_matches_cpu(cuda_device):
+    """One SGD step of GoogLeNet.conf (float32, TF32 off, batch 16) on the
+    card and on the CPU from the same weights, batch and dropout mask.
+    The softmax rows before the step within rtol 1e-4 / atol 1e-6, the
+    loss within rtol 1e-4 (57 convolutions summed in other orders). The
+    CPU leg replays the card's discrete decisions (Routing: max-pool tie
+    sets, relu gates): a value within float32 rounding of a decision
+    boundary falls on either side by summation order, and one such
+    decision moves an early tensor's update by ~1e-3. With them shared,
+    every updated param within rtol 1e-3 / atol 1e-5 and each tensor's
+    update within 2e-3 of the CPU's in relative norm (chip_smoke.py's
+    UPDATE_BAR; rounding alone moves them by <= 4e-4 between two CPU
+    legs at 8 and 1 threads).
+    The step launches K1-fwd and K1-bwd twice (two lrn layers)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conf = _conf_on(("examples", "ImageNet", "GoogLeNet.conf"), 16)
+    gpu = NetTrainer(cfg=conf, device="cuda:0")
+    gpu.init_model()
+    cpu = NetTrainer(cfg=conf, device="cpu")
+    cpu.init_model()
+    shapes = cpu.net.param_shapes()
+    before = convert.params_to_numpy(cpu.state["params"], shapes)
+    rng = np.random.RandomState(0)
+    data = rng.randn(16, 3, 224, 224).astype(np.float32)
+    label = rng.randint(0, 1000, size=(16, 1)).astype(np.float32)
+    b = DataBatch(data=data, label=label)
+    np.testing.assert_allclose(gpu.predict_dist(b), cpu.predict_dist(b),
+                               rtol=1e-4, atol=1e-6)
+    keep = numpy_keep(cpu, seed=1)
+    kernels.reset_launches()
+    with Routing() as card_routing:
+        lg = gpu.update(b, keep=keep)
+        torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert (counts["lrn_fwd"], counts["lrn_bwd"]) == (2, 2)
+    with Routing(replay=card_routing):
+        lc = cpu.update(b, keep=keep)
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
+    pg = convert.params_to_numpy(gpu.state["params"], shapes)
+    pc = convert.params_to_numpy(cpu.state["params"], shapes)
+    for lk in pc:
+        for pn in pc[lk]:
+            np.testing.assert_allclose(pg[lk][pn], pc[lk][pn], rtol=1e-3,
+                                       atol=1e-5, err_msg=f"{lk}/{pn}")
+    diff = _rel_update_diff(before, pg, pc)
+    assert max(diff.values()) <= 2e-3, sorted(diff.items(),
+                                              key=lambda kv: -kv[1])[:5]
+
+
+def test_stack_moe_training_step_card_matches_cpu(cuda_device):
+    """One step of stack_moe.conf (float32, TF32 off, batch 8) on the card
+    and on the CPU from the same weights, batch and dropout mask: the
+    loss with the moe aux term within rtol 1e-5, params within rtol
+    1e-4 / atol 1e-5. No routing decision is left to rounding: every
+    token's top-2 margins at the moe input (2nd - 3rd and 1st - 2nd
+    router probability) exceed ten times the largest difference between
+    the card's and the CPU's router probabilities. The step launches
+    each K2 kernel 4 times (4 stacked blocks), inference 4 K2-fwd."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conf = _conf_on(("examples", "LongSeq", "stack_moe.conf"), 8)
+    gpu = NetTrainer(cfg=conf, device="cuda:0")
+    gpu.init_model()
+    cpu = NetTrainer(cfg=conf, device="cpu")
+    cpu.init_model()
+    rng = np.random.RandomState(0)
+    data = rng.rand(8, 1, 28, 28).astype(np.float32)
+    label = rng.randint(0, 10, size=(8, 1)).astype(np.float32)
+    moe = [i for i, info in enumerate(cpu.net_cfg.layers)
+           if info.type_name == "moe"][0]
+    probs = []
+    for tr in (cpu, gpu):
+        with torch.no_grad():
+            values, _ = tr.net(tr.compute_params(),
+                               torch.from_numpy(data).to(tr.device))
+        xin = values[tr.net_cfg.layers[moe].nindex_in[0]]
+        probs.append(torch.softmax(
+            xin.reshape(8, 28, 28)
+            @ tr.state["params"]["moe1"]["gate"].t(), -1).cpu())
+    apart = float((probs[0] - probs[1]).abs().max())
+    top = torch.sort(probs[0], -1, descending=True).values
+    assert float((top[..., 1] - top[..., 2]).min()) > 10 * apart
+    assert float((top[..., 0] - top[..., 1]).min()) > 10 * apart
+    keep = numpy_keep(cpu, seed=1)
+    kernels.reset_launches()
+    lg = gpu.update(DataBatch(data=data, label=label), keep=keep)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert (counts["attn_fwd"], counts["attn_dq"], counts["attn_dkv"]) == (
+        4, 4, 4)
+    lc = cpu.update(DataBatch(data=data, label=label), keep=keep)
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    shapes = cpu.net.param_shapes()
+    pg = convert.params_to_numpy(gpu.state["params"], shapes)
+    pc = convert.params_to_numpy(cpu.state["params"], shapes)
+    for lk in pc:
+        for pn in pc[lk]:
+            np.testing.assert_allclose(pg[lk][pn], pc[lk][pn], rtol=1e-4,
+                                       atol=1e-5, err_msg=f"{lk}/{pn}")
+    kernels.reset_launches()
+    b = DataBatch(data=data, label=label)
+    np.testing.assert_allclose(gpu.predict_dist(b), cpu.predict_dist(b),
+                               rtol=1e-4, atol=1e-6)
+    assert kernels.launches()["attn_fwd"] == 4
 
 
 def test_narrow_alexnet_card_matches_cpu_and_serves(cuda_device):

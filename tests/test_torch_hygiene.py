@@ -126,10 +126,14 @@ def test_inert_values_are_accepted(key, val):
 
 
 def test_layer_not_yet_ported_raises_at_net_build():
-    tr = NetTrainer(cfg=NARROW_ALEXNET.replace("= lrn", "= prelu"),
+    """Every layer type of the JAX package is ported: an unknown type
+    raises ValueError at net build with the JAX package's message
+    (cxxnet_tpu/layers/base.py:276-277)."""
+    tr = NetTrainer(cfg=NARROW_ALEXNET.replace("= lrn", "= prelux"),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="prelu"):
+    with pytest.raises(ValueError) as err:
         tr.init_model()
+    assert str(err.value) == 'unknown layer type: "prelux"'
 
 
 def test_iterator_not_yet_ported_raises():

@@ -142,8 +142,30 @@ def test_graph_pass_stamps_raise(type_name, key, val):
             layer.set_param(key, val)
 
 
+# a config of each type that the JAX layer refuses at shape inference
+_BAD_CONFIG = {
+    "xelu": ([], [(2, 3, 4, 5), (2, 3, 4, 5)]),
+    "insanity": ([], [(2, 3, 4, 5), (2, 3, 4, 5)]),
+    "transformer_stack": ([("nhidden", "8"), ("nhead", "3")],
+                          [(2, 1, 4, 8)]),
+    "moe": ([("nhidden", "8"), ("nexpert", "1")], [(2, 1, 4, 8)]),
+    "prelu": ([], [(2, 3, 4, 5), (2, 3, 4, 5)]),
+}
+
+
 @pytest.mark.parametrize("type_name", ["xelu", "insanity",
                                        "transformer_stack", "moe", "prelu"])
 def test_layer_types_not_yet_ported_raise(type_name):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_layer(type_name)
+    """These types were the last unported ones: each is now created and
+    refuses a config the JAX layer refuses, with the JAX message."""
+    pairs, in_shapes = _BAD_CONFIG[type_name]
+    msgs = []
+    for make in (jax_layer, port_layer):
+        layer = make(type_name, "l")
+        assert layer.type_name == type_name
+        for k, v in pairs:
+            layer.set_param(k, v)
+        with pytest.raises(ValueError) as err:
+            layer.infer_shapes(list(in_shapes))
+        msgs.append(str(err.value))
+    assert msgs[1] == msgs[0]

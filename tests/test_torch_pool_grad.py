@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from cxxnet_tpu.ops import pooling as jax_pool
 from cxxnet_tpu_torch.ops import pooling as port_pool
+from cxxnet_tpu_torch.ops.routing import Routing
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -168,3 +169,74 @@ def test_bad_grad_mode_raises():
         port_pool.pool2d(x, "max", 2, 2, 2, grad_mode="first")
     with pytest.raises(ValueError, match="only exists for max"):
         port_pool.pool2d(x, "avg", 2, 2, 2, grad_mode="winner")
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=_gid)
+def test_tie_routing_replays_another_legs_decisions(geom):
+    """Routing (ops/routing.py) over the ties backward: a leg that
+    replays another leg's recorded tie decisions routes its gradient
+    exactly as that leg did. Leg A pools a relu'd integer input full of
+    exact ties; leg B the same input with every other value raised by
+    one float32 ulp, which breaks ties the way two summation orders do.
+    B's own backward differs from A's; with A's decisions replayed B's
+    input gradient equals A's bit for bit, and `differ` counts exactly
+    the covered decisions B would have made the other way. Replaying
+    into another graph raises."""
+    shape, ky, kx, s, py, px = geom
+    xa = _tied(shape, seed=0)
+    bump = np.arange(xa.size).reshape(shape) % 2 == 0
+    xb = np.where(bump, np.nextafter(xa, np.float32(np.inf)), xa)
+    g = _upstream(xa, "max", ky, kx, s, py, px)
+    with Routing() as rec_a:
+        _, ga = _port_vjp(xa, g, "max", ky, kx, s, py, px)
+    with Routing() as rec_b:
+        _, gb_own = _port_vjp(xb, g, "max", ky, kx, s, py, px)
+    with Routing(replay=rec_a) as replay:
+        _, gb = _port_vjp(xb, g, "max", ky, kx, s, py, px)
+    assert np.array_equal(gb, ga)
+    flipped = sum(int((rec_a.decisions[k] != rec_b.decisions[k]).sum())
+                  for k in rec_a.decisions)
+    assert replay.differ == {"max-pool": flipped, "relu": 0}
+    assert flipped > 0 and not np.array_equal(gb_own, ga)
+    other = (shape[0], shape[1], shape[2] + 1, shape[3])
+    with pytest.raises(ValueError, match="not the same graph"):
+        with Routing(replay=rec_a):
+            _port_vjp(np.zeros(other, np.float32),
+                      _upstream(np.zeros(other, np.float32), "max", ky, kx,
+                                s, py, px), "max", ky, kx, s, py, px)
+
+
+def test_relu_routing_replays_another_legs_gates():
+    """Routing over relu (ops/nn.py): recording changes nothing (the
+    values and gradients of max(x, 0), half the gradient at exactly 0);
+    a leg whose inputs sit on the other side of zero takes the recorded
+    gates - its input gradient is the recording leg's, bit for bit - and
+    `differ` counts the gates it would have set the other way."""
+    from cxxnet_tpu_torch.ops import nn as nn_ops
+    rng = np.random.RandomState(3)
+    xa = rng.randn(4, 5, 6).astype(np.float32)
+    xa[0, 0, :3] = 0.0
+    xb = xa.copy()
+    xb[1, :, 0] = -xb[1, :, 0]  # 5 gates flip
+    g = torch.from_numpy(rng.randn(4, 5, 6).astype(np.float32))
+
+    def leg(x, routing):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        with routing:
+            out = nn_ops.relu(xt)
+        out.backward(g)
+        return out.detach().numpy(), xt.grad.numpy()
+
+    plain = torch.from_numpy(xa).requires_grad_(True)
+    torch.maximum(plain, plain.new_zeros(())).backward(g)
+    rec = Routing()
+    out_a, ga = leg(xa, rec)
+    assert np.array_equal(out_a, np.maximum(xa, 0))
+    assert np.array_equal(ga, plain.grad.numpy())
+    assert np.array_equal(ga[0, 0, :3], 0.5 * g.numpy()[0, 0, :3])
+    replay = Routing(replay=rec)
+    out_b, gb = leg(xb, replay)
+    assert np.array_equal(gb, ga)
+    assert replay.differ == {"max-pool": 0, "relu": 5}
+    gate = rec.decisions[("relu", 0)].numpy()
+    assert np.array_equal(out_b, xb * (gate * np.float32(0.5)))

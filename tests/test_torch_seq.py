@@ -196,9 +196,21 @@ def test_seq_parallel_and_kv_block_keys():
     lay.set_param("seq_parallel", "ulysses")
     lay.set_param("kv_block", "7")
     assert (lay.seq_parallel, lay.kv_block) == ("ulysses", 7)
-    for name in ("transformer_stack", "moe"):
-        with pytest.raises(NotImplementedError, match=name):
-            port_layer(name)
+    # transformer_stack validates and accepts them the same way, and
+    # moe refuses a top-k past its experts in both packages
+    for make in (jax_layer, port_layer):
+        with pytest.raises(ValueError, match="ring, ulysses or none"):
+            make("transformer_stack").set_param("seq_parallel", "tree")
+        moe = make("moe")
+        for k, v in (("nexpert", "2"), ("nhidden", "4"),
+                     ("moe_top_k", "3")):
+            moe.set_param(k, v)
+        with pytest.raises(ValueError, match="moe_top_k out of range"):
+            moe.infer_shapes([(2, 1, 3, 4)])
+    ts = port_layer("transformer_stack")
+    ts.set_param("seq_parallel", "none")
+    ts.set_param("kv_block", "7")
+    assert (ts.seq_parallel, ts.kv_block) == ("none", 7)
 
 
 def test_split_arity_follows_the_connection():
