@@ -98,7 +98,9 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    bitwise; (g) AlexNet b256 bfloat16 from AlexNet.conf's train block
    over 3,072 images, streamed, prefetch_stage = 1 and prefetch_stage =
    1 + device_augment = 1: step time, images/s, staging, the device's
-   idle share, the iterator's own rate, and which of them sets the pace;
+   idle share, the iterator's own rate, and which of them sets the pace
+   - (g) runs in a fresh python process (`chip_smoke.py --leg 10g OUT
+   DIR FORMAT`), as phase 11's profiled legs do;
 11. the last layer types - (a), (b) and (d)'s steps each run in a fresh
    python process of their own (`chip_smoke.py --leg 11a|11b|11d OUT`),
    since in a long-lived process torch.profiler can lose the card's
@@ -120,7 +122,29 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    task = pred on synthetic MNIST-format data, b100 bfloat16 steps (4
    launches of each K2 kernel a step), the Server burst of phase 8d (4
    K2-fwd a batch) and a float32 step card vs CPU with the moe aux
-   term.
+   term;
+12. the serving front, in a fresh process (`chip_smoke.py --leg 12 OUT`):
+   AlexNet.conf unedited (bfloat16, max_batch 64, 2 replicas) with a
+   second weight set saved and published with publish_model - (a)
+   phase 4's 30 requests through the front's lanes (a CUDA stream and
+   a pinned buffer per replica) and through the old default-stream path,
+   in the order new, old, old, new: rows/s and p50/p99 (end to end,
+   queue, device), K1-fwd twice a batch, rows at phase 4's bfloat16
+   bar, the idle share of one profiled burst; (b) 24 POST /predict
+   requests of 1-8 rows from 4 client threads (JSON bodies of 154,587
+   floats a row: the server's parse is part of what is timed), rows
+   against predict_dist, /metrics through validate_exposition, an
+   over-size body's 413; (c) a storm past queue_limit: 429 with
+   Retry-After in [1, 60], /healthz 503 then 200 after
+   serve_shed_clear_ms, and a deadline behind stalled dispatches
+   answering 504; (d) a hot-swap mid-storm from the published
+   checkpoint: nothing dropped, every response the old or the new
+   weights' rows, the bucket programs flat; (e) a canary promoted and
+   one rolled back (canary_divergence injected) with the incumbent
+   slot bitwise unchanged; (f) a second Server on the int8 graph behind
+   /predict, K3 11 times a batch; (g) task = serve through the CLI with
+   serve_port and metrics_port, /metrics scraped while it serves, then
+   SIGTERM: exit 0 and every admitted row in the output.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -951,6 +975,50 @@ def stage_txt(stage) -> str:
             f"float32: cast on the card)")
 
 
+# Phase 4's bfloat16 bar for served rows against predict_dist of the same
+# rows: bfloat16 forwards whose cuDNN/cuBLAS algorithms may differ per
+# bucket size, so rows agree to bfloat16 rounding, not bitwise. One bf16
+# ulp of a logit in [8, 16) is 2^-4, which moves its probability by up
+# to 6.5%: rtol 0.1 allows that much, atol covers probabilities near 0
+BF16_RTOL, BF16_ATOL = 0.1, 2e-4
+
+
+def check_bf16_rows(tr, reqs, results, ref_rows=None):
+    """Every served row against predict_dist of its request (or against
+    `ref_rows`, the same list precomputed) at the bfloat16 bar, and the
+    argmax wherever the reference's top-2 margin is wider than the two
+    entries can move within the bar (a narrower margin is a tie at it).
+    Returns (max abs, max rel where p >= 1e-3, undecided rows, rows
+    whose argmax differs in all); raises on a miss."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+    rtol, atol = BF16_RTOL, BF16_ATOL
+    worst = worst_rel = 0.0
+    undecided = flipped = 0
+    for i, (data, got) in enumerate(zip(reqs, results)):
+        ref = (ref_rows[i] if ref_rows is not None else tr.predict_dist(
+            DataBatch(data=data,
+                      label=np.zeros((data.shape[0], 1), np.float32))))
+        if got.shape != ref.shape or not np.all(np.isfinite(got)):
+            raise AssertionError(f"served rows {got.shape} vs {ref.shape}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+        big = ref >= 1e-3  # the top class of a 1000-way softmax always is
+        worst_rel = max(worst_rel, float(
+            (np.abs(got - ref)[big] / ref[big]).max()))
+        if not np.allclose(got, ref, rtol=rtol, atol=atol):
+            raise AssertionError(
+                f"served rows differ from predict_dist: max abs "
+                f"{np.abs(got - ref).max():.3e} > rtol {rtol} atol {atol}")
+        top2 = np.sort(ref, axis=1)[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) > 2 * (atol + rtol * top2[:, 1])
+        undecided += int((~decided).sum())
+        flipped += int((got.argmax(1) != ref.argmax(1)).sum())
+        if not np.array_equal(got.argmax(1)[decided],
+                              ref.argmax(1)[decided]):
+            raise AssertionError("served argmax differs from predict")
+    return worst, worst_rel, undecided, flipped
+
+
 def phase_serving(torch, card):
     import numpy as np
     from cxxnet_tpu_torch import kernels
@@ -1027,39 +1095,9 @@ def phase_serving(torch, card):
         f"device-only) on {card}")
     served["forward_ms"] = fwd_ms
 
-    # served rows against predict_dist of the same rows: bfloat16
-    # forwards whose cuDNN/cuBLAS algorithms may differ per bucket size,
-    # so rows agree to bfloat16 rounding, not bitwise. One bf16 ulp of a
-    # logit in [8, 16) is 2^-4, which moves its probability by up to
-    # 6.5%: rtol 0.1 allows that much, atol covers probabilities near 0
-    rtol, atol = 0.1, 2e-4
-    worst = 0.0
-    worst_rel = 0.0
-    undecided = 0
-    flipped = 0
-    for data, got in zip(reqs, results):
-        ref = tr.predict_dist(DataBatch(
-            data=data, label=np.zeros((data.shape[0], 1), np.float32)))
-        if got.shape != ref.shape or not np.all(np.isfinite(got)):
-            raise AssertionError(f"served rows {got.shape} vs {ref.shape}")
-        worst = max(worst, float(np.abs(got - ref).max()))
-        big = ref >= 1e-3  # the top class of a 1000-way softmax always is
-        worst_rel = max(worst_rel, float(
-            (np.abs(got - ref)[big] / ref[big]).max()))
-        if not np.allclose(got, ref, rtol=rtol, atol=atol):
-            raise AssertionError(
-                f"served rows differ from predict_dist: max abs "
-                f"{np.abs(got - ref).max():.3e} > rtol {rtol} atol {atol}")
-        # argmax must agree wherever the reference's top-2 margin is
-        # wider than the two entries can move within the tolerance (a
-        # narrower margin is a tie at it)
-        top2 = np.sort(ref, axis=1)[:, -2:]
-        decided = (top2[:, 1] - top2[:, 0]) > 2 * (atol + rtol * top2[:, 1])
-        undecided += int((~decided).sum())
-        flipped += int((got.argmax(1) != ref.argmax(1)).sum())
-        if not np.array_equal(got.argmax(1)[decided],
-                              ref.argmax(1)[decided]):
-            raise AssertionError("served argmax differs from predict")
+    rtol, atol = BF16_RTOL, BF16_ATOL
+    worst, worst_rel, undecided, flipped = check_bf16_rows(tr, reqs,
+                                                           results)
     say(f"served vs predict_dist: max abs {worst:.3e}, max rel "
         f"{worst_rel:.3e} where p >= 1e-3 (rtol {rtol}, atol "
         f"{atol}); argmax identical on {rows - undecided}/{rows} rows "
@@ -2427,6 +2465,9 @@ def attn_entry(name: str, rows, max_err: float, launches: int):
         "causal_plain_ms": round(c["plain"], 6),
         "causal_bound_ms": round(c["bound"], 6),
         "causal_library_ms": round(c["library"], 6),
+        "path_unit": "one launch at (100,4,28,7) bfloat16, non-causal: "
+                     "seq_mnist.conf's core and each of stack_moe.conf's "
+                     "4 blocks",
         "path_ms": round(p["kernel"], 6),
         "path_cold_ms": round(p["kernel_cold"], 6),
         "path_plain_ms": round(p["plain"], 6),
@@ -2876,7 +2917,7 @@ def timed_setting(torch, tr, itr, prefetch):
             step()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 100.0
-        profiled = profile_steps(torch, step, 3)
+        profiled = profile_steps(torch, step, 3, strict=True)
     finally:
         if prefetch:
             it.close()
@@ -3099,7 +3140,7 @@ def phase_image_pipeline(torch, card, then=None):
         counts = phase_image_cli(d, fmt)
         phase_staged_vs_streamed(torch, d)
         phase_device_augment_vs_host(torch, d)
-        timing = phase_image_timing(torch, d, fmt, card)
+        timing = run_leg(torch, "10g", d, fmt)
         say(f"phase 10 took {time.perf_counter() - t10:.1f} s")
         after = then(d) if then is not None else None
     return counts, timing, after
@@ -3397,25 +3438,625 @@ def phase_stack_moe(torch, card):
             "serve": stats}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the serving front on the card (HTTP /predict, shedding,
+# deadlines, hot-swap, canary, drain) - run as a fresh-process leg
+# ---------------------------------------------------------------------------
+
+# the ingress cap of phase 12's listener: a /predict body of 8 AlexNet
+# rows is ~25 MB of JSON text
+FRONT_MAX_BODY = 64 << 20
+
+
+class DefaultStreamLane:
+    """The Server's dispatch as it was before the per-replica lanes
+    (phase 4's old path): rows staged from pageable memory on the
+    default stream, the forward there, `.cpu()` as the sync point. A
+    measuring baseline of this script, swapped into a Server's lanes."""
+
+    def __init__(self, tr):
+        self.trainer = tr
+
+    def run(self, graph, cparams, data):
+        out = graph.run(cparams, self.trainer.stage_infer_rows(data))
+        return out.reshape(data.shape[0], -1).cpu().numpy()
+
+
+def phase4_requests(np):
+    """Phase 4's (and 9b's) 30 requests of 1-64 AlexNet rows."""
+    rng = np.random.RandomState(11)
+    sizes = [int(s) for s in rng.randint(1, 65, size=30)]
+    sizes[0], sizes[1] = 64, 1
+    return [(rng.rand(s, 3, 227, 227) * 255.0 - 128.0).astype(np.float32)
+            for s in sizes]
+
+
+def post_json(port, body: bytes, timeout=300):
+    """POST /predict: (status, headers, decoded JSON body)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                 data=body)
+    try:
+        r = urllib.request.urlopen(req, timeout=timeout)
+        return r.status, dict(r.headers), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def get_status(url: str) -> int:
+    import urllib.error
+    import urllib.request
+    try:
+        return urllib.request.urlopen(url, timeout=30).status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def wait_for(pred, secs: float) -> bool:
+    deadline = time.monotonic() + secs
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.02)
+    return pred()
+
+
+def burst_line(label, stats, rows, wall, card):
+    say(f"[{label}] {rows / wall:.1f} rows/s; latency p50 "
+        f"{stats['latency_p50_ms']} / p99 {stats['latency_p99_ms']} ms, "
+        f"queue p50 {stats['queue_p50_ms']} / p99 {stats['queue_p99_ms']} "
+        f"ms, device p50 {stats['device_p50_ms']} / p99 "
+        f"{stats['device_p99_ms']} ms; {stats['batches']} batches (host "
+        f"clock; 30 requests of 1-64 rows from 2 threads, max_batch 64, "
+        f"2 replicas, bfloat16) on {card}")
+    return dict(rows_s=rows / wall, **{
+        k: stats[k] for k in ("latency_p50_ms", "latency_p99_ms",
+                              "queue_p50_ms", "queue_p99_ms",
+                              "device_p50_ms", "device_p99_ms",
+                              "batches")})
+
+
+def front_in_process(torch, card, tr, reqs):
+    """12a: phase 4's burst through the front's lanes (a stream and a
+    pinned buffer per replica) and through the old default-stream path, on
+    the same requests in the order new, old, old, new; the front's K1-fwd
+    launches; the device's idle share over one profiled burst."""
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.serve import Server
+    say("== phase 12a: AlexNet.conf in process: the front's lanes against "
+        "the default-stream path ==")
+    srv = Server(tr, max_batch=64, replicas=2)
+    say(f"buckets {list(srv.buckets)}; warmup {srv.warmup():.3f} s "
+        f"(every bucket on both lanes)")
+    lanes = srv._lanes
+    old = [DefaultStreamLane(tr)] * 2
+    rows = sum(r.shape[0] for r in reqs)
+    out = {"front": [], "default_stream": []}
+    results = None
+    launches = batches = 0
+    for label in ("front", "default_stream", "default_stream", "front"):
+        srv._lanes = lanes if label == "front" else old
+        # per-run percentiles: fresh latency windows for each burst
+        srv._lat, srv._qlat, srv._dlat = (type(srv._lat)() for _ in range(3))
+        before = srv.stats()["batches"]
+        kernels.reset_launches()
+        got, stats, wall = served_run(torch, srv, reqs)
+        n = kernels.launches()["lrn_fwd"]
+        stats["batches"] -= before
+        if n != 2 * stats["batches"]:
+            raise AssertionError(f"lrn_fwd launched {n} times over "
+                                 f"{stats['batches']} batches; AlexNet runs "
+                                 "it twice a batch")
+        out[label].append(burst_line(label, stats, rows, wall, card))
+        if label == "front":
+            results = got
+            launches += n
+            batches += stats["batches"]
+    worst, _rel, undecided, _fl = check_bf16_rows(tr, reqs, results)
+    say(f"front rows vs predict_dist: max abs {worst:.3e} (rtol "
+        f"{BF16_RTOL}, atol {BF16_ATOL}), argmax identical on "
+        f"{rows - undecided}/{rows} decided rows; lrn_fwd {launches} "
+        f"launches = 2 x {batches} batches over the two front bursts")
+    srv._lanes = lanes
+    profiled = profile_steps(torch, lambda: served_run(torch, srv, reqs), 1,
+                             INT8_GROUPS, strict=True)
+    _rows, groups, busy_ms, window_ms = profiled
+    idle = 1 - busy_ms / window_ms
+    say(f"one front burst profiled: device busy {busy_ms:.3f} ms of "
+        f"{window_ms:.3f} ms traced, idle share {idle:.4f}; K1-fwd "
+        f"{groups['lrn_fwd kernel']:.3f} ms device time (torch.profiler) "
+        f"on {card}")
+    return dict(out, idle=idle, lrn_fwd=launches, batches=batches)
+
+
+def front_http(torch, card, tr, reqs):
+    """12b: /predict from a pool of 4 client threads, 24 requests of 1-8
+    rows (JSON bodies encoded before the clock starts; the server's
+    parse of 154,587 floats a row is part of what is timed); 200 rows
+    against predict_dist at the bfloat16 bar; /metrics through
+    validate_exposition; an over-size body's 413."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.serve import Server
+    from cxxnet_tpu_torch.telemetry.http import validate_exposition
+    say("== phase 12b: AlexNet.conf over HTTP /predict ==")
+    srv = Server(tr, max_batch=64, replicas=2, http_port=0,
+                 metrics_host="127.0.0.1", max_body_bytes=FRONT_MAX_BODY)
+    srv.warmup()
+    srv.start()
+    port = srv.metrics_server.port
+    rng = np.random.RandomState(12)
+    data = [(rng.rand(int(n), *tr.net_cfg.input_shape) * 255.0 - 128.0).astype(
+        np.float32) for n in rng.randint(1, 9, size=24)]
+    bodies = [json.dumps({"data": d.reshape(d.shape[0], -1).tolist(),
+                          "raw": True}).encode() for d in data]
+    lat = []
+
+    def one(i):
+        t0 = time.perf_counter()
+        got = post_json(port, bodies[i])
+        lat.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        answers = list(pool.map(one, range(len(bodies))))
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()["lrn_fwd"]
+    stats = srv.stats()
+    if launches != 2 * stats["batches"]:
+        raise AssertionError(f"lrn_fwd launched {launches} times over "
+                             f"{stats['batches']} batches over HTTP")
+    bad = [(c, b) for c, _h, b in answers if c != 200]
+    if bad:
+        raise AssertionError(f"/predict answered {bad[0]}")
+    outs = [np.asarray(b["outputs"], np.float32) for _c, _h, b in answers]
+    worst, _rel, undecided, _fl = check_bf16_rows(tr, data, outs)
+    rows = sum(d.shape[0] for d in data)
+    p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+    say(f"[http] {rows} rows in {len(data)} requests: {rows / wall:.1f} "
+        f"rows/s, {len(data) / wall:.2f} requests/s; client latency p50 "
+        f"{p50:.1f} / p99 {p99:.1f} ms (host clock, JSON parse of the "
+        f"bodies included); server queue p50 {stats['queue_p50_ms']} / "
+        f"p99 {stats['queue_p99_ms']} ms, device p50 "
+        f"{stats['device_p50_ms']} / p99 {stats['device_p99_ms']} ms; "
+        f"{stats['batches']} batches; 4 client threads on {card}")
+    say(f"http rows vs predict_dist: max abs {worst:.3e}, argmax identical "
+        f"on {rows - undecided}/{rows} decided rows")
+    metrics = urllib_get(f"http://127.0.0.1:{port}/metrics")
+    problems = validate_exposition(metrics)
+    if problems or "cxxnet_serve_requests_total" not in metrics:
+        raise AssertionError(f"/metrics: {problems[:3]}")
+    with socket_conn(port) as s:
+        s.sendall(b"POST /predict HTTP/1.0\r\nContent-Length: "
+                  + str(FRONT_MAX_BODY + 1).encode() + b"\r\n\r\n")
+        head = s.recv(4096).split(b"\r\n")[0]
+    if b"413" not in head:
+        raise AssertionError(f"an over-size body answered {head!r}")
+    say(f"/metrics passes validate_exposition ({len(metrics)} bytes); a "
+        f"{FRONT_MAX_BODY + 1}-byte body answers {head.decode()}")
+    return srv, dict(rows_s=rows / wall, requests_s=len(data) / wall,
+                     client_p50_ms=p50, client_p99_ms=p99,
+                     lrn_fwd=launches, batches=stats["batches"],
+                     **{k: stats[k] for k in ("queue_p50_ms", "queue_p99_ms",
+                                              "device_p50_ms",
+                                              "device_p99_ms")})
+
+
+def urllib_get(url: str) -> str:
+    import urllib.request
+    return urllib.request.urlopen(url, timeout=60).read().decode()
+
+
+def socket_conn(port):
+    import socket
+    return socket.create_connection(("127.0.0.1", port), timeout=60)
+
+
+def front_shed_deadline(srv, reqs):
+    """12c: a storm past queue_limit gets 429 + Retry-After in [1, 60]
+    while /healthz reads 503, then 200 once the queue has drained for
+    serve_shed_clear_ms; a deadline shorter than the stalled dispatch
+    ahead of it answers 504."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from cxxnet_tpu_torch.utils import fault
+    say("== phase 12c: shedding and deadlines over HTTP ==")
+    port = srv.metrics_server.port
+    health = f"http://127.0.0.1:{port}/healthz"
+    one = json.dumps({"data": reqs[1].reshape(1, -1).tolist()}).encode()
+    srv.queue_limit, srv.shed_clear_ms = 4, 500.0
+    fault.clear()
+    for i in range(16):
+        fault.inject("serve_dispatch_delay", "delay", "0.5", at=i + 1)
+    during = []
+    stop = threading.Event()
+
+    def poll():
+        while not stop.wait(0.05):
+            during.append(get_status(health))
+
+    poller = threading.Thread(target=poll)
+    poller.start()
+    try:
+        with ThreadPoolExecutor(16) as pool:
+            answers = list(pool.map(lambda _i: post_json(port, one),
+                                    range(16)))
+    finally:
+        stop.set()
+        poller.join(timeout=60)
+    codes = [c for c, _h, _b in answers]
+    if 503 not in during:
+        raise AssertionError(f"/healthz during the storm: {during}")
+    shed = [h for c, h, _b in answers if c == 429]
+    if 429 not in codes or 200 not in codes or set(codes) - {200, 429}:
+        raise AssertionError(f"storm answered {codes}")
+    retry = [int(h["Retry-After"]) for h in shed]
+    if not all(1 <= r <= 60 for r in retry):
+        raise AssertionError(f"Retry-After {retry}")
+    fault.clear()
+    t_clear = time.monotonic()
+    if not wait_for(lambda: get_status(health) == 200, 30.0):
+        raise AssertionError("/healthz never recovered after the storm")
+    recovered_s = time.monotonic() - t_clear
+    srv.queue_limit = 0
+    say(f"storm of 16 one-row requests past queue_limit 4 (dispatches "
+        f"stalled 0.5 s): {codes.count(200)} x 200, {len(shed)} x 429 with "
+        f"Retry-After {sorted(set(retry))} s; /healthz "
+        f"{sorted(set(during))} during it, 200 {recovered_s:.2f} s after "
+        f"(serve_shed_clear_ms 500)")
+    # both replicas stalled on a full bucket each; the request behind
+    # them waits past its deadline in the queue
+    fault.inject("serve_dispatch_delay", "delay", "0.5", at=1)
+    fault.inject("serve_dispatch_delay", "delay", "0.5", at=2)
+    blockers = [srv.submit(reqs[0]) for _ in range(2)]
+    if not wait_for(lambda: srv._queued_rows == 0, 10.0):
+        raise AssertionError("the blockers never left the queue")
+    time.sleep(0.05)
+    code, _h, body = post_json(port, json.dumps({
+        "data": reqs[1].reshape(1, -1).tolist(),
+        "deadline_ms": 50}).encode())
+    for b in blockers:
+        b.result(timeout=60)
+    fault.clear()
+    if code != 504:
+        raise AssertionError(f"a 50 ms deadline behind a 0.5 s dispatch "
+                             f"answered {code}: {body}")
+    say(f"deadline_ms 50 behind two stalled dispatches: {code} "
+        f"({body['error'][:60]})")
+    return dict(storm_codes=codes, retry_after=retry, healthz=during,
+                recovered_s=recovered_s, deadline_code=code)
+
+
+def front_swap(srv, tr, tr_new, published, reqs):
+    """12d: a hot-swap mid-storm from a checkpoint published with
+    publish_model: no request dropped, every response the old or the
+    new weights' rows (bfloat16 bar), one switch, the bucket programs
+    flat."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet import checkpoint
+    say("== phase 12d: hot-swap mid-storm ==")
+    rng = np.random.RandomState(14)
+    data = [(rng.rand(int(n), *tr.net_cfg.input_shape) * 255.0 - 128.0).astype(
+        np.float32) for n in rng.randint(1, 17, size=40)]
+
+    def ref(t, d):
+        return t.predict_dist(DataBatch(
+            data=d, label=np.zeros((d.shape[0], 1), np.float32)))
+    old_refs = [ref(tr, d) for d in data]
+    new_refs = [ref(tr_new, d) for d in data]
+    n_prog = srv.executable_cache_size()
+    meta = checkpoint.read_publish_meta(published)
+    # 20 requests queued, the swap while the replicas drain them, then
+    # 20 more: the first 20 are the old or the new weights' rows, every
+    # later one the new
+    futs = [srv.submit(d) for d in data[:20]]
+    if not wait_for(futs[0].done, 60.0):
+        raise AssertionError("the first request never resolved")
+    ok = srv.swap_to(published)
+    futs += [srv.submit(d) for d in data[20:]]
+    outs = [f.result(timeout=300) for f in futs]
+    sides = []
+    for o, a, b in zip(outs, old_refs, new_refs):
+        near = [bool(np.allclose(o, r, rtol=BF16_RTOL, atol=BF16_ATOL))
+                for r in (a, b)]
+        if near == [False, False] or near == [True, True]:
+            raise AssertionError(f"a response matches old {near[0]} / new "
+                                 f"{near[1]} weights")
+        sides.append(0 if near[0] else 1)
+    stats = srv.stats()
+    if (not ok or stats["swaps"] != 1 or stats["errors"]
+            or 0 not in sides or not all(sides[20:]) or srv.executable_cache_size()
+            != n_prog):
+        raise AssertionError(f"swap: applied {ok}, swaps "
+                             f"{stats['swaps']}, errors {stats['errors']}, "
+                             f"sides {sides}")
+    say(f"swap from {os.path.basename(published)} (provenance src "
+        f"{os.path.basename(meta['src'])}): 40 requests, 0 dropped, "
+        f"{sides.count(0)} answered by the old weights, {sides.count(1)} "
+        f"by the new (all 20 submitted after the swap); bucket programs "
+        f"{n_prog} before and after")
+    return dict(old=sides.count(0), new=sides.count(1))
+
+
+def scaled_candidate(tr, d, name, factor):
+    """Save `tr`'s weights with fc8's scaled by `factor` (the argmax
+    unchanged, the probabilities sharpened) and publish them; returns
+    the published path."""
+    from cxxnet_tpu_torch.nnet import checkpoint
+    w, shape = tr.get_weight("fc8", "wmat")
+    keep = w.copy()
+    tr.set_weight(w * factor, "fc8", "wmat")
+    src = os.path.join(d, f"{name}.model")
+    with open(src, "wb") as fo:
+        tr.save_model(fo)
+    tr.set_weight(keep, "fc8", "wmat")
+    pub = os.path.join(d, f"{name}.published.model")
+    checkpoint.publish_model(src, pub)
+    return pub
+
+
+def drive_canary(srv, reqs, key: str, secs: float = 60.0):
+    """Submit phase 4's requests round robin until stats()[key] moves."""
+    futs = []
+    i = 0
+    deadline = time.monotonic() + secs
+    while not srv.stats()[key] and time.monotonic() < deadline:
+        futs.append(srv.submit(reqs[2 + i % 8]))
+        i += 1
+        if len(futs) > 8:
+            futs.pop(0).result(timeout=300)
+    for f in futs:
+        f.result(timeout=300)
+    return i
+
+
+def front_canary(torch, srv, tr_new, d, reqs):
+    """12e: a candidate (fc8 x 1.05) promoted after its window; one
+    (fc8 x 1.1) with canary_divergence injected rolled back, the
+    incumbent slot untouched bitwise."""
+    import numpy as np
+    from cxxnet_tpu_torch.utils import fault
+    say("== phase 12e: canary promote and rollback ==")
+    srv.canary_frac, srv.canary_window = 0.5, 2.0
+    probe = reqs[1]
+    before = srv.submit(probe).result(timeout=300)
+    good = scaled_candidate(tr_new, d, "cand_good", 1.05)
+    if srv.swap_to(good) is not True:
+        raise AssertionError("the canary did not start")
+    n = drive_canary(srv, reqs, "canary_promoted")
+    stats = srv.stats()
+    after = srv.submit(probe).result(timeout=300)
+    if (stats["canary_promoted"] != 1 or stats["canary_requests"] == 0
+            or stats["canary_rolled_back"] or np.array_equal(before, after)):
+        raise AssertionError(f"canary promote: {stats}")
+    say(f"candidate fc8 x 1.05 promoted after {n} requests "
+        f"({stats['canary_requests']} routed to it); the probe's top "
+        f"probability {before.max():.4f} -> {after.max():.4f}, top class "
+        f"{'kept' if before.argmax() == after.argmax() else 'changed'}")
+    inc = srv._slot
+    bits = {lk: {pn: t.clone() for pn, t in dd.items()}
+            for lk, dd in inc.cparams.items()}
+    bad = scaled_candidate(tr_new, d, "cand_bad", 1.1)
+    fault.clear()
+    for i in range(200):
+        fault.inject("canary_divergence", "corrupt", at=i + 1)
+    if srv.swap_to(bad) is not True:
+        raise AssertionError("the second canary did not start")
+    n = drive_canary(srv, reqs, "canary_rolled_back")
+    fault.clear()
+    stats = srv.stats()
+    again = srv.submit(probe).result(timeout=300)
+    same = srv._slot is inc and all(
+        torch.equal(t, bits[lk][pn]) for lk, dd in inc.cparams.items()
+        for pn, t in dd.items())
+    if (stats["canary_rolled_back"] != 1 or stats["swaps"] != 2 or not same
+            or not np.allclose(again, after, rtol=BF16_RTOL,
+                               atol=BF16_ATOL)):
+        raise AssertionError(f"canary rollback: {stats}, incumbent "
+                             f"untouched {same}")
+    say(f"candidate fc8 x 1.1 with canary_divergence rolled back after {n} "
+        f"requests; incumbent slot bitwise unchanged; the probe's rows "
+        f"after it {float(np.abs(again - after).max()):.3e} max abs from "
+        "before")
+    srv.canary_frac = 0.0
+    return dict(promoted=1, rolled_back=1)
+
+
+def front_int8(torch, card, reqs):
+    """12f: a second Server on the int8 graph (quantize_int8 calibrated
+    on phase 9's first batch) serves 4 /predict requests: K3 11 times
+    and K1-fwd twice a batch, rows at the bfloat16 bar."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.serve import Server
+    say("== phase 12f: the int8 graph behind /predict ==")
+    tr8 = alexnet_trainer([f"graph_passes={INT8_PASSES}"])
+    tr8.calibrate_graph_passes(DataBatch(
+        data=reqs[0], label=np.zeros((64, 1), np.float32)))
+    srv = Server(tr8, max_batch=64, replicas=2, http_port=0,
+                 metrics_host="127.0.0.1", max_body_bytes=FRONT_MAX_BODY)
+    srv.warmup()
+    data = [r[:n] for r, n in zip(reqs[2:6], (1, 3, 8, 5))]
+    bodies = [json.dumps({"data": x.reshape(x.shape[0], -1).tolist(),
+                          "raw": True}).encode() for x in data]
+    kernels.reset_launches()
+    srv.start()
+    try:
+        answers = [post_json(srv.metrics_server.port, b) for b in bodies]
+    finally:
+        stats = srv.stop()
+    counts = kernels.launches()
+    if any(c != 200 for c, _h, _b in answers):
+        raise AssertionError(f"int8 /predict answered "
+                             f"{[c for c, _h, _b in answers]}")
+    b = stats["batches"]
+    if (counts["int8_mm"] != K3_PER_ALEXNET_BATCH * b
+            or counts["lrn_fwd"] != 2 * b or b == 0):
+        raise AssertionError(f"int8 front launches {counts} over {b} "
+                             "batches")
+    outs = [np.asarray(bd["outputs"], np.float32) for _c, _h, bd in answers]
+    worst, *_ = check_bf16_rows(tr8, data, outs)
+    say(f"4 requests, {b} batches: int8_mm {counts['int8_mm']} = "
+        f"{K3_PER_ALEXNET_BATCH} x {b}, lrn_fwd {counts['lrn_fwd']}; rows vs "
+        f"predict_dist max abs {worst:.3e} on {card}")
+    return dict(int8_mm=counts["int8_mm"], lrn_fwd=counts["lrn_fwd"],
+                batches=b)
+
+
+def front_cli(torch):
+    """12g: task = serve through the CLI with serve_port, metrics_port and
+    serve_rows = 0 on phase 5's data (2,000 rows, each dispatch stalled
+    50 ms through CXXNET_FAULT so that the run stays live): /metrics
+    scraped while it serves, /predict answered, then SIGTERM - the run
+    drains and exits 0, and every row it admitted is in its output,
+    equal to task = pred's lines."""
+    import signal
+    import socket
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.telemetry.http import validate_exposition
+    say("== phase 12g: task = serve through the CLI, scraped, then "
+        "SIGTERM ==")
+    with tempfile.TemporaryDirectory() as d:
+        write_mnist(d, 2000, 4)
+        conf = os.path.join(d, "net.conf")
+        with open(conf, "w") as f:
+            f.write(CLI_CONF.format(out=os.path.join(d, "unused.txt"), d=d))
+        tr = NetTrainer(cfg=CLI_CONF.format(out="unused.txt", d=d))
+        tr.init_model()
+        model = os.path.join(d, "0001.model")
+        with open(model, "wb") as fo:
+            tr.save_model(fo)
+        want = os.path.join(d, "pred.txt")
+        LearnTask().run([conf, "task=pred", f"model_in={model}",
+                         f"pred={want}"])
+        with open(want) as f:
+            want_lines = f.read().splitlines()
+        ports = []
+        for _ in range(2):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+            s.close()
+        spec = ",".join(f"serve_dispatch_delay:delay=0.05@{i}"
+                        for i in range(1, 2001))
+        env = dict(os.environ, CXXNET_FAULT=spec,
+                   PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        out = os.path.join(d, "serve.txt")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cxxnet_tpu_torch.main", conf,
+             "task=serve", f"model_in={model}", f"pred={out}",
+             "serve_rows=0", f"serve_port={ports[0]}",
+             f"metrics_port={ports[1]}", "metrics_host=127.0.0.1"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            lines = []
+            for ln in proc.stdout:
+                lines.append(ln)
+                if "warmup done" in ln:
+                    break
+            base = f"http://127.0.0.1:{ports[1]}"
+            if not wait_for(lambda: "cxxnet_serve_requests_total" in
+                            urllib_get(base + "/metrics"), 60.0):
+                raise AssertionError("/metrics never showed serve.requests")
+            metrics = urllib_get(base + "/metrics")
+            problems = validate_exposition(metrics)
+            code, _h, body = post_json(ports[0], json.dumps(
+                {"data": [[0.5] * 784]}).encode())
+            proc.send_signal(signal.SIGTERM)
+            rest, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        stdout = "".join(lines) + rest
+        if proc.returncode != 0 or problems or code != 200:
+            raise AssertionError(f"task=serve exited {proc.returncode}, "
+                                 f"/metrics {problems[:2]}, /predict "
+                                 f"{code}:\n{stdout}{err[-2000:]}")
+        with open(out) as f:
+            got = f.read().splitlines()
+        m = re.search(r"serve: (\d+) requests \((\d+) rows\)", stdout)
+        if ("SIGTERM - draining" not in stdout or not m
+                or int(m.group(2)) != len(got) + 1
+                or not 0 < len(got) < 2000 or got != want_lines[:len(got)]):
+            raise AssertionError(f"drain: {len(got)} lines, summary "
+                                 f"{m and m.group(0)}:\n{stdout}")
+    say(f"scraped /metrics while serving ({len(metrics)} bytes, valid), "
+        f"/predict {code}; SIGTERM after warmup: exit 0, {len(got)} of "
+        f"2000 rows served, every one in the output and equal to task = "
+        f"pred's line ({m.group(0)}, the /predict row included)")
+    return dict(rows_before_sigterm=len(got))
+
+
+def phase_front(torch, card):
+    """Phase 12: the serving front on the card (see the module
+    docstring); returns its figures."""
+    import numpy as np
+    from cxxnet_tpu_torch.nnet import checkpoint
+    t12 = time.perf_counter()
+    reqs = phase4_requests(np)
+    tr = alexnet_trainer([])
+    tr_new = alexnet_trainer(["seed=8"])
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "0002.model")
+        with open(src, "wb") as fo:
+            tr_new.save_model(fo)
+        published = os.path.join(d, "serving.model")
+        checkpoint.publish_model(src, published)
+        out["in_process"] = front_in_process(torch, card, tr, reqs)
+        srv, out["http"] = front_http(torch, card, tr, reqs)
+        try:
+            out["shed"] = front_shed_deadline(srv, reqs)
+            out["swap"] = front_swap(srv, tr, tr_new, published, reqs)
+            out["canary"] = front_canary(torch, srv, tr_new, d, reqs)
+        finally:
+            stats = srv.drain()
+        if stats["errors"]:
+            raise AssertionError(f"the front's dispatches failed: {stats}")
+    out["int8"] = front_int8(torch, card, reqs)
+    out["cli"] = front_cli(torch)
+    say(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+    say("phase 12 summary " + json.dumps(out, default=float))
+    return out
+
+
 # phase 11's profiled legs, each run in a fresh python process: in a
 # long-lived process torch.profiler can lose the card's kernel events
 # (PERF.md §7), and these legs must report device times
-LEGS = {"11a": phase_googlenet_lrn, "11b": phase_googlenet_step,
-        "11d": phase_stack_moe}
+def leg_image_timing(torch, card, d, fmt):
+    """Phase 10g as a leg: the timing set under `d` (phase 10's temporary
+    directory, which outlives the leg's process), images in `fmt`."""
+    return phase_image_timing(torch, d, fmt, card)
+
+
+LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
+        "11b": phase_googlenet_step, "11d": phase_stack_moe,
+        "12": phase_front}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
-def run_leg(torch, name: str):
-    """Phase `name` in a fresh python process (this script with --leg),
-    its lines printed as they come; returns its result. A leg whose trace
-    lost the card's kernel events runs once more in another fresh
-    process; any other failure raises."""
+def run_leg(torch, name: str, *args: str):
+    """Phase `name` in a fresh python process (this script with --leg,
+    then `args`), its lines printed as they come; returns its result. A
+    leg whose trace lost the card's kernel events runs once more in
+    another fresh process; any other failure raises."""
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "result.json")
         for attempt in (1, 2):
             rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                 "--leg", name, out], timeout=900).returncode
+                                 "--leg", name, out, *args],
+                                timeout=900).returncode
             if rc == 0:
                 with open(out) as f:
                     return json.load(f)
@@ -3426,13 +4067,13 @@ def run_leg(torch, name: str):
                 "once more in a fresh process")
 
 
-def leg_main(name: str, out: str) -> int:
-    """The body of `chip_smoke.py --leg NAME OUT`: run one leg of LEGS,
-    write its result to OUT as JSON."""
+def leg_main(name: str, out: str, args) -> int:
+    """The body of `chip_smoke.py --leg NAME OUT [ARGS]`: run one leg of
+    LEGS, write its result to OUT as JSON."""
     import torch
     sys.path.insert(0, REPO)
     try:
-        result = LEGS[name](torch, card_line())
+        result = LEGS[name](torch, card_line(), *args)
     except ProfilerLost as e:
         sys.stderr.write(f"chip_smoke: phase {name}: {e}\n")
         return LEG_LOST
@@ -3513,6 +4154,11 @@ def main() -> int:
     moe["cli_counts"] = phase_stack_moe_cli()
     say(f"phase 11c-d through the CLI took {time.perf_counter() - t11:.1f}"
         " s")
+    front = run_leg(torch, "12")
+    front_launches = (front["in_process"]["lrn_fwd"]
+                      + front["http"]["lrn_fwd"])
+    front_batches = (front["in_process"]["batches"]
+                     + front["http"]["batches"])
 
     # the kernels line: the LRN's two launches of one served AlexNet
     # batch (b64, bfloat16), warm L2, summed - the main path's unit
@@ -3594,6 +4240,11 @@ def main() -> int:
         "imgbin_cli_launches": cli_counts["lrn_fwd"],
         "imgbin_cli_unit": "AlexNet.conf task = train through the CLI on "
                            "imgbin data, 2 rounds (phase 10c)",
+        "front_launches": front_launches,
+        "front_batches": front_batches,
+        "front_unit": "AlexNet.conf through the serving front (phase 12): "
+                      "two in-process bursts of phase 4's requests and 24 "
+                      "/predict requests, 2 a batch",
         **googlenet("lrn_fwd"),
     }, {
         "name": "lrn_bwd",
@@ -3618,7 +4269,11 @@ def main() -> int:
         **googlenet("lrn_bwd"),
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
                **stack_moe(n))
-          for n in K2] + [int8_entry(k3_rows, int8_served, 0)]}))
+          for n in K2] + [dict(int8_entry(k3_rows, int8_served, 0),
+                               front_launches=front["int8"]["int8_mm"],
+                               front_batches=front["int8"]["batches"],
+                               front_unit="4 /predict requests to the int8 "
+                                          "graph (phase 12f), 11 a batch")]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({
@@ -3638,6 +4293,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--leg":
-        sys.exit(leg_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) >= 4 and sys.argv[1] == "--leg":
+        sys.exit(leg_main(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

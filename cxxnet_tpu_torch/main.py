@@ -37,8 +37,18 @@ batch, before the Server is built), or explicitly on
 pred / pred_raw / serve need `model_in = <checkpoint>` (the JAX
 package's native format) and a `pred = <file>` iterator block. `dev`
 picks the device: `cpu` is the CPU; `gpu`, `gpu:0`, `cuda` and `tpu`
-(the shipped confs' spelling) mean `cuda:0`, the default. extract and
-the telemetry/serving-front keys are later slices and raise.
+(the shipped confs' spelling) mean `cuda:0`, the default. extract is
+a later slice and raises.
+
+The telemetry plane (telemetry/, docs/OBSERVABILITY.md) arms before
+init(): `log_file` / `metrics_file` (JSONL sinks, `log_format`,
+`heartbeat_secs`), `metrics_port` / `metrics_host` (the /metrics,
+/healthz, /varz, /executables listener), `alert_rules` / `alert_cmd`,
+`watchdog_secs` and `flight_recorder`; with none of them set nothing is
+armed and the output is unchanged. `publish_model = <path>` copies each
+saved checkpoint atomically to a path a serving `swap_watch` polls.
+`task = serve` drains on SIGTERM: it stops submitting, resolves every
+admitted request into the output file, and exits 0.
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from cxxnet_tpu_torch import kernels
+from cxxnet_tpu_torch import kernels, telemetry
 from cxxnet_tpu_torch.io import DataBatch, create_iterator
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.utils.config import (check_ported, parse_config_file,
@@ -68,13 +78,9 @@ _PRED_TASKS = ("pred", "pred_raw", "serve")
 _NOT_PORTED = {
     "test_io": ("0",), "elastic": ("0",), "keep_latest": ("0",),
     "test_on_server": ("0",),
-    "log_file": ("",), "metrics_file": ("",), "heartbeat_secs": ("0",),
-    "metrics_port": ("0",), "alert_rules": ("",), "alert_cmd": ("",),
-    "watchdog_secs": ("0",), "flight_recorder": ("0",),
-    "tuning_cache": ("",), "publish_model": ("",),
+    "tuning_cache": ("",),
     "net_type": ("0",),
     "extract_node_name": ("",), "output_format": ("txt",),
-    "log_format": ("json",), "metrics_host": ("",),
     "barrier_secs": ("30",), "leader_lease_secs": ("10",),
     "coord_dir": ("",),
     "elastic_nproc": ("2",), "elastic_respawn": ("1",),
@@ -113,6 +119,21 @@ class LearnTask:
         # raises ConfigError with a did-you-mean; schema_check = 0
         # bypasses it
         self.schema_check = 1
+        # the telemetry plane (telemetry/): JSONL sinks, the live
+        # listener, alert rules, the hang watchdog, the flight recorder
+        self.log_file = ""
+        self.metrics_file = ""
+        self.log_format = "json"
+        self.heartbeat_secs = 0.0
+        self.metrics_port = 0
+        self.metrics_host = ""
+        self.alert_rules = ""
+        self.alert_cmd = ""
+        self.watchdog_secs = 0.0
+        self.flight_recorder = 0
+        # serving publish hook: each saved checkpoint is copied
+        # atomically here ("" = off)
+        self.name_publish = ""
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
         self.itr_evals = []
@@ -150,18 +171,47 @@ class LearnTask:
             raise NotImplementedError(
                 f"task = {self.task} is not ported to cxxnet_tpu_torch yet "
                 f"(ported: {', '.join(TASKS)})")
-        self.init()
-        if not self.silent:
-            sys.stdout.write("initializing end, start working\n")
-        if self.task in ("train", "finetune"):
-            self.task_train()
-        elif self.task == "pred":
-            self.task_predict()
-        elif self.task == "pred_raw":
-            self.task_predict_raw()
-        else:
-            self.task_serve()
-        return 0
+        # arm telemetry before init() so model loads are on the record;
+        # with no sink key set this returns the process to the disabled
+        # (byte-parity) state
+        telemetry.configure(
+            log_file=self.log_file, metrics_file=self.metrics_file,
+            log_format=self.log_format,
+            heartbeat_secs=self.heartbeat_secs,
+            tags={"device": self.device})
+        # the live plane: metrics_port = 0 means OFF on the CLI (an
+        # ephemeral bind is programmatic only); with every key unset
+        # this imports nothing and starts no thread
+        telemetry.arm_observability(
+            metrics_port=(self.metrics_port if self.metrics_port > 0
+                          else None),
+            metrics_host=self.metrics_host,
+            alert_rules=self.alert_rules, alert_cmd=self.alert_cmd,
+            watchdog_secs=self.watchdog_secs)
+        if self.flight_recorder:
+            telemetry.get().flight.arm()
+        telemetry.event("run_start", task=self.task, conf=argv[0],
+                        num_round=self.num_round)
+        t_run = time.monotonic()
+        try:
+            self.init()
+            if not self.silent:
+                sys.stdout.write("initializing end, start working\n")
+            if self.task in ("train", "finetune"):
+                self.task_train()
+            elif self.task == "pred":
+                self.task_predict()
+            elif self.task == "pred_raw":
+                self.task_predict_raw()
+            else:
+                self.task_serve()
+            return 0
+        finally:
+            # final snapshot + clean close even on an aborting task
+            telemetry.event("run_end", task=self.task,
+                            secs=time.monotonic() - t_run)
+            telemetry.emit_metrics(kind="final", task=self.task)
+            telemetry.close()
 
     def set_param(self, name: str, val: str) -> None:
         if val == "default":
@@ -200,6 +250,28 @@ class LearnTask:
             self.schema_check = int(val)
         if name == "pass_calibration_iter":
             self.pass_calibration_iter = val
+        if name == "log_file":
+            self.log_file = val
+        if name == "metrics_file":
+            self.metrics_file = val
+        if name == "log_format":
+            self.log_format = val
+        if name == "heartbeat_secs":
+            self.heartbeat_secs = float(val)
+        if name == "metrics_port":
+            self.metrics_port = int(val)
+        if name == "metrics_host":
+            self.metrics_host = val
+        if name == "alert_rules":
+            self.alert_rules = val
+        if name == "alert_cmd":
+            self.alert_cmd = val
+        if name == "watchdog_secs":
+            self.watchdog_secs = float(val)
+        if name == "flight_recorder":
+            self.flight_recorder = int(val)
+        if name == "publish_model":
+            self.name_publish = val
         if name == "pass_calibration_batches":
             if int(val) < 1:
                 raise ValueError("pass_calibration_batches must be >= 1")
@@ -341,9 +413,7 @@ class LearnTask:
         if self.name_model_in == "NULL":
             raise ValueError(f"task = {self.task} needs model_in = "
                              "<checkpoint>")
-        self.net_trainer = self.create_net()
-        with open(self.name_model_in, "rb") as fi:
-            self.net_trainer.load_model(fi)
+        self._timed_load(self.name_model_in)
         defcfg, _train, _evals, pred = self._split_blocks()
         if pred is None:
             raise ValueError("must specify a predict iterator (pred = "
@@ -411,18 +481,37 @@ class LearnTask:
         while counters:
             c = counters.pop()
             path = self._model_name(c)
+            t0 = time.perf_counter()
             try:
                 tr = self.create_net()
                 with open(path, "rb") as fi:
                     tr.load_model(fi)
             except (OSError, ValueError, KeyError) as e:
-                sys.stderr.write(f"Init: skipping invalid checkpoint "
-                                 f"{path}: {e}\n")
+                telemetry.inc("checkpoint.walkback")
+                telemetry.stderr(
+                    f"Init: skipping invalid checkpoint {path}: {e}\n",
+                    event_kind="checkpoint", op="skip_invalid",
+                    path=path, error=str(e))
                 continue
+            secs = time.perf_counter() - t0
+            telemetry.observe("checkpoint.load_s", secs)
+            telemetry.event("checkpoint", op="load", path=path, round=c,
+                            secs=secs)
             self.net_trainer = tr
             self.start_counter = c + 1
             return True
         return False
+
+    def _timed_load(self, path: str) -> None:
+        """The trainer from the conf with `path` loaded into it, its
+        load time on the record (`checkpoint.load_s`)."""
+        self.net_trainer = self.create_net()
+        t0 = time.perf_counter()
+        with open(path, "rb") as fi:
+            self.net_trainer.load_model(fi)
+        secs = time.perf_counter() - t0
+        telemetry.observe("checkpoint.load_s", secs)
+        telemetry.event("checkpoint", op="load", path=path, secs=secs)
 
     def _load_model(self) -> None:
         base = os.path.basename(self.name_model_in)
@@ -438,9 +527,7 @@ class LearnTask:
                 f"WARNING: cannot infer start_counter from model name; "
                 f"using {self.start_counter} (one past the newest "
                 f"checkpoint in {self.name_model_dir})\n")
-        self.net_trainer = self.create_net()
-        with open(self.name_model_in, "rb") as fi:
-            self.net_trainer.load_model(fi)
+        self._timed_load(self.name_model_in)
 
     def _save_model(self) -> None:
         # quirk parity: the modulo check uses the POST-incremented
@@ -450,8 +537,24 @@ class LearnTask:
         if self.save_period == 0 or self.start_counter % self.save_period:
             return
         os.makedirs(self.name_model_dir, exist_ok=True)
-        with atomic_writer(self._model_name(counter)) as fo:
+        path = self._model_name(counter)
+        t0 = time.perf_counter()
+        with atomic_writer(path) as fo:
             self.net_trainer.save_model(fo)
+        # end-to-end save cost incl. fsync + rename
+        secs = time.perf_counter() - t0
+        telemetry.inc("checkpoint.saves")
+        telemetry.observe("checkpoint.save_s", secs)
+        # a round spent fsyncing a large checkpoint is slow, not hung
+        telemetry.beacon("checkpoint.save")
+        telemetry.event("checkpoint", op="save", round=counter,
+                        path=path, secs=secs,
+                        bytes=os.path.getsize(path))
+        if self.name_publish:
+            # atomic copy to the swap_watch'd path AFTER the round file
+            # is durable
+            from cxxnet_tpu_torch.nnet import checkpoint
+            checkpoint.publish_model(path, self.name_publish)
 
     def _save_rescue(self) -> str:
         """Rescue checkpoint on a divergence abort: the last good
@@ -635,7 +738,10 @@ class LearnTask:
         the pred iterator replayed as a request stream, with a bounded
         in-flight window so results stream to the file in submission
         order."""
-        from cxxnet_tpu_torch.serve import Server, predictions_from_rows
+        import signal
+        import threading
+        from cxxnet_tpu_torch.serve import (QueueFullError, Server,
+                                            predictions_from_rows)
         tr = self.net_trainer
         if not self._calibrate_passes() and tr.passes_need_calibration():
             # the Server serves the graph of the calibration epoch it is
@@ -651,6 +757,16 @@ class LearnTask:
         srv.warmup()
         sys.stdout.write("serve: warmup done, start serving\n")
         kernels.reset_launches()
+        # graceful drain on SIGTERM: the handler only sets an Event -
+        # the loop stops submitting, every admitted request resolves
+        # into the output file, and the task exits 0
+        term = threading.Event()
+        old_term = None
+        try:
+            old_term = signal.signal(signal.SIGTERM,
+                                     lambda signum, frame: term.set())
+        except ValueError:
+            pass  # not the main thread (embedded run): no handler
         sizes = self._serve_request_sizes()
         futures: collections.deque = collections.deque()
         max_inflight = 4 * srv.max_batch
@@ -663,23 +779,40 @@ class LearnTask:
                             futures.popleft().result()):
                         yield f"{v:g}\n"
             self.itr_pred.before_first()
-            while self.itr_pred.next():
+            while not term.is_set() and self.itr_pred.next():
                 batch = self.itr_pred.value()
                 valid = batch.batch_size - batch.num_batch_padd
                 data = batch.data[:valid]
                 lo = 0
-                while lo < valid:
+                while lo < valid and not term.is_set():
                     n = min(next(sizes), valid - lo)
-                    futures.append(srv.submit(data[lo:lo + n]))
+                    try:
+                        futures.append(srv.submit(data[lo:lo + n]))
+                    except QueueFullError as e:
+                        # serve_queue_limit below the in-flight window:
+                        # honor the advice, drain, resubmit - no row
+                        # may drop
+                        yield from drain(max_inflight // 2)
+                        time.sleep(min(e.retry_after_s, 0.5))
+                        continue
                     lo += n
                     yield from drain(max_inflight)
+            # on completion AND on SIGTERM: every admitted future
+            # resolves into the output file
             yield from drain(0)
 
         srv.start()
         try:
             self._write_atomic(lines())
         finally:
-            stats = srv.stop()
+            if old_term is not None:
+                signal.signal(signal.SIGTERM, old_term)
+            if term.is_set():
+                sys.stdout.write("serve: SIGTERM - draining queued "
+                                 "requests\n")
+                stats = srv.drain()
+            else:
+                stats = srv.stop()
         dt = time.monotonic() - t0
         qps = stats["requests"] / dt if dt > 0 else 0.0
         sys.stdout.write(

@@ -72,16 +72,18 @@ trainer - the CLI maps `dev` to the constructor's device.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import sys
 import threading
+import time
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from cxxnet_tpu_torch import convert
+from cxxnet_tpu_torch import convert, telemetry
 from cxxnet_tpu_torch.io.data import DataBatch
 from cxxnet_tpu_torch.layers.base import active_step
 from cxxnet_tpu_torch.nnet import checkpoint
@@ -92,6 +94,7 @@ from cxxnet_tpu_torch.nnet.passes import (
     find_quant_sites, make_param_fn)
 from cxxnet_tpu_torch.ops.augment import AUGMENT_STREAM, make_device_augment
 from cxxnet_tpu_torch.ops.int8 import per_channel_scale
+from cxxnet_tpu_torch.telemetry.flight import fingerprint
 from cxxnet_tpu_torch.updater import UpdaterParam, create_updater
 from cxxnet_tpu_torch.utils.config import check_ported, parse_config_string
 from cxxnet_tpu_torch.utils.device import (
@@ -119,19 +122,6 @@ _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "remat": ("0",),
     "profile": ("0",),
     "profile_dir": ("",),
-    "telemetry_steps": ("0",),
-    "serve_bucket_ladder": (),
-    "serve_port": ("0",),
-    "serve_queue_limit": ("0",),
-    "serve_deadline_ms": ("0",),
-    "swap_watch": ("",),
-    "swap_canary_frac": ("0",),
-    "serve_conn_timeout_ms": ("0",),
-    "serve_max_conns": ("0",),
-    "serve_max_body_bytes": ("0",),
-    "serve_shed_clear_ms": ("1000",),
-    "swap_poll_ms": ("200",),
-    "swap_canary_window": ("10",),
     "compile_cache": ("",),
     "trace_round": ("1",),
 }
@@ -213,9 +203,23 @@ class InferGraph:
                 self._version = tr._wversion
             return self._params
 
-    def __call__(self, data: torch.Tensor) -> torch.Tensor:
-        return self.net(self.params(), self.trainer._model_input(data))[0][
+    def bind(self, master: Params) -> Params:
+        """Compute params of this graph made from an explicit float32
+        master dict (the Server's weight slots: a swapped-in checkpoint
+        gets its own copy, never the trainer's cache)."""
+        tr = self.trainer
+        with torch.no_grad():
+            if self.param_fn is None:
+                return tr._cast(master)
+            return tr._cast(self.param_fn(master))
+
+    def run(self, cparams: Params, data: torch.Tensor) -> torch.Tensor:
+        """The forward on staged rows with explicit compute params."""
+        return self.net(cparams, self.trainer._model_input(data))[0][
             self.node].float()
+
+    def __call__(self, data: torch.Tensor) -> torch.Tensor:
+        return self.run(self.params(), data)
 
 
 class NetTrainer:
@@ -291,6 +295,37 @@ class NetTrainer:
         self.serve_max_batch = 0
         self.serve_max_wait_ms = 2.0
         self.serve_replicas = 1
+        # the serving front (docs/SERVING.md): serve_port arms /predict
+        # on the attached listener (0 = off); serve_queue_limit is the
+        # admission bound in rows (0 = unlimited); serve_deadline_ms the
+        # default request deadline (0 = none); serve_shed_clear_ms the
+        # shed->healthy /healthz hysteresis
+        self.serve_port = 0
+        self.serve_queue_limit = 0
+        self.serve_deadline_ms = 0.0
+        self.serve_shed_clear_ms = 1000.0
+        # hot-swap: a live Server polls swap_watch every swap_poll_ms
+        # ("" = off); with swap_canary_frac in (0, 1] a new checkpoint
+        # is judged as a canary for swap_canary_window seconds
+        self.swap_watch = ""
+        self.swap_poll_ms = 200.0
+        self.swap_canary_frac = 0.0
+        self.swap_canary_window = 10.0
+        # the listener's ingress limits (all 0 = off)
+        self.serve_conn_timeout_ms = 0.0
+        self.serve_max_conns = 0
+        self.serve_max_body_bytes = 0
+        # explicit serving bucket ladder (None = power-of-two default)
+        self.serve_ladder: Optional[List[int]] = None
+        # telemetry_steps = 0 opts out of the per-step instruments (a
+        # loss readback per step) while keeping event logging; the
+        # instruments run only while a telemetry consumer is armed,
+        # decided at _build_net
+        self.telemetry_steps = 1
+        self._tel_steps = False
+        # dispatch-site fingerprints (telemetry/flight.py), one per
+        # program shape
+        self._flight_fps: Dict[Any, str] = {}
         if dev:
             self.set_param("dev", dev)
         for k, v in pairs:
@@ -300,14 +335,6 @@ class NetTrainer:
     # configuration
     # ------------------------------------------------------------------
     def set_param(self, name: str, val: str) -> None:
-        # the JAX trainer's range checks come first, also for keys the
-        # port then refuses, so that a bad value fails the same way
-        if name == "serve_shed_clear_ms" and float(val) < 0:
-            raise ValueError("serve_shed_clear_ms must be >= 0")
-        if name == "swap_poll_ms" and float(val) <= 0:
-            raise ValueError("swap_poll_ms must be > 0")
-        if name == "swap_canary_window" and float(val) <= 0:
-            raise ValueError("swap_canary_window must be > 0")
         check_ported(_NOT_PORTED, name, val)
         if name == "dev":
             device_from_spec(val)  # validates; multi-device raises
@@ -368,6 +395,59 @@ class NetTrainer:
             if int(val) < 1:
                 raise ValueError("serve_replicas must be >= 1")
             self.serve_replicas = int(val)
+        if name == "serve_port":
+            if int(val) < 0 or int(val) > 65535:
+                raise ValueError("serve_port must be in [0, 65535]")
+            self.serve_port = int(val)
+        if name == "serve_queue_limit":
+            if int(val) < 0:
+                raise ValueError("serve_queue_limit must be >= 0")
+            self.serve_queue_limit = int(val)
+        if name == "serve_deadline_ms":
+            if float(val) < 0:
+                raise ValueError("serve_deadline_ms must be >= 0")
+            self.serve_deadline_ms = float(val)
+        if name == "serve_shed_clear_ms":
+            if float(val) < 0:
+                raise ValueError("serve_shed_clear_ms must be >= 0")
+            self.serve_shed_clear_ms = float(val)
+        if name == "swap_watch":
+            self.swap_watch = val
+        if name == "swap_poll_ms":
+            if float(val) <= 0:
+                raise ValueError("swap_poll_ms must be > 0")
+            self.swap_poll_ms = float(val)
+        if name == "swap_canary_frac":
+            if not 0.0 <= float(val) <= 1.0:
+                raise ValueError("swap_canary_frac must be in [0, 1]")
+            self.swap_canary_frac = float(val)
+        if name == "swap_canary_window":
+            if float(val) <= 0:
+                raise ValueError("swap_canary_window must be > 0")
+            self.swap_canary_window = float(val)
+        if name == "serve_conn_timeout_ms":
+            if float(val) < 0:
+                raise ValueError("serve_conn_timeout_ms must be >= 0")
+            self.serve_conn_timeout_ms = float(val)
+        if name == "serve_max_conns":
+            if int(val) < 0:
+                raise ValueError("serve_max_conns must be >= 0")
+            self.serve_max_conns = int(val)
+        if name == "serve_max_body_bytes":
+            if int(val) < 0:
+                raise ValueError("serve_max_body_bytes must be >= 0")
+            self.serve_max_body_bytes = int(val)
+        if name == "serve_bucket_ladder":
+            rungs = [int(t) for t in val.split(",") if t.strip()]
+            if (not rungs or any(r < 1 for r in rungs)
+                    or sorted(set(rungs)) != rungs):
+                raise ValueError(
+                    "serve_bucket_ladder must be a strictly "
+                    f"increasing comma list of positive ints, got "
+                    f"{val!r}")
+            self.serve_ladder = rungs
+        if name == "telemetry_steps":
+            self.telemetry_steps = int(val)
         if name == "graph_passes":
             self.graph_passes = val
         if name == "pass_calibration_batches":
@@ -452,6 +532,9 @@ class NetTrainer:
         self._augment_fn = (self._make_augment() if self.device_augment
                             else None)
         self._build_updaters()
+        self._flight_fps = {}
+        self._tel_steps = (bool(self.telemetry_steps)
+                           and telemetry.get().enabled)
 
     def _make_augment(self):
         """The device augment of the conf's spec (the JAX trainer's
@@ -727,6 +810,36 @@ class NetTrainer:
         return torch.stack(rows)
 
     # ------------------------------------------------------------------
+    # dispatch introspection (telemetry/flight.py)
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _flight_record(self, key, kind: str, name: str, shape,
+                       nbytes: int, donated: int = 0):
+        """One dispatch under flight-recorder + executable-registry
+        accounting: register the program shape on first sight, open a
+        ring entry when armed, close it with the error if the block
+        raises, and count the dispatch on success."""
+        tel = telemetry.get()
+        fp = self._flight_fps.get(key)
+        if fp is None:
+            fp = fingerprint(*key)
+            tel.executables.register(
+                fp, name=name, kind=kind, shape=str(tuple(shape)),
+                arg_bytes=int(nbytes), device=str(self.device),
+                donated=donated)
+            self._flight_fps[key] = fp
+        fl = (tel.flight.start(kind, fp=fp, bucket=shape[0],
+                               nbytes=int(nbytes))
+              if tel.flight.enabled else None)
+        try:
+            yield
+        except BaseException as e:
+            tel.flight.fail(fl, f"{type(e).__name__}: {e}")
+            raise
+        tel.flight.finish(fl)
+        tel.executables.count_dispatch(fp)
+
+    # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
     def update(self, batch,
@@ -750,10 +863,31 @@ class NetTrainer:
                     for i, k in keep.items()}
         step = self._step_counter
         self._step_counter += 1
+        t0 = time.perf_counter()
         snap = self._snapshot() if self.check_nan else None
-        loss = self._train_step(data, labels, mask, step, keep)
-        if snap is not None:
-            self._guard_step(self._finite(loss), snap, step)
+        # the master params are updated in place: the port's form of
+        # the JAX step's donated state
+        with self._flight_record(
+                ("train_step", tuple(data.shape)), kind="train",
+                name=f"train_step@b{data.shape[0]}", shape=data.shape,
+                nbytes=data.numel() * data.element_size(), donated=1):
+            loss = self._train_step(data, labels, mask, step, keep)
+            if snap is not None:
+                self._guard_step(self._finite(loss), snap, step)
+        # progress beacon for the hang watchdog / absence alert rules
+        telemetry.beacon("train.step")
+        if self._tel_steps:
+            # the loss readback is the step's sync: honest step times,
+            # paid only with a telemetry consumer armed
+            loss_val = float(loss)
+            step_s = time.perf_counter() - t0
+            n = int(data.shape[0])
+            tel = telemetry.get()
+            tel.observe("train.step_s", step_s)
+            tel.inc("train.images", n)
+            tel.set_gauge("train.loss", loss_val)
+            tel.event("span", name="train.step", secs=step_s, step=step,
+                      loss=loss_val, examples=n)
         return loss
 
     def _train_step(self, data, labels, mask, step, keep) -> torch.Tensor:
@@ -895,11 +1029,18 @@ class NetTrainer:
         while data_iter.next():
             staged = self._stage(data_iter.value(), train=False)
             labels, mask = staged.labels, staged.mask
-            with torch.inference_mode():
-                values = self.net(params, self._model_input(staged.data))[0]
+            gdata = staged.data
+            with self._flight_record(
+                    ("eval_step", tuple(gdata.shape)), kind="eval",
+                    name=f"eval_step@b{gdata.shape[0]}",
+                    shape=gdata.shape,
+                    nbytes=gdata.numel() * gdata.element_size()), \
+                    torch.inference_mode():
+                values = self.net(params, self._model_input(gdata))[0]
                 rows.append(self._metric_rows(self.metric, values, labels,
                                               mask, self.seed + 200, step,
                                               2000))
+            telemetry.beacon("eval.step")
             step += 1
         if not rows:
             vals = np.zeros((len(specs), 2))
@@ -1006,8 +1147,13 @@ class NetTrainer:
         if self.passes_need_calibration():
             self._calibrate_staged(gdata, gmask)
         valid = batch.batch_size - batch.num_batch_padd
-        out = self.infer_rows(gdata, node)
-        return out[:valid].cpu().numpy()
+        with self._flight_record(
+                ("infer", node, self._fold_epoch, tuple(gdata.shape)),
+                kind="infer", name=f"infer:n{node}@b{gdata.shape[0]}",
+                shape=gdata.shape,
+                nbytes=gdata.numel() * gdata.element_size()):
+            out = self.infer_rows(gdata, node)[:valid].cpu().numpy()
+        return out
 
     # ------------------------------------------------------------------
     # graph passes: calibration

@@ -1,4 +1,7 @@
-"""Continuous-batching inference serving (serve/server.py)."""
+"""Continuous-batching inference serving and its production front
+(serve/server.py)."""
 
 from cxxnet_tpu_torch.serve.server import (  # noqa: F401
-    Server, bucket_sizes, predictions_from_rows)
+    RETRY_AFTER_COLD_S, DeadlineExpiredError, QueueFullError, Server,
+    bucket_sizes, ladder_buckets, ladder_from_histogram,
+    predictions_from_rows)

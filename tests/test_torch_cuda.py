@@ -1034,3 +1034,110 @@ def test_device_augment_on_the_card_equals_cpu(cuda_device):
         gpu = fn(raw.to(cuda_device), train,
                  draws={k: v.to(cuda_device) for k, v in draws.items()})
         assert torch.equal(gpu.cpu(), cpu), train
+
+
+def _card_trainer(seed):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = NetTrainer(cfg=NARROW_ALEXNET.replace("seed = 3", f"seed = {seed}"),
+                    device="cuda:0")
+    tr.init_model()
+    return tr
+
+
+def test_serving_front_on_the_card(cuda_device, tmp_path):
+    """The front on cuda:0 with 2 replicas: a ragged stream's rows equal
+    predict_dist's (rtol 1e-4 / atol 1e-6: another bucket, another
+    summation order), K1-fwd launches twice a dispatched batch, /predict
+    answers, and a swap under load drops nothing and leaves the old
+    slot's tensors bitwise unchanged."""
+    import json
+    import urllib.request
+    gpu = _card_trainer(3)
+    new = _card_trainer(11)
+    ck = str(tmp_path / "new.model")
+    with open(ck, "wb") as fo:
+        new.save_model(fo)
+    rng = np.random.RandomState(1)
+    sizes = [1, 3, 8, 2, 5, 7, 4, 6] * 3
+    reqs = [(rng.randn(n, 3, 35, 35) * 3).astype(np.float32) for n in sizes]
+    srv = Server(gpu, max_batch=8, max_wait_ms=1.0, replicas=2,
+                 http_port=0, metrics_host="127.0.0.1")
+    srv.warmup()
+    old_slot = srv._slot
+    old_bits = {lk: {pn: t.clone() for pn, t in d.items()}
+                for lk, d in old_slot.cparams.items()}
+    with srv:
+        kernels.reset_launches()
+        futs = [srv.submit(r) for r in reqs]
+        outs = [f.result(timeout=120) for f in futs]
+        batches = srv.stats()["batches"]
+        assert kernels.launches()["lrn_fwd"] == 2 * batches
+        for r, o in zip(reqs, outs):
+            want = gpu.predict_dist(DataBatch(
+                data=r, label=np.zeros((r.shape[0], 1), np.float32)))
+            np.testing.assert_allclose(o, want, rtol=1e-4, atol=1e-6)
+        body = json.dumps({"data": reqs[1].reshape(3, -1).tolist(),
+                           "raw": True}).encode()
+        resp = urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{srv.metrics_server.port}/predict",
+            data=body), timeout=60)
+        got = json.loads(resp.read())
+        np.testing.assert_allclose(np.asarray(got["outputs"]), outs[1],
+                                   rtol=1e-5, atol=1e-6)
+        futs = [srv.submit(r) for r in reqs]
+        assert srv.swap_to(ck) is True
+        for f in futs:
+            f.result(timeout=120)
+        after = srv.submit(reqs[0]).result(timeout=60)
+        stats = srv.stats()
+    assert stats["errors"] == 0 and stats["swaps"] == 1
+    np.testing.assert_allclose(after, new.predict_dist(DataBatch(
+        data=reqs[0], label=np.zeros((1, 1), np.float32))),
+        rtol=1e-4, atol=1e-6)
+    for lk, d in old_slot.cparams.items():
+        for pn, t in d.items():
+            assert torch.equal(t, old_bits[lk][pn]), (lk, pn)
+
+
+def test_replica_lanes_streams_and_readback_events(cuda_device):
+    """Each replica works on its own stream (never the default one) and
+    stages from one pinned buffer of its own, reused batch after batch;
+    its readback event is waited on before rows are handed on: a batch
+    read right after a different one through the same pinned output
+    buffer gives its own rows (rtol 1e-4 / atol 1e-6 against
+    predict_dist), and the rows handed out before are left as they
+    were."""
+    gpu = _card_trainer(3)
+    srv = Server(gpu, max_batch=8, max_wait_ms=1.0, replicas=2)
+    lanes = srv._lanes
+    default = torch.cuda.default_stream(cuda_device).cuda_stream
+    handles = {lane.stream.cuda_stream for lane in lanes}
+    assert len(handles) == 2 and default not in handles
+    srv.warmup()
+
+    def buffers():
+        return [(ln._out.data_ptr(), [t.data_ptr() for t in ln._in.values()])
+                for ln in lanes]
+    for lane in lanes:
+        assert lane._in and all(t.is_pinned() for t in lane._in.values())
+        assert lane._out is not None and lane._out.is_pinned()
+    ptrs = buffers()
+    rng = np.random.RandomState(2)
+    xs = [(rng.randn(8, 3, 35, 35) * 3).astype(np.float32)
+          for _ in range(2)]
+    wants = [gpu.predict_dist(DataBatch(
+        data=x, label=np.zeros((8, 1), np.float32))) for x in xs]
+    with torch.inference_mode():
+        first = lanes[0].run(srv._graph, srv._slot.cparams, xs[0])
+        kept = first.copy()
+        second = lanes[0].run(srv._graph, srv._slot.cparams, xs[1])
+    np.testing.assert_allclose(first, wants[0], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(second, wants[1], rtol=1e-4, atol=1e-6)
+    assert np.array_equal(first, kept)
+    with srv:
+        for i in range(6):
+            got = srv.submit(xs[i % 2]).result(timeout=60)
+            np.testing.assert_allclose(got, wants[i % 2], rtol=1e-4,
+                                       atol=1e-6)
+    assert buffers() == ptrs

@@ -105,9 +105,9 @@ def test_multi_device_specs_raise(spec):
 @pytest.mark.parametrize("key,val", [
     ("tuning_cache", "tc.json"), ("remat", "1"),
     ("profile", "1"), ("zero_stage", "2"), ("mesh", "data:2"),
-    ("steps_per_dispatch", "4"), ("telemetry_steps", "10"),
+    ("steps_per_dispatch", "4"), ("trace_round", "2"),
     ("model_format", "cxxnet"), ("extra_data_num", "1"),
-    ("serve_port", "8080"), ("swap_watch", "m.model"),
+    ("param_server", "dist"), ("shard_optimizer", "1"),
 ])
 def test_result_changing_keys_raise(key, val):
     tr = NetTrainer(device="cpu")

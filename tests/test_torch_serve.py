@@ -372,7 +372,7 @@ def test_cli_serve_equals_pred_equals_jax(tmp_path):
 @pytest.mark.parametrize("overrides,match", [
     (["task=train", "remat=1"], "remat"),
     (["task=extract"], "task = extract"),
-    (["task=serve", "metrics_port=9100"], "metrics_port"),
+    (["task=serve", "elastic=1"], "elastic"),
     (["task=pred", "tuning_cache=tc.json"], "tuning_cache"),
     (["task=pred", "zero_stage=3"], "zero_stage"),
     (["task=serve", "dev=tpu:0-63"], "multi-device"),
