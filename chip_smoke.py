@@ -144,7 +144,30 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    slot bitwise unchanged; (f) a second Server on the int8 graph behind
    /predict, K3 11 times a batch; (g) task = serve through the CLI with
    serve_port and metrics_port, /metrics scraped while it serves, then
-   SIGTERM: exit 0 and every admitted row in the output.
+   SIGTERM: exit 0 and every admitted row in the output;
+13. the reference's own surface, in a fresh process (`chip_smoke.py
+   --leg 13 OUT [DIR]`, run inside phase 10's directory after 11c;
+   alone it makes its own imgbin set), AlexNet.conf b256 bfloat16
+   unless said: (c) wrapper.train on numpy arrays, 256 images (staged
+   once) and 1,024 (prefetched), 2 rounds each, the first step equal in
+   both, images/s of round 2 and the idle share of one profiled round;
+   (b) one round through the CLI with model_format = cxxnet: the file's
+   size against the byte count worked out from the conf, the reloaded
+   net's predict_dist rows bitwise, task = finetune from it; (a) task =
+   extract through the CLI of node 20 (fc7 after relu and dropout) by
+   name and as top[-2], text and raw, and top[-1]: the same bytes, the
+   .meta lines, the rows against NetTrainer.extract_feature bitwise and
+   top[-1] against predict_dist at phase 4's bar, K1-fwd twice a batch,
+   rows/s; then Net.extract against those rows and fc8's get / set
+   weight, bitwise; (d) the C ABI library and capi_driver.c built with
+   g++, the driver run with device gpu (4 CXNNetUpdateBatch steps of 256
+   x 3 x 227 x 227, predict, extract, save, load, get / set weight), its
+   K1 launches from the shim's launch log, its rows against wrapper.Net
+   at phase 4's bar, images/s; (e) the extra-input net of
+   tests/test_trainer.py:505 trained on numpy batches, the pinned ring
+   carrying extras, Server.submit and /predict with extras (200) and
+   without (400); (f) keep_latest = 2 with continue = 1, and test_io =
+   1, through the CLI on MNIST.conf.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -3457,8 +3480,10 @@ class DefaultStreamLane:
     def __init__(self, tr):
         self.trainer = tr
 
-    def run(self, graph, cparams, data):
-        out = graph.run(cparams, self.trainer.stage_infer_rows(data))
+    def run(self, graph, cparams, data, extras=()):
+        tr = self.trainer
+        out = graph.run(cparams, tr.stage_infer_rows(data),
+                        tr.stage_extras(extras))
         return out.reshape(data.shape[0], -1).cpu().numpy()
 
 
@@ -4030,6 +4055,584 @@ def phase_front(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the reference's own surface - task = extract, reference-binary
+# checkpoints, the numpy wrapper, the C ABI, extra inputs, keep_latest and
+# test_io - in a fresh process (`chip_smoke.py --leg 13 OUT [DIR]`)
+# ---------------------------------------------------------------------------
+
+# AlexNet.conf's fc7 after its relu and dropout (node 20 = top[-2])
+EXTRACT_NODE = "20"
+
+# the extract task's pred block: phase 10's 512 training images, center
+# crop and the mean image (no random augmentation)
+ALEXNET_EXTRACT_BLOCK = """
+pred = features.txt
+iter = imgbin
+  image_list = "./data/train.lst"
+  image_bin = "./data/train.bin"
+  image_root = "./data/resize256/"
+  image_mean = "models/image_net_mean.bin"
+iter = end
+"""
+
+# the extra-input net of tests/test_trainer.py:505-523 (no shipped conf
+# declares extra_data_num): the label depends only on the extra input
+EXTRA_NET = """
+extra_data_num = 1
+extra_data_shape[0] = 1,1,4
+netconfig=start
+layer[in,in_1->2] = concat
+layer[2->3] = fullc:fc1
+  nhidden = 16
+  init_sigma = 0.1
+layer[3->4] = relu
+layer[4->5] = fullc:fc2
+  nhidden = 2
+  init_sigma = 0.1
+layer[5->5] = softmax
+netconfig=end
+input_shape = 1,1,4
+batch_size = 8
+eta = 0.2
+momentum = 0.9
+metric = error
+silent = 1
+"""
+
+
+def alexnet_netconfig() -> str:
+    """AlexNet.conf with its iterator blocks cut off: the netconfig and
+    the global keys, as the wrapper and the C ABI take a net's config."""
+    with open(os.path.join(IMAGENET_CONFS, "AlexNet.conf")) as f:
+        text = f.read()
+    return text[text.index("netconfig=start"):] + "\nsilent = 1\n"
+
+
+def legacy_file_bytes(tr) -> int:
+    """The size of a reference-binary AlexNet checkpoint worked out from
+    the net: int32 net_type, the 152-byte NetParam, each node name
+    (uint64 length + bytes), each layer's record (type, primary index,
+    name, input and output node lists), the int64 epoch, the blob's
+    uint64 length, then per weighted layer the 328-byte LayerParam, its
+    wmat (uint32 dims + float32 data: 3-D for conv, 2-D for fullc) and
+    its bias (1-D, written also under no_bias)."""
+    import numpy as np
+    cfg = tr.net_cfg
+    size = 4 + 152
+    size += sum(8 + len(n.encode()) for n in cfg.node_names)
+    size += sum(8 + 8 + len(info.name.encode()) + 8
+                + 4 * len(info.nindex_in) + 8 + 4 * len(info.nindex_out)
+                for info in cfg.layers)
+    size += 8 + 8
+    shapes = tr.net.param_shapes()
+    for idx, info in enumerate(cfg.layers):
+        if info.is_shared or info.type_name not in ("conv", "fullc"):
+            continue
+        w = shapes[info.name]["wmat"]
+        size += 328 + 4 * (3 if info.type_name == "conv" else 2)
+        size += 4 * int(np.prod(w)) + 4 + 4 * w[0]
+    return size
+
+
+def surface_legacy(torch, work: str):
+    """13b: AlexNet.conf trained one round through the CLI with
+    model_format = cxxnet; the file's size against the conf's byte
+    count, the reloaded net's predict_dist rows bitwise, finetune.
+    Returns (the round's model, its kernel launches)."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.main import LearnTask
+    say("== phase 13b: model_format = cxxnet (reference-binary checkpoints) "
+        "through the CLI, AlexNet.conf b256 bfloat16 ==")
+    conf = os.path.join(IMAGENET_CONFS, "AlexNet.conf")
+    kernels.reset_launches()
+    task = LearnTask()
+    t0 = time.perf_counter()
+    task.run([conf, "model_format=cxxnet", "num_round=1", "max_round=1",
+              "seed=7"])
+    secs = time.perf_counter() - t0
+    counts = kernels.launches()
+    model = os.path.join(work, "models", "0001.model")
+    with open(model, "rb") as f:
+        head = f.read(8)
+    if head[:5] == b"CXTPU":
+        raise AssertionError("model_format = cxxnet wrote a native file")
+    size, want = os.path.getsize(model), legacy_file_bytes(task.net_trainer)
+    say(f"one round through the CLI in {secs:.1f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; models/0001.model: "
+        f"{size} bytes, {want} worked out from the conf (net_type "
+        f"{struct.unpack('<i', head[:4])[0]})")
+    if size != want:
+        raise AssertionError(f"legacy file {size} bytes != {want}")
+    rng = np.random.RandomState(21)
+    batch = DataBatch(
+        data=(rng.rand(256, 3, 227, 227) * 255 - 128).astype(np.float32),
+        label=np.zeros((256, 1), np.float32))
+    before = task.net_trainer.predict_dist(batch)
+    tr = task.create_net()
+    with open(model, "rb") as f:
+        tr.load_model(f)
+    after = tr.predict_dist(batch)
+    if tr.epoch != task.net_trainer.epoch or not np.array_equal(before,
+                                                                 after):
+        raise AssertionError(
+            f"reloaded legacy model: epoch {tr.epoch} vs "
+            f"{task.net_trainer.epoch}, max abs "
+            f"{np.abs(before - after).max():.3e}")
+    say(f"loaded back on the card: predict_dist rows of 256 images "
+        f"bitwise equal to the trainer's before the save (epoch "
+        f"{tr.epoch})")
+    del tr, task
+    ft = LearnTask()
+    ft.run([conf, "task=finetune", f"model_in={model}", "num_round=1",
+            "max_round=1", "model_dir=finetuned", "seed=8"])
+    tuned = sorted(os.listdir(os.path.join(work, "finetuned")))
+    if tuned != ["0000.model"]:
+        raise AssertionError(f"finetune from the legacy model wrote "
+                             f"{tuned}")
+    say(f"task = finetune from it: one more round, finetuned/ holds "
+        f"{tuned}")
+    del ft
+    torch.cuda.empty_cache()
+    return model, counts
+
+
+def surface_extract(torch, card: str, work: str, model: str):
+    """13a: task = extract through the CLI on the imgbin set: node 20 by
+    name and as top[-2], text and raw rows, top[-1]; the .meta lines,
+    the rows against NetTrainer.extract_feature in process (bitwise)
+    and top[-1] against predict_dist (phase 4's bar). Returns the raw
+    node-20 rows and the figures."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch import main as port_main
+    from cxxnet_tpu_torch.io import create_iterator
+    from cxxnet_tpu_torch.main import LearnTask
+    say("== phase 13a: task = extract through the CLI, AlexNet.conf "
+        "b256 bfloat16, 512 imgbin images ==")
+    conf = os.path.join(work, "alexnet_extract.conf")
+    with open(os.path.join(IMAGENET_CONFS, "AlexNet.conf")) as f, \
+            open(conf, "w") as g:
+        g.write(f.read() + ALEXNET_EXTRACT_BLOCK)
+    base = ["task=extract", f"model_in={model}", "silent=1"]
+    outs, launches = {}, {}
+    for tag, node, fmt in (("name_txt", EXTRACT_NODE, "txt"),
+                           ("name_raw", EXTRACT_NODE, "bin"),
+                           ("top2_raw", "top[-2]", "bin"),
+                           ("top1_raw", "top[-1]", "bin")):
+        out = os.path.join(work, f"{tag}.out")
+        kernels.reset_launches()
+        if port_main.main([conf] + base + [f"extract_node_name={node}",
+                                           f"output_format={fmt}",
+                                           f"pred={out}"]) != 0:
+            raise AssertionError(f"task=extract {tag} failed")
+        launches[tag] = kernels.launches()
+        with open(out, "rb") as f, open(out + ".meta") as fm:
+            outs[tag] = (f.read(), fm.read())
+    meta = {k: v[1].strip() for k, v in outs.items()}
+    if outs["name_raw"] != outs["top2_raw"]:
+        raise AssertionError("node 20 by name and top[-2] differ")
+    if (meta["name_raw"] != "512,1,1,4096" or meta["name_txt"] != meta[
+            "name_raw"] or meta["top1_raw"] != "512,1,1,1000"):
+        raise AssertionError(f".meta lines {meta}")
+    rows = np.frombuffer(outs["name_raw"][0], np.float32).reshape(512, 4096)
+    text = "".join(" ".join(f"{v:g}" for v in r) + "\n" for r in rows)
+    if outs["name_txt"][0].decode() != text:
+        raise AssertionError("the text rows are not the raw rows' %g")
+    for tag, c in launches.items():
+        if c["lrn_fwd"] != 4 or c["lrn_bwd"] != 0:
+            raise AssertionError(f"extract {tag} launched {c}, expected "
+                                 "K1-fwd twice in each of 2 batches")
+    say(f"node {EXTRACT_NODE} by name and top[-2]: the same {len(outs['name_raw'][0])} "
+        f"raw bytes; text rows = the raw rows' %g; .meta {meta['name_raw']}"
+        f" / top[-1] {meta['top1_raw']}; K1-fwd {launches['name_raw']['lrn_fwd']}"
+        " launches in 2 batches of each run")
+    # in process: the CLI's own trainer and pred iterator
+    task = LearnTask()
+    task.load_conf(conf, base + [f"extract_node_name={EXTRACT_NODE}",
+                                 "output_format=bin",
+                                 f"pred={os.path.join(work, 'timed.out')}"])
+    task.init()
+    feats, dists, datas = [], [], []
+    it = task.itr_pred
+    it.before_first()
+    while it.next():
+        b = it.value()
+        datas.append(np.array(b.data))
+        feats.append(task.net_trainer.extract_feature(b, EXTRACT_NODE))
+        dists.append(task.net_trainer.predict_dist(b))
+    feat = np.concatenate(feats).reshape(512, 4096)
+    if not np.array_equal(feat, rows):
+        raise AssertionError(f"CLI rows differ from extract_feature: max "
+                             f"abs {np.abs(feat - rows).max():.3e}")
+    top1 = np.frombuffer(outs["top1_raw"][0], np.float32).reshape(512, 1000)
+    worst, worst_rel, undecided, flipped = check_bf16_rows(
+        task.net_trainer, datas, [top1[:256], top1[256:]], dists)
+    say(f"raw rows = NetTrainer.extract_feature in process, bitwise; "
+        f"top[-1] against predict_dist: max abs {worst:.3e}, max rel "
+        f"{worst_rel:.3e} (bar rtol {BF16_RTOL} atol {BF16_ATOL})")
+    # rows/s: the CLI's task, raw output, warm (its model and iterator
+    # ready)
+    t0 = time.perf_counter()
+    task.task_extract_feature()
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = 0
+    it.before_first()
+    while it.next():
+        n += it.value().batch_size
+    it_secs = time.perf_counter() - t0
+    rps = 512 / secs
+    say(f"task = extract, raw rows of node {EXTRACT_NODE}: {rps:.1f} rows/s "
+        f"({secs:.3f} s for 512 rows, host clock); the pred iterator "
+        f"alone {n / it_secs:.1f} rows/s; {card}")
+    del task
+    torch.cuda.empty_cache()
+    return datas[0], rows, {"rows_s": rps, "iterator_rows_s": n / it_secs,
+                            "launches": launches["name_raw"],
+                            "max_abs_top1": worst}
+
+
+def surface_wrapper_train(torch, card: str):
+    """13c, first half: wrapper.train on numpy arrays at AlexNet's net,
+    256 images (staged once) and 1,024 (prefetched), 2 rounds each; the
+    first step equal in both; images/s of the second round; the idle
+    share of one profiled round of the prefetched path."""
+    import numpy as np
+    import cxxnet_tpu_torch.wrapper as W
+    from cxxnet_tpu_torch import kernels
+    say("== phase 13c: wrapper.train on numpy arrays, AlexNet.conf's net "
+        "(b256, bfloat16) ==")
+    cfg = alexnet_netconfig()
+    rng = np.random.RandomState(13)
+    data = (rng.rand(1024, 3, 227, 227) * 255 - 128).astype(np.float32)
+    label = rng.randint(0, 1000, size=1024).astype(np.float32)
+    item = 3 * 227 * 227 * 4
+    if not 256 * item < W._STAGE_BYTES_LIMIT < 1024 * item:
+        raise AssertionError("the two runs must take the two paths")
+    orig_update, orig_start = W.NetTrainer.update, W.Net.start_round
+    orig_prefetch = W.NetTrainer.prefetch
+    rec = {}
+
+    def update(self, batch, keep=None):
+        loss = orig_update(self, batch, keep)
+        if "first" not in rec:
+            rec["first"] = (float(loss),
+                            self.state["params"]["fc8"]["wmat"].clone())
+        return loss
+
+    def start_round(self, r):
+        torch.cuda.synchronize()
+        rec.setdefault("starts", []).append(time.perf_counter())
+        return orig_start(self, r)
+
+    def prefetch(self, it, depth=1, chunk=1):
+        rec["prefetched"] = True
+        return orig_prefetch(self, it, depth, chunk)
+
+    W.NetTrainer.update, W.Net.start_round = update, start_round
+    W.NetTrainer.prefetch = prefetch
+    runs = {}
+    try:
+        for n in (256, 1024):
+            rec.clear()
+            kernels.reset_launches()
+            net = W.train(cfg, data[:n], label[:n], num_round=2,
+                          param={"seed": 7}, batch_size=256, dev="gpu")
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            counts = kernels.launches()
+            steps = 2 * n // 256
+            if (counts["lrn_fwd"] != 2 * steps
+                    or counts["lrn_bwd"] != 2 * steps):
+                raise AssertionError(f"wrapper.train({n}) launched "
+                                     f"{counts} in {steps} steps")
+            if rec.get("prefetched", False) != (n == 1024):
+                raise AssertionError(f"wrapper.train({n}) took the wrong "
+                                     "path")
+            ips = n / (end - rec["starts"][1])
+            runs[n] = {"first": rec["first"], "images_s": ips,
+                       "counts": counts, "net": net}
+            say(f"{n} images ({'prefetched' if n == 1024 else 'staged once'}"
+                f"): 2 rounds, round 2 {ips:.1f} images/s (host clock); "
+                f"K1-fwd {counts['lrn_fwd']} / K1-bwd {counts['lrn_bwd']} "
+                f"launches in {steps} steps; {card}")
+            if n == 256:
+                del net
+                runs[n]["net"] = None
+    finally:
+        W.NetTrainer.update, W.Net.start_round = orig_update, orig_start
+        W.NetTrainer.prefetch = orig_prefetch
+    (l0, w0), (l1, w1) = runs[256]["first"], runs[1024]["first"]
+    if l0 != l1 or not torch.equal(w0, w1):
+        raise AssertionError(f"the first step differs: loss {l0} vs {l1}")
+    say(f"the first step (the first 256 images) is the same in both runs: "
+        f"loss {l0:.6f}, fc8 after it bitwise equal")
+    tr = runs[1024]["net"]._net
+
+    def one_round():
+        pf = tr.prefetch(W._Slices(data, label, 256), depth=1)
+        try:
+            pf.before_first()
+            while pf.next():
+                tr.update(pf.value())
+        finally:
+            pf.close()
+    one_round()
+    profiled = profile_steps(torch, one_round, 1, strict=True)
+    say_profile(profiled, 1, card)
+    busy, window = profiled[2], profiled[3]
+    net = runs[1024]["net"]
+    del data, runs[1024]["net"], tr
+    return net, {"images_s_staged": runs[256]["images_s"],
+                 "images_s_prefetched": runs[1024]["images_s"],
+                 "idle": 1 - busy / window,
+                 "launches": runs[1024]["counts"]}
+
+
+def surface_wrapper_checks(torch, net, model: str, batch, rows):
+    """13c, second half: Net.extract against 13a's CLI rows, bitwise;
+    get_weight / set_weight of fc8 on the card, bitwise."""
+    import numpy as np
+    import cxxnet_tpu_torch.wrapper as W
+    wnet = W.Net(dev="gpu", cfg=alexnet_netconfig())
+    wnet.load_model(model)
+    got = wnet.extract(batch, EXTRACT_NODE).reshape(256, 4096)
+    if not np.array_equal(got, rows[:256]):
+        raise AssertionError(f"Net.extract differs from the CLI's rows: "
+                             f"max abs {np.abs(got - rows[:256]).max():.3e}")
+    w = net.get_weight("fc8", "wmat")
+    twice = w * 2
+    net.set_weight(twice, "fc8", "wmat")
+    back = net.get_weight("fc8", "wmat")
+    net.set_weight(w, "fc8", "wmat")
+    if (w.shape != (1000, 4096) or not np.array_equal(back, twice)
+            or not np.array_equal(net.get_weight("fc8", "wmat"), w)):
+        raise AssertionError("fc8 get/set_weight did not round-trip")
+    say("Net.extract of node 20 = 13a's CLI rows, bitwise; fc8 "
+        "get_weight / set_weight round trip bitwise on the card")
+    del wnet
+    torch.cuda.empty_cache()
+
+
+def surface_capi(torch, card: str, work: str, steps: int = 4):
+    """13d: the C ABI library and capi_driver.c built with g++, the
+    driver run with device gpu on AlexNet.conf's netconfig: steps of
+    CXNNetUpdateBatch at 256 x 3 x 227 x 227, then predict, extract,
+    save, load and get/set weight through the ABI; its rows against
+    wrapper.Net on the same weights and batch."""
+    import numpy as np
+    import cxxnet_tpu_torch.wrapper as W
+    from cxxnet_tpu_torch import capi_build
+    say("== phase 13d: the C ABI (libcxxnetwrapper + capi_driver.c), "
+        "device gpu, AlexNet.conf's netconfig ==")
+    say(f"C ABI embedding facts: {capi_build.embed_facts()}")
+    t0 = time.perf_counter()
+    lib = capi_build.build_library()
+    exe = capi_build.build_driver()
+    say(f"built {os.path.basename(lib)} and capi_driver with g++ in "
+        f"{time.perf_counter() - t0:.2f} s")
+    d = os.path.join(work, "capi")
+    os.makedirs(d)
+    netconf = os.path.join(d, "alexnet.conf")
+    with open(netconf, "w") as f:
+        f.write(alexnet_netconfig())
+    log = os.path.join(d, "launches.json")
+    model = os.path.join(d, "capi.model")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [exe, "gpu", netconf, "rand:256,3,227,227,1000", model, "fc8",
+         str(steps), d],
+        env=capi_build.driver_env(dict(os.environ, CXXNET_LAUNCH_LOG=log)),
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0 or "all checks passed" not in proc.stdout:
+        raise AssertionError(f"capi_driver exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    with open(log) as f:
+        counts = json.load(f)
+    # each update: K1-fwd and K1-bwd twice; five forwards after them
+    # (extract, predict, the too-small extract, two on the reloaded net)
+    want = {"lrn_fwd": 2 * steps + 10, "lrn_bwd": 2 * steps}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"the C ABI path launched {counts}, expected "
+                             f"{want}")
+    ips = float(re.search(r"c-abi images/s: ([0-9.]+)", proc.stdout)[1])
+    say(f"capi_driver: exit 0 in {secs:.1f} s (the whole process); "
+        f"{ips:.1f} images/s over CXNNetUpdateBatch (host clock, "
+        f"{steps - 1} steps after the first); K1 launches {want}; {card}")
+    batch = np.fromfile(os.path.join(d, "batch.f32"), np.float32).reshape(
+        256, 3, 227, 227)
+    rows = np.fromfile(os.path.join(d, "rows.f32"), np.float32).reshape(
+        256, 1000)
+    net = W.Net(dev="gpu", cfg=alexnet_netconfig())
+    net.load_model(model)
+    ref = net.extract(batch, "top[-1]").reshape(256, 1000)
+    worst, worst_rel, _u, _f = check_bf16_rows(
+        net._net, [batch], [rows], [ref])
+    say(f"the driver's top[-1] rows against wrapper.Net on its saved "
+        f"model and batch: max abs {worst:.3e} (phase 4's bar), bitwise "
+        f"{np.array_equal(rows, ref)}")
+    del net
+    torch.cuda.empty_cache()
+    return {"images_s": ips, "launches": counts, "secs": secs,
+            "bitwise": bool(np.array_equal(rows, ref))}
+
+
+def surface_extras(torch):
+    """13e: the extra-input net trained on the card on numpy batches; the
+    prefetcher's pinned ring carrying the extras (bitwise against
+    streamed staging); Server.submit with extras against predict_dist;
+    /predict with and without "extras"."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import Server
+    say("== phase 13e: extra inputs (extra_data_num = 1) on the card ==")
+    rng = np.random.RandomState(6)
+
+    def batch(n):
+        x = rng.randn(n, 1, 1, 4).astype(np.float32)
+        e = rng.randn(n, 1, 1, 4).astype(np.float32)
+        y = (e.reshape(n, 4).sum(1) > 0).astype(np.float32).reshape(n, 1)
+        return DataBatch(data=x, label=y, extra_data=[e])
+    tr = NetTrainer(cfg=EXTRA_NET)
+    tr.init_model()
+    train = [batch(8) for _ in range(40)]
+    for b in train:
+        tr.update(b)
+    test = batch(8)
+    acc = float((tr.predict(test) == test.label.reshape(-1)).mean())
+    if acc < 0.75:
+        raise AssertionError(f"extra-input net: accuracy {acc}")
+    pf = tr.prefetch(ListIter(train[:3]), 1)
+    staged = []
+    try:
+        pf.before_first()
+        while pf.next():
+            staged.append(pf.value())
+        for b, s in zip(train[:3], staged):
+            want = tr.stage_batch(b)
+            tr._await(s)
+            if not (stage_equal(torch, s, want) and len(s.extras) == 1
+                    and torch.equal(s.extras[0], want.extras[0])):
+                raise AssertionError("the pinned ring's extras differ")
+    finally:
+        pf.close()
+    say(f"40 steps on numpy batches with extras: accuracy {acc:.3f} on a "
+        "fresh batch; the prefetcher's pinned ring carries data, labels "
+        "and extras bitwise as streamed staging")
+    srv = Server(tr, max_batch=8, max_wait_ms=1.0, replicas=2, http_port=0,
+                 metrics_host="127.0.0.1")
+    srv.warmup()
+    sizes = (1, 3, 8, 5, 11)
+    reqs = [batch(n) for n in sizes]
+    with srv:
+        futs = [srv.submit(b.data, b.extra_data) for b in reqs]
+        served = [f.result(timeout=60) for f in futs]
+        port = srv.metrics_server.port
+        one = reqs[1]
+        body = json.dumps({"data": one.data.tolist(),
+                           "extras": [one.extra_data[0].tolist()],
+                           "raw": True}).encode()
+        code, _, got = post_json(port, body)
+        bad, _, err = post_json(port, json.dumps(
+            {"data": one.data.tolist()}).encode())
+    for b, rows in zip(reqs, served):
+        ref = np.concatenate([tr.predict_dist(DataBatch(
+            data=b.data[i:i + 8], label=b.label[i:i + 8],
+            extra_data=[b.extra_data[0][i:i + 8]]))
+            for i in range(0, b.data.shape[0], 8)])
+        if not np.allclose(rows, ref, rtol=1e-4, atol=1e-6):
+            raise AssertionError("served rows with extras differ from "
+                                 "predict_dist")
+    if code != 200 or not np.allclose(np.asarray(got["outputs"]),
+                                      served[1], rtol=1e-6, atol=1e-7):
+        raise AssertionError(f"/predict with extras: {code} {got}")
+    if bad != 400 or "extra inputs" not in err.get("error", ""):
+        raise AssertionError(f"/predict without extras: {bad} {err}")
+    say(f"Server.submit with extras: {len(sizes)} requests of {sizes} rows "
+        f"= predict_dist rows (rtol 1e-4, atol 1e-6); /predict with "
+        f"\"extras\" 200 with the same rows, without 400 "
+        f"({err['error']!r})")
+    return {"accuracy": acc}
+
+
+def surface_cli_tails():
+    """13f: keep_latest = 2 and continue = 1, and test_io = 1, through the
+    CLI on examples/MNIST/MNIST.conf unedited."""
+    say("== phase 13f: keep_latest = 2 and test_io = 1 through the CLI, "
+        "examples/MNIST/MNIST.conf ==")
+    conf = os.path.join(REPO, "examples", "MNIST", "MNIST.conf")
+    with tempfile.TemporaryDirectory() as d:
+        os.makedirs(os.path.join(d, "data"))
+        write_mnist(os.path.join(d, "data"), 2000, 3, "train")
+        write_mnist(os.path.join(d, "data"), 500, 4, "t10k")
+        run_cli([conf, "keep_latest=2", "num_round=4"], cwd=d)
+        kept = sorted(os.listdir(os.path.join(d, "models")))
+        if kept != ["0003.model", "0004.model"]:
+            raise AssertionError(f"keep_latest = 2 kept {kept}")
+        proc = run_cli([conf, "keep_latest=2", "continue=1", "num_round=5"],
+                       cwd=d)
+        kept2 = sorted(os.listdir(os.path.join(d, "models")))
+        if ("Continue training from round 5" not in proc.stdout
+                or kept2 != ["0004.model", "0005.model"]):
+            raise AssertionError(f"continue = 1: {kept2}\n{proc.stdout}")
+        say(f"keep_latest = 2, 4 rounds: models/ holds {kept}; continue = 1 "
+            f"resumed from round 5: {kept2}")
+        proc = run_cli([conf, "test_io=1", "num_round=1", "silent=0",
+                        "model_dir=io_models"], cwd=d)
+        counts = cli_launches(proc.stdout)
+        if ("start I/O test" not in proc.stdout or any(counts.values())
+                or not counts or "train-error" in proc.stderr):
+            raise AssertionError(f"test_io = 1:\n{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-2000:]}")
+        say(f"test_io = 1: 'start I/O test', no metric line, kernel "
+            f"launches {counts}")
+    return {"kept": kept, "resumed": kept2}
+
+
+def phase_surface(torch, card, d=None):
+    """Phase 13 (see the module docstring); `d` is phase 10's directory
+    (its shared imgbin set), or None to make a set here. Returns its
+    figures."""
+    t13 = time.perf_counter()
+    out = {}
+    net, out["wrapper"] = surface_wrapper_train(torch, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        if d is None:
+            fmt, _pil = image_format_used()
+            d = tmp
+            shared = os.path.join(d, "shared")
+            write_image_set(shared, "data/resize256", "data/train", 512, 256,
+                            10, 11, fmt)
+            write_image_set(shared, "data/resize256_test", "data/test", 256,
+                            256, 10, 12, fmt)
+        work = os.path.join(tmp, "surface")
+        os.makedirs(work)
+        os.symlink(os.path.join(d, "shared", "data"),
+                   os.path.join(work, "data"))
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            model, out["legacy_launches"] = surface_legacy(torch, work)
+            batch, rows, out["extract"] = surface_extract(torch, card, work,
+                                                          model)
+            surface_wrapper_checks(torch, net, model, batch, rows)
+            del net
+            torch.cuda.empty_cache()
+            out["capi"] = surface_capi(torch, card, work)
+        finally:
+            os.chdir(cwd)
+    out["extras"] = surface_extras(torch)
+    out["cli"] = surface_cli_tails()
+    say(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+    say("phase 13 summary " + json.dumps(out, default=float))
+    return out
+
+
 # phase 11's profiled legs, each run in a fresh python process: in a
 # long-lived process torch.profiler can lose the card's kernel events
 # (PERF.md §7), and these legs must report device times
@@ -4041,7 +4644,7 @@ def leg_image_timing(torch, card, d, fmt):
 
 LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "11b": phase_googlenet_step, "11d": phase_stack_moe,
-        "12": phase_front}
+        "12": phase_front, "13": phase_surface}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
@@ -4148,8 +4751,9 @@ def main() -> int:
     moe = run_leg(torch, "11d")
     say(f"phase 11b and 11d on the card took "
         f"{time.perf_counter() - t11:.1f} s")
-    cli_counts, _timing, g_cli = phase_image_pipeline(
-        torch, card, phase_googlenet_cli)
+    cli_counts, _timing, (g_cli, surface) = phase_image_pipeline(
+        torch, card, lambda d: (phase_googlenet_cli(d),
+                                run_leg(torch, "13", d)))
     t11 = time.perf_counter()
     moe["cli_counts"] = phase_stack_moe_cli()
     say(f"phase 11c-d through the CLI took {time.perf_counter() - t11:.1f}"
@@ -4193,6 +4797,20 @@ def main() -> int:
             "googlenet_launches_unit": "GoogLeNet.conf b256 bfloat16, 7 "
                                        "steps (phase 11b)",
             "googlenet_cli_launches": g_cli[name],
+        }
+
+    def surface_launches(name):
+        """K1 on phase 13's paths: task = extract, wrapper.train and the
+        C ABI."""
+        return {
+            "surface_extract_launches": surface["extract"]["launches"][name],
+            "surface_wrapper_launches": surface["wrapper"]["launches"][name],
+            "surface_capi_launches": surface["capi"]["launches"][name],
+            "surface_unit": "AlexNet.conf b256 bfloat16 (phase 13): task = "
+                            "extract of 512 rows (2 batches); "
+                            "wrapper.train of 1,024 images, 2 rounds (8 "
+                            "steps); the C driver's 4 CXNNetUpdateBatch "
+                            "steps and 5 forwards",
         }
 
     def stack_moe(name):
@@ -4245,6 +4863,7 @@ def main() -> int:
         "front_unit": "AlexNet.conf through the serving front (phase 12): "
                       "two in-process bursts of phase 4's requests and 24 "
                       "/predict requests, 2 a batch",
+        **surface_launches("lrn_fwd"),
         **googlenet("lrn_fwd"),
     }, {
         "name": "lrn_bwd",
@@ -4266,6 +4885,7 @@ def main() -> int:
         "library_ms": both("library", bb),
         "library_cold_ms": both("library_cold", bb),
         "imgbin_cli_launches": cli_counts["lrn_bwd"],
+        **surface_launches("lrn_bwd"),
         **googlenet("lrn_bwd"),
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
                **stack_moe(n))
@@ -4274,6 +4894,11 @@ def main() -> int:
                                front_batches=front["int8"]["batches"],
                                front_unit="4 /predict requests to the int8 "
                                           "graph (phase 12f), 11 a batch")]}))
+    say("phase 13 summary " + json.dumps({
+        "extract_rows_s": surface["extract"]["rows_s"],
+        "wrapper": {k: v for k, v in surface["wrapper"].items()
+                    if k != "launches"},
+        "capi_images_s": surface["capi"]["images_s"]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({

@@ -76,6 +76,12 @@ _BUILTIN_KEYS: Dict[str, str] = {
     "dist_init_retries": "distributed bootstrap (param_server = dist)",
     "dist_init_backoff": "distributed bootstrap (param_server = dist)",
     "dist_init_deadline": "distributed bootstrap (param_server = dist)",
+    # the JAX package's persistent XLA compilation cache directory
+    # (cxxnet_tpu/nnet/trainer.py:457-467): it never changes results,
+    # and torch has no XLA cache to point it at, so the port accepts
+    # the key with no effect
+    "compile_cache": "accepted with no effect (the JAX package's XLA "
+                     "compilation cache; torch has none)",
 }
 
 # updater param names a "<tag>:" prefix may scope (updater/param.py

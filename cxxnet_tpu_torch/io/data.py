@@ -6,9 +6,8 @@ Parity with src/io/data.h:41-181: an instance carries its index, its
 (c, h, w) image and its label row; a batch carries host arrays data
 (b,c,h,w) and label (b,label_width), the instance indices, the count of
 padding rows in a final short batch (num_batch_padd), and the extra-data
-arrays that `attachtxt` joins on (the trainer refuses extra_data_num
-for now, so they ride along unread). The trainer moves them to the
-device.
+arrays that `attachtxt` joins on, which feed a net's extra input nodes
+in_1..in_k (`extra_data_num`). The trainer moves them to the device.
 """
 
 from __future__ import annotations

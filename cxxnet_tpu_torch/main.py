@@ -8,12 +8,20 @@
   each round and saving `model_dir/%04d.model` every `save_model`
   rounds; from scratch, or from `model_in = <checkpoint>`;
   `continue = 1` resumes from the newest checkpoint in model_dir (an
-  empty model_dir is an error);
+  empty model_dir is an error); `keep_latest = k` keeps only the k
+  newest `%04d.model` files; `test_io = 1` runs the data pipeline with
+  the update skipped (an I/O test: no kernel runs);
 - `task = finetune` builds the net from the conf and copies the
   params of the layers whose names match from `model_in`;
 - `task = pred` writes one prediction per line (argmax of the final
   node, or its raw value when it has one column);
 - `task = pred_raw` writes the final node's full row per instance;
+- `task = extract` writes the rows of the node `extract_node_name`
+  names (a node name, or `top[-k]` counting from the last node): text
+  rows of `%g` values (`output_format = txt`, the default) or raw
+  float32 (any other value), plus `<pred file>.meta` holding
+  `n,c,y,x`; an iterator that yields nothing raises and leaves no
+  file;
 - `task = serve` replays the pred iterator as a ragged request stream
   through the continuous-batching Server; its output file matches
   `task = pred` line for line.
@@ -34,11 +42,14 @@ batch, before the Server is built), or explicitly on
 `pass_calibration_batches` batches of the iterator that
 `pass_calibration_iter` names (pred, train, or an eval block's name).
 
-pred / pred_raw / serve need `model_in = <checkpoint>` (the JAX
-package's native format) and a `pred = <file>` iterator block. `dev`
-picks the device: `cpu` is the CPU; `gpu`, `gpu:0`, `cuda` and `tpu`
-(the shipped confs' spelling) mean `cuda:0`, the default. extract is
-a later slice and raises.
+pred / pred_raw / extract / serve need `model_in = <checkpoint>` (the
+JAX package's native format, or a reference-binary file) and a `pred =
+<file>` iterator block; the batches of a net with `extra_data_num`
+carry their extra inputs (attachtxt) on every path. `model_format =
+cxxnet` writes reference-binary checkpoints. `dev` picks the device:
+`cpu` is the CPU; `gpu`, `gpu:0`, `cuda` and `tpu` (the shipped confs'
+spelling) mean `cuda:0`, the default. `net_type` is stored and never
+read, as in the JAX package.
 
 The telemetry plane (telemetry/, docs/OBSERVABILITY.md) arms before
 init(): `log_file` / `metrics_file` (JSONL sinks, `log_format`,
@@ -70,17 +81,14 @@ from cxxnet_tpu_torch.utils.config import (check_ported, parse_config_file,
 from cxxnet_tpu_torch.utils.device import device_from_spec
 from cxxnet_tpu_torch.utils.fault import DivergenceError, atomic_writer
 
-TASKS = ("train", "finetune", "pred", "pred_raw", "serve")
-_PRED_TASKS = ("pred", "pred_raw", "serve")
+TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve")
+_PRED_TASKS = ("pred", "pred_raw", "extract", "serve")
 
 # task-level keys of the JAX CLI that the port does not implement yet;
 # any value but the inert ones raises NotImplementedError naming the key
 _NOT_PORTED = {
-    "test_io": ("0",), "elastic": ("0",), "keep_latest": ("0",),
-    "test_on_server": ("0",),
+    "elastic": ("0",), "test_on_server": ("0",),
     "tuning_cache": ("",),
-    "net_type": ("0",),
-    "extract_node_name": ("",), "output_format": ("txt",),
     "barrier_secs": ("30",), "leader_lease_secs": ("10",),
     "coord_dir": ("",),
     "elastic_nproc": ("2",), "elastic_respawn": ("1",),
@@ -101,6 +109,18 @@ class LearnTask:
         self.start_counter = 0
         self.continue_training = 0
         self.save_period = 1
+        # keep only the newest keep_latest %04d.model files (0 = all)
+        self.keep_latest = 0
+        # stored and never read (the reference's net_type; checkpoints
+        # keep writing 0)
+        self.net_type = 0
+        # the I/O test: the train loop runs the data pipeline and skips
+        # the update
+        self.test_io = 0
+        # task = extract: the node to copy out, and text (1) or raw
+        # float32 (0) rows
+        self.extract_node_name = ""
+        self.output_format = 1
         self.print_step = 100
         self.eval_train = 1
         self.silent = 0
@@ -203,6 +223,8 @@ class LearnTask:
                 self.task_predict()
             elif self.task == "pred_raw":
                 self.task_predict_raw()
+            elif self.task == "extract":
+                self.task_extract_feature()
             else:
                 self.task_serve()
             return 0
@@ -217,6 +239,16 @@ class LearnTask:
         if val == "default":
             return
         check_ported(_NOT_PORTED, name, val)
+        if name == "net_type":
+            self.net_type = int(val)
+        if name == "keep_latest":
+            self.keep_latest = int(val)
+        if name == "test_io":
+            self.test_io = int(val)
+        if name == "extract_node_name":
+            self.extract_node_name = val
+        if name == "output_format":
+            self.output_format = 1 if val == "txt" else 0
         if name == "model_in":
             self.name_model_in = val
         if name == "model_dir":
@@ -550,11 +582,25 @@ class LearnTask:
         telemetry.event("checkpoint", op="save", round=counter,
                         path=path, secs=secs,
                         bytes=os.path.getsize(path))
+        self._rotate_models(counter)
         if self.name_publish:
             # atomic copy to the swap_watch'd path AFTER the round file
             # is durable
             from cxxnet_tpu_torch.nnet import checkpoint
             checkpoint.publish_model(path, self.name_publish)
+
+    def _rotate_models(self, saved: int) -> None:
+        """keep_latest = k: keep the k newest %04d.model files at or
+        below the counter just saved (rescue.model and other files stay;
+        a stale file past `saved` is left for resume to walk over)."""
+        if self.keep_latest <= 0:
+            return
+        live = [c for c in self._model_counters() if c <= saved]
+        for c in live[:-self.keep_latest]:
+            try:
+                os.remove(self._model_name(c))
+            except OSError:
+                pass  # best effort: the save itself succeeded
 
     def _save_rescue(self) -> str:
         """Rescue checkpoint on a divergence abort: the last good
@@ -577,6 +623,8 @@ class LearnTask:
             sys.stderr.flush()
         if self.itr_train is None:
             return
+        if self.test_io:
+            sys.stdout.write("start I/O test\n")
         try:
             self._train_rounds(self.max_round, start)
         except DivergenceError:
@@ -597,14 +645,18 @@ class LearnTask:
                 sys.stdout.write(f"update round {self.start_counter - 1}\n")
             sample_counter = 0
             itr = self.itr_train
-            if self.prefetch_stage > 0:
+            # the I/O test reads the raw iterator: nothing is staged
+            prefetched = self.test_io == 0 and self.prefetch_stage > 0
+            if prefetched:
                 # stage batch k+1 (pad + cast + copy) on a worker thread
                 # while step k runs (io/prefetch.py)
                 itr = tr.prefetch(itr, self.prefetch_stage)
             try:
                 itr.before_first()
                 while itr.next():
-                    tr.update(itr.value())
+                    batch = itr.value()
+                    if self.test_io == 0:
+                        tr.update(batch)
                     sample_counter += 1
                     if (sample_counter % self.print_step == 0
                             and not self.silent):
@@ -614,17 +666,18 @@ class LearnTask:
                             f"{int(time.monotonic() - start)} sec "
                             "elapsed\n")
             finally:
-                if self.prefetch_stage > 0:
+                if prefetched:
                     # an update() error mid-round must not leak the
                     # worker and its staged device batches
                     itr.close()
-            line = f"[{self.start_counter}]"
-            if self.eval_train:
-                line += tr.eval_train_metric()
-            for it, name in zip(self.itr_evals, self.eval_names):
-                line += tr.evaluate(it, name)
-            sys.stderr.write(line + "\n")
-            sys.stderr.flush()
+            if self.test_io == 0:
+                line = f"[{self.start_counter}]"
+                if self.eval_train:
+                    line += tr.eval_train_metric()
+                for it, name in zip(self.itr_evals, self.eval_names):
+                    line += tr.evaluate(it, name)
+                sys.stderr.write(line + "\n")
+                sys.stderr.flush()
             self._save_model()
 
     # ------------------------------------------------------------------
@@ -783,11 +836,14 @@ class LearnTask:
                 batch = self.itr_pred.value()
                 valid = batch.batch_size - batch.num_batch_padd
                 data = batch.data[:valid]
+                extras = [np.asarray(e)[:valid] for e in
+                          batch.extra_data[:tr.net_cfg.extra_data_num]]
                 lo = 0
                 while lo < valid and not term.is_set():
                     n = min(next(sizes), valid - lo)
                     try:
-                        futures.append(srv.submit(data[lo:lo + n]))
+                        futures.append(srv.submit(
+                            data[lo:lo + n], [e[lo:lo + n] for e in extras]))
                     except QueueFullError as e:
                         # serve_queue_limit below the in-flight window:
                         # honor the advice, drain, resubmit - no row
@@ -824,6 +880,41 @@ class LearnTask:
             f"{stats['batches']} batches, kernel launches "
             f"{kernels.launches()}\n")
         sys.stdout.write(f"finished serving, write into {self.name_pred}\n")
+
+    def task_extract_feature(self) -> None:
+        """The rows of `extract_node_name` for every pred batch, as text
+        or raw float32, then `<pred file>.meta` = `n,c,y,x`."""
+        if not self.extract_node_name:
+            raise ValueError(
+                "extract node name must be specified in task extract")
+        self._calibrate_passes()
+        sys.stdout.write("start predicting...\n")
+        nrow = 0
+        dshape = None
+        with atomic_writer(self.name_pred,
+                           "w" if self.output_format else "wb") as fo:
+            self.itr_pred.before_first()
+            while self.itr_pred.next():
+                feat = self.net_trainer.extract_feature(
+                    self.itr_pred.value(), self.extract_node_name)
+                nrow += feat.shape[0]
+                dshape = feat.shape[1:]
+                flat = feat.reshape(feat.shape[0], -1)
+                if self.output_format:
+                    for row in flat:
+                        fo.write(" ".join(f"{v:g}" for v in row) + "\n")
+                else:
+                    flat.astype(np.float32).tofile(fo)
+            if dshape is None:
+                # raised inside the writer: the temporary file is
+                # discarded, so no empty artifact appears
+                raise ValueError(
+                    "task=extract: the pred iterator yielded no data "
+                    "(empty list file or dataset smaller than one batch)")
+        with atomic_writer(self.name_pred + ".meta", "w") as fm:
+            fm.write(f"{nrow},{dshape[0]},{dshape[1]},{dshape[2]}\n")
+        sys.stdout.write(f"finished prediction, write into "
+                         f"{self.name_pred}\n")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -17,7 +17,7 @@ the trainer, which casts wholesale.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -48,11 +48,11 @@ class Network(nn.Module):
         c, y, x = cfg.input_shape
         if c * y * x == 0:
             raise ValueError("input_shape must be set")
-        if cfg.extra_data_num:
-            raise NotImplementedError(
-                f"extra_data_num = {cfg.extra_data_num}: extra input "
-                "nodes are not ported to cxxnet_tpu_torch yet")
+        # node 0 is the data input; in_1..in_k are the extra inputs
         self.node_shapes[0] = (batch_size, c, y, x)
+        for i in range(cfg.extra_data_num):
+            ec, ey, ex = cfg.extra_shape[3 * i: 3 * i + 3]
+            self.node_shapes[i + 1] = (batch_size, ec, ey, ex)
 
         # build layer modules and run shape inference in declaration order
         for idx, info in enumerate(cfg.layers):
@@ -120,14 +120,16 @@ class Network(nn.Module):
     # ------------------------------------------------------------------
     def forward(
         self, params: Dict[str, Dict[str, torch.Tensor]],
-        data: torch.Tensor, *, train: bool = False,
+        data: torch.Tensor, *, extras: Sequence[torch.Tensor] = (),
+        train: bool = False,
         gens: Optional[Callable[[int], torch.Generator]] = None,
         keep: Optional[Dict[int, torch.Tensor]] = None,
         labels: Optional[Dict[str, torch.Tensor]] = None,
         mask: Optional[torch.Tensor] = None,
         taps: Optional[Dict[int, Optional[torch.Tensor]]] = None,
     ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
-        """Run all connections in declaration order on node-0 `data`.
+        """Run all connections in declaration order on node-0 `data`
+        and the extra-input nodes 1..k (`extras`, one tensor each).
 
         train: training semantics (dropout draws a mask, a `has_aux`
         layer's auxiliary loss joins the total; inference runs every
@@ -153,6 +155,8 @@ class Network(nn.Module):
         cfg = self.cfg
         values: List[Optional[torch.Tensor]] = [None] * cfg.num_nodes
         values[0] = data
+        for i, e in enumerate(extras):
+            values[1 + i] = e
         total_loss = torch.zeros((), dtype=torch.float32,
                                  device=data.device)
         for idx, info in enumerate(cfg.layers):

@@ -3,7 +3,17 @@
 The product surface of the JAX trainer: set_param / init_model /
 load_model / save_model / copy_model_from / update / update_all /
 evaluate / eval_train_metric / predict / predict_dist /
-stage_infer_rows + infer_rows / get_weight / set_weight.
+extract_feature / stage_infer_rows + stage_extras + infer_rows /
+get_weight / set_weight.
+
+- Checkpoints: the JAX package's native format, or the reference binary
+  under `model_format = cxxnet` (nnet/legacy_format.py, byte-equal to
+  the JAX package's); load_model and copy_model_from read either.
+- Extra inputs (`extra_data_num`, nodes in_1..in_k): each batch's
+  DataBatch.extra_data arrays are padded with its rows, crossed to the
+  device in float32 and cast there as the JAX package's `_cast` casts
+  them, on every path (training, staged or prefetched, evaluation,
+  inference, calibration); a batch that carries fewer raises.
 
 Execution model: params live on the trainer's device as a float32
 master copy, {param_key: {"wmat", "bias"}} exactly like the JAX
@@ -86,7 +96,7 @@ import torch
 from cxxnet_tpu_torch import convert, telemetry
 from cxxnet_tpu_torch.io.data import DataBatch
 from cxxnet_tpu_torch.layers.base import active_step
-from cxxnet_tpu_torch.nnet import checkpoint
+from cxxnet_tpu_torch.nnet import checkpoint, legacy_format
 from cxxnet_tpu_torch.nnet.net_config import NetConfig
 from cxxnet_tpu_torch.nnet.network import Network, param_key
 from cxxnet_tpu_torch.nnet.passes import (
@@ -115,14 +125,11 @@ _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "shard_optimizer": ("0",),
     "update_on_server": ("0",),
     "steps_per_dispatch": ("1",),
-    "model_format": ("native",),
     "tuning_cache": ("",),
     "param_server": ("local",),
-    "extra_data_num": ("0",),
     "remat": ("0",),
     "profile": ("0",),
     "profile_dir": ("",),
-    "compile_cache": ("",),
     "trace_round": ("1",),
 }
 
@@ -132,11 +139,13 @@ class StagedBatch(NamedTuple):
     data (compute dtype; raw uint8 or float32 under device_augment), the
     label fields and the row mask. `ready` is the event after its copies
     when they were issued on a prefetcher's side stream (None when
-    staged on the consumer's stream); update() waits on it."""
+    staged on the consumer's stream); update() waits on it. `extras`
+    holds one tensor per extra input node (extra_data_num)."""
     data: torch.Tensor
     labels: Dict[str, torch.Tensor]
     mask: torch.Tensor
     ready: Any = None
+    extras: Tuple[torch.Tensor, ...] = ()
 
 
 def stream_seed(*parts: int) -> int:
@@ -213,13 +222,16 @@ class InferGraph:
                 return tr._cast(master)
             return tr._cast(self.param_fn(master))
 
-    def run(self, cparams: Params, data: torch.Tensor) -> torch.Tensor:
-        """The forward on staged rows with explicit compute params."""
-        return self.net(cparams, self.trainer._model_input(data))[0][
-            self.node].float()
+    def run(self, cparams: Params, data: torch.Tensor,
+            extras: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+        """The forward on staged rows (and staged extra inputs) with
+        explicit compute params."""
+        return self.net(cparams, self.trainer._model_input(data),
+                        extras=extras)[0][self.node].float()
 
-    def __call__(self, data: torch.Tensor) -> torch.Tensor:
-        return self.run(self.params(), data)
+    def __call__(self, data: torch.Tensor,
+                 extras: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+        return self.run(self.params(), data, extras)
 
 
 class NetTrainer:
@@ -258,6 +270,10 @@ class NetTrainer:
         # (node name or "" for the final node, node id) per metric
         self.eval_nodes: List[Tuple[str, int]] = []
         self.save_optimizer = 0
+        # checkpoint format written by save_model: "native" (the JAX
+        # package's) or "cxxnet" (the reference binary); load_model
+        # reads either
+        self.model_format = "native"
         self.check_nan = 0
         self.max_bad_rounds = 3
         self.bad_rounds = 0   # total dropped steps (this process)
@@ -352,6 +368,10 @@ class NetTrainer:
             self.silent = int(val)
         if name == "save_optimizer":
             self.save_optimizer = int(val)
+        if name == "model_format":
+            if val not in ("native", "cxxnet"):
+                raise ValueError("model_format must be native or cxxnet")
+            self.model_format = val
         if name == "check_nan":
             self.check_nan = int(val)
         if name == "max_bad_rounds":
@@ -669,6 +689,25 @@ class NetTrainer:
     # ------------------------------------------------------------------
     # batches
     # ------------------------------------------------------------------
+    def _pad_extras(self, batch: DataBatch) -> List[np.ndarray]:
+        """The float32 arrays feeding the extra input nodes
+        1..extra_data_num, zero-padded up to batch_size; a batch that
+        carries fewer raises (the JAX trainer's check and message)."""
+        n_extra = self.net_cfg.extra_data_num
+        extras = [np.asarray(e, np.float32)
+                  for e in batch.extra_data[:n_extra]]
+        if len(extras) < n_extra:
+            raise ValueError(
+                f"net declares extra_data_num={n_extra} but the batch "
+                f"carries {len(extras)} extra arrays (use attachtxt or "
+                "fill DataBatch.extra_data)")
+        pad = self.batch_size - batch.batch_size
+        if pad > 0:
+            extras = [np.concatenate(
+                [e, np.zeros((pad,) + e.shape[1:], np.float32)])
+                for e in extras]
+        return extras
+
     def _pad_batch(self, batch: DataBatch, train: bool):
         """(data, label, mask) padded up to batch_size (numpy).
 
@@ -726,28 +765,32 @@ class NetTrainer:
         slot's pinned buffers and copied, with the device cast, on its
         side stream; without one they are copied on the current
         stream. The two give the same values."""
+        extras = self._pad_extras(batch)
         data, label, valid = self._pad_batch(batch, train)
         ready = None
         if ring is None:
             gdata = self.stage_infer_rows(data)
             lab, mask = (torch.from_numpy(a).to(self.device)
                          for a in (label, valid))
+            gextras = self.stage_extras(extras)
         else:
             data = self._host_rows(data)
             slot = ring.acquire()
             host = [slot.fill(i, a, dt) for i, (a, dt) in enumerate((
                 (data, self._staged_dtype(data)), (label, torch.float32),
-                (valid, torch.float32)))]
+                (valid, torch.float32),
+                *((e, torch.float32) for e in extras)))]
             with torch.cuda.stream(ring.stream):
-                gdata, lab, mask = (h.to(self.device, non_blocking=True)
-                                    for h in host)
+                gdata, lab, mask, *gextras = (
+                    h.to(self.device, non_blocking=True) for h in host)
                 gdata = self._on_device(gdata)
+                gextras = tuple(self._cast(e) for e in gextras)
             ready = slot.release()
         fields = {}
         for fname, idx in self.net_cfg.label_name_map.items():
             a, b = self.net_cfg.label_range[idx]
             fields[fname] = lab[:, a:b]
-        return StagedBatch(gdata, fields, mask, ready)
+        return StagedBatch(gdata, fields, mask, ready, gextras)
 
     def stage_batch(self, batch: DataBatch, ring=None) -> StagedBatch:
         """Stage a training batch (see _stage) for update(). The staging
@@ -776,7 +819,8 @@ class NetTrainer:
             return
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(staged.ready)
-        for t in (staged.data, staged.mask, *staged.labels.values()):
+        for t in (staged.data, staged.mask, *staged.labels.values(),
+                  *staged.extras):
             t.record_stream(stream)
 
     def _model_input(self, data: torch.Tensor, train: bool = False,
@@ -858,6 +902,7 @@ class NetTrainer:
             batch = self.stage_batch(batch)
         self._await(batch)
         data, labels, mask = batch.data, batch.labels, batch.mask
+        extras = batch.extras
         if keep is not None:
             keep = {i: torch.from_numpy(np.asarray(k)).to(self.device)
                     for i, k in keep.items()}
@@ -871,7 +916,8 @@ class NetTrainer:
                 ("train_step", tuple(data.shape)), kind="train",
                 name=f"train_step@b{data.shape[0]}", shape=data.shape,
                 nbytes=data.numel() * data.element_size(), donated=1):
-            loss = self._train_step(data, labels, mask, step, keep)
+            loss = self._train_step(data, extras, labels, mask, step,
+                                    keep)
             if snap is not None:
                 self._guard_step(self._finite(loss), snap, step)
         # progress beacon for the hang watchdog / absence alert rules
@@ -890,7 +936,8 @@ class NetTrainer:
                       loss=loss_val, examples=n)
         return loss
 
-    def _train_step(self, data, labels, mask, step, keep) -> torch.Tensor:
+    def _train_step(self, data, extras, labels, mask, step,
+                    keep) -> torch.Tensor:
         master = self.state["params"]
         leaves = _tree_map(lambda t: t.detach().requires_grad_(True),
                            master)
@@ -908,8 +955,9 @@ class NetTrainer:
         with torch.enable_grad(), active_step(progress):
             # cast inside autograd: bfloat16 compute, float32 gradients
             cparams = self._cast(leaves)
-            values, total = self.net(cparams, data, train=True, gens=gens,
-                                     keep=keep, labels=labels, mask=mask)
+            values, total = self.net(cparams, data, extras=extras,
+                                     train=True, gens=gens, keep=keep,
+                                     labels=labels, mask=mask)
             loss = total.float() * (1.0 / (self.batch_size
                                            * self.update_period))
             flat = _tree_leaves(leaves)
@@ -1036,7 +1084,8 @@ class NetTrainer:
                     shape=gdata.shape,
                     nbytes=gdata.numel() * gdata.element_size()), \
                     torch.inference_mode():
-                values = self.net(params, self._model_input(gdata))[0]
+                values = self.net(params, self._model_input(gdata),
+                                  extras=staged.extras)[0]
                 rows.append(self._metric_rows(self.metric, values, labels,
                                               mask, self.seed + 200, step,
                                               2000))
@@ -1074,8 +1123,10 @@ class NetTrainer:
         infer-stage graph passes."""
         net = self.net
 
-        def fn(params: Params, data: torch.Tensor) -> torch.Tensor:
-            return net(params, self._model_input(data))[0][node].float()
+        def fn(params: Params, data: torch.Tensor,
+               extras: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+            return net(params, self._model_input(data),
+                       extras=extras)[0][node].float()
         return fn
 
     def infer_graph(self, node: int) -> InferGraph:
@@ -1112,6 +1163,13 @@ class NetTrainer:
         return self._on_device(torch.from_numpy(arr).to(
             self._staged_dtype(arr)).to(self.device))
 
+    def stage_extras(self, extras) -> Tuple[torch.Tensor, ...]:
+        """Host arrays of the extra input nodes (row-aligned with the
+        data) -> device tensors: crossed in float32 and cast on the
+        device as the JAX package's `_cast` casts them."""
+        return tuple(self._cast(torch.from_numpy(np.ascontiguousarray(
+            e, dtype=np.float32)).to(self.device)) for e in extras)
+
     @staticmethod
     def _host_rows(data) -> np.ndarray:
         """Contiguous host rows as they are staged: uint8 or float32 as
@@ -1121,38 +1179,41 @@ class NetTrainer:
             data, None if data.dtype in (np.uint8, np.float32)
             else np.float32)
 
-    def infer_rows(self, gdata: torch.Tensor, node: int = -1) -> torch.Tensor:
-        """Run the inference forward on staged rows; node=-1 is the
-        final node."""
+    def infer_rows(self, gdata: torch.Tensor, node: int = -1,
+                   extras: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+        """Run the inference forward on staged rows (and staged extra
+        inputs, stage_extras); node=-1 is the final node."""
         if node < 0:
             node = self.net_cfg.num_nodes - 1
         with torch.inference_mode():
-            return self.infer_graph(node)(gdata)
+            return self.infer_graph(node)(gdata, extras)
 
     def _stage_padded(self, batch: DataBatch):
-        """(staged data, row mask) of a batch zero-padded up to
-        batch_size, as the JAX package pads every inference batch; the
-        mask is 0 on padding rows and on the iterator's num_batch_padd
-        rows."""
+        """(staged data, row mask, staged extras) of a batch zero-padded
+        up to batch_size, as the JAX package pads every inference batch;
+        the mask is 0 on padding rows and on the iterator's
+        num_batch_padd rows."""
+        extras = self._pad_extras(batch)
         data, _label, valid = self._pad_batch(batch, train=False)
         return (self.stage_infer_rows(data),
-                torch.from_numpy(valid).to(self.device))
+                torch.from_numpy(valid).to(self.device),
+                self.stage_extras(extras))
 
     def _infer_node(self, batch: DataBatch, node: int) -> np.ndarray:
         """One node's float32 rows for a batch: padded to batch_size,
         calibrated first if a graph pass still needs its statistics (the
         first inference batch is the calibration batch), run, padding
         rows (and num_batch_padd) trimmed."""
-        gdata, gmask = self._stage_padded(batch)
+        gdata, gmask, gextras = self._stage_padded(batch)
         if self.passes_need_calibration():
-            self._calibrate_staged(gdata, gmask)
+            self._calibrate_staged(gdata, gmask, gextras)
         valid = batch.batch_size - batch.num_batch_padd
         with self._flight_record(
                 ("infer", node, self._fold_epoch, tuple(gdata.shape)),
                 kind="infer", name=f"infer:n{node}@b{gdata.shape[0]}",
                 shape=gdata.shape,
                 nbytes=gdata.numel() * gdata.element_size()):
-            out = self.infer_rows(gdata, node)[:valid].cpu().numpy()
+            out = self.infer_rows(gdata, node, gextras)[:valid].cpu().numpy()
         return out
 
     # ------------------------------------------------------------------
@@ -1204,7 +1265,7 @@ class NetTrainer:
             return False
         return self._calibrate_staged(*self._stage_padded(batch))
 
-    def _calibration_taps(self, gdata: torch.Tensor):
+    def _calibration_taps(self, gdata: torch.Tensor, gextras=()):
         """One forward of the untransformed net with the fold sites'
         batch_norm inputs and the quant sites' inputs tapped."""
         sites = self._fold_sites if self._needs_fold_stats() else []
@@ -1213,11 +1274,11 @@ class NetTrainer:
         taps.update({q: None for q in qsites})
         with torch.inference_mode():
             self.net(self.compute_params(), self._model_input(gdata),
-                     taps=taps)
+                     extras=gextras, taps=taps)
         return sites, qsites, taps
 
-    def _calibrate_staged(self, gdata: torch.Tensor,
-                          gmask: torch.Tensor) -> bool:
+    def _calibrate_staged(self, gdata: torch.Tensor, gmask: torch.Tensor,
+                          gextras=()) -> bool:
         """Calibration on staged rows: each fold site's batch_norm input
         moments with the layer's own arithmetic (float32, rsqrt(var +
         eps)) - deliberately UNmasked, since on the single-batch path
@@ -1226,7 +1287,7 @@ class NetTrainer:
         quant site's input absmax over the valid rows only."""
         if not self.passes_need_calibration():
             return False
-        sites, qsites, taps = self._calibration_taps(gdata)
+        sites, qsites, taps = self._calibration_taps(gdata, gextras)
         if sites:
             stats = {}
             for _i, j in sites:
@@ -1266,8 +1327,8 @@ class NetTrainer:
         sites: List[Tuple[int, int]] = []
         qsites: List[int] = []
         for b in batches:
-            gdata, gmask = self._stage_padded(b)
-            sites, qsites, taps = self._calibration_taps(gdata)
+            gdata, gmask, gextras = self._stage_padded(b)
+            sites, qsites, taps = self._calibration_taps(gdata, gextras)
             res = {}
             for _i, j in sites:
                 lay = self.net.layer_objs[j]
@@ -1362,36 +1423,53 @@ class NetTrainer:
         out = self._infer_node(batch, self.net_cfg.num_nodes - 1)
         return out.reshape(out.shape[0], -1)
 
+    def extract_feature(self, batch: DataBatch,
+                        node_name: str) -> np.ndarray:
+        """Any node's float32 rows, by name or `top[-k]`
+        (nnet_impl-inl.hpp:200-223), in the node's own shape."""
+        return self._infer_node(batch, self.net.node_index(node_name))
+
     # ------------------------------------------------------------------
     # checkpoints
     # ------------------------------------------------------------------
+    def _host_params(self) -> Dict[str, Dict[str, np.ndarray]]:
+        return convert.params_to_numpy(self.state["params"],
+                                       self.net.param_shapes())
+
     def save_model(self, fo) -> None:
-        """The JAX package's checkpoint format; the updater state rides
-        along under `save_optimizer = 1`."""
-        params = convert.params_to_numpy(self.state["params"],
-                                         self.net.param_shapes())
+        """The JAX package's checkpoint format (the updater state rides
+        along under `save_optimizer = 1`), or the reference binary
+        under `model_format = cxxnet` (no updater state, as in the
+        reference)."""
+        params = self._host_params()
+        if self.model_format == "cxxnet":
+            legacy_format.save_legacy_model(fo, self.net_cfg, self.net,
+                                            params, self.epoch)
+            return
         opt = (convert.ustate_to_numpy(self.state["ustate"])
                if self.save_optimizer else None)
         checkpoint.save_model(fo, 0, self.net_cfg.to_dict(), self.epoch,
                               params, opt)
 
     @staticmethod
-    def _read_native(fi) -> dict:
+    def _is_native(fi) -> bool:
+        """Sniff the format: native files start with the magic,
+        reference-binary files with a little-endian int32 net_type."""
         head = fi.read(len(checkpoint.MAGIC))
         fi.seek(-len(head), 1)
-        if head != checkpoint.MAGIC:
-            raise NotImplementedError(
-                "model_format = cxxnet (reference-binary checkpoints) is "
-                "not ported to cxxnet_tpu_torch yet; load a native "
-                "checkpoint")
-        return checkpoint.load_model(fi)
+        return head == checkpoint.MAGIC
 
     def load_model(self, fi) -> None:
-        """Load a checkpoint in the JAX package's native format: the file
-        supplies structure, weights, the update counter and, if it
-        carries one, the updater state (for `continue = 1`); the config
-        supplies the layer settings."""
-        blob = self._read_native(fi)
+        """Load a checkpoint of either format. A native file supplies
+        structure, weights, the update counter and, if it carries one,
+        the updater state (for `continue = 1`); the config supplies the
+        layer settings. A reference-binary file, as in the reference,
+        needs the netconfig from the config: the file's structure is
+        checked equal to it and supplies the weights and the counter."""
+        if not self._is_native(fi):
+            self._load_legacy(fi)
+            return
+        blob = checkpoint.load_model(fi)
         self.net_cfg = NetConfig.from_dict(blob["net"])
         self.net_cfg.configure(self.cfg_pairs)
         self._build_net()
@@ -1401,22 +1479,46 @@ class NetTrainer:
         self._init_state(convert.params_from_numpy(
             blob["params"], self.net.param_shapes(), self.device))
 
+    def _load_legacy(self, fi) -> None:
+        self.net_cfg = NetConfig()
+        self.net_cfg.configure(self.cfg_pairs)
+        self._build_net()
+        # expected shapes only (the file's tensors are validated
+        # against them); no throwaway init
+        expected = {lk: {pn: np.empty(shape, np.float32)
+                         for pn, shape in d.items()}
+                    for lk, d in self.net.param_shapes().items()}
+        blob = legacy_format.load_legacy_model(fi, self.net_cfg, self.net,
+                                               expected)
+        self.epoch = blob["epoch"]
+        self._reset_counters()
+        self._init_state(convert.params_from_numpy(
+            blob["params"], self.net.param_shapes(), self.device))
+
     def copy_model_from(self, fi) -> None:
         """Finetune: copy the params of layers whose names match
         (nnet_impl-inl.hpp:101-134); call after init_model. The updater
         state starts fresh."""
         if self.state is None:
             raise RuntimeError("copy_model_from requires init_model first")
-        blob = self._read_native(fi)
-        params = convert.params_to_numpy(self.state["params"],
-                                         self.net.param_shapes())
+        blob = (checkpoint.load_model(fi) if self._is_native(fi)
+                else legacy_format.read_legacy_model(fi))
+        params = self._host_params()
         copied = []
         for lk, d in blob["params"].items():
             if lk.startswith("layer_"):
                 continue  # unnamed layers are not matched
             if lk in params:
                 for pn, arr in d.items():
-                    if pn in params[lk] and arr.shape == params[lk][pn].shape:
+                    if pn not in params[lk]:
+                        continue
+                    want = params[lk][pn].shape
+                    if arr.shape != want and arr.size == params[
+                            lk][pn].size:
+                        # a reference-binary conv wmat arrives in the
+                        # file's 3-D layout: the memory order of OIHW
+                        arr = arr.reshape(want)
+                    if arr.shape == want:
                         params[lk][pn] = arr
                 copied.append(lk)
         if not self.silent:

@@ -18,13 +18,14 @@
 - **replica lanes** (the port's form of what jax's async dispatch gives
   the JAX Server): `replicas` dispatcher threads drain the shared queue.
   On the card each works on its OWN CUDA stream: it stages its bucket
-  from its own pinned host buffer (one per replica, sized to the
-  largest bucket), issues the forward on that stream and reads the
-  rows back with a non-blocking copy into pinned memory plus an event,
-  so one replica's copies overlap another's compute. The event is
-  waited on before the futures resolve, so a replica holds one batch
-  at a time. `torch.inference_mode` and the
-  current stream are thread-local, so each replica thread sets both;
+  from its own pinned host buffers (one for the data and one for each
+  extra input, sized to the largest bucket), issues the forward on
+  that stream and reads the rows back with a non-blocking copy into
+  pinned memory plus an event, so one replica's copies overlap
+  another's compute. The event is waited on before the futures
+  resolve, so a replica holds one batch at a time.
+  `torch.inference_mode` and the current stream are thread-local, so
+  each replica thread sets both;
 - **weight slots**: a dispatch binds one slot (master params + the
   compute params made from them by the InferGraph) at dispatch time
   and calls the graph with them directly. `swap_to` builds a new slot
@@ -64,8 +65,14 @@ runbook", "Canary runbook", "Connection limits & drain"):
   `drain()` (SIGTERM in `task=serve`) stops admission, flips /healthz
   to a draining 503, resolves everything queued, then stops.
 
-Extra inputs (`extra_data_num`) are not ported: a request carrying any
-is refused (400 over HTTP). Every device call runs outside the locks.
+Extra inputs (`extra_data_num`): a request carries one array per extra
+input node, row-aligned with its data (`submit(data, extras)`,
+`{"extras": [...]}` over HTTP); the bucket is assembled, padded and
+staged with its extras, and the canary's shadow pairs carry them. A
+missing, misaligned or mis-shaped extra is refused at submit
+(ValueError, 400 over HTTP; the JAX Server fails a mis-shaped one at
+dispatch, with the requests batched beside it).
+Every device call runs outside the locks.
 """
 
 from __future__ import annotations
@@ -274,19 +281,21 @@ class _Canary:
         self.n_req = [0, 0]
         self.n_err = [0, 0]
         self.n_exp = [0, 0]
-        # sampled incumbent request rows pending a shadow comparison
-        self.shadow: List[np.ndarray] = []
+        # sampled incumbent requests (data, extras) pending a shadow
+        # comparison
+        self.shadow: List[Tuple[np.ndarray, List[np.ndarray]]] = []
         self.shadow_done = 0
         self.provenance: Dict[str, Any] = {}
 
 
 class _WorkItem:
-    __slots__ = ("data", "n", "t_submit", "future", "trace", "part",
-                 "nparts", "t_collect", "deadline", "side")
+    __slots__ = ("data", "extras", "n", "t_submit", "future", "trace",
+                 "part", "nparts", "t_collect", "deadline", "side")
 
-    def __init__(self, data, t_submit, trace="", part=0, nparts=1,
+    def __init__(self, data, extras, t_submit, trace="", part=0, nparts=1,
                  deadline=0.0) -> None:
         self.data = data
+        self.extras = extras
         self.n = data.shape[0]
         self.t_submit = t_submit
         self.future = _Future()
@@ -302,17 +311,19 @@ class _WorkItem:
 
 class _Lane:
     """One replica's device lane. On the card: its own CUDA stream, one
-    pinned input buffer (rows in the staged dtype) and one pinned
-    output buffer (float32 rows), each sized to the largest bucket. A
-    batch is copied into the pinned input, crosses with a non-blocking
-    copy on the lane's stream, runs there, and its rows come back with
-    a non-blocking copy into the pinned output; the event recorded
-    after that copy is waited on before the rows are copied out and
-    handed on. So a lane holds one batch at a time: replicas overlap
-    one another (one stream each), a lane does not overlap its own
-    batches. On the CPU: rows are staged and read back inline."""
+    pinned input buffer (rows in the staged dtype), one pinned float32
+    buffer for each extra input and one pinned output buffer (float32
+    rows), each sized to the largest bucket. A batch is copied into the
+    pinned inputs, crosses with non-blocking copies on the lane's
+    stream, runs there, and its rows come back with a non-blocking copy
+    into the pinned output; the event recorded after that copy is
+    waited on before the rows are copied out and handed on. So a lane
+    holds one batch at a time: replicas overlap one another (one stream
+    each), a lane does not overlap its own batches. On the CPU: rows
+    are staged and read back inline."""
 
-    def __init__(self, trainer, max_rows: int, in_dims) -> None:
+    def __init__(self, trainer, max_rows: int, in_dims,
+                 extra_dims=()) -> None:
         self.trainer = trainer
         self.device = trainer.device
         self.cuda = self.device.type == "cuda"
@@ -321,14 +332,21 @@ class _Lane:
         self.max_rows = max_rows
         self.in_dims = tuple(in_dims)
         self._in: Dict[torch.dtype, torch.Tensor] = {}
+        self._in_extra = ([torch.empty((max_rows,) + tuple(d),
+                                       dtype=torch.float32,
+                                       pin_memory=True)
+                           for d in extra_dims] if self.cuda else [])
         self._out: Optional[torch.Tensor] = None
 
-    def run(self, graph, cparams, data: np.ndarray) -> np.ndarray:
-        """(n, width) float32 rows of `graph` on `data` with `cparams`."""
+    def run(self, graph, cparams, data: np.ndarray,
+            extras: Sequence[np.ndarray] = ()) -> np.ndarray:
+        """(n, width) float32 rows of `graph` on `data` (and its extra
+        inputs) with `cparams`."""
         tr = self.trainer
         n = data.shape[0]
         if not self.cuda:
-            out = graph.run(cparams, tr.stage_infer_rows(data))
+            out = graph.run(cparams, tr.stage_infer_rows(data),
+                            tr.stage_extras(extras))
             return out.reshape(n, -1).numpy()
         arr = tr._host_rows(data)
         dt = tr._staged_dtype(arr)
@@ -343,9 +361,16 @@ class _Lane:
         # memory; the previous batch's event was waited on, so its
         # copy out of this buffer is complete
         host.copy_(torch.from_numpy(arr))
+        hextras = []
+        for pin_e, e in zip(self._in_extra, extras):
+            pin_e[:n].copy_(torch.from_numpy(
+                np.ascontiguousarray(e, dtype=np.float32)))
+            hextras.append(pin_e[:n])
         with torch.cuda.stream(self.stream):
             gdata = tr._on_device(host.to(self.device, non_blocking=True))
-            out = graph.run(cparams, gdata).reshape(n, -1)
+            gextras = tuple(tr._cast(h.to(self.device, non_blocking=True))
+                            for h in hextras)
+            out = graph.run(cparams, gdata, gextras).reshape(n, -1)
             pout = self._out
             if pout is None or pout.shape[1] != out.shape[1]:
                 pout = self._out = torch.empty(
@@ -424,6 +449,9 @@ class Server:
                 event_kind="serve", op="fold_uncalibrated")
         self._graph = trainer.infer_graph(self.node)
         self._input_dims = tuple(trainer.net_cfg.input_shape)
+        self._extra_dims = [
+            tuple(trainer.net.node_shapes[1 + i][1:])
+            for i in range(trainer.net_cfg.extra_data_num)]
         # the HTTP listener (serve_port = metrics_port: one socket)
         if http_port is None:
             cfg_port = int(getattr(trainer, "serve_port", 0) or 0)
@@ -530,13 +558,15 @@ class Server:
         # every bucket program fingerprint this Server registered
         self._programs: set = set()
         # one lane per replica, plus the canary judge's own
-        self._lanes = [_Lane(trainer, self.buckets[-1], self._input_dims)
-                       for _ in range(self.replicas)]
-        self._judge_lane = _Lane(trainer, self.buckets[-1],
-                                 self._input_dims)
+        self._lanes = [self._new_lane() for _ in range(self.replicas)]
+        self._judge_lane = self._new_lane()
         # guarded-by: self._swap_lock
         self._slot = self._make_slot(trainer.state["params"],
                                      trainer.epoch)
+
+    def _new_lane(self) -> _Lane:
+        return _Lane(self.trainer, self.buckets[-1], self._input_dims,
+                     self._extra_dims)
 
     # -- weight slots ------------------------------------------------------
     def _make_slot(self, master, epoch: int, graph=None) -> _Slot:
@@ -568,15 +598,16 @@ class Server:
         tel = telemetry.get()
         with self._swap_lock:
             graph, slot = self._graph, self._slot
-        lanes = (self._lanes if not self._started else
-                 [_Lane(self.trainer, self.buckets[-1], self._input_dims)])
+        lanes = self._lanes if not self._started else [self._new_lane()]
         epoch = self.trainer._fold_epoch
         with torch.inference_mode():
             for b in self.buckets:
                 data = np.zeros((b,) + self._input_dims, np.float32)
+                extras = [np.zeros((b,) + d, np.float32)
+                          for d in self._extra_dims]
                 tb = time.perf_counter()
                 for lane in lanes:
-                    lane.run(graph, slot.cparams, data)
+                    lane.run(graph, slot.cparams, data, extras)
                 first_s = time.perf_counter() - tb
                 fp = exec_fingerprint("serve.infer", self.node, b,
                                       self._input_dims, epoch)
@@ -585,13 +616,15 @@ class Server:
                 tel.executables.register(
                     fp, name=f"serve.infer:b{b}", kind="serve",
                     shape=str((b,) + self._input_dims),
-                    arg_bytes=int(data.nbytes),
+                    arg_bytes=int(data.nbytes
+                                  + sum(e.nbytes for e in extras)),
                     device=str(self.device), donated=0,
                     compile_s=first_s)
                 if tel.flight.enabled:
-                    gdata = self.trainer.stage_infer_rows(data)
-                    tel.executables.enrich(fp, graph.run,
-                                           (slot.cparams, gdata))
+                    tel.executables.enrich(
+                        fp, graph.run,
+                        (slot.cparams, self.trainer.stage_infer_rows(data),
+                         self.trainer.stage_extras(extras)))
         self.warmup_s = time.perf_counter() - t0
         telemetry.observe("serve.warmup_s", self.warmup_s)
         telemetry.event("serve", op="warmup", buckets=list(self.buckets),
@@ -722,15 +755,15 @@ class Server:
     def submit(self, data: np.ndarray, extras: Sequence = (),
                deadline_ms: Optional[float] = None):
         """Enqueue one request: (n, c, y, x) rows or a single (c, y, x)
-        instance. Returns a future whose result() is the raw final-node
-        rows, (n, width) float32 - predictions_from_rows turns them into
-        predict()-style labels. Thread-safe; requests wider than the
-        largest bucket split transparently.
+        instance; `extras` (one array per extra input the net declares)
+        ride along row-aligned. Returns a future whose result() is the
+        raw final-node rows, (n, width) float32 - predictions_from_rows
+        turns them into predict()-style labels. Thread-safe; requests
+        wider than the largest bucket split transparently.
 
         `deadline_ms` overrides the server default (serve_deadline_ms;
         0 = none). With `queue_limit` set, a submit that would push the
-        queue past the limit raises QueueFullError instead. `extras`
-        must be empty: extra inputs are not ported."""
+        queue past the limit raises QueueFullError instead."""
         if not self._started:
             raise RuntimeError("Server not started (call start())")
         data = np.ascontiguousarray(data)
@@ -743,18 +776,28 @@ class Server:
                 f"instance; got {data.shape}")
         if data.shape[0] < 1:
             raise ValueError("serve request needs at least one row")
-        if len(extras):
+        extras = [np.ascontiguousarray(e, dtype=np.float32)
+                  for e in extras]
+        if len(extras) != len(self._extra_dims):
             raise ValueError(
-                f"net declares 0 extra inputs but the request carries "
-                f"{len(extras)}")
+                f"net declares {len(self._extra_dims)} extra inputs "
+                f"but the request carries {len(extras)}")
+        for i, (e, dims) in enumerate(zip(extras, self._extra_dims)):
+            if e.ndim == 0 or e.shape[0] != data.shape[0]:
+                raise ValueError("extras must be row-aligned with data")
+            if e.shape[1:] != dims:
+                raise ValueError(
+                    f"extra input {i} must be rows of {dims}; got "
+                    f"{e.shape}")
         t_submit = time.monotonic()
         trace = f"{os.getpid():x}-{next(self._trace_seq):06d}"
         eff_ms = (self.deadline_ms if deadline_ms is None
                   else float(deadline_ms))
         deadline = t_submit + eff_ms / 1e3 if eff_ms > 0 else 0.0
         nparts = -(-data.shape[0] // self.max_batch)
-        items = [_WorkItem(data[lo:lo + self.max_batch], t_submit,
-                           trace=trace, part=part, nparts=nparts,
+        items = [_WorkItem(data[lo:lo + self.max_batch],
+                           [e[lo:lo + self.max_batch] for e in extras],
+                           t_submit, trace=trace, part=part, nparts=nparts,
                            deadline=deadline)
                  for part, lo in enumerate(
                      range(0, data.shape[0], self.max_batch))]
@@ -949,10 +992,12 @@ class Server:
         total = sum(it.n for it in items)
         bucket = next(b for b in self.buckets if b >= total)
         data = np.concatenate([it.data for it in items], axis=0)
+        extras = [np.concatenate([it.extras[i] for it in items], axis=0)
+                  for i in range(len(self._extra_dims))]
         if bucket > total:
-            data = np.concatenate(
-                [data, np.zeros((bucket - total,) + data.shape[1:],
-                                data.dtype)], axis=0)
+            data, *extras = (np.concatenate(
+                [a, np.zeros((bucket - total,) + a.shape[1:], a.dtype)],
+                axis=0) for a in (data, *extras))
         tel = telemetry.get()
         fp = self._exec_fp.get(bucket, "")
         fl = None
@@ -984,12 +1029,14 @@ class Server:
                 if can is not None:
                     can.n_req[side] += len(items)
                     if side == 0 and len(can.shadow) < 4:
-                        can.shadow.append(items[0].data.copy())
+                        can.shadow.append(
+                            (items[0].data.copy(),
+                             [e.copy() for e in items[0].extras]))
             if routed:
                 with self._lock:
                     self._n_canary_req += routed
                 telemetry.inc("serve.canary_requests", routed)
-            rows = lane.run(graph, slot.cparams, data)
+            rows = lane.run(graph, slot.cparams, data, extras)
         except BaseException as e:
             # a failed dispatch must not read as a hung one
             tel.flight.fail(fl, f"{type(e).__name__}: {e}")
@@ -1272,15 +1319,17 @@ class Server:
             bad = [can.n_err[0] + can.n_exp[0],
                    can.n_err[1] + can.n_exp[1]]
         if sample is not None:
-            reason = self._shadow_divergence(graph, inc, can.slot, sample)
+            reason = self._shadow_divergence(graph, inc, can.slot, *sample)
             with self._swap_lock:
                 can.shadow_done += 1
             if reason is not None:
                 return reason
         elif final and shadow_done == 0:
             data = np.zeros((1,) + self._input_dims, np.float32)
+            extras = [np.zeros((1,) + d, np.float32)
+                      for d in self._extra_dims]
             reason = self._shadow_divergence(graph, inc, can.slot, data,
-                                             check_agree=False)
+                                             extras, check_agree=False)
             if reason is not None:
                 return reason
         if bad[1] > 0:
@@ -1293,7 +1342,8 @@ class Server:
         return None
 
     def _shadow_divergence(self, graph, inc: _Slot, cand: _Slot, data,
-                           check_agree: bool = True) -> Optional[str]:
+                           extras, check_agree: bool = True
+                           ) -> Optional[str]:
         """The same rows through incumbent and candidate (padded to a
         covering bucket, on the judge's lane) and compared."""
         n = int(data.shape[0])
@@ -1301,13 +1351,14 @@ class Server:
                       self.buckets[-1])
         if n > bucket:
             data, n = data[:bucket], bucket
+            extras = [e[:bucket] for e in extras]
         if bucket > n:
-            data = np.concatenate(
-                [data, np.zeros((bucket - n,) + data.shape[1:],
-                                data.dtype)], axis=0)
+            data, *extras = (np.concatenate(
+                [a, np.zeros((bucket - n,) + a.shape[1:], a.dtype)],
+                axis=0) for a in (data, *extras))
         lane = self._judge_lane
-        out_inc = lane.run(graph, inc.cparams, data)[:n]
-        out_cand = lane.run(graph, cand.cparams, data)[:n]
+        out_inc = lane.run(graph, inc.cparams, data, extras)[:n]
+        out_cand = lane.run(graph, cand.cparams, data, extras)[:n]
         if fault.fault_point("canary_divergence") == "corrupt":
             # sabotage: poison the candidate's answers (rollback drill)
             out_cand = out_cand + np.nan
@@ -1369,13 +1420,15 @@ class Server:
 
     # -- HTTP request path -------------------------------------------------
     def handle_predict(self, body: bytes):
-        """The /predict POST backend: JSON {"data": rows, "deadline_ms":
-        N, "raw": bool} in; {"predictions": [...], "rows": n, "trace":
-        id, "latency_ms": t} (+ "outputs" with raw) out. data is
-        (n,c,y,x) nested, flat (n, c*y*x), or one instance. Maps
-        QueueFullError -> 429 + Retry-After, deadline expiry/timeout ->
-        504, validation (and any "extras") -> 400, a stopping server ->
-        503, dispatch failure -> 500. Returns (status, headers, body)."""
+        """The /predict POST backend: JSON {"data": rows, "extras": [one
+        row-aligned array per extra input], "deadline_ms": N, "raw":
+        bool} in; {"predictions": [...], "rows": n, "trace": id,
+        "latency_ms": t} (+ "outputs" with raw) out. data is (n,c,y,x)
+        nested, flat (n, c*y*x), or one instance. Maps QueueFullError ->
+        429 + Retry-After, deadline expiry/timeout -> 504, validation (a
+        missing or malformed extra included) -> 400, a stopping server
+        -> 503, dispatch failure -> 500. Returns (status, headers,
+        body)."""
         def err(code: int, msg: str, **extra):
             payload = {"error": msg}
             payload.update(extra)

@@ -1141,3 +1141,164 @@ def test_replica_lanes_streams_and_readback_events(cuda_device):
             np.testing.assert_allclose(got, wants[i % 2], rtol=1e-4,
                                        atol=1e-6)
     assert buffers() == ptrs
+
+
+# ---------------------------------------------------------------------------
+# the reference's own surface on the card: extra inputs, reference-binary
+# checkpoints, extract, the numpy wrapper and the C ABI
+# ---------------------------------------------------------------------------
+def test_extra_inputs_on_the_card(cuda_device):
+    """The extra-input net (tests/test_trainer.py:505) on the card
+    against the CPU from the same weights (float32, TF32 off): params
+    after 5 steps at rtol 1e-4 / atol 1e-5, rows at rtol 1e-4 / atol
+    1e-6; the prefetcher's pinned ring carries the extras bitwise as
+    streamed staging; a Server with 2 lanes (a pinned buffer for each
+    extra input) serves them as predict_dist (rtol 1e-4 / atol 1e-6)."""
+    from torch_port_util import EXTRA_NET, extra_batches
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = NetTrainer(cfg=EXTRA_NET, device="cuda:0")
+    gpu.init_model()
+    cpu = NetTrainer(cfg=EXTRA_NET, device="cpu")
+    cpu.init_model()
+    cpu._set_params({k: {n: t.cpu() for n, t in d.items()}
+                     for k, d in gpu.state["params"].items()})
+    data = extra_batches(5, 6)
+    for x, e, y in data:
+        for tr in (gpu, cpu):
+            tr.update(DataBatch(data=x, label=y, extra_data=[e]))
+    for lk, d in cpu.state["params"].items():
+        for pn, t in d.items():
+            np.testing.assert_allclose(gpu.state["params"][lk][pn].cpu(),
+                                       t, rtol=1e-4, atol=1e-5)
+    x, e, y = extra_batches(1, 7)[0]
+    b = DataBatch(data=x, label=y, extra_data=[e])
+    np.testing.assert_allclose(gpu.predict_dist(b), cpu.predict_dist(b),
+                               rtol=1e-4, atol=1e-6)
+
+    class Items:
+        def __init__(self, items):
+            self.items = items
+
+        def before_first(self):
+            self.i = -1
+
+        def next(self):
+            self.i += 1
+            return self.i < len(self.items)
+
+        def value(self):
+            return self.items[self.i]
+    batches = [DataBatch(data=x, label=y, extra_data=[e])
+               for x, e, y in data[:3]]
+    pf = gpu.prefetch(Items(batches), 1)
+    try:
+        pf.before_first()
+        for want_b in batches:
+            assert pf.next()
+            got, want = pf.value(), gpu.stage_batch(want_b)
+            gpu._await(got)
+            assert got.ready is not None and len(got.extras) == 1
+            assert torch.equal(got.extras[0], want.extras[0])
+            assert torch.equal(got.data, want.data)
+    finally:
+        pf.close()
+    srv = Server(gpu, max_batch=8, max_wait_ms=1.0, replicas=2)
+    for lane in srv._lanes:
+        assert len(lane._in_extra) == 1 and lane._in_extra[0].is_pinned()
+    srv.warmup()
+    reqs = [extra_batches(1, 20 + i, rows=n)[0]
+            for i, n in enumerate((1, 3, 8, 5))]
+    with srv:
+        futs = [srv.submit(x, [e]) for x, e, _ in reqs]
+        for (x, e, y), f in zip(reqs, futs):
+            np.testing.assert_allclose(
+                f.result(timeout=60),
+                gpu.predict_dist(DataBatch(data=x, label=y,
+                                           extra_data=[e])),
+                rtol=1e-4, atol=1e-6)
+        with pytest.raises(ValueError, match="extra inputs"):
+            srv.submit(reqs[0][0])
+
+
+def test_legacy_checkpoint_and_extract_on_the_card(cuda_device):
+    """model_format = cxxnet on the card: the file a card trainer writes
+    loads back on the card with predict_dist bitwise equal, and the CPU
+    writes the same bytes from the loaded weights; extract_feature of
+    node 20 (= top[-2]) launches K1-fwd twice a batch and matches the
+    CPU (float32, TF32 off) at rtol 1e-4 / atol 1e-6."""
+    import io
+    gpu = _card_trainer(5)
+    gpu.set_param("model_format", "cxxnet")
+    x = _x((8, 3, 35, 35), 1)
+    gpu.update(DataBatch(data=x, label=np.arange(8, dtype=np.float32)
+                         .reshape(8, 1)))
+    buf = io.BytesIO()
+    gpu.save_model(buf)
+    raw = buf.getvalue()
+    assert raw[:5] != b"CXTPU"
+    again = _card_trainer(6)
+    again.load_model(io.BytesIO(raw))
+    b = DataBatch(data=x, label=np.zeros((8, 1), np.float32))
+    assert np.array_equal(gpu.predict_dist(b), again.predict_dist(b))
+    cpu = NetTrainer(cfg=NARROW_ALEXNET, device="cpu")
+    cpu.load_model(io.BytesIO(raw))
+    cpu.set_param("model_format", "cxxnet")
+    out = io.BytesIO()
+    cpu.save_model(out)
+    assert out.getvalue() == raw
+    kernels.reset_launches()
+    feat = gpu.extract_feature(b, "20")
+    assert kernels.launches()["lrn_fwd"] == 2
+    assert feat.shape == (8, 1, 1, 32)
+    np.testing.assert_array_equal(feat, gpu.extract_feature(b, "top[-2]"))
+    np.testing.assert_allclose(feat, cpu.extract_feature(b, "20"),
+                               rtol=1e-4, atol=1e-6)
+
+
+def test_wrapper_on_the_card(cuda_device, monkeypatch):
+    """wrapper.Net on `gpu` (the card) trains through K1-fwd / K1-bwd,
+    and train()'s staged path equals its prefetched one (the pinned
+    ring) bit for bit."""
+    import cxxnet_tpu_torch.wrapper as W
+    rng = np.random.RandomState(3)
+    x = (rng.randn(32, 3, 35, 35) * 3).astype(np.float32)
+    y = rng.randint(0, 10, size=32).astype(np.float32)
+    net = W.Net(dev="gpu", cfg=NARROW_ALEXNET)
+    assert net._net.device.type == "cuda"
+    net.init_model()
+    kernels.reset_launches()
+    net.update(x[:8], y[:8])
+    assert kernels.launches()["lrn_bwd"] == 2
+    assert net.predict(x[:8]).shape == (8,)
+    param = {"eta": 0.05, "seed": 4}
+    staged = W.train(NARROW_ALEXNET, x, y, num_round=2, param=param,
+                     batch_size=8, dev="gpu")
+    monkeypatch.setattr(W, "_STAGE_BYTES_LIMIT", 0)
+    streamed = W.train(NARROW_ALEXNET, x, y, num_round=2, param=param,
+                       batch_size=8, dev="gpu")
+    for lk, d in staged._net.state["params"].items():
+        for pn, t in d.items():
+            assert torch.equal(t, streamed._net.state["params"][lk][pn])
+
+
+def test_c_abi_driver_on_the_card(cuda_device, tmp_path):
+    """The C driver with device gpu on the narrow AlexNet: every check
+    passes, and the shim's launch log shows K1-fwd / K1-bwd twice an
+    update and K1-fwd twice in each of the 5 forwards after them."""
+    import json
+    import os
+    import subprocess
+    from cxxnet_tpu_torch import capi_build
+    exe = capi_build.build_driver()
+    conf = tmp_path / "net.conf"
+    conf.write_text(NARROW_ALEXNET)
+    log = tmp_path / "launches.json"
+    out = subprocess.run(
+        [exe, "gpu", str(conf), "rand:8,3,35,35,10", str(tmp_path / "m"),
+         "fc8", "3", str(tmp_path)],
+        env=capi_build.driver_env(dict(os.environ,
+                                       CXXNET_LAUNCH_LOG=str(log))),
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, (out.stdout, out.stderr)
+    counts = json.loads(log.read_text())
+    assert counts["lrn_fwd"] == 2 * 3 + 10 and counts["lrn_bwd"] == 6

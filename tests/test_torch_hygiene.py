@@ -65,6 +65,26 @@ def test_sources_import_no_jax_and_no_cxxnet_tpu():
         assert not pat.search(fh.read())
 
 
+def test_surface_modules_stand_alone():
+    """The reference's surface (the numpy wrapper, the C ABI shim and
+    its build, the reference-binary format) is in the port's tree, and
+    the C ABI library embeds cxxnet_tpu_torch.capi: it imports no module
+    of cxxnet_tpu and includes nothing of native/."""
+    mods = set(_modules())
+    for m in ("wrapper", "capi", "capi_build", "nnet.legacy_format"):
+        assert f"cxxnet_tpu_torch.{m}" in mods
+    for name in ("cxxnet_wrapper.cc", "cxxnet_wrapper.h", "capi_driver.c"):
+        with open(os.path.join(PKG, "csrc", name), encoding="utf-8") as f:
+            src = f.read()
+        imports = re.findall(r'PyImport_ImportModule\("([^"]+)"\)', src)
+        assert imports == (["cxxnet_tpu_torch.capi"]
+                           if name.endswith(".cc") else [])
+        assert not re.search(r"cxxnet_tpu\.(?!capi)|cxxnet_tpu\.capi",
+                             src.replace("cxxnet_tpu_torch", ""))
+        includes = re.findall(r'#include\s*[<"]([^>"]+)[>"]', src)
+        assert not any("native" in i or "/" in i for i in includes)
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """With no card, the default device raises and names the CPU
     spelling; asking for the CPU works."""
@@ -106,7 +126,7 @@ def test_multi_device_specs_raise(spec):
     ("tuning_cache", "tc.json"), ("remat", "1"),
     ("profile", "1"), ("zero_stage", "2"), ("mesh", "data:2"),
     ("steps_per_dispatch", "4"), ("trace_round", "2"),
-    ("model_format", "cxxnet"), ("extra_data_num", "1"),
+    ("update_on_server", "1"), ("profile_dir", "prof"),
     ("param_server", "dist"), ("shard_optimizer", "1"),
 ])
 def test_result_changing_keys_raise(key, val):

@@ -129,3 +129,42 @@ def numpy_keep(trainer, seed):
             pkeep = 1.0 - trainer.net.layer_objs[idx].threshold
             out[idx] = rng.rand(*shape) < pkeep
     return out
+
+
+# the extra-input net of tests/test_trainer.py:505-523: node in_1 (one
+# extra input of 1x1x4) concatenated onto the data; the label depends
+# only on the extra input, so a net that is not fed in_1 cannot learn
+EXTRA_NET = """
+extra_data_num = 1
+extra_data_shape[0] = 1,1,4
+netconfig=start
+layer[in,in_1->2] = concat
+layer[2->3] = fullc:fc1
+  nhidden = 16
+  init_sigma = 0.1
+layer[3->4] = relu
+layer[4->5] = fullc:fc2
+  nhidden = 2
+  init_sigma = 0.1
+layer[5->5] = softmax
+netconfig=end
+input_shape = 1,1,4
+batch_size = 8
+eta = 0.2
+momentum = 0.9
+metric = error
+silent = 1
+"""
+
+
+def extra_batches(n, seed, rows=8):
+    """`n` (data, extra, label) triples of EXTRA_NET: label = whether
+    the extra input's entries sum above 0."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        x = rng.randn(rows, 1, 1, 4).astype(np.float32)
+        e = rng.randn(rows, 1, 1, 4).astype(np.float32)
+        y = (e.reshape(rows, 4).sum(1) > 0).astype(np.float32)
+        out.append((x, e, y.reshape(rows, 1)))
+    return out
