@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit (nvcc). Phases, each of which raises on failure:
 
 1. device: the card's name and power limit, and which of jpeglib.h,
-   png.h, nvjpeg.h, libnvjpeg and g++ the machine has (looked for,
-   nothing built: what a native or nvJPEG decoder could build on);
+   png.h, nvjpeg.h, libnvjpeg and g++ the machine has (looked for: what
+   the image decoder builds on);
 2. build: every kernel in cxxnet_tpu_torch/csrc/ compiled with nvcc
    (one process per source, started together), with the -Xptxas -v
    register and shared-memory lines; each tensor-core instance (K2-fwd,
@@ -167,7 +167,26 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    tests/test_trainer.py:505 trained on numpy batches, the pinned ring
    carrying extras, Server.submit and /predict with extras (200) and
    without (400); (f) keep_latest = 2 with continue = 1, and test_io =
-   1, through the CLI on MNIST.conf.
+   1, through the CLI on MNIST.conf;
+14. the native image decoder (`use_native`, io/native.py over
+   csrc/nvjpeg_io.cu), in a fresh process (`chip_smoke.py --leg 14 OUT
+   [DIR FMT]`, run inside phase 10's directory after 13; alone it makes
+   its own timing set): (a) the library built, its backend, nvJPEG's
+   version and path, the hardware decoder's facts, and its kernel
+   YccToRgb against its plain version bitwise at 256 x 256 (4:2:0 and
+   4:4:4) with its time and bound; (b) a 4:4:4 and a 4:2:0 set of 512
+   images, 256 x 256, quality 90: every record against PIL's decode of
+   the same blob at io/native.py's PIL_BARS, with the distribution;
+   then stream order on 4 workers over 3 passes with the counters, two
+   bins, a missing file, PNG / PPM / a JPEG cut in its headers handed
+   back raw, out_mode 1 against 2; (c) AlexNet.conf's train block under
+   use_native = 1 and shuffle = 1 on the card against PlainBinReader:
+   labels bitwise, batches at the bar; (d) the decode rate alone over
+   10g's 3,072 images at 1, 4 and 8 threads beside PIL's at 1 and 4;
+   (e) 10g's three settings again with use_native = 1, with the host
+   stages; (f), in this process: phase 10c's CLI run, which under the
+   conf's use_native = -1 decodes with nvJPEG - the decoder launched,
+   no raw hand-back.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -2543,11 +2562,13 @@ def image_format_used():
 
 
 def write_image_set(d: str, sub: str, lst: str, n: int, size: int,
-                    classes: int, seed: int, fmt: str) -> None:
+                    classes: int, seed: int, fmt: str,
+                    subsampling: int = -1) -> None:
     """n size x size RGB images under d/sub/ with a class signal (a
     bright square whose place and channel follow the label, over
     noise), their .lst at d/lst.lst, packed into d/lst.bin by the port's
-    im2bin."""
+    im2bin. A JPEG's chroma `subsampling` is PIL's: -1 its default
+    (4:2:0), 0 for 4:4:4."""
     import io
     import numpy as np
     from cxxnet_tpu_torch.tools.im2bin import im2bin
@@ -2566,7 +2587,8 @@ def write_image_set(d: str, sub: str, lst: str, n: int, size: int,
         if fmt == "JPEG":
             from PIL import Image
             buf = io.BytesIO()
-            Image.fromarray(img).save(buf, format="JPEG", quality=90)
+            Image.fromarray(img).save(buf, format="JPEG", quality=90,
+                                      subsampling=subsampling)
             blob = buf.getvalue()
         else:
             blob = (f"P6\n{size} {size}\n255\n".encode()
@@ -2601,8 +2623,14 @@ def round_metrics(stderr: str):
 
 
 def cli_launches(stdout: str):
+    """The CLI's `kernel launches {...}` line, with its `decoder raw
+    hand-backs N` line as the key "raw_handbacks" where it printed one."""
     m = re.search(r"kernel launches (\{.*\})", stdout)
-    return ast.literal_eval(m.group(1)) if m else {}
+    counts = ast.literal_eval(m.group(1)) if m else {}
+    m = re.search(r"decoder raw hand-backs (\d+)", stdout)
+    if m:
+        counts["raw_handbacks"] = int(m.group(1))
+    return counts
 
 
 def cli_train_checked(conf, cwd, rounds, label, extra=()):
@@ -2671,10 +2699,11 @@ def alexnet_train_block():
     return defcfg, train + [("iter", "end")]
 
 
-def make_iter(conf, cwd, extra=()):
+def make_iter(conf, cwd, extra=(), device=None):
     """The iterator the CLI builds from a (global pairs, block) conf run
     in `cwd`: the block's chain, the global pairs set on it (batch_size,
-    input_shape, ...), relative file paths resolved from `cwd`."""
+    input_shape, ...), relative file paths resolved from `cwd`; `device`
+    as create_iterator takes it (it routes use_native)."""
     from cxxnet_tpu_torch.io import create_iterator
     defcfg, block = conf
     paths = ("image_list", "image_bin", "image_root", "image_mean")
@@ -2682,7 +2711,8 @@ def make_iter(conf, cwd, extra=()):
     def fix(pairs):
         return [(k, os.path.join(cwd, v) if k in paths else v)
                 for k, v in pairs]
-    it = create_iterator(fix(block[:-1]) + list(extra) + block[-1:])
+    it = create_iterator(fix(block[:-1]) + list(extra) + block[-1:],
+                         device=device)
     for k, v in fix(defcfg) + [("silent", "1")]:
         it.set_param(k, v)
     it.init()
@@ -2949,13 +2979,14 @@ def timed_setting(torch, tr, itr, prefetch):
     return step_ms, idle
 
 
-def iterator_rate(itr) -> float:
-    """Images/s of one pass of the iterator alone (decode, augment,
-    batch; no trainer)."""
+def iterator_rate(itr, batches: int = 6) -> float:
+    """Images/s of the iterator alone (decode, augment, batch; no
+    trainer) over its first `batches` batches of a pass."""
     itr.before_first()
-    n, t0 = 0, time.perf_counter()
-    while itr.next():
+    n, k, t0 = 0, 0, time.perf_counter()
+    while k < batches and itr.next():
         n += itr.value().data.shape[0] - itr.value().num_batch_padd
+        k += 1
     return n / (time.perf_counter() - t0)
 
 
@@ -3089,6 +3120,28 @@ def phase_image_timing(torch, d: str, fmt: str, card: str):
                                       prefetch)
         say_setting(results, label, step_ms, idle, device_ms, card)
     del cached
+    tr = timed_settings(torch, tr, block, tdir, device_ms, card, results)
+    del tr
+    torch.cuda.empty_cache()
+    results["host stages"] = host_stage_rates(tdir, card)
+    results["step alone"] = dict(step_ms=device_ms,
+                                   images_s=256 / device_ms * 1e3,
+                                   staging_ms=stage["bfloat16"],
+                                   staging_f32_ms=stage["float32"])
+    say("phase 10g summary " + json.dumps(
+        {k: {kk: (round(vv, 4) if vv == vv else None)
+             for kk, vv in v.items()}
+         for k, v in results.items()}))
+    return results
+
+
+def timed_settings(torch, tr, block, tdir, device_ms, card, results,
+                   extra=(), device=None, tag=""):
+    """10g's three settings of AlexNet.conf's train block over `tdir`'s
+    set - streamed, prefetch_stage = 1, and prefetch_stage = 1 +
+    device_augment = 1 - each with its staging time and the iterator's
+    own rate; `extra` pairs and `device` reach create_iterator. Returns
+    the trainer (the device_augment setting builds its own)."""
     settings = (("streamed (prefetch_stage = 0)", False, 0),
                 ("prefetch_stage = 1", True, 0),
                 ("prefetch_stage = 1 + device_augment = 1", True, 1))
@@ -3109,28 +3162,17 @@ def phase_image_timing(torch, d: str, fmt: str, card: str):
                                             device=tr.device))
             finally:
                 os.chdir(keep)
-        extra = [("device_augment", "1")] if daug else []
-        itr = make_iter(block, tdir, extra)
+        pairs = list(extra) + ([("device_augment", "1")] if daug else [])
+        itr = make_iter(block, tdir, pairs, device)
         b = pull(itr, 1)[0]
         stop_iter(itr)
         st = staging_ms(torch, tr, lambda: tr.stage_batch(b), 3)
         rate = iterator_rate(itr)
         step_ms, idle = timed_setting(torch, tr, itr, prefetch)
         stop_iter(itr)
-        say_setting(results, label, step_ms, idle, device_ms, card, rate, st,
-                    "uint8" if daug else "bfloat16")
-    del tr
-    torch.cuda.empty_cache()
-    results["host stages"] = host_stage_rates(tdir, card)
-    results["step alone"] = dict(step_ms=device_ms,
-                                   images_s=256 / device_ms * 1e3,
-                                   staging_ms=stage["bfloat16"],
-                                   staging_f32_ms=stage["float32"])
-    say("phase 10g summary " + json.dumps(
-        {k: {kk: (round(vv, 4) if vv == vv else None)
-             for kk, vv in v.items()}
-         for k, v in results.items()}))
-    return results
+        say_setting(results, tag + label, step_ms, idle, device_ms, card,
+                    rate, st, "uint8" if daug else "bfloat16")
+    return tr
 
 
 def phase_image_pipeline(torch, card, then=None):
@@ -3734,21 +3776,23 @@ def front_shed_deadline(srv, reqs):
         f"{sorted(set(during))} during it, 200 {recovered_s:.2f} s after "
         f"(serve_shed_clear_ms 500)")
     # both replicas stalled on a full bucket each; the request behind
-    # them waits past its deadline in the queue
-    fault.inject("serve_dispatch_delay", "delay", "0.5", at=1)
-    fault.inject("serve_dispatch_delay", "delay", "0.5", at=2)
+    # them waits past its deadline in the queue. Its body (3 MB of JSON)
+    # is made before the stalls, which outlast its send and its parse on
+    # a slow host: a 0.5 s stall could end before the request was queued
+    payload = json.dumps({"data": reqs[1].reshape(1, -1).tolist(),
+                          "deadline_ms": 50}).encode()
+    fault.inject("serve_dispatch_delay", "delay", "2.0", at=1)
+    fault.inject("serve_dispatch_delay", "delay", "2.0", at=2)
     blockers = [srv.submit(reqs[0]) for _ in range(2)]
     if not wait_for(lambda: srv._queued_rows == 0, 10.0):
         raise AssertionError("the blockers never left the queue")
     time.sleep(0.05)
-    code, _h, body = post_json(port, json.dumps({
-        "data": reqs[1].reshape(1, -1).tolist(),
-        "deadline_ms": 50}).encode())
+    code, _h, body = post_json(port, payload)
     for b in blockers:
         b.result(timeout=60)
     fault.clear()
     if code != 504:
-        raise AssertionError(f"a 50 ms deadline behind a 0.5 s dispatch "
+        raise AssertionError(f"a 50 ms deadline behind a 2 s dispatch "
                              f"answered {code}: {body}")
     say(f"deadline_ms 50 behind two stalled dispatches: {code} "
         f"({body['error'][:60]})")
@@ -4633,6 +4677,453 @@ def phase_surface(torch, card, d=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the native image decoder (use_native) on nvJPEG - a fresh-process
+# leg
+# ---------------------------------------------------------------------------
+
+def read_records(reader):
+    """Every record of one pass of a reader (NativeBinReader or
+    PlainBinReader), which is closed after it."""
+    out = []
+    try:
+        reader.before_first()
+        while True:
+            rec = reader.next()
+            if rec is None:
+                return out
+            out.append(rec)
+    finally:
+        reader.close()
+
+
+def say_distribution(label, got, want):
+    """The |nvJPEG - PIL| distribution of a set, per level and channel."""
+    import numpy as np
+    d = np.abs(np.stack(got).astype(np.int16) - np.stack(want).astype(
+        np.int16))
+    hist = np.bincount(np.minimum(d, 17).ravel(), minlength=18)
+    share = ", ".join(f"{k}: {hist[k] / d.size:.5f}" for k in range(17))
+    say(f"{label}: |d| shares by level {{{share}, >16: "
+        f"{hist[17] / d.size:.5f}}}; mean by channel (R, G, B) "
+        f"{[round(float(v), 4) for v in d.mean(axis=(0, 2, 3))]}")
+
+
+def native_facts(card):
+    """14a: the decoder built (or cached by phase 2), its backend,
+    nvJPEG's version and path and the hardware decoder's facts."""
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io import native
+    say("== phase 14a: the nvJPEG decoder (csrc/nvjpeg_io.cu): build, "
+        "facts and its kernel YccToRgb ==")
+    secs, log = kernels.build_all(["nvjpeg_decode"])["nvjpeg_decode"]
+    flags = kernels.source_flags("nvjpeg_decode")[len(kernels.NVCC_FLAGS):]
+    say(f"nvjpeg_decode: {'cached' if log == 'cached' else f'{secs:.2f} s'}"
+        f", {os.path.basename(kernels._lib_path('nvjpeg_decode'))}; its "
+        f"own flags {' '.join(flags)}")
+    facts = native.decoder_facts()
+    hw = (f"{facts['hw_engines']} engines x {facts['hw_cores_per_engine']} "
+          f"cores" if facts["hw_decoder_status"] == 0 else
+          f"none reported (status {facts['hw_decoder_status']})")
+    say(f"backend: {facts['backend']}")
+    say(f"nvJPEG {facts['nvjpeg_version']} from {facts['libnvjpeg']}; the "
+        f"card's hardware JPEG decoder as nvJPEG reports it: {hw} (the "
+        f"decoder does not use it); on {card}")
+    return facts
+
+
+def native_kernel(torch, card):
+    """14a: YccToRgb, the library's kernel, against its plain version,
+    bitwise, at the main path's planes (256 x 256, 4:2:0 and 4:4:4), with
+    its time (CUDA events, warm), the plain version's on the card and the
+    bound. Returns the 4:2:0 row."""
+    from cxxnet_tpu_torch.io.native import (FACTORS, ycc_to_rgb,
+                                            ycc_to_rgb_plain)
+    gen = torch.Generator().manual_seed(14)
+    rows = {}
+    for label in ("4:2:0", "4:4:4"):
+        hf, vf = FACTORS[label]
+        shapes = ((256, 256), (256 // vf, 256 // hf), (256 // vf, 256 // hf))
+        planes = [torch.randint(0, 256, s, generator=gen, dtype=torch.uint8)
+                  for s in shapes]
+        dev = [p.cuda() for p in planes]
+        got = ycc_to_rgb(*dev, hf, vf)
+        torch.cuda.synchronize()
+        err = int((got.cpu().int() - ycc_to_rgb_plain(*planes, hf, vf).int())
+                  .abs().max())
+        ms = time_warm(torch, lambda: ycc_to_rgb(*dev, hf, vf), 200)
+        plain_ms = time_warm(torch, lambda: ycc_to_rgb_plain(*dev, hf, vf),
+                             50)
+        moved = sum(p.numel() for p in planes) + 3 * 256 * 256
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by="bytes")
+        say(f"YccToRgb {label} (256 x 256): max |kernel - plain| {err}; "
+            f"{ms_txt(ms)} a launch (warm), plain version "
+            f"{ms_txt(plain_ms)}, bound {ms_txt(bound)} ({moved:,} bytes); "
+            f"on {card}")
+        if err != 0:
+            raise AssertionError(f"YccToRgb {label} != its plain version")
+    return rows["4:2:0"]
+
+
+def native_vs_pil(d, card):
+    """14b: per record against PIL's decode of the same blob, a 4:4:4
+    and a 4:2:0 set of 512 images, 256 x 256, quality 90, at the bars of
+    io/native.py's PIL_BARS. Returns {subsampling: stats}."""
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.native import (PIL_BARS, NativeBinReader,
+                                            PlainBinReader, pil_agreement,
+                                            within_bar)
+    say("== phase 14b: nvJPEG against PIL's decode of the same blobs "
+        "(512 images a set, 256 x 256, quality 90) ==")
+    out = {}
+    for label, sub in (("4:4:4", 0), ("4:2:0", -1)):
+        sd = os.path.join(d, "s" + label.replace(":", ""))
+        write_image_set(sd, "data/resize256", "data/train", 512, 256, 10,
+                        51, "JPEG", subsampling=sub)
+        binp = os.path.join(sd, "data", "train.bin")
+        kernels.reset_launches()
+        got = read_records(NativeBinReader([binp], out_mode=2))
+        n, raw = kernels.launches()["nvjpeg_decode"], kernels.raw_handbacks()
+        want = read_records(PlainBinReader([binp], out_mode=2))
+        st = pil_agreement(got, want)
+        bar = PIL_BARS[label]
+        held = within_bar(st, bar)
+        say(f"{label}: {len(got)} records, {n} decoded by nvJPEG, {raw} "
+            f"handed back; |nvJPEG - PIL| max {st['max']:.0f}, mean "
+            f"{st['mean']:.4f}, share over 16 {st['over16']:.5f}; bar {bar}:"
+            f" {'held' if held else 'MISSED'}")
+        say_distribution(label, got, want)
+        if n != 512 or raw != 0 or not held:
+            raise AssertionError(f"{label}: the decoder against PIL: {st}, "
+                                 f"{n} decoded, {raw} handed back")
+        out[label] = st
+    return out
+
+
+def native_stream_checks(d):
+    """14b: the stream, exactly: order and counters, before_first three
+    times, two bins, a missing file, PNG / PPM / a truncated JPEG handed
+    back raw, out_mode 1 against 2."""
+    import io
+    import numpy as np
+    from PIL import Image
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.native import (PIL_BARS, NativeBinReader,
+                                            PlainBinReader, pil_agreement,
+                                            within_bar)
+    from cxxnet_tpu_torch.utils.binary_page import BinaryPageWriter
+    say("== phase 14b: the decoder's stream checks ==")
+    rng = np.random.RandomState(61)
+
+    def jpeg(h, w):
+        buf = io.BytesIO()
+        Image.fromarray(rng.randint(0, 255, (h, w, 3)).astype(
+            np.uint8)).save(buf, format="JPEG", quality=90, subsampling=0)
+        return buf.getvalue()
+
+    def pack(path, blobs):
+        with open(path, "wb") as f:
+            w = BinaryPageWriter(f)
+            for b in blobs:
+                w.push(b)
+            w.close()
+        return path
+    # order: 40 images of 40 distinct sizes, on 4 workers
+    blobs = [jpeg(16 + i, 48 - i) for i in range(40)]
+    b1 = pack(os.path.join(d, "order.bin"), blobs)
+    kernels.reset_launches()
+    r = NativeBinReader([b1], n_threads=4, max_inflight=6, out_mode=2)
+    passes = []
+    for _ in range(3):
+        passes.append([])
+        r.before_first()
+        while True:
+            rec = r.next()
+            if rec is None:
+                break
+            passes[-1].append(rec)
+    counters = r.counters()
+    r.close()
+    want = read_records(PlainBinReader([b1], out_mode=2))
+    for recs in passes:
+        if [x.shape for x in recs] != [x.shape for x in want]:
+            raise AssertionError("nvJPEG records out of stream order")
+        for g, w in zip(recs, want):
+            if not within_bar(pil_agreement([g], [w]), PIL_BARS["4:4:4"]):
+                raise AssertionError("a record off PIL's 4:4:4 bar")
+    n = kernels.launches()["nvjpeg_decode"]
+    if n != 120 or counters != {"decoded": 120, "raw": 0}:
+        raise AssertionError(f"3 passes of 40: {n} counted, library "
+                             f"{counters}")
+    say(f"stream order: 40 images of 40 sizes in order on 4 workers "
+        f"(max_inflight 6), 3 passes (before_first each), {n} decodes "
+        f"counted, the library's counters {counters}")
+    # two bins
+    b2 = pack(os.path.join(d, "second.bin"), blobs[:7])
+    recs = read_records(NativeBinReader([b1, b2], out_mode=2))
+    if [x.shape for x in recs] != [x.shape for x in want + want[:7]]:
+        raise AssertionError("two bins: records out of order")
+    # out_mode 1 against 2
+    f32 = read_records(NativeBinReader([b1], out_mode=1))
+    if any(a.dtype != np.float32 or not np.array_equal(a, b)
+           for a, b in zip(f32, passes[0])):
+        raise AssertionError("out_mode 1 != out_mode 2 as float32")
+    say("two bins: 47 records in order; out_mode 1 (float32) equals "
+        "out_mode 2 (uint8) record for record")
+    # a missing file
+    r = NativeBinReader([os.path.join(d, "nope.bin")])
+    r.before_first()
+    try:
+        r.next()
+        raise AssertionError("a missing .bin did not raise")
+    except IOError as e:
+        say(f"missing file: IOError({e})")
+    finally:
+        r.close()
+    # PNG, PPM and a JPEG cut in its headers come back raw
+    arr = rng.randint(0, 255, (24, 24, 3)).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    raw_bin = pack(os.path.join(d, "raw.bin"), [
+        buf.getvalue(), b"P6\n24 24\n255\n" + arr.tobytes(), blobs[0],
+        blobs[1][:300]])
+    kernels.reset_launches()
+    r = NativeBinReader([raw_bin], out_mode=2)
+    r.before_first()
+    got = [r.next() for _ in range(3)]
+    if not (np.array_equal(got[0], arr.transpose(2, 0, 1))
+            and np.array_equal(got[1], arr.transpose(2, 0, 1))):
+        raise AssertionError("PNG / PPM handed back != PIL's decode")
+    counts = (kernels.launches()["nvjpeg_decode"], kernels.raw_handbacks())
+    if counts != (1, 2):
+        raise AssertionError(f"PNG + PPM + JPEG: (decoded, raw) {counts}")
+    try:
+        r.next()
+        raise AssertionError("the truncated JPEG decoded")
+    except OSError as e:
+        truncated = f"{type(e).__name__}({e})"
+    finally:
+        r.close()
+    if kernels.raw_handbacks() != 3:
+        raise AssertionError("the truncated JPEG did not come back raw")
+    say(f"PNG and PPM handed back raw and decoded on the host bitwise, "
+        f"the JPEG decoded: (decoded, raw) = {counts}; a JPEG cut at 300 "
+        f"bytes came back raw and PIL's error surfaced: {truncated}")
+
+
+def native_iterator(d):
+    """14c: AlexNet.conf's train block under use_native = 1 and shuffle
+    = 1 on the card against its plain version (device cpu, the same
+    order and reservoir) on (b)'s sets: labels and instance order
+    bitwise, batches at the set's bar."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.native import PIL_BARS, pil_agreement, within_bar
+    say("== phase 14c: AlexNet.conf's train block, use_native = 1, "
+        "shuffle = 1: the card against PlainBinReader ==")
+    block = alexnet_train_block()
+    out = {}
+    for label in ("4:4:4", "4:2:0"):
+        sd = os.path.join(d, "s" + label.replace(":", ""))
+        os.makedirs(os.path.join(sd, "models"), exist_ok=True)
+        # the mean image first (the PIL path, unshuffled): an iterator that
+        # creates it draws from its shuffle reservoir on the way
+        stop_iter(make_iter(block, sd))
+        extra = [("use_native", "1"), ("shuffle", "1")]
+        runs = []
+        for dev in ("cuda:0", "cpu"):
+            it = make_iter(block, sd, extra, dev)
+            runs.append(pull(it, 2))
+            stop_iter(it)
+        (card_b, plain_b) = runs
+        for a, b in zip(card_b, plain_b):
+            if not np.array_equal(a.label, b.label):
+                raise AssertionError(f"{label}: shuffled labels differ")
+        st = pil_agreement([b.data for b in card_b],
+                           [b.data for b in plain_b])
+        held = within_bar(st, PIL_BARS[label])
+        order = [int(v) for v in card_b[0].label[:12, 0]]
+        say(f"{label}: 2 batches of {card_b[0].data.shape} "
+            f"{card_b[0].data.dtype}, labels bitwise equal (first 12 "
+            f"{order}); |card - plain| max {st['max']:.4f}, mean "
+            f"{st['mean']:.4f}, share over 16 {st['over16']:.5f}: "
+            f"{'held' if held else 'MISSED'}")
+        if not held:
+            raise AssertionError(f"{label}: batches off the bar: {st}")
+        out[label] = st
+    return out
+
+
+def native_rates(tdir, card):
+    """14d: decoded images/s of the readers alone over 10g's 3,072-image
+    set: nvJPEG at 1, 4 and 8 threads, PlainBinReader (PIL) at 1 and 4
+    over its first 1,024. Also the bytes of a b256 batch, for the
+    bound."""
+    from cxxnet_tpu_torch.io.native import NativeBinReader, PlainBinReader
+    say("== phase 14d: decode rate alone, 10g's set (3,072 images, 256 x "
+        "256 quality 90 4:2:0) ==")
+    binp = os.path.join(tdir, "data", "train.bin")
+    rates = {}
+    for name, make, threads, most in (
+            ("nvjpeg", NativeBinReader, (1, 4, 8), 3072),
+            ("plain", PlainBinReader, (1, 4), 1024)):
+        for th in threads:
+            r = make([binp], n_threads=th, out_mode=2)
+            r.before_first()
+            n, t0 = 0, time.perf_counter()
+            while n < most and r.next() is not None:
+                n += 1
+            rates[f"{name}_{th}"] = n / (time.perf_counter() - t0)
+            r.close()
+    say(f"[decode alone, images/s, host clock, CHW uint8 out] nvJPEG "
+        f"{rates['nvjpeg_1']:.1f} / {rates['nvjpeg_4']:.1f} / "
+        f"{rates['nvjpeg_8']:.1f} at 1 / 4 / 8 threads; PIL "
+        f"(PlainBinReader) {rates['plain_1']:.1f} / {rates['plain_4']:.1f} "
+        f"at 1 / 4; os.cpu_count() {os.cpu_count()}; on {card}")
+    from cxxnet_tpu_torch.utils.binary_page import read_bin_blobs
+    blob_bytes = 0
+    for k, blob in enumerate(read_bin_blobs([binp])):
+        if k == 256:
+            break
+        blob_bytes += len(blob)
+    rates["batch_blob_bytes"] = blob_bytes
+    return rates
+
+
+def native_bound_ms(blob_bytes: int, n: int = 256, size: int = 256):
+    """The least time the card could take to decode n size x size 4:2:0
+    JPEGs into CHW uint8: the blobs read once and the pixels written once
+    over the memory rate, against the IDCTs (2,048 flops an 8 x 8 block:
+    16 eight-point transforms of 64 multiply-adds; 1,536 blocks an image:
+    1,024 luma + 2 x 256 chroma) and the colour conversion (8 flops a
+    pixel) over the float32 rate. Returns (ms, "bytes" | "operations")."""
+    blocks = (size // 8) ** 2 + 2 * (size // 16) ** 2
+    flops = n * (blocks * 2048 + size * size * 8)
+    moved = blob_bytes + n * 3 * size * size
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def native_settings(torch, tdir, card):
+    """14e: 10g's three settings with use_native = 1 on the card (nvJPEG),
+    beside the step alone; then the host stages and which sets the pace
+    inside the iterator."""
+    say("== phase 14e: AlexNet b256 bfloat16 from imgbin with use_native "
+        "= 1 (nvJPEG on the card): 10g's three settings ==")
+    block = alexnet_train_block()
+    tr = alexnet_trainer([])
+    itr = make_iter(block, tdir, [("use_native", "1")], "cuda:0")
+    staged = tr.stage_batch(pull(itr, 1)[0])
+    stop_iter(itr)
+    for _ in range(2):
+        tr.update(staged)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        tr.update(staged)
+    torch.cuda.synchronize()
+    device_ms = (time.perf_counter() - t0) * 100.0
+    del staged
+    say(f"the step alone: {device_ms:.3f} ms, {256 / device_ms * 1e3:.1f} "
+        f"images/s; on {card}")
+    results = {"step alone": dict(step_ms=device_ms,
+                                  images_s=256 / device_ms * 1e3)}
+    tr = timed_settings(torch, tr, block, tdir, device_ms, card, results,
+                        [("use_native", "1")], "cuda:0", "use_native = 1, ")
+    del tr
+    torch.cuda.empty_cache()
+    results["host stages"] = host_stage_rates(tdir, card)
+    return results
+
+
+def native_cli(counts):
+    """14f: AlexNet.conf unedited through the CLI under its default
+    use_native = -1 - phase 10c's run (2 rounds with eval lines, K1,
+    continue = 1, task = pred), which on the card decodes with nvJPEG: its
+    kernel launches line must show the decoder's launches and no raw
+    hand-back."""
+    say("== phase 14f: AlexNet.conf through the CLI, use_native = -1 (the "
+        "conf's default): phase 10c's run ==")
+    if (counts.get("nvjpeg_decode", 0) <= 0
+            or counts.get("raw_handbacks") != 0
+            or counts.get("lrn_fwd", 0) <= 0):
+        raise AssertionError(f"AlexNet.conf's CLI run did not decode with "
+                             f"nvJPEG alone: {counts}")
+    say(f"task = train, 2 rounds: {counts['nvjpeg_decode']} images decoded "
+        f"by nvJPEG, {counts['raw_handbacks']} raw hand-backs, K1-fwd "
+        f"{counts['lrn_fwd']}, K1-bwd {counts['lrn_bwd']} launches")
+
+
+def native_entry(nat, cli_counts):
+    """The kernels line's row of the decoder: YccToRgb (its kernel)
+    against its plain version, and the decode's own figures."""
+    k, rates = nat["kernel"], nat["rates"]
+    return {
+        "name": "nvjpeg_decode",
+        "route": "cuda",
+        "source": "cxxnet_tpu_torch/csrc/nvjpeg_io.cu",
+        "replaces": "native/cxxnet_io.cc:77",
+        "replaces_fn": "DecodeJpeg (libjpeg on the host, the JAX package's "
+                       "use_native decoder; not a Pallas kernel)",
+        "unit": "YccToRgb, one launch an image decoded: 256 x 256 4:2:0 "
+                "Y, Cb, Cr planes -> CHW uint8 RGB, L2 warm (phase 14a)",
+        "launches": cli_counts["nvjpeg_decode"],
+        "launches_unit": "AlexNet.conf task = train through the CLI, 2 "
+                         "rounds with eval, use_native = -1 (phase 10c)",
+        "raw_handbacks": cli_counts["raw_handbacks"],
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": None,
+        "decode_unit": "one b256 batch of 10g's 256 x 256 quality-90 4:2:0 "
+                       "JPEGs decoded on 4 workers into CHW uint8, host "
+                       "clock (phase 14d)",
+        "decode_ms": 256 / rates["nvjpeg_4"] * 1e3,
+        "decode_plain_ms": 256 / rates["plain_4"] * 1e3,
+        "decode_bound_ms": nat["bound_ms"],
+        "decode_bound_by": nat["bound_by"],
+        "decode_images_s": {th: rates[f"nvjpeg_{th}"] for th in (1, 4, 8)},
+        "plain_images_s": {th: rates[f"plain_{th}"] for th in (1, 4)},
+        "vs_pil": nat["vs_pil"],
+    }
+
+
+def phase_native(torch, card, d=None, fmt="JPEG"):
+    """Phase 14 (see the module docstring): `d` is phase 10's directory
+    (its timing set from 10g and the mean image), or None to make the
+    timing set here. Returns its figures."""
+    t14 = time.perf_counter()
+    if fmt != "JPEG":
+        raise AssertionError("phase 14 needs PIL to write its JPEG sets")
+    out = {"facts": native_facts(card), "kernel": native_kernel(torch, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        if d is None:
+            d = tmp
+            tdir = os.path.join(d, "timing")
+            write_image_set(tdir, "data/resize256", "data/train", 3072, 256,
+                            10, 41, "JPEG")
+            os.makedirs(os.path.join(tdir, "models"))
+            make_iter(alexnet_train_block(), tdir)  # writes the mean image
+        tdir = os.path.join(d, "timing")
+        work = os.path.join(tmp, "native")
+        os.makedirs(work)
+        out["vs_pil"] = native_vs_pil(work, card)
+        native_stream_checks(work)
+        out["iterator"] = native_iterator(work)
+        out["rates"] = native_rates(tdir, card)
+        out["bound_ms"], out["bound_by"] = native_bound_ms(
+            out["rates"]["batch_blob_bytes"])
+        out["settings"] = native_settings(torch, tdir, card)
+    say(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    say("phase 14 summary " + json.dumps(out, default=float))
+    return out
+
+
 # phase 11's profiled legs, each run in a fresh python process: in a
 # long-lived process torch.profiler can lose the card's kernel events
 # (PERF.md §7), and these legs must report device times
@@ -4644,7 +5135,7 @@ def leg_image_timing(torch, card, d, fmt):
 
 LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "11b": phase_googlenet_step, "11d": phase_stack_moe,
-        "12": phase_front, "13": phase_surface}
+        "12": phase_front, "13": phase_surface, "14": phase_native}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
@@ -4751,9 +5242,12 @@ def main() -> int:
     moe = run_leg(torch, "11d")
     say(f"phase 11b and 11d on the card took "
         f"{time.perf_counter() - t11:.1f} s")
-    cli_counts, _timing, (g_cli, surface) = phase_image_pipeline(
+    cli_counts, timing, (g_cli, surface, nat) = phase_image_pipeline(
         torch, card, lambda d: (phase_googlenet_cli(d),
-                                run_leg(torch, "13", d)))
+                                run_leg(torch, "13", d),
+                                run_leg(torch, "14", d,
+                                        image_format_used()[0])))
+    native_cli(cli_counts)
     t11 = time.perf_counter()
     moe["cli_counts"] = phase_stack_moe_cli()
     say(f"phase 11c-d through the CLI took {time.perf_counter() - t11:.1f}"
@@ -4893,7 +5387,19 @@ def main() -> int:
                                front_launches=front["int8"]["int8_mm"],
                                front_batches=front["int8"]["batches"],
                                front_unit="4 /predict requests to the int8 "
-                                          "graph (phase 12f), 11 a batch")]}))
+                                          "graph (phase 12f), 11 a batch"),
+                          native_entry(nat, cli_counts)]}))
+    settings = ("streamed (prefetch_stage = 0)", "prefetch_stage = 1",
+                "prefetch_stage = 1 + device_augment = 1")
+    say("phase 14 against 10g (images/s, idle share, the iterator's own "
+        "rate; PIL then nvJPEG) " + json.dumps({
+            label: {"pil": {k: timing[label][k] for k in
+                            ("images_s", "idle", "iterator_images_s")},
+                    "nvjpeg": {k: nat["settings"]["use_native = 1, "
+                                                  + label][k]
+                               for k in ("images_s", "idle",
+                                         "iterator_images_s")}}
+            for label in settings}, default=float))
     say("phase 13 summary " + json.dumps({
         "extract_rows_s": surface["extract"]["rows_s"],
         "wrapper": {k: v for k, v in surface["wrapper"].items()

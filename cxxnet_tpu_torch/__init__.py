@@ -44,6 +44,10 @@ A second package beside `cxxnet_tpu`, ported in slices:
    and the `torch` module type (`layers/torch_module.py`), so that
    examples/ImageNet/GoogLeNet.conf and examples/LongSeq/stack_moe.conf
    train and serve.
+7. The native image decoder (`io/native.py`, `use_native`): a threaded
+   BinaryPage reader and a pool of nvJPEG decode workers
+   (`csrc/nvjpeg_io.cu`) in the imgbin iterators on the card, with its
+   plain version (`PlainBinReader`) on the CPU.
 
 Ground rules:
 
@@ -68,8 +72,8 @@ Ground rules:
   the caller asks for the CPU (`device="cpu"`, or `dev = cpu` in a
   conf); with no card they raise instead of carrying on on the CPU.
 - Config keys that change results and that the port does not implement
-  yet (zero_stage, mesh, remat, steps_per_dispatch, use_native,
-  dist_num_worker, test_io, elastic, profile, fullc_gather, ...) raise
+  yet (zero_stage, mesh, remat, steps_per_dispatch, dist_num_worker,
+  elastic, profile, fullc_gather, ...) raise
   NotImplementedError naming the key; they are never silently ignored.
 - PyTorch idiom inside: plain functions on tensors and modules with an
   explicit device, an explicit `torch.Generator` for every random draw,

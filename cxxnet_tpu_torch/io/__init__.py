@@ -4,20 +4,23 @@ instance iterators are wrapped in augment + batch adapters); params
 following an `iter =` line are applied to the whole current chain.
 
 Iterators: mnist, img, imgbin / imgbinx, threadbuffer, membuffer and
-attachtxt, with the transient-IO retry wrapper. Unported routes raise
-NotImplementedError naming their key: `use_native = 1` (the native
-decoder) and `dist_num_worker > 1` (multi-worker sharding).
+attachtxt, with the transient-IO retry wrapper. `device` ("cpu", a CUDA
+device, or None) reaches the imgbin iterators, where it routes
+`use_native` (io/iter_img.py's table: nvJPEG on the card). The one
+unported route raises NotImplementedError naming its key:
+`dist_num_worker > 1` (multi-worker sharding).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from cxxnet_tpu_torch.io.data import DataBatch, DataInst
 from cxxnet_tpu_torch.io.iterators import DataIter, RetryIterator
 
 
-def create_iterator(cfg: List[Tuple[str, str]]) -> DataIter:
+def create_iterator(cfg: List[Tuple[str, str]],
+                    device: Optional[str] = None) -> DataIter:
     from cxxnet_tpu_torch.io.augment import AugmentIterator
     from cxxnet_tpu_torch.io.iter_batch import (BatchAdaptIterator,
                                                 ThreadBufferIterator)
@@ -35,7 +38,7 @@ def create_iterator(cfg: List[Tuple[str, str]]) -> DataIter:
             elif val in ("imgbin", "imgbinx"):
                 _base(it, val)
                 it = BatchAdaptIterator(
-                    AugmentIterator(ImageBinIterator()))
+                    AugmentIterator(ImageBinIterator(device)))
             elif val == "img":
                 _base(it, val)
                 it = BatchAdaptIterator(AugmentIterator(ImageIterator()))

@@ -15,10 +15,22 @@ Decoding (`decode_image`) tells the formats apart by their magic bytes.
 Binary PPM / PGM (P6 / P5, maxval 255) is decoded here with numpy - the
 same bytes PIL's decode gives; every other format (JPEG, PNG, ...) is
 decoded by PIL, imported at the call, and a machine without Pillow gets
-an ImportError naming it and the blob's format. The JAX package decodes
-everything with PIL, or with its native decoder (`use_native`), which the
-port has no build of: `use_native = 1` raises NotImplementedError, and
--1 (auto) and 0 take this Python path.
+an ImportError naming it and the blob's format.
+
+`use_native` picks imgbin's decoder as in the JAX package (-1 auto, 0
+off, 1 force), on the device `create_iterator` was given:
+
+| device | -1 | 0 | 1 |
+| --- | --- | --- | --- |
+| the card | nvJPEG (`io/native.py`) | PIL path | nvJPEG |
+| `cpu` | PIL path | PIL path | `PlainBinReader` |
+| none given | PIL path | PIL path | nvJPEG on the card (raises without one) |
+
+The native path (nvJPEG or its plain version) serves records in stream
+order and shuffles through a bounded reservoir; the PIL path reads pages
+on a thread, decodes on a pool and shuffles within a page. -1 means
+nvJPEG on the card because the JAX package's -1 means "native where it
+is built", and the port builds its decoder at first use on any card.
 """
 
 from __future__ import annotations
@@ -31,12 +43,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from cxxnet_tpu_torch.io.data import DataInst
-from cxxnet_tpu_torch.io.iterators import (
-    _NOT_PORTED, DataIter, say, shard_quota)
+from cxxnet_tpu_torch.io.iterators import DataIter, say, shard_quota
 from cxxnet_tpu_torch.io.thread_util import (
     ErrorBox, drain_and_join, stoppable_put)
 from cxxnet_tpu_torch.utils.binary_page import iter_page_blobs
-from cxxnet_tpu_torch.utils.config import check_ported
+from cxxnet_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 # leading bytes of the formats decode_image tells apart
 _MAGIC = ((b"P6", "PPM"), (b"P5", "PGM"), (b"\xff\xd8\xff", "JPEG"),
@@ -159,7 +170,6 @@ class ImageIterator(DataIter):
         self.loc = 0
 
     def set_param(self, name: str, val: str) -> None:
-        check_ported(_NOT_PORTED, name, val)
         if name == "image_list":
             self.path_imglist = val
         if name == "image_root":
@@ -246,12 +256,14 @@ class ImageBinIterator(DataIter):
     decodes on a thread pool, instances optionally shuffle inside a page
     (imgbinx shuffle_), and `image_conf_prefix` / `image_conf_ids`
     template multi-file datasets with round-robin sharding across
-    distributed workers (iter_thread_imbin-inl.hpp:189-220).
+    distributed workers (iter_thread_imbin-inl.hpp:189-220). Under
+    `use_native` (the module's table) the records come from the native
+    decoder instead, on `device`.
     """
 
     K_RAND_MAGIC = 222
 
-    def __init__(self) -> None:
+    def __init__(self, device: Optional[str] = None) -> None:
         self.path_imglist = ""
         self.path_imgbin: List[str] = []
         self.conf_prefix = ""
@@ -262,12 +274,19 @@ class ImageBinIterator(DataIter):
         self.dist_num_worker = 1
         self.dist_worker_rank = 0
         self.rng = np.random.RandomState(self.K_RAND_MAGIC)
+        # native decode pipeline: -1 auto, 0 off, 1 force (module table)
+        self.use_native = -1
         self.decode_threads = 4
         self.shuffle_buffer = 1024
-        self._pool = None  # decode ThreadPoolExecutor
+        self.device_augment = 0
+        # the device create_iterator was given ("cpu", "cuda:0") or None
+        self.device = None if device is None else str(device)
+        self._native = None
+        self._native_dev = None  # torch.device of the native route
+        self._native_mode = False
+        self._pool = None  # Python-path decode ThreadPoolExecutor
 
     def set_param(self, name: str, val: str) -> None:
-        check_ported(_NOT_PORTED, name, val)
         if name == "image_list":
             self.path_imglist = val
         if name == "image_bin":
@@ -288,10 +307,16 @@ class ImageBinIterator(DataIter):
             self.dist_worker_rank = int(val)
         if name == "seed_data":
             self.rng = np.random.RandomState(self.K_RAND_MAGIC + int(val))
+        if name == "use_native":
+            self.use_native = int(val)
         if name == "decode_threads":
             self.decode_threads = int(val)
         if name == "shuffle_buffer":
             self.shuffle_buffer = int(val)
+        if name == "device_augment":
+            # raw uint8 staging for the in-step augment path: the native
+            # pipeline yields CHW uint8 records instead of CHW float32
+            self.device_augment = int(val)
 
     def _expand_templates(self) -> Tuple[List[str], List[str]]:
         """image_conf_prefix with %d + image_conf_ids `a-b` -> shard lists
@@ -314,6 +339,8 @@ class ImageBinIterator(DataIter):
         self.bins = bins
         if self.shuffle and self.shuffle_buffer < 1:
             raise ValueError("shuffle=1 requires shuffle_buffer >= 1")
+        self._native_dev = self._native_route()
+        self._native_mode = self._native_dev is not None
         # without conf_prefix file-sharding, multi-worker runs shard at
         # the INSTANCE level (ordinal % nw == rank, quota-trimmed so
         # every worker serves the same count - unequal batch counts
@@ -326,12 +353,35 @@ class ImageBinIterator(DataIter):
         if self._shard_nw > 1:
             self._shard_quota, _ = shard_quota(
                 len(self.entries), self._shard_nw, self.dist_worker_rank)
+        mode = "native" if self._native_mode else "python"
         say(self.silent, f"ImageBinIterator: {len(self.entries)} images "
-                         f"from {len(bins)} bins (python decode)")
+                         f"from {len(bins)} bins ({mode} decode)")
         self.before_first()
+
+    def _native_route(self):
+        """The torch.device the native path decodes on (cuda: nvJPEG,
+        cpu: PlainBinReader), or None for the PIL path (the module's
+        table). With no device given, use_native = 1 means the card and
+        raises, naming device="cpu", where there is none."""
+        if self.use_native == 0:
+            return None
+        if self.device is None:
+            return (resolve_device(DEFAULT_DEVICE) if self.use_native == 1
+                    else None)
+        dev = resolve_device(self.device)
+        if dev.type == "cpu" and self.use_native != 1:
+            return None
+        return dev
 
     def before_first(self) -> None:
         self._served = 0
+        if self._native_mode:
+            if self._native is None:
+                self._native = self._open_native()
+            self._native.before_first()
+            self._nseq = 0
+            self._nbuf: List[DataInst] = []
+            return
         self._shutdown_reader()
         self._stop = threading.Event()
         self._q: "queue.Queue" = queue.Queue(maxsize=4)
@@ -402,7 +452,72 @@ class ImageBinIterator(DataIter):
                     decode_image, self._page_objs[j])
             self._submit_pos += 1
 
+    def _open_native(self):
+        """The native path's reader: nvJPEG on the card, its plain version
+        on the CPU. out_mode follows device_augment as in the JAX package:
+        the shuffle reservoir's cap divides by a record's bytes, so uint8
+        and float32 records shuffle differently."""
+        from cxxnet_tpu_torch.io.native import NativeBinReader, PlainBinReader
+        out_mode = 2 if self.device_augment else 1
+        if self._native_dev.type == "cuda":
+            return NativeBinReader(self.bins, n_threads=self.decode_threads,
+                                   out_mode=out_mode,
+                                   device=str(self._native_dev))
+        return PlainBinReader(self.bins, n_threads=self.decode_threads,
+                              out_mode=out_mode)
+
+    def _pull_native(self) -> Optional[DataInst]:
+        while True:
+            if self._shard_nw > 1 and self._served >= self._shard_quota:
+                return None
+            data = self._native.next()
+            if data is None:
+                return None
+            ordinal = self._nseq
+            self._nseq += 1
+            if self._shard_nw > 1:
+                if ordinal % self._shard_nw != self.dist_worker_rank:
+                    continue
+                self._served += 1
+            idx, labels, _ = self.entries[ordinal]
+            label = np.asarray(labels[:self.label_width],
+                               dtype=np.float32)
+            return DataInst(index=idx, data=data, label=label)
+
+    def _next_native(self) -> bool:
+        """The native stream is strictly ordered; shuffle uses a bounded
+        reservoir (the analog of the Python path's within-page shuffle),
+        capped to ~64MiB of decoded records (the page-shuffle window
+        size) so large images don't pin GBs."""
+        if self.shuffle:
+            if not self._nbuf:
+                inst = self._pull_native()
+                if inst is not None:
+                    self._nbuf.append(inst)
+            if self._nbuf:
+                per_img = max(1, self._nbuf[0].data.nbytes)
+                cap = min(self.shuffle_buffer,
+                          max(16, (64 << 20) // per_img))
+                while len(self._nbuf) < cap:
+                    inst = self._pull_native()
+                    if inst is None:
+                        break
+                    self._nbuf.append(inst)
+            if not self._nbuf:
+                return False
+            j = int(self.rng.randint(len(self._nbuf)))
+            self._nbuf[j], self._nbuf[-1] = self._nbuf[-1], self._nbuf[j]
+            self._out = self._nbuf.pop()
+            return True
+        inst = self._pull_native()
+        if inst is None:
+            return False
+        self._out = inst
+        return True
+
     def next(self) -> bool:
+        if self._native_mode:
+            return self._next_native()
         while True:
             while self._page_pos >= len(self._page_objs):
                 if not self._next_page():

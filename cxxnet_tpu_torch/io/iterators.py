@@ -6,20 +6,10 @@ package's wrapper are not ported)."""
 from __future__ import annotations
 
 import sys
-from typing import Dict, Generic, Tuple, TypeVar
+from typing import Generic, TypeVar
 
 
 T = TypeVar("T")
-
-# Iterator keys of the JAX package's data pipeline that the port does not
-# implement yet: any value but the inert ones raises NotImplementedError
-# naming the key (utils.config.check_ported, called by the iterators).
-# use_native = 1 asks for the native decoder (native/cxxnet_io.cc), which
-# the port has no build of; -1 (auto) and 0 take the Python path, as they
-# do in the JAX package on a machine without libcxxnet_io.so.
-_NOT_PORTED: Dict[str, Tuple[str, ...]] = {
-    "use_native": ("-1", "0"),
-}
 
 
 class DataIter(Generic[T]):

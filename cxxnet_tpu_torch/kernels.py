@@ -5,14 +5,22 @@ entry point; headers shared between sources are `csrc/*.cuh`. It is
 compiled with `nvcc` for `sm_90a` (Hopper) into a shared library under
 `build/` (listed in .gitignore) the first time a wrapper needs it, and
 bound with `ctypes`. The library name carries a hash of the source, the
-shared headers and the flags, so an edited source or header rebuilds
-and a stale library is never loaded. Nothing here runs at import time:
-the package imports on a machine with no `nvcc` and no card, and the
-CPU paths never reach this module's loader.
+shared headers and the flags, so an edited source, header or flag
+rebuilds and a stale library is never loaded. Nothing here runs at
+import time: the package imports on a machine with no `nvcc` and no
+card, and the CPU paths never reach this module's loader.
+
+One source is more than a kernel: `nvjpeg_io.cu`, the image decoder of
+`io/native.py` (a page-reader thread, nvJPEG decode workers and their
+kernel YccToRgb), which links `-lnvjpeg` and the thread library
+(`source_flags`).
 
 Each wrapper counts its launches in `LAUNCHES` (one per kernel launch,
-nowhere else), so a run can show that its main path went through the
-kernels: `reset_launches()` before the run, `launches()` after it.
+nowhere else; for the decoder one per image it decoded), so a run can
+show that its main path went through the kernels: `reset_launches()`
+before the run, `launches()` after it. The decoder's raw hand-backs
+(blobs it left to the host's decoder) are counted apart
+(`raw_handbacks()`).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ SOURCES: Dict[str, str] = {
     "attn_dq": "attn_dq.cu",
     "attn_dkv": "attn_dkv.cu",
     "int8_mm": "int8_mm.cu",
+    "nvjpeg_decode": "nvjpeg_io.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,17 +54,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# blobs the image decoder handed back raw for the host to decode
+_raw = [0]
 
 
 def reset_launches() -> None:
     with _lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        _raw[0] = 0
 
 
 def launches() -> Dict[str, int]:
     with _lock:
         return dict(LAUNCHES)
+
+
+def raw_handbacks() -> int:
+    with _lock:
+        return _raw[0]
+
+
+def count_raw() -> None:
+    with _lock:
+        _raw[0] += 1
 
 
 def nvcc_path() -> str:
@@ -75,8 +97,48 @@ def nvcc_path() -> str:
         "cxxnet_tpu_torch are compiled from csrc/ at first use")
 
 
+def nvjpeg_dirs() -> Tuple[Optional[str], Optional[str]]:
+    """(include dir holding nvjpeg.h, library dir holding libnvjpeg.so*):
+    the CUDA toolkit's directories, then the NVIDIA wheels beside torch
+    (site-packages/nvidia/*/include|lib); None where not found."""
+    import glob
+    import site
+    home = os.path.dirname(os.path.dirname(nvcc_path()))
+    incs = [os.path.join(home, "include"), "/usr/local/cuda/include",
+            "/usr/include"]
+    libs = [os.path.join(home, "lib64"), "/usr/local/cuda/lib64",
+            os.path.join(home, "targets", "x86_64-linux", "lib"),
+            "/usr/lib/x86_64-linux-gnu"]
+    for sp in site.getsitepackages():
+        incs += sorted(glob.glob(os.path.join(sp, "nvidia", "*", "include")))
+        libs += sorted(glob.glob(os.path.join(sp, "nvidia", "*", "lib")))
+
+    def find(dirs, pattern):
+        for d in dirs:
+            if glob.glob(os.path.join(d, pattern)):
+                return d
+        return None
+    return find(incs, "nvjpeg.h"), find(libs, "libnvjpeg.so*")
+
+
+def source_flags(name: str) -> List[str]:
+    """nvcc's flags for one source: NVCC_FLAGS, and for the decoder the
+    nvjpeg include and library directories, an rpath to the library
+    (it may sit outside the loader's path), -lnvjpeg and -pthread."""
+    if name != "nvjpeg_decode":
+        return list(NVCC_FLAGS)
+    inc, lib = nvjpeg_dirs()
+    if inc is None or lib is None:
+        raise RuntimeError(
+            f"nvjpeg not found (nvjpeg.h: {inc or 'absent'}, libnvjpeg: "
+            f"{lib or 'absent'}): the image decoder of cxxnet_tpu_torch "
+            "(csrc/nvjpeg_io.cu) links against it")
+    return NVCC_FLAGS + ["-I" + inc, "-L" + lib, "-Xlinker", "-rpath," + lib,
+                         "-Xcompiler", "-pthread", "-lnvjpeg", "-lpthread"]
+
+
 def _lib_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(source_flags(name)).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for src in [SOURCES[name]] + headers:
         with open(os.path.join(CSRC, src), "rb") as f:
@@ -85,7 +147,7 @@ def _lib_path(name: str) -> str:
 
 
 def _compile_cmd(name: str, out: str) -> List[str]:
-    return [nvcc_path()] + NVCC_FLAGS + [
+    return [nvcc_path()] + source_flags(name) + [
         "-o", out, os.path.join(CSRC, SOURCES[name])]
 
 
@@ -179,6 +241,32 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.int8_mm.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32,
                                 vp]
         lib.int8_mm.restype = i32
+    if name == "nvjpeg_decode":
+        # (paths, n_bins, n_threads, max_inflight, out_mode, device)
+        lib.cxio_open.argtypes = [ctypes.POINTER(ctypes.c_char_p), i32, i32,
+                                  i32, i32, i32]
+        lib.cxio_open.restype = vp
+        lib.cxio_before_first.argtypes = [vp]
+        lib.cxio_before_first.restype = None
+        lib.cxio_next.argtypes = [vp, vp]  # (handle, CxioRecord*)
+        lib.cxio_next.restype = i32
+        lib.cxio_last_error.argtypes = [vp]
+        lib.cxio_last_error.restype = ctypes.c_char_p
+        lib.cxio_error_kind.argtypes = [vp]
+        lib.cxio_error_kind.restype = i32
+        lib.cxio_counters.argtypes = [vp, vp]  # (handle, long long[2])
+        lib.cxio_counters.restype = None
+        lib.cxio_backend.argtypes = []
+        lib.cxio_backend.restype = ctypes.c_char_p
+        lib.cxio_version.argtypes = [vp]  # int[3]
+        lib.cxio_version.restype = i32
+        lib.cxio_hw_info.argtypes = [i32, vp]  # (device, unsigned[2])
+        lib.cxio_hw_info.restype = i32
+        lib.cxio_close.argtypes = [vp]
+        lib.cxio_close.restype = None
+        # (y, cb, cr, w, h, cw, ch, hf, vf, out, stream)
+        lib.cxio_ycc_to_rgb.argtypes = [vp, vp, vp] + [i32] * 6 + [vp, vp]
+        lib.cxio_ycc_to_rgb.restype = i32
 
 
 def check(name: str, rc: int) -> None:
@@ -188,5 +276,10 @@ def check(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {rc}")
+    count(name)
+
+
+def count(name: str) -> None:
+    """One launch of `name` (for the decoder: one image it decoded)."""
     with _lock:
         LAUNCHES[name] += 1

@@ -33,7 +33,10 @@ stages each batch one ahead on a worker thread (`prefetch_stage = N`,
 default 1: io/prefetch.py, pinned buffers and a side stream on the
 card; 0 streams, staging inside the step). Under `device_augment = 1`
 every block the task builds must carry the trainer's normalization
-spec, or the CLI raises, as the JAX CLI does.
+spec, or the CLI raises, as the JAX CLI does. The blocks are built on
+the `dev` device, which routes imgbin's `use_native`: on the card -1
+(the default) and 1 decode with nvJPEG (io/native.py), on `cpu` -1
+takes the PIL path and 1 the native path's plain version.
 
 Graph passes (`graph_passes = a,b,...`, `pass_<name> = 0|1`) reach the
 trainer from the conf and argv. fold_conv_bn / quantize_int8 calibrate
@@ -450,7 +453,7 @@ class LearnTask:
         if pred is None:
             raise ValueError("must specify a predict iterator (pred = "
                              "<file> block) to generate predictions")
-        self.itr_pred = create_iterator(pred)
+        self.itr_pred = self._create_iterator(pred)
         for k, v in defcfg:
             self.itr_pred.set_param(k, v)
         self.itr_pred.init()
@@ -481,15 +484,21 @@ class LearnTask:
             self._load_model()
         defcfg, train, evals, _pred = self._split_blocks()
         if train is not None:
-            self.itr_train = create_iterator(train)
+            self.itr_train = self._create_iterator(train)
         for evname, itcfg in evals:
-            self.itr_evals.append(create_iterator(itcfg))
+            self.itr_evals.append(self._create_iterator(itcfg))
             self.eval_names.append(evname)
         for it in [self.itr_train] + self.itr_evals:
             if it is not None:
                 for k, v in defcfg:
                     it.set_param(k, v)
                 it.init()
+
+    def _create_iterator(self, block):
+        """A block's iterator chain on the `dev` device, where it routes
+        imgbin's use_native (the card: nvJPEG; cpu: the PIL path, or the
+        native path's plain version under use_native = 1)."""
+        return create_iterator(block, device=device_from_spec(self.device))
 
     def _model_name(self, counter: int) -> str:
         return os.path.join(self.name_model_dir, f"{counter:04d}.model")
@@ -636,6 +645,9 @@ class LearnTask:
             sys.stdout.write(f"\nupdating end, "
                              f"{int(time.monotonic() - start)} sec in all\n")
             sys.stdout.write(f"kernel launches {kernels.launches()}\n")
+            # blobs the image decoder (nvjpeg_decode) left to the host
+            sys.stdout.write(f"decoder raw hand-backs "
+                             f"{kernels.raw_handbacks()}\n")
 
     def _train_rounds(self, cc: int, start: float) -> None:
         tr = self.net_trainer
@@ -708,7 +720,7 @@ class LearnTask:
         if block is None:
             raise ValueError(f"pass_calibration_iter={name!r}: the conf "
                              "has no such iterator block")
-        it = create_iterator(block)
+        it = self._create_iterator(block)
         for k, v in defcfg:
             it.set_param(k, v)
         it.init()

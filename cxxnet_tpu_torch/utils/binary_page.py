@@ -11,14 +11,16 @@ Byte-compatible with the reference format (src/utils/io.h:254-326):
   page start, i.e. blobs are packed backwards from the end of the page.
 - A page file (.bin) is a plain concatenation of such pages.
 
-The port reads pages with this module only: it has no native reader
-(`use_native = 1` raises, io/iter_img.py).
+`iter_page_blobs` is the Python imgbin path's reader; `read_bin_blobs`
+is the plain version of the native decoder's page reader
+(csrc/nvjpeg_io.cu, the counterpart of native/cxxnet_io.cc's
+ReaderMain), with its checks and messages.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import BinaryIO, Iterator, List, Optional
+from typing import BinaryIO, Iterator, List, Optional, Sequence
 
 # 64 << 18 int32 slots = 64 MiB
 K_PAGE_NUM_INTS = 64 << 18
@@ -112,3 +114,32 @@ def iter_page_blobs(fi: BinaryIO) -> Iterator[List[bytes]]:
         if page is None:
             return
         yield [page[i] for i in range(page.size)]
+
+
+def read_bin_blobs(paths: Sequence[str]) -> Iterator[bytes]:
+    """Every blob of the .bin files in stream order, checked as the
+    native page reader checks them: a file that does not open, a short
+    last page (truncated), a page header whose count cannot fit, or a
+    blob's offsets outside the page each raise IOError with the native
+    reader's message (native/cxxnet_io.cc:226-278)."""
+    for path in paths:
+        try:
+            f = open(path, "rb")
+        except OSError as e:
+            raise IOError(f"cannot open {path}") from e
+        with f:
+            while True:
+                buf = f.read(K_PAGE_SIZE)
+                if not buf:
+                    break
+                if len(buf) < K_PAGE_SIZE:
+                    raise IOError(f"truncated page in {path}")
+                n = struct.unpack_from("<i", buf, 0)[0]
+                if n < 0 or n + 2 > K_PAGE_NUM_INTS:
+                    raise IOError(f"corrupt page header in {path}")
+                offs = struct.unpack_from(f"<{n + 1}i", buf, 4)
+                for r in range(n):
+                    start, end = offs[r], offs[r + 1]
+                    if start < 0 or end < start or end > K_PAGE_SIZE:
+                        raise IOError(f"corrupt blob offsets in {path}")
+                    yield buf[K_PAGE_SIZE - end:K_PAGE_SIZE - start]

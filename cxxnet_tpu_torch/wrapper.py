@@ -25,10 +25,13 @@ from cxxnet_tpu_torch.utils.device import DEFAULT_DEVICE, device_from_spec
 
 
 class DataIter:
-    """Config-built data iterator (CXNIOCreateFromConfig semantics)."""
+    """Config-built data iterator (CXNIOCreateFromConfig semantics) on
+    `dev` ("cpu", or gpu / cuda / tpu for the card, the default, as for
+    Net), which routes imgbin's use_native (io/iter_img.py)."""
 
-    def __init__(self, cfg: str):
-        self._it = create_iterator(parse_config_string(cfg))
+    def __init__(self, cfg: str, dev: str = DEFAULT_DEVICE):
+        self._it = create_iterator(parse_config_string(cfg),
+                                   device=device_from_spec(dev))
         self._it.init()
         self.head = True
         self.tail = False

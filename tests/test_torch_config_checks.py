@@ -167,11 +167,22 @@ def _setters():
     }
 
 
+# the tables that refuse no key any more: the data pipeline's, since
+# use_native was ported (its key is a handler key of io/iter_img.py)
+_EMPTIED = {"cxxnet_tpu_torch/io/iterators.py": "use_native"}
+
+
 @pytest.mark.parametrize("table", sorted(_setters()))
 def test_f2_not_ported_keys_raise_naming_the_key(table):
     reg = port_schema.build_registry()
     keys = sorted(k for k, where in reg.not_ported.items()
                   if any(w.startswith(table + ":") for w in where))
+    if table in _EMPTIED:
+        key = _EMPTIED[table]
+        assert not keys and key not in reg.not_ported
+        assert any(w.startswith("cxxnet_tpu_torch/io/iter_img.py:")
+                   for w in reg.exact[key])
+        return
     assert keys
     setter = _setters()[table]
     for key in keys:

@@ -2,7 +2,8 @@
 flash-attention K2-fwd, K2-dq, K2-dkv, and the int8 dot K3) against
 their plain versions, and the serving and training paths through them
 (AlexNet-shaped, seq_mnist, GoogLeNet.conf and stack_moe.conf steps
-against the CPU). Every test here needs an
+against the CPU), and the native image decoder (nvJPEG and its kernel
+YccToRgb) against PIL and its plain versions. Every test here needs an
 NVIDIA card and skips without one (marker `cuda`). This file imports no
 jax, so it runs where only the port's dependencies are installed:
 
@@ -411,7 +412,7 @@ def test_narrow_alexnet_training_step_card_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     assert kernels.launches() == {"lrn_fwd": 2, "lrn_bwd": 2, "attn_fwd": 0,
                                   "attn_dq": 0, "attn_dkv": 0,
-                                  "int8_mm": 0}
+                                  "int8_mm": 0, "nvjpeg_decode": 0}
     lc = cpu.update(DataBatch(data=data, label=label), keep=keep)
     np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
     shapes = cpu.net.param_shapes()
@@ -1302,3 +1303,207 @@ def test_c_abi_driver_on_the_card(cuda_device, tmp_path):
     assert out.returncode == 0, (out.stdout, out.stderr)
     counts = json.loads(log.read_text())
     assert counts["lrn_fwd"] == 2 * 3 + 10 and counts["lrn_bwd"] == 6
+
+
+# ---------------------------------------------------------------------------
+# the native image decoder (io/native.py, csrc/nvjpeg_io.cu)
+# ---------------------------------------------------------------------------
+
+def _jpeg_bin(path, n, size, seed, subsampling, extra=()):
+    """n size x size quality-90 JPEGs (noise and a bright square) packed
+    into one .bin, then the `extra` blobs; returns the path."""
+    import io
+    from PIL import Image
+    from cxxnet_tpu_torch.utils.binary_page import BinaryPageWriter
+    rng = np.random.RandomState(seed)
+    with open(path, "wb") as f:
+        w = BinaryPageWriter(f)
+        for i in range(n):
+            img = rng.randint(0, 150, (size, size, 3)).astype(np.uint8)
+            img[i % 4::4, :size // 3, i % 3] = 250
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG", quality=90,
+                                      subsampling=subsampling)
+            w.push(buf.getvalue())
+        for blob in extra:
+            w.push(blob)
+        w.close()
+    return str(path)
+
+
+def _records(reader, passes=1):
+    out = []
+    for _ in range(passes):
+        reader.before_first()
+        while True:
+            rec = reader.next()
+            if rec is None:
+                break
+            out.append(rec)
+    reader.close()
+    return out
+
+
+@pytest.mark.parametrize("label,sub", [("4:4:4", 0), ("4:2:0", -1)])
+def test_nvjpeg_reader_against_pil_at_the_bars(cuda_device, tmp_path, label,
+                                               sub):
+    """The decoder's records against PIL's decode of the same blobs
+    (PlainBinReader), at io/native.py's PIL_BARS."""
+    from cxxnet_tpu_torch.io.native import (PIL_BARS, NativeBinReader,
+                                            PlainBinReader, pil_agreement,
+                                            within_bar)
+    path = _jpeg_bin(tmp_path / "s.bin", 64, 256, 3, sub)
+    got = _records(NativeBinReader([path], out_mode=2))
+    want = _records(PlainBinReader([path], out_mode=2))
+    stats = pil_agreement(got, want)
+    assert within_bar(stats, PIL_BARS[label]), stats
+
+
+def test_ycc_to_rgb_kernel_is_its_plain_version(cuda_device):
+    """YccToRgb against its plain version, bitwise, at the main path's
+    256 x 256 planes in each subsampling taken and at odd and narrow
+    sizes; each call one launch."""
+    from cxxnet_tpu_torch.io.native import (FACTORS, ycc_to_rgb,
+                                            ycc_to_rgb_plain)
+    gen = torch.Generator().manual_seed(5)
+    for h, w in ((256, 256), (37, 53), (1, 9), (17, 2), (3, 4)):
+        for hf, vf in FACTORS.values():
+            planes = [torch.randint(0, 256, shape, generator=gen,
+                                    dtype=torch.uint8)
+                      for shape in ((h, w), (-(-h // vf), -(-w // hf)),
+                                    (-(-h // vf), -(-w // hf)))]
+            before = kernels.launches()["nvjpeg_decode"]
+            got = ycc_to_rgb(*(p.to(cuda_device) for p in planes), hf, vf)
+            torch.cuda.synchronize()
+            assert kernels.launches()["nvjpeg_decode"] == before + 1
+            assert torch.equal(got.cpu(), ycc_to_rgb_plain(*planes, hf, vf))
+
+
+@pytest.mark.parametrize("workers,inflight", [(4, 5), (16, 3)])
+def test_nvjpeg_stream_order_and_counters(cuda_device, tmp_path, workers,
+                                          inflight):
+    """Records come back in stream order (40 sizes) on 4 workers and on
+    16 (more than the machine's cores) through a window of 3, pass after
+    pass and over two bins; out_mode 1 is out_mode 2 as float32; each
+    decoded record counts once; a missing file raises IOError."""
+    import io
+    from PIL import Image
+    from cxxnet_tpu_torch.io.native import NativeBinReader
+    from cxxnet_tpu_torch.utils.binary_page import BinaryPageWriter
+    rng = np.random.RandomState(8)
+    path = str(tmp_path / "order.bin")
+    with open(path, "wb") as f:
+        w = BinaryPageWriter(f)
+        for i in range(40):
+            buf = io.BytesIO()
+            Image.fromarray(rng.randint(0, 255, (16 + i, 48 - i, 3)).astype(
+                np.uint8)).save(buf, format="JPEG", quality=90)
+            w.push(buf.getvalue())
+        w.close()
+    shapes = [(3, 16 + i, 48 - i) for i in range(40)]
+    kernels.reset_launches()
+    r = NativeBinReader([path], n_threads=workers, max_inflight=inflight,
+                        out_mode=2)
+    recs = []
+    for _ in range(3):
+        r.before_first()
+        while True:
+            rec = r.next()
+            if rec is None:
+                break
+            recs.append(rec)
+    assert r.counters() == {"decoded": 120, "raw": 0}
+    r.close()
+    assert [x.shape for x in recs] == shapes * 3
+    assert kernels.launches()["nvjpeg_decode"] == 120
+    assert kernels.raw_handbacks() == 0
+    two = _records(NativeBinReader([path, path], out_mode=2))
+    assert [x.shape for x in two] == shapes * 2
+    f32 = _records(NativeBinReader([path], out_mode=1))
+    for a, b in zip(f32, recs[:40]):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+    r = NativeBinReader([str(tmp_path / "nope.bin")])
+    r.before_first()
+    with pytest.raises(IOError, match="cannot open"):
+        r.next()
+    r.close()
+
+
+def test_nvjpeg_hands_back_png_ppm_and_a_truncated_jpeg(cuda_device,
+                                                        tmp_path):
+    """PNG and PPM come back raw and decode on the host bitwise, counted
+    apart; a JPEG cut in its headers comes back raw and PIL's error
+    surfaces."""
+    import io
+    from PIL import Image
+    from cxxnet_tpu_torch.io.native import NativeBinReader
+    arr = np.random.RandomState(9).randint(0, 255, (24, 24, 3)).astype(
+        np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    jpg = io.BytesIO()
+    Image.fromarray(arr).save(jpg, format="JPEG", quality=90)
+    path = _jpeg_bin(tmp_path / "raw.bin", 1, 24, 4, 0, (
+        buf.getvalue(), b"P6\n24 24\n255\n" + arr.tobytes(),
+        jpg.getvalue()[:300]))
+    kernels.reset_launches()
+    r = NativeBinReader([path], out_mode=2)
+    r.before_first()
+    assert r.next().shape == (3, 24, 24)
+    for _ in range(2):
+        assert np.array_equal(r.next(), arr.transpose(2, 0, 1))
+    assert (kernels.launches()["nvjpeg_decode"],
+            kernels.raw_handbacks()) == (1, 2)
+    with pytest.raises(OSError, match="Truncated File Read"):
+        r.next()
+    assert kernels.raw_handbacks() == 3
+    r.close()
+
+
+def test_nvjpeg_device_failure_raises_and_never_falls_back(cuda_device,
+                                                           tmp_path):
+    """A CUDA error in the workers (a device ordinal past the last card)
+    raises naming use_native = 0; nothing is decoded on the host."""
+    from cxxnet_tpu_torch.io.native import NativeBinReader
+    path = _jpeg_bin(tmp_path / "s.bin", 4, 32, 5, 0)
+    kernels.reset_launches()
+    r = NativeBinReader([path], device=f"cuda:{torch.cuda.device_count()}")
+    r.before_first()
+    with pytest.raises(RuntimeError, match="use_native = 0"):
+        r.next()
+    r.close()
+    assert kernels.launches()["nvjpeg_decode"] == 0
+    assert kernels.raw_handbacks() == 0
+
+
+def test_imgbin_on_the_card_takes_nvjpeg(cuda_device, tmp_path):
+    """create_iterator on the card: -1 and 1 take nvJPEG, and its shuffled
+    labels equal PlainBinReader's (use_native = 1 on cpu) bitwise, the
+    batches at the 4:4:4 bar."""
+    from cxxnet_tpu_torch.io import create_iterator
+    from cxxnet_tpu_torch.io.native import (PIL_BARS, NativeBinReader,
+                                            pil_agreement, within_bar)
+    path = _jpeg_bin(tmp_path / "s.bin", 40, 32, 6, 0)
+    lst = tmp_path / "s.lst"
+    lst.write_text("".join(f"{i}\t{i % 7}\tim{i}.jpg\n" for i in range(40)))
+
+    def batches(use_native, device):
+        it = create_iterator([
+            ("iter", "imgbin"), ("image_list", str(lst)),
+            ("image_bin", path), ("use_native", str(use_native)),
+            ("shuffle", "1"), ("shuffle_buffer", "9"), ("silent", "1"),
+            ("input_shape", "3,32,32"), ("batch_size", "8"),
+            ("iter", "end")], device=device)
+        it.init()
+        out = [(b.data.copy(), b.label.copy()) for b in it]
+        base = it.inner.base.base
+        return out, base
+    card, base = batches(-1, "cuda:0")
+    assert isinstance(base._native, NativeBinReader)
+    assert isinstance(batches(1, "cuda:0")[1]._native, NativeBinReader)
+    plain, _ = batches(1, "cpu")
+    assert len(card) == len(plain) == 5
+    for (cd, cl), (pd, pl) in zip(card, plain):
+        assert np.array_equal(cl, pl)
+    stats = pil_agreement([d for d, _ in card], [d for d, _ in plain])
+    assert within_bar(stats, PIL_BARS["4:4:4"]), stats

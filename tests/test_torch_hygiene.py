@@ -156,13 +156,20 @@ def test_layer_not_yet_ported_raises_at_net_build():
     assert str(err.value) == 'unknown layer type: "prelux"'
 
 
-def test_iterator_not_yet_ported_raises():
-    """The routes of the data pipeline the port has not: the native
-    decoder and multi-worker sharding."""
+def test_iterator_not_yet_ported_raises(monkeypatch, tmp_path):
+    """The data pipeline's refusals: use_native = 1 with no device given
+    means the card (the native decoder, nvJPEG), and with no card it
+    raises naming device="cpu" rather than decoding on the host;
+    multi-worker sharding is not ported."""
     from cxxnet_tpu_torch.io import create_iterator
-    with pytest.raises(NotImplementedError, match="use_native"):
-        create_iterator([("iter", "imgbin"), ("use_native", "1"),
-                         ("iter", "end")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lst = tmp_path / "empty.lst"
+    lst.write_text("")
+    it = create_iterator([("iter", "imgbin"), ("image_list", str(lst)),
+                          ("use_native", "1"), ("silent", "1"),
+                          ("iter", "end")])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        it.init()
     with pytest.raises(NotImplementedError, match="dist_num_worker"):
         create_iterator([("iter", "imgbin"), ("dist_num_worker", "2"),
                          ("iter", "threadbuffer"), ("iter", "end")])
