@@ -174,9 +174,11 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    its own timing set): (a) the library built, its backend, nvJPEG's
    version and path, the hardware decoder's facts, and its kernel
    YccToRgb against its plain version bitwise at 256 x 256 (4:2:0 and
-   4:4:4) with its time and bound; (b) a 4:4:4 and a 4:2:0 set of 512
-   images, 256 x 256, quality 90: every record against PIL's decode of
-   the same blob at io/native.py's PIL_BARS, with the distribution;
+   4:4:4) with its time and bound; (b) a 4:4:4, a 4:2:2 and a 4:2:0 set
+   of 512 images and a 4:4:0, a 4:1:1, a grayscale and an R, G, B set of
+   128, 256 x 256, quality 90: every record against PIL's decode of the
+   same blob at io/native.py's PIL_BAR, with the distribution, every
+   record decoded on the card;
    then stream order on 4 workers over 3 passes with the counters, two
    bins, a missing file, PNG / PPM / a JPEG cut in its headers handed
    back raw, out_mode 1 against 2; (c) AlexNet.conf's train block under
@@ -2563,12 +2565,12 @@ def image_format_used():
 
 def write_image_set(d: str, sub: str, lst: str, n: int, size: int,
                     classes: int, seed: int, fmt: str,
-                    subsampling: int = -1) -> None:
+                    kind: str = "") -> None:
     """n size x size RGB images under d/sub/ with a class signal (a
     bright square whose place and channel follow the label, over
     noise), their .lst at d/lst.lst, packed into d/lst.bin by the port's
-    im2bin. A JPEG's chroma `subsampling` is PIL's: -1 its default
-    (4:2:0), 0 for 4:4:4."""
+    im2bin. A JPEG is PIL's default (4:2:0), or of `kind` (io/native.py's
+    JPEG_KINDS, by its encode_jpeg)."""
     import io
     import numpy as np
     from cxxnet_tpu_torch.tools.im2bin import im2bin
@@ -2584,11 +2586,13 @@ def write_image_set(d: str, sub: str, lst: str, n: int, size: int,
         y0, x0 = r * size // 4, c * size // 4
         img[y0:y0 + side, x0:x0 + side, cls % 3] = 250
         name = f"{i:05d}." + ("jpg" if fmt == "JPEG" else "ppm")
-        if fmt == "JPEG":
+        if fmt == "JPEG" and kind:
+            from cxxnet_tpu_torch.io.native import encode_jpeg
+            blob = encode_jpeg(img, kind)
+        elif fmt == "JPEG":
             from PIL import Image
             buf = io.BytesIO()
-            Image.fromarray(img).save(buf, format="JPEG", quality=90,
-                                      subsampling=subsampling)
+            Image.fromarray(img).save(buf, format="JPEG", quality=90)
             blob = buf.getvalue()
         else:
             blob = (f"P6\n{size} {size}\n255\n".encode()
@@ -4768,34 +4772,37 @@ def native_kernel(torch, card):
 
 
 def native_vs_pil(d, card):
-    """14b: per record against PIL's decode of the same blob, a 4:4:4
-    and a 4:2:0 set of 512 images, 256 x 256, quality 90, at the bars of
-    io/native.py's PIL_BARS. Returns {subsampling: stats}."""
+    """14b: per record against PIL's decode of the same blob, at
+    io/native.py's PIL_BAR: 256 x 256, quality 90, a set of 512 images
+    for each subsampling PIL writes (4:4:4, 4:2:2, 4:2:0) and of 128 for
+    the other kinds the decoder takes (4:4:0, 4:1:1, grayscale, R, G, B).
+    Every record must be decoded on the card. Returns {kind: stats}."""
     from cxxnet_tpu_torch import kernels
-    from cxxnet_tpu_torch.io.native import (PIL_BARS, NativeBinReader,
-                                            PlainBinReader, pil_agreement,
-                                            within_bar)
+    from cxxnet_tpu_torch.io.native import (JPEG_KINDS, PIL_BAR,
+                                            NativeBinReader, PlainBinReader,
+                                            pil_agreement, within_bar)
     say("== phase 14b: nvJPEG against PIL's decode of the same blobs "
-        "(512 images a set, 256 x 256, quality 90) ==")
+        "(256 x 256, quality 90; 512 images a set, 128 for the kinds PIL "
+        "does not write by default) ==")
     out = {}
-    for label, sub in (("4:4:4", 0), ("4:2:0", -1)):
+    for label in JPEG_KINDS:
+        count = 512 if label in ("4:4:4", "4:2:2", "4:2:0") else 128
         sd = os.path.join(d, "s" + label.replace(":", ""))
-        write_image_set(sd, "data/resize256", "data/train", 512, 256, 10,
-                        51, "JPEG", subsampling=sub)
+        write_image_set(sd, "data/resize256", "data/train", count, 256, 10,
+                        51, "JPEG", kind=label)
         binp = os.path.join(sd, "data", "train.bin")
         kernels.reset_launches()
         got = read_records(NativeBinReader([binp], out_mode=2))
         n, raw = kernels.launches()["nvjpeg_decode"], kernels.raw_handbacks()
         want = read_records(PlainBinReader([binp], out_mode=2))
         st = pil_agreement(got, want)
-        bar = PIL_BARS[label]
-        held = within_bar(st, bar)
+        held = within_bar(st)
         say(f"{label}: {len(got)} records, {n} decoded by nvJPEG, {raw} "
             f"handed back; |nvJPEG - PIL| max {st['max']:.0f}, mean "
-            f"{st['mean']:.4f}, share over 16 {st['over16']:.5f}; bar {bar}:"
-            f" {'held' if held else 'MISSED'}")
+            f"{st['mean']:.4f}, share over 16 {st['over16']:.5f}; bar "
+            f"{PIL_BAR}: {'held' if held else 'MISSED'}")
         say_distribution(label, got, want)
-        if n != 512 or raw != 0 or not held:
+        if n != count or raw != 0 or not held:
             raise AssertionError(f"{label}: the decoder against PIL: {st}, "
                                  f"{n} decoded, {raw} handed back")
         out[label] = st
@@ -4810,9 +4817,8 @@ def native_stream_checks(d):
     import numpy as np
     from PIL import Image
     from cxxnet_tpu_torch import kernels
-    from cxxnet_tpu_torch.io.native import (PIL_BARS, NativeBinReader,
-                                            PlainBinReader, pil_agreement,
-                                            within_bar)
+    from cxxnet_tpu_torch.io.native import (NativeBinReader, PlainBinReader,
+                                            pil_agreement, within_bar)
     from cxxnet_tpu_torch.utils.binary_page import BinaryPageWriter
     say("== phase 14b: the decoder's stream checks ==")
     rng = np.random.RandomState(61)
@@ -4844,22 +4850,20 @@ def native_stream_checks(d):
             if rec is None:
                 break
             passes[-1].append(rec)
-    counters = r.counters()
+    counts = (kernels.launches()["nvjpeg_decode"], kernels.raw_handbacks())
     r.close()
     want = read_records(PlainBinReader([b1], out_mode=2))
     for recs in passes:
         if [x.shape for x in recs] != [x.shape for x in want]:
             raise AssertionError("nvJPEG records out of stream order")
         for g, w in zip(recs, want):
-            if not within_bar(pil_agreement([g], [w]), PIL_BARS["4:4:4"]):
-                raise AssertionError("a record off PIL's 4:4:4 bar")
-    n = kernels.launches()["nvjpeg_decode"]
-    if n != 120 or counters != {"decoded": 120, "raw": 0}:
-        raise AssertionError(f"3 passes of 40: {n} counted, library "
-                             f"{counters}")
+            if not within_bar(pil_agreement([g], [w])):
+                raise AssertionError("a record off PIL's bar")
+    if counts != (120, 0):
+        raise AssertionError(f"3 passes of 40: (decoded, raw) {counts}")
     say(f"stream order: 40 images of 40 sizes in order on 4 workers "
-        f"(max_inflight 6), 3 passes (before_first each), {n} decodes "
-        f"counted, the library's counters {counters}")
+        f"(max_inflight 6), 3 passes (before_first each); the library "
+        f"counted (decoded, raw) {counts}")
     # two bins
     b2 = pack(os.path.join(d, "second.bin"), blobs[:7])
     recs = read_records(NativeBinReader([b1, b2], out_mode=2))
@@ -4896,21 +4900,23 @@ def native_stream_checks(d):
     if not (np.array_equal(got[0], arr.transpose(2, 0, 1))
             and np.array_equal(got[1], arr.transpose(2, 0, 1))):
         raise AssertionError("PNG / PPM handed back != PIL's decode")
-    counts = (kernels.launches()["nvjpeg_decode"], kernels.raw_handbacks())
-    if counts != (1, 2):
-        raise AssertionError(f"PNG + PPM + JPEG: (decoded, raw) {counts}")
     try:
         r.next()
         raise AssertionError("the truncated JPEG decoded")
     except OSError as e:
         truncated = f"{type(e).__name__}({e})"
-    finally:
-        r.close()
-    if kernels.raw_handbacks() != 3:
-        raise AssertionError("the truncated JPEG did not come back raw")
+    if r.next() is not None:
+        raise AssertionError("a record after the truncated JPEG")
+    r.close()
+    # the library counts in its workers, which decode ahead of next():
+    # the counts are read once the stream has ended
+    counts = (kernels.launches()["nvjpeg_decode"], kernels.raw_handbacks())
+    if counts != (1, 3):
+        raise AssertionError(f"PNG + PPM + JPEG + a truncated JPEG: "
+                             f"(decoded, raw) {counts}")
     say(f"PNG and PPM handed back raw and decoded on the host bitwise, "
-        f"the JPEG decoded: (decoded, raw) = {counts}; a JPEG cut at 300 "
-        f"bytes came back raw and PIL's error surfaced: {truncated}")
+        f"the JPEG decoded, a JPEG cut at 300 bytes handed back raw and "
+        f"PIL's error surfaced ({truncated}): (decoded, raw) = {counts}")
 
 
 def native_iterator(d):
@@ -4919,7 +4925,7 @@ def native_iterator(d):
     order and reservoir) on (b)'s sets: labels and instance order
     bitwise, batches at the set's bar."""
     import numpy as np
-    from cxxnet_tpu_torch.io.native import PIL_BARS, pil_agreement, within_bar
+    from cxxnet_tpu_torch.io.native import pil_agreement, within_bar
     say("== phase 14c: AlexNet.conf's train block, use_native = 1, "
         "shuffle = 1: the card against PlainBinReader ==")
     block = alexnet_train_block()
@@ -4942,7 +4948,7 @@ def native_iterator(d):
                 raise AssertionError(f"{label}: shuffled labels differ")
         st = pil_agreement([b.data for b in card_b],
                            [b.data for b in plain_b])
-        held = within_bar(st, PIL_BARS[label])
+        held = within_bar(st)
         order = [int(v) for v in card_b[0].label[:12, 0]]
         say(f"{label}: 2 batches of {card_b[0].data.shape} "
             f"{card_b[0].data.dtype}, labels bitwise equal (first 12 "

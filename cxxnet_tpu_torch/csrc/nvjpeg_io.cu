@@ -11,15 +11,18 @@
 //
 // What runs where: each image's Huffman decode runs on the worker's CPU
 // thread (nvjpegDecode on a NVJPEG_BACKEND_HYBRID handle) and its IDCT on
-// the card, into planar Y, Cb, Cr at the file's own chroma subsampling
-// (NVJPEG_OUTPUT_YUV). The chroma upsampling and the colour conversion are
-// this file's kernel, YccToRgb: libjpeg's "fancy" (triangular) upsampling
-// (jdsample.c h2v1_fancy_upsample / h2v2_fancy_upsample) and its integer
-// YCbCr -> RGB tables (jdcolor.c build_ycc_rgb_table), the arithmetic PIL
-// decodes with, so nvJPEG's own filter and rounding do not move the pixels
-// off PIL's. The result is CHW uint8 (R, G, B planes), copied into the
-// worker's pinned buffer on its own non-blocking stream, which alone is
-// synchronised.
+// the card, into its planes at the file's own chroma subsampling (Y, Cb,
+// Cr by NVJPEG_OUTPUT_YUV; R, G, B as coded by NVJPEG_OUTPUT_UNCHANGED;
+// a grayscale file's Y by NVJPEG_OUTPUT_Y). The chroma upsampling and the
+// colour conversion are this file's kernel, YccToRgb: libjpeg's upsampling
+// (jdsample.c: the "fancy" triangular h2v1, h2v2 and h1v2 filters, sample
+// replication where libjpeg replicates) and its integer YCbCr -> RGB
+// tables (jdcolor.c build_ycc_rgb_table), the arithmetic PIL decodes with,
+// so nvJPEG's own filter and rounding do not move the pixels off PIL's;
+// R, G, B files are upsampled alone, and grayscale files replicate Y into
+// the three planes, as libjpeg's gray_rgb_convert does. The result is CHW
+// uint8 (R, G, B planes), copied into the worker's pinned buffer on its own
+// non-blocking stream, which alone is synchronised.
 //
 // What bounds it: the kernel is bound by bytes (it reads each plane once,
 // ~1.5 bytes a pixel at 4:2:0, and writes 3); per 256 x 256 image that is
@@ -31,10 +34,15 @@
 // Blobs the decoder does not take come back raw (c == 0) for the caller to
 // decode on the host, as cxxnet_io.cc's DecodeBlob (:127-141) hands back
 // what libjpeg / libpng cannot: anything that is not a JPEG (PNG, PPM);
-// JPEGs that are not 3-component YCbCr (grayscale, CMYK, Adobe RGB) or not
-// subsampled 4:4:4, 4:2:2 or 4:2:0; and JPEG streams nvJPEG gives a
+// 4-component JPEGs (CMYK, YCCK), which libjpeg does not convert to RGB
+// either; JPEGs subsampled other than 4:4:4, 4:2:2, 4:2:0, 4:4:0 or
+// 4:1:1 (4:1:0, which libjpeg decodes); and JPEG streams nvJPEG gives a
 // bitstream verdict on (BAD_JPEG, JPEG_NOT_SUPPORTED, INCOMPLETE_BITSTREAM).
 // Any other CUDA or nvJPEG error fails the stream (error kind 2).
+//
+// Counts: one process-wide counter of YccToRgb launches, taken where the
+// kernel is launched (a worker's image, cxio_ycc_to_rgb), and one of raw
+// hand-backs, taken where a worker leaves a blob raw (cxio_counters).
 //
 // All buffers are owned by the handle and valid until the next cxio_next /
 // cxio_before_first / cxio_close on that handle.
@@ -50,6 +58,7 @@
 #include <cstdio>
 #include <cstring>
 #include <deque>
+#include <initializer_list>
 #include <map>
 #include <memory>
 #include <mutex>
@@ -65,6 +74,16 @@ constexpr int64_t kPageSize = 4 * kPageNumInts;  // 64 MiB
 // error kinds of a failed stream (cxio_error_kind)
 constexpr int kErrIO = 1;      // the .bin files: missing, truncated, corrupt
 constexpr int kErrDevice = 2;  // a CUDA or nvJPEG error that is no verdict
+
+// how a JPEG's components are coded (YccToRgb's `coding`)
+constexpr int kYcc = 0;   // Y, Cb, Cr
+constexpr int kRgb = 1;   // R, G, B (an Adobe marker with transform 0)
+constexpr int kGray = 2;  // one component, Y
+constexpr int kNoRgb = -1;  // CMYK / YCCK: libjpeg gives no RGB of them
+
+// the process's counters (cxio_counters): YccToRgb launches, raw hand-backs
+std::atomic<long long> g_launches{0};
+std::atomic<long long> g_raw{0};
 
 struct Decoded {
   std::vector<unsigned char> raw;     // the blob, when c == 0
@@ -88,12 +107,14 @@ std::string JpegMsg(const char* what, nvjpegStatus_t st) {
          std::to_string(static_cast<int>(st));
 }
 
-// Whether a JPEG's three components are YCbCr as libjpeg decides it
-// (jdapimin.c default_decompress_parms): a JFIF marker says YCbCr; an
-// Adobe marker says YCbCr unless its transform byte is 0; with neither,
-// component ids 'R', 'G', 'B' mean RGB. Markers are read up to the scan.
-bool IsYcc(const std::vector<unsigned char>& b) {
+// How a JPEG's components are coded, as libjpeg decides it (jdapimin.c
+// default_decompress_parms): one component is grayscale, four have no RGB
+// decode; of three, a JFIF marker says YCbCr, an Adobe marker says YCbCr
+// unless its transform byte is 0, and with neither, component ids 'R',
+// 'G', 'B' mean RGB. Markers are read up to the scan.
+int Coding(const std::vector<unsigned char>& b) {
   bool jfif = false, adobe = false, adobe_ycc = false, rgb_ids = false;
+  int ncomp = 3;
   size_t i = 2;
   while (i + 4 <= b.size() && b[i] == 0xFF) {
     const unsigned char m = b[i + 1];
@@ -107,39 +128,46 @@ bool IsYcc(const std::vector<unsigned char>& b) {
     }
     const bool sof = m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
                      m != 0xCC;
+    if (sof && len >= 8) ncomp = seg[5];
     if (sof && len >= 17)
       rgb_ids = seg[6] == 'R' && seg[9] == 'G' && seg[12] == 'B';
     i += 2 + len;
   }
-  if (jfif) return true;
-  if (adobe) return adobe_ycc;
-  return !rgb_ids;
+  if (ncomp == 1) return kGray;
+  if (ncomp != 3) return kNoRgb;
+  if (jfif) return kYcc;
+  if (adobe) return adobe_ycc ? kYcc : kRgb;
+  return rgb_ids ? kRgb : kYcc;
 }
 
-// One chroma sample upsampled as libjpeg's fancy upsampling gives it at
-// output pixel (x, y): horizontally (hf == 2) 3/4 of the nearer sample
-// and 1/4 of the further, vertically (vf == 2) likewise on column sums,
-// with libjpeg's rounding biases; neighbours past an edge are the edge
-// sample, as libjpeg's context rows and edge columns make them. Planes
-// at most 2 samples wide are replicated instead (jdsample.c takes its
-// fancy filters only where downsampled_width > 2).
+// One chroma sample upsampled as libjpeg gives it at output pixel (x, y)
+// (jdsample.c jinit_upsampler). Its fancy filters: horizontally (hf == 2)
+// 3/4 of the nearer sample and 1/4 of the further, vertically (vf == 2)
+// likewise (on column sums for h2v2), with libjpeg's rounding biases;
+// neighbours past an edge are the edge sample, as libjpeg's context rows
+// and edge columns make them. h2v1 and h2v2 take them only where the plane
+// is more than 2 samples wide, h1v2 always; everything else (4:1:1, the
+// narrow planes) replicates the sample.
 __device__ __forceinline__ int Upsample(const unsigned char* c, int cw,
                                         int ch, int x, int y, int hf,
                                         int vf) {
-  const int ix = hf == 2 ? x >> 1 : x;
-  const int iy = vf == 2 ? y >> 1 : y;
-  if (hf == 2 && cw <= 2) return c[iy * cw + ix];
-  const int jx = hf == 2 ? min(max((x & 1) ? ix + 1 : ix - 1, 0), cw - 1)
-                         : ix;
-  if (vf == 2) {  // 4:2:0 (h2v2): hf == 2 too
+  const int ix = x / hf;
+  const int iy = y / vf;
+  if (hf == 1 && vf == 2) {  // 4:4:0 (h1v2)
+    const int iy2 = min(max((y & 1) ? iy + 1 : iy - 1, 0), ch - 1);
+    return (3 * c[iy * cw + ix] + c[iy2 * cw + ix] + ((y & 1) ? 2 : 1)) >>
+           2;
+  }
+  if (hf != 2 || cw <= 2) return c[iy * cw + ix];
+  const int jx = min(max((x & 1) ? ix + 1 : ix - 1, 0), cw - 1);
+  if (vf == 2) {  // 4:2:0 (h2v2)
     const int iy2 = min(max((y & 1) ? iy + 1 : iy - 1, 0), ch - 1);
     const int near = 3 * c[iy * cw + ix] + c[iy2 * cw + ix];
     const int far = 3 * c[iy * cw + jx] + c[iy2 * cw + jx];
     return (3 * near + far + ((x & 1) ? 7 : 8)) >> 4;
   }
-  if (hf == 2)
-    return (3 * c[iy * cw + ix] + c[iy * cw + jx] + ((x & 1) ? 2 : 1)) >> 2;
-  return c[iy * cw + ix];
+  // 4:2:2 (h2v1)
+  return (3 * c[iy * cw + ix] + c[iy * cw + jx] + ((x & 1) ? 2 : 1)) >> 2;
 }
 
 __device__ __forceinline__ unsigned char Clamp255(int v) {
@@ -149,39 +177,76 @@ __device__ __forceinline__ unsigned char Clamp255(int v) {
 // Planar Y (w x h), Cb and Cr (cw x ch) -> CHW uint8 RGB: one thread a
 // pixel, a block a strip of a row. libjpeg's tables: FIX(x) = x * 2^16
 // rounded; R and B take the rounded products, G the floor of the
-// summed products plus one half.
+// summed products plus one half. An R, G, B file (kRgb) takes its
+// upsampled planes as they are; a grayscale one (kGray, no chroma
+// planes) writes Y to all three.
 __global__ void YccToRgb(const unsigned char* __restrict__ yp,
                          const unsigned char* __restrict__ cbp,
                          const unsigned char* __restrict__ crp, int w, int h,
-                         int cw, int ch, int hf, int vf,
+                         int cw, int ch, int hf, int vf, int coding,
                          unsigned char* __restrict__ out) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y;
   if (x >= w) return;
   const int lum = yp[static_cast<size_t>(y) * w + x];
-  const int cb = Upsample(cbp, cw, ch, x, y, hf, vf) - 128;
-  const int cr = Upsample(crp, cw, ch, x, y, hf, vf) - 128;
   const size_t plane = static_cast<size_t>(w) * h;
   const size_t at = static_cast<size_t>(y) * w + x;
+  if (coding == kGray) {
+    out[at] = out[plane + at] = out[2 * plane + at] =
+        static_cast<unsigned char>(lum);
+    return;
+  }
+  const int c1 = Upsample(cbp, cw, ch, x, y, hf, vf);
+  const int c2 = Upsample(crp, cw, ch, x, y, hf, vf);
+  if (coding == kRgb) {
+    out[at] = static_cast<unsigned char>(lum);
+    out[plane + at] = static_cast<unsigned char>(c1);
+    out[2 * plane + at] = static_cast<unsigned char>(c2);
+    return;
+  }
+  const int cb = c1 - 128, cr = c2 - 128;
   out[at] = Clamp255(lum + ((91881 * cr + 32768) >> 16));
   out[plane + at] =
       Clamp255(lum + ((-22554 * cb + 32768 - 46802 * cr) >> 16));
   out[2 * plane + at] = Clamp255(lum + ((116130 * cb + 32768) >> 16));
 }
 
-// the (horizontal, vertical) chroma factors YccToRgb takes: 4:4:4, 4:2:2
-// and 4:2:0
-bool FactorsTaken(int hf, int vf) {
-  return (hf == 1 && vf == 1) || (hf == 2 && vf == 1) || (hf == 2 && vf == 2);
+// the (horizontal, vertical) chroma factors of the subsamplings YccToRgb
+// takes: 4:4:4, 4:2:2, 4:2:0, 4:4:0 and 4:1:1
+bool Factors(nvjpegChromaSubsampling_t ss, int* hf, int* vf) {
+  switch (ss) {
+    case NVJPEG_CSS_444: *hf = 1; *vf = 1; return true;
+    case NVJPEG_CSS_422: *hf = 2; *vf = 1; return true;
+    case NVJPEG_CSS_420: *hf = 2; *vf = 2; return true;
+    case NVJPEG_CSS_440: *hf = 1; *vf = 2; return true;
+    case NVJPEG_CSS_411: *hf = 4; *vf = 1; return true;
+    default: return false;
+  }
 }
 
-void LaunchYccToRgb(const unsigned char* yp, const unsigned char* cbp,
-                    const unsigned char* crp, int w, int h, int cw, int ch,
-                    int hf, int vf, unsigned char* out, cudaStream_t stream) {
+bool FactorsTaken(int hf, int vf) {
+  for (nvjpegChromaSubsampling_t ss :
+       {NVJPEG_CSS_444, NVJPEG_CSS_422, NVJPEG_CSS_420, NVJPEG_CSS_440,
+        NVJPEG_CSS_411}) {
+    int h = 0, v = 0;
+    if (Factors(ss, &h, &v) && h == hf && v == vf) return true;
+  }
+  return false;
+}
+
+// One launch on `stream`; a launch the runtime takes counts once in
+// g_launches, here and nowhere else.
+cudaError_t LaunchYccToRgb(const unsigned char* yp, const unsigned char* cbp,
+                           const unsigned char* crp, int w, int h, int cw,
+                           int ch, int hf, int vf, int coding,
+                           unsigned char* out, cudaStream_t stream) {
   const dim3 block(128);
   const dim3 grid((w + 127) / 128, h);
   YccToRgb<<<grid, block, 0, stream>>>(yp, cbp, crp, w, h, cw, ch, hf, vf,
-                                       out);
+                                       coding, out);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) g_launches.fetch_add(1);
+  return e;
 }
 
 // One worker's decoder: its own nvjpeg handle and state, its own
@@ -191,7 +256,10 @@ void LaunchYccToRgb(const unsigned char* yp, const unsigned char* cbp,
 class Decoder {
  public:
   ~Decoder() {
-    if (dbuf_) cudaFree(dbuf_);
+    if (dbuf_) {
+      cudaFreeAsync(dbuf_, stream_);
+      cudaStreamSynchronize(stream_);
+    }
     if (hbuf_) cudaFreeHost(hbuf_);
     if (state_) nvjpegJpegStateDestroy(state_);
     if (handle_) nvjpegDestroy(handle_);
@@ -219,7 +287,8 @@ class Decoder {
     *decoded = false;
     const bool jpeg = blob.size() >= 3 && blob[0] == 0xFF &&
                       blob[1] == 0xD8 && blob[2] == 0xFF;
-    if (jpeg && IsYcc(blob)) {
+    const int coding = jpeg ? Coding(blob) : kNoRgb;
+    if (coding != kNoRgb) {
       int nc = 0;
       nvjpegChromaSubsampling_t ss = NVJPEG_CSS_UNKNOWN;
       int ws[NVJPEG_MAX_COMPONENT] = {0}, hs[NVJPEG_MAX_COMPONENT] = {0};
@@ -227,18 +296,19 @@ class Decoder {
                                              blob.size(), &nc, &ss, ws, hs);
       if (st != NVJPEG_STATUS_SUCCESS && !IsVerdict(st))
         return JpegMsg("nvjpegGetImageInfo", st);
-      // (horizontal, vertical) chroma factors of the subsamplings taken
-      const int hf = ss == NVJPEG_CSS_444 ? 1 : 2;
-      const int vf = ss == NVJPEG_CSS_420 ? 2 : 1;
-      const bool taken =
-          st == NVJPEG_STATUS_SUCCESS && nc == 3 &&
-          (ss == NVJPEG_CSS_444 || ss == NVJPEG_CSS_422 ||
-           ss == NVJPEG_CSS_420) &&
-          ws[0] > 0 && hs[0] > 0 && ws[1] == (ws[0] + hf - 1) / hf &&
-          hs[1] == (hs[0] + vf - 1) / vf && ws[2] == ws[1] && hs[2] == hs[1];
+      // (horizontal, vertical) chroma factors; none for grayscale
+      int hf = 1, vf = 1;
+      bool taken = st == NVJPEG_STATUS_SUCCESS && ws[0] > 0 && hs[0] > 0;
+      if (coding == kGray)
+        taken = taken && nc == 1 && ss == NVJPEG_CSS_GRAY;
+      else
+        taken = taken && nc == 3 && Factors(ss, &hf, &vf) &&
+                ws[1] == (ws[0] + hf - 1) / hf &&
+                hs[1] == (hs[0] + vf - 1) / vf && ws[2] == ws[1] &&
+                hs[2] == hs[1];
       if (taken) {
         std::string err = DecodeRgb(blob, ws[0], hs[0], ws[1], hs[1], hf,
-                                    vf, decoded);
+                                    vf, coding, decoded);
         if (!err.empty()) return err;
         if (*decoded) {
           ToOutput(ws[0], hs[0], out_mode, out);
@@ -246,6 +316,7 @@ class Decoder {
         }
       }
     }
+    g_raw.fetch_add(1);
     out->raw = std::move(blob);
     out->h = 0;
     out->w = static_cast<int>(out->raw.size());
@@ -254,36 +325,49 @@ class Decoder {
   }
 
  private:
-  // device room for the Y, Cb, Cr planes and the RGB planes; pinned host
-  // room for the RGB planes
+  // Device room for the Y, Cb, Cr planes and the RGB planes; pinned host
+  // room for the RGB planes. Both grow at least twofold, so a stream of
+  // ever larger images reallocates a few times, not once an image; the
+  // device buffer is stream-ordered (cudaMallocAsync / cudaFreeAsync on
+  // the worker's stream), so growing it does not synchronise the card the
+  // training step runs on, as cudaFree would.
   std::string Reserve(size_t dev, size_t host) {
+    constexpr size_t kLeast = 1 << 20;
     if (dev > dcap_) {
-      if (dbuf_) cudaFree(dbuf_);
+      const size_t cap = std::max({dev, 2 * dcap_, kLeast});
+      if (dbuf_) {
+        cudaError_t e = cudaFreeAsync(dbuf_, stream_);
+        if (e != cudaSuccess) return CudaMsg("cudaFreeAsync", e);
+      }
       dbuf_ = nullptr;
       dcap_ = 0;
-      cudaError_t e = cudaMalloc(&dbuf_, dev);
-      if (e != cudaSuccess) return CudaMsg("cudaMalloc", e);
-      dcap_ = dev;
+      cudaError_t e = cudaMallocAsync(reinterpret_cast<void**>(&dbuf_), cap,
+                                      stream_);
+      if (e != cudaSuccess) return CudaMsg("cudaMallocAsync", e);
+      dcap_ = cap;
     }
     if (host > hcap_) {
+      const size_t cap = std::max({host, 2 * hcap_, kLeast});
       if (hbuf_) cudaFreeHost(hbuf_);
       hbuf_ = nullptr;
       hcap_ = 0;
-      cudaError_t e = cudaMallocHost(&hbuf_, host);
+      cudaError_t e = cudaMallocHost(&hbuf_, cap);
       if (e != cudaSuccess) return CudaMsg("cudaMallocHost", e);
-      hcap_ = host;
+      hcap_ = cap;
     }
     return "";
   }
 
-  // nvjpegDecode into planar Y, Cb, Cr (w x h, then cw x ch each), the
-  // upsampling and colour conversion kernel into CHW RGB, then one copy
-  // into the pinned buffer on the worker's stream, which alone is
-  // synchronised.
+  // nvjpegDecode into planar Y, Cb, Cr or R, G, B as coded (w x h, then
+  // cw x ch each) or a grayscale file's Y, the upsampling and colour
+  // conversion kernel into CHW RGB, then one copy into the pinned buffer
+  // on the worker's stream, which alone is synchronised.
   std::string DecodeRgb(const std::vector<unsigned char>& blob, int w, int h,
-                        int cw, int ch, int hf, int vf, bool* decoded) {
+                        int cw, int ch, int hf, int vf, int coding,
+                        bool* decoded) {
     const size_t plane = static_cast<size_t>(w) * h;
-    const size_t cplane = static_cast<size_t>(cw) * ch;
+    const size_t cplane =
+        coding == kGray ? 0 : static_cast<size_t>(cw) * ch;
     std::string err = Reserve(plane + 2 * cplane + 3 * plane, 3 * plane);
     if (!err.empty()) return err;
     unsigned char* yp = dbuf_;
@@ -294,17 +378,23 @@ class Decoder {
     std::memset(&img, 0, sizeof(img));
     img.channel[0] = yp;
     img.pitch[0] = static_cast<size_t>(w);
-    img.channel[1] = cbp;
-    img.pitch[1] = static_cast<size_t>(cw);
-    img.channel[2] = crp;
-    img.pitch[2] = static_cast<size_t>(cw);
+    if (coding != kGray) {
+      img.channel[1] = cbp;
+      img.pitch[1] = static_cast<size_t>(cw);
+      img.channel[2] = crp;
+      img.pitch[2] = static_cast<size_t>(cw);
+    }
+    const nvjpegOutputFormat_t fmt =
+        coding == kGray ? NVJPEG_OUTPUT_Y
+                        : coding == kRgb ? NVJPEG_OUTPUT_UNCHANGED
+                                         : NVJPEG_OUTPUT_YUV;
     nvjpegStatus_t st = nvjpegDecode(handle_, state_, blob.data(),
-                                     blob.size(), NVJPEG_OUTPUT_YUV, &img,
-                                     stream_);
+                                     blob.size(), fmt, &img, stream_);
     if (IsVerdict(st)) return "";
     if (st != NVJPEG_STATUS_SUCCESS) return JpegMsg("nvjpegDecode", st);
-    LaunchYccToRgb(yp, cbp, crp, w, h, cw, ch, hf, vf, rgb, stream_);
-    cudaError_t e = cudaGetLastError();
+    cudaError_t e = LaunchYccToRgb(yp, coding == kGray ? nullptr : cbp,
+                                   coding == kGray ? nullptr : crp, w, h, cw,
+                                   ch, hf, vf, coding, rgb, stream_);
     if (e != cudaSuccess) return CudaMsg("YccToRgb launch", e);
     e = cudaMemcpyAsync(hbuf_, rgb, 3 * plane, cudaMemcpyDeviceToHost,
                         stream_);
@@ -345,21 +435,15 @@ struct Task {
   std::vector<unsigned char> blob;
 };
 
-struct Counters {
-  std::atomic<long long> decoded{0};  // records decoded by nvJPEG
-  std::atomic<long long> raw{0};      // blobs handed back raw
-};
-
 class Pipeline {
  public:
   Pipeline(std::vector<std::string> paths, int n_threads, int max_inflight,
-           int out_mode, int device, Counters* counters)
+           int out_mode, int device)
       : paths_(std::move(paths)),
         n_threads_(std::max(1, n_threads)),
         max_inflight_(std::max(2, max_inflight)),
         out_mode_(out_mode),
-        device_(device),
-        counters_(counters) {}
+        device_(device) {}
 
   ~Pipeline() { Stop(); }
 
@@ -519,7 +603,6 @@ class Pipeline {
         Fail(kErrDevice, err);
         return;
       }
-      (decoded ? counters_->decoded : counters_->raw).fetch_add(1);
       {
         std::lock_guard<std::mutex> lk(mu_);
         done_.emplace(task.seq, std::move(d));
@@ -534,7 +617,6 @@ class Pipeline {
   int max_inflight_;
   int out_mode_;
   int device_;
-  Counters* counters_;
 
   std::thread reader_;
   std::vector<std::thread> workers_;
@@ -562,7 +644,6 @@ struct Handle {
   int max_inflight = 64;
   int out_mode = 1;
   int device = 0;
-  Counters counters;
 };
 
 }  // namespace
@@ -597,7 +678,7 @@ void cxio_before_first(void* handle) {
   auto* h = static_cast<Handle*>(handle);
   h->pipe.reset();  // joins the previous pass's threads first
   h->pipe.reset(new Pipeline(h->paths, h->n_threads, h->max_inflight,
-                             h->out_mode, h->device, &h->counters));
+                             h->out_mode, h->device));
   h->pipe->Start();
 }
 
@@ -632,20 +713,25 @@ int cxio_error_kind(void* handle) {
   return static_cast<Handle*>(handle)->last_error_kind;
 }
 
-// out[0]: records decoded by nvJPEG, out[1]: blobs handed back raw; over
-// the handle's life (every pass), counted where the worker finishes them
-void cxio_counters(void* handle, long long* out) {
-  auto* h = static_cast<Handle*>(handle);
-  out[0] = h->counters.decoded.load();
-  out[1] = h->counters.raw.load();
+// The process's counts since the last cxio_reset_counters: out[0]
+// YccToRgb launches (one an image a worker decoded, one a
+// cxio_ycc_to_rgb call), out[1] blobs the workers handed back raw.
+void cxio_counters(long long* out) {
+  out[0] = g_launches.load();
+  out[1] = g_raw.load();
+}
+
+void cxio_reset_counters(void) {
+  g_launches.store(0);
+  g_raw.store(0);
 }
 
 const char* cxio_backend(void) {
   return "NVJPEG_BACKEND_HYBRID through nvjpegDecode, one image a call: "
          "Huffman decode on the worker's CPU thread, IDCT on the card "
-         "into NVJPEG_OUTPUT_YUV planes, then YccToRgb (libjpeg's fancy "
-         "upsampling and YCbCr tables) on the worker's own non-blocking "
-         "stream";
+         "into the file's planes (NVJPEG_OUTPUT_YUV, _UNCHANGED for R, G, "
+         "B files, _Y for grayscale), then YccToRgb (libjpeg's upsampling "
+         "and YCbCr tables) on the worker's own non-blocking stream";
 }
 
 // nvJPEG's version: out[0..2] = major, minor, patch; returns the status
@@ -678,21 +764,25 @@ int cxio_hw_info(int device, unsigned int* out) {
 void cxio_close(void* handle) { delete static_cast<Handle*>(handle); }
 
 // YccToRgb alone on device planes (uint8): Y (h x w), Cb and Cr (ch x cw,
-// the factors' subsampled sizes) -> out (3 x h x w), launched on `stream`
-// without synchronising. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for sizes or factors it does not take.
+// the factors' subsampled sizes; both null for `coding` 2, grayscale) ->
+// out (3 x h x w), launched on `stream` without synchronising; `coding` 0
+// is Y, Cb, Cr, 1 R, G, B. Returns cudaGetLastError() after the launch
+// (counted when it is 0), or cudaErrorInvalidValue for what it does not
+// take.
 int cxio_ycc_to_rgb(const void* y, const void* cb, const void* cr, int w,
-                    int h, int cw, int ch, int hf, int vf, void* out,
-                    void* stream) {
-  if (!FactorsTaken(hf, vf) || w <= 0 || h <= 0 || h > 65535 ||
-      cw != (w + hf - 1) / hf || ch != (h + vf - 1) / vf)
+                    int h, int cw, int ch, int hf, int vf, int coding,
+                    void* out, void* stream) {
+  const bool gray = coding == kGray;
+  if ((coding != kYcc && coding != kRgb && !gray) || w <= 0 || h <= 0 ||
+      h > 65535 || gray != (cb == nullptr) || gray != (cr == nullptr) ||
+      (!gray && (!FactorsTaken(hf, vf) || cw != (w + hf - 1) / hf ||
+                 ch != (h + vf - 1) / vf)))
     return static_cast<int>(cudaErrorInvalidValue);
-  LaunchYccToRgb(static_cast<const unsigned char*>(y),
-                 static_cast<const unsigned char*>(cb),
-                 static_cast<const unsigned char*>(cr), w, h, cw, ch, hf, vf,
-                 static_cast<unsigned char*>(out),
-                 static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(LaunchYccToRgb(
+      static_cast<const unsigned char*>(y),
+      static_cast<const unsigned char*>(cb),
+      static_cast<const unsigned char*>(cr), w, h, cw, ch, hf, vf, coding,
+      static_cast<unsigned char*>(out), static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

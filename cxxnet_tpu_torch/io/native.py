@@ -8,18 +8,21 @@ device (each worker with its own nvjpeg state, stream and buffers), and
 records come back strictly in stream order through a reorder buffer
 bounded by `max_inflight`. The library is built from the repo's source
 by `kernels.py` at first use. Blobs the decoder does not take (PNG, PPM,
-JPEGs nvJPEG rejects) come back raw and are decoded here with
+CMYK JPEGs, JPEGs nvJPEG rejects) come back raw and are decoded here with
 `decode_image`, as the JAX package's reader decodes what libjpeg and
-libpng leave (cxxnet_tpu/io/native.py:129-133); they are counted apart
-(`kernels.raw_handbacks()`), the decoded images in
-`kernels.LAUNCHES["nvjpeg_decode"]`.
+libpng leave (cxxnet_tpu/io/native.py:129-133). The library counts both
+where they happen, in its workers: each image decoded is one launch of
+its kernel (`kernels.launches()["nvjpeg_decode"]`), and each blob left
+raw one hand-back (`kernels.raw_handbacks()`).
 
 The library's own kernel is `YccToRgb`: the chroma upsampling and the
-YCbCr -> RGB conversion of nvJPEG's planar Y, Cb, Cr output, in libjpeg's
-arithmetic (the "fancy" triangular upsampling and its integer tables),
-so that a record sits from PIL's decode of the same blob by nvJPEG's
-IDCT alone. `ycc_to_rgb` is its wrapper on tensors (the kernel on the
-card, `ycc_to_rgb_plain` on the CPU).
+YCbCr -> RGB conversion of nvJPEG's planar output, in libjpeg's
+arithmetic (its "fancy" triangular upsampling where libjpeg takes it,
+sample replication elsewhere, and its integer tables), so that a record
+sits from PIL's decode of the same blob by nvJPEG's IDCT alone; R, G, B
+files skip the conversion and grayscale ones replicate Y. `ycc_to_rgb`
+is its wrapper on tensors (the kernel on the card, `ycc_to_rgb_plain`
+on the CPU).
 
 `PlainBinReader` is the reader's plain version: the same interface and order,
 pages read by `utils/binary_page.py` with the native reader's checks,
@@ -49,16 +52,13 @@ from cxxnet_tpu_torch.io.iter_img import decode_image
 from cxxnet_tpu_torch.utils.binary_page import read_bin_blobs
 from cxxnet_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-DECODER = "nvjpeg_decode"
+DECODER = kernels.DECODER
 _ERR_DEVICE = 2  # cxio_error_kind: a CUDA / nvJPEG error
 
 # How far nvJPEG's decode may sit from PIL's (libjpeg's) decode of the
-# same blob, in uint8 levels, by chroma subsampling. 4:4:4 isolates the
-# IDCT and the colour conversion; 4:2:0 adds the chroma upsampling, where
-# libjpeg's default "fancy" (triangular) filter and nvJPEG's may differ.
-# "over16" is the largest share of values off by more than 16 levels.
-PIL_BARS = {"4:4:4": {"max": 3, "mean": 0.5},
-            "4:2:0": {"mean": 2.0, "over16": 0.01}}
+# same blob, in uint8 levels, whatever the JPEG's kind: YccToRgb applies
+# libjpeg's own upsampling and colour tables, so only the IDCTs differ.
+PIL_BAR = {"max": 3, "mean": 0.5}
 
 
 def pil_agreement(got: Sequence[np.ndarray],
@@ -73,23 +73,80 @@ def pil_agreement(got: Sequence[np.ndarray],
             "over16": float((d > 16).mean())}
 
 
-def within_bar(stats: Dict[str, float], bar: Dict[str, float]) -> bool:
+def within_bar(stats: Dict[str, float],
+               bar: Dict[str, float] = PIL_BAR) -> bool:
     return all(stats[k] <= v for k, v in bar.items())
 
 
-# the (horizontal, vertical) chroma factors YccToRgb takes: 4:4:4, 4:2:2
-# and 4:2:0
-FACTORS = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2)}
+# the (horizontal, vertical) chroma factors YccToRgb takes
+FACTORS = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:2:0": (2, 2),
+           "4:4:0": (1, 2), "4:1:1": (4, 1)}
+# how a JPEG's components are coded (YccToRgb's `coding`): Y, Cb, Cr; R,
+# G, B (an Adobe marker with transform 0); grayscale (Y alone)
+YCC, RGB, GRAY = 0, 1, 2
+
+# The JPEG kinds the decoder takes, as encode_jpeg writes them: each
+# subsampling of FACTORS, grayscale and R, G, B (4:4:4).
+JPEG_KINDS = tuple(FACTORS) + ("gray", "rgb")
 
 
-def _check_planes(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-                  hf: int, vf: int) -> None:
+def encode_jpeg(arr: np.ndarray, kind: str, quality: int = 90) -> bytes:
+    """An (h, w) JPEG of `kind` (JPEG_KINDS) from (h, w, 3) uint8 `arr`,
+    baseline, written by PIL. PIL writes neither 4:4:0 nor 4:1:1: such a
+    blob is a 4:2:2 (4:2:0) file of arr's pixels laid out with as many
+    MCUs (8 x 16 for 4:4:0, 32 x 8 for 4:1:1), its frame header re-read
+    at the other sampling and at (h, w), a valid JPEG whose pixels are
+    those blocks in another arrangement, not arr's."""
+    import io
+    from PIL import Image
+    h, w = arr.shape[:2]
+    src = arr
+    if kind in ("4:4:0", "4:1:1"):
+        # the source's MCU grid (16 x 8 for 4:2:2, 16 x 16 for 4:2:0) has
+        # as many columns and rows of MCUs as the target's
+        (mh, mw) = (16, 8) if kind == "4:4:0" else (8, 32)
+        sh = (8 if kind == "4:4:0" else 16) * -(-h // mh)
+        sw = 16 * -(-w // mw)
+        src = np.resize(arr, (sh, sw, 3))
+    img = Image.fromarray(src[:, :, 0] if kind == "gray" else src)
+    sub = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "4:4:0": 1, "4:1:1": 2,
+           "rgb": 0}.get(kind, -1)
+    extra = {"keep_rgb": True} if kind == "rgb" else {}
+    buf = io.BytesIO()
+    img.save(buf, format="JPEG", quality=quality, subsampling=sub, **extra)
+    blob = buf.getvalue()
+    if kind == "rgb" and b"Adobe" not in blob:
+        raise RuntimeError("this PIL does not write R, G, B JPEGs "
+                           "(keep_rgb)")
+    if src is arr:
+        return blob
+    b = bytearray(blob)
+    i = 2
+    while b[i + 1] != 0xC0:  # to the baseline frame header (SOF0)
+        i += 2 + ((b[i + 2] << 8) | b[i + 3])
+    b[i + 5:i + 9] = bytes([h >> 8, h & 255, w >> 8, w & 255])
+    b[i + 11] = 0x12 if kind == "4:4:0" else 0x41  # luma's (h, v) factors
+    return bytes(b)
+
+
+def _check_planes(y: torch.Tensor, cb: Optional[torch.Tensor],
+                  cr: Optional[torch.Tensor], hf: int, vf: int,
+                  coding: int) -> None:
+    if coding not in (YCC, RGB, GRAY):
+        raise ValueError(f"coding {coding}: YCC, RGB or GRAY")
+    if (coding == GRAY) != (cb is None) or (cb is None) != (cr is None):
+        raise ValueError("chroma planes: both for YCC and RGB, none for "
+                         "GRAY")
     for t in (y, cb, cr):
+        if t is None:
+            continue
         if t.dtype != torch.uint8 or t.dim() != 2 or not t.is_contiguous():
             raise ValueError("ycc_to_rgb takes contiguous 2-d uint8 planes")
+    if coding == GRAY:
+        return
     if (hf, vf) not in FACTORS.values():
-        raise ValueError(f"chroma factors {(hf, vf)}: 4:4:4, 4:2:2 or "
-                         "4:2:0 only")
+        raise ValueError(f"chroma factors {(hf, vf)}: those of FACTORS "
+                         f"only, {sorted(FACTORS)}")
     (h, w) = y.shape
     want = (-(-h // vf), -(-w // hf))
     if cb.shape != want or cr.shape != want:
@@ -100,39 +157,48 @@ def _check_planes(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
         raise ValueError("the planes lie on different devices")
 
 
-def ycc_to_rgb_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-                     hf: int, vf: int) -> torch.Tensor:
+def ycc_to_rgb_plain(y: torch.Tensor, cb: Optional[torch.Tensor],
+                     cr: Optional[torch.Tensor], hf: int, vf: int,
+                     coding: int = YCC) -> torch.Tensor:
     """The plain version of YccToRgb: uint8 planes Y (h, w), Cb and Cr
-    (ceil(h / vf), ceil(w / hf)) -> (3, h, w) uint8 RGB, libjpeg's fancy
-    upsampling (jdsample.c: 3/4 nearer + 1/4 further sample, edges
-    repeated, its rounding biases; planes at most 2 samples wide are
-    replicated) and its YCbCr tables (jdcolor.c: FIX(x) = x * 2^16
-    rounded, G floored after adding one half)."""
-    _check_planes(y, cb, cr, hf, vf)
+    (ceil(h / vf), ceil(w / hf)) -> (3, h, w) uint8 RGB. libjpeg's
+    upsampling (jdsample.c: its fancy filters, 3/4 nearer + 1/4 further
+    sample with edges repeated and its rounding biases, for h2v1 and h2v2
+    on planes more than 2 samples wide and for h1v2; replication
+    otherwise) and its YCbCr tables (jdcolor.c: FIX(x) = x * 2^16 rounded,
+    G floored after adding one half). RGB coding takes the upsampled
+    planes as they are; GRAY (no chroma planes) replicates Y."""
+    _check_planes(y, cb, cr, hf, vf, coding)
+    if coding == GRAY:
+        return y.expand(3, *y.shape).clone()
     h, w = y.shape
     dev = y.device
     xs = torch.arange(w, device=dev)
     ys = torch.arange(h, device=dev)
-    ix = xs >> 1 if hf == 2 else xs
-    jx = (torch.where((xs & 1) == 1, ix + 1, ix - 1).clamp(
-        0, cb.shape[1] - 1) if hf == 2 else ix)
+    ix, iy = xs // hf, ys // vf
+    odd_x = (xs & 1) == 1
+    odd_y = ((ys & 1) == 1)[:, None]
 
     def up(c):
         c = c.to(torch.int32)
-        if hf == 2 and c.shape[1] <= 2:
-            return c[ys >> 1 if vf == 2 else ys][:, ix]
-        if vf == 2:
-            iy = ys >> 1
-            iy2 = torch.where((ys & 1) == 1, iy + 1, iy - 1).clamp(
-                0, c.shape[0] - 1)
+        (ch, cw) = c.shape
+        if (hf, vf) == (1, 2):  # h1v2
+            iy2 = torch.where(odd_y[:, 0], iy + 1, iy - 1).clamp(0, ch - 1)
+            bias = torch.where(odd_y, 2, 1).to(torch.int32)
+            return (3 * c[iy] + c[iy2] + bias) >> 2
+        if hf != 2 or cw <= 2:
+            return c[iy][:, ix]
+        jx = torch.where(odd_x, ix + 1, ix - 1).clamp(0, cw - 1)
+        if vf == 2:  # h2v2
+            iy2 = torch.where(odd_y[:, 0], iy + 1, iy - 1).clamp(0, ch - 1)
             colsum = 3 * c[iy] + c[iy2]
-            bias = torch.where((xs & 1) == 1, 7, 8).to(torch.int32)
+            bias = torch.where(odd_x, 7, 8).to(torch.int32)
             return (3 * colsum[:, ix] + colsum[:, jx] + bias) >> 4
-        if hf == 2:
-            bias = torch.where((xs & 1) == 1, 2, 1).to(torch.int32)
-            return (3 * c[:, ix] + c[:, jx] + bias) >> 2
-        return c
+        bias = torch.where(odd_x, 2, 1).to(torch.int32)  # h2v1
+        return (3 * c[:, ix] + c[:, jx] + bias) >> 2
     lum = y.to(torch.int32)
+    if coding == RGB:
+        return torch.stack([lum, up(cb), up(cr)]).to(torch.uint8)
     cbu, cru = up(cb) - 128, up(cr) - 128
     r = lum + ((91881 * cru + 32768) >> 16)
     g = lum + ((-22554 * cbu + 32768 - 46802 * cru) >> 16)
@@ -140,21 +206,25 @@ def ycc_to_rgb_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     return torch.stack([r, g, b]).clamp(0, 255).to(torch.uint8)
 
 
-def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-               hf: int, vf: int) -> torch.Tensor:
+def ycc_to_rgb(y: torch.Tensor, cb: Optional[torch.Tensor],
+               cr: Optional[torch.Tensor], hf: int, vf: int,
+               coding: int = YCC) -> torch.Tensor:
     """YccToRgb on contiguous uint8 planes at chroma factors (hf, vf)
-    (FACTORS): the kernel for CUDA tensors (launched on the current
-    stream, counted), the plain version for CPU tensors."""
-    _check_planes(y, cb, cr, hf, vf)
+    (FACTORS; no chroma planes for GRAY): the kernel for CUDA tensors
+    (launched on the current stream; the library counts it), the plain
+    version for CPU tensors."""
+    _check_planes(y, cb, cr, hf, vf, coding)
     if y.device.type == "cpu":
-        return ycc_to_rgb_plain(y, cb, cr, hf, vf)
+        return ycc_to_rgb_plain(y, cb, cr, hf, vf, coding)
     if y.device.type != "cuda":
         raise ValueError(f"ycc_to_rgb: no kernel for {y.device}")
     lib = _library()
-    (h, w), (ch, cw) = y.shape, cb.shape
+    (h, w) = y.shape
+    (ch, cw) = (0, 0) if cb is None else cb.shape
     out = torch.empty((3, h, w), dtype=torch.uint8, device=y.device)
     rc = lib.cxio_ycc_to_rgb(
-        y.data_ptr(), cb.data_ptr(), cr.data_ptr(), w, h, cw, ch, hf, vf,
+        y.data_ptr(), None if cb is None else cb.data_ptr(),
+        None if cr is None else cr.data_ptr(), w, h, cw, ch, hf, vf, coding,
         out.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream)
     kernels.check(DECODER, rc)
     return out
@@ -231,24 +301,14 @@ class NativeBinReader:
             raise IOError(err.decode())
         r = self._rec
         if r.c == 0:  # a blob nvJPEG does not take: decode on the host
-            kernels.count_raw()
             return _finish(decode_image(ctypes.string_at(r.data, r.w)),
                            self._mode)
-        kernels.count(DECODER)
         n = r.h * r.w * r.c
         ctype = ctypes.c_uint8 if self._mode == 2 else ctypes.c_float
         ptr = ctypes.cast(r.data, ctypes.POINTER(ctype))
         # the library reuses its buffer on the next call: one copy to own it
         return np.ctypeslib.as_array(ptr, shape=(n,)).reshape(
             r.c, r.h, r.w).copy()
-
-    def counters(self) -> Dict[str, int]:
-        """The library's own counts over this reader's life: records
-        nvJPEG decoded and blobs handed back raw (decode-ahead included,
-        so they may run ahead of what next() has returned)."""
-        out = (ctypes.c_longlong * 2)()
-        self._lib.cxio_counters(self._h, out)
-        return {"decoded": out[0], "raw": out[1]}
 
     def close(self) -> None:
         if self._h:

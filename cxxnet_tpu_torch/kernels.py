@@ -16,11 +16,14 @@ kernel YccToRgb), which links `-lnvjpeg` and the thread library
 (`source_flags`).
 
 Each wrapper counts its launches in `LAUNCHES` (one per kernel launch,
-nowhere else; for the decoder one per image it decoded), so a run can
-show that its main path went through the kernels: `reset_launches()`
-before the run, `launches()` after it. The decoder's raw hand-backs
-(blobs it left to the host's decoder) are counted apart
-(`raw_handbacks()`).
+nowhere else), so a run can show that its main path went through the
+kernels: `reset_launches()` before the run, `launches()` after it. The
+decoder launches its kernel YccToRgb from its own worker threads, so its
+library keeps that count itself, where it launches (one per image it
+decoded), with its raw hand-backs (blobs it left to the host's decoder)
+beside it; `launches()` and `raw_handbacks()` read them from the library
+and `reset_launches()` zeroes them there. Before the library is loaded
+both read 0.
 """
 
 from __future__ import annotations
@@ -54,30 +57,40 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
-# blobs the image decoder handed back raw for the host to decode
-_raw = [0]
+# the kernel whose count its library keeps (csrc/nvjpeg_io.cu)
+DECODER = "nvjpeg_decode"
+
+
+def _decoder_counts() -> Tuple[int, int]:
+    """(YccToRgb launches, raw hand-backs) as the decoder's library
+    counts them; (0, 0) before it is loaded. Called under _lock."""
+    lib = _libs.get(DECODER)
+    if lib is None:
+        return 0, 0
+    out = (ctypes.c_longlong * 2)()
+    lib.cxio_counters(out)
+    return out[0], out[1]
 
 
 def reset_launches() -> None:
     with _lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
-        _raw[0] = 0
+        lib = _libs.get(DECODER)
+        if lib is not None:
+            lib.cxio_reset_counters()
 
 
 def launches() -> Dict[str, int]:
     with _lock:
+        LAUNCHES[DECODER] = _decoder_counts()[0]
         return dict(LAUNCHES)
 
 
 def raw_handbacks() -> int:
+    """Blobs the image decoder handed back raw for the host to decode."""
     with _lock:
-        return _raw[0]
-
-
-def count_raw() -> None:
-    with _lock:
-        _raw[0] += 1
+        return _decoder_counts()[1]
 
 
 def nvcc_path() -> str:
@@ -241,7 +254,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.int8_mm.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32,
                                 vp]
         lib.int8_mm.restype = i32
-    if name == "nvjpeg_decode":
+    if name == DECODER:
         # (paths, n_bins, n_threads, max_inflight, out_mode, device)
         lib.cxio_open.argtypes = [ctypes.POINTER(ctypes.c_char_p), i32, i32,
                                   i32, i32, i32]
@@ -254,8 +267,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.cxio_last_error.restype = ctypes.c_char_p
         lib.cxio_error_kind.argtypes = [vp]
         lib.cxio_error_kind.restype = i32
-        lib.cxio_counters.argtypes = [vp, vp]  # (handle, long long[2])
+        lib.cxio_counters.argtypes = [vp]  # long long[2]
         lib.cxio_counters.restype = None
+        lib.cxio_reset_counters.argtypes = []
+        lib.cxio_reset_counters.restype = None
         lib.cxio_backend.argtypes = []
         lib.cxio_backend.restype = ctypes.c_char_p
         lib.cxio_version.argtypes = [vp]  # int[3]
@@ -264,22 +279,24 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.cxio_hw_info.restype = i32
         lib.cxio_close.argtypes = [vp]
         lib.cxio_close.restype = None
-        # (y, cb, cr, w, h, cw, ch, hf, vf, out, stream)
-        lib.cxio_ycc_to_rgb.argtypes = [vp, vp, vp] + [i32] * 6 + [vp, vp]
+        # (y, cb, cr, w, h, cw, ch, hf, vf, coding, out, stream)
+        lib.cxio_ycc_to_rgb.argtypes = [vp, vp, vp] + [i32] * 7 + [vp, vp]
         lib.cxio_ycc_to_rgb.restype = i32
 
 
 def check(name: str, rc: int) -> None:
     """Raise on a refused launch (the C entry returns
     cudaGetLastError()); count it otherwise - once per launch, and under
-    the lock, since Server replicas launch from several threads."""
+    the lock, since Server replicas launch from several threads. The
+    decoder's library has counted its launch already."""
     if rc != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    count(name)
+    if name != DECODER:
+        count(name)
 
 
 def count(name: str) -> None:
-    """One launch of `name` (for the decoder: one image it decoded)."""
+    """One launch of `name` (not the decoder's: its library counts)."""
     with _lock:
         LAUNCHES[name] += 1

@@ -34,8 +34,9 @@ from cxxnet_tpu_torch import kernels
 from cxxnet_tpu_torch.io import create_iterator as port_create
 from cxxnet_tpu_torch.io import native as port_native
 from cxxnet_tpu_torch.io.iter_img import ImageBinIterator
-from cxxnet_tpu_torch.io.native import (FACTORS, NativeBinReader,
-                                        PlainBinReader, ycc_to_rgb)
+from cxxnet_tpu_torch.io.native import (FACTORS, JPEG_KINDS,
+                                        NativeBinReader, PlainBinReader,
+                                        encode_jpeg, ycc_to_rgb)
 from cxxnet_tpu_torch.utils import binary_page as port_bp
 
 FORMATS = ("JPEG", "PNG", "PPM")
@@ -110,6 +111,32 @@ def test_plain_reader_matches_jax_native(tmp_path, jax_native, fmts,
     got = drain(PlainBinReader([binp], n_threads=3, out_mode=out_mode))
     want = drain(JaxReader([binp], n_threads=3, out_mode=out_mode))
     assert got[0].dtype == (np.uint8 if out_mode == 2 else np.float32)
+    assert_same_records(got, want)
+
+
+@pytest.mark.parametrize("kind", JPEG_KINDS + ("cmyk",))
+def test_plain_reader_matches_jax_native_on_every_jpeg_kind(tmp_path,
+                                                            jax_native,
+                                                            kind):
+    """Each JPEG kind the nvJPEG decoder takes (and CMYK, which the JAX
+    library hands back raw, as the port's does) decodes in PlainBinReader
+    as in the JAX package's reader, bitwise."""
+    rng = np.random.RandomState(JPEG_KINDS.index(kind) if kind in
+                                JPEG_KINDS else 99)
+    blobs = {}
+    for i in range(6):
+        arr = rng.randint(0, 256, (32 + 8 * i, 48, 3)).astype(np.uint8)
+        if kind == "cmyk":
+            buf = io.BytesIO()
+            Image.fromarray(arr).convert("CMYK").save(buf, format="JPEG",
+                                                      quality=90)
+            blobs[f"im{i}.jpeg"] = buf.getvalue()
+        else:
+            blobs[f"im{i}.jpeg"] = encode_jpeg(arr, kind)
+    _, binp, _ = write_bin(str(tmp_path), "s", 6, 8, 4, ("JPEG",), blobs)
+    got = drain(PlainBinReader([binp], n_threads=2, out_mode=2))
+    want = drain(JaxReader([binp], n_threads=2, out_mode=2))
+    assert [g.shape for g in got] == [(3, 32 + 8 * i, 48) for i in range(6)]
     assert_same_records(got, want)
 
 
@@ -286,9 +313,10 @@ def test_shuffled_label_order_follows_device_augment(tmp_path, jax_native):
 # YccToRgb's arithmetic: its plain version against libjpeg's own
 # ---------------------------------------------------------------------------
 
-# libjpeg's decode stopped before the upsampling: the Y, Cb, Cr planes of a
-# JPEG after its IDCT, at their subsampled sizes (raw_data_out), written as
-# int32 w, h, cw, ch then the three planes
+# libjpeg's decode stopped before the upsampling: the planes of a JPEG
+# after its IDCT as coded (Y, Cb, Cr; R, G, B; or a grayscale Y), at their
+# subsampled sizes (raw_data_out), written as int32 w, h, cw, ch (0, 0 for
+# one component) then the planes
 RAWDEC_C = r"""
 #include <stdio.h>
 #include <stdlib.h>
@@ -298,21 +326,21 @@ int main(int argc, char **argv) {
   struct jpeg_decompress_struct c; struct jpeg_error_mgr e;
   c.err = jpeg_std_error(&e); jpeg_create_decompress(&c);
   jpeg_stdio_src(&c, f); jpeg_read_header(&c, TRUE);
-  c.raw_data_out = TRUE; c.out_color_space = JCS_YCbCr;
+  c.raw_data_out = TRUE; c.out_color_space = c.jpeg_color_space;
   jpeg_start_decompress(&c);
-  int pw[3], ph[3], done = 0; unsigned char *pl[3];
-  for (int k = 0; k < 3; k++) {
+  int nc = c.num_components, pw[3], ph[3], done = 0; unsigned char *pl[3];
+  for (int k = 0; k < nc; k++) {
     pw[k] = c.comp_info[k].width_in_blocks * 8;
     ph[k] = c.comp_info[k].height_in_blocks * 8 + 64;
     pl[k] = calloc((size_t)pw[k] * ph[k], 1);
   }
   int dims[4] = {(int)c.image_width, (int)c.image_height,
-                 (int)c.comp_info[1].downsampled_width,
-                 (int)c.comp_info[1].downsampled_height};
+                 nc == 3 ? (int)c.comp_info[1].downsampled_width : 0,
+                 nc == 3 ? (int)c.comp_info[1].downsampled_height : 0};
   fwrite(dims, 4, 4, o);
   while (c.output_scanline < c.output_height) {
     JSAMPROW rows[3][32]; JSAMPARRAY bufs[3];
-    for (int k = 0; k < 3; k++) {
+    for (int k = 0; k < nc; k++) {
       int v = c.comp_info[k].v_samp_factor * 8;
       int at = done * c.comp_info[k].v_samp_factor;
       for (int r = 0; r < v; r++)
@@ -323,7 +351,7 @@ int main(int argc, char **argv) {
     done += 8;
   }
   int w[3] = {dims[0], dims[2], dims[2]}, h[3] = {dims[1], dims[3], dims[3]};
-  for (int k = 0; k < 3; k++)
+  for (int k = 0; k < nc; k++)
     for (int r = 0; r < h[k]; r++)
       fwrite(pl[k] + (size_t)r * pw[k], 1, w[k], o);
   fclose(o);
@@ -350,33 +378,38 @@ def rawdec(tmp_path_factory):
     return exe
 
 
-@pytest.mark.parametrize("sub", [0, 1, 2], ids=["444", "422", "420"])
+@pytest.mark.parametrize("sub", JPEG_KINDS)
 @pytest.mark.parametrize("h,w", [(48, 64), (37, 53), (1, 9), (17, 2),
                                  (3, 4), (2, 5), (9, 1)])
 def test_ycc_to_rgb_plain_is_libjpegs_arithmetic(rawdec, tmp_path, sub, h,
                                                  w):
     """libjpeg's planes after its IDCT through ycc_to_rgb's plain version
-    give PIL's decode of the JPEG bitwise: the upsampling (edges, odd
-    sizes, both biases) and the colour tables are libjpeg's, so the card's
-    YccToRgb, held to this plain version bitwise there, adds no error of
-    its own."""
-    arr = np.random.RandomState(h * w + sub).randint(0, 256, (h, w, 3))
-    buf = io.BytesIO()
-    Image.fromarray(arr.astype(np.uint8)).save(
-        buf, format="JPEG", quality=90, subsampling=sub)
-    blob = buf.getvalue()
+    give PIL's decode of the JPEG bitwise, for every kind the decoder
+    takes: the upsampling (edges, odd sizes, both biases, replication
+    where libjpeg replicates), the colour tables and the R, G, B and
+    grayscale codings are libjpeg's, so the card's YccToRgb, held to this
+    plain version bitwise there, adds no error of its own."""
+    arr = np.random.RandomState(h * w + JPEG_KINDS.index(sub)).randint(
+        0, 256, (h, w, 3)).astype(np.uint8)
+    blob = encode_jpeg(arr, sub)
     (tmp_path / "a.jpg").write_bytes(blob)
     subprocess.run([rawdec, str(tmp_path / "a.jpg"), str(tmp_path / "a.raw")],
                    check=True)
     raw = (tmp_path / "a.raw").read_bytes()
     pw, ph, cw, ch = np.frombuffer(raw[:16], np.int32)
     assert (pw, ph) == (w, h)
-    y = np.frombuffer(raw, np.uint8, w * h, 16).reshape(h, w)
-    cb = np.frombuffer(raw, np.uint8, cw * ch, 16 + w * h).reshape(ch, cw)
-    cr = np.frombuffer(raw, np.uint8, cw * ch, 16 + w * h + cw * ch)
-    hf, vf = FACTORS[("4:4:4", "4:2:2", "4:2:0")[sub]]
-    got = ycc_to_rgb(*(torch.from_numpy(p.copy()) for p in
-                       (y, cb, cr.reshape(ch, cw))), hf, vf)
+    y = torch.from_numpy(np.frombuffer(raw, np.uint8, w * h, 16).reshape(
+        h, w).copy())
+    if sub == "gray":
+        got = ycc_to_rgb(y, None, None, 1, 1, port_native.GRAY)
+    else:
+        cb, cr = (torch.from_numpy(np.frombuffer(
+            raw, np.uint8, cw * ch, 16 + w * h + k * cw * ch).reshape(
+                ch, cw).copy()) for k in (0, 1))
+        hf, vf = FACTORS["4:4:4" if sub == "rgb" else sub]
+        assert (cw, ch) == (-(-w // hf), -(-h // vf))
+        got = ycc_to_rgb(y, cb, cr, hf, vf, port_native.RGB if sub == "rgb"
+                         else port_native.YCC)
     want = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
     np.testing.assert_array_equal(got.numpy(), want.transpose(2, 0, 1))
 
@@ -385,10 +418,18 @@ def test_ycc_to_rgb_refuses_what_it_cannot_take():
     y = torch.zeros(8, 9, dtype=torch.uint8)
     c = torch.zeros(4, 5, dtype=torch.uint8)
     assert ycc_to_rgb(y, c, c, 2, 2).shape == (3, 8, 9)
+    assert ycc_to_rgb(y, None, None, 1, 1, port_native.GRAY).shape == (
+        3, 8, 9)
     with pytest.raises(ValueError, match="luma plane"):
         ycc_to_rgb(y, c, c, 2, 1)
-    with pytest.raises(ValueError, match="4:2:0 only"):
-        ycc_to_rgb(y, c, c, 1, 2)
+    with pytest.raises(ValueError, match="FACTORS only"):
+        ycc_to_rgb(y, c, c, 4, 2)
+    with pytest.raises(ValueError, match="none for GRAY"):
+        ycc_to_rgb(y, c, c, 1, 1, port_native.GRAY)
+    with pytest.raises(ValueError, match="none for GRAY"):
+        ycc_to_rgb(y, None, None, 1, 1)
+    with pytest.raises(ValueError, match="coding 3"):
+        ycc_to_rgb(y, c, c, 2, 2, 3)
     with pytest.raises(ValueError, match="uint8"):
         ycc_to_rgb(y.float(), c, c, 2, 2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -484,17 +525,33 @@ def test_readers_refuse_other_out_modes(small_bin):
             NativeBinReader([small_bin[1]], out_mode=mode)
 
 
-def test_decoder_counts_and_flags():
-    """The decoder is a registered library: its own launch count, the raw
-    hand-backs apart and reset with the counts, and nvjpeg's link flags
-    only on its own source (they go into its library's digest)."""
+def test_decoder_counts_and_flags(monkeypatch):
+    """The decoder is a registered library that keeps its own counts (its
+    kernel's launches, the raw hand-backs apart): they read 0 while it is
+    not loaded, without loading it; once it is, launches() and
+    raw_handbacks() read them from it, check() adds nothing of its own
+    and reset_launches() zeroes them there. nvjpeg's link flags go only
+    on its own source (they go into its library's digest)."""
     assert kernels.SOURCES["nvjpeg_decode"] == "nvjpeg_io.cu"
     kernels.reset_launches()
-    kernels.count_raw()
-    kernels.count("nvjpeg_decode")
-    assert kernels.raw_handbacks() == 1
-    assert kernels.launches()["nvjpeg_decode"] == 1
+    assert kernels.launches()["nvjpeg_decode"] == 0
+    assert kernels.raw_handbacks() == 0
+    assert "nvjpeg_decode" not in kernels._libs
+
+    class Library:  # the library's counter ABI
+        counts = [7, 2]
+
+        def cxio_counters(self, out):
+            out[0], out[1] = self.counts
+
+        def cxio_reset_counters(self):
+            self.counts = [0, 0]
+    monkeypatch.setitem(kernels._libs, "nvjpeg_decode", Library())
+    kernels.check("nvjpeg_decode", 0)
+    assert kernels.launches()["nvjpeg_decode"] == 7
+    assert kernels.raw_handbacks() == 2
     kernels.reset_launches()
+    assert kernels.launches()["nvjpeg_decode"] == 0
     assert kernels.raw_handbacks() == 0
     assert kernels.source_flags("lrn_fwd") == kernels.NVCC_FLAGS
 
