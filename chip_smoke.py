@@ -188,7 +188,27 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    (e) 10g's three settings again with use_native = 1, with the host
    stages; (f), in this process: phase 10c's CLI run, which under the
    conf's use_native = -1 decodes with nvJPEG - the decoder launched,
-   no raw hand-back.
+   no raw hand-back;
+15. the trainer's last single-device keys, in a fresh process
+   (`chip_smoke.py --leg 15 OUT [DIR]`, run inside phase 10's directory
+   after 14; alone it makes its own imgbin set): (a) AlexNet.conf b256
+   bfloat16 on 8 cached batches, update_period = 2, check_nan = 1,
+   batch 5 poisoned with NaN: steps_per_dispatch = 4 (two fused
+   chunks) against 8 update() calls - params and updater state
+   bitwise, the NaN microstep dropped in both, K1's launches equal, one
+   guard readback a chunk (8 against 2), the synchronising calls of one
+   chunk (torch's sync debug mode), the step time a microstep and the
+   device's idle share of each; (b) seq_mnist.conf through the CLI at
+   K = 4 against K = 1 (tools/fused_smoke.py: checkpoints byte-equal,
+   eval lines equal, train.chunk spans, K2's launches); (c) remat = 1
+   against 0 at AlexNet b256 over 2 updates: the params (bitwise, or no
+   further apart than two remat = 0 runs), peak device memory (lower),
+   K1-fwd launched twice as often; (d) AlexNet.conf through the CLI for
+   2 rounds with profile = 1, profile_dir and trace_round = 2: the
+   summary lines, exactly one Chrome trace holding K1's kernels, the
+   `round` events; (e) tools/autotune.py over K in {1, 4} on
+   MNIST_CONV.conf writes a "gpu" cache entry, the CLI takes
+   steps_per_dispatch from it, and an explicit key beats it.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -202,6 +222,7 @@ import gzip
 import json
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -5130,6 +5151,372 @@ def phase_native(torch, card, d=None, fmt="JPEG"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the trainer's last single-device keys - steps_per_dispatch
+# (fused chunks), remat, profile / profile_dir / trace_round, tuning_cache
+# - in a fresh process (`chip_smoke.py --leg 15 OUT [DIR]`)
+# ---------------------------------------------------------------------------
+
+MNIST_CONV_CONF = os.path.join(REPO, "examples", "MNIST", "MNIST_CONV.conf")
+
+
+def _state_bits(torch, tr):
+    """Every param and updater-state tensor of `tr`, as host arrays."""
+    out = []
+    for tree in (tr.state["params"], tr.state["ustate"]):
+        stack = [tree]
+        while stack:
+            t = stack.pop()
+            if isinstance(t, dict):
+                stack.extend(t[k] for k in sorted(t, reverse=True))
+            else:
+                out.append(t.detach().float().cpu().numpy())
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    import numpy as np
+    return len(a) == len(b) and all(
+        x.shape == y.shape and np.array_equal(x.view(np.uint32),
+                                              y.view(np.uint32))
+        for x, y in zip(a, b))
+
+
+def dispatch_alexnet(torch, card):
+    """(a) AlexNet.conf b256 bfloat16 on 8 cached batches, update_period
+    = 2 and check_nan = 1, batch 5 poisoned with NaN: steps_per_dispatch
+    = 4 (two chunks) against 8 update() calls. Params and updater state
+    bitwise, the NaN microstep dropped in both, the same K1 launches, one
+    guard readback a chunk; then the step time a microstep in turns
+    (K = 1, 4, 4, 1, four good microsteps each) and the idle share of
+    each."""
+    import warnings
+
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    say("== phase 15a: AlexNet.conf b256 bfloat16, steps_per_dispatch = 4 "
+        "against 1 (update_period = 2, check_nan = 1, one NaN batch) ==")
+    rng = np.random.RandomState(15)
+    host = [DataBatch(data=(rng.rand(256, 3, 227, 227) * 255).astype(
+        np.float32), label=rng.randint(0, 1000, (256, 1)).astype(
+        np.float32)) for _ in range(4)]
+    # 8 microsteps over 4 distinct batches; the 6th is poisoned
+    host = host + [host[0], DataBatch(
+        data=np.full_like(host[1].data, np.nan), label=host[1].label),
+        host[2], host[3]]
+    keys = ["update_period=2", "check_nan=1"]
+    out, runs, trainers = {}, {}, {}
+    for k in (1, 4):
+        tr = alexnet_trainer(keys + [f"steps_per_dispatch={k}"])
+        staged = [tr.stage_batch(b) for b in host]
+        items = (staged if k == 1 else
+                 [tr.stage_chunk(staged[i:i + k]) for i in range(0, 8, k)])
+        del staged
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        for it in items:
+            tr.update(it)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        runs[k] = _state_bits(torch, tr)
+        out[f"k{k}"] = {"launches": counts,
+                        "guard_readbacks": tr.guard_readbacks,
+                        "bad_rounds": tr.bad_rounds, "epoch": tr.epoch,
+                        "step_ms": []}
+        # the good items of a turn: 4 updates, or the first chunk
+        trainers[k] = (tr, items[:4] if k == 1 else items[:1])
+    if not _bits_equal(runs[1], runs[4]):
+        raise AssertionError("steps_per_dispatch = 4 differs from 1 after 8 "
+                             "updates")
+    a, b = out["k1"], out["k4"]
+    if (a["bad_rounds"], b["bad_rounds"]) != (1, 1) or a["epoch"] != 3 \
+            or b["epoch"] != 3:
+        raise AssertionError(f"the NaN microstep: {a} {b}")
+    if a["launches"] != b["launches"] or a["launches"]["lrn_fwd"] != 16 \
+            or a["launches"]["lrn_bwd"] != 16:
+        raise AssertionError(f"K1 launches {a['launches']} vs "
+                             f"{b['launches']}")
+    if (a["guard_readbacks"], b["guard_readbacks"]) != (8, 2):
+        raise AssertionError("guard readbacks: one per update or chunk")
+    say("params and updater state bitwise equal after 8 updates; the NaN "
+        "microstep dropped in both; K1 launched 16 + 16 times in each; "
+        "guard readbacks 8 (K = 1) and 2 (K = 4)")
+    # timed after the bitwise runs, so neither pays the first launches
+    for k in (1, 4, 4, 1):
+        tr, good = trainers[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in good:
+            tr.update(it)
+        torch.cuda.synchronize()
+        out[f"k{k}"]["step_ms"].append((time.perf_counter() - t0) * 1e3 / 4)
+    for k in (1, 4):
+        tr, good = trainers[k]
+        it = iter(good)
+        rows, groups, busy, window = profile_steps(
+            torch, lambda: tr.update(next(it)), len(good), strict=True)
+        out[f"k{k}"]["idle"] = 1 - busy / window
+        out[f"k{k}"]["profiled_ms_per_microstep"] = window / 4
+    # synchronising calls in one chunk (torch's sync debug mode): the
+    # guard's readback is the one the design has
+    tr, good = trainers[4]
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr.update(good[0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    syncs = [str(x.message).splitlines()[0] for x in w
+             if "called a synchronizing" in str(x.message)]
+    b["syncs_in_one_chunk"] = len(syncs)
+    for k in (1, 4):
+        r = out[f"k{k}"]
+        say(f"K = {k}: " + " / ".join(f"{v:.3f}" for v in r["step_ms"])
+            + f" ms a microstep (host clock, 4 good microsteps a turn, turns "
+            f"K = 1, 4, 4, 1, the guard's readbacks included), idle share "
+            f"{r['idle']:.4f} ({r['profiled_ms_per_microstep']:.3f} ms a "
+            f"microstep in the traced window) on {card}")
+    say(f"synchronising calls in one chunk of 4: {len(syncs)} (the guard's "
+        "finite-vector readback)")
+    del trainers, tr, good
+    return out
+
+
+def dispatch_seq_cli(torch, card):
+    """(b) seq_mnist.conf through the CLI at K = 4 against K = 1
+    (tools/fused_smoke.py): byte-equal checkpoints and eval lines,
+    train.chunk spans, K2 launched alike."""
+    from cxxnet_tpu_torch.tools import fused_smoke
+    say("== phase 15b: seq_mnist.conf through the CLI, steps_per_dispatch "
+        "= 4 against 1 (tools/fused_smoke.py) ==")
+    with tempfile.TemporaryDirectory() as d:
+        res = fused_smoke.run_smoke(d, conf=SEQ_CONF, train_n=600,
+                                    extra=["num_round=2", "max_round=2"])
+    if not res["ok"]:
+        raise AssertionError(f"fused_smoke on seq_mnist.conf: {res['checks']}")
+    l1, l4 = res["k1"]["launches"], res["k4"]["launches"]
+    if l1 != l4 or any(l1.get(n, 0) <= 0 for n in K2):
+        raise AssertionError(f"K2 launches K=1 {l1}, K=4 {l4}")
+    say(f"chunks {res['chunks']}; K2 launches {l4} in both")
+    return {"launches": l4, "chunks": res["chunks"]}
+
+
+def dispatch_remat(torch, card):
+    """(c) remat = 1 against 0, AlexNet.conf b256 bfloat16, 2 updates:
+    params bitwise, or no further apart than two remat = 0 runs are;
+    peak device memory lower; K1-fwd launched twice as often."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    say("== phase 15c: remat = 1 against 0, AlexNet.conf b256 bfloat16, 2 "
+        "updates ==")
+    rng = np.random.RandomState(16)
+    host = [DataBatch(data=(rng.rand(256, 3, 227, 227) * 255).astype(
+        np.float32), label=rng.randint(0, 1000, (256, 1)).astype(
+        np.float32)) for _ in range(2)]
+    out = {}
+    bits = {}
+    for tag, remat in (("remat0", 0), ("remat0b", 0), ("remat1", 1)):
+        tr = alexnet_trainer([f"remat={remat}"])
+        staged = [tr.stage_batch(b) for b in host]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        for s in staged:
+            tr.update(s)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 2
+        bits[tag] = _state_bits(torch, tr)
+        out[tag] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                    "peak_over_state_bytes":
+                        torch.cuda.max_memory_allocated() - base,
+                    "step_ms": ms, "launches": kernels.launches(),
+                    "segments": [[r.start, r.stop] for r in
+                                 (tr._remat_segments or [])]}
+        del tr, staged
+        torch.cuda.empty_cache()
+
+    def diff(x, y):
+        return max(float(np.abs(a - b).max())
+                   for a, b in zip(bits[x], bits[y]))
+    d00, d01 = diff("remat0", "remat0b"), diff("remat1", "remat0")
+    out["max_abs_diff_remat0_runs"] = d00
+    out["max_abs_diff_remat1_vs_0"] = d01
+    out["bitwise"] = _bits_equal(bits["remat1"], bits["remat0"])
+    say(f"remat = 1 against 0: max |diff| {d01:g} (two remat = 0 runs: "
+        f"{d00:g}), bitwise {out['bitwise']}; peak memory "
+        f"{out['remat1']['peak_bytes'] / 2**20:.1f} MiB against "
+        f"{out['remat0']['peak_bytes'] / 2**20:.1f} MiB (above the "
+        f"trainer's state: {out['remat1']['peak_over_state_bytes'] / 2**20:.1f}"
+        f" against {out['remat0']['peak_over_state_bytes'] / 2**20:.1f}); "
+        f"{out['remat1']['step_ms']:.3f} against "
+        f"{out['remat0']['step_ms']:.3f} ms a step; segments "
+        f"{out['remat1']['segments']}; K1-fwd "
+        f"{out['remat1']['launches']['lrn_fwd']} against "
+        f"{out['remat0']['launches']['lrn_fwd']} in 2 steps on {card}")
+    if d01 > d00:
+        raise AssertionError("remat = 1 moved the params further than two "
+                             "remat = 0 runs differ")
+    if not out["remat1"]["peak_bytes"] < out["remat0"]["peak_bytes"]:
+        raise AssertionError("remat = 1 did not lower the peak memory")
+    if (out["remat0"]["launches"]["lrn_fwd"],
+            out["remat1"]["launches"]["lrn_fwd"]) != (4, 8):
+        raise AssertionError("K1-fwd: 2 a step, twice that under remat")
+    return out
+
+
+def dispatch_profile_cli(d):
+    """(d) AlexNet.conf through the CLI for 2 rounds with profile = 1,
+    profile_dir and trace_round = 2 (a fresh process): the summary lines,
+    exactly one trace holding K1's kernels, `round` events."""
+    say("== phase 15d: AlexNet.conf through the CLI, profile_dir, "
+        "trace_round = 2 ==")
+    from cxxnet_tpu_torch.telemetry.sink import read_jsonl
+    work = os.path.join(d, "profile15")
+    os.makedirs(os.path.join(work, "models"))
+    os.symlink(os.path.join(d, "shared", "data"), os.path.join(work, "data"))
+    mean = os.path.join(d, "alexnet", "models", "image_net_mean.bin")
+    if os.path.exists(mean):
+        # phase 10c's mean image of the same set: no pass to remake it
+        shutil.copyfile(mean, os.path.join(work, "models",
+                                           "image_net_mean.bin"))
+    prof = os.path.join(work, "prof")
+    log = os.path.join(work, "events.jsonl")
+    t0 = time.perf_counter()
+    proc = run_cli([os.path.join(IMAGENET_CONFS, "AlexNet.conf"),
+                    "num_round=2", "max_round=2", "profile=1",
+                    f"profile_dir={prof}", "trace_round=2",
+                    f"log_file={log}"], cwd=work)
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in proc.stderr.splitlines() if "profile:" in ln]
+    files = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    if len(lines) != 2 or files != ["trace_round2.json"]:
+        raise AssertionError(f"profile lines {lines}, traces {files}:\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(os.path.join(prof, files[0])) as f:
+        kernels_seen = [e.get("name", "") for e in
+                        json.load(f)["traceEvents"]
+                        if e.get("cat") == "kernel"]
+    n_fwd = sum("lrn_fwd" in n for n in kernels_seen)
+    n_bwd = sum("lrn_bwd" in n for n in kernels_seen)
+    rounds = [e for e in read_jsonl(log) if e.get("kind") == "round"]
+    if n_fwd <= 0 or n_bwd <= 0 or [e["round"] for e in rounds] != [1, 2]:
+        raise AssertionError(f"trace lrn_fwd {n_fwd} lrn_bwd {n_bwd}, "
+                             f"round events {rounds}")
+    for ln in lines:
+        say("  " + ln.strip())
+    say(f"one trace ({files[0]}): {len(kernels_seen)} kernel events, "
+        f"lrn_fwd {n_fwd}, lrn_bwd {n_bwd}; round events "
+        f"{[{k: e[k] for k in ('round', 'steps', 'step_p50_ms')} for e in rounds]}"
+        f"; {secs:.1f} s")
+    return {"profile_lines": lines, "trace_kernels": len(kernels_seen),
+            "trace_lrn_fwd": n_fwd, "trace_lrn_bwd": n_bwd,
+            "rounds": [{k: e[k] for k in ("round", "steps", "examples",
+                                          "step_p50_ms", "images_per_sec")}
+                       for e in rounds]}
+
+
+def dispatch_tuning(torch, card):
+    """(e) tools/autotune.py over a small space on MNIST_CONV.conf writes
+    a "gpu" entry; the CLI (in this process) takes steps_per_dispatch
+    from it; an explicit key beats it."""
+    import contextlib
+    import io
+    from cxxnet_tpu_torch import main as port_main
+    from cxxnet_tpu_torch.nnet import tuning
+    from cxxnet_tpu_torch.telemetry.sink import read_jsonl
+    from cxxnet_tpu_torch.tools import autotune, fused_smoke
+    say("== phase 15e: the tuning cache - autotune on MNIST_CONV.conf, the "
+        "CLI applies it ==")
+    with tempfile.TemporaryDirectory() as d:
+        tc = os.path.join(d, "tc.json")
+        t0 = time.perf_counter()
+        rc = autotune.main(["--conf", MNIST_CONV_CONF, "--budget-secs", "8",
+                            "--serve", "0", "--per-layer", "0", "--grid-k",
+                            "1,4", "--grid-prefetch", "1", "--out", tc])
+        if rc != 0:
+            raise AssertionError(f"autotune exited {rc}")
+        entry = tuning.platform_entry(tc, "gpu")
+        k = int(entry["knobs"]["steps_per_dispatch"])
+        say(f"autotune: {time.perf_counter() - t0:.1f} s, gpu entry "
+            f"{entry['knobs']}, grid {entry['measured']['grid']} images/s, "
+            f"device_kind {entry['device_kind']!r}")
+        os.makedirs(os.path.join(d, "data"))
+        fused_smoke.write_digits(os.path.join(d, "data"), 1000, 3, "train")
+        fused_smoke.write_digits(os.path.join(d, "data"), 200, 4, "t10k")
+        got = {}
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            for tag, extra in (("cache", []),
+                               ("explicit", ["steps_per_dispatch=2"])):
+                log = os.path.join(d, f"{tag}.jsonl")
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = port_main.main(
+                        [MNIST_CONV_CONF, "num_round=1", "max_round=1",
+                         f"tuning_cache={tc}", f"log_file={log}",
+                         f"model_dir={d}/m_{tag}"] + extra)
+                if rc != 0:
+                    raise AssertionError(f"the CLI exited {rc}")
+                m = re.search(r"tuning_cache: applied (.*)", buf.getvalue())
+                chunks = [e["steps"] for e in read_jsonl(log)
+                          if e.get("name") == "train.chunk"]
+                got[tag] = (m.group(1) if m else "", chunks)
+                say(f"CLI {tag}: applied '{got[tag][0]}', chunk sizes "
+                    f"{sorted(set(chunks))} ({len(chunks)} chunks)")
+        finally:
+            os.chdir(cwd)
+        applied, chunks = got["cache"]
+        if f"steps_per_dispatch={k}" not in applied or (
+                k > 1 and (not chunks or max(chunks) != k)) or (
+                k == 1 and chunks):
+            raise AssertionError(f"the CLI did not take K = {k}: {got}")
+        applied, chunks = got["explicit"]
+        if "steps_per_dispatch" in applied or not chunks or max(chunks) != 2:
+            raise AssertionError(f"the explicit key did not win: {got}")
+        return {"knobs": entry["knobs"], "grid": entry["measured"]["grid"],
+                "cli_applied": got["cache"][0]}
+
+
+def phase_dispatch(torch, card, d=None):
+    """Phase 15 (see the module docstring); `d` is phase 10's directory
+    (its shared imgbin set for (d)), or None to make a set here."""
+    t15 = time.perf_counter()
+    secs = {}
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        secs[key] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+
+    out = {}
+    timed("alexnet", dispatch_alexnet, torch, card)
+    timed("remat", dispatch_remat, torch, card)
+    timed("seq_cli", dispatch_seq_cli, torch, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        if d is None:
+            fmt, _pil = image_format_used()
+            d = tmp
+            shared = os.path.join(d, "shared")
+            write_image_set(shared, "data/resize256", "data/train", 512, 256,
+                            10, 11, fmt)
+            write_image_set(shared, "data/resize256_test", "data/test", 256,
+                            256, 10, 12, fmt)
+        timed("profile_cli", dispatch_profile_cli, d)
+    timed("tuning", dispatch_tuning, torch, card)
+    out["secs"] = secs
+    say(f"phase 15 took {time.perf_counter() - t15:.1f} s ({secs})")
+    say("phase 15 summary " + json.dumps(out, default=float))
+    return out
+
+
 # phase 11's profiled legs, each run in a fresh python process: in a
 # long-lived process torch.profiler can lose the card's kernel events
 # (PERF.md §7), and these legs must report device times
@@ -5141,7 +5528,8 @@ def leg_image_timing(torch, card, d, fmt):
 
 LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "11b": phase_googlenet_step, "11d": phase_stack_moe,
-        "12": phase_front, "13": phase_surface, "14": phase_native}
+        "12": phase_front, "13": phase_surface, "14": phase_native,
+        "15": phase_dispatch}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
@@ -5248,11 +5636,12 @@ def main() -> int:
     moe = run_leg(torch, "11d")
     say(f"phase 11b and 11d on the card took "
         f"{time.perf_counter() - t11:.1f} s")
-    cli_counts, timing, (g_cli, surface, nat) = phase_image_pipeline(
+    cli_counts, timing, (g_cli, surface, nat, disp) = phase_image_pipeline(
         torch, card, lambda d: (phase_googlenet_cli(d),
                                 run_leg(torch, "13", d),
                                 run_leg(torch, "14", d,
-                                        image_format_used()[0])))
+                                        image_format_used()[0]),
+                                run_leg(torch, "15", d)))
     native_cli(cli_counts)
     t11 = time.perf_counter()
     moe["cli_counts"] = phase_stack_moe_cli()
@@ -5313,6 +5702,22 @@ def main() -> int:
                             "steps and 5 forwards",
         }
 
+    def dispatch(name):
+        """Phase 15: K1 under steps_per_dispatch = 4 and remat = 1, K2 in
+        seq_mnist.conf's fused CLI run."""
+        if name in K2:
+            return {"dispatch_cli_launches": disp["seq_cli"]["launches"][name],
+                    "dispatch_unit": "seq_mnist.conf through the CLI at "
+                                     "steps_per_dispatch = 4, 2 rounds of "
+                                     "600 images (phase 15b)"}
+        out = {"dispatch_launches": disp["alexnet"]["k4"]["launches"][name],
+               "dispatch_unit": "AlexNet.conf b256 bfloat16, 8 microsteps "
+                                "in 2 chunks of 4 (phase 15a)",
+               "remat_launches": disp["remat"]["remat1"]["launches"][name],
+               "remat_unit": "AlexNet.conf b256 bfloat16 under remat = 1, "
+                             "2 steps (phase 15c)"}
+        return out
+
     def stack_moe(name):
         """K2 on stack_moe.conf's path (11d)."""
         out = {"stack_moe_replaces": "cxxnet_tpu/layers/transformer_stack"
@@ -5365,6 +5770,7 @@ def main() -> int:
                       "/predict requests, 2 a batch",
         **surface_launches("lrn_fwd"),
         **googlenet("lrn_fwd"),
+        **dispatch("lrn_fwd"),
     }, {
         "name": "lrn_bwd",
         "route": "cuda",
@@ -5387,8 +5793,9 @@ def main() -> int:
         "imgbin_cli_launches": cli_counts["lrn_bwd"],
         **surface_launches("lrn_bwd"),
         **googlenet("lrn_bwd"),
+        **dispatch("lrn_bwd"),
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
-               **stack_moe(n))
+               **stack_moe(n), **dispatch(n))
           for n in K2] + [dict(int8_entry(k3_rows, int8_served, 0),
                                front_launches=front["int8"]["int8_mm"],
                                front_batches=front["int8"]["batches"],
@@ -5406,6 +5813,13 @@ def main() -> int:
                                for k in ("images_s", "idle",
                                          "iterator_images_s")}}
             for label in settings}, default=float))
+    say("phase 15 summary " + json.dumps({
+        "alexnet": {k: {f: v[f] for f in ("step_ms", "idle",
+                                          "guard_readbacks")}
+                    for k, v in disp["alexnet"].items()},
+        "remat_peak_mib": {k: disp["remat"][k]["peak_bytes"] / 2 ** 20
+                           for k in ("remat0", "remat1")},
+        "tuning": disp["tuning"]["knobs"]}, default=float))
     say("phase 13 summary " + json.dumps({
         "extract_rows_s": surface["extract"]["rows_s"],
         "wrapper": {k: v for k, v in surface["wrapper"].items()

@@ -48,6 +48,14 @@ A second package beside `cxxnet_tpu`, ported in slices:
    BinaryPage reader and a pool of nvJPEG decode workers
    (`csrc/nvjpeg_io.cu`) in the imgbin iterators on the card, with its
    plain version (`PlainBinReader`) on the CPU.
+8. The trainer's last single-device keys: `steps_per_dispatch` (K
+   staged batches as one fused chunk: `StagedChunk`, `stage_chunk`,
+   `update_chunk`, chunked prefetch, with the divergence guard's
+   counters on the device and one finite-flag readback a chunk),
+   `remat` (checkpoint segments, `Network.remat_segments`), `profile`
+   / `profile_dir` / `trace_round` (`utils/profiler.py` on
+   torch.profiler) and `tuning_cache` (`nnet/tuning.py`), with the
+   tools `fused_smoke`, `profile_step` and `autotune`.
 
 Ground rules:
 
@@ -72,9 +80,13 @@ Ground rules:
   the caller asks for the CPU (`device="cpu"`, or `dev = cpu` in a
   conf); with no card they raise instead of carrying on on the CPU.
 - Config keys that change results and that the port does not implement
-  yet (zero_stage, mesh, remat, steps_per_dispatch, dist_num_worker,
-  elastic, profile, fullc_gather, ...) raise
+  yet - the parallel ones: mesh, zero_stage, shard_optimizer,
+  update_on_server, param_server, test_on_server, elastic and its keys,
+  dist_num_worker, fullc_gather, a multi-device dev - raise
   NotImplementedError naming the key; they are never silently ignored.
+  Every single-device key is ported, steps_per_dispatch (fused chunks),
+  remat, profile / profile_dir / trace_round and tuning_cache among
+  them.
 - PyTorch idiom inside: plain functions on tensors and modules with an
   explicit device, an explicit `torch.Generator` for every random draw,
   `torch.autograd.Function` where a kernel needs a gradient (the

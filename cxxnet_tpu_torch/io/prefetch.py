@@ -26,6 +26,12 @@ keeps their memory until the step that reads them is done). A slot is
 written again only after its previous copy's event has completed. A
 failure to pin raises. On the CPU there is no host-to-device step: the
 worker stages on its thread and nothing is pinned.
+
+Fused dispatch (steps_per_dispatch = K): chunk = K makes the worker
+assemble K staged batches into one StagedChunk (chunk_fn, the trainer's
+stage_chunk, stacking on the ring's side stream) per queue item; the
+last item of a pass may be a SHORT chunk. Device memory then holds
+K * (depth + 1) batches.
 """
 
 from __future__ import annotations
@@ -102,10 +108,14 @@ class StagedPrefetcher:
     device memory for depth+1, not depth."""
 
     def __init__(self, stage_fn, source, depth: int = 1,
-                 device="cpu"):
+                 device="cpu", chunk: int = 1, chunk_fn=None):
         self.stage_fn = stage_fn
         self.source = source
         self.depth = max(1, int(depth))
+        self.chunk = max(1, int(chunk))
+        if self.chunk > 1 and chunk_fn is None:
+            raise ValueError("chunk > 1 requires chunk_fn")
+        self.chunk_fn = chunk_fn
         self.device = torch.device(device)
         self._ring: Optional[PinnedRing] = None
         self._q = None
@@ -220,9 +230,28 @@ class StagedPrefetcher:
 
     def _run(self) -> None:
         try:
+            pending = []
             while not self._stop.is_set() and self.source.next():
-                if not self._put(self.stage_fn(self.source.value(),
-                                               self._ring)):
+                staged = self.stage_fn(self.source.value(), self._ring)
+                if self.chunk <= 1:
+                    if not self._put(staged):
+                        return
+                    continue
+                pending.append(staged)
+                if len(pending) >= self.chunk:
+                    # the singles are released before the (possibly
+                    # long) put: holding them through a full queue
+                    # would keep K more batches on the device
+                    item = self.chunk_fn(pending, self._ring)
+                    pending = []
+                    if not self._put(item):
+                        return
+            if pending and not self._stop.is_set():
+                # the pass ended mid-chunk: a SHORT chunk trains the
+                # tail this round
+                item = self.chunk_fn(pending, self._ring)
+                pending = []
+                if not self._put(item):
                     return
             self._put(_END)
         except BaseException as e:  # noqa: BLE001 - re-raised in next()

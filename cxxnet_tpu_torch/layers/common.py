@@ -531,6 +531,13 @@ class InsanityLayer(ActivationLayer):
         if step is None or s0 >= 0 or span <= 0 or e <= 0:
             return self.lb, self.ub
         delta = np.float32((self.ub - (self.ub + self.lb) / 2.0) / span)
+        if isinstance(step, torch.Tensor):
+            # the counter on the device (guarded microsteps): the same
+            # float32 operations, in torch
+            m = (step + 1).clamp(0, e).to(torch.float32)
+            adj = float(delta) * m * (m - 1.0) / 2.0
+            return (float(np.float32(self.lb)) + adj,
+                    float(np.float32(self.ub)) - adj)
         m = np.float32(min(max(step + 1, 0), e))
         adj = delta * m * (m - np.float32(1.0)) / np.float32(2.0)
         return np.float32(self.lb) + adj, np.float32(self.ub) - adj
@@ -547,8 +554,8 @@ class InsanityLayer(ActivationLayer):
         else:
             # float32 bounds in the compute dtype (they must not promote
             # a bfloat16 activation)
-            lo = torch.tensor(float(lb), dtype=x.dtype, device=x.device)
-            hi = torch.tensor(float(ub), dtype=x.dtype, device=x.device)
+            lo = torch.as_tensor(lb, device=x.device).to(x.dtype)
+            hi = torch.as_tensor(ub, device=x.device).to(x.dtype)
             divisor = u * (hi - lo) + lo
         return [nn_ops.xelu(x, divisor)]
 

@@ -78,7 +78,7 @@ import numpy as np
 
 from cxxnet_tpu_torch import kernels, telemetry
 from cxxnet_tpu_torch.io import DataBatch, create_iterator
-from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+from cxxnet_tpu_torch.nnet.trainer import NetTrainer, StagedChunk
 from cxxnet_tpu_torch.utils.config import (check_ported, parse_config_file,
                                            validate_known_keys)
 from cxxnet_tpu_torch.utils.device import device_from_spec
@@ -91,7 +91,6 @@ _PRED_TASKS = ("pred", "pred_raw", "extract", "serve")
 # any value but the inert ones raises NotImplementedError naming the key
 _NOT_PORTED = {
     "elastic": ("0",), "test_on_server": ("0",),
-    "tuning_cache": ("",),
     "barrier_secs": ("30",), "leader_lease_secs": ("10",),
     "coord_dir": ("",),
     "elastic_nproc": ("2",), "elastic_respawn": ("1",),
@@ -131,6 +130,12 @@ class LearnTask:
         # depth of the staging prefetch of the train loop
         # (io/prefetch.py); 0 streams batches on the update thread
         self.prefetch_stage = 1
+        # fused dispatch: K batches per update_chunk (the trainer's own
+        # key too; the round loop chunks the batches)
+        self.steps_per_dispatch = 1
+        # the tuning cache (nnet/tuning.py): task-level knob defaults
+        # (prefetch_stage, steps_per_dispatch); explicit keys win
+        self.tuning_cache = ""
         # task=serve load shape: rows per submitted request (0 = the
         # deterministic ragged cycle that covers every bucket)
         self.serve_rows = 1
@@ -213,6 +218,12 @@ class LearnTask:
             watchdog_secs=self.watchdog_secs)
         if self.flight_recorder:
             telemetry.get().flight.arm()
+        if self.tuning_cache:
+            # after the sinks armed (the event reaches the stream),
+            # before init() builds anything from the knobs; the trainer
+            # applies its own tunables from the same cache under the
+            # same explicit-keys-win rule
+            self._apply_tuning_cache()
         telemetry.event("run_start", task=self.task, conf=argv[0],
                         num_round=self.num_round)
         t_run = time.monotonic()
@@ -281,6 +292,10 @@ class LearnTask:
             self.serve_rows = int(val)
         if name == "prefetch_stage":
             self.prefetch_stage = int(val)
+        if name == "steps_per_dispatch":
+            self.steps_per_dispatch = int(val)
+        if name == "tuning_cache":
+            self.tuning_cache = val
         if name == "schema_check":
             self.schema_check = int(val)
         if name == "pass_calibration_iter":
@@ -312,6 +327,28 @@ class LearnTask:
                 raise ValueError("pass_calibration_batches must be >= 1")
             self.pass_calibration_batches = int(val)
         self.cfg.append((name, val))
+
+    def _apply_tuning_cache(self) -> None:
+        """Task-level knob defaults from `tuning_cache =`, the entry of
+        the `dev` device's platform: only knobs no config pair set."""
+        from cxxnet_tpu_torch.nnet import tuning
+        knobs = tuning.tuned_knobs(
+            self.tuning_cache,
+            tuning.platform_name(device_from_spec(self.device)))
+        explicit = {k for k, _ in self.cfg}
+        applied = {}
+        v = tuning.int_knob(knobs, "prefetch_stage", explicit, 0)
+        if v is not None:
+            self.prefetch_stage = applied["prefetch_stage"] = v
+        v = tuning.int_knob(knobs, "steps_per_dispatch", explicit, 1)
+        if v is not None:
+            self.steps_per_dispatch = applied["steps_per_dispatch"] = v
+        if applied and not self.silent:
+            sys.stdout.write("tuning_cache: applied " + " ".join(
+                f"{k}={v}" for k, v in sorted(applied.items())) + "\n")
+        if applied:
+            telemetry.event("tuning", op="apply_task",
+                            cache=self.tuning_cache, **applied)
 
     # ------------------------------------------------------------------
     def _split_blocks(self):
@@ -641,6 +678,10 @@ class LearnTask:
             sys.stderr.write(f"divergence guard: training aborted; rescue "
                              f"checkpoint saved to {path}\n")
             raise
+        final_profile = self.net_trainer.profile_summary()
+        if final_profile:
+            sys.stderr.write(final_profile + "\n")
+            sys.stderr.flush()
         if not self.silent:
             sys.stdout.write(f"\nupdating end, "
                              f"{int(time.monotonic() - start)} sec in all\n")
@@ -655,20 +696,27 @@ class LearnTask:
             cc -= 1
             if not self.silent:
                 sys.stdout.write(f"update round {self.start_counter - 1}\n")
+            telemetry.event("round_start", round=self.start_counter)
             sample_counter = 0
+            tr.start_round(self.start_counter)
             itr = self.itr_train
             # the I/O test reads the raw iterator: nothing is staged
             prefetched = self.test_io == 0 and self.prefetch_stage > 0
+            # fused dispatch: K batches per update_chunk; test_io keeps
+            # per-batch accounting (nothing is updated)
+            fused_k = self.steps_per_dispatch if self.test_io == 0 else 1
             if prefetched:
                 # stage batch k+1 (pad + cast + copy) on a worker thread
-                # while step k runs (io/prefetch.py)
-                itr = tr.prefetch(itr, self.prefetch_stage)
-            try:
-                itr.before_first()
-                while itr.next():
-                    batch = itr.value()
-                    if self.test_io == 0:
-                        tr.update(batch)
+                # while step k runs (io/prefetch.py); chunk = K makes the
+                # worker assemble fused chunks
+                itr = tr.prefetch(itr, self.prefetch_stage, chunk=fused_k)
+            pending = []  # fused, not prefetched: batches awaiting K
+
+            def tick(n_micro):
+                # progress counts trained microsteps: a chunk ticks after
+                # it ran
+                nonlocal sample_counter
+                for _ in range(n_micro):
                     sample_counter += 1
                     if (sample_counter % self.print_step == 0
                             and not self.silent):
@@ -677,11 +725,44 @@ class LearnTask:
                             f"[{sample_counter:8d}] "
                             f"{int(time.monotonic() - start)} sec "
                             "elapsed\n")
+
+            try:
+                itr.before_first()
+                while itr.next():
+                    batch = itr.value()
+                    n_micro = 1
+                    if self.test_io == 0:
+                        if fused_k > 1 and not prefetched:
+                            # iterators may reuse their buffers across
+                            # next(): stage each batch as it comes
+                            pending.append(tr.stage_batch(batch))
+                            n_micro = 0
+                            if len(pending) >= fused_k:
+                                n_micro = len(pending)
+                                tr.update_chunk(pending)
+                                pending = []
+                        else:
+                            # a StagedChunk (prefetched, fused) goes to
+                            # update_chunk inside update()
+                            if isinstance(batch, StagedChunk):
+                                n_micro = batch.n_steps
+                            tr.update(batch)
+                    tick(n_micro)
+                if pending:
+                    # the pass ended mid-chunk: a SHORT chunk trains the
+                    # tail this round
+                    n_micro = len(pending)
+                    tr.update_chunk(pending)
+                    pending = []
+                    tick(n_micro)
             finally:
                 if prefetched:
                     # an update() error mid-round must not leak the
                     # worker and its staged device batches
                     itr.close()
+            tr.finish_round_profile()
+            stats = tr.round_stats()
+            round_label = self.start_counter
             if self.test_io == 0:
                 line = f"[{self.start_counter}]"
                 if self.eval_train:
@@ -691,6 +772,13 @@ class LearnTask:
                 sys.stderr.write(line + "\n")
                 sys.stderr.flush()
             self._save_model()
+            if stats is not None:
+                # the round's throughput record: one `round` event and
+                # one registry snapshot, after _save_model so the
+                # round's own save lands in its row
+                telemetry.event("round", round=round_label, **stats)
+                telemetry.emit_metrics(kind="round", round=round_label,
+                                       **stats)
 
     # ------------------------------------------------------------------
     def _write_atomic(self, lines) -> None:

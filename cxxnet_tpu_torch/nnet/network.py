@@ -13,13 +13,27 @@ compute-dtype copy side by side.
 pass) casts each listed layer's floating inputs and params to its
 compute dtype before the layer runs; None (no plan) leaves the casts to
 the trainer, which casts wholesale.
+
+Rematerialisation (the trainer's `remat = 1`, the JAX package's
+jax.checkpoint of the loss): the training forward runs in segments of
+consecutive connections (`remat_segments`), each under
+torch.utils.checkpoint (non-reentrant). A segment keeps only the node
+values read after it; its inner activations are dropped and recomputed
+in the backward pass, one segment at a time, so the peak holds the
+segment boundaries plus one segment's activations. One checkpoint
+around the whole forward would recompute every activation at once
+before the backward and lower nothing. Random layers draw from
+generators made anew from (seed, step, layer index) on each call, so
+the recompute draws the same masks.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from cxxnet_tpu_torch.layers import create_layer
@@ -118,6 +132,103 @@ class Network(nn.Module):
         return out
 
     # ------------------------------------------------------------------
+    def remat_segments(self) -> List[range]:
+        """Consecutive connections cut into checkpoint segments. The
+        cost of a cut is the bytes of the nodes live across it, the
+        cost of a segment the bytes its connections write (an upper
+        bound of what its recompute holds at once in the backward);
+        the cuts minimise twice the sum of the cuts' costs (a cut's
+        nodes are held through every later segment's recompute, and a
+        segment's writes are not all saved) plus the largest segment's,
+        over segment bounds total / k, k = 1 .. 16. A CNN is cut after
+        its pooling / LRN layers, where the activations are small."""
+        layers = self.cfg.layers
+        n = len(layers)
+        size = [math.prod(s) if s else 0 for s in self.node_shapes]
+        out = [sum(size[j] for j in info.nindex_out) for info in layers]
+        last_read: Dict[int, int] = {}
+        written: Dict[int, int] = {0: -1}
+        for i in range(self.cfg.extra_data_num):
+            written[1 + i] = -1
+        for idx, info in enumerate(layers):
+            for j in info.nindex_in:
+                last_read[j] = idx
+            for j in info.nindex_out:
+                written.setdefault(j, idx)
+        # live[c]: bytes of the nodes written at or before connection c
+        # and read after it
+        live = [sum(size[j] for j, w in written.items()
+                    if w <= c < last_read.get(j, -1)) for c in range(n)]
+        pre = [0]
+        for o in out:
+            pre.append(pre[-1] + o)
+        best = None
+        for k in range(1, 17):
+            bound = pre[n] / k
+            # dp[i]: least cut cost of segmenting connections [0, i)
+            dp = [0.0] + [math.inf] * n
+            arg = [0] * (n + 1)
+            for i in range(1, n + 1):
+                for j in range(i - 1, -1, -1):
+                    if pre[i] - pre[j] > bound and j < i - 1:
+                        break
+                    c = dp[j] + (2 * live[j - 1] if j else 0)
+                    if c < dp[i]:
+                        dp[i], arg[i] = c, j
+            cuts, i = [], n
+            while i:
+                cuts.append(i)
+                i = arg[i]
+            cuts = [0] + cuts[::-1]
+            segs = [range(a, b) for a, b in zip(cuts, cuts[1:])]
+            cost = dp[n] + max(pre[r.stop] - pre[r.start] for r in segs)
+            if best is None or cost < best[0]:
+                best = (cost, segs)
+        return best[1]
+
+    def _run_layer(self, idx, values, params, train, gens, keep, labels,
+                   mask, taps):
+        """One connection: reads its input nodes from `values`, writes
+        its output nodes there; returns its contribution to the loss
+        (None when it adds none)."""
+        cfg = self.cfg
+        info = cfg.layers[idx]
+        layer: Layer = self.layer_objs[idx]
+        pkey = param_key(
+            cfg, info.primary_layer_index if info.is_shared else idx)
+        xs = [values[j] for j in info.nindex_in]
+        p = params.get(pkey, {})
+        want = (self.dtype_plan.get(idx)
+                if self.dtype_plan is not None else None)
+        if want is not None:
+            xs = [x.to(want) if x.is_floating_point() else x
+                  for x in xs]
+            p = {k: (v.to(want) if v.is_floating_point() else v)
+                 for k, v in p.items()}
+        if taps is not None and idx in taps:
+            taps[idx] = xs[0]
+        loss = None
+        if isinstance(layer, LossLayer) and labels is not None:
+            flat = xs[0].reshape(xs[0].shape[0], -1)
+            per_ex = layer.per_example_loss(flat, labels[layer.target])
+            if mask is not None:
+                per_ex = per_ex * mask
+            loss = layer.grad_scale * torch.sum(per_ex)
+        lkeep = keep.get(idx) if (train and keep) else None
+        gen = (gens(idx) if (train and layer.uses_rng and lkeep is None
+                             and gens is not None) else None)
+        if train and layer.has_aux:
+            # an auxiliary loss term (moe's load balance) joins the
+            # total the loss layers accumulate
+            outs, aux = layer.forward_with_aux(
+                p, xs, train=train, gen=gen, keep=lkeep, mask=mask)
+            loss = aux if loss is None else loss + aux
+        else:
+            outs = layer(p, xs, train=train, gen=gen, keep=lkeep)
+        for j, o in zip(info.nindex_out, outs):
+            values[j] = o
+        return loss
+
     def forward(
         self, params: Dict[str, Dict[str, torch.Tensor]],
         data: torch.Tensor, *, extras: Sequence[torch.Tensor] = (),
@@ -127,6 +238,8 @@ class Network(nn.Module):
         labels: Optional[Dict[str, torch.Tensor]] = None,
         mask: Optional[torch.Tensor] = None,
         taps: Optional[Dict[int, Optional[torch.Tensor]]] = None,
+        remat_segments: Optional[Sequence[range]] = None,
+        keep_nodes: Sequence[int] = (),
     ) -> Tuple[List[Optional[torch.Tensor]], torch.Tensor]:
         """Run all connections in declaration order on node-0 `data`
         and the extra-input nodes 1..k (`extras`, one tensor each).
@@ -148,6 +261,9 @@ class Network(nn.Module):
         plan's cast) - before a self-loop layer overwrites its node, so
         a `layer[+0] = batch_norm` is tapped at its input, which the
         graph passes' calibration needs.
+        remat_segments (training only): run under checkpoint in these
+        segments (remat_segments()); the returned values then hold only
+        the `keep_nodes` and the nodes read by the last segment.
 
         Returns (every node's value - None for nodes never written -,
         total_loss as a float32 scalar). A loss layer writes its
@@ -159,41 +275,64 @@ class Network(nn.Module):
             values[1 + i] = e
         total_loss = torch.zeros((), dtype=torch.float32,
                                  device=data.device)
-        for idx, info in enumerate(cfg.layers):
-            layer: Layer = self.layer_objs[idx]
-            pkey = param_key(
-                cfg, info.primary_layer_index if info.is_shared else idx)
-            xs = [values[j] for j in info.nindex_in]
-            p = params.get(pkey, {})
-            want = (self.dtype_plan.get(idx)
-                    if self.dtype_plan is not None else None)
-            if want is not None:
-                xs = [x.to(want) if x.is_floating_point() else x
-                      for x in xs]
-                p = {k: (v.to(want) if v.is_floating_point() else v)
-                     for k, v in p.items()}
-            if taps is not None and idx in taps:
-                taps[idx] = xs[0]
-            if isinstance(layer, LossLayer) and labels is not None:
-                flat = xs[0].reshape(xs[0].shape[0], -1)
-                per_ex = layer.per_example_loss(flat, labels[layer.target])
-                if mask is not None:
-                    per_ex = per_ex * mask
-                total_loss = total_loss + layer.grad_scale * torch.sum(
-                    per_ex)
-            lkeep = keep.get(idx) if (train and keep) else None
-            gen = (gens(idx) if (train and layer.uses_rng and lkeep is None
-                                 and gens is not None) else None)
-            if train and layer.has_aux:
-                # an auxiliary loss term (moe's load balance) joins the
-                # total the loss layers accumulate
-                outs, aux = layer.forward_with_aux(
-                    p, xs, train=train, gen=gen, keep=lkeep, mask=mask)
-                total_loss = total_loss + aux
-            else:
-                outs = layer(p, xs, train=train, gen=gen, keep=lkeep)
-            for j, o in zip(info.nindex_out, outs):
+        if train and remat_segments:
+            return self._forward_remat(values, total_loss, params,
+                                       remat_segments, keep_nodes, gens,
+                                       keep, labels, mask)
+        for idx in range(len(cfg.layers)):
+            loss = self._run_layer(idx, values, params, train, gens, keep,
+                                   labels, mask, taps)
+            if loss is not None:
+                total_loss = total_loss + loss
+        return values, total_loss
+
+    def _forward_remat(self, values, total_loss, params, segments,
+                       keep_nodes, gens, keep, labels, mask):
+        """The training forward segment by segment under checkpoint: a
+        segment's inputs are the nodes it reads that an earlier one
+        wrote, its outputs the nodes it writes that a later connection
+        reads or the caller keeps (`keep_nodes`); every other node is
+        dropped as soon as nothing reads it any more."""
+        layers = self.cfg.layers
+        last_read = {}
+        for idx, info in enumerate(layers):
+            for j in info.nindex_in:
+                last_read[j] = idx
+        keep_nodes = set(keep_nodes or ())
+        for seg in segments:
+            written = set()
+            ins = []
+            for idx in seg:
+                for j in layers[idx].nindex_in:
+                    if j not in written and j not in ins:
+                        ins.append(j)
+                written.update(layers[idx].nindex_out)
+            outs = sorted(j for j in written
+                          if j in keep_nodes
+                          or last_read.get(j, -1) > seg[-1])
+
+            def run(*xs, seg=seg, ins=ins, outs=outs):
+                vals: List[Optional[torch.Tensor]] = [None] * len(values)
+                for j, x in zip(ins, xs):
+                    vals[j] = x
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=total_loss.device)
+                for idx in seg:
+                    part = self._run_layer(idx, vals, params, True, gens,
+                                           keep, labels, mask, None)
+                    if part is not None:
+                        loss = loss + part
+                return (loss, *(vals[j] for j in outs))
+
+            loss, *res = torch.utils.checkpoint.checkpoint(
+                run, *(values[j] for j in ins), use_reentrant=False)
+            total_loss = total_loss + loss
+            for j, o in zip(outs, res):
                 values[j] = o
+            for j in range(len(values)):
+                if (values[j] is not None and j not in keep_nodes
+                        and last_read.get(j, -1) <= seg[-1]):
+                    values[j] = None
         return values, total_loss
 
     # ------------------------------------------------------------------

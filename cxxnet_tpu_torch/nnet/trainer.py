@@ -1,10 +1,11 @@
 """NetTrainer (counterpart of cxxnet_tpu/nnet/trainer.py).
 
 The product surface of the JAX trainer: set_param / init_model /
-load_model / save_model / copy_model_from / update / update_all /
-evaluate / eval_train_metric / predict / predict_dist /
-extract_feature / stage_infer_rows + stage_extras + infer_rows /
-get_weight / set_weight.
+load_model / save_model / copy_model_from / update / update_chunk /
+stage_batch / stage_chunk / prefetch / update_all / evaluate /
+eval_train_metric / start_round / profile_summary / round_stats /
+predict / predict_dist / extract_feature / stage_infer_rows +
+stage_extras + infer_rows / get_weight / set_weight.
 
 - Checkpoints: the JAX package's native format, or the reference binary
   under `model_format = cxxnet` (nnet/legacy_format.py, byte-equal to
@@ -39,8 +40,21 @@ trainer's `state["params"]`, and the updater state beside them as
   (`eval_train_metric`). Under `check_nan = 1` a step whose loss or
   updated params (or gradient accumulator) are not finite leaves
   params, updater state, accumulator, counters and train metrics as
-  they were, and `max_bad_rounds` such steps in a row raise
-  DivergenceError.
+  they were - the update is computed out of place and committed by a
+  select on the device, the counters kept there - and `max_bad_rounds`
+  such steps in a row raise DivergenceError.
+- Fused dispatch (`steps_per_dispatch = K`, `stage_chunk` /
+  `update_chunk`): K staged batches stacked on the device, their K
+  microsteps run eagerly with the streamed step's code and no host read
+  between them (under check_nan one finite-vector readback a chunk), so
+  a chunk trains exactly as K update() calls.
+- `remat = 1`: the training forward in checkpoint segments
+  (Network.remat_segments), recomputed in the backward pass.
+- `profile` / `profile_dir` / `trace_round`: the step profiler
+  (utils/profiler.py: round summaries, one torch.profiler trace), whose
+  per-round stats also feed the CLI's round records. `tuning_cache`:
+  knob defaults and a per-layer plan from nnet/tuning.py's cache;
+  explicit keys win.
 
 - Graph passes (nnet/passes.py, `graph_passes = a,b,...` plus
   `pass_<name> = 0|1` toggles): graph-stage passes stamp the live net
@@ -88,7 +102,8 @@ import re
 import sys
 import threading
 import time
-from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
+from typing import (Any, Dict, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -105,7 +120,8 @@ from cxxnet_tpu_torch.nnet.passes import (
 from cxxnet_tpu_torch.ops.augment import AUGMENT_STREAM, make_device_augment
 from cxxnet_tpu_torch.ops.int8 import per_channel_scale
 from cxxnet_tpu_torch.telemetry.flight import fingerprint
-from cxxnet_tpu_torch.updater import UpdaterParam, create_updater
+from cxxnet_tpu_torch.updater import (UpdaterParam, create_updater,
+                                      schedule_table)
 from cxxnet_tpu_torch.utils.config import check_ported, parse_config_string
 from cxxnet_tpu_torch.utils.device import (
     DEFAULT_DEVICE, device_from_spec, resolve_device)
@@ -124,13 +140,7 @@ _NOT_PORTED: Dict[str, Tuple[str, ...]] = {
     "zero_stage": ("0",),
     "shard_optimizer": ("0",),
     "update_on_server": ("0",),
-    "steps_per_dispatch": ("1",),
-    "tuning_cache": ("",),
     "param_server": ("local",),
-    "remat": ("0",),
-    "profile": ("0",),
-    "profile_dir": ("",),
-    "trace_round": ("1",),
 }
 
 
@@ -140,12 +150,73 @@ class StagedBatch(NamedTuple):
     label fields and the row mask. `ready` is the event after its copies
     when they were issued on a prefetcher's side stream (None when
     staged on the consumer's stream); update() waits on it. `extras`
-    holds one tensor per extra input node (extra_data_num)."""
+    holds one tensor per extra input node (extra_data_num).
+    `n_examples` counts the batch's distinct instances (the profiler's
+    images per second)."""
     data: torch.Tensor
     labels: Dict[str, torch.Tensor]
     mask: torch.Tensor
     ready: Any = None
     extras: Tuple[torch.Tensor, ...] = ()
+    n_examples: int = 0
+
+
+class StagedChunk(NamedTuple):
+    """K staged batches stacked along a leading microstep axis: the
+    input of one fused update (steps_per_dispatch = K, update_chunk).
+    Built by stage_chunk from the per-batch staging pipeline and a
+    device-side stack (pure data movement), so its K microsteps train
+    exactly as K streamed updates. `ready` as StagedBatch's."""
+    data: torch.Tensor                 # (K, batch, ...)
+    labels: Dict[str, torch.Tensor]    # each (K, batch, width)
+    mask: torch.Tensor                 # (K, batch)
+    n_examples: Tuple[int, ...]        # distinct instances per microstep
+    ready: Any = None
+    extras: Tuple[torch.Tensor, ...] = ()
+
+    @property
+    def n_steps(self) -> int:
+        return len(self.n_examples)
+
+    def micro(self, i: int) -> StagedBatch:
+        """Microstep i as a StagedBatch (views into the chunk)."""
+        return StagedBatch(self.data[i],
+                           {f: v[i] for f, v in self.labels.items()},
+                           self.mask[i], None,
+                           tuple(e[i] for e in self.extras),
+                           self.n_examples[i])
+
+
+class _DeviceCounters:
+    """The update counters of guarded microsteps (check_nan = 1), kept
+    on the device so that a chunk reads no host value per microstep: a
+    dropped microstep leaves the update counter (`epoch`) and the
+    accumulated-step count (`count`) where they were, so the next
+    microstep's schedule and whether it applies the update follow a
+    device flag. The schedule values of update counts e0 .. e0 + k - 1
+    are computed on the host (the float32 numbers `sched` gives) and
+    indexed on the device by `epoch`. `finite` collects each
+    microstep's flag for the chunk's one readback."""
+
+    def __init__(self, tr: "NetTrainer", k: int):
+        dev = tr.device
+        self.e0 = tr.epoch
+        pin = dev.type == "cuda"
+        table = torch.from_numpy(schedule_table(
+            [up for _, _, up in tr._updater_list()], tr.epoch, k))
+        counts = torch.tensor([tr._count, tr.epoch], dtype=torch.int64)
+        if pin:
+            table, counts = table.pin_memory(), counts.pin_memory()
+        self.table = table.to(dev, non_blocking=True)
+        counts = counts.to(dev, non_blocking=True)
+        self.count, self.epoch = counts[0], counts[1]
+        self.finite: List[torch.Tensor] = []
+
+    def sched(self) -> torch.Tensor:
+        """(n_updaters, 2): each updater's schedule values at the
+        current update counter."""
+        return self.table.index_select(
+            1, (self.epoch - self.e0).reshape(1))[:, 0]
 
 
 def stream_seed(*parts: int) -> int:
@@ -278,7 +349,30 @@ class NetTrainer:
         self.max_bad_rounds = 3
         self.bad_rounds = 0   # total dropped steps (this process)
         self._bad_consec = 0
+        self._skipped_steps = 0
+        # the guard's finite-flag readbacks: one per update() and one
+        # per fused chunk under check_nan = 1
+        self.guard_readbacks = 0
         self._step_counter = 0
+        # fused dispatch: K staged batches per update_chunk (1 = the
+        # streamed / staged per-step update)
+        self.steps_per_dispatch = 1
+        # remat = 1: the training forward runs in checkpoint segments
+        # (Network.remat_segments), recomputed in the backward pass
+        self.remat = 0
+        self._remat_segments = None
+        # the tuning cache (nnet/tuning.py): tuned knobs are defaults,
+        # keys the config sets explicitly win
+        self.tuning_cache = ""
+        self._explicit_tunables: set = set()
+        # step profiler (utils/profiler.py): profile = 1 prints round
+        # summaries; profile_dir traces the trace_round-th profiled
+        # round with torch.profiler
+        self.profile = 0
+        self.profile_dir = ""
+        self.trace_round = 1
+        self.profiler = None
+        self.round = 0
         # {"params": float32 master params, "ustate": updater state} on
         # self.device; None until init_model / load_model
         self.state: Optional[Dict[str, Any]] = None
@@ -374,6 +468,26 @@ class NetTrainer:
             self.model_format = val
         if name == "check_nan":
             self.check_nan = int(val)
+        if name == "steps_per_dispatch":
+            if int(val) < 1:
+                raise ValueError("steps_per_dispatch must be >= 1")
+            self.steps_per_dispatch = int(val)
+        if name == "remat":
+            self.remat = int(val)
+        if name == "tuning_cache":
+            self.tuning_cache = val
+        if name in ("steps_per_dispatch", "serve_max_batch",
+                    "stage_dtype", "serve_bucket_ladder"):
+            # explicit config keys beat tuning-cache defaults
+            self._explicit_tunables.add(name)
+        if name == "profile":
+            self.profile = int(val)
+        if name == "profile_dir":
+            self.profile_dir = val
+            self.profile = max(self.profile, 1)
+        if name == "trace_round":
+            # which profiled round profile_dir traces (1-based)
+            self.trace_round = int(val)
         if name == "max_bad_rounds":
             self.max_bad_rounds = int(val)
         if name == "stage_dtype":
@@ -514,6 +628,7 @@ class NetTrainer:
     def _build_net(self) -> None:
         if self.batch_size <= 0:
             raise ValueError("batch_size must be set")
+        self._apply_tuning_cache()
         if self.device.type == "cuda" and self.compute_dtype == torch.float32:
             # the reference runs float32 convolutions at full precision
             # (cxxnet_tpu/ops/conv.py: Precision.HIGHEST); cuDNN would
@@ -552,9 +667,96 @@ class NetTrainer:
         self._augment_fn = (self._make_augment() if self.device_augment
                             else None)
         self._build_updaters()
+        self._remat_segments = (self.net.remat_segments() if self.remat
+                                else None)
         self._flight_fps = {}
         self._tel_steps = (bool(self.telemetry_steps)
                            and telemetry.get().enabled)
+        # telemetry reuses the profiler's per-round accumulator for its
+        # round records even under profile = 0 (the summaries print
+        # only under profile = 1)
+        if (self.profile or self._tel_steps) and self.profiler is None:
+            from cxxnet_tpu_torch.utils.profiler import StepProfiler
+            self.profiler = StepProfiler(self.profile_dir,
+                                         self.trace_round,
+                                         cuda=self.device.type == "cuda")
+
+    def _apply_tuning_cache(self) -> None:
+        """Apply tuned knob defaults from `tuning_cache =` (nnet/
+        tuning.py), the cache entry of this trainer's platform: only
+        knobs the config never set explicitly, and only values that
+        apply to this trainer (an inapplicable value is skipped, never
+        an error); a v2 cache's per-layer plan is stamped onto the
+        layer configs and its serve ladder taken unless
+        `serve_bucket_ladder =` was set."""
+        if not self.tuning_cache:
+            return
+        from cxxnet_tpu_torch.nnet import tuning
+        entry = tuning.platform_entry(self.tuning_cache,
+                                      tuning.platform_name(self.device))
+        knobs = {k: str(v) for k, v in entry.get("knobs", {}).items()}
+        explicit = self._explicit_tunables
+        applied: Dict[str, Any] = {}
+        v = tuning.int_knob(knobs, "steps_per_dispatch", explicit, 1)
+        if v is not None:
+            self.steps_per_dispatch = applied["steps_per_dispatch"] = v
+        v = tuning.int_knob(knobs, "serve_max_batch", explicit, 0)
+        if v is not None:
+            self.serve_max_batch = applied["serve_max_batch"] = v
+        if "stage_dtype" in knobs and "stage_dtype" not in explicit:
+            val = knobs["stage_dtype"]
+            if (val in ("", "float32", "bfloat16")
+                    and not (val == "bfloat16"
+                             and self.compute_dtype == torch.float32)):
+                self.stage_dtype = applied["stage_dtype"] = val
+        plan_applied = self._apply_layer_plan(entry.get("layers") or {})
+        if plan_applied:
+            applied["layers"] = plan_applied
+        ladder = entry.get("serve_ladder")
+        if (ladder and self.serve_ladder is None
+                and "serve_bucket_ladder" not in explicit):
+            try:
+                rungs = sorted({int(b) for b in ladder if int(b) >= 1})
+            except (TypeError, ValueError):
+                rungs = []
+            if rungs:
+                self.serve_ladder = applied["serve_ladder"] = rungs
+        if applied:
+            telemetry.event("tuning", op="apply",
+                            cache=self.tuning_cache, **applied)
+
+    def _apply_layer_plan(self, plan: Dict[str, Any]) -> Dict[str, Any]:
+        """Stamp a v2 cache's per-layer plan onto the layer configs:
+        unknown layers, inapplicable knobs (space_to_depth off a conv,
+        layer_quant off a conv / fullc), malformed values and any key
+        the config names for that layer or globally are skipped. The
+        stamps go into net_cfg.layercfg, which NetConfig.configure
+        rebuilds from the user's pairs, so they never accumulate."""
+        applied: Dict[str, Any] = {}
+        valid = {"space_to_depth": ("0", "1", "auto"),
+                 "layer_dtype": ("float32", "bfloat16"),
+                 "layer_quant": ("int8", "float")}
+        for lname, kv in plan.items():
+            idx = self.net_cfg.layer_name_map.get(lname)
+            if idx is None or not isinstance(kv, dict):
+                continue
+            info = self.net_cfg.layers[idx]
+            for k, v in kv.items():
+                v = str(v)
+                if k not in valid or v not in valid[k]:
+                    continue
+                if k == "space_to_depth" and info.type_name != "conv":
+                    continue
+                if (k == "layer_quant"
+                        and info.type_name not in ("conv", "fullc")):
+                    continue
+                if any(kk == k for kk, _ in
+                       (self.net_cfg.defcfg
+                        + self.net_cfg.layercfg[idx])):
+                    continue  # explicitly configured: the user wins
+                self.net_cfg.layercfg[idx].append((k, v))
+                applied.setdefault(lname, {})[k] = v
+        return applied
 
     def _make_augment(self):
         """The device augment of the conf's spec (the JAX trainer's
@@ -621,6 +823,14 @@ class NetTrainer:
         self._bad_consec = 0
         self._count = 0
         self._accum = None
+
+    def _updater_list(self):
+        """(param key, param name, updater) of every weight tensor the
+        updaters own, in a fixed order."""
+        master = self.state["params"]
+        return [(lk, pn, up) for lk, d in self.updaters.items()
+                for pn, up in d.items()
+                if lk in master and pn in master[lk]]
 
     def _init_state(self, params: Params) -> None:
         """Fresh train state around `params`: zero updater state (or
@@ -790,7 +1000,8 @@ class NetTrainer:
         for fname, idx in self.net_cfg.label_name_map.items():
             a, b = self.net_cfg.label_range[idx]
             fields[fname] = lab[:, a:b]
-        return StagedBatch(gdata, fields, mask, ready, gextras)
+        return StagedBatch(gdata, fields, mask, ready, gextras,
+                           batch.batch_size - batch.num_batch_padd)
 
     def stage_batch(self, batch: DataBatch, ring=None) -> StagedBatch:
         """Stage a training batch (see _stage) for update(). The staging
@@ -798,23 +1009,52 @@ class NetTrainer:
         trajectory-identical to a streamed one."""
         return self._stage(batch, train=True, ring=ring)
 
+    def stage_chunk(self, batches: Sequence, ring=None) -> StagedChunk:
+        """Stack K batches into one fused chunk (StagedChunk): each
+        DataBatch runs the per-batch staging (stage_batch, through
+        `ring` when a prefetcher's worker calls), then a device-side
+        stack prepends the microstep axis - on the ring's side stream,
+        whose event is the chunk's `ready`, or on the current stream.
+        DataBatch and StagedBatch may be mixed; K is len(batches) (a
+        short last chunk at a round's end is fine)."""
+        if not batches:
+            raise ValueError("stage_chunk needs at least one batch")
+        staged = [b if isinstance(b, StagedBatch) else
+                  self._stage(b, train=True, ring=ring) for b in batches]
+        ctx = (torch.cuda.stream(ring.stream) if ring is not None
+               else contextlib.nullcontext())
+        with ctx:
+            for b in staged:
+                self._await(b)
+            data = torch.stack([b.data for b in staged])
+            labels = {f: torch.stack([b.labels[f] for b in staged])
+                      for f in staged[0].labels}
+            mask = torch.stack([b.mask for b in staged])
+            extras = tuple(torch.stack([b.extras[i] for b in staged])
+                           for i in range(len(staged[0].extras)))
+            ready = None
+            if ring is not None:
+                ready = torch.cuda.Event()
+                ready.record(ring.stream)
+        return StagedChunk(data, labels, mask,
+                           tuple(b.n_examples for b in staged), ready,
+                           extras)
+
     def prefetch(self, data_iter, depth: int = 1, chunk: int = 1):
         """Wrap a DataIter so batch k+1 is staged on a worker thread
         while step k runs (io/prefetch.py); update() consumes the staged
-        values. chunk > 1 (the fused dispatch of steps_per_dispatch) is
-        not ported."""
-        if chunk > 1:
-            raise NotImplementedError(
-                f"steps_per_dispatch = {chunk}: fused dispatch is not "
-                "ported to cxxnet_tpu_torch yet (see ROADMAP)")
+        values. chunk = K assembles fused chunks (stage_chunk) on the
+        worker instead - the staging half of steps_per_dispatch = K;
+        device memory then holds K * (depth + 1) batches."""
         from cxxnet_tpu_torch.io.prefetch import StagedPrefetcher
         return StagedPrefetcher(self.stage_batch, data_iter, depth,
-                                device=self.device)
+                                device=self.device, chunk=chunk,
+                                chunk_fn=self.stage_chunk)
 
-    def _await(self, staged: StagedBatch) -> None:
-        """A batch staged on a side stream: make the current stream wait
-        for its copies and keep its memory from being reused before the
-        step that reads it is done."""
+    def _await(self, staged) -> None:
+        """A batch or chunk staged on a side stream: make the current
+        stream wait for its copies and keep its memory from being reused
+        before the step that reads it is done."""
         if staged.ready is None:
             return
         stream = torch.cuda.current_stream(self.device)
@@ -822,6 +1062,12 @@ class NetTrainer:
         for t in (staged.data, staged.mask, *staged.labels.values(),
                   *staged.extras):
             t.record_stream(stream)
+
+    def _sync(self) -> None:
+        """Wait for the card (honest step times under profile = 1 or
+        telemetry_steps); nothing to wait for on the CPU."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _model_input(self, data: torch.Tensor, train: bool = False,
                      step: int = 0) -> torch.Tensor:
@@ -858,7 +1104,8 @@ class NetTrainer:
     # ------------------------------------------------------------------
     @contextlib.contextmanager
     def _flight_record(self, key, kind: str, name: str, shape,
-                       nbytes: int, donated: int = 0):
+                       nbytes: int, donated: int = 0, bucket=None,
+                       fields=None):
         """One dispatch under flight-recorder + executable-registry
         accounting: register the program shape on first sight, open a
         ring entry when armed, close it with the error if the block
@@ -872,8 +1119,9 @@ class NetTrainer:
                 arg_bytes=int(nbytes), device=str(self.device),
                 donated=donated)
             self._flight_fps[key] = fp
-        fl = (tel.flight.start(kind, fp=fp, bucket=shape[0],
-                               nbytes=int(nbytes))
+        fl = (tel.flight.start(kind, fp=fp,
+                               bucket=shape[0] if bucket is None else bucket,
+                               nbytes=int(nbytes), fields=fields)
               if tel.flight.enabled else None)
         try:
             yield
@@ -890,85 +1138,211 @@ class NetTrainer:
                keep: Optional[Dict[int, Any]] = None) -> torch.Tensor:
         """One training mini-batch (CXXNetThreadTrainer::Update): a
         DataBatch (streamed) or a StagedBatch (stage_batch, or a
-        prefetcher's value). `keep` injects the random draws ({layer
-        index: array of the layer's input shape}: dropout's boolean
-        mask, the uniform float32 draw of insanity, prelu's noise and
-        insanity_max_pooling) instead of drawing them. Returns the
-        scaled loss (a device scalar; reading it syncs)."""
+        prefetcher's value); a StagedChunk goes to update_chunk. `keep`
+        injects the random draws ({layer index: array of the layer's
+        input shape}: dropout's boolean mask, the uniform float32 draw
+        of insanity, prelu's noise and insanity_max_pooling) instead of
+        drawing them. Returns the scaled loss (a device scalar; reading
+        it syncs)."""
+        if isinstance(batch, StagedChunk):
+            if keep is not None:
+                raise ValueError("keep injects the draws of one update; "
+                                 "a chunk takes none")
+            return self.update_chunk(batch)
+        track = bool(self.profile) or self._tel_steps
+        t0 = time.perf_counter()
         if not isinstance(batch, StagedBatch):
             # the streamed path IS one stage_batch call - structural
             # guarantee of the staged/streamed trajectory equivalence;
             # a rejected batch raises before the step counter moves
             batch = self.stage_batch(batch)
         self._await(batch)
-        data, labels, mask = batch.data, batch.labels, batch.mask
-        extras = batch.extras
         if keep is not None:
             keep = {i: torch.from_numpy(np.asarray(k)).to(self.device)
                     for i, k in keep.items()}
         step = self._step_counter
         self._step_counter += 1
-        t0 = time.perf_counter()
-        snap = self._snapshot() if self.check_nan else None
+        data_s = 0.0
+        if track:
+            t1 = time.perf_counter()
+            data_s = t1 - t0
+            if self.profiler is not None:
+                self.profiler.add_data(data_s)
+            t0 = t1
+        data = batch.data
         # the master params are updated in place: the port's form of
         # the JAX step's donated state
         with self._flight_record(
                 ("train_step", tuple(data.shape)), kind="train",
                 name=f"train_step@b{data.shape[0]}", shape=data.shape,
                 nbytes=data.numel() * data.element_size(), donated=1):
-            loss = self._train_step(data, extras, labels, mask, step,
-                                    keep)
-            if snap is not None:
-                self._guard_step(self._finite(loss), snap, step)
+            losses, fin = self._microsteps([batch], step, keep)
+        self._walk_guard(fin, step)
         # progress beacon for the hang watchdog / absence alert rules
         telemetry.beacon("train.step")
-        if self._tel_steps:
-            # the loss readback is the step's sync: honest step times,
-            # paid only with a telemetry consumer armed
-            loss_val = float(loss)
+        loss = losses[0]
+        if track:
+            self._sync()
             step_s = time.perf_counter() - t0
-            n = int(data.shape[0])
-            tel = telemetry.get()
-            tel.observe("train.step_s", step_s)
-            tel.inc("train.images", n)
-            tel.set_gauge("train.loss", loss_val)
-            tel.event("span", name="train.step", secs=step_s, step=step,
-                      loss=loss_val, examples=n)
+            if self.profiler is not None:
+                self.profiler.add_step(step_s, batch.n_examples)
+            if self._tel_steps:
+                loss_val = float(loss)
+                tel = telemetry.get()
+                tel.observe("train.data_s", data_s)
+                tel.observe("train.step_s", step_s)
+                tel.inc("train.images", batch.n_examples)
+                tel.set_gauge("train.loss", loss_val)
+                tel.event("span", name="train.data", secs=data_s,
+                          round=self.round, step=step)
+                tel.event("span", name="train.step", secs=step_s,
+                          round=self.round, step=step, loss=loss_val,
+                          examples=batch.n_examples)
         return loss
 
-    def _train_step(self, data, extras, labels, mask, step,
-                    keep) -> torch.Tensor:
+    def update_chunk(self, chunk) -> torch.Tensor:
+        """K training microsteps as one fused update (steps_per_dispatch
+        = K): a StagedChunk, or a sequence of DataBatch / StagedBatch
+        (staged and stacked here). Each microstep is the streamed
+        step - its random draws from (seed + 100, step, layer), its
+        update_period accumulation, its metric rows - run eagerly one
+        after the other with no host read between them, so the K
+        microsteps train exactly as K update() calls. Under check_nan =
+        1 the counters live on the device (_DeviceCounters), a
+        non-finite microstep is rolled back by a select in place, and
+        the guard reads ONE finite vector a chunk, then walks it in
+        order: drop counts and DivergenceError match streaming, except
+        that the error surfaces at the chunk's end, up to K - 1
+        microsteps after the fatal one. Returns the (K,) scaled losses
+        (a device tensor)."""
+        track = bool(self.profile) or self._tel_steps
+        t0 = time.perf_counter()
+        if not isinstance(chunk, StagedChunk):
+            # staging validates; a rejected batch raises before the
+            # step counter moves (the contract of update())
+            chunk = self.stage_chunk(chunk)
+        self._await(chunk)
+        k = chunk.n_steps
+        first = self._step_counter
+        self._step_counter += k
+        data_s = 0.0
+        if track:
+            t1 = time.perf_counter()
+            data_s = t1 - t0
+            if self.profiler is not None:
+                self.profiler.add_data(data_s)
+            t0 = t1
+        data = chunk.data
+        with self._flight_record(
+                ("train_chunk", k, tuple(data.shape)), kind="train",
+                name=f"train_chunk@K{k}b{data.shape[1]}", shape=data.shape,
+                nbytes=data.numel() * data.element_size(), donated=1,
+                bucket=data.shape[1], fields={"steps": k}):
+            losses, fin = self._microsteps(
+                [chunk.micro(i) for i in range(k)], first, None)
+        self._walk_guard(fin, first)
+        telemetry.beacon("train.step", k)
+        losses = torch.stack(losses)
+        if track:
+            self._sync()
+            chunk_s = time.perf_counter() - t0
+            n_examples = sum(chunk.n_examples)
+            if self.profiler is not None:
+                self.profiler.add_chunk(chunk_s, k, n_examples)
+            if self._tel_steps:
+                tel = telemetry.get()
+                loss_v = losses.double().cpu().numpy()
+                for _ in range(k):
+                    # per-step amortised times keep the histograms on a
+                    # per-step scale across steps_per_dispatch settings
+                    tel.observe("train.step_s", chunk_s / k)
+                    tel.observe("train.data_s", data_s / k)
+                tel.inc("train.images", n_examples)
+                tel.set_gauge("train.loss", float(loss_v[-1]))
+                tel.event("span", name="train.data", secs=data_s,
+                          round=self.round, step=first)
+                tel.event("span", name="train.chunk", secs=chunk_s,
+                          round=self.round, step=first, steps=k,
+                          loss=[float(v) for v in loss_v],
+                          examples=n_examples)
+        return losses
+
+    def _microsteps(self, batches: List[StagedBatch], first: int, keep):
+        """Run staged microsteps `first`, `first` + 1, ...; returns
+        (their losses, the finite flags read back as a numpy bool array
+        under check_nan = 1, else None)."""
+        if not self.check_nan:
+            return [self._micro(b, first + i, keep, None)
+                    for i, b in enumerate(batches)], None
+        dc = _DeviceCounters(self, len(batches))
+        losses = [self._micro(b, first + i, keep, dc)
+                  for i, b in enumerate(batches)]
+        # the guard's one readback (the sync check_nan = 1 costs)
+        fin = torch.stack(dc.finite).cpu().numpy()
+        self.guard_readbacks += 1
+        return losses, fin
+
+    def _micro(self, batch: StagedBatch, step: int, keep,
+               dc: Optional[_DeviceCounters]) -> torch.Tensor:
+        """One microstep: forward, backward, accumulate, update every
+        update_period steps, train metrics. Without a _DeviceCounters
+        the counters are the host's and the update lands in place. With
+        one (check_nan = 1) the counters are the device's: the update
+        is computed out of place and committed by a select on the
+        step's finite flag (loss, updated params and, update_period >
+        1, the gradient accumulator all finite), which leaves params,
+        updater state, accumulator, counters and train metrics as they
+        were for a non-finite step - in place, the tensors keep their
+        storage."""
         master = self.state["params"]
         leaves = _tree_map(lambda t: t.detach().requires_grad_(True),
                            master)
         seed = self.seed + 100
         dev = self.device
+        period = self.update_period
 
         def gens(idx: int) -> torch.Generator:
             return torch.Generator(device=dev).manual_seed(
                 stream_seed(seed, step, idx))
 
-        data = self._model_input(data, train=True, step=step)
+        data = self._model_input(batch.data, train=True, step=step)
+        labels, mask = batch.labels, batch.mask
         # the update counter a progress-following layer reads (insanity's
         # anneal), as the JAX train step binds it
-        progress = self.epoch * self.update_period + self._count
+        progress = (self.epoch * period + self._count if dc is None
+                    else dc.epoch * period + dc.count)
         with torch.enable_grad(), active_step(progress):
             # cast inside autograd: bfloat16 compute, float32 gradients
             cparams = self._cast(leaves)
-            values, total = self.net(cparams, data, extras=extras,
-                                     train=True, gens=gens, keep=keep,
-                                     labels=labels, mask=mask)
-            loss = total.float() * (1.0 / (self.batch_size
-                                           * self.update_period))
+            values, total = self.net(
+                cparams, data, extras=batch.extras, train=True, gens=gens,
+                keep=keep, labels=labels, mask=mask,
+                remat_segments=self._remat_segments,
+                keep_nodes=[nid for _, nid in self.eval_nodes])
+            loss = total.float() * (1.0 / (self.batch_size * period))
             flat = _tree_leaves(leaves)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
         it = iter(torch.zeros_like(t) if g is None else g
                   for t, g in zip(flat, grads))
         gtree = {lk: {pn: next(it) for pn in sorted(leaves[lk])}
                  for lk in sorted(leaves)}
+        rows = None
+        if self.eval_train and len(self.train_metric):
+            with torch.no_grad():
+                rows = self._metric_rows(self.train_metric, values, labels,
+                                         mask, seed, step, 1000).double()
+        loss = loss.detach()
+        if dc is None:
+            self._commit(gtree, rows)
+        else:
+            self._commit_guarded(loss, gtree, rows, dc)
+        return loss
+
+    def _commit(self, gtree, rows) -> None:
+        """Accumulate and update in place on the host's counters."""
         if self.update_period == 1:
             accum = gtree
-        elif self._accum is None:
+        elif self._count == 0:
             accum = self._accum = gtree
         else:
             for lk, d in gtree.items():
@@ -977,60 +1351,94 @@ class NetTrainer:
             accum = self._accum
         self._count += 1
         if self._count >= self.update_period:
-            ustate = self.state["ustate"]
-            for lk, d in self.updaters.items():
-                for pn, up in d.items():
-                    if lk in master and pn in master[lk]:
-                        up.apply(ustate[lk][pn], master[lk][pn],
-                                 accum[lk][pn], self.epoch)
+            master, ustate = self.state["params"], self.state["ustate"]
+            for lk, pn, up in self._updater_list():
+                up.apply(ustate[lk][pn], master[lk][pn], accum[lk][pn],
+                         self.epoch)
             self._accum = None
             self._count = 0
             self.epoch += 1
             self._weights_changed()
-        if self.eval_train and len(self.train_metric):
-            with torch.no_grad():
-                rows = self._metric_rows(self.train_metric, values, labels,
-                                         mask, seed, step, 1000)
-                self._tmetric += rows.double()
-        return loss.detach()
+        if rows is not None:
+            self._tmetric += rows
 
-    def _snapshot(self):
-        """What a dropped step must leave unchanged (check_nan)."""
-        def clone(t):
-            return t.detach().clone()
-        return (_tree_map(clone, self.state["params"]),
-                _tree_map(clone, self.state["ustate"]),
-                None if self._accum is None else _tree_map(clone,
-                                                           self._accum),
-                self._count, self.epoch, self._tmetric.clone())
-
-    def _finite(self, loss: torch.Tensor) -> bool:
-        """All-finite over the loss, the params and (update_period > 1)
-        the gradient accumulator: a micro-step whose gradients go NaN
-        with a finite loss leaves the params untouched, so checking
-        params alone would commit the NaN into the accumulator."""
+    @torch.no_grad()
+    def _commit_guarded(self, loss, gtree, rows,
+                        dc: _DeviceCounters) -> None:
+        """Accumulate and update on the device's counters, committed by
+        a select on the step's finite flag (see _micro)."""
+        master, ustate = self.state["params"], self.state["ustate"]
+        period = self.update_period
         ok = torch.isfinite(loss)
-        trees = [self.state["params"]]
-        if self.update_period > 1 and self._accum is not None:
-            trees.append(self._accum)
-        for tree in trees:
-            for t in _tree_leaves(tree):
-                ok = ok & torch.isfinite(t).all()
-        return bool(ok)
+        do = None
+        if period == 1:
+            accum = gtree
+        else:
+            if self._accum is None:
+                self._accum = _tree_map(torch.zeros_like, gtree)
+            fresh = dc.count == 0
+            accum = {lk: {pn: torch.where(fresh, g, self._accum[lk][pn] + g)
+                          for pn, g in d.items()}
+                     for lk, d in gtree.items()}
+            do = dc.count + 1 >= period
+            # the accumulator is checked while it carries over (after
+            # an update it starts afresh)
+            for t in _tree_leaves(accum):
+                ok = ok & (do | torch.isfinite(t).all())
+        sched = dc.sched()
+        new = []
+        for i, (lk, pn, up) in enumerate(self._updater_list()):
+            w = master[lk][pn]
+            w_new, st = up.step(ustate[lk][pn], w, accum[lk][pn],
+                                (sched[i, 0], sched[i, 1]))
+            fin = torch.isfinite(w_new).all()
+            ok = ok & (fin if do is None else (~do | fin))
+            new.append((w, w_new, ustate[lk][pn], st))
+        take = ok if do is None else ok & do
+        for w, w_new, st_old, st in new:
+            w.copy_(torch.where(take, w_new, w))
+            for name, t in st.items():
+                st_old[name].copy_(torch.where(take, t, st_old[name]))
+        if do is not None:
+            for lk, d in accum.items():
+                for pn, t in d.items():
+                    buf = self._accum[lk][pn]
+                    buf.copy_(torch.where(ok, t, buf))
+            dc.count = torch.where(ok, torch.where(do, 0, dc.count + 1),
+                                   dc.count)
+        dc.epoch = torch.where(take, dc.epoch + 1, dc.epoch)
+        if rows is not None:
+            self._tmetric.copy_(torch.where(ok, self._tmetric + rows,
+                                            self._tmetric))
+        dc.finite.append(ok)
 
-    def _guard_step(self, ok: bool, snap, step_idx: int) -> None:
-        """The divergence guard: roll a non-finite step back, count it,
-        and abort after max_bad_rounds CONSECUTIVE such steps."""
+    def _walk_guard(self, fin, first: int) -> None:
+        """After guarded microsteps: move the host's counters as the
+        device's moved (a dropped microstep moves neither), then walk
+        the flags in order through _guard_step."""
+        if fin is None:
+            return
+        for ok in fin:
+            if ok:
+                self._count += 1
+                if self._count >= self.update_period:
+                    self._count = 0
+                    self.epoch += 1
+        self._weights_changed()
+        for i, ok in enumerate(fin):
+            self._guard_step(bool(ok), first + i)
+
+    def _guard_step(self, ok: bool, step_idx: int) -> None:
+        """Host half of the divergence guard: count a dropped step (the
+        device already rolled it back) and abort after max_bad_rounds
+        CONSECUTIVE such steps."""
         if ok:
             self._bad_consec = 0
             return
-        params, ustate, accum, count, epoch, tmetric = snap
-        self.state = {"params": params, "ustate": ustate}
-        self._accum, self._count, self.epoch = accum, count, epoch
-        self._tmetric = tmetric
-        self._weights_changed()
         self._bad_consec += 1
         self.bad_rounds += 1
+        self._skipped_steps += 1
+        telemetry.inc("fault.nan_rollback")
         sys.stderr.write(
             f"divergence guard: non-finite loss/params at update "
             f"{step_idx}; batch dropped, params rolled "
@@ -1042,6 +1450,47 @@ class NetTrainer:
                 f"non-finite update rounds (loss or params hit NaN/Inf "
                 f"every round); lower eta or inspect the data pipeline "
                 f"- params remain at the last finite state")
+
+    # ------------------------------------------------------------------
+    # rounds and the step profiler (utils/profiler.py)
+    # ------------------------------------------------------------------
+    def start_round(self, round_counter: int) -> None:
+        """Close out and report the previous round's profile, then arm
+        the next (the trace_round-th profiled round also writes the
+        trace). The stderr summary is profile = 1 only; a
+        telemetry-only profiler feeds round records silently."""
+        self.round = round_counter
+        if self.profiler is not None:
+            if self.profile and self.profiler.step_s:
+                sys.stderr.write(self.profiler.summary() + "\n")
+            self.profiler.round_end()
+            self.profiler.round_start()
+
+    def finish_round_profile(self) -> None:
+        """Close the round's trace right after the update loop, so it
+        holds the training steps only, not the evaluation or the
+        checkpoint save that follow (round_end is idempotent;
+        start_round still prints the summary)."""
+        if self.profiler is not None:
+            self.profiler.round_end()
+
+    def profile_summary(self) -> str:
+        """The summary line of the round in progress ('' when profiling
+        is off or no steps ran); closes any open trace either way."""
+        if self.profiler is None:
+            return ""
+        self.profiler.round_end()
+        if not self.profile or not self.profiler.step_s:
+            return ""
+        return self.profiler.summary()
+
+    def round_stats(self) -> Optional[Dict[str, float]]:
+        """Step / data timing stats of the round in progress (None when
+        nothing is instrumented or no steps ran): the payload of the
+        telemetry `round` event and metrics record."""
+        if self.profiler is None:
+            return None
+        return self.profiler.stats()
 
     def update_all(self, data_iter, eval_iters=None,
                    eval_names=None) -> str:

@@ -16,9 +16,11 @@ of cxxnet_tpu/updater/param.py; src/updater/param.h:13-133).
 - momentum schedule: the stateless form of the reference's accumulation
   (evaluated from the current epoch, clamped to final_momentum).
 
-The epoch lives on the host, so the schedule is scalar arithmetic. It is
-done in float32 (numpy scalars), as the JAX package evaluates it inside
-its jitted step: a float64 schedule would differ from it by float32
+The schedule is scalar arithmetic on the host: at the update counter,
+or, for guarded microsteps whose counter lives on the card, as a table
+over the counts they can reach (updaters.schedule_table). It is done in
+float32 (numpy scalars), as the JAX package evaluates it inside its
+jitted step: a float64 schedule would differ from it by float32
 rounding (Adam's bias correction 1 - 0.999^t most of all).
 """
 

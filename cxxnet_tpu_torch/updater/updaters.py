@@ -2,10 +2,15 @@
 cxxnet_tpu/updater/updaters.py).
 
 Each updater owns its state dict ({"m"} or {"m1", "m2"}, the JAX
-package's `state["ustate"]` leaves) and updates the float32 master
-weight and that state IN PLACE under `torch.no_grad()` - the port keeps
-one copy of each tensor instead of the JAX package's functional
-(state, w) -> (state', w').
+package's `state["ustate"]` leaves). `step` is the JAX package's
+functional (state, w) -> (state', w'), out of place, with the epoch's
+schedule values (`sched`) given either as Python floats or as 0-d
+float32 device tensors (a fused chunk reads them from a device table,
+`schedule_table`, indexed by its own update counter); `apply` is `step`
+written back IN PLACE under `torch.no_grad()` - the port keeps one copy
+of each tensor. Both forms of `sched` hold the same float32 values, and
+every product with them rounds once in float32, so the two give the
+same bits.
 
 Formula parity:
 - SGD   (sgd_updater-inl.hpp:72-84):
@@ -20,7 +25,7 @@ Formula parity:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -48,11 +53,38 @@ class Updater:
     def init_state(self, w: torch.Tensor) -> State:
         raise NotImplementedError
 
+    def sched(self, epoch: int) -> Tuple[float, ...]:
+        """The schedule values at update count `epoch` (float32 numbers
+        as Python floats)."""
+        raise NotImplementedError
+
+    def step(self, state: State, w: torch.Tensor, grad: torch.Tensor,
+             sched) -> Tuple[torch.Tensor, State]:
+        """(w', state') from `grad` under the schedule values `sched`;
+        the inputs are left as they are."""
+        raise NotImplementedError
+
+    @torch.no_grad()
     def apply(self, state: State, w: torch.Tensor, grad: torch.Tensor,
               epoch: int) -> None:
         """One update of `w` and `state` in place from `grad` at update
         count `epoch`."""
-        raise NotImplementedError
+        w_new, new = self.step(state, w, grad, self.sched(epoch))
+        w.copy_(w_new)
+        for k, t in new.items():
+            state[k].copy_(t)
+
+
+def schedule_table(updaters, e0: int, n: int) -> np.ndarray:
+    """(len(updaters), n, 2) float32: each updater's schedule values at
+    update counts e0 .. e0 + n - 1 (unused columns 0), computed on the
+    host exactly as `sched` computes them."""
+    out = np.zeros((len(updaters), n, 2), np.float32)
+    for i, up in enumerate(updaters):
+        for e in range(n):
+            vals = up.sched(e0 + e)
+            out[i, e, :len(vals)] = vals
+    return out
 
 
 class SGDUpdater(Updater):
@@ -61,15 +93,17 @@ class SGDUpdater(Updater):
     def init_state(self, w):
         return {"m": torch.zeros_like(w)}
 
+    def sched(self, epoch):
+        return self.param.schedule(epoch)
+
     @torch.no_grad()
-    def apply(self, state, w, grad, epoch):
+    def step(self, state, w, grad, sched):
         p = self.param
-        lr, mom = p.schedule(epoch)
+        lr, mom = sched[0], sched[1]
         if p.clip_gradient != 0.0:
             grad = _clip_nan(grad, p.clip_gradient)
-        m = state["m"]
-        m.copy_(mom * m - lr * (grad + p.wd * w))
-        w.add_(m)
+        m = mom * state["m"] - lr * (grad + p.wd * w)
+        return w + m, {"m": m}
 
 
 class NAGUpdater(Updater):
@@ -78,14 +112,16 @@ class NAGUpdater(Updater):
     def init_state(self, w):
         return {"m": torch.zeros_like(w)}
 
+    def sched(self, epoch):
+        return self.param.schedule(epoch)
+
     @torch.no_grad()
-    def apply(self, state, w, grad, epoch):
+    def step(self, state, w, grad, sched):
         p = self.param
-        lr, mom = p.schedule(epoch)
+        lr, mom = sched[0], sched[1]
         m_old = state["m"]
         m = mom * m_old - lr * (grad + p.wd * w)
-        w.add_((1.0 + mom) * m - mom * m_old)
-        m_old.copy_(m)
+        return w + ((1.0 + mom) * m - mom * m_old), {"m": m}
 
 
 class AdamUpdater(Updater):
@@ -100,19 +136,23 @@ class AdamUpdater(Updater):
     def init_state(self, w):
         return {"m1": torch.zeros_like(w), "m2": torch.zeros_like(w)}
 
-    @torch.no_grad()
-    def apply(self, state, w, grad, epoch):
-        p = self.param
-        if p.wd > 0.0:
-            grad = grad - p.wd * w  # reference sign quirk
+    def sched(self, epoch):
+        """(lr_t,): the bias-corrected step size at update `epoch`."""
         t = f32(epoch) + f32(1.0)
         fix1 = f32(1.0) - np.power(f32(1.0 - self.decay1), t)
         fix2 = f32(1.0) - np.power(f32(1.0 - self.decay2), t)
-        lr_t = float(f32(p.base_lr) * np.sqrt(fix2) / fix1)
+        return (float(f32(self.param.base_lr) * np.sqrt(fix2) / fix1),)
+
+    @torch.no_grad()
+    def step(self, state, w, grad, sched):
+        p = self.param
+        if p.wd > 0.0:
+            grad = grad - p.wd * w  # reference sign quirk
         m1, m2 = state["m1"], state["m2"]
-        m1.copy_(m1 + self.decay1 * (grad - m1))
-        m2.copy_(m2 + self.decay2 * (grad * grad - m2))
-        w.sub_(lr_t * (m1 / (torch.sqrt(m2) + 1e-8)))
+        m1 = m1 + self.decay1 * (grad - m1)
+        m2 = m2 + self.decay2 * (grad * grad - m2)
+        w_new = w - sched[0] * (m1 / (torch.sqrt(m2) + 1e-8))
+        return w_new, {"m1": m1, "m2": m2}
 
 
 _UPDATERS = {"sgd": SGDUpdater, "nag": NAGUpdater, "adam": AdamUpdater}

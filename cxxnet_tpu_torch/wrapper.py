@@ -105,8 +105,10 @@ class Net:
             self._net.save_model(f)
 
     def start_round(self, round_counter: int) -> None:
-        """The reference's StartRound. The JAX trainer uses it only to
-        roll its profiler over; the port keeps no per-round state."""
+        """The reference's StartRound: rolls the step profiler over
+        (`profile` / `profile_dir`: the previous round's summary, the
+        next round's trace)."""
+        self._net.start_round(round_counter)
 
     def update(self, data: Union[DataIter, np.ndarray],
                label: Optional[np.ndarray] = None) -> None:
@@ -257,7 +259,10 @@ def train(cfg: str, data, label, num_round: int,
     take fewer than _STAGE_BYTES_LIMIT bytes is staged on the device
     once and replayed every round; a larger one streams through the
     staging prefetcher (io/prefetch.py: batch k+1 staged while step k
-    runs). Both give the trajectory of plain update() calls.
+    runs). Both give the trajectory of plain update() calls. Under
+    `steps_per_dispatch = K` the staged batches are stacked into K-step
+    chunks once, or the prefetcher assembles chunks; each round then
+    runs one update_chunk per chunk.
 
     eval_data: optional (data, label) pair; the classification error is
     printed to stderr after every round. The final partial batch of each
@@ -274,12 +279,17 @@ def train(cfg: str, data, label, num_round: int,
     n_batches = (n + batch_size - 1) // batch_size
     staged_bytes = n_batches * batch_size * c * hh * ww * 4
     staged = pf = None
+    k = tr.steps_per_dispatch
     if staged_bytes < _STAGE_BYTES_LIMIT:
         staged = [tr.stage_batch(_batch_from_numpy(
             data[i:i + batch_size], label[i:i + batch_size]))
             for i in range(0, n, batch_size)]
+        if k > 1:
+            staged = [tr.stage_chunk(staged[i:i + k])
+                      for i in range(0, len(staged), k)]
     else:
-        pf = tr.prefetch(_Slices(data, label, batch_size), depth=1)
+        pf = tr.prefetch(_Slices(data, label, batch_size), depth=1,
+                         chunk=k)
     try:
         for r in range(num_round):
             net.start_round(r)

@@ -1531,3 +1531,164 @@ def test_imgbin_on_the_card_takes_nvjpeg(cuda_device, tmp_path):
         assert np.array_equal(cl, pl)
     stats = pil_agreement([d for d, _ in card], [d for d, _ in plain])
     assert within_bar(stats), stats
+
+
+# ---------------------------------------------------------------------------
+# fused dispatch (steps_per_dispatch), remat and the profiler's trace
+# ---------------------------------------------------------------------------
+
+def _dispatch_batches(n, rows=8, bad=None):
+    rng = np.random.RandomState(0)
+    out = []
+    for i in range(n):
+        data = (rng.randn(rows, 3, 35, 35) * 3).astype(np.float32)
+        if i == bad:
+            data[:] = np.nan
+        out.append(DataBatch(data=data, label=rng.randint(
+            0, 10, size=(rows, 1)).astype(np.float32)))
+    return out
+
+
+def _param_bits(tr):
+    p = tr.state["params"]
+    return [p[k][n].detach().cpu().numpy().view(np.uint32)
+            for k in sorted(p) for n in sorted(p[k])]
+
+
+@pytest.mark.parametrize("extra", [
+    "", "check_nan = 1\nupdate_period = 2\ndtype = bfloat16\n"])
+def test_dispatch_chunk_equals_streamed_on_the_card(cuda_device, extra):
+    """NARROW_ALEXNET on the card: 8 updates as two chunks of 4 equal 8
+    update() calls bit for bit (the NaN microstep dropped in both under
+    check_nan), with the same K1 launches, and the guard reads one
+    finite vector a chunk."""
+    conf = NARROW_ALEXNET + "eta = 0.05\nmomentum = 0.9\n" + extra
+    bad = 5 if "check_nan" in extra else None
+    batches = _dispatch_batches(8, bad=bad)
+    runs = []
+    for k in (1, 4):
+        tr = NetTrainer(cfg=conf, device="cuda:0")
+        tr.init_model()
+        kernels.reset_launches()
+        if k == 1:
+            for b in batches:
+                tr.update(b)
+        else:
+            for i in range(0, 8, k):
+                tr.update_chunk(batches[i:i + k])
+        torch.cuda.synchronize()
+        runs.append((tr, kernels.launches()))
+    (ta, la), (tb, lb) = runs
+    for a, b in zip(_param_bits(ta), _param_bits(tb)):
+        assert np.array_equal(a, b)
+    assert la == lb and la["lrn_fwd"] == la["lrn_bwd"] == 16
+    if bad is not None:
+        assert ta.bad_rounds == tb.bad_rounds == 1
+        assert (ta.guard_readbacks, tb.guard_readbacks) == (8, 2)
+        assert ta.epoch == tb.epoch == 3
+
+
+def test_dispatch_rollback_keeps_param_storage(cuda_device):
+    """A NaN microstep inside a chunk is rolled back by a select in
+    place: every param and updater-state tensor keeps its storage, and
+    the params are those of a run without the NaN batch's update."""
+    conf = NARROW_ALEXNET + "eta = 0.05\nmomentum = 0.9\ncheck_nan = 1\n"
+    tr = NetTrainer(cfg=conf, device="cuda:0")
+    tr.init_model()
+    leaves = [t for d in (tr.state["params"], tr.state["ustate"])
+              for t in _leaves(d)]
+    ptrs = [t.data_ptr() for t in leaves]
+    tr.update_chunk(_dispatch_batches(4, bad=2))
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in _leaves(tr.state["params"])
+            + _leaves(tr.state["ustate"])] == ptrs
+    assert tr.bad_rounds == 1 and tr.epoch == 3
+    assert all(torch.isfinite(t).all() for t in _leaves(tr.state["params"]))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [tree]
+
+
+def test_dispatch_remat_values_and_peak_memory(cuda_device):
+    """AlexNet.conf's net at b64 bfloat16: remat = 1 trains to the same
+    params as remat = 0 over 2 updates - bitwise, or no further apart
+    than two remat = 0 runs are - and its peak device memory is lower.
+    Its forward runs twice, so K1-fwd launches 4 times a step, not 2."""
+    import os
+    conf_path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                             "ImageNet", "AlexNet.conf")
+    with open(conf_path) as f:
+        net = "netconfig=start" + f.read().split("netconfig=start", 1)[1]
+    conf = net.replace("batch_size = 256", "batch_size = 64") + \
+        "\nsilent = 1\nseed = 3\n"
+    rng = np.random.RandomState(0)
+    batches = [DataBatch(data=rng.rand(64, 3, 227, 227).astype(np.float32),
+                         label=rng.randint(0, 1000, (64, 1)).astype(
+                             np.float32)) for _ in range(2)]
+    out = {}
+    for tag, remat in (("a", 0), ("b", 0), ("r", 1)):
+        tr = NetTrainer(cfg=conf + f"remat = {remat}\n", device="cuda:0")
+        tr.init_model()
+        staged = [tr.stage_batch(b) for b in batches]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        for s in staged:
+            tr.update(s)
+        torch.cuda.synchronize()
+        out[tag] = (_param_bits(tr), torch.cuda.max_memory_allocated(),
+                    kernels.launches()["lrn_fwd"])
+        del tr, staged
+        torch.cuda.empty_cache()
+
+    def diff(x, y):
+        return max(float(np.abs(a.view(np.float32) - b.view(np.float32)).max())
+                   for a, b in zip(out[x][0], out[y][0]))
+    assert diff("r", "a") <= diff("a", "b")
+    assert out["r"][1] < out["a"][1]
+    assert (out["a"][2], out["r"][2]) == (4, 8)
+
+
+def test_dispatch_profiler_trace_holds_kernel_events(cuda_device, tmp_path):
+    """profile_dir with trace_round = 2 over 3 rounds of NARROW_ALEXNET
+    (in a fresh process: a long-lived one can lose the card's events):
+    one trace, holding K1's kernels."""
+    import json
+    import os
+    import subprocess
+    import sys
+    code = f"""
+import numpy as np, sys
+sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})
+sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})
+from torch_port_util import NARROW_ALEXNET
+from cxxnet_tpu_torch.io.data import DataBatch
+from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+conf = NARROW_ALEXNET.replace("dev = cpu", "") + "eta = 0.05\\n"
+tr = NetTrainer(cfg=conf + "profile_dir = {tmp_path}/prof\\ntrace_round = 2\\n",
+                device="cuda:0")
+tr.init_model()
+rng = np.random.RandomState(0)
+b = DataBatch(data=rng.randn(8, 3, 35, 35).astype(np.float32),
+              label=rng.randint(0, 10, (8, 1)).astype(np.float32))
+for r in range(3):
+    tr.start_round(r + 1)
+    for _ in range(2):
+        tr.update(b)
+    tr.finish_round_profile()
+print(tr.profile_summary())
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "profile: 2 steps" in r.stdout and r.stderr.count("profile:") == 2
+    files = os.listdir(tmp_path / "prof")
+    assert files == ["trace_round2.json"]
+    with open(tmp_path / "prof" / files[0]) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    assert any("lrn_fwd" in n for n in names), sorted(set(names))[:20]
+    assert any("lrn_bwd" in n for n in names)

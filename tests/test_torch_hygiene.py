@@ -33,7 +33,9 @@ def _modules():
 
 def test_import_everything_pulls_no_jax_and_no_cxxnet_tpu():
     mods = sorted(set(_modules()))
-    assert "cxxnet_tpu_torch.ops.lrn" in mods
+    for m in ("ops.lrn", "utils.profiler", "nnet.tuning",
+              "tools.fused_smoke", "tools.profile_step", "tools.autotune"):
+        assert f"cxxnet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -123,16 +125,31 @@ def test_multi_device_specs_raise(spec):
 
 
 @pytest.mark.parametrize("key,val", [
-    ("tuning_cache", "tc.json"), ("remat", "1"),
-    ("profile", "1"), ("zero_stage", "2"), ("mesh", "data:2"),
-    ("steps_per_dispatch", "4"), ("trace_round", "2"),
-    ("update_on_server", "1"), ("profile_dir", "prof"),
+    ("zero_stage", "2"), ("mesh", "data:2"),
+    ("update_on_server", "1"),
     ("param_server", "dist"), ("shard_optimizer", "1"),
 ])
 def test_result_changing_keys_raise(key, val):
     tr = NetTrainer(device="cpu")
     with pytest.raises(NotImplementedError, match=key):
         tr.set_param(key, val)
+
+
+@pytest.mark.parametrize("key,val,attr,want", [
+    ("tuning_cache", "tc.json", "tuning_cache", "tc.json"),
+    ("remat", "1", "remat", 1),
+    ("profile", "1", "profile", 1),
+    ("steps_per_dispatch", "4", "steps_per_dispatch", 4),
+    ("trace_round", "2", "trace_round", 2),
+    ("profile_dir", "prof", "profile", 1),
+])
+def test_single_device_keys_are_accepted(key, val, attr, want):
+    """The trainer's single-device keys, once refused, are ported:
+    set_param takes them and the trainer holds the value (profile_dir
+    turns profile on, as in the JAX package)."""
+    tr = NetTrainer(device="cpu")
+    tr.set_param(key, val)
+    assert getattr(tr, attr) == want
 
 
 @pytest.mark.parametrize("key,val", [

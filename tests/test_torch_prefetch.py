@@ -182,9 +182,25 @@ def test_prefetcher_propagates_source_errors():
     wait_no_prefetchers()
 
 
-def test_fused_chunks_are_not_ported():
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        trainer().prefetch(ListIter([]), chunk=4)
+def test_prefetcher_chunks_need_a_chunk_fn_and_ship_a_short_tail():
+    """chunk > 1 without chunk_fn raises the JAX package's message; the
+    trainer's chunked prefetcher ships StagedChunks of K and a short
+    last one, holding the batches in order."""
+    with pytest.raises(ValueError, match="chunk > 1 requires chunk_fn"):
+        StagedPrefetcher(lambda b, ring: b, ListIter([]), chunk=2)
+    batches = synth(5)
+    pf = trainer().prefetch(ListIter(batches), depth=2, chunk=2)
+    pf.before_first()
+    got = []
+    while pf.next():
+        got.append(pf.value())
+    pf.close()
+    assert [c.n_steps for c in got] == [2, 2, 1]
+    rows = np.concatenate([c.data.reshape(-1, *c.data.shape[2:]).numpy()
+                           for c in got])
+    want = np.concatenate([b.data for b in batches])
+    np.testing.assert_array_equal(rows.reshape(want.shape), want)
+    wait_no_prefetchers()
 
 
 CLI_CONF = """

@@ -370,10 +370,7 @@ def test_cli_serve_equals_pred_equals_jax(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (["task=train", "remat=1"], "remat"),
-    (["task=pred", "steps_per_dispatch=4"], "steps_per_dispatch"),
     (["task=serve", "elastic=1"], "elastic"),
-    (["task=pred", "tuning_cache=tc.json"], "tuning_cache"),
     (["task=pred", "zero_stage=3"], "zero_stage"),
     (["task=serve", "dev=tpu:0-63"], "multi-device"),
 ])
@@ -385,3 +382,59 @@ def test_cli_rejects_what_is_not_ported(tmp_path, overrides, match):
         f.write(CLI_CONF.format(out=os.path.join(d, "p.txt"), d=d))
     with pytest.raises(NotImplementedError, match=match):
         port_main.main([conf, "model_in=none.model"] + overrides)
+
+
+TRAIN_BLOCK = """
+data = train
+iter = mnist
+  path_img = "{d}/t10k-images-idx3-ubyte.gz"
+  path_label = "{d}/t10k-labels-idx1-ubyte.gz"
+  input_flat = 0
+iter = end
+"""
+
+
+@pytest.mark.parametrize("overrides", [
+    ["task=train", "remat=1"],
+    ["task=pred", "steps_per_dispatch=4"],
+    ["task=pred", "tuning_cache=tc.json"],
+])
+def test_cli_takes_the_ported_trainer_keys(tmp_path, overrides):
+    """remat, steps_per_dispatch and tuning_cache, which the CLI once
+    refused, run: each output equals the run without the key (a
+    training run's checkpoint byte for byte)."""
+    from cxxnet_tpu_torch.nnet import tuning
+    d = str(tmp_path)
+    write_mnist(d, 100, 4)
+    conf = os.path.join(d, "net.conf")
+    with open(conf, "w") as f:
+        f.write(TRAIN_BLOCK.format(d=d)
+                + CLI_CONF.format(out=os.path.join(d, "p.txt"), d=d))
+    tuning.save_entry(os.path.join(d, "tc.json"), "cpu",
+                      {"steps_per_dispatch": 2, "prefetch_stage": 0})
+    args = [a.replace("tc.json", os.path.join(d, "tc.json"))
+            for a in overrides]
+    if overrides[0] == "task=train":
+        outs = []
+        for tag, extra in (("a", args), ("b", ["task=train"])):
+            mdir = os.path.join(d, f"m{tag}")
+            assert port_main.main([conf, f"model_dir={mdir}",
+                                   "num_round=1"] + extra) == 0
+            with open(os.path.join(mdir, "0001.model"), "rb") as f:
+                outs.append(f.read())
+        assert outs[0] == outs[1]
+        return
+    model = os.path.join(d, "0001.model")
+    tr = NetTrainer(cfg=CLI_CONF.format(out="unused.txt", d=d),
+                    device="cpu")
+    tr.init_model()
+    with open(model, "wb") as fo:
+        tr.save_model(fo)
+    outs = []
+    for tag, extra in (("a", args), ("b", ["task=pred"])):
+        out = os.path.join(d, f"{tag}.txt")
+        assert port_main.main([conf, f"model_in={model}", f"pred={out}"]
+                              + extra) == 0
+        with open(out) as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1] and len(outs[0].splitlines()) == 100
