@@ -90,7 +90,8 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    on the first run): 2 rounds with their eval lines, K1-fwd and K1-bwd
    launched, `continue = 1`, and `task = pred` (256 lines) with a pred
    block appended; (d) ResNet18.conf and kaggle_bowl/bowl.conf, 2 rounds
-   each, then kaggle_bowl/pred.conf (task = pred_raw) on bowl's model;
+   each, side by side, then kaggle_bowl/pred.conf (task = pred_raw) on
+   bowl's model;
    (e) StagedPrefetcher's tensors (pinned ring, side stream) against
    streamed staging, bitwise, for two AlexNet batches under stage_dtype
    bfloat16 and float32 and device_augment = 1; (f) ops/augment.py on
@@ -209,6 +210,22 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    `round` events; (e) tools/autotune.py over K in {1, 4} on
    MNIST_CONV.conf writes a "gpu" cache entry, the CLI takes
    steps_per_dispatch from it, and an explicit key beats it.
+16. the analysis tier and the tools (`chip_smoke.py --leg 16 OUT` runs it
+   alone), each in a process of its own under a time limit: (a) the
+   graph audit (`python -m cxxnet_tpu_torch.analysis --graph-audit`):
+   every check on the card, kernel-routing included - AlexNet.conf's
+   served bf16 b64 bucket launches K1-fwd 2, its b64 step K1-fwd 2 and
+   K1-bwd 2, the int8 bucket K3 11, seq_mnist.conf's b100 step K2-fwd,
+   K2-dq and K2-dkv 1 each, with no plain version, no SDPA and no
+   `_int_mm` - and the guard's one readback a K = 4 chunk under
+   `torch.cuda.set_sync_debug_mode`; (b) the lock audit with serve-storm
+   and native-decode (an acyclic lock-order graph, no audited lock held
+   across a card sync), and its seeded-inversion leg, which must fail;
+   (c) tools/pass_smoke.py on the card - (a), (b) and it run side by
+   side, they check and do not time - then tools/serve_http_smoke.py
+   alone (its storm bounds latency) and tools/bench_pool.py alone, in
+   this process; (d) tools/bench_attn.py --quick alone, in this process.
+   Every time of 16 stands beside the card's name and power limit.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -2395,6 +2412,7 @@ def phase_int8_cli():
             tr.save_model(fo)
         common = [conf, f"model_in={model}", f"graph_passes={INT8_PASSES}"]
         outs = {}
+        # the three children are independent: side by side
         runs = (("pred", ["pass_calibration_batches=2"],
                  "graph_passes: calibrated on 2 batch(es) from the pred "
                  "iterator"),
@@ -2404,10 +2422,16 @@ def phase_int8_cli():
                 ("pred1", ["pass_calibration_iter=pred"],
                  "graph_passes: calibrated on 1 batch(es) from the pred "
                  "iterator"))
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(len(runs)) as pool:
+            procs = {name: pool.submit(run_cli, common + [
+                f"task={'serve' if name == 'serve' else 'pred'}",
+                f"pred={os.path.join(d, name + '.txt')}"] + extra)
+                for name, extra, _ in runs}
+            procs = {name: f.result() for name, f in procs.items()}
         for name, extra, line in runs:
             out = os.path.join(d, f"{name}.txt")
-            task = "serve" if name == "serve" else "pred"
-            proc = run_cli(common + [f"task={task}", f"pred={out}"] + extra)
+            proc = procs[name]
             if line not in proc.stdout:
                 raise AssertionError(f"{name}: no `{line}` line:\n"
                                      f"{proc.stdout}")
@@ -2418,9 +2442,9 @@ def phase_int8_cli():
                 if not m or ast.literal_eval(m.group(1))["int8_mm"] == 0:
                     raise AssertionError(f"task=serve launched no K3:\n"
                                          f"{proc.stdout}")
-                say("task=serve child: " + next(
-                    ln for ln in proc.stdout.splitlines()
-                    if "kernel launches" in ln))
+                say("task=serve child (beside the two pred children): "
+                    + next(ln for ln in proc.stdout.splitlines()
+                           if "kernel launches" in ln))
         n_lines = outs["pred"].count("\n")
         if outs["pred"] != outs["serve"] or n_lines != 500 or \
                 outs["pred1"].count("\n") != 500:
@@ -2830,18 +2854,27 @@ def phase_image_cli(d: str, fmt: str):
         "classes")
 
     say("== phase 10d: ResNet18.conf and kaggle_bowl/bowl.conf + pred.conf "
-        "through the CLI ==")
+        "through the CLI, the two side by side ==")
+    from concurrent.futures import ThreadPoolExecutor
     res = os.path.join(d, "resnet18")
     os.makedirs(res)
     os.symlink(os.path.join(d, "shared", "data"), os.path.join(res, "data"))
-    cli_train_checked(os.path.join(IMAGENET_CONFS, "ResNet18.conf"), res, 2,
-                      "ResNet18.conf")
     bowl = os.path.join(d, "bowl")
-    write_image_set(bowl, "img_tr", "tr", 256, 64, 12, 31, fmt)
-    write_image_set(bowl, "img_va", "va", 128, 64, 12, 32, fmt)
-    write_image_set(bowl, "img_te", "te", 128, 64, 12, 33, fmt)
-    cli_train_checked(os.path.join(BOWL_CONFS, "bowl.conf"), bowl, 2,
-                      "bowl.conf")
+
+    def bowl_train():
+        write_image_set(bowl, "img_tr", "tr", 256, 64, 12, 31, fmt)
+        write_image_set(bowl, "img_va", "va", 128, 64, 12, 32, fmt)
+        write_image_set(bowl, "img_te", "te", 128, 64, 12, 33, fmt)
+        cli_train_checked(os.path.join(BOWL_CONFS, "bowl.conf"), bowl, 2,
+                          "bowl.conf")
+
+    with ThreadPoolExecutor(2) as pool:
+        legs = [pool.submit(cli_train_checked,
+                            os.path.join(IMAGENET_CONFS, "ResNet18.conf"),
+                            res, 2, "ResNet18.conf"),
+                pool.submit(bowl_train)]
+        for f in legs:
+            f.result()
     run_cli([os.path.join(BOWL_CONFS, "pred.conf"),
              "model_in=models/0002.model"], cwd=bowl)
     with open(os.path.join(bowl, "test.txt")) as f:
@@ -2973,7 +3006,7 @@ def phase_device_augment_vs_host(torch, d: str):
 
 
 def timed_setting(torch, tr, itr, prefetch):
-    """2 warm-up and 10 timed steps of tr.update over itr's batches (the
+    """2 warm-up and 6 timed steps of tr.update over itr's batches (the
     12 batches of one pass), then 3 profiled ones: step ms and images/s
     by the host clock (CUDA-synchronised), the device's idle share."""
     it = tr.prefetch(itr, 1) if prefetch else itr
@@ -2991,10 +3024,10 @@ def timed_setting(torch, tr, itr, prefetch):
             step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(6):
             step()
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 100.0
+        step_ms = (time.perf_counter() - t0) * 1e3 / 6
         profiled = profile_steps(torch, step, 3, strict=True)
     finally:
         if prefetch:
@@ -3004,7 +3037,7 @@ def timed_setting(torch, tr, itr, prefetch):
     return step_ms, idle
 
 
-def iterator_rate(itr, batches: int = 6) -> float:
+def iterator_rate(itr, batches: int = 4) -> float:
     """Images/s of the iterator alone (decode, augment, batch; no
     trainer) over its first `batches` batches of a pass."""
     itr.before_first()
@@ -3045,7 +3078,7 @@ def say_setting(results, label, step_ms, idle, device_ms, card,
                  f"float32); iterator alone {rate:.1f} images/s")
     idle_txt = "not measured" if idle != idle else f"{idle:.4f}"
     say(f"[{label}] step {step_ms:.3f} ms, {ips:.1f} images/s (host "
-        f"clock over 10 steps, CUDA-synchronised); device idle share "
+        f"clock over 6 steps, CUDA-synchronised); device idle share "
         f"{idle_txt} (torch.profiler, 3 steps){extra}; the pace is set by "
         f"{pace}; on {card}")
 
@@ -5526,10 +5559,168 @@ def leg_image_timing(torch, card, d, fmt):
     return phase_image_timing(torch, d, fmt, card)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the analysis tier and the tools
+# ---------------------------------------------------------------------------
+
+def tool_cmd(module: str, *args: str):
+    return [sys.executable, "-m", module, *args]
+
+
+def run_procs(cmds, timeout: float):
+    """Start every (label, argv, log path) at once, wait for all under one
+    time limit, kill what is left at the limit; returns {label: (exit
+    code or None when killed, seconds)}."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = {}
+    t0 = time.perf_counter()
+    for label, argv, log in cmds:
+        fh = open(log, "w")
+        procs[label] = (subprocess.Popen(argv, stdout=fh,
+                                         stderr=subprocess.STDOUT,
+                                         cwd=REPO, env=env), fh)
+    out = {}
+    try:
+        for label, (p, fh) in procs.items():
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                rc = p.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                rc = None
+            out[label] = (rc, time.perf_counter() - t0)
+    finally:
+        for p, fh in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            fh.close()
+    return out
+
+
+def tail(path: str, n: int = 30) -> str:
+    with open(path) as f:
+        return "".join(f.readlines()[-n:])
+
+
+def phase_analysis(torch, card, *args):
+    """16: the graph and lock audits and the tools on the card (see the
+    module docstring); returns the audits' counts and the tools' times."""
+    t16 = time.perf_counter()
+    from cxxnet_tpu_torch import kernels
+    kernels.build_all()   # built by phase 2; run as a leg, built here
+    say("== phase 16a-c: the graph audit, the lock audit (serve-storm, "
+        "native-decode, seeded inversion) and pass_smoke on the card, side "
+        "by side ==")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        rep, seeded = os.path.join(d, "audit.json"), os.path.join(
+            d, "seeded.json")
+        logs = {k: os.path.join(d, f"{k}.log")
+                for k in ("audit", "seeded", "serve_http", "pass")}
+        res = run_procs([
+            ("audit", tool_cmd("cxxnet_tpu_torch.analysis", "--dev", "cuda",
+                               "--graph-audit", "--lock-audit",
+                               "--lock-audit-scenarios",
+                               "serve-storm,native-decode", "--json", rep),
+             logs["audit"]),
+            ("seeded", tool_cmd("cxxnet_tpu_torch.analysis", "--dev", "cuda",
+                                "--lock-audit", "--lock-audit-scenarios",
+                                "prefetch-round", "--seed-inversion",
+                                "--json", seeded), logs["seeded"]),
+            ("pass", tool_cmd("cxxnet_tpu_torch.tools.pass_smoke", "--dev",
+                              "cuda", "--out", os.path.join(d, "pass")),
+             logs["pass"]),
+        ], timeout=300)
+        want = {"audit": 0, "seeded": 1, "pass": 0}
+        for label, (rc, secs) in res.items():
+            say(f"{label}: exit {rc} after {secs:.1f} s")
+        for label, (rc, secs) in res.items():
+            if rc != want[label]:
+                raise AssertionError(
+                    f"phase 16 {label}: exit code {rc}, want "
+                    f"{want[label]}:\n{tail(logs[label], 60)}")
+        with open(rep) as f:
+            report = json.load(f)
+        with open(seeded) as f:
+            seeded_rep = json.load(f)["lock_audit"]
+        audit, lock = report["audit"], report["lock_audit"]
+        bad = [c for c in audit["checks"] + lock["checks"] if not c["ok"]]
+        if bad or audit["platform"] != "gpu":
+            raise AssertionError(f"phase 16: audit checks failed: {bad}")
+        routing = [c for c in audit["checks"]
+                   if c["check"] == "kernel-routing"]
+        if len(routing) != 4:
+            raise AssertionError(f"phase 16a: {len(routing)} kernel-routing "
+                                 "checks, want 4")
+        for c in routing:
+            say(f"16a kernel-routing {c['target']}: {c['detail']}")
+        for c in audit["checks"]:
+            if c["target"].startswith("train_chunk[K=4,check_nan=1]") or \
+                    c["check"] == "float-trace-vacuity-guard":
+                say(f"16a {c['target']} {c['check']}: {c['detail']}")
+        kr = audit["counts"]["kernel_routing"]
+        say(f"16a graph audit: {len(audit['checks'])} checks passed on "
+            f"{audit['device']}, deferred {[x['target'] for x in audit['deferred']]}; "
+            f"launches read {json.dumps(kr)}")
+        if seeded_rep["cycle"] is None or seeded_rep["failed"] < 1:
+            raise AssertionError("phase 16b: the seeded inversion passed")
+        say(f"16b lock audit: {len(lock['checks'])} checks passed "
+            f"({lock['sites']} lock sites, {len(lock['edges'])} order "
+            f"edges, no lock held across a card sync, {lock['elapsed_s']} s);"
+            f" seeded inversion failed as it must: cycle "
+            f"{' -> '.join(seeded_rep['cycle'])}")
+        say("16c " + tail(logs["pass"], 1).strip())
+        say(f"16a-c took {max(s for _, s in res.values()):.1f} s; {card}")
+        say("== phase 16c: serve_http_smoke on the card, alone (its storm "
+            "bounds latency) ==")
+        (rc, secs), = run_procs([(
+            "serve_http", tool_cmd("cxxnet_tpu_torch.tools.serve_http_smoke",
+                                   "--dev", "cuda", "--out",
+                                   os.path.join(d, "http")),
+            logs["serve_http"])], timeout=240).values()
+        if rc != 0:
+            raise AssertionError(f"phase 16 serve_http: exit code {rc}:\n"
+                                 f"{tail(logs['serve_http'], 60)}")
+        say(f"16c {tail(logs['serve_http'], 1).strip()} in {secs:.1f} s; "
+            f"{card}")
+        say("== phase 16c-d: bench_pool (AlexNet's pools, b256 bfloat16) and "
+            "bench_attn --quick (K2 and SDPA, (4,8,4096,128) bfloat16), each "
+            "alone ==")
+        benches = {}
+        import contextlib
+        import io
+        from cxxnet_tpu_torch.tools import bench_attn, bench_pool
+        for label, mod, args in (
+                ("bench_pool", bench_pool, ["--steps", "20"]),
+                ("bench_attn", bench_attn, ["--quick"])):
+            # in this process (no other work on the card meanwhile): a
+            # child would add its start-up and nothing to the timings
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(args + ["--dev", "cuda"])
+            secs = time.perf_counter() - t0
+            rows = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                    if ln.startswith("{")]
+            if rc != 0 or not rows or any("error" in r for r in rows):
+                raise AssertionError(f"phase 16 {label}: exit {rc}\n"
+                                     f"{buf.getvalue()[-3000:]}")
+            for r in rows:
+                say(f"{label} {json.dumps(r)}")
+            say(f"{label}: {len(rows)} lines in {secs:.1f} s; {card}")
+            benches[label] = rows
+    secs = time.perf_counter() - t16
+    say(f"phase 16 took {secs:.1f} s")
+    return {"kernel_routing": kr, "benches": benches, "secs": secs,
+            "audit_checks": len(audit["checks"]),
+            "lock_checks": len(lock["checks"])}
+
+
 LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "11b": phase_googlenet_step, "11d": phase_stack_moe,
         "12": phase_front, "13": phase_surface, "14": phase_native,
-        "15": phase_dispatch}
+        "15": phase_dispatch, "16": phase_analysis}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
@@ -5652,6 +5843,7 @@ def main() -> int:
                       + front["http"]["lrn_fwd"])
     front_batches = (front["in_process"]["batches"]
                      + front["http"]["batches"])
+    analysis = phase_analysis(torch, card)
 
     # the kernels line: the LRN's two launches of one served AlexNet
     # batch (b64, bfloat16), warm L2, summed - the main path's unit
@@ -5825,6 +6017,11 @@ def main() -> int:
         "wrapper": {k: v for k, v in surface["wrapper"].items()
                     if k != "launches"},
         "capi_images_s": surface["capi"]["images_s"]}))
+    say("phase 16 summary " + json.dumps({
+        "kernel_routing": analysis["kernel_routing"],
+        "audit_checks": analysis["audit_checks"],
+        "lock_checks": analysis["lock_checks"],
+        "secs": analysis["secs"]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({

@@ -82,11 +82,28 @@ class RetryIterator(DataIter):
         self.inner.init()
 
     def _build(self) -> None:
-        from cxxnet_tpu_torch.utils.fault import retry
+        from cxxnet_tpu_torch import telemetry
+        from cxxnet_tpu_torch.utils.fault import (
+            default_on_retry, fault_point, retry)
+
+        def notify(fn, attempt, total, exc, sleep_s):
+            # io-scoped retry count beside the global fault.retry
+            telemetry.inc("io.retry")
+            default_on_retry(fn, attempt, total, exc, sleep_s)
+
         deco = retry(attempts=self.attempts, backoff=self.backoff,
-                     retry_on=(OSError,))
-        self._next = deco(self.inner.next)
-        self._bf = deco(self.inner.before_first)
+                     retry_on=(OSError,), on_retry=notify)
+
+        def raw_next():
+            fault_point("io.next")
+            return self.inner.next()
+
+        def raw_before_first():
+            fault_point("io.before_first")
+            self.inner.before_first()
+
+        self._next = deco(raw_next)
+        self._bf = deco(raw_before_first)
 
     def before_first(self) -> None:
         if self._bf is None:

@@ -228,6 +228,7 @@ class StagedPrefetcher:
                 continue
         return False
 
+    # graftlint: hot-path (the staging worker: no host syncs here)
     def _run(self) -> None:
         try:
             pending = []

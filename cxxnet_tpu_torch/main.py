@@ -100,6 +100,24 @@ _NOT_PORTED = {
 }
 
 
+def _eval_values(text: str) -> dict:
+    """Parse a reference-format eval string ('\\tname-metric:value'
+    repeated) into {name-metric: float} for structured eval events.
+    Unparseable tokens are skipped - the event is best-effort, the
+    stderr text is the ground truth."""
+    out = {}
+    for tok in text.split("\t"):
+        tok = tok.strip()
+        if not tok or ":" not in tok:
+            continue
+        key, _, val = tok.rpartition(":")
+        try:
+            out[key] = float(val)
+        except ValueError:
+            continue
+    return out
+
+
 class LearnTask:
     def __init__(self) -> None:
         self.task = "train"
@@ -665,7 +683,9 @@ class LearnTask:
             line = "".join(self.net_trainer.evaluate(it, name)
                            for it, name in zip(self.itr_evals,
                                                self.eval_names))
-            sys.stderr.write(line + "\n")
+            telemetry.stderr(line + "\n", event_kind="eval",
+                             round=self.start_counter - 1,
+                             values=_eval_values(line))
             sys.stderr.flush()
         if self.itr_train is None:
             return
@@ -769,7 +789,10 @@ class LearnTask:
                     line += tr.eval_train_metric()
                 for it, name in zip(self.itr_evals, self.eval_names):
                     line += tr.evaluate(it, name)
-                sys.stderr.write(line + "\n")
+                # the mirrored event carries the parsed values
+                telemetry.stderr(line + "\n", event_kind="eval",
+                                 round=self.start_counter,
+                                 values=_eval_values(line))
                 sys.stderr.flush()
             self._save_model()
             if stats is not None:
@@ -979,6 +1002,9 @@ class LearnTask:
             f"{stats['padding_rows']} padding rows over "
             f"{stats['batches']} batches, kernel launches "
             f"{kernels.launches()}\n")
+        telemetry.event("serve", op="summary", secs=dt, qps=qps, **{
+            k: v for k, v in stats.items() if not isinstance(v, dict)})
+        telemetry.emit_metrics(kind="serve")
         sys.stdout.write(f"finished serving, write into {self.name_pred}\n")
 
     def task_extract_feature(self) -> None:

@@ -125,6 +125,7 @@ from cxxnet_tpu_torch.updater import (UpdaterParam, create_updater,
 from cxxnet_tpu_torch.utils.config import check_ported, parse_config_string
 from cxxnet_tpu_torch.utils.device import (
     DEFAULT_DEVICE, device_from_spec, resolve_device)
+from cxxnet_tpu_torch.utils import fault
 from cxxnet_tpu_torch.utils.fault import DivergenceError
 from cxxnet_tpu_torch.utils.metric import MetricSet, format_metrics
 
@@ -379,7 +380,8 @@ class NetTrainer:
         self.updaters: Dict[str, Dict[str, Any]] = {}
         self._accum: Optional[Params] = None   # update_period > 1
         self._count = 0       # steps accumulated toward the next update
-        self._tmetric: Optional[torch.Tensor] = None  # (n, 2) float64
+        # (n, 3) float32: Kahan sum, its compensation, count
+        self._tmetric: Optional[torch.Tensor] = None
         self._loaded_opt = None
         self._cparams: Optional[Params] = None
         # bumped on every weight change: InferGraph's params cache key
@@ -1006,7 +1008,16 @@ class NetTrainer:
     def stage_batch(self, batch: DataBatch, ring=None) -> StagedBatch:
         """Stage a training batch (see _stage) for update(). The staging
         is the streamed step's own, so a staged update is
-        trajectory-identical to a streamed one."""
+        trajectory-identical to a streamed one. Fault point
+        `stage_batch`: `delay` stalls the staging (the watchdog's stall),
+        `corrupt` NaN-poisons the batch (the divergence guard must drop
+        the step)."""
+        if fault.fault_point("stage_batch") == "corrupt":
+            batch = DataBatch(
+                data=np.full(np.shape(batch.data), np.nan, np.float32),
+                label=batch.label, inst_index=batch.inst_index,
+                num_batch_padd=batch.num_batch_padd,
+                extra_data=batch.extra_data)
         return self._stage(batch, train=True, ring=ring)
 
     def stage_chunk(self, batches: Sequence, ring=None) -> StagedChunk:
@@ -1134,6 +1145,7 @@ class NetTrainer:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
+    # graftlint: hot-path
     def update(self, batch,
                keep: Optional[Dict[int, Any]] = None) -> torch.Tensor:
         """One training mini-batch (CXXNetThreadTrainer::Update): a
@@ -1158,6 +1170,7 @@ class NetTrainer:
             batch = self.stage_batch(batch)
         self._await(batch)
         if keep is not None:
+            # graftlint: disable=GL002 injected draws are host arrays going TO the device, not a readback
             keep = {i: torch.from_numpy(np.asarray(k)).to(self.device)
                     for i, k in keep.items()}
         step = self._step_counter
@@ -1200,6 +1213,7 @@ class NetTrainer:
                           examples=batch.n_examples)
         return loss
 
+    # graftlint: hot-path
     def update_chunk(self, chunk) -> torch.Tensor:
         """K training microsteps as one fused update (steps_per_dispatch
         = K): a StagedChunk, or a sequence of DataBatch / StagedBatch
@@ -1251,6 +1265,7 @@ class NetTrainer:
                 self.profiler.add_chunk(chunk_s, k, n_examples)
             if self._tel_steps:
                 tel = telemetry.get()
+                # graftlint: disable=GL002 per-chunk loss readback, gated by telemetry_steps=1
                 loss_v = losses.double().cpu().numpy()
                 for _ in range(k):
                     # per-step amortised times keep the histograms on a
@@ -1267,6 +1282,7 @@ class NetTrainer:
                           examples=n_examples)
         return losses
 
+    # graftlint: hot-path
     def _microsteps(self, batches: List[StagedBatch], first: int, keep):
         """Run staged microsteps `first`, `first` + 1, ...; returns
         (their losses, the finite flags read back as a numpy bool array
@@ -1278,10 +1294,12 @@ class NetTrainer:
         losses = [self._micro(b, first + i, keep, dc)
                   for i, b in enumerate(batches)]
         # the guard's one readback (the sync check_nan = 1 costs)
+        # graftlint: disable=GL002 ONE guard readback per update or K-step chunk - the fused dispatch's whole point
         fin = torch.stack(dc.finite).cpu().numpy()
         self.guard_readbacks += 1
         return losses, fin
 
+    # graftlint: hot-path
     def _micro(self, batch: StagedBatch, step: int, keep,
                dc: Optional[_DeviceCounters]) -> torch.Tensor:
         """One microstep: forward, backward, accumulate, update every
@@ -1330,7 +1348,7 @@ class NetTrainer:
         if self.eval_train and len(self.train_metric):
             with torch.no_grad():
                 rows = self._metric_rows(self.train_metric, values, labels,
-                                         mask, seed, step, 1000).double()
+                                         mask, seed, step, 1000)
         loss = loss.detach()
         if dc is None:
             self._commit(gtree, rows)
@@ -1360,7 +1378,7 @@ class NetTrainer:
             self.epoch += 1
             self._weights_changed()
         if rows is not None:
-            self._tmetric += rows
+            self._tmetric.copy_(self._tmetric_add(rows))
 
     @torch.no_grad()
     def _commit_guarded(self, loss, gtree, rows,
@@ -1408,9 +1426,20 @@ class NetTrainer:
                                    dc.count)
         dc.epoch = torch.where(take, dc.epoch + 1, dc.epoch)
         if rows is not None:
-            self._tmetric.copy_(torch.where(ok, self._tmetric + rows,
+            self._tmetric.copy_(torch.where(ok, self._tmetric_add(rows),
                                             self._tmetric))
         dc.finite.append(ok)
+
+    def _tmetric_add(self, rows: torch.Tensor) -> torch.Tensor:
+        """The train-metric accumulator after one step's (sum, count)
+        rows: a Kahan-compensated float32 sum in column 0 (its
+        compensation in 1) and the count in 2, as the JAX train step
+        keeps it - no float64 on the device."""
+        t = self._tmetric
+        s, comp, cnt = t[:, 0], t[:, 1], t[:, 2]
+        y = rows[:, 0] - comp
+        tot = s + y
+        return torch.stack([tot, (tot - s) - y, cnt + rows[:, 1]], dim=1)
 
     def _walk_guard(self, fin, first: int) -> None:
         """After guarded microsteps: move the host's counters as the
@@ -1525,40 +1554,52 @@ class NetTrainer:
         params = self.compute_params()
         while data_iter.next():
             staged = self._stage(data_iter.value(), train=False)
-            labels, mask = staged.labels, staged.mask
-            gdata = staged.data
-            with self._flight_record(
-                    ("eval_step", tuple(gdata.shape)), kind="eval",
-                    name=f"eval_step@b{gdata.shape[0]}",
-                    shape=gdata.shape,
-                    nbytes=gdata.numel() * gdata.element_size()), \
-                    torch.inference_mode():
-                values = self.net(params, self._model_input(gdata),
-                                  extras=staged.extras)[0]
-                rows.append(self._metric_rows(self.metric, values, labels,
-                                              mask, self.seed + 200, step,
-                                              2000))
+            rows.append(self.eval_rows(staged, params, step))
             telemetry.beacon("eval.step")
             step += 1
         if not rows:
             vals = np.zeros((len(specs), 2))
         else:
-            vals = torch.stack(rows).double().sum(0).cpu().numpy()
+            # float32 rows read back once; the cross-batch sum in
+            # float64 on the host, as the JAX trainer reduces them
+            vals = torch.stack(rows).cpu().numpy().astype(np.float64).sum(0)
         return format_metrics(data_name, specs, vals)
+
+    def eval_rows(self, staged: StagedBatch, params: Params,
+                  step: int = 0) -> torch.Tensor:
+        """One evaluation batch's (n_metrics, 2) float32 metric rows on
+        the device - evaluate's per-batch step: the forward of a batch
+        staged for evaluation (`_stage(batch, train=False)`) with
+        compute params (compute_params()), then the metric rows, the
+        tie-breaks drawn from stream (seed + 200, step, 2000 + i)."""
+        gdata = staged.data
+        with self._flight_record(
+                ("eval_step", tuple(gdata.shape)), kind="eval",
+                name=f"eval_step@b{gdata.shape[0]}",
+                shape=gdata.shape,
+                nbytes=gdata.numel() * gdata.element_size()), \
+                torch.inference_mode():
+            values = self.net(params, self._model_input(gdata),
+                              extras=staged.extras)[0]
+            return self._metric_rows(self.metric, values, staged.labels,
+                                     staged.mask, self.seed + 200, step,
+                                     2000)
 
     def eval_train_metric(self) -> str:
         """The round's train metrics (`\\ttrain-metric:value...`), then
         the accumulator is cleared."""
         if not len(self.train_metric) or self._tmetric is None:
             return ""
-        out = format_metrics("train", self.train_metric.specs,
-                             self._tmetric.cpu().numpy())
+        acc = self._tmetric.cpu().numpy()
+        # resolve the Kahan pair: true sum ~= sum - comp
+        vals = np.stack([acc[:, 0] - acc[:, 1], acc[:, 2]], axis=1)
+        out = format_metrics("train", self.train_metric.specs, vals)
         self.clear_train_metric()
         return out
 
     def clear_train_metric(self) -> None:
-        self._tmetric = torch.zeros((len(self.train_metric), 2),
-                                    dtype=torch.float64, device=self.device)
+        self._tmetric = torch.zeros((len(self.train_metric), 3),
+                                    dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------
     # inference
@@ -1756,6 +1797,9 @@ class NetTrainer:
                 for q in qsites}
         self._fold_epoch += 1
         self._evict_stale_infer_caches()
+        telemetry.event("graph_passes", op="calibrate",
+                        sites=sorted(self._fold_stats or {}),
+                        quant_sites=sorted(self._quant_stats or {}))
         return True
 
     def _calibrate_batches(self, batches: List[DataBatch]) -> bool:
@@ -1814,6 +1858,10 @@ class NetTrainer:
                                  for k in q_batch[0]}
         self._fold_epoch += 1
         self._evict_stale_infer_caches()
+        telemetry.event("graph_passes", op="calibrate",
+                        sites=sorted(self._fold_stats or {}),
+                        quant_sites=sorted(self._quant_stats or {}),
+                        batches=len(batches))
         return True
 
     def calibration(self) -> Tuple[Optional[Dict[str, Any]],

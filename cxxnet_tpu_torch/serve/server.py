@@ -338,6 +338,7 @@ class _Lane:
                            for d in extra_dims] if self.cuda else [])
         self._out: Optional[torch.Tensor] = None
 
+    # graftlint: hot-path
     def run(self, graph, cparams, data: np.ndarray,
             extras: Sequence[np.ndarray] = ()) -> np.ndarray:
         """(n, width) float32 rows of `graph` on `data` (and its extra
@@ -347,6 +348,7 @@ class _Lane:
         if not self.cuda:
             out = graph.run(cparams, tr.stage_infer_rows(data),
                             tr.stage_extras(extras))
+            # graftlint: disable=GL002 the CPU lane's rows are the batch's answer
             return out.reshape(n, -1).numpy()
         arr = tr._host_rows(data)
         dt = tr._staged_dtype(arr)
@@ -379,8 +381,10 @@ class _Lane:
             pout[:n].copy_(out, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(self.stream)
+        # graftlint: disable=GL002 the lane's one wait a batch: its rows answer the futures
         ready.synchronize()
         # copied out: the next batch reuses the buffer
+        # graftlint: disable=GL002 a view of pinned host memory the event above made complete
         return pout[:n].numpy().copy()
 
 
@@ -988,6 +992,7 @@ class Server:
             telemetry.set_gauge("serve.queue_depth", self._queued_rows)
             return items
 
+    # graftlint: hot-path
     def _run_batch(self, items: List[_WorkItem], lane: _Lane) -> None:
         total = sum(it.n for it in items)
         bucket = next(b for b in self.buckets if b >= total)

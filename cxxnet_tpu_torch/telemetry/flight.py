@@ -77,6 +77,7 @@ class Flight:
         self.tid = threading.current_thread().name
         self.t0 = time.monotonic()
         self.t1: Optional[float] = None
+        # graftlint: disable=GL004 wall TIMESTAMP by design - flight tails merge with the ts-stamped JSONL streams
         self.ts0 = time.time()
         self.fields = fields
 
@@ -287,6 +288,7 @@ class ExecutableRegistry:
             e["dispatches"] += 1
             if secs is not None:
                 e["dispatch_s"] = round(e["dispatch_s"] + secs, 6)
+            # graftlint: disable=GL004 wall TIMESTAMP by design - last_used_ts merges with the ts-stamped streams
             e["last_used_ts"] = round(time.time(), 3)
 
     def enrich(self, fp: str, fn, args) -> None:

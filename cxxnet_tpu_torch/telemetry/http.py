@@ -330,7 +330,16 @@ class IngressLimits:
             }
 
 
-class _IngressServer(ThreadingHTTPServer):
+class _Listener(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a listen backlog of 128. At socketserver's
+    default of 5 a burst of new connections overflows the backlog: the
+    kernel drops their SYNs and each such client waits out its 1 s SYN
+    retransmit before it is even accepted."""
+
+    request_queue_size = 128
+
+
+class _IngressServer(_Listener):
     """ThreadingHTTPServer with the accept gate: when max_conns
     handler threads are live, a new connection gets a raw 503 +
     Retry-After ON THE ACCEPT PATH - no handler thread is spawned
@@ -557,7 +566,7 @@ class ObservabilityServer:
                                        limits)
         else:
             # unarmed parity: the exact pre-hardening server class
-            self._srv = ThreadingHTTPServer((host, int(port)), handler)
+            self._srv = _Listener((host, int(port)), handler)
             self._srv.daemon_threads = True
         self.port: int = self._srv.server_address[1]
         self.host = host

@@ -4,10 +4,10 @@ SAME training run (the port's copy of cxxnet_tpu/tools/fused_smoke.py).
     python -m cxxnet_tpu_torch.tools.fused_smoke [--out DIR] [--keep]
         [--dev DEV] [--conf CONF] [--train-n N] [k=v ...]
 
-Trains twice through the port's CLI (`python -m cxxnet_tpu_torch.main`)
-- once streamed (steps_per_dispatch = 1), once fused (= 4, through the
-chunked staging prefetcher and the round-boundary short chunk) - with
-telemetry armed, then checks:
+Trains twice through the port's CLI (`python -m cxxnet_tpu_torch.main`),
+the two runs side by side - once streamed (steps_per_dispatch = 1), once
+fused (= 4, through the chunked staging prefetcher and the
+round-boundary short chunk) - with telemetry armed, then checks:
 
 - identical final checkpoint SHA-256;
 - identical per-round eval lines on stderr;
@@ -41,6 +41,8 @@ import tempfile
 from typing import Dict, List
 
 import numpy as np
+
+from cxxnet_tpu_torch.tools.telemetry_smoke import write_synth_mnist
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -78,20 +80,6 @@ eta = 0.3
 metric = error
 eval_train = 1
 """
-
-
-def write_synth_mnist(dirname: str, n: int, seed: int,
-                      prefix: str) -> None:
-    """Separable 3-class idx-format set of 6 x 6 images: the class sets
-    the mean intensity."""
-    rng = np.random.RandomState(seed)
-    labels = rng.randint(0, 3, size=n).astype(np.uint8)
-    images = np.zeros((n, 6, 6), dtype=np.uint8)
-    for i, y in enumerate(labels):
-        images[i] = np.clip(rng.randn(6, 6) * 10 + 40 + 80 * int(y), 0,
-                            255)
-    _write_idx(dirname, f"{prefix}-img.gz", f"{prefix}-lbl.gz", images,
-               labels)
 
 
 def write_digits(dirname: str, n: int, seed: int, prefix: str) -> None:
@@ -182,8 +170,12 @@ def run_smoke(out_dir: str, dev: str = "", conf: str = "",
         path = os.path.join(out_dir, "fused_smoke.conf")
         with open(path, "w") as f:
             f.write(CONF.format(d=out_dir))
-    streamed = _run_cli(out_dir, path, "k1", 1, extra)
-    fused = _run_cli(out_dir, path, "k4", 4, extra)
+    # the two runs share nothing but their inputs: side by side
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        runs = [pool.submit(_run_cli, out_dir, path, tag, k, extra)
+                for tag, k in (("k1", 1), ("k4", 4))]
+        streamed, fused = (f.result() for f in runs)
     steps = _round_steps(read_events(streamed["log"]), "train.step")
     chunks = _round_steps(read_events(fused["log"]), "train.chunk")
     flat = [c for r in sorted(chunks) for c in chunks[r]]

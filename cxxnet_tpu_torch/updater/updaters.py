@@ -64,15 +64,19 @@ class Updater:
         the inputs are left as they are."""
         raise NotImplementedError
 
+    def update_(self, state: State, w: torch.Tensor, grad: torch.Tensor,
+                sched) -> None:
+        """`step` computed in place: `w` and `state` are overwritten with
+        (w', state') - the same arithmetic, op for op, so the same bits -
+        with no param-sized copy."""
+        raise NotImplementedError
+
     @torch.no_grad()
     def apply(self, state: State, w: torch.Tensor, grad: torch.Tensor,
               epoch: int) -> None:
         """One update of `w` and `state` in place from `grad` at update
         count `epoch`."""
-        w_new, new = self.step(state, w, grad, self.sched(epoch))
-        w.copy_(w_new)
-        for k, t in new.items():
-            state[k].copy_(t)
+        self.update_(state, w, grad, self.sched(epoch))
 
 
 def schedule_table(updaters, e0: int, n: int) -> np.ndarray:
@@ -105,6 +109,18 @@ class SGDUpdater(Updater):
         m = mom * state["m"] - lr * (grad + p.wd * w)
         return w + m, {"m": m}
 
+    @torch.no_grad()
+    def update_(self, state, w, grad, sched):
+        p = self.param
+        lr, mom = sched[0], sched[1]
+        if p.clip_gradient != 0.0:
+            grad = _clip_nan(grad, p.clip_gradient)
+        d = grad + p.wd * w
+        d.mul_(lr)
+        m = state["m"]
+        m.mul_(mom).sub_(d)
+        w.add_(m)
+
 
 class NAGUpdater(Updater):
     kind = "nag"
@@ -122,6 +138,19 @@ class NAGUpdater(Updater):
         m_old = state["m"]
         m = mom * m_old - lr * (grad + p.wd * w)
         return w + ((1.0 + mom) * m - mom * m_old), {"m": m}
+
+    @torch.no_grad()
+    def update_(self, state, w, grad, sched):
+        p = self.param
+        lr, mom = sched[0], sched[1]
+        m = state["m"]
+        v = mom * m
+        d = grad + p.wd * w
+        d.mul_(lr)
+        torch.sub(v, d, out=m)
+        u = (1.0 + mom) * m
+        u.sub_(v)
+        w.add_(u)
 
 
 class AdamUpdater(Updater):
@@ -153,6 +182,25 @@ class AdamUpdater(Updater):
         m2 = m2 + self.decay2 * (grad * grad - m2)
         w_new = w - sched[0] * (m1 / (torch.sqrt(m2) + 1e-8))
         return w_new, {"m1": m1, "m2": m2}
+
+    @torch.no_grad()
+    def update_(self, state, w, grad, sched):
+        p = self.param
+        if p.wd > 0.0:
+            grad = grad - p.wd * w
+        m1, m2 = state["m1"], state["m2"]
+        t = grad - m1
+        t.mul_(self.decay1)
+        m1.add_(t)
+        t = grad * grad
+        t.sub_(m2)
+        t.mul_(self.decay2)
+        m2.add_(t)
+        s = torch.sqrt(m2)
+        s.add_(1e-8)
+        q = m1 / s
+        q.mul_(sched[0])
+        w.sub_(q)
 
 
 _UPDATERS = {"sgd": SGDUpdater, "nag": NAGUpdater, "adam": AdamUpdater}

@@ -42,11 +42,20 @@ class DivergenceError(RuntimeError):
 
 
 def default_on_retry(fn, attempt, total, exc, sleep_s):
-    """Per-retry notification on stderr (the JAX package's text)."""
-    sys.stderr.write(
+    """Per-retry notification: the JAX package's stderr text, routed
+    through the telemetry plane (a structured ``fault`` event when a sink
+    is armed) plus a ``fault.retry`` counter, so retry storms are
+    countable."""
+    from cxxnet_tpu_torch import telemetry
+    telemetry.inc("fault.retry")
+    telemetry.stderr(
         f"retry: {getattr(fn, '__qualname__', fn)} failed "
         f"(attempt {attempt}/{total}: {type(exc).__name__}: {exc}); "
-        f"retrying in {sleep_s:.2f}s\n")
+        f"retrying in {sleep_s:.2f}s\n",
+        event_kind="fault", type="retry",
+        fn=str(getattr(fn, "__qualname__", fn)), attempt=attempt,
+        attempts=total, error=f"{type(exc).__name__}: {exc}",
+        sleep_s=sleep_s)
 
 
 def retry(attempts: int = 3, backoff: float = 0.05, jitter: float = 0.05,

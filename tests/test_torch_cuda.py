@@ -1692,3 +1692,59 @@ print(tr.profile_summary())
                  if e.get("cat") == "kernel"]
     assert any("lrn_fwd" in n for n in names), sorted(set(names))[:20]
     assert any("lrn_bwd" in n for n in names)
+
+
+# ---------------------------------------------------------------------------
+# the analysis tier on the card (analysis/graph_audit.py, lock_audit.py)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def routing_checks():
+    """The graph audit's kernel-routing targets, run once on the card."""
+    from cxxnet_tpu_torch.analysis import graph_audit as GA
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    checks = []
+    counts = GA._kernel_routing(torch.device("cuda:0"), checks)
+    return checks, counts
+
+
+@pytest.mark.parametrize("target", [
+    "alexnet serve[b=64] bf16", "alexnet train_step[b=64] bf16",
+    "alexnet int8 serve[b=64]", "seq_mnist train_step[b=100]"])
+def test_graph_audit_kernel_routing(cuda_device, routing_checks, target):
+    """Each main path launches its hand-written kernels (K1-fwd 2 a
+    bucket; K1-fwd 2 and K1-bwd 2 a step; K3 11 an int8 bucket; K2-fwd,
+    dq, dkv 1 each a seq_mnist step), no plain version, no SDPA and no
+    _int_mm."""
+    checks, _ = routing_checks
+    hits = [c for c in checks
+            if c["target"] == target and c["check"] == "kernel-routing"]
+    assert len(hits) == 1 and hits[0]["ok"], hits
+
+
+def test_graph_audit_int8_vacuity_guard(cuda_device, routing_checks):
+    checks, counts = routing_checks
+    guard = [c for c in checks if c["check"] == "float-trace-vacuity-guard"]
+    assert guard and guard[0]["ok"], guard
+    assert counts["alexnet_int8"]["int8_mm"] == 11
+
+
+def test_graph_audit_one_readback_a_chunk_under_sync_debug(cuda_device):
+    """The train targets on the card under torch.cuda.set_sync_debug_mode:
+    no sync at all in a step or a chunk under check_nan = 0 ("error"),
+    exactly one (the guard's) in a K = 4 chunk under check_nan = 1."""
+    from cxxnet_tpu_torch.analysis import graph_audit as GA
+    checks = []
+    GA._train_targets(torch.device("cuda:0"), checks)
+    bad = [c for c in checks if not c["ok"]]
+    assert bad == []
+    one = [c for c in checks if c["target"] == "train_chunk[K=4,check_nan=1]"
+           and c["check"] == "no-host-sync"]
+    assert one and "1 sync warning" in one[0]["detail"]
+
+
+def test_lock_audit_serve_storm_on_the_card(cuda_device):
+    from cxxnet_tpu_torch.analysis.lock_audit import run_lock_audit
+    rep = run_lock_audit(scenarios=("serve-storm",), device="cuda:0")
+    assert rep["failed"] == 0, [c for c in rep["checks"] if not c["ok"]]
+    assert rep["cycle"] is None and not rep["boundary_violations"]

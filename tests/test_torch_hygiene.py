@@ -23,6 +23,21 @@ PKG = os.path.dirname(os.path.abspath(cxxnet_tpu_torch.__file__))
 REPO = os.path.dirname(PKG)
 
 
+# the analysis tier and the tools ported with it
+ANALYSIS_AND_TOOLS = (
+    "analysis", "analysis.astlint", "analysis.graph_audit",
+    "analysis.lock_audit", "analysis.__main__", "tools.common",
+    "tools.agg", "tools.metrics_report", "tools.trace_export",
+    "tools.digits_to_idx", "tools.telemetry_smoke", "tools.trace_smoke",
+    "tools.obs_smoke", "tools.serve_smoke", "tools.serve_http_smoke",
+    "tools.canary_smoke", "tools.pass_smoke", "tools.bench_attn",
+    "tools.bench_pool")
+# the entry points among them that run on a device
+DEVICE_TOOLS = ("telemetry_smoke", "trace_smoke", "obs_smoke",
+                "serve_smoke", "serve_http_smoke", "canary_smoke",
+                "pass_smoke", "bench_attn", "bench_pool")
+
+
 def _modules():
     for root, _, files in os.walk(PKG):
         for f in sorted(files):
@@ -34,7 +49,8 @@ def _modules():
 def test_import_everything_pulls_no_jax_and_no_cxxnet_tpu():
     mods = sorted(set(_modules()))
     for m in ("ops.lrn", "utils.profiler", "nnet.tuning",
-              "tools.fused_smoke", "tools.profile_step", "tools.autotune"):
+              "tools.fused_smoke", "tools.profile_step", "tools.autotune",
+              *ANALYSIS_AND_TOOLS):
         assert f"cxxnet_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -103,6 +119,29 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with Server(tr, max_batch=2, device="cpu") as srv:
         assert srv.submit(torch.zeros(3, 35, 35).numpy()).result(
             timeout=60).shape == (1, 10)
+
+
+@pytest.mark.parametrize("tool", DEVICE_TOOLS)
+def test_tools_default_to_the_card(monkeypatch, tmp_path, tool):
+    """Every new tool runs on the card unless asked for the CPU: with no
+    card its entry point raises and names `--dev cpu`, before it writes
+    anything."""
+    import importlib
+    mod = importlib.import_module(f"cxxnet_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    args = ([] if tool.startswith("bench") else ["--out", str(out)])
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        mod.main(args)
+    assert not out.exists() or not any(out.iterdir())
+
+
+@pytest.mark.parametrize("flag", ["--graph-audit", "--lock-audit"])
+def test_audits_default_to_the_card(monkeypatch, flag):
+    from cxxnet_tpu_torch.analysis.__main__ import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--dev cpu"):
+        main([flag])
 
 
 def test_dev_conf_key_picks_the_device():
