@@ -226,6 +226,24 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    alone (its storm bounds latency) and tools/bench_pool.py alone, in
    this process; (d) tools/bench_attn.py --quick alone, in this process.
    Every time of 16 stands beside the card's name and power limit.
+17. data parallelism, two ranks sharing the one card over gloo
+   (`chip_smoke.py --leg 17 OUT` runs it alone): (a)
+   examples/MNIST/dist.conf, unedited (param_server = dist, mesh =
+   data:2, update_on_server = 1: ZeRO-1), under tools/launch_dist -n 2
+   with num_round = 2, dev = gpu:0 and test_on_server = 1, beside the
+   same job with dev = cpu: the round lines and rank 0's last checkpoint
+   held to the CPU's; (b) AlexNet.conf at full width, global batch 256
+   (128 a rank), 3 steps a leg in two spawned workers (`--leg 17w`) at
+   update_on_server = 0 and 1: the float32 legs replay the one-process
+   b256 run's decisions (ops/routing.py) and hold each update within
+   UPDATE_BAR of its norm, the bfloat16 legs hold the global loss to the
+   one-process run's; K1-fwd / K1-bwd 2 / 2 a step on each rank, no plain
+   version, no F.local_response_norm; the updater state each rank holds
+   (ZeRO-1 halves the cut weights'), a step's time, the all-reduce's
+   and, at update_on_server = 1, ZeRO-1's all-gather's, as two ranks
+   sharing one card; (c) seq_mnist.conf as two ranks, K2
+   1-1-1 a step on each, no SDPA. Each worker prints its counts and
+   verdicts on one `dp-result` line the phase reads.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -243,6 +261,7 @@ import shutil
 import struct
 import subprocess
 import sys
+import threading
 import tempfile
 import threading
 import time
@@ -299,9 +318,63 @@ SEQ_ATTN_SHAPE = (100, 4, 28, 7)
 MEASURE_ATTN_SHAPE = (4, 8, 4096, 128)
 
 
+_T0 = time.monotonic()
+# the lines of a phase run by side_by_side, kept until it ends
+_HELD = threading.local()
+
+
 def say(line: str) -> None:
+    """One line of the report; a phase's header carries the seconds since
+    this process started."""
+    if line.startswith("== "):
+        line += f" [t = {time.monotonic() - _T0:.0f} s]"
+    _emit(line)
+
+
+def _emit(line: str) -> None:
+    held = getattr(_HELD, "lines", None)
+    if held is not None:
+        held.append(line)
+        return
     sys.stdout.write(line + "\n")
     sys.stdout.flush()
+
+
+def side_by_side(*fns):
+    """Run the phases `fns` at once, each on a thread of its own: phases
+    that check and time nothing (CLI children, mostly), so the card and
+    the host's cores carry them together. Each phase's lines are printed
+    whole, in the order given, when all have ended; the first failure is
+    raised then. Returns their results in order."""
+    results = [None] * len(fns)
+    errors = [None] * len(fns)
+    lines = [[] for _ in fns]
+
+    def run(i):
+        _HELD.lines = lines[i]
+        try:
+            results[i] = fns[i]()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors[i] = e
+        finally:
+            _HELD.lines = None
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,)) for i in
+               range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for held in lines:
+        for ln in held:
+            _emit(ln)
+    say(f"({len(fns)} phases side by side took "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for e in errors:
+        if e is not None:
+            raise e
+    return results
 
 
 def card_line() -> str:
@@ -2806,12 +2879,11 @@ def replay_host_draws(torch, seed, n, yy_max, xx_max, rand_crop,
             "illumination": torch.tensor(ill, dtype=torch.float64)}
 
 
-def phase_image_cli(d: str, fmt: str):
-    """(c) and (d): AlexNet.conf, ResNet18.conf and bowl.conf through the
-    CLI on their own imgbin data, each in a directory of its own whose
-    ./data/ links to the shared set (the confs' relative paths resolve
-    unedited). Returns AlexNet's kernel launches."""
-    import numpy as np
+def phase_alexnet_cli(d: str):
+    """(c): AlexNet.conf through the CLI on its own imgbin data, in a
+    directory of its own whose ./data/ links to the shared set (the
+    conf's relative paths resolve unedited): 2 rounds, continue = 1,
+    task = pred. Returns its kernel launches."""
     say("== phase 10c: examples/ImageNet/AlexNet.conf through the CLI on "
         "imgbin data (b256, bfloat16, full width) ==")
     alex = os.path.join(d, "alexnet")
@@ -2852,10 +2924,15 @@ def phase_image_cli(d: str, fmt: str):
         raise AssertionError(f"task=pred wrote {len(preds)} lines")
     say(f"task=pred: {len(preds)} lines, {len(set(preds))} distinct "
         "classes")
+    return counts
 
+
+def phase_image_confs_cli(d: str, fmt: str) -> None:
+    """(d): ResNet18.conf and bowl.conf + pred.conf through the CLI, as
+    (c) does AlexNet.conf."""
+    import numpy as np
     say("== phase 10d: ResNet18.conf and kaggle_bowl/bowl.conf + pred.conf "
         "through the CLI, the two side by side ==")
-    from concurrent.futures import ThreadPoolExecutor
     res = os.path.join(d, "resnet18")
     os.makedirs(res)
     os.symlink(os.path.join(d, "shared", "data"), os.path.join(res, "data"))
@@ -2868,13 +2945,9 @@ def phase_image_cli(d: str, fmt: str):
         cli_train_checked(os.path.join(BOWL_CONFS, "bowl.conf"), bowl, 2,
                           "bowl.conf")
 
-    with ThreadPoolExecutor(2) as pool:
-        legs = [pool.submit(cli_train_checked,
-                            os.path.join(IMAGENET_CONFS, "ResNet18.conf"),
-                            res, 2, "ResNet18.conf"),
-                pool.submit(bowl_train)]
-        for f in legs:
-            f.result()
+    side_by_side(lambda: cli_train_checked(
+        os.path.join(IMAGENET_CONFS, "ResNet18.conf"), res, 2,
+        "ResNet18.conf"), bowl_train)
     run_cli([os.path.join(BOWL_CONFS, "pred.conf"),
              "model_in=models/0002.model"], cwd=bowl)
     with open(os.path.join(bowl, "test.txt")) as f:
@@ -2886,7 +2959,6 @@ def phase_image_cli(d: str, fmt: str):
                              f"row sums {vals.sum(1)[:4]}")
     say(f"pred.conf (task = pred_raw): {vals.shape[0]} rows of "
         f"{vals.shape[1]} probabilities, each summing to 1")
-    return counts
 
 
 def phase_staged_vs_streamed(torch, d: str):
@@ -3233,11 +3305,13 @@ def timed_settings(torch, tr, block, tdir, device_ms, card, results,
     return tr
 
 
-def phase_image_pipeline(torch, card, then=None):
+def phase_image_pipeline(torch, card, cli_phases=(), then=None):
     """Phase 10: the image data pipeline on the card; then `then(d)`
-    (phase 11's GoogLeNet legs) while phase 10's imgbin set under `d`
-    still exists. Returns (AlexNet's CLI launches, 10g's timing,
-    then's result)."""
+    (phases 13-15) while phase 10's imgbin set under `d` still exists.
+    The CLI runs of 10c, 10d, 11c (GoogLeNet.conf on the same set), 11d
+    (stack_moe.conf) and `cli_phases` (5, 7 and 8c) check and time
+    nothing: they run side by side. Returns ((AlexNet's, GoogLeNet's and
+    stack_moe's CLI launches), 10g's timing, then's result)."""
     import scipy
     say("== phase 10a: environment of the image pipeline ==")
     fmt, pil = image_format_used()
@@ -3260,7 +3334,11 @@ def phase_image_pipeline(torch, card, then=None):
         say(f"512 train + 256 test images, 256 x 256 {fmt}, packed with "
             f"cxxnet_tpu_torch.tools.im2bin in "
             f"{time.perf_counter() - t10:.1f} s")
-        counts = phase_image_cli(d, fmt)
+        counts = side_by_side(lambda: phase_alexnet_cli(d),
+                              lambda: phase_image_confs_cli(d, fmt),
+                              lambda: phase_googlenet_cli(d),
+                              phase_stack_moe_cli, *cli_phases)
+        counts = (counts[0], counts[2], counts[3])
         phase_staged_vs_streamed(torch, d)
         phase_device_augment_vs_host(torch, d)
         timing = run_leg(torch, "10g", d, fmt)
@@ -5673,7 +5751,9 @@ def phase_analysis(torch, card, *args):
         say("16c " + tail(logs["pass"], 1).strip())
         say(f"16a-c took {max(s for _, s in res.values()):.1f} s; {card}")
         say("== phase 16c: serve_http_smoke on the card, alone (its storm "
-            "bounds latency) ==")
+            "bounds latency on the client's clock, its client in a "
+            "process of its own; heavy work beside it would move both "
+            "legs) ==")
         (rc, secs), = run_procs([(
             "serve_http", tool_cmd("cxxnet_tpu_torch.tools.serve_http_smoke",
                                    "--dev", "cuda", "--out",
@@ -5717,10 +5797,491 @@ def phase_analysis(torch, card, *args):
             "lock_checks": len(lock["checks"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: data parallelism - two ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+DIST_CONF = os.path.join(REPO, "examples", "MNIST", "dist.conf")
+DP_STEPS = 3
+# the bfloat16 two-rank losses against the one-process run's (relative)
+DP_BF16_LOSS_BAR = 1e-2
+
+
+def dp_env(rank: int, n: int, port: int) -> dict:
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.update(CXN_COORDINATOR=f"127.0.0.1:{port}", CXN_NUM_WORKER=str(n),
+               CXN_WORKER_RANK=str(rank), CXN_LOCAL_RANK=str(rank))
+    return env
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def dp_cli(d: str, dev: str):
+    """examples/MNIST/dist.conf, unedited, under launch_dist -n 2 in d
+    (whose ./data/ holds the synthetic idx files), 2 rounds on `dev`,
+    test_on_server = 1."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(
+        [sys.executable, "-m", "cxxnet_tpu_torch.tools.launch_dist", "-n",
+         "2", "--coordinator", f"127.0.0.1:{free_port()}", "--",
+         sys.executable, "-m", "cxxnet_tpu_torch.main", DIST_CONF,
+         "num_round=2", f"dev={dev}", "test_on_server=1"], cwd=d, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def dp_rounds(stderr: str):
+    """The distinct `[N]\\ttrain-error:..\\ttest-error:..` lines (both
+    ranks print each; they must agree)."""
+    lines = sorted({ln for ln in stderr.splitlines()
+                    if re.match(r"\[\d+\]\ttrain-error", ln)})
+    by_round = {}
+    for ln in lines:
+        r = ln.split("]")[0]
+        if r in by_round:
+            raise AssertionError(f"the ranks printed different round lines: "
+                                 f"{by_round[r]!r} / {ln!r}")
+        by_round[r] = ln
+    return [by_round[r] for r in sorted(by_round)]
+
+
+def dp_dist_conf(work: str):
+    """17a: dist.conf as two ranks on the card (gloo, dev = gpu:0) and the
+    same job with dev = cpu, side by side; the card's round lines and
+    rank 0's last checkpoint held to the CPU's."""
+    import numpy as np
+    from cxxnet_tpu_torch.nnet import checkpoint
+    say("== phase 17a: examples/MNIST/dist.conf (param_server = dist, mesh "
+        "= data:2, update_on_server = 1) under tools/launch_dist -n 2, "
+        "dev = gpu:0 (both ranks on the card, gloo) against dev = cpu ==")
+    dirs = {}
+    for dev in ("gpu:0", "cpu"):
+        d = os.path.join(work, dev.replace(":", ""))
+        os.makedirs(os.path.join(d, "data"))
+        write_mnist(os.path.join(d, "data"), 2000, 31, prefix="train")
+        write_mnist(os.path.join(d, "data"), 500, 32)
+        dirs[dev] = d
+    t0 = time.perf_counter()
+    procs = {dev: dp_cli(d, dev) for dev, d in dirs.items()}
+    outs = {dev: p.communicate(timeout=600) for dev, p in procs.items()}
+    secs = time.perf_counter() - t0
+    for dev, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"dist.conf on {dev} exited {p.returncode}"
+                                 f":\n{outs[dev][0]}\n{outs[dev][1]}")
+    for ln in outs["gpu:0"][1].splitlines():
+        if ln.startswith("param_server=dist"):
+            say("  " + ln)
+    rounds = {dev: dp_rounds(outs[dev][1]) for dev in dirs}
+    if len(rounds["gpu:0"]) != 2 or len(rounds["cpu"]) != 2:
+        raise AssertionError(f"expected 2 round lines each: {rounds}")
+    worst_err = 0.0
+    for lg, lc in zip(rounds["gpu:0"], rounds["cpu"]):
+        vg = [float(t.split(":")[1]) for t in lg.split("\t")[1:]]
+        vc = [float(t.split(":")[1]) for t in lc.split("\t")[1:]]
+        worst_err = max(worst_err, *(abs(a - b) for a, b in zip(vg, vc)))
+    models = {dev: sorted(os.listdir(os.path.join(d, "models")))
+              for dev, d in dirs.items()}
+    if models["gpu:0"] != models["cpu"] or not models["cpu"]:
+        raise AssertionError(f"checkpoints differ: {models}")
+    last = models["cpu"][-1]
+    blobs = {}
+    for dev, d in dirs.items():
+        with open(os.path.join(d, "models", last), "rb") as f:
+            blobs[dev] = checkpoint.load_model(f)["params"]
+    worst = 0.0
+    for lk, dd in blobs["cpu"].items():
+        for pn, want in dd.items():
+            got = blobs["gpu:0"][lk][pn]
+            if not np.allclose(got, want, rtol=1e-3, atol=1e-5):
+                raise AssertionError(f"{last} {lk}/{pn}: card vs CPU max abs "
+                                     f"{np.abs(got - want).max():.3e}")
+            worst = max(worst, float(np.abs(got - want).max()))
+    if worst_err > 0.01:
+        raise AssertionError(f"round lines differ by {worst_err} > 0.01: "
+                             f"{rounds}")
+    say(f"card: {rounds['gpu:0']}; CPU: {rounds['cpu']}")
+    say(f"test_on_server = 1 held every round on both; the round lines "
+        f"differ by at most {worst_err:g} (bar 0.01); rank 0's {last} "
+        f"card vs CPU: max abs {worst:.3e} (rtol 1e-3, atol 1e-5); both "
+        f"jobs side by side in {secs:.1f} s")
+    return {"rounds_card": rounds["gpu:0"], "rounds_cpu": rounds["cpu"],
+            "max_abs_checkpoint": worst, "max_round_diff": worst_err}
+
+
+def dp_references(torch, work: str, images, labels):
+    """The one-process b256 runs the two ranks are held to: float32 with
+    the discrete decisions recorded (each rank's rows saved for its
+    replay), and bfloat16 losses. Same batch, same dropout masks."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.ops.routing import Routing
+    batch = DataBatch(data=images, label=labels)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tr = alexnet_trainer(["dtype=float32"])
+    before = {f"{k}/{n}": t.cpu().numpy().copy()
+              for k, d in tr.state["params"].items() for n, t in d.items()}
+    for i in range(DP_STEPS):
+        rec = Routing()
+        with rec:
+            tr.update(batch, keep=numpy_keep(tr, seed=40 + i))
+        for r in range(2):
+            torch.save({k: v[r * 128:(r + 1) * 128].clone()
+                        for k, v in rec.decisions.items()},
+                       os.path.join(work, f"dec{i}_r{r}.pt"))
+        del rec
+    after = {f"{k}/{n}": t.cpu().numpy()
+             for k, d in tr.state["params"].items() for n, t in d.items()}
+    np.savez(os.path.join(work, "f32_ref.npz"),
+             **{f"before:{k}": v for k, v in before.items()},
+             **{f"after:{k}": v for k, v in after.items()})
+    del tr, before, after
+    torch.cuda.empty_cache()
+    tr = alexnet_trainer([])
+    losses = [float(tr.update(batch, keep=numpy_keep(tr, seed=40 + i)))
+              for i in range(DP_STEPS)]
+    del tr
+    torch.cuda.empty_cache()
+    return losses
+
+
+def dp_count_plain(torch):
+    """Count calls of what must not run on the main path: the plain
+    versions of K1 and K2, F.local_response_norm and SDPA."""
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops import flash_attention as FA
+    from cxxnet_tpu_torch.ops import lrn as L
+    calls = {}
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+        calls[name] = 0
+
+        def counted(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        setattr(mod, name, counted)
+    for mod, name in ((F, "local_response_norm"),
+                      (F, "scaled_dot_product_attention"),
+                      (L, "lrn_reference"), (L, "lrn_bwd_reference"),
+                      (FA, "flash_fwd_reference"),
+                      (FA, "flash_bwd_reference")):
+        wrap(mod, name)
+    return calls
+
+
+def dp_alexnet_leg(torch, dtype: str, uos: int, batch, rank: int, work):
+    """One two-rank AlexNet.conf leg in this worker: DP_STEPS steps on
+    this rank's 128 rows of the fixed b256 batch; float32 replays the
+    one-process run's decisions and is held to its updates."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.ops.routing import Routing
+    from cxxnet_tpu_torch.parallel import distributed
+    over = ["param_server=dist", "dev=gpu:0", f"update_on_server={uos}"]
+    if dtype == "float32":
+        over.append("dtype=float32")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tr = alexnet_trainer(over)
+    lb, lo = tr._local_batch, tr._local_row_start
+    if (lb, tr._dsize, str(tr.device)) != (128, 2, "cuda:0"):
+        raise AssertionError(f"rank {rank}: b{lb} of {tr._dsize} ranks on "
+                             f"{tr.device}")
+    mine = DataBatch(data=batch.data[lo:lo + lb],
+                     label=batch.label[lo:lo + lb])
+    start = {f"{k}/{n}": t.cpu().numpy().copy()
+             for k, d in tr.state["params"].items() for n, t in d.items()}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses, step_ms = [], []
+    for i in range(DP_STEPS):
+        keep = {j: m[lo:lo + lb]
+                for j, m in numpy_keep(tr, seed=40 + i).items()}
+        if dtype == "float32":
+            rec = Routing()
+            rec.decisions = torch.load(os.path.join(work,
+                                                    f"dec{i}_r{rank}.pt"))
+        t0 = time.perf_counter()
+        if dtype == "float32":
+            with Routing(replay=rec):
+                loss = tr.update(mine, keep=keep)
+        else:
+            loss = tr.update(mine, keep=keep)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launches()
+    out = {"dtype": dtype, "update_on_server": uos, "losses": losses,
+           "step_ms": step_ms, "counts": counts,
+           "ustate_bytes": tr.ustate_bytes(),
+           "check_weights": tr.check_weights()}
+    if tr._zero is not None:
+        out["cut_state_bytes"] = sum(
+            t.numel() * t.element_size() for lk, pn, _, _ in tr._zero.cut
+            for t in tr.state["ustate"][lk][pn].values())
+        out["cut_weights"] = [f"{lk}/{pn}" for lk, pn, _, _ in tr._zero.cut]
+    # the all-reduce the step runs: one float32 buffer of every gradient
+    # element (and the loss), timed alone
+    n = 1 + sum(t.numel() for d in tr.state["params"].values()
+                for t in d.values())
+    buf = torch.zeros(n, device=tr.device)
+    ar = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        distributed.all_reduce_(buf)
+        torch.cuda.synchronize()
+        ar.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = sorted(ar)[1]
+    out["allreduce_mib"] = n * 4 / 2 ** 20
+    z = tr._zero
+    if z is not None:
+        # ZeRO-1's all-gather of the fresh cut weights (staged through
+        # pinned host memory under gloo), timed alone as the all-reduce
+        master = tr.state["params"]
+        mine_w = {(lk, pn): z.owned(master[lk][pn], lk, pn)
+                  for lk, pn, _, _ in z.cut}
+        into = {(lk, pn): torch.empty_like(master[lk][pn])
+                for lk, pn, _, _ in z.cut}
+        ag = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z.gather(mine_w, into)
+            torch.cuda.synchronize()
+            ag.append((time.perf_counter() - t0) * 1e3)
+        out["allgather_ms"] = sorted(ag)[1]
+        out["allgather_mib"] = sum(t.numel() * 4 for t in into.values()
+                                   ) / 2 ** 20
+        del mine_w, into
+    if dtype == "float32":
+        ref = np.load(os.path.join(work, "f32_ref.npz"))
+        worst, worst_key = 0.0, ""
+        for k, b in start.items():
+            if not np.array_equal(b, ref[f"before:{k}"]):
+                raise AssertionError(f"{k}: the two-rank and one-process "
+                                     "runs started from different weights")
+            d_ref = ref[f"after:{k}"] - b
+            d_dp = tr.state["params"][k.split("/")[0]][
+                k.split("/")[1]].cpu().numpy() - b
+            den = float(np.linalg.norm(d_ref))
+            rel = float(np.linalg.norm(d_dp - d_ref)) / den if den else 0.0
+            if rel > worst:
+                worst, worst_key = rel, k
+        out["f32_worst_update_rel"] = worst
+        out["f32_worst_key"] = worst_key
+    del tr, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_seq_leg(torch, rank: int):
+    """17c: seq_mnist.conf as two ranks on the card, DP_STEPS steps."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    tr = seq_trainer(["param_server=dist", "dev=gpu:0"])
+    lb, lo = tr._local_batch, tr._local_row_start
+    rng = np.random.RandomState(21)
+    images = rng.rand(100, 1, 28, 28).astype(np.float32)
+    labels = rng.randint(0, 10, size=(100, 1)).astype(np.float32)
+    mine = DataBatch(data=images[lo:lo + lb], label=labels[lo:lo + lb])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses = [float(tr.update(mine)) for _ in range(DP_STEPS)]
+    return {"rows": lb, "losses": losses, "counts": kernels.launches(),
+            "check_weights": tr.check_weights()}
+
+
+def leg_dp_worker(torch, card, work):
+    """A rank of phase 17b/17c (`chip_smoke.py --leg 17w OUT WORK`, under
+    the CXN_* variables phase 17 sets): the four AlexNet.conf legs, then
+    seq_mnist.conf; the result is also printed as one `dp-result` line."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+    rank = int(os.environ["CXN_WORKER_RANK"])
+    calls = dp_count_plain(torch)
+    z = np.load(os.path.join(work, "batch.npz"))
+    batch = DataBatch(data=z["images"], label=z["labels"])
+    legs = [dp_alexnet_leg(torch, dt, uos, batch, rank, work)
+            for dt, uos in (("float32", 0), ("float32", 1),
+                            ("bfloat16", 0), ("bfloat16", 1))]
+    seq = dp_seq_leg(torch, rank)
+    from cxxnet_tpu_torch.parallel import distributed
+    out = {"rank": rank, "alexnet": legs, "seq": seq, "plain_calls": calls,
+           "backend": distributed.backend(),
+           "host_staged": distributed.host_staged[0]}
+    sys.stdout.write("dp-result " + json.dumps(out) + "\n")
+    sys.stdout.flush()
+    return out
+
+
+def dp_workers(work: str, timeout: float = 600.0):
+    """Phase 17b-c's two ranks (`--leg 17w`), their lines printed as they
+    come; when one fails the other is killed at once (it would wait in a
+    collective for its peer). Returns each rank's lines."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--leg", "17w",
+         os.path.join(work, f"w{r}.json"), work],
+        env=dp_env(r, 2, port), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [[], []]
+
+    def pump(r):
+        for ln in procs[r].stdout:
+            ln = ln.rstrip("\n")
+            outs[r].append(ln)
+            if not ln.startswith("dp-result "):
+                say(f"  rank {r}: {ln}")
+
+    readers = [threading.Thread(target=pump, args=(r,), daemon=True)
+               for r in range(2)]
+    for t in readers:
+        t.start()
+    end = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > end):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for t in readers:
+        t.join(timeout=10)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 17 rank {r} exited {p.returncode}")
+    return outs
+
+
+def phase_data_parallel(torch, card):
+    """Phase 17 (`chip_smoke.py --leg 17 OUT`): 17a dist.conf through the
+    CLI, 17b AlexNet.conf at global b256 and 17c seq_mnist.conf as two
+    ranks in spawned workers sharing the card over gloo."""
+    import numpy as np
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        rng = np.random.RandomState(17)
+        images = (rng.rand(256, 3, 227, 227) * 255.0
+                  - 128.0).astype(np.float32)
+        labels = rng.randint(0, 1000, size=(256, 1)).astype(np.float32)
+        np.savez(os.path.join(work, "batch.npz"), images=images,
+                 labels=labels)
+        # 17a's CLI jobs and 17b's one-process references time nothing:
+        # side by side
+        cli, ref_losses = side_by_side(
+            lambda: dp_dist_conf(work),
+            lambda: dp_references(torch, work, images, labels))
+        say("== phase 17b: AlexNet.conf at full width, global batch 256 "
+            "(128 a rank), two ranks sharing the card (gloo), "
+            f"{DP_STEPS} steps at update_on_server = 0 and 1, float32 and "
+            "bfloat16, against one process at b256 ==")
+        outs = dp_workers(work)
+    results = [json.loads([ln for ln in out if ln.startswith(
+        "dp-result ")][-1][len("dp-result "):]) for out in outs]
+    per_step = {"lrn_fwd": 2, "lrn_bwd": 2}
+    for res in results:
+        r = res["rank"]
+        if any(res["plain_calls"].values()):
+            raise AssertionError(f"rank {r} called plain versions: "
+                                 f"{res['plain_calls']}")
+        for leg in res["alexnet"]:
+            want = {n: DP_STEPS * per_step.get(n, 0) for n in leg["counts"]}
+            if leg["counts"] != want or leg["check_weights"]:
+                raise AssertionError(f"rank {r} {leg['dtype']} uos "
+                                     f"{leg['update_on_server']}: launches "
+                                     f"{leg['counts']} (want {want}), "
+                                     f"check_weights {leg['check_weights']}")
+            if not all(np.isfinite(leg["losses"])):
+                raise AssertionError(f"rank {r}: non-finite {leg['losses']}")
+            if leg["dtype"] == "float32":
+                if leg["f32_worst_update_rel"] > UPDATE_BAR:
+                    raise AssertionError(
+                        f"rank {r} float32 uos {leg['update_on_server']}: "
+                        f"{leg['f32_worst_key']}'s update differs by "
+                        f"{leg['f32_worst_update_rel']:.3e} of its norm > "
+                        f"{UPDATE_BAR}")
+            else:
+                rel = max(abs(a - b) / abs(b) for a, b in
+                          zip(leg["losses"], ref_losses))
+                leg["loss_rel_vs_one_process"] = rel
+                if rel > DP_BF16_LOSS_BAR:
+                    raise AssertionError(
+                        f"rank {r} bfloat16: losses {leg['losses']} vs one "
+                        f"process {ref_losses} (bar {DP_BF16_LOSS_BAR})")
+        seq = res["seq"]
+        want = {n: DP_STEPS * (1 if n in K2 else 0) for n in seq["counts"]}
+        if seq["counts"] != want or seq["check_weights"]:
+            raise AssertionError(f"rank {r} seq_mnist: launches "
+                                 f"{seq['counts']} (want {want}), "
+                                 f"check_weights {seq['check_weights']}")
+    a0, a1 = (results[0]["alexnet"], results[1]["alexnet"])
+    for leg0, leg1 in zip(a0, a1):
+        if leg0["losses"] != leg1["losses"]:
+            raise AssertionError(f"the ranks' global losses differ: "
+                                 f"{leg0['losses']} / {leg1['losses']}")
+    z0 = {leg["update_on_server"]: leg for leg in a0
+          if leg["dtype"] == "bfloat16"}
+    cut0 = z0[1]["cut_state_bytes"]
+    full_cut = 2 * cut0
+    say(f"backend {results[0]['backend']}; collectives staged through "
+        f"pinned host memory per rank: {results[0]['host_staged']}")
+    for leg in a0:
+        say(f"rank 0 {leg['dtype']} update_on_server = "
+            f"{leg['update_on_server']}: losses "
+            f"{[round(v, 5) for v in leg['losses']]}, step ms "
+            f"{[round(v, 1) for v in leg['step_ms']]}, all-reduce of "
+            f"{leg['allreduce_mib']:.1f} MiB {leg['allreduce_ms']:.1f} ms, "
+            + (f"ZeRO-1 all-gather of {leg['allgather_mib']:.1f} MiB "
+               f"{leg['allgather_ms']:.1f} ms, " if "allgather_ms" in leg
+               else "")
+            + f"updater state {leg['ustate_bytes'] / 2 ** 20:.1f} MiB"
+            + (f", worst update {leg['f32_worst_key']} "
+               f"{leg['f32_worst_update_rel']:.3e} of its norm (bar "
+               f"{UPDATE_BAR})" if leg["dtype"] == "float32" else
+               f", loss vs one process {leg['loss_rel_vs_one_process']:.2e}"
+               f" (bar {DP_BF16_LOSS_BAR})"))
+    say(f"one process b256: bfloat16 losses "
+        f"{[round(v, 5) for v in ref_losses]}")
+    say(f"ZeRO-1: the cut weights' updater state a rank holds: "
+        f"{full_cut / 2 ** 20:.1f} MiB at update_on_server = 0, "
+        f"{cut0 / 2 ** 20:.1f} MiB at 1 ({cut0 / full_cut:.3f}); "
+        f"{len(z0[1]['cut_weights'])} cut weights")
+    say("times are of two ranks sharing one card (gloo), not a multi-GPU "
+        f"scaling figure; {card}")
+    say("== phase 17c: seq_mnist.conf as two ranks on the card ==")
+    for res in results:
+        seq = res["seq"]
+        say(f"rank {res['rank']}: {seq['rows']} rows a step, launches "
+            f"{ {n: c for n, c in seq['counts'].items() if c} } over "
+            f"{DP_STEPS} steps (K2 1-1-1 a step), no SDPA and no plain "
+            f"version; losses {[round(v, 5) for v in seq['losses']]}")
+    secs = time.perf_counter() - t17
+    say(f"phase 17 took {secs:.1f} s")
+    return {"cli": cli, "ranks": results, "ref_losses": ref_losses,
+            "secs": secs}
+
+
 LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "11b": phase_googlenet_step, "11d": phase_stack_moe,
         "12": phase_front, "13": phase_surface, "14": phase_native,
-        "15": phase_dispatch, "16": phase_analysis}
+        "15": phase_dispatch, "16": phase_analysis,
+        "17": phase_data_parallel, "17w": leg_dp_worker}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
@@ -5777,6 +6338,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from cxxnet_tpu_torch import kernels
+    t_main = time.perf_counter()
 
     say("== phase 1: device ==")
     card = card_line()
@@ -5805,13 +6367,10 @@ def main() -> int:
     g_rows = {(n, tuple(sh), dt): t for n, sh, dt, t in g_list}
     attn_err, attn_rows = phase_attention_kernels(torch, card)
     launches, float_served = phase_serving(torch, card)
-    phase_cli()
     train_counts = phase_training(torch, card)
-    phase_cli_train()
     seq_counts, seq_step_ms, seq_tr = phase_seq_training(torch, card)
     seq_serve_launches, seq_batches = phase_seq_serving(torch, card, seq_tr)
     del seq_tr
-    phase_seq_cli()
     t9 = time.perf_counter()
     k3_rows = phase_int8_kernel(torch, card)
     int8_tr, int8_reqs, int8_served = phase_int8_serving(torch, card,
@@ -5827,23 +6386,21 @@ def main() -> int:
     moe = run_leg(torch, "11d")
     say(f"phase 11b and 11d on the card took "
         f"{time.perf_counter() - t11:.1f} s")
-    cli_counts, timing, (g_cli, surface, nat, disp) = phase_image_pipeline(
-        torch, card, lambda d: (phase_googlenet_cli(d),
-                                run_leg(torch, "13", d),
-                                run_leg(torch, "14", d,
-                                        image_format_used()[0]),
-                                run_leg(torch, "15", d)))
+    (cli_counts, g_cli, moe["cli_counts"]), timing, (surface, nat, disp) = \
+        phase_image_pipeline(
+            torch, card, (phase_cli, phase_cli_train, phase_seq_cli),
+            lambda d: (run_leg(torch, "13", d),
+                                    run_leg(torch, "14", d,
+                                            image_format_used()[0]),
+                                    run_leg(torch, "15", d)))
     native_cli(cli_counts)
-    t11 = time.perf_counter()
-    moe["cli_counts"] = phase_stack_moe_cli()
-    say(f"phase 11c-d through the CLI took {time.perf_counter() - t11:.1f}"
-        " s")
     front = run_leg(torch, "12")
     front_launches = (front["in_process"]["lrn_fwd"]
                       + front["http"]["lrn_fwd"])
     front_batches = (front["in_process"]["batches"]
                      + front["http"]["batches"])
     analysis = phase_analysis(torch, card)
+    dp = run_leg(torch, "17")
 
     # the kernels line: the LRN's two launches of one served AlexNet
     # batch (b64, bfloat16), warm L2, summed - the main path's unit
@@ -5910,6 +6467,29 @@ def main() -> int:
                              "2 steps (phase 15c)"}
         return out
 
+    def data_parallel(name):
+        """Phase 17: the launches on each rank of the two-rank runs
+        sharing the card (the JAX package's sharded entry points are the
+        same kernels on each rank's rows)."""
+        if name in K2:
+            return {"replaces_sharded": "cxxnet_tpu/ops/pallas_attention.py"
+                                        ":382 (flash_attention_sharded): "
+                                        "flash_attention on each rank's "
+                                        "rows",
+                    "dp_launches": [r["seq"]["counts"][name]
+                                    for r in dp["ranks"]],
+                    "dp_unit": "seq_mnist.conf b100 bfloat16 as two ranks "
+                               "sharing the card (50 rows a rank), 3 steps, "
+                               "per rank (phase 17c)"}
+        return {"replaces_sharded": "cxxnet_tpu/ops/pallas_lrn.py:154 "
+                                    "(lrn_pallas_sharded): lrn on each "
+                                    "rank's rows",
+                "dp_launches": [r["alexnet"][-1]["counts"][name]
+                                for r in dp["ranks"]],
+                "dp_unit": "AlexNet.conf global b256 bfloat16 as two ranks "
+                           "sharing the card (128 rows a rank), 3 steps at "
+                           "update_on_server = 1, per rank (phase 17b)"}
+
     def stack_moe(name):
         """K2 on stack_moe.conf's path (11d)."""
         out = {"stack_moe_replaces": "cxxnet_tpu/layers/transformer_stack"
@@ -5963,6 +6543,7 @@ def main() -> int:
         **surface_launches("lrn_fwd"),
         **googlenet("lrn_fwd"),
         **dispatch("lrn_fwd"),
+        **data_parallel("lrn_fwd"),
     }, {
         "name": "lrn_bwd",
         "route": "cuda",
@@ -5986,8 +6567,9 @@ def main() -> int:
         **surface_launches("lrn_bwd"),
         **googlenet("lrn_bwd"),
         **dispatch("lrn_bwd"),
+        **data_parallel("lrn_bwd"),
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
-               **stack_moe(n), **dispatch(n))
+               **stack_moe(n), **dispatch(n), **data_parallel(n))
           for n in K2] + [dict(int8_entry(k3_rows, int8_served, 0),
                                front_launches=front["int8"]["int8_mm"],
                                front_batches=front["int8"]["batches"],
@@ -6022,6 +6604,14 @@ def main() -> int:
         "audit_checks": analysis["audit_checks"],
         "lock_checks": analysis["lock_checks"],
         "secs": analysis["secs"]}))
+    say("phase 17 summary " + json.dumps({
+        "cli": dp["cli"], "ref_losses": dp["ref_losses"],
+        "secs": dp["secs"],
+        "alexnet": [{k: leg[k] for k in ("dtype", "update_on_server",
+                                         "losses", "step_ms",
+                                         "allreduce_ms", "allgather_ms",
+                                         "ustate_bytes") if k in leg}
+                    for leg in dp["ranks"][0]["alexnet"]]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({
@@ -6034,6 +6624,7 @@ def main() -> int:
                       "queue_p99_ms": moe["serve"]["queue_p99_ms"],
                       "device_p50_ms": moe["serve"]["device_p50_ms"],
                       "device_p99_ms": moe["serve"]["device_p99_ms"]}}))
+    say(f"chip_smoke took {time.perf_counter() - t_main:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -76,17 +76,19 @@ Ground rules:
   PyTorch version only for a tensor on the CPU. Work the JAX package
   hands to XLA (convolutions, matmuls, pooling) goes to
   `torch.nn.functional`.
-- Entry points (`NetTrainer`, `Server`, the CLI) run on `cuda:0` unless
-  the caller asks for the CPU (`device="cpu"`, or `dev = cpu` in a
-  conf); with no card they raise instead of carrying on on the CPU.
-- Config keys that change results and that the port does not implement
-  yet - the parallel ones: mesh, zero_stage, shard_optimizer,
-  update_on_server, param_server, test_on_server, elastic and its keys,
-  dist_num_worker, fullc_gather, a multi-device dev - raise
+- Entry points (`NetTrainer`, `Server`, the CLI) run on the card
+  (`cuda:0`, or `cuda:<local rank>` in a multi-worker job) unless the
+  caller asks for the CPU (`device="cpu"`, or `dev = cpu` in a conf);
+  with no card they raise instead of carrying on on the CPU.
+- Data parallelism (`parallel/`): a data axis of N is N processes, one
+  device each, in one torch.distributed process group (param_server =
+  dist under tools/launch_dist, mesh = data:N, a device list), with
+  ZeRO-1 (update_on_server), sharded iterators, test_on_server, sync-BN
+  and fullc_gather. Config values that change results and that the
+  port does not implement yet - ZeRO stages 2-3, the model / seq / pipe
+  / expert axes, elastic and its keys, serving with a data axis - raise
   NotImplementedError naming the key; they are never silently ignored.
-  Every single-device key is ported, steps_per_dispatch (fused chunks),
-  remat, profile / profile_dir / trace_round and tuning_cache among
-  them.
+  Every single-device key is ported.
 - PyTorch idiom inside: plain functions on tensors and modules with an
   explicit device, an explicit `torch.Generator` for every random draw,
   `torch.autograd.Function` where a kernel needs a gradient (the

@@ -123,20 +123,26 @@ def ustate_to_numpy(tree: Mapping) -> Dict[str, Any]:
 
 
 def train_state_to_numpy(trainer) -> Dict[str, Any]:
-    """{"params", "ustate", "epoch"} of a port NetTrainer, as numpy."""
+    """{"params", "ustate", "epoch"} of a port NetTrainer, as numpy, the
+    updater state whole: under ZeRO-1 (update_on_server = 1) each cut
+    weight's state is gathered from the ranks' slices, so every rank
+    calls this together."""
     return {"params": params_to_numpy(trainer.state["params"],
                                       trainer.net.param_shapes()),
-            "ustate": ustate_to_numpy(trainer.state["ustate"]),
+            "ustate": ustate_to_numpy(trainer._full_ustate()),
             "epoch": int(trainer.epoch)}
 
 
 def train_state_from_numpy(trainer, state: Mapping) -> None:
     """Load {"params", "ustate", "epoch"} (e.g. the JAX trainer's state
-    through jax.device_get) into a port NetTrainer built from the same
-    conf; its gradient accumulator and counters start empty."""
+    through jax.device_get, the updater state whole) into a port
+    NetTrainer built from the same conf; under ZeRO-1 each rank keeps
+    its slice of it. The gradient accumulator and counters start
+    empty."""
+    params = params_from_numpy(state["params"], trainer.net.param_shapes(),
+                               trainer.device)
     trainer.set_train_state(
-        params_from_numpy(state["params"], trainer.net.param_shapes(),
-                          trainer.device),
-        ustate_from_numpy(state["ustate"], trainer.state["ustate"],
+        params,
+        ustate_from_numpy(state["ustate"], trainer._fresh_ustate(params),
                           trainer.device),
         int(state["epoch"]))

@@ -6,9 +6,9 @@ following an `iter =` line are applied to the whole current chain.
 Iterators: mnist, img, imgbin / imgbinx, threadbuffer, membuffer and
 attachtxt, with the transient-IO retry wrapper. `device` ("cpu", a CUDA
 device, or None) reaches the imgbin iterators, where it routes
-`use_native` (io/iter_img.py's table: nvJPEG on the card). The one
-unported route raises NotImplementedError naming its key:
-`dist_num_worker > 1` (multi-worker sharding).
+`use_native` (io/iter_img.py's table: nvJPEG on the card).
+`dist_num_worker` / `dist_worker_rank` shard every base iterator over
+the workers of a data-parallel job, as the JAX iterators do.
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ def create_iterator(cfg: List[Tuple[str, str]],
     if not isinstance(it, ThreadBufferIterator):
         it = RetryIterator(it)
     for name, val in cfg:
-        if name in ("io_retry", "io_retry_backoff", "dist_num_worker"):
+        if name in ("io_retry", "io_retry_backoff"):
             it.set_param(name, val)
         elif name == "iter" and val == "end":
             break

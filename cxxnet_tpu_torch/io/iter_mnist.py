@@ -5,8 +5,9 @@ Reads the (optionally gzipped) idx files, normalizes to [0,1) by 1/256,
 optionally shuffles, serves full batches only (the final partial batch
 is dropped, exactly like the reference Next() :63-71). input_flat=1
 yields matrix nodes (b,1,1,784); input_flat=0 yields images
-(b,1,28,28). Multi-worker sharding (dist_num_worker) belongs to the
-parallelism slice and raises.
+(b,1,28,28). `dist_num_worker` / `dist_worker_rank` give this worker
+the instances rank, rank + nw, ... (quota-trimmed, io/iterators.py
+shard_quota), before the shuffle - the JAX iterator's sharding.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import sys
 import numpy as np
 
 from cxxnet_tpu_torch.io.data import DataBatch
+from cxxnet_tpu_torch.io.iterators import shard_quota
 from cxxnet_tpu_torch.io.iterators import DataIter
 
 
@@ -48,6 +50,8 @@ class MNISTIterator(DataIter):
         self.path_label = ""
         self.seed = 0
         self.loc = 0
+        self.dist_num_worker = 1
+        self.dist_worker_rank = 0
 
     def set_param(self, name: str, val: str) -> None:
         if name == "silent":
@@ -66,15 +70,22 @@ class MNISTIterator(DataIter):
             self.path_label = val
         if name == "seed_data":
             self.seed = int(val)
-        if name == "dist_num_worker" and int(val) > 1:
-            raise NotImplementedError(
-                f"dist_num_worker = {val}: sharded iterators are not "
-                "ported to cxxnet_tpu_torch yet")
+        if name == "dist_num_worker":
+            self.dist_num_worker = int(val)
+        if name == "dist_worker_rank":
+            self.dist_worker_rank = int(val)
 
     def init(self) -> None:
         img = _read_idx_images(self.path_img).astype(np.float32) / 256.0
         labels = _read_idx_labels(self.path_label).astype(np.float32)
         inst = np.arange(len(labels), dtype=np.uint32) + self.inst_offset
+        nw = self.dist_num_worker
+        if nw > 1:
+            # this worker's shard: instances rank, rank + nw, ...,
+            # trimmed so every worker serves the same count
+            quota, r = shard_quota(len(labels), nw, self.dist_worker_rank)
+            img, labels, inst = (img[r::nw][:quota], labels[r::nw][:quota],
+                                 inst[r::nw][:quota])
         if self.shuffle:
             rng = np.random.RandomState(self.seed)
             order = rng.permutation(len(labels))

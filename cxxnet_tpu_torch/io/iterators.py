@@ -54,9 +54,7 @@ class RetryIterator(DataIter):
 
     create_iterator puts a RetryIterator at (or, under a threadbuffer,
     directly below) the top of every chain, so it sees every key of the
-    block and of the global section: it refuses ``dist_num_worker > 1``,
-    since the port has no multi-worker run that would consume the other
-    shards (the iterators' sharding itself is ported)."""
+    block and of the global section."""
 
     def __init__(self, inner: "DataIter"):
         self.inner = inner
@@ -66,10 +64,6 @@ class RetryIterator(DataIter):
         self._bf = None
 
     def set_param(self, name: str, val: str) -> None:
-        if name == "dist_num_worker" and int(val) > 1:
-            raise NotImplementedError(
-                f"dist_num_worker = {val}: sharded iterators are not "
-                "ported to cxxnet_tpu_torch yet")
         if name == "io_retry":
             self.attempts = max(1, int(val))
             self._next = self._bf = None

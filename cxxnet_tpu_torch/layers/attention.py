@@ -11,10 +11,13 @@ attention  multi-head self-attention. Params: qkv projection `wmat`
            the hand-written kernels K2-fwd / K2-dq / K2-dkv on the card,
            at every head_dim up to 256 and every length (the JAX package
            takes the TPU kernel only where Mosaic can tile the shapes),
-           their plain versions on the CPU. `seq_parallel` and
-           `kv_block` are accepted: the first acts only under a mesh
-           (and `mesh` is not ported), the second tiles the JAX
-           package's XLA path and does not change the function.
+           their plain versions on the CPU; on a data mesh each rank
+           runs them on its own rows (the port of the JAX package's
+           `flash_attention_sharded`, a shard_map with no collective).
+           `seq_parallel` and `kv_block` are accepted: the first acts
+           only under a `seq` mesh axis (not ported: the axis raises),
+           the second tiles the JAX package's XLA path and does not
+           change the function.
 attention_naive  the same layer with the full-matrix naive core - the
            trusted side of the pairtest harness.
 seq_fullc  position-wise fully connected, (b,1,s,e) -> (b,1,s,nhidden).

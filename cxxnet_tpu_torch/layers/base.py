@@ -52,11 +52,9 @@ def is_mat(shape: Sequence[int]) -> bool:
 
 # Layer keys of the JAX package whose option the port does not
 # implement yet: any value but the listed inert ones raises
-# NotImplementedError naming the key. fullc_gather is the
-# tensor-parallel fullc's gather, which needs a mesh.
-_NOT_PORTED: Dict[str, Tuple[str, ...]] = {
-    "fullc_gather": ("0",),
-}
+# NotImplementedError naming the key (none left: fullc_gather is ported
+# with the data axis).
+_NOT_PORTED: Dict[str, Tuple[str, ...]] = {}
 
 
 class LayerParam:
@@ -225,15 +223,36 @@ class Layer(nn.Module):
                 f"{self.type_name}: layer only supports 1-1 connection")
 
 
+def rank_rand(shape, gen: Optional[torch.Generator],
+              dtype: torch.dtype = torch.float32,
+              device=None) -> torch.Tensor:
+    """A uniform [0, 1) draw of a batch-leading `shape` from `gen`. On a
+    data mesh (parallel/mesh.py) `shape` is this rank's rows: the draw is
+    the whole global batch's and this rank takes its rows of it, so each
+    rank draws what a one-process run draws for those rows (every rank's
+    generator is seeded alike; without the cut they would all draw one
+    mask)."""
+    from cxxnet_tpu_torch.parallel.mesh import data_axis_size, get_active_mesh
+    mesh = get_active_mesh()
+    n = data_axis_size(mesh)
+    if n <= 1:
+        return torch.rand(tuple(shape), generator=gen, dtype=dtype,
+                          device=device)
+    b = shape[0]
+    full = torch.rand((b * n,) + tuple(shape[1:]), generator=gen,
+                      dtype=dtype, device=device)
+    return full[mesh.rank * b:(mesh.rank + 1) * b]
+
+
 def uniform_draw(shape, dtype: torch.dtype, device,
                  gen: Optional[torch.Generator],
                  inject: Optional[torch.Tensor], what: str) -> torch.Tensor:
     """A training layer's uniform [0, 1) draw: the injected tensor when
     the caller gives one (checked against `shape`, cast to `dtype`),
-    else drawn from `gen` on `device`."""
+    else drawn from `gen` on `device` (rank_rand: this rank's rows of
+    the global batch's draw)."""
     if inject is None:
-        return torch.rand(tuple(shape), generator=gen, dtype=dtype,
-                          device=device)
+        return rank_rand(shape, gen, dtype, device)
     if tuple(inject.shape) != tuple(shape):
         raise ValueError(f"{what}: injected draw {tuple(inject.shape)} "
                          f"!= {tuple(shape)}")

@@ -27,12 +27,14 @@ import numpy as np
 import torch
 
 from cxxnet_tpu_torch.layers.base import (
-    Layer, Params, Shape, get_active_step, is_mat, register_layer,
-    uniform_draw)
+    Layer, Params, Shape, get_active_step, is_mat, rank_rand,
+    register_layer, uniform_draw)
 from cxxnet_tpu_torch.ops import conv as conv_ops
 from cxxnet_tpu_torch.ops import int8 as int8_ops
 from cxxnet_tpu_torch.ops import nn as nn_ops
 from cxxnet_tpu_torch.ops import pooling as pool_ops
+from cxxnet_tpu_torch.parallel import distributed
+from cxxnet_tpu_torch.parallel.mesh import data_axis_size, get_active_mesh
 
 
 def _fused_act(val: str) -> str:
@@ -60,13 +62,41 @@ def _int8_epilogue(acc: torch.Tensor, params: Params, fused_act: str,
 # fully connected
 # ---------------------------------------------------------------------------
 
+class _GatherMatmul(torch.autograd.Function):
+    """`x @ w.T` whose weight gradient rides activation gathering instead
+    of a gradient all-reduce - `fullc_gather = 1` on a data mesh (the
+    JAX package's _fullc_gather_matmul, cxxnet_tpu/layers/common.py:27-70;
+    the reference pushes the b x (nin+nout) activations to the server
+    and recomputes dw there). The backward all-gathers x and the output
+    gradient over the data axis in one collective and computes the FULL
+    dw on every rank, so the trainer leaves this weight out of the
+    gradient all-reduce; dx stays local."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        ctx.group = group
+        return x @ w.t()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        nin = x.shape[1]
+        both = distributed.all_gather(
+            torch.cat([x, g.to(x.dtype)], dim=1), ctx.group)
+        full = torch.cat(both, dim=0)
+        xg, gg = full[:, :nin], full[:, nin:].to(g.dtype)
+        return g @ w, gg.t() @ xg, None
+
+
 @register_layer
 class FullConnectLayer(Layer):
     """fullc (src/layer/fullc_layer-inl.hpp:14-146).
 
     out = in . W^T + bias; W shape (nhidden, num_input_node).
-    `fullc_gather` only changes how the data-parallel weight gradient is
-    reduced, so it is inert at inference.
+    `fullc_gather = 1` only changes how the data-parallel weight gradient
+    is reduced (_GatherMatmul, in training on a data mesh), so it is
+    inert at inference and on one device.
     """
 
     type_name = "fullc"
@@ -75,9 +105,12 @@ class FullConnectLayer(Layer):
         super().__init__(name)
         self.fused_act = ""
         self.flatten_input = 0
+        self.fullc_gather = 0
 
     def set_param(self, name: str, val: str) -> None:
         super().set_param(name, val)
+        if name == "fullc_gather":
+            self.fullc_gather = int(val)
         if name == "fused_act":
             self.fused_act = _fused_act(val)
         if name == "flatten_input":
@@ -125,7 +158,11 @@ class FullConnectLayer(Layer):
                 params["wmat_q"])
             out = _int8_epilogue(acc, params, self.fused_act, m.dtype)
             return [out.reshape(b, 1, 1, -1)]
-        out = m @ params["wmat"].t()
+        mesh = get_active_mesh()
+        if self.fullc_gather and data_axis_size(mesh) > 1:
+            out = _GatherMatmul.apply(m, params["wmat"], mesh.group)
+        else:
+            out = m @ params["wmat"].t()
         if "bias" in params:
             out = out + params["bias"][None, :]
         if self.fused_act == "relu":
@@ -672,10 +709,14 @@ class BatchNormLayer(Layer):
     for matrix nodes (over b). Like the reference, it normalizes with
     the current MINIBATCH statistics at train and eval alike - there is
     no running mean. Statistics are float32 whatever the compute dtype,
-    eps 1e-10, one cast back to the input's dtype at the end. The port
-    runs on one device, where `global_stats` (the JAX package's
-    sync-BN switch across data shards) changes nothing: accepted and
-    inert."""
+    eps 1e-10, one cast back to the input's dtype at the end. On a data
+    mesh each rank normalizes its own rows (per-shard statistics, the
+    JAX package's default and the reference's per-GPU semantics);
+    `global_stats = 1` is sync-BN: the sum and then the sum of squared
+    deviations are all-reduced through a differentiable collective, so
+    the statistics are the global batch's, computed in the JAX
+    package's two-pass order. On one device `global_stats` changes
+    nothing."""
 
     type_name = "batch_norm"
 
@@ -731,8 +772,20 @@ class BatchNormLayer(Layer):
         x = inputs[0]
         axes, sl = self._axes(x.shape)
         xf = x.float()
-        mean = xf.mean(dim=axes, keepdim=True)
-        var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
+        mesh = get_active_mesh()
+        if self.global_stats and data_axis_size(mesh) > 1:
+            from torch.distributed.nn.functional import all_reduce
+            count = float(np.prod([x.shape[a] for a in axes])
+                          * data_axis_size(mesh))
+            mean = all_reduce(xf.sum(dim=axes, keepdim=True),
+                              group=mesh.group or
+                              torch.distributed.group.WORLD) / count
+            var = all_reduce(((xf - mean) ** 2).sum(dim=axes, keepdim=True),
+                             group=mesh.group or
+                             torch.distributed.group.WORLD) / count
+        else:
+            mean = xf.mean(dim=axes, keepdim=True)
+            var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
         xhat = (xf - mean) * torch.rsqrt(var + self.eps)
         out = xhat * params["slope"].float()[sl] + params["bias"].float()[sl]
         return [out.to(x.dtype)]
@@ -770,7 +823,7 @@ class DropoutLayer(Layer):
             return [x]
         pkeep = 1.0 - self.threshold
         if keep is None:
-            u = torch.rand(x.shape, generator=gen, device=x.device)
+            u = rank_rand(x.shape, gen, device=x.device)
             keep = u < pkeep
         elif keep.shape != x.shape:
             raise ValueError(f"dropout: injected mask {tuple(keep.shape)} "

@@ -63,6 +63,18 @@ armed and the output is unchanged. `publish_model = <path>` copies each
 saved checkpoint atomically to a path a serving `swap_watch` polls.
 `task = serve` drains on SIGTERM: it stops submitting, resolves every
 admitted request into the output file, and exits 0.
+
+Data parallelism (parallel/): `param_server = dist` joins the job the
+launcher set up (`python -m cxxnet_tpu_torch.tools.launch_dist -n N --
+python -m cxxnet_tpu_torch.main conf`) before any device is touched.
+Each iterator's batch_size / dist_num_worker / dist_worker_rank are
+wired from the trainer's local rows unless the conf sets
+dist_num_worker; `test_on_server = 1` checks every round that the
+ranks' weights agree; every rank writes the checkpoint through the
+atomic writer (its own temporary file). Started alone with a
+multi-device `dev` (`dev = gpu:0-3`), the CLI starts the N workers
+itself through launch_dist, each on the card the list names for it.
+`task = serve` with a data axis is not ported.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from __future__ import annotations
 import collections
 import os
 import re
+import socket
 import sys
 import time
 from typing import List, Optional, Tuple
@@ -79,9 +92,12 @@ import numpy as np
 from cxxnet_tpu_torch import kernels, telemetry
 from cxxnet_tpu_torch.io import DataBatch, create_iterator
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer, StagedChunk
+from cxxnet_tpu_torch.parallel import distributed
+from cxxnet_tpu_torch.parallel.mesh import parse_device_spec
 from cxxnet_tpu_torch.utils.config import (check_ported, parse_config_file,
                                            validate_known_keys)
-from cxxnet_tpu_torch.utils.device import device_from_spec
+from cxxnet_tpu_torch.utils.device import (check_spec, device_from_spec,
+                                           resolve_device)
 from cxxnet_tpu_torch.utils.fault import DivergenceError, atomic_writer
 
 TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve")
@@ -90,7 +106,7 @@ _PRED_TASKS = ("pred", "pred_raw", "extract", "serve")
 # task-level keys of the JAX CLI that the port does not implement yet;
 # any value but the inert ones raises NotImplementedError naming the key
 _NOT_PORTED = {
-    "elastic": ("0",), "test_on_server": ("0",),
+    "elastic": ("0",),
     "barrier_secs": ("30",), "leader_lease_secs": ("10",),
     "coord_dir": ("",),
     "elastic_nproc": ("2",), "elastic_respawn": ("1",),
@@ -180,6 +196,9 @@ class LearnTask:
         # serving publish hook: each saved checkpoint is copied
         # atomically here ("" = off)
         self.name_publish = ""
+        # test_on_server = 1: the ranks' weights are checked equal after
+        # every round (CheckWeight_)
+        self.test_on_server = 0
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
         self.itr_evals = []
@@ -217,6 +236,17 @@ class LearnTask:
             raise NotImplementedError(
                 f"task = {self.task} is not ported to cxxnet_tpu_torch yet "
                 f"(ported: {', '.join(TASKS)})")
+        ids = parse_device_spec(self.device)
+        workers = len(ids) if ids and len(ids) > 1 else 1
+        if self.task == "serve" and (workers > 1
+                                     or distributed.process_count() > 1
+                                     or self._param_server() == "dist"):
+            raise NotImplementedError(
+                f"task = serve with a data axis (param_server = dist or a "
+                f"multi-device dev = {self.device}) is not ported to "
+                "cxxnet_tpu_torch yet (see ROADMAP)")
+        if workers > 1 and int(os.environ.get("CXN_NUM_WORKER", "1")) <= 1:
+            return self._launch_workers(argv, workers)
         # arm telemetry before init() so model loads are on the record;
         # with no sink key set this returns the process to the disabled
         # (byte-parity) state
@@ -267,10 +297,31 @@ class LearnTask:
             telemetry.emit_metrics(kind="final", task=self.task)
             telemetry.close()
 
+    def _param_server(self) -> str:
+        return dict(self.cfg).get("param_server", "local")
+
+    def _launch_workers(self, argv: List[str], n: int) -> int:
+        """A multi-device `dev` started alone: run this command as N
+        workers under launch_dist (param_server = dist), each on the
+        card the list names for its rank; the job's exit code."""
+        from cxxnet_tpu_torch.tools.launch_dist import launch
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        sys.stdout.write(f"dev = {self.device}: starting {n} workers "
+                         "(param_server = dist)\n")
+        sys.stdout.flush()
+        cmd = [sys.executable, "-m", "cxxnet_tpu_torch.main", *argv,
+               "param_server=dist"]
+        return launch(cmd, n, f"127.0.0.1:{port}")
+
     def set_param(self, name: str, val: str) -> None:
         if val == "default":
             return
         check_ported(_NOT_PORTED, name, val)
+        if name == "test_on_server":
+            self.test_on_server = int(val)
         if name == "net_type":
             self.net_type = int(val)
         if name == "keep_latest":
@@ -304,7 +355,7 @@ class LearnTask:
         if name == "task":
             self.task = val
         if name == "dev":
-            device_from_spec(val)  # validates early
+            check_spec(val)  # validates early
             self.device = val
         if name == "serve_rows":
             self.serve_rows = int(val)
@@ -497,6 +548,14 @@ class LearnTask:
                         "pipeline, device_augment=0, for that)")
 
     def init(self) -> None:
+        # param_server = dist: join the job before any device is touched
+        # (the trainer's init joins too; idempotent)
+        if self._param_server() == "dist":
+            distributed.init_from_config(
+                self.cfg, resolve_device(device_from_spec(self.device)),
+                self.device)
+        if distributed.process_count() > 1:
+            telemetry.set_tags(proc=distributed.process_index())
         if self.task in ("train", "finetune"):
             self._init_train()
             return
@@ -547,7 +606,22 @@ class LearnTask:
             if it is not None:
                 for k, v in defcfg:
                     it.set_param(k, v)
+                self._wire_shard(it)
                 it.init()
+
+    def _wire_shard(self, it) -> None:
+        """On a data mesh each worker feeds the rows it owns: the
+        iterator's batch_size is the trainer's local batch, and unless
+        the conf sets dist_num_worker it reads this rank's shard of the
+        data (the JAX CLI's auto-wiring)."""
+        tr = self.net_trainer
+        if tr._dsize <= 1:
+            return
+        lb = tr._local_batch
+        it.set_param("batch_size", str(lb))
+        if not any(k == "dist_num_worker" for k, _ in self.cfg):
+            it.set_param("dist_num_worker", str(tr._dsize))
+            it.set_param("dist_worker_rank", str(tr._local_row_start // lb))
 
     def _create_iterator(self, block):
         """A block's iterator chain on the `dev` device, where it routes
@@ -635,7 +709,9 @@ class LearnTask:
         os.makedirs(self.name_model_dir, exist_ok=True)
         path = self._model_name(counter)
         t0 = time.perf_counter()
-        with atomic_writer(path) as fo:
+        # every rank writes the (identical) file, each through its own
+        # temporary file
+        with atomic_writer(path, tmp_suffix=self._tmp_suffix()) as fo:
             self.net_trainer.save_model(fo)
         # end-to-end save cost incl. fsync + rename
         secs = time.perf_counter() - t0
@@ -647,11 +723,19 @@ class LearnTask:
                         path=path, secs=secs,
                         bytes=os.path.getsize(path))
         self._rotate_models(counter)
-        if self.name_publish:
+        if self.name_publish and distributed.process_index() == 0:
             # atomic copy to the swap_watch'd path AFTER the round file
-            # is durable
+            # is durable; rank 0's alone (the ranks' files are equal, and
+            # one publish path takes one writer)
             from cxxnet_tpu_torch.nnet import checkpoint
             checkpoint.publish_model(path, self.name_publish)
+
+    @staticmethod
+    def _tmp_suffix() -> str:
+        """The atomic writer's temporary suffix: per rank in a job."""
+        if distributed.process_count() > 1:
+            return f".tmp{distributed.process_index()}"
+        return ".tmp"
 
     def _rotate_models(self, saved: int) -> None:
         """keep_latest = k: keep the k newest %04d.model files at or
@@ -671,7 +755,7 @@ class LearnTask:
         (rolled-back) params, in a file resume does not probe."""
         os.makedirs(self.name_model_dir, exist_ok=True)
         path = os.path.join(self.name_model_dir, "rescue.model")
-        with atomic_writer(path) as fo:
+        with atomic_writer(path, tmp_suffix=self._tmp_suffix()) as fo:
             self.net_trainer.save_model(fo)
         return path
 
@@ -783,6 +867,14 @@ class LearnTask:
             tr.finish_round_profile()
             stats = tr.round_stats()
             round_label = self.start_counter
+            if self.test_on_server:
+                # CheckWeight_ (async_updater-inl.hpp:144-153): every
+                # round the ranks' weights must agree
+                bad = tr.check_weights()
+                if bad:
+                    raise RuntimeError(
+                        "test_on_server: weight consistency check "
+                        "failed:\n" + "\n".join(bad))
             if self.test_io == 0:
                 line = f"[{self.start_counter}]"
                 if self.eval_train:

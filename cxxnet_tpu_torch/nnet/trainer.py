@@ -87,11 +87,30 @@ trainer's `state["params"]`, and the updater state beside them as
   stream (seed + 100, step, AUGMENT_STREAM) in training and the
   deterministic variant in evaluation and inference.
 
-The device is fixed at construction: `cuda:0` unless the caller asks
-for the CPU (`device="cpu"`, or `dev = cpu` in the constructor's conf
-string); with no card a CUDA device raises (utils/device.py). A `dev`
-key reaching set_param later is validated but does not move the
-trainer - the CLI maps `dev` to the constructor's device.
+The device is fixed at construction: this worker's card (`cuda:0`, or
+cuda:<local rank> in a multi-worker job) unless the caller asks for the
+CPU (`device="cpu"`, or `dev = cpu` in the constructor's conf string);
+with no card a CUDA device raises (utils/device.py). A `dev` key
+reaching set_param later is validated and sizes the data axis (a
+device list) but does not move the trainer - the CLI maps `dev` to the
+constructor's device.
+
+Data parallelism (parallel/, `param_server = dist` under
+tools/launch_dist, `mesh = data:N` or a multi-device `dev`): one process
+per rank, the data axis their process group. Each rank feeds its
+contiguous rows of the global batch (`_local_batch` rows from
+`_local_row_start`, the JAX package's `_compute_local_rows`); the loss
+keeps the 1/(batch_size*update_period) scale of the GLOBAL batch; after
+each microstep's backward one all-reduce sums the loss, the gradients
+and the train-metric rows over the ranks, so every rank commits the
+same update and makes the same check_nan decision. Every rank starts
+from the same seeded init (nothing is broadcast: check_weights proves
+the ranks agree). `zero_stage = 1` (`shard_optimizer`, or
+`update_on_server = 1`) cuts each weight's updater state over the ranks
+(parallel/sharding.py: Zero1): a rank updates its slice and one
+all-gather returns the fresh weights. Evaluation sums its metric rows
+over the ranks. A data axis larger than the job raises, naming
+param_server = dist and tools/launch_dist; ZeRO stages 2-3 raise.
 """
 
 from __future__ import annotations
@@ -119,12 +138,17 @@ from cxxnet_tpu_torch.nnet.passes import (
     find_quant_sites, make_param_fn)
 from cxxnet_tpu_torch.ops.augment import AUGMENT_STREAM, make_device_augment
 from cxxnet_tpu_torch.ops.int8 import per_channel_scale
+from cxxnet_tpu_torch.parallel import distributed
+from cxxnet_tpu_torch.parallel.mesh import (
+    MeshSpec, active_mesh, build_mesh, check_axes, parse_device_spec,
+    parse_mesh_spec)
+from cxxnet_tpu_torch.parallel.sharding import Zero1, zero_partition_dims
 from cxxnet_tpu_torch.telemetry.flight import fingerprint
 from cxxnet_tpu_torch.updater import (UpdaterParam, create_updater,
                                       schedule_table)
 from cxxnet_tpu_torch.utils.config import check_ported, parse_config_string
 from cxxnet_tpu_torch.utils.device import (
-    DEFAULT_DEVICE, device_from_spec, resolve_device)
+    check_spec, default_device, device_from_spec, resolve_device)
 from cxxnet_tpu_torch.utils import fault
 from cxxnet_tpu_torch.utils.fault import DivergenceError
 from cxxnet_tpu_torch.utils.metric import MetricSet, format_metrics
@@ -135,14 +159,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # Config keys of the JAX trainer that change results (or the serving
 # contract) and that the port does not implement yet: any value but the
-# listed inert ones raises NotImplementedError naming the key.
-_NOT_PORTED: Dict[str, Tuple[str, ...]] = {
-    "mesh": (),
-    "zero_stage": ("0",),
-    "shard_optimizer": ("0",),
-    "update_on_server": ("0",),
-    "param_server": ("local",),
-}
+# listed inert ones raises NotImplementedError naming the key. (The
+# parallelism keys are ported; their unported values - ZeRO stages 2-3,
+# the non-data mesh axes - raise in set_param, naming themselves.)
+_NOT_PORTED: Dict[str, Tuple[str, ...]] = {}
 
 
 class StagedBatch(NamedTuple):
@@ -317,8 +337,24 @@ class NetTrainer:
             if k == "dev" and not dev:
                 spec = v
         if device is None:
-            device = device_from_spec(spec) if spec else DEFAULT_DEVICE
+            device = device_from_spec(spec) if spec else default_device()
+        else:
+            spec = spec or str(device)
         self.device = resolve_device(device)
+        # the dev spec (which says whether the ranks share one card) and
+        # the data mesh (parallel/): the spec's device list or `mesh`,
+        # built at _build_net over the job's process group
+        self._dev_spec = spec
+        self.mesh_spec = MeshSpec()
+        self.mesh = None
+        self.param_server = "local"
+        self.zero_stage = 0
+        self._zero_src = ""
+        self._zero: Optional[Zero1] = None
+        # (rows this rank feeds, their first row in the global batch)
+        self._local_rows = (0, 0)
+        # fullc_gather weights: their gradient is full on every rank
+        self._gathered: set = set()
         self.cfg_pairs: List[Tuple[str, str]] = []
         self.net_cfg = NetConfig()
         self.net: Optional[Network] = None
@@ -449,7 +485,30 @@ class NetTrainer:
     def set_param(self, name: str, val: str) -> None:
         check_ported(_NOT_PORTED, name, val)
         if name == "dev":
-            device_from_spec(val)  # validates; multi-device raises
+            check_spec(val)  # validates
+            self._dev_spec = val
+            # a device LIST declares the data axis; one device (gpu:0)
+            # only places every rank of the job on that card
+            ids = (None if val.strip().lower().startswith("cpu")
+                   else parse_device_spec(val))
+            self.mesh_spec.device_indices = (ids if ids and len(ids) > 1
+                                             else None)
+        if name == "mesh":
+            axes = parse_mesh_spec(val)
+            check_axes(axes)
+            self.mesh_spec.axes = axes
+        if name == "param_server":
+            self.param_server = val
+        if name == "zero_stage":
+            self._set_zero_stage(name, int(val))
+        if name == "shard_optimizer":
+            # legacy alias: ZeRO-1, optimizer state only
+            self._set_zero_stage(name, 1 if int(val) else 0)
+        if name == "update_on_server" and int(val):
+            # the reference's server-side updater: the updater state
+            # cut over the ranks. Enable-only: an explicit 0 must not
+            # clobber shard_optimizer = 1
+            self._set_zero_stage(name, max(1, self.zero_stage))
         if name == "batch_size":
             self.batch_size = int(val)
         if name == "update_period":
@@ -608,6 +667,70 @@ class NetTrainer:
                 self.eval_nodes.append(("", -1))
         self.cfg_pairs.append((name, val))
 
+    def _set_zero_stage(self, key: str, stage: int) -> None:
+        """zero_stage with the JAX package's alias rules:
+        `shard_optimizer` / `update_on_server` are spellings of stage <=
+        1, and one arriving after an explicit `zero_stage` that it
+        contradicts warns and is ignored. Stages 2-3 are not ported."""
+        if not 0 <= stage <= 3:
+            raise ValueError("zero_stage must be 0, 1, 2 or 3")
+        if key != "zero_stage" and self._zero_src == "zero_stage":
+            if stage != self.zero_stage:
+                sys.stderr.write(
+                    f"warning: {key} (a zero_stage={stage} alias) "
+                    f"conflicts with the explicit zero_stage="
+                    f"{self.zero_stage}; keeping zero_stage="
+                    f"{self.zero_stage}\n")
+            return
+        if stage >= 2:
+            raise NotImplementedError(
+                f"zero_stage = {stage}: ZeRO stages 2-3 are not ported to "
+                "cxxnet_tpu_torch yet (ZeRO-1 is: zero_stage = 1, "
+                "shard_optimizer = 1 or update_on_server = 1; see ROADMAP)")
+        self.zero_stage = stage
+        self._zero_src = key
+
+    @property
+    def _local_batch(self) -> int:
+        return self._local_rows[0]
+
+    @property
+    def _local_row_start(self) -> int:
+        return self._local_rows[1]
+
+    @property
+    def _dsize(self) -> int:
+        """The data axis's size (1 = a one-process trainer)."""
+        return 1 if self.mesh is None else self.mesh.shape["data"]
+
+    def _mesh_scope(self) -> active_mesh:
+        """The data mesh every forward runs under, as the JAX trainer
+        binds self.mesh around its train, eval, inference and
+        calibration forwards: sync-BN's and fullc_gather's collectives,
+        the global batch's random draws (layers/base.py rank_rand)."""
+        return active_mesh(self.mesh if self._dsize > 1 else None)
+
+    def _build_mesh(self) -> None:
+        """Join the job (param_server = dist) and build the data mesh:
+        this rank's rows of the global batch, the fullc_gather weights.
+        A data axis larger than the job raises (parallel/mesh.py)."""
+        distributed.init_from_config(self.cfg_pairs, self.device,
+                                     self._dev_spec)
+        world = distributed.process_count()
+        self.mesh = build_mesh(self.mesh_spec, self.batch_size, world,
+                               distributed.process_index())
+        n = self._dsize
+        lb = self.batch_size // n
+        self._local_rows = (lb, self.mesh.rank * lb)
+        self._gathered = set()
+        if n > 1:
+            for idx, info in enumerate(self.net_cfg.layers):
+                lay = self.net.layer_objs[idx]
+                if (not info.is_shared
+                        and getattr(lay, "fullc_gather", 0)):
+                    self._gathered.add((param_key(self.net_cfg, idx),
+                                        "wmat"))
+
     # ------------------------------------------------------------------
     # model lifecycle
     # ------------------------------------------------------------------
@@ -659,6 +782,7 @@ class NetTrainer:
                     sys.stdout.write(f"graph_passes: {line}\n")
         self.net = Network(self.net_cfg, self.batch_size)
         self.net.dtype_plan = self._graph_dtype_plan
+        self._build_mesh()
         if not self.silent:
             for i, s in enumerate(self.net.node_shapes):
                 sys.stdout.write(f"node[{self.net_cfg.node_names[i]}].shape: "
@@ -838,27 +962,84 @@ class NetTrainer:
         """Fresh train state around `params`: zero updater state (or
         the state a loaded checkpoint carried), no accumulated
         gradient, zero train metrics."""
-        ustate = {lk: {pn: up.init_state(params[lk][pn])
-                       for pn, up in d.items() if pn in params.get(lk, {})}
-                  for lk, d in self.updaters.items()}
+        ustate = self._fresh_ustate(params)
         if self._loaded_opt is not None:
             ustate = convert.ustate_from_numpy(self._loaded_opt, ustate,
                                                self.device)
             self._loaded_opt = None
-        self.state = {"params": params, "ustate": ustate}
+        self._plan_zero(params)
+        self.state = {"params": params, "ustate": self._cut_ustate(ustate)}
         self._accum = None
         self._count = 0
         self._weights_changed(retire=True)
         self.clear_train_metric()
 
+    def _fresh_ustate(self, params: Params):
+        """Zero updater state for `params`, whole: the shapes a full
+        state has, before a ZeRO-1 cut."""
+        return {lk: {pn: up.init_state(params[lk][pn])
+                     for pn, up in d.items() if pn in params.get(lk, {})}
+                for lk, d in self.updaters.items()}
+
     def set_train_state(self, params: Params, ustate, epoch: int) -> None:
-        """Install params, updater state and the update counter (the
-        carry from a JAX train state - convert.train_state_from_numpy)."""
-        self.state = {"params": params, "ustate": ustate}
+        """Install params, the whole updater state (cut here under
+        ZeRO-1) and the update counter (the carry from a JAX train
+        state - convert.train_state_from_numpy)."""
+        self._plan_zero(params)
+        self.state = {"params": params, "ustate": self._cut_ustate(ustate)}
         self.epoch = int(epoch)
         self._reset_counters()
         self._weights_changed(retire=True)
         self.clear_train_metric()
+
+    def _plan_zero(self, params: Params) -> None:
+        """The ZeRO-1 cut of these params (None without a data axis or
+        under zero_stage = 0)."""
+        self._zero = None
+        if self.zero_stage >= 1 and self._dsize > 1:
+            shapes = {lk: {pn: tuple(t.shape) for pn, t in d.items()}
+                      for lk, d in params.items()}
+            self._zero = Zero1(self.mesh, zero_partition_dims(
+                self.mesh, shapes), shapes)
+
+    def _cut_ustate(self, ustate):
+        """Full updater state -> the state this rank keeps: the own
+        slice of each cut weight's state (copied, so the full tensors
+        are freed), the rest whole."""
+        z = self._zero
+        if z is None:
+            return ustate
+        return {lk: {pn: ({f: z.owned(t, lk, pn).clone()
+                           for f, t in st.items()}
+                          if z.is_cut(lk, pn) else st)
+                     for pn, st in d.items()}
+                for lk, d in ustate.items()}
+
+    def _full_ustate(self):
+        """The whole updater state on every rank (a collective under
+        ZeRO-1: each field of the cut weights is all-gathered)."""
+        z = self._zero
+        ustate = self.state["ustate"]
+        if z is None:
+            return ustate
+        master = self.state["params"]
+        out = {lk: {pn: dict(st) for pn, st in d.items()}
+               for lk, d in ustate.items()}
+        fields = sorted({f for lk, pn, _, _ in z.cut
+                         for f in ustate[lk][pn]})
+        for f in fields:
+            into = {}
+            for lk, pn, _, _ in z.cut:
+                into[(lk, pn)] = out[lk][pn][f] = torch.empty_like(
+                    master[lk][pn])
+            z.gather({(lk, pn): ustate[lk][pn][f]
+                      for lk, pn, _, _ in z.cut}, into)
+        return out
+
+    def ustate_bytes(self) -> int:
+        """Bytes of updater state this rank holds."""
+        return sum(t.numel() * t.element_size()
+                   for t in _tree_leaves(self.state["ustate"]))
 
     def _set_params(self, params: Params) -> None:
         """Replace the params (updater state kept, or made fresh)."""
@@ -913,7 +1094,7 @@ class NetTrainer:
                 f"net declares extra_data_num={n_extra} but the batch "
                 f"carries {len(extras)} extra arrays (use attachtxt or "
                 "fill DataBatch.extra_data)")
-        pad = self.batch_size - batch.batch_size
+        pad = self._local_batch - batch.batch_size
         if pad > 0:
             extras = [np.concatenate(
                 [e, np.zeros((pad,) + e.shape[1:], np.float32)])
@@ -928,14 +1109,14 @@ class NetTrainer:
         and trims only from eval/pred (nnet_impl-inl.hpp:239); eval
         masks them. Rows padded up to batch_size are always masked."""
         b = batch.batch_size
-        if b > self.batch_size:
+        if b > self._local_batch:
             raise ValueError("batch larger than configured batch_size")
         label = (np.zeros((b, 1), np.float32) if batch.label is None
                  else np.asarray(batch.label, np.float32).reshape(b, -1))
         valid = np.ones(b, np.float32)
         if not train and batch.num_batch_padd:
             valid[b - batch.num_batch_padd:] = 0.0
-        pad = self.batch_size - b
+        pad = self._local_batch - b
         data = np.asarray(batch.data)
         if pad:
             data = np.concatenate(
@@ -1329,7 +1510,10 @@ class NetTrainer:
         # anneal), as the JAX train step binds it
         progress = (self.epoch * period + self._count if dc is None
                     else dc.epoch * period + dc.count)
-        with torch.enable_grad(), active_step(progress):
+        mesh = self.mesh if self._dsize > 1 else None
+        # the backward (and a remat recompute) runs inside the mesh too:
+        # sync-BN and fullc_gather call collectives in both passes
+        with torch.enable_grad(), active_step(progress), self._mesh_scope():
             # cast inside autograd: bfloat16 compute, float32 gradients
             cparams = self._cast(leaves)
             values, total = self.net(
@@ -1346,15 +1530,58 @@ class NetTrainer:
                  for lk in sorted(leaves)}
         rows = None
         if self.eval_train and len(self.train_metric):
-            with torch.no_grad():
+            with torch.no_grad(), self._mesh_scope():
                 rows = self._metric_rows(self.train_metric, values, labels,
                                          mask, seed, step, 1000)
         loss = loss.detach()
+        if mesh is not None:
+            loss, rows = self._reduce_step(loss, gtree, rows)
         if dc is None:
             self._commit(gtree, rows)
         else:
             self._commit_guarded(loss, gtree, rows, dc)
         return loss
+
+    @torch.no_grad()
+    def _reduce_step(self, loss, gtree, rows):
+        """Sum this microstep's loss, gradients (all but the
+        fullc_gather weights', full on every rank already) and
+        train-metric rows over the ranks in one all-reduce, in place;
+        returns the global (loss, rows)."""
+        keys = [(lk, pn) for lk in sorted(gtree) for pn in sorted(gtree[lk])
+                if (lk, pn) not in self._gathered]
+        parts = [loss.reshape(1)] + [gtree[lk][pn].reshape(-1)
+                                     for lk, pn in keys]
+        if rows is not None:
+            parts.append(rows.reshape(-1))
+        flat = torch.cat(parts)
+        distributed.all_reduce_(flat, self.mesh.group)
+        off = 1
+        for lk, pn in keys:
+            g = gtree[lk][pn]
+            g.copy_(flat[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+        if rows is not None:
+            rows = flat[off:].view(rows.shape)
+        return flat[0], rows
+
+    def _apply_updates(self, accum) -> None:
+        """Every updater on its weight, in place; under ZeRO-1 a cut
+        weight's updater runs on this rank's slice and one all-gather
+        returns the fresh weights."""
+        master, ustate = self.state["params"], self.state["ustate"]
+        z = self._zero
+        for lk, pn, up in self._updater_list():
+            if z is not None and z.is_cut(lk, pn):
+                up.apply(ustate[lk][pn], z.owned(master[lk][pn], lk, pn),
+                         z.owned(accum[lk][pn], lk, pn), self.epoch)
+            else:
+                up.apply(ustate[lk][pn], master[lk][pn], accum[lk][pn],
+                         self.epoch)
+        if z is not None:
+            z.gather({(lk, pn): z.owned(master[lk][pn], lk, pn)
+                      for lk, pn, _, _ in z.cut},
+                     {(lk, pn): master[lk][pn] for lk, pn, _, _ in z.cut})
 
     def _commit(self, gtree, rows) -> None:
         """Accumulate and update in place on the host's counters."""
@@ -1369,10 +1596,7 @@ class NetTrainer:
             accum = self._accum
         self._count += 1
         if self._count >= self.update_period:
-            master, ustate = self.state["params"], self.state["ustate"]
-            for lk, pn, up in self._updater_list():
-                up.apply(ustate[lk][pn], master[lk][pn], accum[lk][pn],
-                         self.epoch)
+            self._apply_updates(accum)
             self._accum = None
             self._count = 0
             self.epoch += 1
@@ -1405,13 +1629,28 @@ class NetTrainer:
                 ok = ok & (do | torch.isfinite(t).all())
         sched = dc.sched()
         new = []
+        z = self._zero
+        cut_new = {}
         for i, (lk, pn, up) in enumerate(self._updater_list()):
             w = master[lk][pn]
-            w_new, st = up.step(ustate[lk][pn], w, accum[lk][pn],
-                                (sched[i, 0], sched[i, 1]))
+            if z is not None and z.is_cut(lk, pn):
+                # this rank's slice; the all-gather below makes it whole
+                w_new, st = up.step(ustate[lk][pn], z.owned(w, lk, pn),
+                                    z.owned(accum[lk][pn], lk, pn),
+                                    (sched[i, 0], sched[i, 1]))
+                cut_new[(lk, pn)] = w_new
+                new.append((w, torch.empty_like(w), ustate[lk][pn], st))
+            else:
+                w_new, st = up.step(ustate[lk][pn], w, accum[lk][pn],
+                                    (sched[i, 0], sched[i, 1]))
+                new.append((w, w_new, ustate[lk][pn], st))
+        if z is not None:
+            z.gather(cut_new, {(lk, pn): new[i][1] for i, (lk, pn, _)
+                               in enumerate(self._updater_list())
+                               if (lk, pn) in cut_new})
+        for w, w_new, _, _ in new:
             fin = torch.isfinite(w_new).all()
             ok = ok & (fin if do is None else (~do | fin))
-            new.append((w, w_new, ustate[lk][pn], st))
         take = ok if do is None else ok & do
         for w, w_new, st_old, st in new:
             w.copy_(torch.where(take, w_new, w))
@@ -1563,6 +1802,9 @@ class NetTrainer:
             # float32 rows read back once; the cross-batch sum in
             # float64 on the host, as the JAX trainer reduces them
             vals = torch.stack(rows).cpu().numpy().astype(np.float64).sum(0)
+        if self._dsize > 1:
+            # every rank evaluated its shard: the sums over the ranks
+            vals = distributed.host_sum(vals, self.mesh.group)
         return format_metrics(data_name, specs, vals)
 
     def eval_rows(self, staged: StagedBatch, params: Params,
@@ -1578,7 +1820,7 @@ class NetTrainer:
                 name=f"eval_step@b{gdata.shape[0]}",
                 shape=gdata.shape,
                 nbytes=gdata.numel() * gdata.element_size()), \
-                torch.inference_mode():
+                torch.inference_mode(), self._mesh_scope():
             values = self.net(params, self._model_input(gdata),
                               extras=staged.extras)[0]
             return self._metric_rows(self.metric, values, staged.labels,
@@ -1675,7 +1917,7 @@ class NetTrainer:
         inputs, stage_extras); node=-1 is the final node."""
         if node < 0:
             node = self.net_cfg.num_nodes - 1
-        with torch.inference_mode():
+        with torch.inference_mode(), self._mesh_scope():
             return self.infer_graph(node)(gdata, extras)
 
     def _stage_padded(self, batch: DataBatch):
@@ -1762,10 +2004,52 @@ class NetTrainer:
         qsites = self._quant_sites if self._needs_quant_stats() else []
         taps: Dict[int, Any] = {j: None for _i, j in sites}
         taps.update({q: None for q in qsites})
-        with torch.inference_mode():
+        if sites and self._dsize > 1:
+            telemetry.stderr(
+                "graph_passes: fold_conv_bn calibrating GLOBAL batch "
+                "statistics on a data-sharded mesh; the unfolded BN "
+                "uses per-shard stats, so folded outputs are not "
+                "ULP-comparable to unfolded ones here "
+                "(docs/GRAPH_PASSES.md)\n",
+                event_kind="graph_passes", op="calibrate_sharded",
+                data_axis=self._dsize)
+        with torch.inference_mode(), self._mesh_scope():
             self.net(self.compute_params(), self._model_input(gdata),
                      extras=gextras, taps=taps)
         return sites, qsites, taps
+
+    def _site_moments(self, xf: torch.Tensor, axes, m=None):
+        """Per-channel (mean, var) of a tapped float32 activation over
+        its rows, weighted by the row mask `m` where one is given. On a
+        data mesh they are the global batch's, as the JAX package takes
+        them over its globally sharded batch: the sums over the ranks,
+        in two passes as sync-BN."""
+        if self._dsize == 1:
+            if m is None:
+                mean = xf.mean(dim=axes, keepdim=True)
+                return mean, ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
+            denom = m.sum(dim=axes, keepdim=True)
+            mean = (xf * m).sum(dim=axes, keepdim=True) / denom
+            return mean, (m * (xf - mean) ** 2).sum(dim=axes,
+                                                    keepdim=True) / denom
+        w = torch.ones_like(xf) if m is None else m
+
+        def total(t):
+            return distributed.all_reduce_(t.sum(dim=axes, keepdim=True),
+                                           self.mesh.group)
+        denom = total(w)
+        mean = total(xf * w) / denom
+        return mean, total(w * (xf - mean) ** 2) / denom
+
+    def _site_absmax(self, x: torch.Tensor, mask: torch.Tensor) -> float:
+        """_masked_absmax over this rank's rows, or on a data mesh over
+        the global batch's (the largest over the ranks)."""
+        v = _masked_absmax(x, mask)
+        if self._dsize > 1:
+            v = float(distributed.all_reduce_(
+                torch.tensor([v], dtype=torch.float32, device=x.device),
+                self.mesh.group, op="max")[0])
+        return v
 
     def _calibrate_staged(self, gdata: torch.Tensor, gmask: torch.Tensor,
                           gextras=()) -> bool:
@@ -1784,8 +2068,7 @@ class NetTrainer:
                 lay = self.net.layer_objs[j]
                 xf = taps[j].float()
                 axes, _ = lay._axes(xf.shape)
-                mean = xf.mean(dim=axes, keepdim=True)
-                var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
+                mean, var = self._site_moments(xf, axes)
                 rstd = torch.rsqrt(var + lay.eps)
                 stats[param_key(self.net_cfg, j)] = (
                     mean.reshape(-1).cpu().numpy(),
@@ -1793,7 +2076,7 @@ class NetTrainer:
             self._fold_stats = stats
         if qsites:
             self._quant_stats = {
-                param_key(self.net_cfg, q): _masked_absmax(taps[q], gmask)
+                param_key(self.net_cfg, q): self._site_absmax(taps[q], gmask)
                 for q in qsites}
         self._fold_epoch += 1
         self._evict_stale_infer_caches()
@@ -1829,17 +2112,18 @@ class NetTrainer:
                 axes, _ = lay._axes(xf.shape)
                 m = gmask.float().reshape(
                     (-1,) + (1,) * (xf.dim() - 1)).expand(xf.shape)
-                denom = m.sum(dim=axes, keepdim=True)
-                mean = (xf * m).sum(dim=axes, keepdim=True) / denom
-                var = (m * (xf - mean) ** 2).sum(dim=axes,
-                                                 keepdim=True) / denom
+                mean, var = self._site_moments(xf, axes, m)
                 res[param_key(self.net_cfg, j)] = (
                     mean.reshape(-1).cpu().numpy(),
                     var.reshape(-1).cpu().numpy())
             per_batch.append(res)
             q_batch.append({param_key(self.net_cfg, q):
-                            _masked_absmax(taps[q], gmask) for q in qsites})
-            weights.append(float(gmask.sum()))
+                            self._site_absmax(taps[q], gmask)
+                            for q in qsites})
+            valid = gmask.float().sum().reshape(1)
+            if self._dsize > 1:
+                distributed.all_reduce_(valid, self.mesh.group)
+            weights.append(float(valid[0]))
         w = np.asarray(weights, np.float64)
         w = w / w.sum()
         stats: Dict[str, Any] = {}
@@ -1943,7 +2227,7 @@ class NetTrainer:
             legacy_format.save_legacy_model(fo, self.net_cfg, self.net,
                                             params, self.epoch)
             return
-        opt = (convert.ustate_to_numpy(self.state["ustate"])
+        opt = (convert.ustate_to_numpy(self._full_ustate())
                if self.save_optimizer else None)
         checkpoint.save_model(fo, 0, self.net_cfg.to_dict(), self.epoch,
                               params, opt)
@@ -2042,6 +2326,14 @@ class NetTrainer:
         arr = np.asarray(weight, dtype=np.float32).reshape(tuple(cur.shape))
         params[lk][pn] = torch.from_numpy(arr.copy()).to(self.device)
         self._weights_changed(retire=True)
+
+    def check_weights(self) -> List[str]:
+        """test_on_server (async_updater-inl.hpp:144-153): the params
+        are replicated, so each must be bitwise the same on every rank;
+        returns a description of each that differs ([] on one rank)."""
+        return distributed.check_replicated(
+            self.state["params"], group=None if self.mesh is None
+            else self.mesh.group)
 
     def _weight_key(self, layer_name: str, tag: str) -> Tuple[str, str]:
         idx = self.net_cfg.get_layer_index(layer_name)

@@ -70,7 +70,9 @@ def lrn(x: torch.Tensor, local_size: int, alpha: float, beta: float,
     (lrn_layer-inl.hpp:36-56). A CUDA tensor goes to the hand-written
     kernels K1-fwd / K1-bwd (ops/lrn.py, which raises on anything it
     cannot take); a CPU tensor goes to the same autograd rule with the
-    plain PyTorch versions."""
+    plain PyTorch versions. On a data mesh each rank calls this on its
+    own rows: the port of the JAX package's sharded entry point
+    (`lrn_pallas_sharded`, a shard_map with no collective)."""
     if x.is_cuda:
         return lrn_ops.lrn(x.contiguous(), local_size, alpha, beta, knorm)
     return lrn_ops.lrn_cpu(x, local_size, alpha, beta, knorm)

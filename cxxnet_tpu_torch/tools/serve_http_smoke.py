@@ -20,7 +20,12 @@ through the overload matrix of docs/SERVING.md "Serving over HTTP":
   must be exposition-valid;
 - an OPEN-LOOP storm at ~2x sustainable past `queue_limit` must shed
   (429 + Retry-After observed) while the ACCEPTED requests keep p99
-  within 3x uncontended - bounded latency is what shedding buys;
+  within 3x uncontended - bounded latency is what shedding buys. Both
+  legs read latency on the client's clock, so TCP accept and the listen
+  backlog count too, and both legs' clients run in a process of their
+  own (CLIENT): the storm's 160 client threads do not share the
+  server's interpreter lock, so what the bound reads is the server's
+  queue and the pinned service, not the client's own work;
 - a fresh checkpoint atomically published MID-STORM must be picked up
   live (swap event, zero errored requests - every response a 200 or a
   429, never a 5xx) and the post-swap answers must match a cold
@@ -39,7 +44,6 @@ import json
 import os
 import subprocess
 import sys
-import threading
 import time
 import urllib.error
 import urllib.request
@@ -106,6 +110,104 @@ silent = 1
 # does not dwarf. An unbounded queue at 2x overload still waits tens of
 # service times.
 SERVICE_S = 0.1
+
+
+# The client of the uncontended and storm legs, run in a process of its
+# own (stdlib only; its spec is argv[1] as JSON). It prints "publish"
+# when the storm reaches its mid-storm publish, for the server's process
+# to publish the new checkpoint, then one JSON line of readings.
+CLIENT = r"""
+import json, sys, threading, time, urllib.error, urllib.request
+
+spec = json.loads(sys.argv[1])
+body = json.dumps(spec["payload"]).encode()
+
+
+def post():
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/predict" % spec["port"], data=body,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120.0) as r:
+            r.read()
+            return r.status, dict(r.headers)
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code, dict(e.headers)
+    except OSError:
+        return 0, {}
+
+
+lock = threading.Lock()
+tally = {"200": 0, "429": 0, "other": 0}
+uncont, storm = [], []
+shed = [0]
+retry_after = [False]
+
+
+def timed(sink, t_start=None):
+    ts = time.perf_counter()
+    code, headers = post()
+    dt = (time.perf_counter() - ts) * 1e3
+    with lock:
+        tally[str(code) if str(code) in tally else "other"] += 1
+        if code == 200:
+            sink.append(dt if t_start is None else
+                        (round(ts - t_start, 4), round(dt, 2)))
+        elif code == 429 and t_start is not None:
+            shed[0] += 1
+            if "Retry-After" in headers:
+                retry_after[0] = True
+
+
+for _ in range(spec["n_seq"]):
+    timed(uncont)
+threads = []
+t_start = time.perf_counter()
+t_publish = None
+for i, at in enumerate(spec["arrivals"]):
+    pause = t_start + at - time.perf_counter()
+    if pause > 0:
+        time.sleep(pause)
+    if i == spec["publish_at"]:
+        t_publish = time.perf_counter() - t_start
+        print("publish", flush=True)
+    t = threading.Thread(target=timed, args=(storm, t_start), daemon=True)
+    t.start()
+    threads.append(t)
+for t in threads:
+    t.join(timeout=300)
+print(json.dumps({"uncont": uncont, "storm": storm, "tally": tally,
+                  "shed": shed[0], "retry_after": retry_after[0],
+                  "t_publish": t_publish}), flush=True)
+"""
+
+
+def _run_clients(port: int, payload: dict, n_seq: int, arrivals,
+                 publish_at: int, publish) -> dict:
+    """Run CLIENT in its own process against `port`; call `publish()`
+    when it reaches the storm's request `publish_at`; its readings."""
+    spec = {"port": port, "payload": payload, "n_seq": n_seq,
+            "arrivals": [float(a) for a in arrivals],
+            "publish_at": publish_at}
+    proc = subprocess.Popen([sys.executable, "-c", CLIENT, json.dumps(spec)],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        out = None
+        for line in proc.stdout:
+            if line.strip() == "publish":
+                publish()
+            else:
+                out = json.loads(line)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or out is None:
+        raise RuntimeError(f"serve_http_smoke: the client process failed "
+                           f"(exit code {proc.returncode})")
+    return out
 
 
 def _run_cli(out_dir: str, *overrides: str) -> subprocess.CompletedProcess:
@@ -189,72 +291,29 @@ def run_smoke(out_dir: str, device: str) -> int:
         rng = np.random.RandomState(29)
         probe = rng.randn(4, 36).astype(np.float32).tolist()
         payload = {"data": probe, "raw": True}
-        lock = threading.Lock()
-
-        def timed_post(sink):
-            ts = time.perf_counter()
-            code, headers, _ = _post(port, payload)
-            dt = (time.perf_counter() - ts) * 1e3
-            with lock:
-                tally[str(code) if str(code) in tally
-                      else "other"] += 1
-                if sink is not None and code == 200:
-                    sink.append(dt)
-            return code, headers
-
-        # --- leg 1: uncontended p99, sequential ----------------------
-        lat = []
-        for _ in range(40):
-            timed_post(lat)
-        uncont_p99 = _p99(lat)
-        # with service time pinned at SERVICE_S a dispatch, sustainable
-        # capacity is known analytically: replicas * max_batch rows
-        # per dispatch window, in 4-row requests
-        sustainable_rps = (2 * 8 / SERVICE_S) / 4.0
         pre_swap = _post(port, payload)[2].get("outputs")
         bad_scrapes.extend(validate_exposition(_scrape(port)))
 
+        # --- leg 1: uncontended p99, sequential ----------------------
         # --- leg 2: open-loop storm at ~2x + mid-storm publish ------
+        # both from the client process. With service time pinned at
+        # SERVICE_S a dispatch, sustainable capacity is known
+        # analytically: replicas * max_batch rows per dispatch window,
+        # in 4-row requests
+        sustainable_rps = (2 * 8 / SERVICE_S) / 4.0
         n_req = 160
         gaps = rng.exponential(1.0 / (2.0 * sustainable_rps), n_req)
-        arrivals = np.cumsum(gaps)
-        acc_lat = []
-        storm_shed = 0
-
-        def fire(i):
-            nonlocal saw_retry_after, storm_shed
-            ts = time.perf_counter()
-            code, headers, _ = _post(port, payload)
-            dt = (time.perf_counter() - ts) * 1e3
-            with lock:
-                tally[str(code) if str(code) in tally else
-                      "other"] += 1
-                if code == 200:
-                    acc_lat.append(dt)
-                    acc_at.append((round(ts - t_start, 4), round(dt, 2)))
-                elif code == 429:
-                    storm_shed += 1
-                    if "Retry-After" in headers:
-                        saw_retry_after = True
-
-        threads = []
-        t_start = time.perf_counter()
-        for i in range(n_req):
-            pause = t_start + float(arrivals[i]) - time.perf_counter()
-            if pause > 0:
-                time.sleep(pause)
-            if i == n_req // 3:
-                # mid-storm: atomically publish the round-2 weights
-                # to the watched path - the poller must pick it up
-                # while the storm is still running
-                checkpoint.publish_model(ck_new, publish)
-                t_publish = time.perf_counter() - t_start
-            t = threading.Thread(target=fire, args=(i,),
-                                 daemon=True)
-            t.start()
-            threads.append(t)
-        for t in threads:
-            t.join(timeout=300)
+        # mid-storm: atomically publish the round-2 weights to the
+        # watched path - the poller must pick it up while the storm is
+        # still running
+        got = _run_clients(port, payload, 40, np.cumsum(gaps), n_req // 3,
+                           lambda: checkpoint.publish_model(ck_new, publish))
+        tally.update(got["tally"])
+        uncont_p99 = _p99(got["uncont"])
+        acc_at = [tuple(r) for r in got["storm"]]
+        acc_lat = [dt for _, dt in acc_at]
+        storm_shed, saw_retry_after = got["shed"], got["retry_after"]
+        t_publish = got["t_publish"]
         swap_before_storm_end = srv.stats()["swaps"] >= 1
         storm_p99 = _p99(acc_lat)
         bad_scrapes.extend(validate_exposition(_scrape(port)))

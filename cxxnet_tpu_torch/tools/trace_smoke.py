@@ -82,6 +82,10 @@ def run_smoke(out_dir: str, device: str) -> int:
     summary_path = os.path.join(out_dir, "trace_summary.json")
 
     telemetry.configure(log_file=events)
+    # the executable registry is process-wide: start from an empty one,
+    # as a fresh process does, so programs an earlier Server of this
+    # process registered do not count as this one's
+    telemetry.get().executables.reset()
     http = telemetry.arm_observability(metrics_port=0,
                                        metrics_host="127.0.0.1")
     base = f"http://127.0.0.1:{http.port}"

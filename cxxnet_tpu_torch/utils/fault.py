@@ -60,6 +60,7 @@ def default_on_retry(fn, attempt, total, exc, sleep_s):
 
 def retry(attempts: int = 3, backoff: float = 0.05, jitter: float = 0.05,
           retry_on: Tuple[Type[BaseException], ...] = (OSError,),
+          deadline: Optional[float] = None,
           on_retry: Optional[Callable] = None):
     """Decorator: retry on transient errors with exponential backoff.
 
@@ -69,6 +70,9 @@ def retry(attempts: int = 3, backoff: float = 0.05, jitter: float = 0.05,
       many workers retrying the same shared resource don't stampede.
     - ``retry_on``: exception classes considered transient; anything
       else propagates immediately.
+    - ``deadline``: optional cap on TOTAL elapsed seconds (including
+      the pending sleep); when exceeded the last error propagates even
+      if attempts remain.
     - ``on_retry(fn, attempt, attempts, exc, sleep_s)``: hook for the
       per-retry warning; default writes it to stderr.
     """
@@ -79,6 +83,7 @@ def retry(attempts: int = 3, backoff: float = 0.05, jitter: float = 0.05,
     def deco(fn):
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
+            start = time.monotonic()
             delay = backoff
             for attempt in range(1, attempts + 1):
                 try:
@@ -87,6 +92,9 @@ def retry(attempts: int = 3, backoff: float = 0.05, jitter: float = 0.05,
                     if attempt >= attempts:
                         raise
                     sleep_s = delay + random.uniform(0.0, jitter)
+                    if (deadline is not None and
+                            time.monotonic() - start + sleep_s > deadline):
+                        raise
                     notify(fn, attempt, attempts, exc, sleep_s)
                     time.sleep(sleep_s)
                     delay *= 2

@@ -14,7 +14,9 @@ float32 scalars on pred's device, over the rows with mask > 0:
   single column (metric.h:113-132).
 - ``rec@n``:   fraction of the row's labels found in the top-n
   predictions; ties broken at random, like the reference's shuffle
-  before its stable sort, with draws from the explicit `gen`.
+  before its stable sort, with draws from the explicit `gen` (on a
+  data mesh this rank's rows of the global batch's draw,
+  layers/base.py rank_rand).
 
 The trainer adds the pairs up on the device and reads them back once
 per round (train metrics) or once per dataset (evaluate), and
@@ -28,6 +30,8 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from cxxnet_tpu_torch.layers.base import rank_rand
 
 StepFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor,
                    Optional[torch.Generator]],
@@ -77,7 +81,7 @@ def _make_recall(topn: int) -> StepFn:
                 f"rec@{topn} meaningless for prediction list of size {k}")
         # order by -pred, exact ties by a random key: sort by the key,
         # then stably by -pred
-        jitter = torch.rand(pred.shape, generator=gen, device=pred.device)
+        jitter = rank_rand(pred.shape, gen, device=pred.device)
         by_key = torch.argsort(jitter, dim=1)
         by_pred = torch.argsort(torch.gather(-pred, 1, by_key), dim=1,
                                 stable=True)

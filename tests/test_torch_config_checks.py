@@ -167,9 +167,18 @@ def _setters():
     }
 
 
-# the tables that refuse no key any more: the data pipeline's, since
-# use_native was ported (its key is a handler key of io/iter_img.py)
-_EMPTIED = {"cxxnet_tpu_torch/io/iterators.py": "use_native"}
+# the tables that refuse no key any more, each with a key it refused
+# and the module whose handler now takes it: the data pipeline's since
+# use_native was ported, the trainer's and the layers' since the data
+# axis was (mesh, fullc_gather)
+_EMPTIED = {
+    "cxxnet_tpu_torch/io/iterators.py": ("use_native",
+                                         "cxxnet_tpu_torch/io/iter_img.py"),
+    "cxxnet_tpu_torch/nnet/trainer.py": ("mesh",
+                                         "cxxnet_tpu_torch/nnet/trainer.py"),
+    "cxxnet_tpu_torch/layers/base.py": ("fullc_gather",
+                                        "cxxnet_tpu_torch/layers/common.py"),
+}
 
 
 @pytest.mark.parametrize("table", sorted(_setters()))
@@ -178,10 +187,9 @@ def test_f2_not_ported_keys_raise_naming_the_key(table):
     keys = sorted(k for k, where in reg.not_ported.items()
                   if any(w.startswith(table + ":") for w in where))
     if table in _EMPTIED:
-        key = _EMPTIED[table]
+        key, handler = _EMPTIED[table]
         assert not keys and key not in reg.not_ported
-        assert any(w.startswith("cxxnet_tpu_torch/io/iter_img.py:")
-                   for w in reg.exact[key])
+        assert any(w.startswith(handler + ":") for w in reg.exact[key])
         return
     assert keys
     setter = _setters()[table]

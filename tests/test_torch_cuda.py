@@ -1748,3 +1748,115 @@ def test_lock_audit_serve_storm_on_the_card(cuda_device):
     rep = run_lock_audit(scenarios=("serve-storm",), device="cuda:0")
     assert rep["failed"] == 0, [c for c in rep["checks"] if not c["ok"]]
     assert rep["cycle"] is None and not rep["boundary_violations"]
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+DP_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+sys.path.insert(0, os.environ["CXN_TEST_REPO"])
+sys.path.insert(0, os.path.join(os.environ["CXN_TEST_REPO"], "tests"))
+from cxxnet_tpu_torch import kernels
+from cxxnet_tpu_torch.io.data import DataBatch
+from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+from cxxnet_tpu_torch.ops.routing import Routing
+from torch_port_util import NARROW_ALEXNET, numpy_keep
+work = os.environ["CXN_TEST_WORK"]
+torch.backends.cudnn.allow_tf32 = False
+cfg = NARROW_ALEXNET.replace("dev = cpu", "dev = gpu:0")
+t = NetTrainer(device="cuda:0", cfg=cfg + '''
+dtype = float32
+param_server = dist
+update_on_server = 1
+''')
+t.init_model()
+lb, lo = t._local_batch, t._local_row_start
+z = np.load(os.path.join(work, "batch.npz"))
+kernels.reset_launches()
+for i in range(2):
+    rec = Routing()
+    rec.decisions = {k: v[lo:lo + lb] for k, v in torch.load(
+        os.path.join(work, f"dec{i}.pt")).items()}
+    keep = {j: m[lo:lo + lb] for j, m in numpy_keep(t, 30 + i).items()}
+    with Routing(replay=rec):
+        t.update(DataBatch(data=z["x"][lo:lo + lb], label=z["y"][lo:lo + lb]),
+                 keep=keep)
+out = {f"{k}/{n}": v.cpu().numpy() for k, d in t.state["params"].items()
+       for n, v in d.items()}
+np.savez(os.path.join(work, f"rank{t.mesh.rank}.npz"), **out)
+print(json.dumps({"rows": lb, "launches": kernels.launches(),
+                  "bad": t.check_weights()}), flush=True)
+"""
+
+
+def test_data_parallel_two_ranks_on_the_card(cuda_device, tmp_path):
+    """NARROW_ALEXNET float32 as two ranks sharing the card over gloo
+    (4 rows a rank, update_on_server = 1), 2 steps, against one process
+    at batch 8 on the card with its discrete decisions replayed: each
+    param's update within 2e-3 of its norm (chip_smoke's UPDATE_BAR),
+    K1-fwd / K1-bwd 2 / 2 a step on each rank, and the ranks' weights
+    equal (check_weights)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = NARROW_ALEXNET.replace("dev = cpu", "dev = gpu:0")
+    rng = np.random.RandomState(9)
+    x = rng.randn(8, 3, 35, 35).astype(np.float32)
+    y = rng.randint(0, 10, size=(8, 1)).astype(np.float32)
+    np.savez(tmp_path / "batch.npz", x=x, y=y)
+    t = NetTrainer(device="cuda:0", cfg=cfg + "dtype = float32\n")
+    t.init_model()
+    before = {f"{k}/{n}": v.cpu().numpy().copy()
+              for k, d in t.state["params"].items() for n, v in d.items()}
+    for i in range(2):
+        rec = Routing()
+        with rec:
+            t.update(DataBatch(data=x, label=y), keep=numpy_keep(t, 30 + i))
+        torch.save(rec.decisions, tmp_path / f"dec{i}.pt")
+    ref = {f"{k}/{n}": v.cpu().numpy()
+           for k, d in t.state["params"].items() for n, v in d.items()}
+    del t
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "dp_worker.py"
+    script.write_text(DP_WORKER)
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, PYTHONPATH=repo, CXN_TEST_REPO=repo,
+                   CXN_TEST_WORK=str(tmp_path),
+                   CXN_COORDINATOR=f"127.0.0.1:{port}", CXN_NUM_WORKER="2",
+                   CXN_WORKER_RANK=str(r), CXN_LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        rep = json.loads(out.strip().splitlines()[-1])
+        assert rep["rows"] == 4 and rep["bad"] == []
+        assert rep["launches"]["lrn_fwd"] == 4
+        assert rep["launches"]["lrn_bwd"] == 4
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    for key, b in before.items():
+        np.testing.assert_array_equal(ranks[0][key], ranks[1][key])
+        d_ref, d_dp = ref[key] - b, ranks[0][key] - b
+        den = float(np.linalg.norm(d_ref))
+        rel = float(np.linalg.norm(d_dp - d_ref)) / den if den else 0.0
+        assert rel <= 2e-3, (key, rel)

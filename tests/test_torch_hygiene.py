@@ -50,6 +50,8 @@ def test_import_everything_pulls_no_jax_and_no_cxxnet_tpu():
     mods = sorted(set(_modules()))
     for m in ("ops.lrn", "utils.profiler", "nnet.tuning",
               "tools.fused_smoke", "tools.profile_step", "tools.autotune",
+              "parallel", "parallel.mesh", "parallel.distributed",
+              "parallel.sharding", "tools.launch_dist",
               *ANALYSIS_AND_TOOLS):
         assert f"cxxnet_tpu_torch.{m}" in mods
     code = (
@@ -157,21 +159,47 @@ def test_dev_mapping(spec, want):
     assert device_from_spec(spec) == want
 
 
+SMALL_NET = """
+netconfig=start
+layer[0->1] = fullc:fc1
+  nhidden = 4
+layer[1->1] = softmax
+netconfig=end
+input_shape = 1,1,8
+batch_size = 64
+silent = 1
+"""
+
+
 @pytest.mark.parametrize("spec", ["tpu:0-63", "gpu:0,1", "tpu:0-3"])
 def test_multi_device_specs_raise(spec):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        device_from_spec(spec)
+    """A multi-device spec declares a data axis of one rank per listed
+    card: it maps to this worker's card (rank 0: the first listed), and
+    a trainer started alone with it raises, naming param_server = dist
+    and tools/launch_dist."""
+    assert device_from_spec(spec) == "cuda:0"
+    tr = NetTrainer(device="cpu", cfg=SMALL_NET)
+    tr.set_param("dev", spec)
+    with pytest.raises(ValueError,
+                       match="param_server = dist under tools/launch_dist"):
+        tr.init_model()
 
 
-@pytest.mark.parametrize("key,val", [
-    ("zero_stage", "2"), ("mesh", "data:2"),
-    ("update_on_server", "1"),
-    ("param_server", "dist"), ("shard_optimizer", "1"),
+@pytest.mark.parametrize("key,val,exc,match", [
+    ("zero_stage", "2", NotImplementedError, "zero_stage"),
+    ("mesh", "model:2", NotImplementedError, "model"),
+    ("mesh", "seq:2", NotImplementedError, "seq"),
+    ("zero_stage", "3", NotImplementedError, "zero_stage"),
+    ("mesh", "data:2", ValueError, "param_server = dist"),
 ])
-def test_result_changing_keys_raise(key, val):
-    tr = NetTrainer(device="cpu")
-    with pytest.raises(NotImplementedError, match=key):
+def test_result_changing_keys_raise(key, val, exc, match):
+    """What the parallelism slice does not port raises naming itself:
+    ZeRO stages 2-3 and the non-data mesh axes at set_param, a data
+    axis larger than the job (one process here) at the net's build."""
+    tr = NetTrainer(device="cpu", cfg=SMALL_NET)
+    with pytest.raises(exc, match=match):
         tr.set_param(key, val)
+        tr.init_model()
 
 
 @pytest.mark.parametrize("key,val,attr,want", [
@@ -215,8 +243,9 @@ def test_layer_not_yet_ported_raises_at_net_build():
 def test_iterator_not_yet_ported_raises(monkeypatch, tmp_path):
     """The data pipeline's refusals: use_native = 1 with no device given
     means the card (the native decoder, nvJPEG), and with no card it
-    raises naming device="cpu" rather than decoding on the host;
-    multi-worker sharding is not ported."""
+    raises naming device="cpu" rather than decoding on the host.
+    Multi-worker sharding is ported: a threadbuffer chain passes
+    dist_num_worker / dist_worker_rank down to its imgbin base."""
     from cxxnet_tpu_torch.io import create_iterator
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     lst = tmp_path / "empty.lst"
@@ -226,9 +255,12 @@ def test_iterator_not_yet_ported_raises(monkeypatch, tmp_path):
                           ("iter", "end")])
     with pytest.raises(RuntimeError, match='device="cpu"'):
         it.init()
-    with pytest.raises(NotImplementedError, match="dist_num_worker"):
-        create_iterator([("iter", "imgbin"), ("dist_num_worker", "2"),
-                         ("iter", "threadbuffer"), ("iter", "end")])
+    it = create_iterator([("iter", "imgbin"), ("dist_num_worker", "2"),
+                          ("dist_worker_rank", "1"),
+                          ("iter", "threadbuffer"), ("iter", "end")])
+    while not hasattr(it, "dist_num_worker"):
+        it = getattr(it, "base", None) or it.inner
+    assert (it.dist_num_worker, it.dist_worker_rank) == (2, 1)
 
 
 def test_kernels_are_not_built_at_import():

@@ -229,9 +229,8 @@ def test_image_conf_prefix_template_matches_jax(sets):
 
 
 def test_instance_sharding_matches_jax(sets):
-    """The imgbin iterator's instance-level quota (dist_num_worker > 1
-    is refused by create_iterator until the port runs several workers;
-    the iterator itself is held to the JAX package's)."""
+    """The imgbin iterator's instance-level quota, held to the JAX
+    package's: each worker of a data-parallel job reads its shard."""
     from cxxnet_tpu.io.iter_img import ImageBinIterator as JaxBin
     lst, root, binp = sets["a"]
     assert shard_quota(24, 5, 2) == (4, 2)
@@ -254,6 +253,36 @@ def test_instance_sharding_matches_jax(sets):
         assert [i for i, _ in outs[0]] == [i for i, _ in outs[1]]
         for (_, a), (_, b) in zip(*outs):
             np.testing.assert_array_equal(a, b)
+
+
+def test_native_route_takes_only_its_ranks_records(sets):
+    """The native reader's route (use_native = 1; on the CPU its plain
+    version, PlainBinReader, which the nvJPEG reader shares the
+    ordinal filter with) serves each rank exactly the records the
+    Python path serves it: the shards are disjoint, each holds the
+    quota, and the images are the same."""
+    lst, root, binp = sets["a"]
+    seen = []
+    for rank in range(5):
+        outs = []
+        for native in ("1", "0"):
+            it = ImageBinIterator(device="cpu")
+            for k, v in (("image_list", lst), ("image_bin", binp),
+                         ("silent", "1"), ("dist_num_worker", "5"),
+                         ("use_native", native),
+                         ("dist_worker_rank", str(rank))):
+                it.set_param(k, v)
+            it.init()
+            got = []
+            while it.next():
+                got.append((it.value().index, it.value().data.copy()))
+            outs.append(got)
+        assert [i for i, _ in outs[0]] == [i for i, _ in outs[1]]
+        assert len(outs[0]) == 4
+        for (_, a), (_, b) in zip(*outs):
+            np.testing.assert_array_equal(a, b)
+        seen.extend(i for i, _ in outs[0])
+    assert len(set(seen)) == len(seen) == 20
 
 
 def test_io_retry_absorbs_a_transient_read_error(sets, monkeypatch):

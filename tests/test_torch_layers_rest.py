@@ -412,7 +412,7 @@ def test_layer_registry_equals_jax():
     assert known_layer_types() == sorted(JAX_REGISTRY)
     assert port_layer("pairtest-relu-tanh").master.type_name == "relu"
     from cxxnet_tpu_torch.layers.base import _NOT_PORTED
-    assert sorted(_NOT_PORTED) == ["fullc_gather"]
+    assert sorted(_NOT_PORTED) == []
 
 
 # ---------------------------------------------------------------------------
