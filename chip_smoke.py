@@ -168,7 +168,8 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    tests/test_trainer.py:505 trained on numpy batches, the pinned ring
    carrying extras, Server.submit and /predict with extras (200) and
    without (400); (f) keep_latest = 2 with continue = 1, and test_io =
-   1, through the CLI on MNIST.conf;
+   1, through the CLI on MNIST.conf (in the whole script, beside phase
+   10's CLI runs: it checks and times nothing);
 14. the native image decoder (`use_native`, io/native.py over
    csrc/nvjpeg_io.cu), in a fresh process (`chip_smoke.py --leg 14 OUT
    [DIR FMT]`, run inside phase 10's directory after 13; alone it makes
@@ -184,7 +185,9 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    bins, a missing file, PNG / PPM / a JPEG cut in its headers handed
    back raw, out_mode 1 against 2; (c) AlexNet.conf's train block under
    use_native = 1 and shuffle = 1 on the card against PlainBinReader:
-   labels bitwise, batches at the bar; (d) the decode rate alone over
+   labels bitwise, batches at the bar ((b)-(c) check and time nothing:
+   in the whole script they run in a process of their own, `--leg 14u
+   OUT`, beside phase 10's CLI runs); (d) the decode rate alone over
    10g's 3,072 images at 1, 4 and 8 threads beside PIL's at 1 and 4;
    (e) 10g's three settings again with use_native = 1, with the host
    stages; (f), in this process: phase 10c's CLI run, which under the
@@ -199,7 +202,9 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    bitwise, the NaN microstep dropped in both, K1's launches equal, one
    guard readback a chunk (8 against 2), the synchronising calls of one
    chunk (torch's sync debug mode), the step time a microstep and the
-   device's idle share of each; (b) seq_mnist.conf through the CLI at
+   device's idle share of each; (b) and (d), CLI runs that check and
+   time nothing, run side by side (in the whole script, beside phase
+   10's CLI runs); (b) seq_mnist.conf through the CLI at
    K = 4 against K = 1 (tools/fused_smoke.py: checkpoints byte-equal,
    eval lines equal, train.chunk spans, K2's launches); (c) remat = 1
    against 0 at AlexNet b256 over 2 updates: the params (bitwise, or no
@@ -233,7 +238,7 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    with num_round = 2, dev = gpu:0 and test_on_server = 1, beside the
    same job with dev = cpu: the round lines and rank 0's last checkpoint
    held to the CPU's; (b) AlexNet.conf at full width, global batch 256
-   (128 a rank), 3 steps a leg in two spawned workers (`--leg 17w`) at
+   (128 a rank), 2 steps a leg in two spawned workers (`--leg 17w`) at
    update_on_server = 0 and 1: the float32 legs replay the one-process
    b256 run's decisions (ops/routing.py) and hold each update within
    UPDATE_BAR of its norm, the bfloat16 legs hold the global loss to the
@@ -244,6 +249,27 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    sharing one card; (c) seq_mnist.conf as two ranks, K2
    1-1-1 a step on each, no SDPA. Each worker prints its counts and
    verdicts on one `dp-result` line the phase reads.
+18. ZeRO stages 2-3 and the model axis, ranks sharing the one card over
+   gloo (`chip_smoke.py --leg 18 OUT` runs it alone). What checks and
+   times nothing runs in `--leg 18u OUT WORK`, beside phase 16a-c: the
+   one-process b256 references (17b's and 18's), then (b) AlexNet.conf
+   at mesh = model:2, each of two workers (`--leg 18w`) on all 256
+   rows, float32 replaying the one-process decisions (each update
+   within UPDATE_BAR) and bfloat16 holding the global loss, each rank's
+   conv / fc weight bytes, and (c) seq_mnist.conf (nhead 4) at model:2,
+   K2 1-1-1 a step on each rank on its 2 heads; from the start, side by
+   side with them, 17a, (d) examples/MNIST/MNIST_CONV.conf at mesh =
+   data:2,model:2 under zero_stage = 3, four ranks under
+   tools/launch_dist on the card beside the same job with dev = cpu
+   (its dropout layer taken out; round lines and rank 0's last
+   checkpoint held to the CPU's as 17a's, test_on_server = 1), and (e)
+   the port's tools/zero_smoke.py --dev gpu:0. Then, alone after 17:
+   (a) AlexNet.conf at global batch 256, mesh = data:2 at zero_stage 2
+   and 3 (float32) and 1 and 3 (bfloat16), held alike, the bytes of
+   params, gradients, accumulator and updater state each rank holds,
+   the reduce-scatter's and the all-gather's times. K1-fwd / K1-bwd 2 /
+   2 a step on each rank in (a) and (b), no plain version, no
+   F.local_response_norm, no SDPA.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -253,6 +279,7 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import ast
+import contextlib
 import gzip
 import json
 import os
@@ -3309,9 +3336,10 @@ def phase_image_pipeline(torch, card, cli_phases=(), then=None):
     """Phase 10: the image data pipeline on the card; then `then(d)`
     (phases 13-15) while phase 10's imgbin set under `d` still exists.
     The CLI runs of 10c, 10d, 11c (GoogLeNet.conf on the same set), 11d
-    (stack_moe.conf) and `cli_phases` (5, 7 and 8c) check and time
-    nothing: they run side by side. Returns ((AlexNet's, GoogLeNet's and
-    stack_moe's CLI launches), 10g's timing, then's result)."""
+    (stack_moe.conf) and `cli_phases`, functions of `d` (5, 7, 8c, 13f,
+    14b-c, 15b and 15d) check and time nothing: they run side by side.
+    Returns ((AlexNet's, GoogLeNet's and stack_moe's CLI launches, the
+    cli_phases' results), 10g's timing, then's result)."""
     import scipy
     say("== phase 10a: environment of the image pipeline ==")
     fmt, pil = image_format_used()
@@ -3337,8 +3365,9 @@ def phase_image_pipeline(torch, card, cli_phases=(), then=None):
         counts = side_by_side(lambda: phase_alexnet_cli(d),
                               lambda: phase_image_confs_cli(d, fmt),
                               lambda: phase_googlenet_cli(d),
-                              phase_stack_moe_cli, *cli_phases)
-        counts = (counts[0], counts[2], counts[3])
+                              phase_stack_moe_cli,
+                              *(lambda fn=fn: fn(d) for fn in cli_phases))
+        counts = (counts[0], counts[2], counts[3], counts[4:])
         phase_staged_vs_streamed(torch, d)
         phase_device_augment_vs_host(torch, d)
         timing = run_leg(torch, "10g", d, fmt)
@@ -4774,10 +4803,11 @@ def surface_cli_tails():
     return {"kept": kept, "resumed": kept2}
 
 
-def phase_surface(torch, card, d=None):
+def phase_surface(torch, card, d=None, tails="1"):
     """Phase 13 (see the module docstring); `d` is phase 10's directory
-    (its shared imgbin set), or None to make a set here. Returns its
-    figures."""
+    (its shared imgbin set), or None to make a set here; `tails` "0"
+    leaves (f) to the caller (the main flow runs it beside phase 10's
+    CLI runs). Returns its figures."""
     t13 = time.perf_counter()
     out = {}
     net, out["wrapper"] = surface_wrapper_train(torch, card)
@@ -4807,7 +4837,8 @@ def phase_surface(torch, card, d=None):
         finally:
             os.chdir(cwd)
     out["extras"] = surface_extras(torch)
-    out["cli"] = surface_cli_tails()
+    if tails == "1":
+        out["cli"] = surface_cli_tails()
     say(f"phase 13 took {time.perf_counter() - t13:.1f} s")
     say("phase 13 summary " + json.dumps(out, default=float))
     return out
@@ -5231,10 +5262,23 @@ def native_entry(nat, cli_counts):
     }
 
 
-def phase_native(torch, card, d=None, fmt="JPEG"):
+def native_checks(torch, card):
+    """14b-c, which check and time nothing: nvJPEG against PIL, the
+    stream checks and the iterator on the card against PlainBinReader,
+    on sets of their own. A leg of its own (`chip_smoke.py --leg 14u
+    OUT`), which the main flow runs beside phase 10's CLI runs."""
+    with tempfile.TemporaryDirectory() as work:
+        out = {"vs_pil": native_vs_pil(work, card)}
+        native_stream_checks(work)
+        out["iterator"] = native_iterator(work)
+    return out
+
+
+def phase_native(torch, card, d=None, fmt="JPEG", checks="1"):
     """Phase 14 (see the module docstring): `d` is phase 10's directory
     (its timing set from 10g and the mean image), or None to make the
-    timing set here. Returns its figures."""
+    timing set here; `checks` "0" leaves (b)-(c) to the caller
+    (`native_checks`). Returns its figures."""
     t14 = time.perf_counter()
     if fmt != "JPEG":
         raise AssertionError("phase 14 needs PIL to write its JPEG sets")
@@ -5248,11 +5292,8 @@ def phase_native(torch, card, d=None, fmt="JPEG"):
             os.makedirs(os.path.join(tdir, "models"))
             make_iter(alexnet_train_block(), tdir)  # writes the mean image
         tdir = os.path.join(d, "timing")
-        work = os.path.join(tmp, "native")
-        os.makedirs(work)
-        out["vs_pil"] = native_vs_pil(work, card)
-        native_stream_checks(work)
-        out["iterator"] = native_iterator(work)
+        if checks == "1":
+            out.update(native_checks(torch, card))
         out["rates"] = native_rates(tdir, card)
         out["bound_ms"], out["bound_by"] = native_bound_ms(
             out["rates"]["batch_blob_bytes"])
@@ -5490,12 +5531,9 @@ def dispatch_profile_cli(d):
     from cxxnet_tpu_torch.telemetry.sink import read_jsonl
     work = os.path.join(d, "profile15")
     os.makedirs(os.path.join(work, "models"))
+    # the CLI makes its own mean image (10c, which makes one of the same
+    # set, may be writing it beside this run)
     os.symlink(os.path.join(d, "shared", "data"), os.path.join(work, "data"))
-    mean = os.path.join(d, "alexnet", "models", "image_net_mean.bin")
-    if os.path.exists(mean):
-        # phase 10c's mean image of the same set: no pass to remake it
-        shutil.copyfile(mean, os.path.join(work, "models",
-                                           "image_net_mean.bin"))
     prof = os.path.join(work, "prof")
     log = os.path.join(work, "events.jsonl")
     t0 = time.perf_counter()
@@ -5595,9 +5633,11 @@ def dispatch_tuning(torch, card):
                 "cli_applied": got["cache"][0]}
 
 
-def phase_dispatch(torch, card, d=None):
+def phase_dispatch(torch, card, d=None, clis="1"):
     """Phase 15 (see the module docstring); `d` is phase 10's directory
-    (its shared imgbin set for (d)), or None to make a set here."""
+    (its shared imgbin set for (d)), or None to make a set here; `clis`
+    "0" leaves (b) and (d) to the caller (the main flow runs them beside
+    phase 10's CLI runs)."""
     t15 = time.perf_counter()
     secs = {}
 
@@ -5610,7 +5650,6 @@ def phase_dispatch(torch, card, d=None):
     out = {}
     timed("alexnet", dispatch_alexnet, torch, card)
     timed("remat", dispatch_remat, torch, card)
-    timed("seq_cli", dispatch_seq_cli, torch, card)
     with tempfile.TemporaryDirectory() as tmp:
         if d is None:
             fmt, _pil = image_format_used()
@@ -5620,7 +5659,13 @@ def phase_dispatch(torch, card, d=None):
                             10, 11, fmt)
             write_image_set(shared, "data/resize256_test", "data/test", 256,
                             256, 10, 12, fmt)
-        timed("profile_cli", dispatch_profile_cli, d)
+        # (b) and (d) are CLI children that check and time nothing: side
+        # by side
+        if clis == "1":
+            timed("seq_profile_cli", lambda: side_by_side(
+                lambda: dispatch_seq_cli(torch, card),
+                lambda: dispatch_profile_cli(d)))
+            out["seq_cli"], out["profile_cli"] = out.pop("seq_profile_cli")
     timed("tuning", dispatch_tuning, torch, card)
     out["secs"] = secs
     say(f"phase 15 took {time.perf_counter() - t15:.1f} s ({secs})")
@@ -5681,9 +5726,11 @@ def tail(path: str, n: int = 30) -> str:
         return "".join(f.readlines()[-n:])
 
 
-def phase_analysis(torch, card, *args):
+def phase_analysis(torch, card, *args, beside=None):
     """16: the graph and lock audits and the tools on the card (see the
-    module docstring); returns the audits' counts and the tools' times."""
+    module docstring); returns the audits' counts and the tools' times.
+    `beside`, a function, runs side by side with 16a-c (work that checks
+    and times nothing)."""
     t16 = time.perf_counter()
     from cxxnet_tpu_torch import kernels
     kernels.build_all()   # built by phase 2; run as a leg, built here
@@ -5696,7 +5743,10 @@ def phase_analysis(torch, card, *args):
             d, "seeded.json")
         logs = {k: os.path.join(d, f"{k}.log")
                 for k in ("audit", "seeded", "serve_http", "pass")}
-        res = run_procs([
+        def audits():
+            return run_procs(cmds, timeout=300)
+
+        cmds = [
             ("audit", tool_cmd("cxxnet_tpu_torch.analysis", "--dev", "cuda",
                                "--graph-audit", "--lock-audit",
                                "--lock-audit-scenarios",
@@ -5708,8 +5758,9 @@ def phase_analysis(torch, card, *args):
                                 "--json", seeded), logs["seeded"]),
             ("pass", tool_cmd("cxxnet_tpu_torch.tools.pass_smoke", "--dev",
                               "cuda", "--out", os.path.join(d, "pass")),
-             logs["pass"]),
-        ], timeout=300)
+             logs["pass"])]
+        res = audits() if beside is None else side_by_side(audits,
+                                                           beside)[0]
         want = {"audit": 0, "seeded": 1, "pass": 0}
         for label, (rc, secs) in res.items():
             say(f"{label}: exit {rc} after {secs:.1f} s")
@@ -5802,7 +5853,7 @@ def phase_analysis(torch, card, *args):
 # ---------------------------------------------------------------------------
 
 DIST_CONF = os.path.join(REPO, "examples", "MNIST", "dist.conf")
-DP_STEPS = 3
+DP_STEPS = 2
 # the bfloat16 two-rank losses against the one-process run's (relative)
 DP_BF16_LOSS_BAR = 1e-2
 
@@ -5829,7 +5880,7 @@ def dp_cli(d: str, dev: str):
     (whose ./data/ holds the synthetic idx files), 2 rounds on `dev`,
     test_on_server = 1."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="2")
     return subprocess.Popen(
         [sys.executable, "-m", "cxxnet_tpu_torch.tools.launch_dist", "-n",
          "2", "--coordinator", f"127.0.0.1:{free_port()}", "--",
@@ -5920,7 +5971,8 @@ def dp_dist_conf(work: str):
 def dp_references(torch, work: str, images, labels):
     """The one-process b256 runs the two ranks are held to: float32 with
     the discrete decisions recorded (each rank's rows saved for its
-    replay), and bfloat16 losses. Same batch, same dropout masks."""
+    replay, and the whole batch's for ranks that feed every row), and
+    bfloat16 losses. Same batch, same dropout masks."""
     import numpy as np
     from cxxnet_tpu_torch.io.data import DataBatch
     from cxxnet_tpu_torch.ops.routing import Routing
@@ -5938,6 +5990,7 @@ def dp_references(torch, work: str, images, labels):
             torch.save({k: v[r * 128:(r + 1) * 128].clone()
                         for k, v in rec.decisions.items()},
                        os.path.join(work, f"dec{i}_r{r}.pt"))
+        torch.save(rec.decisions, os.path.join(work, f"dec{i}_full.pt"))
         del rec
     after = {f"{k}/{n}": t.cpu().numpy()
              for k, d in tr.state["params"].items() for n, t in d.items()}
@@ -6126,14 +6179,17 @@ def leg_dp_worker(torch, card, work):
     return out
 
 
-def dp_workers(work: str, timeout: float = 600.0):
-    """Phase 17b-c's two ranks (`--leg 17w`), their lines printed as they
+def dp_workers(work: str, leg: str = "17w", args=(),
+               prefix: str = "dp-result ", timeout: float = 600.0):
+    """Two ranks of a worker leg (`--leg 17w WORK` for phase 17b-c,
+    `--leg 18w WORK MODE` for phase 18), their lines printed as they
     come; when one fails the other is killed at once (it would wait in a
-    collective for its peer). Returns each rank's lines."""
+    collective for its peer). Returns each rank's result: its last line
+    that starts with `prefix`, as JSON."""
     port = free_port()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--leg", "17w",
-         os.path.join(work, f"w{r}.json"), work],
+        [sys.executable, os.path.abspath(__file__), "--leg", leg,
+         os.path.join(work, f"{leg}{''.join(args)}{r}.json"), work, *args],
         env=dp_env(r, 2, port), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(2)]
     outs = [[], []]
@@ -6142,7 +6198,7 @@ def dp_workers(work: str, timeout: float = 600.0):
         for ln in procs[r].stdout:
             ln = ln.rstrip("\n")
             outs[r].append(ln)
-            if not ln.startswith("dp-result "):
+            if not ln.startswith(prefix):
                 say(f"  rank {r}: {ln}")
 
     readers = [threading.Thread(target=pump, args=(r,), daemon=True)
@@ -6165,35 +6221,48 @@ def dp_workers(work: str, timeout: float = 600.0):
         t.join(timeout=10)
     for r, p in enumerate(procs):
         if p.returncode != 0:
-            raise AssertionError(f"phase 17 rank {r} exited {p.returncode}")
-    return outs
+            raise AssertionError(f"leg {leg} {' '.join(args)} rank {r} "
+                                 f"exited {p.returncode}")
+    return [json.loads([ln for ln in out if ln.startswith(prefix)][-1]
+                       [len(prefix):]) for out in outs]
 
 
-def phase_data_parallel(torch, card):
-    """Phase 17 (`chip_smoke.py --leg 17 OUT`): 17a dist.conf through the
-    CLI, 17b AlexNet.conf at global b256 and 17c seq_mnist.conf as two
-    ranks in spawned workers sharing the card over gloo."""
+def dp_batch(work: str):
+    """The fixed global b256 batch of phases 17 and 18, saved in work."""
+    import numpy as np
+    rng = np.random.RandomState(17)
+    images = (rng.rand(256, 3, 227, 227) * 255.0 - 128.0).astype(np.float32)
+    labels = rng.randint(0, 1000, size=(256, 1)).astype(np.float32)
+    np.savez(os.path.join(work, "batch.npz"), images=images, labels=labels)
+    return images, labels
+
+
+def phase_data_parallel(torch, card, work=None):
+    """Phase 17 (`chip_smoke.py --leg 17 OUT [WORK]`): 17a dist.conf
+    through the CLI, 17b AlexNet.conf at global b256 and 17c
+    seq_mnist.conf as two ranks in spawned workers sharing the card over
+    gloo. With WORK, 17a's result and the one-process references are
+    the ones phase 18's untimed leg left there (`--leg 18u`); alone, 17a
+    and the references run here, side by side."""
     import numpy as np
     t17 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work:
-        rng = np.random.RandomState(17)
-        images = (rng.rand(256, 3, 227, 227) * 255.0
-                  - 128.0).astype(np.float32)
-        labels = rng.randint(0, 1000, size=(256, 1)).astype(np.float32)
-        np.savez(os.path.join(work, "batch.npz"), images=images,
-                 labels=labels)
-        # 17a's CLI jobs and 17b's one-process references time nothing:
-        # side by side
-        cli, ref_losses = side_by_side(
-            lambda: dp_dist_conf(work),
-            lambda: dp_references(torch, work, images, labels))
+    with contextlib.ExitStack() as stack:
+        if work is None:
+            work = stack.enter_context(tempfile.TemporaryDirectory())
+            images, labels = dp_batch(work)
+            # 17a's CLI jobs and the references time nothing: side by side
+            cli, ref_losses = side_by_side(
+                lambda: dp_dist_conf(work),
+                lambda: dp_references(torch, work, images, labels))
+        else:
+            with open(os.path.join(work, "untimed.json")) as f:
+                pre = json.load(f)
+            cli, ref_losses = pre["cli"], pre["ref_losses"]
         say("== phase 17b: AlexNet.conf at full width, global batch 256 "
             "(128 a rank), two ranks sharing the card (gloo), "
             f"{DP_STEPS} steps at update_on_server = 0 and 1, float32 and "
             "bfloat16, against one process at b256 ==")
-        outs = dp_workers(work)
-    results = [json.loads([ln for ln in out if ln.startswith(
-        "dp-result ")][-1][len("dp-result "):]) for out in outs]
+        results = dp_workers(work)
     per_step = {"lrn_fwd": 2, "lrn_bwd": 2}
     for res in results:
         r = res["rank"]
@@ -6277,11 +6346,464 @@ def phase_data_parallel(torch, card):
             "secs": secs}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: ZeRO stages 2-3 and the model axis - ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+MNIST_CONV = os.path.join(REPO, "examples", "MNIST", "MNIST_CONV.conf")
+# taken out of MNIST_CONV.conf for 18d: dropout draws from each device's
+# own generator (Philox on the card, the CPU's mt19937), so with it the
+# card's and the CPU's jobs would train on different masks
+MNIST_CONV_DROPOUT = "layer[3->3] = dropout\n  threshold = 0.5\n"
+
+
+def tz_median_ms(torch, fn, reps: int = 3) -> float:
+    """Median host-clock ms of a synchronised collective."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[len(ts) // 2]
+
+
+def tz_alexnet_leg(torch, dtype: str, stage: int, mesh: str, batch,
+                   rank: int, work):
+    """One AlexNet.conf leg of phase 18 in this worker: DP_STEPS steps of
+    the fixed b256 batch (this rank's rows: its data index's 128 on
+    data:2, all 256 on model:2); float32 replays the one-process run's
+    decisions and is held to its updates. Reports the bytes this rank
+    holds and, under a ZeRO cut, the collectives' times."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.ops.routing import Routing
+    over = ["param_server=dist", "dev=gpu:0", f"mesh={mesh}",
+            f"zero_stage={stage}"]
+    if dtype == "float32":
+        over.append("dtype=float32")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tr = alexnet_trainer(over)
+    lb, lo = tr._local_batch, tr._local_row_start
+    want = (128, 2, 1) if mesh == "data:2" else (256, 1, 2)
+    if ((lb, tr._dsize, tr._msize) != want
+            or str(tr.device) != "cuda:0"):
+        raise AssertionError(f"rank {rank} {mesh}: b{lb}, data "
+                             f"{tr._dsize} x model {tr._msize} on "
+                             f"{tr.device}")
+    mine = DataBatch(data=batch.data[lo:lo + lb],
+                     label=batch.label[lo:lo + lb])
+    start = tr._host_params() if dtype == "float32" else None
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses, step_ms = [], []
+    for i in range(DP_STEPS):
+        keep = {j: m[lo:lo + lb]
+                for j, m in numpy_keep(tr, seed=40 + i).items()}
+        t0 = time.perf_counter()
+        if dtype == "float32":
+            rec = Routing()
+            rec.decisions = torch.load(os.path.join(
+                work, f"dec{i}_full.pt" if lb == 256
+                else f"dec{i}_r{lo // lb}.pt"))
+            with Routing(replay=rec):
+                loss = tr.update(mine, keep=keep)
+        else:
+            loss = tr.update(mine, keep=keep)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launches()
+    out = {"dtype": dtype, "stage": tr._zero_run, "mesh": mesh,
+           "losses": losses, "step_ms": step_ms, "counts": counts,
+           "bytes": tr.state_bytes(), "check_weights": tr.check_weights()}
+    z = tr._zero
+    if z is not None:
+        # the step's collectives on the cut weights, timed alone: the
+        # reduce-scatter of their gradients (stage >= 2) and the
+        # all-gather of the weights (after the update at stages 1-2,
+        # before the forward at 3)
+        local = tr._local_shapes
+        cut = {(lk, pn): torch.zeros(local[lk][pn], device=tr.device)
+               for lk, pn, _, _ in z.cut}
+        if tr._zero_run >= 2:
+            out["reduce_scatter_ms"] = tz_median_ms(
+                torch, lambda: z.reduce_scatter(cut))
+            out["reduce_scatter_mib"] = sum(
+                t.numel() * 4 for t in cut.values()) / 2 ** 20
+        slices = {key: z.owned(t, *key) for key, t in cut.items()}
+        out["allgather_ms"] = tz_median_ms(
+            torch, lambda: z.gather(slices, cut))
+        out["allgather_mib"] = sum(t.numel() * 4
+                                   for t in cut.values()) / 2 ** 20
+        del cut, slices
+    if tr._mcut is not None:
+        local = sum(t.numel() * t.element_size()
+                    for lk, d in tr.state["params"].items()
+                    for pn, t in d.items() if lk.startswith(("conv", "fc")))
+        whole = sum(int(np.prod(s)) * 4
+                    for lk, d in tr.net.param_shapes().items()
+                    for s in d.values() if lk.startswith(("conv", "fc")))
+        out["conv_fc_bytes"], out["conv_fc_whole_bytes"] = local, whole
+    if dtype == "float32":
+        after = tr._host_params()
+        ref = np.load(os.path.join(work, "f32_ref.npz"))
+        worst, worst_key = 0.0, ""
+        for lk, d in start.items():
+            for pn, b in d.items():
+                k = f"{lk}/{pn}"
+                if not np.array_equal(b, ref[f"before:{k}"]):
+                    raise AssertionError(f"{k}: the ranks and the one-"
+                                         "process run started apart")
+                d_ref = ref[f"after:{k}"] - b
+                d_tz = after[lk][pn] - b
+                den = float(np.linalg.norm(d_ref))
+                rel = (float(np.linalg.norm(d_tz - d_ref)) / den if den
+                       else 0.0)
+                if rel > worst:
+                    worst, worst_key = rel, k
+        out["f32_worst_update_rel"] = worst
+        out["f32_worst_key"] = worst_key
+        del after
+    del tr, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def tz_seq_leg(torch, rank: int):
+    """18c: seq_mnist.conf (nhead 4) at model:2, each rank on all 100
+    rows, DP_STEPS steps: K2 on this rank's 2 heads."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    tr = seq_trainer(["param_server=dist", "dev=gpu:0", "mesh=model:2"])
+    rng = np.random.RandomState(21)
+    batch = DataBatch(data=rng.rand(100, 1, 28, 28).astype(np.float32),
+                      label=rng.randint(0, 10, size=(100, 1)).astype(
+                          np.float32))
+    att = [lay for lay in tr.net.layer_objs if lay.type_name == "attention"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses = [float(tr.update(batch)) for _ in range(DP_STEPS)]
+    return {"rows": tr._local_batch, "losses": losses,
+            "counts": kernels.launches(), "nhead": [a.nhead for a in att],
+            "check_weights": tr.check_weights()}
+
+
+def leg_tz_worker(torch, card, work, mode):
+    """A rank of phase 18 (`chip_smoke.py --leg 18w OUT WORK MODE`, under
+    the CXN_* variables phase 18 sets): MODE zero - AlexNet.conf at
+    data:2 under zero_stage 2 and 3 (float32) and 1 and 3 (bfloat16);
+    MODE model - AlexNet.conf at model:2 (float32, bfloat16), then
+    seq_mnist.conf at model:2."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.parallel import distributed, tensor
+    rank = int(os.environ["CXN_WORKER_RANK"])
+    calls = dp_count_plain(torch)
+    z = np.load(os.path.join(work, "batch.npz"))
+    batch = DataBatch(data=z["images"], label=z["labels"])
+    if mode == "zero":
+        legs = [tz_alexnet_leg(torch, dt, st, "data:2", batch, rank, work)
+                for dt, st in (("float32", 2), ("float32", 3),
+                               ("bfloat16", 1), ("bfloat16", 3))]
+        seq = None
+    else:
+        legs = [tz_alexnet_leg(torch, dt, 0, "model:2", batch, rank, work)
+                for dt in ("float32", "bfloat16")]
+        seq = tz_seq_leg(torch, rank)
+    out = {"rank": rank, "alexnet": legs, "seq": seq, "plain_calls": calls,
+           "backend": distributed.backend(),
+           "host_staged": distributed.host_staged[0],
+           "reduce_scatters": distributed.reduce_scatters[0],
+           "tp_calls": dict(tensor.calls)}
+    sys.stdout.write("tz-result " + json.dumps(out) + "\n")
+    sys.stdout.flush()
+    return out
+
+
+def tz_mnist_conv(work: str):
+    """18d: examples/MNIST/MNIST_CONV.conf at mesh = data:2,model:2 under
+    zero_stage = 3, four ranks under launch_dist on the card (gloo, dev
+    = gpu:0) beside the same job with dev = cpu, 2 rounds each,
+    test_on_server = 1. The conf runs without its dropout layer, so both
+    jobs train one function (each device draws its masks from its own
+    generator); the round lines and rank 0's last checkpoint are held to
+    the CPU's as 17a's are."""
+    import numpy as np
+    from cxxnet_tpu_torch.nnet import checkpoint
+    with open(MNIST_CONV) as f:
+        text = f.read()
+    conf = os.path.join(work, "mnist_conv_nodrop.conf")
+    with open(conf, "w") as f:
+        f.write(text.replace(MNIST_CONV_DROPOUT, ""))
+    if "dropout" in open(conf).read():
+        raise AssertionError("MNIST_CONV.conf's dropout layer moved")
+    dirs, procs = {}, {}
+    # two threads a rank: the ranks (and the jobs beside them) would
+    # oversubscribe the host's cores with torch's default
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="2")
+    for dev in ("gpu:0", "cpu"):
+        d = os.path.join(work, "conv_" + dev.replace(":", ""))
+        os.makedirs(os.path.join(d, "data"))
+        write_mnist(os.path.join(d, "data"), 2000, 33, prefix="train")
+        write_mnist(os.path.join(d, "data"), 500, 34)
+        dirs[dev] = d
+        procs[dev] = subprocess.Popen(
+            [sys.executable, "-m", "cxxnet_tpu_torch.tools.launch_dist",
+             "-n", "4", "--coordinator", f"127.0.0.1:{free_port()}", "--",
+             sys.executable, "-m", "cxxnet_tpu_torch.main", conf,
+             "num_round=2", "max_round=2", "save_model=1", f"dev={dev}",
+             "param_server=dist", "mesh=data:2,model:2", "zero_stage=3",
+             "test_on_server=1"], cwd=d, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    outs = {dev: p.communicate(timeout=600) for dev, p in procs.items()}
+    secs = time.perf_counter() - t0
+    say("== phase 18d: examples/MNIST/MNIST_CONV.conf (no dropout) at mesh "
+        "= data:2,model:2, zero_stage = 3, four ranks under launch_dist, "
+        "dev = gpu:0 (gloo) against dev = cpu ==")
+    for dev, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"MNIST_CONV.conf on {dev} exited "
+                                 f"{p.returncode}:\n{outs[dev][1][-3000:]}")
+    rounds = {dev: dp_rounds(outs[dev][1]) for dev in dirs}
+    if len(rounds["gpu:0"]) != 2 or len(rounds["cpu"]) != 2:
+        raise AssertionError(f"expected 2 round lines each: {rounds}")
+    worst_err = 0.0
+    for lg, lc in zip(rounds["gpu:0"], rounds["cpu"]):
+        vg = [float(t.split(":")[1]) for t in lg.split("\t")[1:]]
+        vc = [float(t.split(":")[1]) for t in lc.split("\t")[1:]]
+        worst_err = max(worst_err, *(abs(a - b) for a, b in zip(vg, vc)))
+    blobs = {}
+    for dev, d in dirs.items():
+        with open(os.path.join(d, "models", "0002.model"), "rb") as f:
+            blobs[dev] = checkpoint.load_model(f)["params"]
+    worst = 0.0
+    for lk, dd in blobs["cpu"].items():
+        for pn, want in dd.items():
+            got = blobs["gpu:0"][lk][pn]
+            if got.shape != want.shape or not np.isfinite(got).all():
+                raise AssertionError(f"0002.model {lk}/{pn}: shape "
+                                     f"{got.shape} vs {want.shape} or "
+                                     f"non-finite")
+            if not np.allclose(got, want, rtol=1e-3, atol=1e-5):
+                raise AssertionError(f"0002.model {lk}/{pn}: card vs CPU "
+                                     f"max abs "
+                                     f"{np.abs(got - want).max():.3e}")
+            worst = max(worst, float(np.abs(got - want).max()))
+    if worst_err > 0.01:
+        raise AssertionError(f"round lines differ by {worst_err} > 0.01: "
+                             f"{rounds}")
+    say(f"card: {rounds['gpu:0']}; CPU: {rounds['cpu']}; test_on_server "
+        f"= 1 held every round on the four ranks of both; the round lines "
+        f"differ by at most {worst_err:g} (bar 0.01); rank 0's 0002.model "
+        f"card vs CPU: max abs {worst:.3e} (rtol 1e-3, atol 1e-5); both "
+        f"jobs side by side in {secs:.1f} s")
+    return {"rounds_card": rounds["gpu:0"], "rounds_cpu": rounds["cpu"],
+            "max_abs_checkpoint": worst, "max_round_diff": worst_err}
+
+
+def tz_zero_smoke(work: str):
+    """18e: the port's tools/zero_smoke.py on the card (four two-rank
+    jobs side by side: stages 0, 2, 2 at steps_per_dispatch = 4, 3)."""
+    d = os.path.join(work, "zero_smoke")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(tool_cmd("cxxnet_tpu_torch.tools.zero_smoke", "--out",
+                                d, "--dev", "gpu:0"), cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    say("== phase 18e: tools/zero_smoke.py --dev gpu:0 (stage 0, 2, 2 with "
+        "steps_per_dispatch = 4, 3; two ranks each, on the card) ==")
+    for ln in r.stdout.splitlines():
+        say("  " + ln)
+    if r.returncode != 0:
+        raise AssertionError(f"zero_smoke exited {r.returncode}:\n"
+                             f"{r.stderr[-2000:]}")
+    return {"secs": time.perf_counter() - t0,
+            "summary": r.stdout.strip().splitlines()[-1]}
+
+
+def tz_held(torch, results, ref_losses, what: str):
+    """The checks of one phase-18 job's two ranks."""
+    import numpy as np
+    per_step = {"lrn_fwd": 2, "lrn_bwd": 2}
+    for res in results:
+        r = res["rank"]
+        if any(res["plain_calls"].values()):
+            raise AssertionError(f"{what} rank {r} called plain versions: "
+                                 f"{res['plain_calls']}")
+        for leg in res["alexnet"]:
+            want = {n: DP_STEPS * per_step.get(n, 0) for n in leg["counts"]}
+            tag = f"{what} rank {r} {leg['dtype']} stage {leg['stage']}"
+            if leg["counts"] != want or leg["check_weights"]:
+                raise AssertionError(f"{tag}: launches {leg['counts']} "
+                                     f"(want {want}), check_weights "
+                                     f"{leg['check_weights']}")
+            if not all(np.isfinite(leg["losses"])):
+                raise AssertionError(f"{tag}: non-finite {leg['losses']}")
+            if leg["dtype"] == "float32":
+                if leg["f32_worst_update_rel"] > UPDATE_BAR:
+                    raise AssertionError(
+                        f"{tag}: {leg['f32_worst_key']}'s update differs "
+                        f"by {leg['f32_worst_update_rel']:.3e} of its norm "
+                        f"> {UPDATE_BAR}")
+            else:
+                rel = max(abs(a - b) / abs(b) for a, b in
+                          zip(leg["losses"], ref_losses))
+                leg["loss_rel_vs_one_process"] = rel
+                if rel > DP_BF16_LOSS_BAR:
+                    raise AssertionError(
+                        f"{tag}: losses {leg['losses']} vs one process "
+                        f"{ref_losses} (bar {DP_BF16_LOSS_BAR})")
+    for leg0, leg1 in zip(results[0]["alexnet"], results[1]["alexnet"]):
+        if leg0["losses"] != leg1["losses"]:
+            raise AssertionError(f"{what}: the ranks' global losses "
+                                 f"differ: {leg0['losses']} / "
+                                 f"{leg1['losses']}")
+
+
+def tz_untimed(torch, card, work):
+    """The work of phases 17-18 that checks and times nothing (`--leg 18u
+    OUT WORK`, run beside phase 16a-c): the one-process b256 references
+    (saved in WORK for 17b and 18a), then 18b-c's two ranks, with 17a,
+    18d and 18e side by side from the start. Its result is also saved
+    in WORK as untimed.json."""
+    t0 = time.perf_counter()
+    images, labels = dp_batch(work)
+
+    def refs_then_model():
+        ref_losses = dp_references(torch, work, images, labels)
+        say("== phase 18b-c: AlexNet.conf and seq_mnist.conf at mesh = "
+            "model:2, each of two ranks sharing the card on every row, "
+            f"{DP_STEPS} steps, against one process ==")
+        return ref_losses, dp_workers(work, "18w", ("model",),
+                                      "tz-result ")
+
+    (ref_losses, model), cli, conv, smoke = side_by_side(
+        refs_then_model, lambda: dp_dist_conf(work),
+        lambda: tz_mnist_conv(work), lambda: tz_zero_smoke(work))
+    out = {"ref_losses": ref_losses, "model": model, "cli": cli,
+           "conv": conv, "smoke": smoke,
+           "secs": time.perf_counter() - t0}
+    with open(os.path.join(work, "untimed.json"), "w") as f:
+        json.dump(out, f)
+    say(f"phases 17a, 18b-e took {out['secs']:.1f} s")
+    return out
+
+
+def phase_tensor_zero(torch, card, work=None):
+    """Phase 18 (`chip_smoke.py --leg 18 OUT [WORK]`): 18a AlexNet.conf
+    b256 at data:2 under zero_stage 1-3, alone (it times its
+    collectives); with WORK the rest - 18b AlexNet.conf and 18c
+    seq_mnist.conf at model:2, 18d MNIST_CONV.conf at data:2,model:2
+    under zero_stage 3 through the CLI (four ranks) beside the CPU, 18e
+    the port's zero_smoke on the card - is what `--leg 18u` left there,
+    and alone it runs here first."""
+    import numpy as np
+    t18 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if work is None:
+            work = stack.enter_context(tempfile.TemporaryDirectory())
+            pre = tz_untimed(torch, card, work)
+        else:
+            with open(os.path.join(work, "untimed.json")) as f:
+                pre = json.load(f)
+        ref_losses, model = pre["ref_losses"], pre["model"]
+        conv, smoke = pre["conv"], pre["smoke"]
+        say("== phase 18a: AlexNet.conf at full width, global batch 256 "
+            "(128 a rank), mesh = data:2, two ranks sharing the card "
+            f"(gloo), {DP_STEPS} steps at zero_stage 2 and 3 (float32) "
+            "and 1 and 3 (bfloat16), against one process at b256 ==")
+        # 18a times its collectives: alone
+        zero = dp_workers(work, "18w", ("zero",), "tz-result ")
+        tz_held(torch, zero, ref_losses, "18a")
+    tz_held(torch, model, ref_losses, "18b")
+    for res in model:
+        seq = res["seq"]
+        want = {n: DP_STEPS * (1 if n in K2 else 0) for n in seq["counts"]}
+        if seq["counts"] != want or seq["check_weights"]:
+            raise AssertionError(f"18c rank {res['rank']}: launches "
+                                 f"{seq['counts']} (want {want}), "
+                                 f"check_weights {seq['check_weights']}")
+        if not all(np.isfinite(seq["losses"])):
+            raise AssertionError(f"18c: non-finite {seq['losses']}")
+        if res["tp_calls"]["reduce"] == 0 or res["tp_calls"]["gather"] == 0:
+            raise AssertionError(f"18b-c: no model-axis collective ran: "
+                                 f"{res['tp_calls']}")
+    for res in zero:
+        if res["reduce_scatters"] == 0:
+            raise AssertionError("18a: no reduce-scatter ran")
+    say(f"backend {zero[0]['backend']}; reduce-scatters per rank "
+        f"{zero[0]['reduce_scatters']}; collectives staged through pinned "
+        f"host memory per rank: {zero[0]['host_staged']} (18a), "
+        f"{model[0]['host_staged']} (18b-c)")
+    for res in zero:
+        for leg in res["alexnet"]:
+            b = leg["bytes"]
+            say(f"18a rank {res['rank']} {leg['dtype']} stage "
+                f"{leg['stage']}: params {b['params'] / 2 ** 20:.1f} MiB, "
+                f"gradients {b['grads'] / 2 ** 20:.1f} MiB, accumulator "
+                f"{b['accum'] / 2 ** 20:.1f} MiB, updater state "
+                f"{b['ustate'] / 2 ** 20:.1f} MiB; "
+                + (f"reduce-scatter of {leg['reduce_scatter_mib']:.1f} MiB "
+                   f"{leg['reduce_scatter_ms']:.1f} ms, "
+                   if "reduce_scatter_ms" in leg else "")
+                + f"all-gather of {leg['allgather_mib']:.1f} MiB "
+                f"{leg['allgather_ms']:.1f} ms; losses "
+                f"{[round(v, 5) for v in leg['losses']]}, step ms "
+                f"{[round(v, 1) for v in leg['step_ms']]}"
+                + (f", worst update {leg['f32_worst_key']} "
+                   f"{leg['f32_worst_update_rel']:.3e} of its norm (bar "
+                   f"{UPDATE_BAR})" if leg["dtype"] == "float32" else
+                   f", loss vs one process "
+                   f"{leg['loss_rel_vs_one_process']:.2e} (bar "
+                   f"{DP_BF16_LOSS_BAR})"))
+    for res in model:
+        for leg in res["alexnet"]:
+            say(f"18b rank {res['rank']} {leg['dtype']}: conv/fc weights "
+                f"{leg['conv_fc_bytes'] / 2 ** 20:.1f} MiB of "
+                f"{leg['conv_fc_whole_bytes'] / 2 ** 20:.1f} MiB whole "
+                f"({leg['conv_fc_bytes'] / leg['conv_fc_whole_bytes']:.3f})"
+                f", launches {leg['counts']}, losses "
+                f"{[round(v, 5) for v in leg['losses']]}, step ms "
+                f"{[round(v, 1) for v in leg['step_ms']]} (not alone)"
+                + (f", worst update {leg['f32_worst_key']} "
+                   f"{leg['f32_worst_update_rel']:.3e} of its norm (bar "
+                   f"{UPDATE_BAR})" if leg["dtype"] == "float32" else
+                   f", loss vs one process "
+                   f"{leg['loss_rel_vs_one_process']:.2e}"))
+        seq = res["seq"]
+        say(f"18c rank {res['rank']}: {seq['rows']} rows a step, nhead "
+            f"{seq['nhead']} (2 heads a rank), launches "
+            f"{ {n: c for n, c in seq['counts'].items() if c} } over "
+            f"{DP_STEPS} steps (K2 1-1-1 a step), no SDPA and no plain "
+            f"version; model-axis collectives {res['tp_calls']}")
+    say(f"one process b256: bfloat16 losses "
+        f"{[round(v, 5) for v in ref_losses]}")
+    say("times are of ranks sharing one card (gloo's host path), not a "
+        f"multi-GPU scaling figure; {card}")
+    secs = time.perf_counter() - t18
+    say(f"phase 18 took {secs:.1f} s (18a; 17a and 18b-e beside phase "
+        f"16a-c: {pre['secs']:.1f} s)")
+    return {"zero": zero, "model": model, "conv": conv, "smoke": smoke,
+            "ref_losses": ref_losses, "secs": secs,
+            "untimed_secs": pre["secs"]}
+
+
 LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "11b": phase_googlenet_step, "11d": phase_stack_moe,
         "12": phase_front, "13": phase_surface, "14": phase_native,
+        "14u": native_checks,
         "15": phase_dispatch, "16": phase_analysis,
-        "17": phase_data_parallel, "17w": leg_dp_worker}
+        "17": phase_data_parallel, "17w": leg_dp_worker,
+        "18": phase_tensor_zero, "18u": tz_untimed, "18w": leg_tz_worker}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
@@ -6386,21 +6908,40 @@ def main() -> int:
     moe = run_leg(torch, "11d")
     say(f"phase 11b and 11d on the card took "
         f"{time.perf_counter() - t11:.1f} s")
-    (cli_counts, g_cli, moe["cli_counts"]), timing, (surface, nat, disp) = \
-        phase_image_pipeline(
-            torch, card, (phase_cli, phase_cli_train, phase_seq_cli),
-            lambda d: (run_leg(torch, "13", d),
-                                    run_leg(torch, "14", d,
-                                            image_format_used()[0]),
-                                    run_leg(torch, "15", d)))
+    # the parts of 13-15 that check and time nothing run beside phase
+    # 10's CLI runs; the legs then skip them
+    fmt = image_format_used()[0]
+    (cli_counts, g_cli, moe["cli_counts"], beside), timing, \
+        (surface, nat, disp) = phase_image_pipeline(
+            torch, card, (lambda d: phase_cli(), lambda d: phase_cli_train(),
+                          lambda d: phase_seq_cli(),
+                          lambda d: surface_cli_tails(),
+                          lambda d: run_leg(torch, "14u"),
+                          lambda d: dispatch_seq_cli(torch, card),
+                          dispatch_profile_cli),
+            lambda d: (run_leg(torch, "13", d, "0"),
+                       run_leg(torch, "14", d, fmt, "0"),
+                       run_leg(torch, "15", d, "0")))
+    surface["cli"] = beside[3]
+    nat.update(beside[4])
+    disp["seq_cli"], disp["profile_cli"] = beside[5], beside[6]
     native_cli(cli_counts)
     front = run_leg(torch, "12")
     front_launches = (front["in_process"]["lrn_fwd"]
                       + front["http"]["lrn_fwd"])
     front_batches = (front["in_process"]["batches"]
                      + front["http"]["batches"])
-    analysis = phase_analysis(torch, card)
-    dp = run_leg(torch, "17")
+    # phases 17-18's untimed work (--leg 18u) runs beside 16a-c, which
+    # checks and times nothing either; 17b and 18a (timed) run alone
+    # after, over its references
+    tz_work = tempfile.mkdtemp(prefix="chip_smoke_tz_")
+    try:
+        analysis = phase_analysis(
+            torch, card, beside=lambda: run_leg(torch, "18u", tz_work))
+        dp = run_leg(torch, "17", tz_work)
+        tz = run_leg(torch, "18", tz_work)
+    finally:
+        shutil.rmtree(tz_work, ignore_errors=True)
 
     # the kernels line: the LRN's two launches of one served AlexNet
     # batch (b64, bfloat16), warm L2, summed - the main path's unit
@@ -6479,16 +7020,40 @@ def main() -> int:
                     "dp_launches": [r["seq"]["counts"][name]
                                     for r in dp["ranks"]],
                     "dp_unit": "seq_mnist.conf b100 bfloat16 as two ranks "
-                               "sharing the card (50 rows a rank), 3 steps, "
-                               "per rank (phase 17c)"}
+                               f"sharing the card (50 rows a rank), "
+                               f"{DP_STEPS} steps, per rank (phase 17c)"}
         return {"replaces_sharded": "cxxnet_tpu/ops/pallas_lrn.py:154 "
                                     "(lrn_pallas_sharded): lrn on each "
                                     "rank's rows",
                 "dp_launches": [r["alexnet"][-1]["counts"][name]
                                 for r in dp["ranks"]],
                 "dp_unit": "AlexNet.conf global b256 bfloat16 as two ranks "
-                           "sharing the card (128 rows a rank), 3 steps at "
-                           "update_on_server = 1, per rank (phase 17b)"}
+                           f"sharing the card (128 rows a rank), {DP_STEPS} "
+                           f"steps at update_on_server = 1, per rank (phase "
+                           f"17b)"}
+
+    def tensor_zero(name):
+        """Phase 18: the launches on each rank under the model axis (K1
+        on the gathered channels, K2 on 2 of 4 heads) and under
+        zero_stage = 3."""
+        if name in K2:
+            return {"tp_launches": [r["seq"]["counts"][name]
+                                    for r in tz["model"]],
+                    "tp_unit": "seq_mnist.conf b100 bfloat16 at mesh = "
+                               "model:2, every row on each of two ranks "
+                               "sharing the card, 2 of its 4 heads a rank, "
+                               f"{DP_STEPS} steps, per rank (phase 18c)"}
+        return {"tp_launches": [r["alexnet"][-1]["counts"][name]
+                                for r in tz["model"]],
+                "tp_unit": "AlexNet.conf b256 bfloat16 at mesh = model:2, "
+                           "every row on each of two ranks sharing the "
+                           "card, on the gathered channels, "
+                           f"{DP_STEPS} steps, per rank (phase 18b)",
+                "zero_launches": [r["alexnet"][-1]["counts"][name]
+                                  for r in tz["zero"]],
+                "zero_unit": "AlexNet.conf global b256 bfloat16 at mesh = "
+                             "data:2, zero_stage = 3, 128 rows a rank, "
+                             f"{DP_STEPS} steps, per rank (phase 18a)"}
 
     def stack_moe(name):
         """K2 on stack_moe.conf's path (11d)."""
@@ -6544,6 +7109,7 @@ def main() -> int:
         **googlenet("lrn_fwd"),
         **dispatch("lrn_fwd"),
         **data_parallel("lrn_fwd"),
+        **tensor_zero("lrn_fwd"),
     }, {
         "name": "lrn_bwd",
         "route": "cuda",
@@ -6568,8 +7134,10 @@ def main() -> int:
         **googlenet("lrn_bwd"),
         **dispatch("lrn_bwd"),
         **data_parallel("lrn_bwd"),
+        **tensor_zero("lrn_bwd"),
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
-               **stack_moe(n), **dispatch(n), **data_parallel(n))
+               **stack_moe(n), **dispatch(n), **data_parallel(n),
+               **tensor_zero(n))
           for n in K2] + [dict(int8_entry(k3_rows, int8_served, 0),
                                front_launches=front["int8"]["int8_mm"],
                                front_batches=front["int8"]["batches"],
@@ -6612,6 +7180,15 @@ def main() -> int:
                                          "allreduce_ms", "allgather_ms",
                                          "ustate_bytes") if k in leg}
                     for leg in dp["ranks"][0]["alexnet"]]}))
+    say("phase 18 summary " + json.dumps({
+        "secs": tz["secs"], "ref_losses": tz["ref_losses"],
+        "conv": tz["conv"], "zero_smoke": tz["smoke"]["summary"],
+        "zero": [{k: leg[k] for k in ("dtype", "stage", "losses", "bytes",
+                                      "reduce_scatter_ms", "allgather_ms")
+                  if k in leg} for leg in tz["zero"][0]["alexnet"]],
+        "model": [{k: leg[k] for k in ("dtype", "losses", "conv_fc_bytes",
+                                       "conv_fc_whole_bytes")}
+                  for leg in tz["model"][0]["alexnet"]]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({

@@ -63,9 +63,19 @@ Checks (the JAX audit's names where the meaning carries over):
   `aten::_int_mm`; guarded against vacuity by the float bucket's trace,
   which must carry the float products the int8 trace removes.
 
-Deferred: the JAX audit's zero audit (ZeRO stages 2-3 and
-tensor-parallel executables) needs the port's parallel package; the
-report lists it under `deferred`, it does not pass silently.
+- **zero-audit** (the JAX audit's zero audit in torch terms): two ranks
+  joined over gloo (subprocesses of the audit, on its device) run one
+  logged step each of the tiny MLP at `mesh = data:2` under zero_stage
+  = 2 and 3 and of an attention net at `mesh = model:2`; every
+  collective the port issues is logged with its group and size. At
+  stage >= 2 a reduce-scatter carries exactly the cut weights'
+  gradients and no all-reduce carries any of them (the all-reduce
+  holds the loss, the uncut gradients and the metric rows, nothing
+  more); stage 2 all-gathers the updated slices after the update,
+  stage 3 all-gathers the weights before the forward and stores only
+  its cut between steps. Under model:2 every column-parallel layer
+  pairs tensor.enter with tensor.gather, the row-parallel projection
+  closes with tensor.reduce, and no data-group collective runs.
 
 Targets run over the tiny-MLP conf of the JAX audit (`_CONF`) and the
 pass / quant confs beside it; `run_audit(device)` runs on the card
@@ -1124,11 +1134,193 @@ def _kernel_routing(device, checks) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # entry
 # ---------------------------------------------------------------------------
-DEFERRED = [{
-    "target": "zero-audit",
-    "reason": "the ZeRO stage-2/3 and tensor-parallel executables need "
-              "the port's parallel package (ROADMAP queue 1 item 6); "
-              "not run, not passed"}]
+DEFERRED: List[Dict[str, str]] = []
+
+_ATTN_CONF = """
+netconfig=start
+layer[0->1] = pos_embed:pe
+layer[1->2] = attention:att
+  nhead = 2
+layer[2->3] = flatten
+layer[3->4] = fullc:fc
+  nhidden = 4
+layer[4->4] = softmax
+netconfig=end
+input_shape = 1,4,8
+batch_size = 8
+eta = 0.1
+silent = 1
+seed = 7
+telemetry_steps = 0
+"""
+
+ZERO_CASES = {
+    "zero-audit/stage2[data:2]": (_CONF, "mesh = data:2\nzero_stage = 2\n",
+                                  (1, 1, 36)),
+    "zero-audit/stage3[data:2]": (_CONF, "mesh = data:2\nzero_stage = 3\n",
+                                  (1, 1, 36)),
+    "zero-audit/tp[model:2]": (_ATTN_CONF, "mesh = model:2\n", (1, 4, 8)),
+}
+
+
+def _zero_worker() -> None:
+    """One rank of a zero-audit case (CXN_* set by the parent; the case
+    in CXN_AUDIT_CASE, the device in CXN_AUDIT_DEVICE): a warm-up step,
+    then one step with every collective of the port logged. Prints one
+    JSON report."""
+    import json
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.parallel import distributed, tensor
+    conf, extra, shape = ZERO_CASES[os.environ["CXN_AUDIT_CASE"]]
+    tr = NetTrainer(device=os.environ["CXN_AUDIT_DEVICE"],
+                    cfg=conf + extra + "param_server = dist\n"
+                    "dist_init_deadline = 60\n")
+    tr.init_model()
+    rng = np.random.RandomState(1)
+    lb = tr._local_batch
+
+    def batch():
+        return DataBatch(
+            data=rng.randn(lb, *shape).astype(np.float32),
+            label=rng.randint(0, 3, size=(lb, 1)).astype(np.float32))
+
+    tr.update(batch())
+    mesh = tr.mesh
+    groups = {}
+    if tr._msize > 1:
+        groups[id(mesh.model_group)] = "model"
+    if tr._dsize > 1:
+        groups[id(mesh.group)] = "data"
+    log: List[Tuple[str, str, int]] = []
+    patches = _Patches()
+
+    def logged(name, fn):
+        def wrapped(t, group=None, *a, **k):
+            log.append((name, groups.get(id(group), "world"),
+                        int(t.numel())))
+            return fn(t, group, *a, **k)
+        return wrapped
+
+    for name in ("all_reduce_", "all_gather", "reduce_scatter"):
+        patches.patch(distributed, name,
+                      logged(name, getattr(distributed, name)))
+    tensor.reset()
+    try:
+        tr.update(batch())
+    finally:
+        patches.restore()
+    z = tr._zero
+    cut = (0 if z is None else sum(
+        int(np.prod(tr._local_shapes[lk][pn])) for lk, pn, _, _ in z.cut))
+    whole = sum(int(np.prod(s)) for d in tr._local_shapes.values()
+                for s in d.values())
+    rows = 2 * len(tr.train_metric) if tr.eval_train else 0
+    print(json.dumps({
+        "log": log, "calls": dict(tensor.calls), "cut": cut,
+        "whole": whole, "rows": rows, "stage": tr._zero_run,
+        "param_elems": sum(t.numel() for t in _leaves(tr.state["params"])),
+    }), flush=True)
+
+
+def _start_zero_case(case: str, device) -> List[Any]:
+    """Start the two ranks of one zero-audit case (not waited for)."""
+    import socket
+    import subprocess
+    import sys
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, CXN_COORDINATOR=f"127.0.0.1:{port}",
+                   CXN_NUM_WORKER="2", CXN_WORKER_RANK=str(r),
+                   CXN_AUDIT_CASE=case, OMP_NUM_THREADS="1",
+                   CXN_AUDIT_DEVICE=("cuda:0" if device.type == "cuda"
+                                     else "cpu"),
+                   PYTHONPATH=root + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        env.pop("CXN_LOCAL_RANK", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "cxxnet_tpu_torch.analysis.graph_audit",
+             "--zero-worker"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _finish_zero_case(case: str, procs) -> List[Dict[str, Any]]:
+    """The two ranks' reports of a started zero-audit case."""
+    import json
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    reps = []
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"zero-audit {case}: a rank failed "
+                               f"({p.returncode}):\n{out[-2000:]}")
+        reps.append(json.loads(out.strip().splitlines()[-1]))
+    return reps
+
+
+def _zero_audit(device, checks) -> Dict[str, Any]:
+    """The zero audit (see the module docstring) over ZERO_CASES."""
+    counts: Dict[str, Any] = {}
+    # the cases' jobs side by side (each case its own store and group)
+    started = {case: _start_zero_case(case, device) for case in ZERO_CASES}
+    for case, procs in started.items():
+        reps = _finish_zero_case(case, procs)
+        counts[case] = {"log": reps[0]["log"], "calls": reps[0]["calls"]}
+        for r, rep in enumerate(reps):
+            tgt = f"{case}/rank{r}"
+            log = rep["log"]
+            ar = [n for op, g, n in log if op == "all_reduce_" and g != "model"]
+            rs = [n for op, g, n in log if op == "reduce_scatter"]
+            ag = [n for op, g, n in log if op == "all_gather" and g == "data"]
+            if case.startswith("zero-audit/stage"):
+                cut, whole = rep["cut"], rep["whole"]
+                # the all-reduce: the loss, the uncut gradients and the
+                # metric rows - no cut weight's gradient
+                want_ar = 1 + (whole - cut) + rep["rows"]
+                checks.append(_check(
+                    tgt, "zero-reduce-scatter-present", rs == [cut]
+                    and cut > 0, f"reduce-scatters {rs}, cut {cut}"))
+                checks.append(_check(
+                    tgt, "zero-no-full-grad-allreduce", ar == [want_ar],
+                    f"all-reduces {ar}, want [{want_ar}] (loss + uncut "
+                    "gradients + metric rows)"))
+                checks.append(_check(
+                    tgt, "zero-weight-all-gather-present",
+                    ag == [cut // 2], f"data all-gathers {ag}, want one "
+                    f"of {cut // 2} (the cut slices)"))
+                if rep["stage"] >= 3:
+                    checks.append(_check(
+                        tgt, "zero3-params-stored-sharded",
+                        rep["param_elems"] == whole - cut // 2,
+                        f"{rep['param_elems']} param elements kept, want "
+                        f"{whole - cut // 2}"))
+            else:
+                c = rep["calls"]
+                checks.append(_check(
+                    tgt, "tp-enter-gather-pairs",
+                    c["enter"] >= c["gather"] > 0,
+                    f"enter {c['enter']}, gather {c['gather']}"))
+                checks.append(_check(
+                    tgt, "tp-row-parallel-all-reduce", c["reduce"] == 1,
+                    f"reduce {c['reduce']} (the attention projection)"))
+                checks.append(_check(
+                    tgt, "tp-no-data-collective",
+                    not ar and not rs and not ag,
+                    f"data-group collectives: {ar} {rs} {ag}"))
+    return counts
 
 
 def run_audit(device: str = DEFAULT_DEVICE,
@@ -1151,6 +1343,7 @@ def run_audit(device: str = DEFAULT_DEVICE,
         routing = dev.type == "cuda"
     if routing:
         counts["kernel_routing"] = _kernel_routing(dev, checks)
+    counts["zero_audit"] = _zero_audit(dev, checks)
     return {
         "platform": "gpu" if dev.type == "cuda" else "cpu",
         "device": (torch.cuda.get_device_name(dev)
@@ -1160,3 +1353,9 @@ def run_audit(device: str = DEFAULT_DEVICE,
         "deferred": DEFERRED,
         "failed": sum(1 for c in checks if not c["ok"]),
     }
+
+
+if __name__ == "__main__":
+    import sys as _sys
+    if _sys.argv[1:] == ["--zero-worker"]:
+        _zero_worker()

@@ -124,10 +124,10 @@ def ustate_to_numpy(tree: Mapping) -> Dict[str, Any]:
 
 def train_state_to_numpy(trainer) -> Dict[str, Any]:
     """{"params", "ustate", "epoch"} of a port NetTrainer, as numpy, the
-    updater state whole: under ZeRO-1 (update_on_server = 1) each cut
-    weight's state is gathered from the ranks' slices, so every rank
-    calls this together."""
-    return {"params": params_to_numpy(trainer.state["params"],
+    params and updater state whole: under a ZeRO cut (zero_stage >= 1)
+    or a model axis each cut tensor is gathered from the ranks' slices,
+    so every rank calls this together."""
+    return {"params": params_to_numpy(trainer._whole_params(),
                                       trainer.net.param_shapes()),
             "ustate": ustate_to_numpy(trainer._full_ustate()),
             "epoch": int(trainer.epoch)}
@@ -136,8 +136,9 @@ def train_state_to_numpy(trainer) -> Dict[str, Any]:
 def train_state_from_numpy(trainer, state: Mapping) -> None:
     """Load {"params", "ustate", "epoch"} (e.g. the JAX trainer's state
     through jax.device_get, the updater state whole) into a port
-    NetTrainer built from the same conf; under ZeRO-1 each rank keeps
-    its slice of it. The gradient accumulator and counters start
+    NetTrainer built from the same conf (a JAX state of any ZeRO stage
+    and mesh is whole once device_get has it); each rank keeps its
+    model shard and ZeRO cut of it. The gradient accumulator and counters start
     empty."""
     params = params_from_numpy(state["params"], trainer.net.param_shapes(),
                                trainer.device)

@@ -21,6 +21,17 @@ attention  multi-head self-attention. Params: qkv projection `wmat`
 attention_naive  the same layer with the full-matrix naive core - the
            trusted side of the pairtest harness.
 seq_fullc  position-wise fully connected, (b,1,s,e) -> (b,1,s,nhidden).
+
+Under a model mesh axis (parallel/tensor.py) attention's qkv rows and
+seq_fullc's output features are column parallel and attention's output
+projection `wproj` row parallel (its columns cut). The qkv rows are
+laid out (3, nhead, e/nhead), so a contiguous block of them is not a
+set of heads: the block's product is gathered whole, each rank takes
+its nhead/M heads of q, k and v, runs the core on them, multiplies by
+its columns of `wproj` (whole heads: the heads are head-major in the
+projection's input) and one all-reduce sums the ranks' products.
+Where nhead % M != 0 every rank runs every head and takes its block of
+the heads' output before the projection.
 layernorm  per-position normalisation over the embed dim with learnable
            slope/bias (eps 1e-5).
 pos_embed  learned additive positional embedding `wmat` (seq, embed).
@@ -35,6 +46,8 @@ import torch
 from cxxnet_tpu_torch.layers.base import Layer, Params, Shape, register_layer
 from cxxnet_tpu_torch.ops import attention as attn_ops
 from cxxnet_tpu_torch.ops.flash_attention import flash_attention
+from cxxnet_tpu_torch.parallel import tensor as tp
+from cxxnet_tpu_torch.parallel.mesh import model_axis_size
 
 SEQ_SCHEMES = ("ring", "ulysses", "none")
 
@@ -129,16 +142,59 @@ class AttentionLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return {"wmat": "wmat", "wproj": "wmat", "bias": "bias"}
 
+    def model_shard_dims(self) -> Dict[str, int]:
+        # qkv rows column parallel, the output projection's columns
+        # row parallel (closed by one all-reduce)
+        return {"wmat": 0, "bias": 0, "wproj": 1}
+
     def core(self, q, k, v):
         return flash_attention(q, k, v, bool(self.causal))
 
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         b, _, s, e = x.shape
+        tmesh = tp.model_mesh()
+        if tmesh is not None and (params["wmat"].shape[0] != 3 * e
+                                  or params["wproj"].shape[1] != e):
+            return [self._forward_tp(x.reshape(b, s, e), params,
+                                     tmesh).reshape(b, 1, s, e)]
         q, k, v = qkv_heads(x.reshape(b, s, e), params["wmat"],
                             params.get("bias"), self.nhead)
         out = heads_proj(self.core(q, k, v), params["wproj"])
         return [out.reshape(b, 1, s, e)]
+
+    def _forward_tp(self, xs, params, tmesh):
+        """The layer with its params cut over 'model' (see the module
+        docstring); xs (b, s, e) whole, the output (b, s, e) whole."""
+        b, s, e = xs.shape
+        h, d = self.nhead, e // self.nhead
+        wq, wp, bq = params["wmat"], params["wproj"], params.get("bias")
+
+        def proj(t):
+            out = t @ wq.to(t.dtype).t()
+            return out if bq is None else out + bq.to(t.dtype)[None, None, :]
+        qkv = (tp.column(xs, 2, tmesh, proj) if wq.shape[0] != 3 * e
+               else proj(xs))
+        if wp.shape[1] == e:
+            heads = qkv.reshape(b, s, 3, h, d)
+            o = self.core(*(heads[:, :, i].transpose(1, 2)
+                            for i in range(3)))
+            return heads_proj(o, wp)
+        if h % model_axis_size(tmesh) == 0:
+            # this rank's heads only; the enter sums the ranks' head
+            # gradients into the whole qkv gradient
+            heads = tp.enter(qkv, tmesh).reshape(b, s, 3, h, d)
+            mine = tp.block(h, tmesh)
+            o = self.core(*(heads[:, :, i, mine].transpose(1, 2)
+                            for i in range(3)))
+            o = o.transpose(1, 2).reshape(b, s, -1)
+        else:
+            heads = qkv.reshape(b, s, 3, h, d)
+            o = self.core(*(heads[:, :, i].transpose(1, 2)
+                            for i in range(3)))
+            o = tp.enter(o.transpose(1, 2).reshape(b, s, e), tmesh)
+            o = o[:, :, tp.block(e, tmesh)]
+        return tp.reduce(o @ wp.to(o.dtype).t(), tmesh)
 
 
 @register_layer
@@ -187,12 +243,25 @@ class SeqFullcLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return {"wmat": "wmat", "bias": "bias"}
 
+    def model_shard_dims(self) -> Dict[str, int]:
+        return {"wmat": 0, "bias": 0}
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         b, _, s, e = x.shape
-        out = x.reshape(b, s, e) @ params["wmat"].t()
-        if "bias" in params:
-            out = out + params["bias"][None, None, :]
+        xs = x.reshape(b, s, e)
+
+        def local(t):
+            out = t @ params["wmat"].t()
+            if "bias" in params:
+                out = out + params["bias"][None, None, :]
+            return out
+        tmesh = tp.model_mesh()
+        if (tmesh is not None
+                and params["wmat"].shape[0] != self.param.num_hidden):
+            out = tp.column(xs, 2, tmesh, local)
+        else:
+            out = local(xs)
         return [out.reshape(b, 1, s, -1)]
 
 

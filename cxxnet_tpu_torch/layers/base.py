@@ -202,6 +202,11 @@ class Layer(nn.Module):
         wmat->'wmat', bias->'bias'); get/set_weight resolve tags by it."""
         return {}
 
+    def model_shard_dims(self) -> Dict[str, int]:
+        """{param name: the dim that rides the 'model' mesh axis}
+        (parallel/sharding.py); {} - every param replicated."""
+        return {}
+
     # --- compute ---------------------------------------------------------
     def forward(self, params: Params, inputs: List[torch.Tensor],
                 train: bool = False, gen: Optional[torch.Generator] = None,

@@ -17,7 +17,14 @@ them `wmat_q` (int8) with frozen `ascale` / `wscale` instead of `wmat`,
 run the int8 route of ops/int8.py: quantize the input, an int8 x int8
 -> int32 contraction (K3 on the card), then in float32 the dequantize,
 the bias and the fused activation, and a cast back to the input's
-dtype - the JAX package's order."""
+dtype - the JAX package's order.
+
+Under a model mesh axis (parallel/tensor.py) fullc and conv are column
+parallel (their output features / channels cut over 'model'), prelu
+and batch_norm cut their per-channel params the same way: a layer
+whose params arrive cut runs on its block of the features inside
+tensor.column (enter, the local op, gather), so its output is whole
+again."""
 
 from __future__ import annotations
 
@@ -34,7 +41,9 @@ from cxxnet_tpu_torch.ops import int8 as int8_ops
 from cxxnet_tpu_torch.ops import nn as nn_ops
 from cxxnet_tpu_torch.ops import pooling as pool_ops
 from cxxnet_tpu_torch.parallel import distributed
-from cxxnet_tpu_torch.parallel.mesh import data_axis_size, get_active_mesh
+from cxxnet_tpu_torch.parallel import tensor as tp
+from cxxnet_tpu_torch.parallel.mesh import (
+    data_axis_size, get_active_mesh, model_axis_size)
 
 
 def _fused_act(val: str) -> str:
@@ -148,10 +157,23 @@ class FullConnectLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return {"wmat": "wmat", "bias": "bias"}
 
+    def model_shard_dims(self) -> Dict[str, int]:
+        # Megatron column parallelism: the output features
+        return {"wmat": 0, "bias": 0}
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         b = x.shape[0]
         m = x.reshape(b, -1)
+        tmesh = tp.model_mesh()
+        if (tmesh is not None and "wmat" in params
+                and params["wmat"].shape[0] != self.param.num_hidden):
+            def local(mm):
+                out = mm @ params["wmat"].t()
+                if "bias" in params:
+                    out = out + params["bias"][None, :]
+                return nn_ops.relu(out) if self.fused_act == "relu" else out
+            return [tp.column(m, 1, tmesh, local).reshape(b, 1, 1, -1)]
         if "wmat_q" in params:
             acc = int8_ops.int8_matmul(
                 int8_ops.quantize_act(m, params["ascale"]),
@@ -159,7 +181,10 @@ class FullConnectLayer(Layer):
             out = _int8_epilogue(acc, params, self.fused_act, m.dtype)
             return [out.reshape(b, 1, 1, -1)]
         mesh = get_active_mesh()
-        if self.fullc_gather and data_axis_size(mesh) > 1:
+        if (self.fullc_gather and data_axis_size(mesh) > 1
+                and model_axis_size(mesh) == 1):
+            # gather-mode wgrad needs a replicated weight: off under a
+            # model axis, as in the JAX package
             out = _GatherMatmul.apply(m, params["wmat"], mesh.group)
         else:
             out = m @ params["wmat"].t()
@@ -304,8 +329,49 @@ class ConvolutionLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return {"wmat": "wmat", "bias": "bias"}
 
+    def model_shard_dims(self) -> Dict[str, int]:
+        # the output channels; shardings_for checks only O % axis size,
+        # so a block may straddle group boundaries (_local_conv)
+        return {"wmat": 0, "bias": 0}
+
+    def _local_conv(self, x: torch.Tensor, w: torch.Tensor,
+                    lo: int) -> torch.Tensor:
+        """This rank's output channels [lo, lo + w.shape[0]) of the
+        grouped conv: one conv over the input channels of the whole
+        groups the block covers, or where it straddles a group
+        boundary one conv per group piece, each against its own input
+        channels."""
+        p = self.param
+        g = p.num_group
+        if g == 1:
+            return conv_ops.conv2d(x, w, p.stride, p.pad_y, p.pad_x, 1)
+        opg, ipg = p.num_channel // g, x.shape[1] // g
+        hi = lo + w.shape[0]
+        if lo % opg == 0 and hi % opg == 0:
+            return conv_ops.conv2d(
+                x[:, lo // opg * ipg:hi // opg * ipg], w, p.stride,
+                p.pad_y, p.pad_x, (hi - lo) // opg)
+        pieces = []
+        for grp in range(lo // opg, (hi - 1) // opg + 1):
+            a, z = max(lo, grp * opg), min(hi, (grp + 1) * opg)
+            pieces.append(conv_ops.conv2d(
+                x[:, grp * ipg:(grp + 1) * ipg], w[a - lo:z - lo],
+                p.stride, p.pad_y, p.pad_x, 1))
+        return torch.cat(pieces, dim=1)
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         p = self.param
+        tmesh = tp.model_mesh()
+        if (tmesh is not None and "wmat" in params
+                and params["wmat"].shape[0] != p.num_channel):
+            w = params["wmat"]
+
+            def local(x):
+                out = self._local_conv(x, w, tmesh.model_rank * w.shape[0])
+                if "bias" in params:
+                    out = out + params["bias"][None, :, None, None]
+                return nn_ops.relu(out) if self.fused_act == "relu" else out
+            return [tp.column(inputs[0], 1, tmesh, local)]
         if "wmat_q" in params:
             x = inputs[0]
             acc = int8_ops.int8_conv2d(
@@ -647,20 +713,38 @@ class PReluLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return {"slope": "bias"}
 
+    def model_shard_dims(self) -> Dict[str, int]:
+        return {"slope": 0}
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         slope = params["slope"]
-        mask = (slope[None, :, None, None] if x.shape[1] != 1
-                else slope[None, None, None, :]).expand(x.shape)
+        u = None
         if train and self.random > 0:
+            # the whole node's draw (a block takes its channels of it)
             u = uniform_draw(x.shape, x.dtype, x.device, gen, keep,
                              self.type_name)
+        cdim = 1 if x.shape[1] != 1 else 3
+        tmesh = tp.model_mesh()
+        if tmesh is not None and slope.shape[0] != x.shape[cdim]:
+            k = slope.shape[0]
+            ul = (None if u is None
+                  else u.narrow(cdim, tmesh.model_rank * k, k))
+            return [tp.column(x, cdim, tmesh,
+                              lambda xl: self._prelu(xl, slope, ul, cdim),
+                              k=k)]
+        return [self._prelu(x, slope, u, cdim)]
+
+    def _prelu(self, x, slope, u, cdim: int):
+        mask = (slope[None, :, None, None] if cdim == 1
+                else slope[None, None, None, :]).expand(x.shape)
+        if u is not None:
             mask = mask * (1 + (u * self.random * 2.0 - self.random))
         # minimum/maximum: a slope exactly at a bound takes half the
         # gradient, as under jnp.clip
         mask = torch.minimum(torch.maximum(mask, mask.new_zeros(())),
                              mask.new_ones(()))
-        return [nn_ops.mxelu(x, mask)]
+        return nn_ops.mxelu(x, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -768,8 +852,23 @@ class BatchNormLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return {"slope": "wmat", "bias": "bias"}
 
+    def model_shard_dims(self) -> Dict[str, int]:
+        return {"slope": 0, "bias": 0}
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
+        cdim = 1 if self._is_conv(x.shape) else 3
+        tmesh = tp.model_mesh()
+        if tmesh is not None and params["slope"].shape[0] != x.shape[cdim]:
+            # channels are independent of the statistics: each rank
+            # normalises its block (sync-BN still sums over the data
+            # group only)
+            return [tp.column(x, cdim, tmesh,
+                              lambda xl: self._normalize(xl, params),
+                              k=params["slope"].shape[0])]
+        return [self._normalize(x, params)]
+
+    def _normalize(self, x, params):
         axes, sl = self._axes(x.shape)
         xf = x.float()
         mesh = get_active_mesh()
@@ -788,7 +887,7 @@ class BatchNormLayer(Layer):
             var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
         xhat = (xf - mean) * torch.rsqrt(var + self.eps)
         out = xhat * params["slope"].float()[sl] + params["bias"].float()[sl]
-        return [out.to(x.dtype)]
+        return out.to(x.dtype)
 
 
 @register_layer

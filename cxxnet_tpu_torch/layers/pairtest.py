@@ -126,6 +126,9 @@ class PairTestLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return self.master.param_tags()
 
+    def model_shard_dims(self) -> Dict[str, int]:
+        return self.master.model_shard_dims()
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         # the slave draws what the master drew: one generator state
         state = gen.get_state() if gen is not None else None

@@ -93,7 +93,7 @@ from cxxnet_tpu_torch import kernels, telemetry
 from cxxnet_tpu_torch.io import DataBatch, create_iterator
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer, StagedChunk
 from cxxnet_tpu_torch.parallel import distributed
-from cxxnet_tpu_torch.parallel.mesh import parse_device_spec
+from cxxnet_tpu_torch.parallel.mesh import parse_device_spec, parse_mesh_spec
 from cxxnet_tpu_torch.utils.config import (check_ported, parse_config_file,
                                            validate_known_keys)
 from cxxnet_tpu_torch.utils.device import (check_spec, device_from_spec,
@@ -238,12 +238,15 @@ class LearnTask:
                 f"(ported: {', '.join(TASKS)})")
         ids = parse_device_spec(self.device)
         workers = len(ids) if ids and len(ids) > 1 else 1
-        if self.task == "serve" and (workers > 1
+        meshed = any(k == "mesh" and any(n > 1 for _, n in
+                                         parse_mesh_spec(v))
+                     for k, v in self.cfg)
+        if self.task == "serve" and (workers > 1 or meshed
                                      or distributed.process_count() > 1
                                      or self._param_server() == "dist"):
             raise NotImplementedError(
-                f"task = serve with a data axis (param_server = dist or a "
-                f"multi-device dev = {self.device}) is not ported to "
+                f"task = serve with a mesh (param_server = dist, `mesh`, "
+                f"or a multi-device dev = {self.device}) is not ported to "
                 "cxxnet_tpu_torch yet (see ROADMAP)")
         if workers > 1 and int(os.environ.get("CXN_NUM_WORKER", "1")) <= 1:
             return self._launch_workers(argv, workers)

@@ -105,12 +105,33 @@ each microstep's backward one all-reduce sums the loss, the gradients
 and the train-metric rows over the ranks, so every rank commits the
 same update and makes the same check_nan decision. Every rank starts
 from the same seeded init (nothing is broadcast: check_weights proves
-the ranks agree). `zero_stage = 1` (`shard_optimizer`, or
-`update_on_server = 1`) cuts each weight's updater state over the ranks
-(parallel/sharding.py: Zero1): a rank updates its slice and one
-all-gather returns the fresh weights. Evaluation sums its metric rows
-over the ranks. A data axis larger than the job raises, naming
-param_server = dist and tools/launch_dist; ZeRO stages 2-3 raise.
+the ranks agree). Evaluation sums its metric rows over the ranks. A
+mesh larger than the job raises, naming param_server = dist and
+tools/launch_dist.
+
+ZeRO (parallel/sharding.py: ZeroCut, one cut tree for every stage):
+`zero_stage = 1` (`shard_optimizer`, or `update_on_server = 1`) cuts
+each weight's updater state over the data ranks: a rank updates its
+slice and one all-gather returns the fresh weights. `zero_stage = 2`
+also cuts the gradients: the cut weights' gradients travel by one
+reduce-scatter over the data group (the rest, the loss and the metric
+rows by one all-reduce), and the update_period accumulator is stored
+cut. `zero_stage = 3` also keeps the cut weights cut between steps:
+they are all-gathered just before each forward (training, evaluation,
+inference) and the whole copies dropped after it; the update lands on
+the slice with no gather. Without a data axis the stage degrades to at
+most 1, as in the JAX package.
+
+The model axis (`mesh = model:M`, `mesh = data:N,model:M`;
+parallel/tensor.py): each rank stores its model shard of every weight
+its layer places on 'model' (sharding.py: ModelCut; every rank draws
+the same whole seeded init and keeps its block), the layers run on
+their blocks and close with the model group's collectives, and the
+gradients are reduced over the data group only. The M ranks of one
+data replica feed the same rows (the data index picks them).
+Checkpoints, get_weight and convert.train_state_to_numpy gather the
+model and ZeRO cuts, so a file is the same bytes at every stage and
+mesh; loads and set_weight cut again.
 """
 
 from __future__ import annotations
@@ -142,7 +163,8 @@ from cxxnet_tpu_torch.parallel import distributed
 from cxxnet_tpu_torch.parallel.mesh import (
     MeshSpec, active_mesh, build_mesh, check_axes, parse_device_spec,
     parse_mesh_spec)
-from cxxnet_tpu_torch.parallel.sharding import Zero1, zero_partition_dims
+from cxxnet_tpu_torch.parallel.sharding import (
+    ModelCut, ZeroCut, shardings_for, zero_partition_dims)
 from cxxnet_tpu_torch.telemetry.flight import fingerprint
 from cxxnet_tpu_torch.updater import (UpdaterParam, create_updater,
                                       schedule_table)
@@ -300,7 +322,7 @@ class InferGraph:
             if self._version != tr._wversion:
                 with torch.no_grad():
                     self._params = tr._cast(
-                        self.param_fn(tr.state["params"]))
+                        self.param_fn(tr._local_params()))
                 self._version = tr._wversion
             return self._params
 
@@ -350,7 +372,15 @@ class NetTrainer:
         self.param_server = "local"
         self.zero_stage = 0
         self._zero_src = ""
-        self._zero: Optional[Zero1] = None
+        # the ZeRO stage this mesh runs (stage >= 2 degrades to <= 1
+        # without a data axis) and its cut; the model axis's cut
+        self._zero_run = 0
+        self._zero: Optional[ZeroCut] = None
+        self._mcut: Optional[ModelCut] = None
+        # model-local param shapes (the whole shapes without a model
+        # axis); gradient bytes this rank held after the last reduce
+        self._local_shapes: Dict[str, Dict[str, Tuple[int, ...]]] = {}
+        self.grad_bytes = 0
         # (rows this rank feeds, their first row in the global batch)
         self._local_rows = (0, 0)
         # fullc_gather weights: their gradient is full on every rank
@@ -671,7 +701,7 @@ class NetTrainer:
         """zero_stage with the JAX package's alias rules:
         `shard_optimizer` / `update_on_server` are spellings of stage <=
         1, and one arriving after an explicit `zero_stage` that it
-        contradicts warns and is ignored. Stages 2-3 are not ported."""
+        contradicts warns and is ignored."""
         if not 0 <= stage <= 3:
             raise ValueError("zero_stage must be 0, 1, 2 or 3")
         if key != "zero_stage" and self._zero_src == "zero_stage":
@@ -682,11 +712,6 @@ class NetTrainer:
                     f"{self.zero_stage}; keeping zero_stage="
                     f"{self.zero_stage}\n")
             return
-        if stage >= 2:
-            raise NotImplementedError(
-                f"zero_stage = {stage}: ZeRO stages 2-3 are not ported to "
-                "cxxnet_tpu_torch yet (ZeRO-1 is: zero_stage = 1, "
-                "shard_optimizer = 1 or update_on_server = 1; see ROADMAP)")
         self.zero_stage = stage
         self._zero_src = key
 
@@ -703,12 +728,19 @@ class NetTrainer:
         """The data axis's size (1 = a one-process trainer)."""
         return 1 if self.mesh is None else self.mesh.shape["data"]
 
+    @property
+    def _msize(self) -> int:
+        """The model axis's size (1 = no tensor parallelism)."""
+        return 1 if self.mesh is None else self.mesh.shape.get("model", 1)
+
     def _mesh_scope(self) -> active_mesh:
-        """The data mesh every forward runs under, as the JAX trainer
-        binds self.mesh around its train, eval, inference and
-        calibration forwards: sync-BN's and fullc_gather's collectives,
-        the global batch's random draws (layers/base.py rank_rand)."""
-        return active_mesh(self.mesh if self._dsize > 1 else None)
+        """The mesh every forward runs under, as the JAX trainer binds
+        self.mesh around its train, eval, inference and calibration
+        forwards: sync-BN's and fullc_gather's collectives, the global
+        batch's random draws (layers/base.py rank_rand), the model
+        axis's collectives (parallel/tensor.py)."""
+        return active_mesh(self.mesh if self._dsize > 1 or self._msize > 1
+                           else None)
 
     def _build_mesh(self) -> None:
         """Join the job (param_server = dist) and build the data mesh:
@@ -723,7 +755,7 @@ class NetTrainer:
         lb = self.batch_size // n
         self._local_rows = (lb, self.mesh.rank * lb)
         self._gathered = set()
-        if n > 1:
+        if n > 1 and self._msize == 1:
             for idx, info in enumerate(self.net_cfg.layers):
                 lay = self.net.layer_objs[idx]
                 if (not info.is_shared
@@ -793,6 +825,10 @@ class NetTrainer:
         self._augment_fn = (self._make_augment() if self.device_augment
                             else None)
         self._build_updaters()
+        self._zero_run = (self.zero_stage if self._dsize > 1
+                          else min(self.zero_stage, 1))
+        self._check_zero(self._zero_run,
+                         self.mesh.axes + tuple(self.mesh_spec.axes))
         self._remat_segments = (self.net.remat_segments() if self.remat
                                 else None)
         self._flight_fps = {}
@@ -918,6 +954,43 @@ class NetTrainer:
             max_random_illumination=float(
                 dc.get("max_random_illumination", "0")))
 
+    def _check_zero(self, zrun: int, axes) -> None:
+        """The JAX trainer's checks of a ZeRO stage >= 2 (its _compile):
+        the stage composes with the data and model axes only, every
+        updater must be zero_shardable, and sync-BN is refused."""
+        if zrun < 2:
+            return
+        extra_axes = sorted({a for a, k in axes
+                             if a not in ("data", "model") and k > 1})
+        if extra_axes:
+            raise ValueError(
+                f"zero_stage={self.zero_stage} composes with "
+                f"'data'/'model' mesh axes only; axes {extra_axes} "
+                "drive layers that shard_map over the full mesh "
+                "(ring/ulysses attention, pipelined stacks, moe), "
+                "which cannot nest inside the manual-'data' ZeRO "
+                "region - use zero_stage<=1 on seq/pipe/expert "
+                "meshes")
+        for lk, d in self.updaters.items():
+            for pn, up in d.items():
+                if not up.zero_shardable:
+                    raise ValueError(
+                        f"updater '{up.kind or type(up).__name__}' "
+                        f"({lk}.{pn}) declares zero_shardable="
+                        "False (its math reduces over the full "
+                        "tensor, so a per-shard update computes "
+                        "different results); use zero_stage<=1")
+        for idx, _info in enumerate(self.net_cfg.layers):
+            lay = self.net.layer_objs[idx]
+            if (getattr(lay, "type_name", "") == "batch_norm"
+                    and getattr(lay, "global_stats", 0)):
+                raise ValueError(
+                    "batch_norm global_stats=1 (sync-BN) needs "
+                    "global-batch statistics, but zero_stage>=2 "
+                    "runs the forward per data shard (per-shard "
+                    "stats, the reference's per-GPU semantics); "
+                    "use zero_stage<=1 with sync-BN")
+
     def _build_updaters(self) -> None:
         """One Updater per weight tensor, configured with defcfg +
         layercfg[i] under its tag (neural_net-inl.hpp:177-204)."""
@@ -959,81 +1032,132 @@ class NetTrainer:
                 if lk in master and pn in master[lk]]
 
     def _init_state(self, params: Params) -> None:
-        """Fresh train state around `params`: zero updater state (or
-        the state a loaded checkpoint carried), no accumulated
-        gradient, zero train metrics."""
+        """Fresh train state around whole `params`: zero updater state
+        (or the state a loaded checkpoint carried), no accumulated
+        gradient, zero train metrics; the params and state cut to this
+        rank's model shard and ZeRO cut."""
         ustate = self._fresh_ustate(params)
         if self._loaded_opt is not None:
             ustate = convert.ustate_from_numpy(self._loaded_opt, ustate,
                                                self.device)
             self._loaded_opt = None
-        self._plan_zero(params)
-        self.state = {"params": params, "ustate": self._cut_ustate(ustate)}
+        self._install(params, ustate)
         self._accum = None
         self._count = 0
         self._weights_changed(retire=True)
         self.clear_train_metric()
 
     def _fresh_ustate(self, params: Params):
-        """Zero updater state for `params`, whole: the shapes a full
-        state has, before a ZeRO-1 cut."""
+        """Zero updater state for whole `params`, whole: the shapes a
+        full state has, before any cut."""
         return {lk: {pn: up.init_state(params[lk][pn])
                      for pn, up in d.items() if pn in params.get(lk, {})}
                 for lk, d in self.updaters.items()}
 
     def set_train_state(self, params: Params, ustate, epoch: int) -> None:
-        """Install params, the whole updater state (cut here under
-        ZeRO-1) and the update counter (the carry from a JAX train
-        state - convert.train_state_from_numpy)."""
-        self._plan_zero(params)
-        self.state = {"params": params, "ustate": self._cut_ustate(ustate)}
+        """Install whole params, the whole updater state and the update
+        counter (the carry from a JAX train state -
+        convert.train_state_from_numpy), each cut here."""
+        self._install(params, ustate)
         self.epoch = int(epoch)
         self._reset_counters()
         self._weights_changed(retire=True)
         self.clear_train_metric()
 
-    def _plan_zero(self, params: Params) -> None:
-        """The ZeRO-1 cut of these params (None without a data axis or
-        under zero_stage = 0)."""
-        self._zero = None
-        if self.zero_stage >= 1 and self._dsize > 1:
-            shapes = {lk: {pn: tuple(t.shape) for pn, t in d.items()}
-                      for lk, d in params.items()}
-            self._zero = Zero1(self.mesh, zero_partition_dims(
-                self.mesh, shapes), shapes)
+    def _install(self, params: Params, ustate) -> None:
+        """Plan the cuts of these whole params and keep this rank's
+        part: the model shard of every param and of its state, then the
+        ZeRO cut of the state (stage >= 1) and of the weights (stage
+        3). The cut tensors are copies, so the whole ones are freed."""
+        self._plan(params)
+        mc, z = self._mcut, self._zero
+        if mc is not None:
+            ustate = {lk: {pn: {f: mc.local(t, lk, pn)
+                                for f, t in st.items()}
+                           for pn, st in d.items()}
+                      for lk, d in ustate.items()}
+        if z is not None:
+            ustate = {lk: {pn: ({f: z.owned(t, lk, pn).clone()
+                                 for f, t in st.items()}
+                                if z.is_cut(lk, pn) else st)
+                           for pn, st in d.items()}
+                      for lk, d in ustate.items()}
+        self.state = {"params": self._cut_params(params), "ustate": ustate}
 
-    def _cut_ustate(self, ustate):
-        """Full updater state -> the state this rank keeps: the own
-        slice of each cut weight's state (copied, so the full tensors
-        are freed), the rest whole."""
+    def _plan(self, params: Params) -> None:
+        """The model cut (a model axis above 1) and the ZeRO cut (None
+        without a data axis or under zero_stage = 0) of whole params:
+        the placements of parallel/sharding.py, the JAX helpers'."""
+        shapes = {lk: {pn: tuple(t.shape) for pn, t in d.items()}
+                  for lk, d in params.items()}
+        self._mcut = self._zero = None
+        self._local_shapes = shapes
+        if self.mesh is None or (self._dsize == 1 and self._msize == 1):
+            return
+        specs = shardings_for(self.mesh, shapes, self.net)
+        if self._msize > 1:
+            self._mcut = ModelCut(self.mesh, specs, shapes)
+            self._local_shapes = self._mcut.local_shapes()
+        if self.zero_stage >= 1 and self._dsize > 1:
+            self._zero = ZeroCut(self.mesh, zero_partition_dims(
+                self.mesh, shapes, specs), self._local_shapes)
+
+    def _local_params(self) -> Params:
+        """The model-local params whole over the data axis: the stored
+        params, or under zero_stage = 3 the cut weights all-gathered
+        over the data group (a collective; the caller drops them after
+        use)."""
+        params = self.state["params"]
         z = self._zero
-        if z is None:
-            return ustate
-        return {lk: {pn: ({f: z.owned(t, lk, pn).clone()
-                           for f, t in st.items()}
-                          if z.is_cut(lk, pn) else st)
-                     for pn, st in d.items()}
-                for lk, d in ustate.items()}
+        if z is None or self._zero_run < 3:
+            return params
+        full = z.gather_full({(lk, pn): params[lk][pn]
+                              for lk, pn, _, _ in z.cut})
+        return {lk: {pn: full.get((lk, pn), t) for pn, t in d.items()}
+                for lk, d in params.items()}
+
+    def _whole_params(self) -> Params:
+        """Every param whole on every rank (gathered over the ZeRO and
+        model cuts; collectives on a mesh)."""
+        params = self._local_params()
+        return params if self._mcut is None else self._mcut.gather(params)
 
     def _full_ustate(self):
-        """The whole updater state on every rank (a collective under
-        ZeRO-1: each field of the cut weights is all-gathered)."""
+        """The whole updater state on every rank (collectives under a
+        ZeRO cut or a model axis: each field of the cut weights is
+        all-gathered)."""
         z = self._zero
         ustate = self.state["ustate"]
-        if z is None:
+        if z is not None:
+            out = {lk: {pn: dict(st) for pn, st in d.items()}
+                   for lk, d in ustate.items()}
+            fields = sorted({f for lk, pn, _, _ in z.cut
+                             for f in ustate[lk][pn]})
+            for f in fields:
+                into = {}
+                for lk, pn, _, _ in z.cut:
+                    if f not in ustate[lk][pn]:
+                        continue
+                    t = ustate[lk][pn][f]
+                    into[(lk, pn)] = out[lk][pn][f] = torch.empty(
+                        self._local_shapes[lk][pn], dtype=t.dtype,
+                        device=t.device)
+                z.gather({key: ustate[key[0]][key[1]][f] for key in into},
+                         into)
+            ustate = out
+        mc = self._mcut
+        if mc is None:
             return ustate
-        master = self.state["params"]
-        out = {lk: {pn: dict(st) for pn, st in d.items()}
-               for lk, d in ustate.items()}
-        fields = sorted({f for lk, pn, _, _ in z.cut
-                         for f in ustate[lk][pn]})
+        fields = sorted({f for d in ustate.values() for st in d.values()
+                         for f in st})
+        out = {lk: {pn: {} for pn in d} for lk, d in ustate.items()}
         for f in fields:
-            into = {}
-            for lk, pn, _, _ in z.cut:
-                into[(lk, pn)] = out[lk][pn][f] = torch.empty_like(
-                    master[lk][pn])
-            z.gather({(lk, pn): ustate[lk][pn][f]
-                      for lk, pn, _, _ in z.cut}, into)
+            tree = {lk: {pn: st[f] for pn, st in d.items() if f in st}
+                    for lk, d in ustate.items()}
+            whole = mc.gather(tree)
+            for lk, d in whole.items():
+                for pn, t in d.items():
+                    out[lk][pn][f] = t
         return out
 
     def ustate_bytes(self) -> int:
@@ -1041,13 +1165,39 @@ class NetTrainer:
         return sum(t.numel() * t.element_size()
                    for t in _tree_leaves(self.state["ustate"]))
 
+    def state_bytes(self) -> Dict[str, int]:
+        """Bytes this rank holds between steps: params, updater state,
+        the update_period accumulator, and the gradients it kept after
+        the last step's reduction (cut under zero_stage >= 2)."""
+        def nbytes(tree):
+            return (0 if tree is None else
+                    sum(t.numel() * t.element_size()
+                        for t in _tree_leaves(tree)))
+        return {"params": nbytes(self.state["params"]),
+                "ustate": nbytes(self.state["ustate"]),
+                "accum": nbytes(self._accum), "grads": self.grad_bytes}
+
     def _set_params(self, params: Params) -> None:
-        """Replace the params (updater state kept, or made fresh)."""
+        """Replace the params with whole `params` (updater state kept,
+        or made fresh), cut to this rank's part."""
         if self.state is None:
             self._init_state(params)
         else:
-            self.state["params"] = params
+            self.state["params"] = self._cut_params(params)
             self._weights_changed(retire=True)
+
+    def _cut_params(self, params: Params) -> Params:
+        """Whole params -> what this rank stores: its model shard, and
+        under zero_stage = 3 the ZeRO cut of the cut weights."""
+        mc, z = self._mcut, self._zero
+        if mc is not None:
+            params = mc.local_tree(params)
+        if z is not None and self._zero_run >= 3:
+            params = {lk: {pn: (z.owned(t, lk, pn).clone()
+                                if z.is_cut(lk, pn) else t)
+                           for pn, t in d.items()}
+                      for lk, d in params.items()}
+        return params
 
     def _weights_changed(self, retire: bool = False) -> None:
         """The master params changed: drop the cached compute-dtype and
@@ -1072,7 +1222,10 @@ class NetTrainer:
     def compute_params(self) -> Params:
         """Params in the compute dtype: the master copy itself under
         float32 or an autocast plan, a wholesale bfloat16 cast (made
-        once per weight change) under bfloat16."""
+        once per weight change) under bfloat16. Under zero_stage = 3
+        the cut weights are all-gathered for each call and not kept."""
+        if self._zero is not None and self._zero_run >= 3:
+            return self._cast(self._local_params())
         cp = self._cparams
         if cp is None:
             cp = self._cast(self.state["params"])
@@ -1492,10 +1645,10 @@ class NetTrainer:
         1, the gradient accumulator all finite), which leaves params,
         updater state, accumulator, counters and train metrics as they
         were for a non-finite step - in place, the tensors keep their
-        storage."""
-        master = self.state["params"]
+        storage. Under zero_stage = 3 the cut weights are all-gathered
+        for the forward and the whole copies dropped after the backward."""
         leaves = _tree_map(lambda t: t.detach().requires_grad_(True),
-                           master)
+                           self._local_params())
         seed = self.seed + 100
         dev = self.device
         period = self.update_period
@@ -1534,8 +1687,14 @@ class NetTrainer:
                 rows = self._metric_rows(self.train_metric, values, labels,
                                          mask, seed, step, 1000)
         loss = loss.detach()
+        if self._zero_run >= 3:
+            # stage 3 keeps only its cut between steps: drop the
+            # gathered whole weights (and their cast) before the update
+            del leaves, flat, grads, cparams
         if mesh is not None:
-            loss, rows = self._reduce_step(loss, gtree, rows)
+            loss, rows, gtree = self._reduce_step(loss, gtree, rows)
+        self.grad_bytes = sum(t.numel() * t.element_size()
+                              for t in _tree_leaves(gtree))
         if dc is None:
             self._commit(gtree, rows)
         else:
@@ -1546,10 +1705,26 @@ class NetTrainer:
     def _reduce_step(self, loss, gtree, rows):
         """Sum this microstep's loss, gradients (all but the
         fullc_gather weights', full on every rank already) and
-        train-metric rows over the ranks in one all-reduce, in place;
-        returns the global (loss, rows)."""
+        train-metric rows over the data group in one all-reduce, in
+        place; under zero_stage >= 2 the cut weights' gradients instead
+        travel by one reduce-scatter, which leaves this rank its slice
+        of each sum. Returns the global (loss, rows) and the gradients
+        (cut where they were reduce-scattered)."""
+        z = self._zero if self._zero_run >= 2 else None
+        if z is not None:
+            gtree = {lk: dict(d) for lk, d in gtree.items()}
+            cut = [(lk, pn) for lk, pn, _, _ in z.cut]
+            for lk, pn in cut:
+                if (lk, pn) in self._gathered:
+                    gtree[lk][pn] = z.owned(gtree[lk][pn], lk, pn).clone()
+            mine = z.reduce_scatter({
+                key: gtree[key[0]][key[1]] for key in cut
+                if key not in self._gathered})
+            for (lk, pn), g in mine.items():
+                gtree[lk][pn] = g
         keys = [(lk, pn) for lk in sorted(gtree) for pn in sorted(gtree[lk])
-                if (lk, pn) not in self._gathered]
+                if (lk, pn) not in self._gathered
+                and not (z is not None and z.is_cut(lk, pn))]
         parts = [loss.reshape(1)] + [gtree[lk][pn].reshape(-1)
                                      for lk, pn in keys]
         if rows is not None:
@@ -1563,22 +1738,30 @@ class NetTrainer:
             off += g.numel()
         if rows is not None:
             rows = flat[off:].view(rows.shape)
-        return flat[0], rows
+        return flat[0], rows, gtree
+
+    def _zero_views(self, master, accum, lk: str, pn: str):
+        """(weight, gradient) an updater steps for weight (lk, pn): the
+        whole tensors, or for a ZeRO-cut weight this rank's slices -
+        the stored weight itself under stage 3, the gradient itself
+        under stage >= 2."""
+        z = self._zero
+        w, g = master[lk][pn], accum[lk][pn]
+        if z is None or not z.is_cut(lk, pn):
+            return w, g
+        return (w if self._zero_run >= 3 else z.owned(w, lk, pn),
+                g if self._zero_run >= 2 else z.owned(g, lk, pn))
 
     def _apply_updates(self, accum) -> None:
-        """Every updater on its weight, in place; under ZeRO-1 a cut
-        weight's updater runs on this rank's slice and one all-gather
-        returns the fresh weights."""
+        """Every updater on its weight, in place; under ZeRO a cut
+        weight's updater runs on this rank's slice and (stages 1-2) one
+        all-gather returns the fresh weights."""
         master, ustate = self.state["params"], self.state["ustate"]
         z = self._zero
         for lk, pn, up in self._updater_list():
-            if z is not None and z.is_cut(lk, pn):
-                up.apply(ustate[lk][pn], z.owned(master[lk][pn], lk, pn),
-                         z.owned(accum[lk][pn], lk, pn), self.epoch)
-            else:
-                up.apply(ustate[lk][pn], master[lk][pn], accum[lk][pn],
-                         self.epoch)
-        if z is not None:
+            w, g = self._zero_views(master, accum, lk, pn)
+            up.apply(ustate[lk][pn], w, g, self.epoch)
+        if z is not None and self._zero_run < 3:
             z.gather({(lk, pn): z.owned(master[lk][pn], lk, pn)
                       for lk, pn, _, _ in z.cut},
                      {(lk, pn): master[lk][pn] for lk, pn, _, _ in z.cut})
@@ -1633,24 +1816,30 @@ class NetTrainer:
         cut_new = {}
         for i, (lk, pn, up) in enumerate(self._updater_list()):
             w = master[lk][pn]
-            if z is not None and z.is_cut(lk, pn):
+            wv, gv = self._zero_views(master, accum, lk, pn)
+            w_new, st = up.step(ustate[lk][pn], wv, gv,
+                                (sched[i, 0], sched[i, 1]))
+            if wv is not w:
                 # this rank's slice; the all-gather below makes it whole
-                w_new, st = up.step(ustate[lk][pn], z.owned(w, lk, pn),
-                                    z.owned(accum[lk][pn], lk, pn),
-                                    (sched[i, 0], sched[i, 1]))
                 cut_new[(lk, pn)] = w_new
-                new.append((w, torch.empty_like(w), ustate[lk][pn], st))
-            else:
-                w_new, st = up.step(ustate[lk][pn], w, accum[lk][pn],
-                                    (sched[i, 0], sched[i, 1]))
-                new.append((w, w_new, ustate[lk][pn], st))
-        if z is not None:
+                w_new = torch.empty_like(w)
+            new.append((w, w_new, ustate[lk][pn], st))
+        if cut_new:
             z.gather(cut_new, {(lk, pn): new[i][1] for i, (lk, pn, _)
                                in enumerate(self._updater_list())
                                if (lk, pn) in cut_new})
         for w, w_new, _, _ in new:
             fin = torch.isfinite(w_new).all()
             ok = ok & (fin if do is None else (~do | fin))
+        if self.mesh is not None and (
+                self._mcut is not None
+                or (z is not None and self._zero_run >= 2)):
+            # each rank saw only its cut of the weights (and of the
+            # accumulator): the step is kept only where it is finite on
+            # every rank
+            bad = (~ok).to(torch.float32).reshape(1)
+            distributed.all_reduce_(bad, None, op="max")
+            ok = bad[0] == 0
         take = ok if do is None else ok & do
         for w, w_new, st_old, st in new:
             w.copy_(torch.where(take, w_new, w))
@@ -2214,7 +2403,9 @@ class NetTrainer:
     # checkpoints
     # ------------------------------------------------------------------
     def _host_params(self) -> Dict[str, Dict[str, np.ndarray]]:
-        return convert.params_to_numpy(self.state["params"],
+        """Every param whole, as numpy (gathered over the model and ZeRO
+        cuts: every rank calls this together)."""
+        return convert.params_to_numpy(self._whole_params(),
                                        self.net.param_shapes())
 
     def save_model(self, fo) -> None:
@@ -2313,27 +2504,52 @@ class NetTrainer:
     def get_weight(self, layer_name: str,
                    tag: str) -> Tuple[np.ndarray, Tuple[int, ...]]:
         """(2-D flattened weight, original shape); GetWeightVisitor
-        flattening = (shape[0], prod(rest)) (visitor.h:26-100)."""
+        flattening = (shape[0], prod(rest)) (visitor.h:26-100). The
+        weight whole, gathered over the model and ZeRO cuts (every rank
+        calls this together)."""
         lk, pn = self._weight_key(layer_name, tag)
-        arr = self.state["params"][lk][pn].cpu().numpy()
+        t = self.state["params"][lk][pn]
+        z, mc = self._zero, self._mcut
+        if z is not None and self._zero_run >= 3 and z.is_cut(lk, pn):
+            t = z.gather_full({(lk, pn): t})[(lk, pn)]
+        if mc is not None and mc.is_cut(lk, pn):
+            t = mc.gather({lk: {pn: t}})[lk][pn]
+        arr = t.cpu().numpy()
         return arr.reshape(arr.shape[0], -1), arr.shape
 
     def set_weight(self, weight: np.ndarray, layer_name: str,
                    tag: str) -> None:
         lk, pn = self._weight_key(layer_name, tag)
         params = self.state["params"]
-        cur = params[lk][pn]
-        arr = np.asarray(weight, dtype=np.float32).reshape(tuple(cur.shape))
-        params[lk][pn] = torch.from_numpy(arr.copy()).to(self.device)
+        whole = self.net.param_shapes()[lk][pn]
+        arr = np.asarray(weight, dtype=np.float32).reshape(tuple(whole))
+        t = self._cut_params({lk: {pn: torch.from_numpy(arr.copy()).to(
+            self.device)}})[lk][pn]
+        params[lk][pn] = t
         self._weights_changed(retire=True)
 
     def check_weights(self) -> List[str]:
-        """test_on_server (async_updater-inl.hpp:144-153): the params
-        are replicated, so each must be bitwise the same on every rank;
-        returns a description of each that differs ([] on one rank)."""
-        return distributed.check_replicated(
-            self.state["params"], group=None if self.mesh is None
-            else self.mesh.group)
+        """test_on_server (async_updater-inl.hpp:144-153): what is
+        replicated must be bitwise the same on every rank that holds
+        it - each param over the data group (but a weight cut there
+        under zero_stage = 3), each param not cut over 'model' over the
+        model group; returns a description of each that differs ([] on
+        one rank)."""
+        if self.mesh is None:
+            return []
+        params = self.state["params"]
+        z, mc = self._zero, self._mcut
+        bad = []
+        if self._dsize > 1:
+            skip = ([f"[{lk!r}][{pn!r}]" for lk, pn, _, _ in z.cut]
+                    if z is not None and self._zero_run >= 3 else [])
+            bad += distributed.check_replicated(
+                params, group=self.mesh.group, skip=skip)
+        if mc is not None:
+            bad += distributed.check_replicated(
+                params, group=self.mesh.model_group,
+                skip=[f"[{lk!r}][{pn!r}]" for lk, pn in mc.dims])
+        return bad
 
     def _weight_key(self, layer_name: str, tag: str) -> Tuple[str, str]:
         idx = self.net_cfg.get_layer_index(layer_name)

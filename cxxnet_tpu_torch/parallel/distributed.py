@@ -16,9 +16,11 @@ data shard. A one-worker job is a no-op.
 
 The backend: NCCL where each rank has a card of its own; gloo on the
 CPU and where ranks share one card (NCCL refuses two ranks on one
-device). gloo reduces and broadcasts CUDA tensors but gathers only host
-tensors, so `all_gather` stages a CUDA tensor through pinned host
-memory under gloo - explicitly, counted in `host_staged`. There is no
+device). gloo reduces and broadcasts CUDA tensors but gathers and
+reduce-scatters only host tensors, so `all_gather` and `reduce_scatter`
+stage a CUDA tensor through pinned host memory under gloo -
+explicitly, counted in `host_staged`. Every collective takes its group
+(the mesh's data or model group). There is no
 quiet swap: a failure at init or in a collective raises and fails the
 rank (tools/launch_dist then tears the job down).
 
@@ -57,6 +59,8 @@ _state: Dict[str, object] = {"backend": "", "device": None, "store": None}
 EXIT_WAIT_SECS = 30.0
 # collectives staged through pinned host memory (gloo over CUDA tensors)
 host_staged = [0]
+# reduce-scatters run (ZeRO stage >= 2's gradients)
+reduce_scatters = [0]
 
 
 def local_rank() -> int:
@@ -241,6 +245,28 @@ def all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
     outs = [torch.empty_like(t) for _ in range(n)]
     torch.distributed.all_gather(outs, t, group=group)
     return outs
+
+
+def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the group's ranks of a flat tensor laid out as N
+    equal chunks, of which this rank gets chunk `rank` (on t's device):
+    no rank holds the whole sum. Under gloo a CUDA tensor goes through
+    pinned host memory (gloo reduce-scatters host tensors only)."""
+    n = torch.distributed.get_world_size(group)
+    t = t.contiguous().reshape(-1)
+    if t.numel() % n:
+        raise ValueError(f"reduce_scatter: {t.numel()} elements do not "
+                         f"split into {n} chunks")
+    reduce_scatters[0] += 1
+    staged = t.is_cuda and torch.distributed.get_backend(group) == "gloo"
+    src = t
+    if staged:
+        src = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        src.copy_(t)
+        host_staged[0] += 1
+    out = torch.empty(t.numel() // n, dtype=t.dtype, device=src.device)
+    torch.distributed.reduce_scatter_tensor(out, src, group=group)
+    return out.to(t.device, non_blocking=True) if staged else out
 
 
 def host_sum(arr: np.ndarray, group=None) -> np.ndarray:

@@ -288,12 +288,24 @@ class _Canary:
         self.provenance: Dict[str, Any] = {}
 
 
+class _Pin:
+    """The weight generation of a request that split into several work
+    items: the (graph, slot) its first dispatched part bound, which every
+    later part runs with, so the request's rows come from one weight
+    set even when a swap lands between its parts."""
+
+    __slots__ = ("bound",)
+
+    def __init__(self) -> None:
+        self.bound: Optional[Tuple[Any, "_Slot"]] = None
+
+
 class _WorkItem:
     __slots__ = ("data", "extras", "n", "t_submit", "future", "trace",
-                 "part", "nparts", "t_collect", "deadline", "side")
+                 "part", "nparts", "t_collect", "deadline", "side", "pin")
 
     def __init__(self, data, extras, t_submit, trace="", part=0, nparts=1,
-                 deadline=0.0) -> None:
+                 deadline=0.0, pin=None) -> None:
         self.data = data
         self.extras = extras
         self.n = data.shape[0]
@@ -307,6 +319,8 @@ class _WorkItem:
         self.t_collect = 0.0
         # canary routing side (0 = incumbent, 1 = candidate)
         self.side = 0
+        # the request's weight generation when it split (None = one part)
+        self.pin = pin
 
 
 class _Lane:
@@ -799,10 +813,11 @@ class Server:
                   else float(deadline_ms))
         deadline = t_submit + eff_ms / 1e3 if eff_ms > 0 else 0.0
         nparts = -(-data.shape[0] // self.max_batch)
+        pin = _Pin() if nparts > 1 else None
         items = [_WorkItem(data[lo:lo + self.max_batch],
                            [e[lo:lo + self.max_batch] for e in extras],
                            t_submit, trace=trace, part=part, nparts=nparts,
-                           deadline=deadline)
+                           deadline=deadline, pin=pin)
                  for part, lo in enumerate(
                      range(0, data.shape[0], self.max_batch))]
         items[0].future.trace = trace
@@ -1019,7 +1034,10 @@ class Server:
             fault.fault_point("serve_dispatch_error")
             # bind ONE weight generation under the swap lock; the
             # device work runs outside it. A canary batch (side 1)
-            # binds the candidate slot through the same graph.
+            # binds the candidate slot through the same graph. A part
+            # of a split request takes the generation its first part
+            # bound (_Pin): where that differs from the batch's, the
+            # batch also runs with it and the part takes those rows.
             side = items[0].side
             routed = 0
             with self._swap_lock:
@@ -1037,11 +1055,20 @@ class Server:
                         can.shadow.append(
                             (items[0].data.copy(),
                              [e.copy() for e in items[0].extras]))
+                binds = []
+                for it in items:
+                    if it.pin is not None and it.pin.bound is None:
+                        it.pin.bound = (graph, slot)
+                    binds.append((graph, slot) if it.pin is None
+                                 else it.pin.bound)
             if routed:
                 with self._lock:
                     self._n_canary_req += routed
                 telemetry.inc("serve.canary_requests", routed)
-            rows = lane.run(graph, slot.cparams, data, extras)
+            runs: Dict[int, np.ndarray] = {}
+            for g, sl in binds:
+                if id(sl) not in runs:
+                    runs[id(sl)] = lane.run(g, sl.cparams, data, extras)
         except BaseException as e:
             # a failed dispatch must not read as a hung one
             tel.flight.fail(fl, f"{type(e).__name__}: {e}")
@@ -1051,8 +1078,8 @@ class Server:
         if fp:
             tel.executables.count_dispatch(fp, secs=t_done - t_dispatch)
         off = 0
-        for it in items:
-            it.future._set(rows[off:off + it.n])
+        for it, (_, sl) in zip(items, binds):
+            it.future._set(runs[id(sl)][off:off + it.n])
             off += it.n
             self._lat.observe(t_done - it.t_submit)
             telemetry.observe("serve.latency_s", t_done - it.t_submit)

@@ -43,9 +43,16 @@ def _clip_nan(grad: torch.Tensor, bound: float) -> torch.Tensor:
 
 
 class Updater:
-    """Base per-tensor updater bound to an UpdaterParam."""
+    """Base per-tensor updater bound to an UpdaterParam.
+
+    `zero_shardable`: the update is elementwise, so under zero_stage >=
+    2 (or a model axis) it may run on a slice of the weight and its
+    gradient and give that slice of the whole update. An updater whose
+    math reduces over the whole tensor must set it False; the trainer
+    then refuses zero_stage >= 2 (the JAX package's contract)."""
 
     kind = ""
+    zero_shardable = True
 
     def __init__(self, param: UpdaterParam):
         self.param = param

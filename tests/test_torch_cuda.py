@@ -1860,3 +1860,89 @@ def test_data_parallel_two_ranks_on_the_card(cuda_device, tmp_path):
         den = float(np.linalg.norm(d_ref))
         rel = float(np.linalg.norm(d_dp - d_ref)) / den if den else 0.0
         assert rel <= 2e-3, (key, rel)
+
+
+COLLECTIVE_WORKER = r"""
+import json, os, sys
+import torch
+sys.path.insert(0, os.environ["CXN_TEST_REPO"])
+from cxxnet_tpu_torch.parallel import distributed, tensor
+from cxxnet_tpu_torch.parallel.mesh import Mesh
+distributed.init_distributed(device=torch.device("cuda:0"), spec="gpu:0",
+                             deadline=60)
+r = distributed.process_index()
+out = {"backend": distributed.backend()}
+x = (torch.arange(24, dtype=torch.float32) * (r + 1) - 7.5) / 3.0
+staged = distributed.host_staged[0]
+rs_card = distributed.reduce_scatter(x.to("cuda:0"))
+out["rs_staged"] = distributed.host_staged[0] - staged
+out["rs_device"] = str(rs_card.device)
+out["rs_equal"] = bool(torch.equal(rs_card.cpu(),
+                                   distributed.reduce_scatter(x)))
+mesh = Mesh((("data", 1), ("model", 2)), 0, None, r, None)
+
+
+def block(dev):
+    # a column-parallel product: enter, this rank's weight columns, gather
+    g = torch.Generator().manual_seed(5)
+    xs = torch.randn(4, 6, generator=g).to(dev).requires_grad_(True)
+    w = torch.randn(8, 6, generator=g)[r * 4:(r + 1) * 4].to(dev)
+    w.requires_grad_(True)
+    y = tensor.gather(tensor.enter(xs, mesh) @ w.t(), 1, mesh)
+    (y * torch.arange(32, dtype=torch.float32, device=dev).view(4, 8)
+     ).sum().backward()
+    return [t.detach().cpu() for t in (y, xs.grad, w.grad)]
+
+
+card, cpu = block("cuda:0"), block("cpu")
+out["tp_equal"] = [bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6))
+                   for a, b in zip(card, cpu)]
+out["tp_calls"] = dict(tensor.calls)
+print(json.dumps(out), flush=True)
+"""
+
+
+@pytest.mark.parametrize("what", ["reduce_scatter", "enter_gather"])
+def test_collectives_two_ranks_on_the_card(cuda_device, tmp_path, what):
+    """Two ranks sharing the card over gloo: the reduce-scatter of a CUDA
+    tensor stages through pinned host memory (counted once) and lands
+    back on the card equal to the host tensors' result; the model
+    axis's enter / gather pair on CUDA tensors gives the CPU result in
+    the forward and in both gradients."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "coll_worker.py"
+    script.write_text(COLLECTIVE_WORKER)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=repo, CXN_TEST_REPO=repo,
+                 CXN_COORDINATOR=f"127.0.0.1:{port}", CXN_NUM_WORKER="2",
+                 CXN_WORKER_RANK=str(r), CXN_LOCAL_RANK=str(r)))
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        rep = json.loads(out.strip().splitlines()[-1])
+        assert rep["backend"] == "gloo"
+        if what == "reduce_scatter":
+            assert rep["rs_staged"] == 1 and rep["rs_device"] == "cuda:0"
+            assert rep["rs_equal"], rep
+        else:
+            assert rep["tp_equal"] == [True, True, True], rep
+            assert rep["tp_calls"] == {"enter": 2, "gather": 2, "reduce": 0}

@@ -56,8 +56,24 @@ def test_check_present_and_passing(audit, target, check):
 
 
 def test_zero_audit_is_deferred_not_passed(audit):
-    assert [d["target"] for d in audit["deferred"]] == ["zero-audit"]
-    assert not any(c["target"].startswith("zero") for c in audit["checks"])
+    """The zero audit is no longer deferred: it runs, on two ranks a
+    case, and every one of its checks passes on every rank (the stage-2
+    and stage-3 collectives, stage 3's cut storage, the model axis's
+    enter / gather / reduce)."""
+    assert audit["deferred"] == []
+    zero = [c for c in audit["checks"] if c["target"].startswith("zero")]
+    names = {(c["target"].rsplit("/", 1)[0], c["check"]) for c in zero}
+    assert names == {
+        (f"zero-audit/stage{s}[data:2]", chk) for s in (2, 3)
+        for chk in ("zero-reduce-scatter-present",
+                    "zero-no-full-grad-allreduce",
+                    "zero-weight-all-gather-present")} | {
+        ("zero-audit/stage3[data:2]", "zero3-params-stored-sharded")} | {
+        ("zero-audit/tp[model:2]", chk) for chk in (
+            "tp-enter-gather-pairs", "tp-row-parallel-all-reduce",
+            "tp-no-data-collective")}
+    for c in zero:
+        assert c["ok"], c
     assert "kernel_routing" not in audit["counts"]
 
 

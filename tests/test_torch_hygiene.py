@@ -186,16 +186,16 @@ def test_multi_device_specs_raise(spec):
 
 
 @pytest.mark.parametrize("key,val,exc,match", [
-    ("zero_stage", "2", NotImplementedError, "zero_stage"),
-    ("mesh", "model:2", NotImplementedError, "model"),
+    ("mesh", "pipe:2", NotImplementedError, "pipe"),
+    ("mesh", "expert:2", NotImplementedError, "expert"),
     ("mesh", "seq:2", NotImplementedError, "seq"),
-    ("zero_stage", "3", NotImplementedError, "zero_stage"),
+    ("mesh", "model:2", ValueError, "param_server = dist"),
     ("mesh", "data:2", ValueError, "param_server = dist"),
 ])
 def test_result_changing_keys_raise(key, val, exc, match):
-    """What the parallelism slice does not port raises naming itself:
-    ZeRO stages 2-3 and the non-data mesh axes at set_param, a data
-    axis larger than the job (one process here) at the net's build."""
+    """What the parallelism slices do not port raises naming itself:
+    the seq, pipe and expert axes at set_param; a data or model axis
+    larger than the job (one process here) at the net's build."""
     tr = NetTrainer(device="cpu", cfg=SMALL_NET)
     with pytest.raises(exc, match=match):
         tr.set_param(key, val)

@@ -9,8 +9,8 @@
   the same conf from one initial checkpoint: the same round lines and
   checkpoint params within rtol 1e-5 / atol 1e-6;
 - check_weights catches a rank whose weight was perturbed; launch_dist
-  ends a job whose rank died, non-zero, within its timeout; the axes,
-  ZeRO stages and tasks that are not ported raise naming themselves.
+  ends a job whose rank died, non-zero, within its timeout; the axes
+  and tasks that are not ported raise naming themselves.
 """
 
 import gzip
@@ -315,8 +315,8 @@ def test_launch_dist_ends_a_job_whose_rank_died(tmp_path):
 
 
 @pytest.mark.parametrize("key,val,match", [
-    ("zero_stage", "2", "zero_stage"), ("zero_stage", "3", "zero_stage"),
-    ("mesh", "data:2,model:2", "model"), ("mesh", "seq:2", "seq"),
+    ("mesh", "data:2,seq:2", "seq"), ("mesh", "model:2,pipe:2", "pipe"),
+    ("mesh", "data:2,model:2,expert:2", "expert"), ("mesh", "seq:2", "seq"),
     ("mesh", "pipe:2", "pipe"), ("mesh", "expert:2", "expert")])
 def test_unported_parallelism_raises(key, val, match):
     tr = NetTrainer(device="cpu")

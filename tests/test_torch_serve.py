@@ -371,7 +371,7 @@ def test_cli_serve_equals_pred_equals_jax(tmp_path):
 
 @pytest.mark.parametrize("overrides,match", [
     (["task=serve", "elastic=1"], "elastic"),
-    (["task=pred", "zero_stage=3"], "zero_stage"),
+    (["task=serve", "mesh=model:2"], "task = serve with a mesh"),
     (["task=serve", "dev=tpu:0-63"], "multi-device"),
 ])
 def test_cli_rejects_what_is_not_ported(tmp_path, overrides, match):

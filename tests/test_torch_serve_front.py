@@ -1065,6 +1065,44 @@ def test_calibrated_swap_rewarms_while_serving(tmp_path):
     np.testing.assert_allclose(got, want, **SELF_TOL)
 
 
+def test_split_request_parts_share_one_weight_set(tmp_path):
+    """A request wider than max_batch splits into parts dispatched as
+    separate batches; a swap that lands between them must not answer
+    the first part from the old weights and the second from the new.
+    The interleaving is forced: the lane swaps the weights right after
+    it ran the first part. The request's rows are all the old weights'
+    (the generation its first part bound), and the next request sees
+    the new ones."""
+    tr_old = make_trainer()
+    tr_new = make_trainer("seed = 99\n")
+    ck = str(tmp_path / "new.model")
+    _save(tr_new, ck)
+    srv = Server(tr_old, max_batch=4, max_wait_ms=0.5, replicas=1,
+                 device="cpu")
+    srv.warmup()
+    lane = srv._lanes[0]
+    run, seen = lane.run, []
+
+    def run_then_swap(graph, cparams, data, extras=()):
+        out = run(graph, cparams, data, extras)
+        seen.append(data.shape[0])
+        if len(seen) == 1:
+            assert srv.swap_to(ck) is True
+        return out
+
+    lane.run = run_then_swap
+    rng = np.random.RandomState(5)
+    wide, probe = req(rng, 8), req(rng, 3)
+    with srv:
+        out = srv.submit(wide).result(timeout=60)
+        after = srv.submit(probe).result(timeout=60)
+    assert seen[:2] == [4, 4]
+    old, new = _cold(make_trainer(), wide), _cold(tr_new, wide)
+    assert not np.allclose(old[4:], new[4:], **SELF_TOL)
+    np.testing.assert_allclose(out, old, **SELF_TOL)
+    np.testing.assert_allclose(after, _cold(tr_new, probe), **SELF_TOL)
+
+
 def test_stress_many_submitters_swaps_and_stats_agree(tmp_path):
     """More submitter threads than cores against 4 replicas, with two
     swaps and a shortened switch interval: every future resolves to
