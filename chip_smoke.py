@@ -235,10 +235,12 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    (`chip_smoke.py --leg 17 OUT` runs it alone): (a)
    examples/MNIST/dist.conf, unedited (param_server = dist, mesh =
    data:2, update_on_server = 1: ZeRO-1), under tools/launch_dist -n 2
-   with num_round = 2, dev = gpu:0 and test_on_server = 1, beside the
-   same job with dev = cpu: the round lines and rank 0's last checkpoint
-   held to the CPU's; (b) AlexNet.conf at full width, global batch 256
-   (128 a rank), 2 steps a leg in two spawned workers (`--leg 17w`) at
+   with num_round = 2 over 1,000 images, dev = gpu:0 and test_on_server
+   = 1, beside the same job with dev = cpu: the round lines and rank 0's
+   last checkpoint held to the CPU's; (b) AlexNet.conf at full width,
+   global batch 256 (128 a rank), DP_STEPS steps a leg (1; 2 before the
+   seq axis's phase 19 joined the budget) in two spawned workers
+   (`--leg 17w`) at
    update_on_server = 0 and 1: the float32 legs replay the one-process
    b256 run's decisions (ops/routing.py) and hold each update within
    UPDATE_BAR of its norm, the bfloat16 legs hold the global loss to the
@@ -258,8 +260,8 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    within UPDATE_BAR) and bfloat16 holding the global loss, each rank's
    conv / fc weight bytes, and (c) seq_mnist.conf (nhead 4) at model:2,
    K2 1-1-1 a step on each rank on its 2 heads; from the start, side by
-   side with them, 17a, (d) examples/MNIST/MNIST_CONV.conf at mesh =
-   data:2,model:2 under zero_stage = 3, four ranks under
+   side with them, 17a, (d) examples/MNIST/MNIST_CONV.conf (1,000
+   images) at mesh = data:2,model:2 under zero_stage = 3, four ranks under
    tools/launch_dist on the card beside the same job with dev = cpu
    (its dropout layer taken out; round lines and rank 0's last
    checkpoint held to the CPU's as 17a's, test_on_server = 1), and (e)
@@ -270,6 +272,30 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    the reduce-scatter's and the all-gather's times. K1-fwd / K1-bwd 2 /
    2 a step on each rank in (a) and (b), no plain version, no
    F.local_response_norm, no SDPA.
+19. the seq axis, ranks sharing the one card over gloo (`chip_smoke.py
+   --leg 19 OUT` runs it alone). What checks and times nothing runs in
+   `--leg 19u OUT WORK`, beside phase 16a-c with 18u: (a)
+   examples/LongSeq/seq_mnist.conf with its own `mesh = data:2,seq:2`
+   line uncommented (its dropout layer taken out, as 18d's), four ranks,
+   dev = gpu:0, 2 rounds, test_on_server = 1: as shipped (b100, 4
+   heads, bfloat16) through the CLI under tools/launch_dist (round
+   lines, finite weights, each rank's K2 launches), and beside it, in
+   four worker processes that run the CLI's LearnTask one job after
+   the other (`--leg 19r`), in float32 on the card and on the CPU: the
+   round lines within 0.01 and rank 0's last checkpoint within rtol
+   1e-3 / atol 1e-5 of the CPU's; then (c) the same conf at zero_stage
+   = 2, refused by every rank with the JAX trainer's text. Then, alone after 18: (b) ring and Ulysses attention
+   at mesh = seq:2 over two workers (`--leg 19w`), (1,8,8192,128)
+   bfloat16, causal and not: each rank's output block and q / k / v
+   gradient blocks against flash_attention on the whole sequence in its
+   own process (attn_close's bfloat16 bar), K2-fwd / K2-dq / K2-dkv
+   launched as the schedule says (the ring 2-2-2 a call, 1-1-1 on seq
+   rank 0 under causal; Ulysses 1-1-1), no plain version, no SDPA; a
+   step's time and its host-staged exchange's with CUDA events and the
+   host clock, and K2 alone at (1,8,4096,128) beside them (in the whole
+   script, run from the script's own process after 18). 16a's graph audit adds its seq
+   audit (seq_mnist.conf at seq:2 on two ranks, ring then Ulysses,
+   kernel-routing on each rank).
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -5779,9 +5805,11 @@ def phase_analysis(torch, card, *args, beside=None):
             raise AssertionError(f"phase 16: audit checks failed: {bad}")
         routing = [c for c in audit["checks"]
                    if c["check"] == "kernel-routing"]
-        if len(routing) != 4:
+        # 4 single-device paths, and the seq audit's ring and Ulysses
+        # steps on each of two ranks
+        if len(routing) != 8:
             raise AssertionError(f"phase 16a: {len(routing)} kernel-routing "
-                                 "checks, want 4")
+                                 "checks, want 8")
         for c in routing:
             say(f"16a kernel-routing {c['target']}: {c['detail']}")
         for c in audit["checks"]:
@@ -5853,7 +5881,7 @@ def phase_analysis(torch, card, *args, beside=None):
 # ---------------------------------------------------------------------------
 
 DIST_CONF = os.path.join(REPO, "examples", "MNIST", "dist.conf")
-DP_STEPS = 2
+DP_STEPS = 1
 # the bfloat16 two-rank losses against the one-process run's (relative)
 DP_BF16_LOSS_BAR = 1e-2
 
@@ -5917,7 +5945,7 @@ def dp_dist_conf(work: str):
     for dev in ("gpu:0", "cpu"):
         d = os.path.join(work, dev.replace(":", ""))
         os.makedirs(os.path.join(d, "data"))
-        write_mnist(os.path.join(d, "data"), 2000, 31, prefix="train")
+        write_mnist(os.path.join(d, "data"), 1000, 31, prefix="train")
         write_mnist(os.path.join(d, "data"), 500, 32)
         dirs[dev] = d
     t0 = time.perf_counter()
@@ -6180,29 +6208,38 @@ def leg_dp_worker(torch, card, work):
 
 
 def dp_workers(work: str, leg: str = "17w", args=(),
-               prefix: str = "dp-result ", timeout: float = 600.0):
-    """Two ranks of a worker leg (`--leg 17w WORK` for phase 17b-c,
-    `--leg 18w WORK MODE` for phase 18), their lines printed as they
-    come; when one fails the other is killed at once (it would wait in a
-    collective for its peer). Returns each rank's result: its last line
-    that starts with `prefix`, as JSON."""
+               prefix: str = "dp-result ", timeout: float = 600.0,
+               n: int = 2, threads: str = ""):
+    """`n` ranks (two by default) of a worker leg (`--leg 17w WORK` for
+    phase 17b-c, `--leg 18w WORK MODE` for phase 18), their lines
+    printed as they come; when one fails the others are killed at once
+    (they would wait in a collective for their peer). `threads` sets
+    OMP_NUM_THREADS of each rank. Returns each rank's result: its last
+    line that starts with `prefix`, as JSON."""
     port = free_port()
+
+    def env(r):
+        e = dp_env(r, n, port)
+        if threads:
+            e["OMP_NUM_THREADS"] = threads
+        return e
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--leg", leg,
          os.path.join(work, f"{leg}{''.join(args)}{r}.json"), work, *args],
-        env=dp_env(r, 2, port), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    outs = [[], []]
+        env=env(r), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    outs = [[] for _ in range(n)]
 
     def pump(r):
         for ln in procs[r].stdout:
             ln = ln.rstrip("\n")
             outs[r].append(ln)
-            if not ln.startswith(prefix):
+            # a worker's result lines are read, not printed
+            if not ln.startswith((prefix, "dp-result ", "tz-result ")):
                 say(f"  rank {r}: {ln}")
 
     readers = [threading.Thread(target=pump, args=(r,), daemon=True)
-               for r in range(2)]
+               for r in range(n)]
     for t in readers:
         t.start()
     end = time.monotonic() + timeout
@@ -6237,13 +6274,14 @@ def dp_batch(work: str):
     return images, labels
 
 
-def phase_data_parallel(torch, card, work=None):
+def phase_data_parallel(torch, card, work=None, results=None):
     """Phase 17 (`chip_smoke.py --leg 17 OUT [WORK]`): 17a dist.conf
     through the CLI, 17b AlexNet.conf at global b256 and 17c
     seq_mnist.conf as two ranks in spawned workers sharing the card over
     gloo. With WORK, 17a's result and the one-process references are
     the ones phase 18's untimed leg left there (`--leg 18u`); alone, 17a
-    and the references run here, side by side."""
+    and the references run here, side by side. `results`: the workers'
+    results when they ran already (the whole script's `--leg 1718w`)."""
     import numpy as np
     t17 = time.perf_counter()
     with contextlib.ExitStack() as stack:
@@ -6262,7 +6300,8 @@ def phase_data_parallel(torch, card, work=None):
             "(128 a rank), two ranks sharing the card (gloo), "
             f"{DP_STEPS} steps at update_on_server = 0 and 1, float32 and "
             "bfloat16, against one process at b256 ==")
-        results = dp_workers(work)
+        if results is None:
+            results = dp_workers(work)
     per_step = {"lrn_fwd": 2, "lrn_bwd": 2}
     for res in results:
         r = res["rank"]
@@ -6493,12 +6532,27 @@ def tz_seq_leg(torch, rank: int):
             "check_weights": tr.check_weights()}
 
 
+def leg_all_worker(torch, card, work):
+    """A rank of phases 17b-c, 18a and 19b (`chip_smoke.py --leg 1718w
+    OUT WORK`, the whole script's one pair of workers for them): 17b-c
+    (leg_dp_worker), then 18a with 19b after it (leg_tz_worker, MODE
+    zerosp), one after the other - each alone on the card as when its
+    phase runs its own workers. The results are also printed as one
+    `all-result` line."""
+    out = {"dp": leg_dp_worker(torch, card, work),
+           "tz": leg_tz_worker(torch, card, work, "zerosp")}
+    sys.stdout.write("all-result " + json.dumps(out) + "\n")
+    sys.stdout.flush()
+    return out
+
+
 def leg_tz_worker(torch, card, work, mode):
     """A rank of phase 18 (`chip_smoke.py --leg 18w OUT WORK MODE`, under
     the CXN_* variables phase 18 sets): MODE zero - AlexNet.conf at
     data:2 under zero_stage 2 and 3 (float32) and 1 and 3 (bfloat16);
     MODE model - AlexNet.conf at model:2 (float32, bfloat16), then
-    seq_mnist.conf at model:2."""
+    seq_mnist.conf at model:2; MODE zerosp - zero, then phase 19b
+    (sp_rank) in the same two ranks."""
     import numpy as np
     from cxxnet_tpu_torch.io.data import DataBatch
     from cxxnet_tpu_torch.parallel import distributed, tensor
@@ -6506,11 +6560,16 @@ def leg_tz_worker(torch, card, work, mode):
     calls = dp_count_plain(torch)
     z = np.load(os.path.join(work, "batch.npz"))
     batch = DataBatch(data=z["images"], label=z["labels"])
-    if mode == "zero":
+    sp = None
+    if mode in ("zero", "zerosp"):
         legs = [tz_alexnet_leg(torch, dt, st, "data:2", batch, rank, work)
                 for dt, st in (("float32", 2), ("float32", 3),
                                ("bfloat16", 1), ("bfloat16", 3))]
         seq = None
+        if mode == "zerosp":
+            # phase 19b, alone after 18a in the same two ranks
+            torch.cuda.empty_cache()
+            sp = sp_rank(torch, rank, calls)
     else:
         legs = [tz_alexnet_leg(torch, dt, 0, "model:2", batch, rank, work)
                 for dt in ("float32", "bfloat16")]
@@ -6519,7 +6578,7 @@ def leg_tz_worker(torch, card, work, mode):
            "backend": distributed.backend(),
            "host_staged": distributed.host_staged[0],
            "reduce_scatters": distributed.reduce_scatters[0],
-           "tp_calls": dict(tensor.calls)}
+           "tp_calls": dict(tensor.calls), "sp": sp}
     sys.stdout.write("tz-result " + json.dumps(out) + "\n")
     sys.stdout.flush()
     return out
@@ -6550,7 +6609,7 @@ def tz_mnist_conv(work: str):
     for dev in ("gpu:0", "cpu"):
         d = os.path.join(work, "conv_" + dev.replace(":", ""))
         os.makedirs(os.path.join(d, "data"))
-        write_mnist(os.path.join(d, "data"), 2000, 33, prefix="train")
+        write_mnist(os.path.join(d, "data"), 1000, 33, prefix="train")
         write_mnist(os.path.join(d, "data"), 500, 34)
         dirs[dev] = d
         procs[dev] = subprocess.Popen(
@@ -6698,14 +6757,15 @@ def tz_untimed(torch, card, work):
     return out
 
 
-def phase_tensor_zero(torch, card, work=None):
+def phase_tensor_zero(torch, card, work=None, zero=None):
     """Phase 18 (`chip_smoke.py --leg 18 OUT [WORK]`): 18a AlexNet.conf
     b256 at data:2 under zero_stage 1-3, alone (it times its
     collectives); with WORK the rest - 18b AlexNet.conf and 18c
     seq_mnist.conf at model:2, 18d MNIST_CONV.conf at data:2,model:2
     under zero_stage 3 through the CLI (four ranks) beside the CPU, 18e
     the port's zero_smoke on the card - is what `--leg 18u` left there,
-    and alone it runs here first."""
+    and alone it runs here first. `zero`: 18a's workers' results when
+    they ran already (the whole script's `--leg 1718w`)."""
     import numpy as np
     t18 = time.perf_counter()
     with contextlib.ExitStack() as stack:
@@ -6722,7 +6782,8 @@ def phase_tensor_zero(torch, card, work=None):
             f"(gloo), {DP_STEPS} steps at zero_stage 2 and 3 (float32) "
             "and 1 and 3 (bfloat16), against one process at b256 ==")
         # 18a times its collectives: alone
-        zero = dp_workers(work, "18w", ("zero",), "tz-result ")
+        if zero is None:
+            zero = dp_workers(work, "18w", ("zero",), "tz-result ")
         tz_held(torch, zero, ref_losses, "18a")
     tz_held(torch, model, ref_losses, "18b")
     for res in model:
@@ -6797,13 +6858,412 @@ def phase_tensor_zero(torch, card, work=None):
             "untimed_secs": pre["secs"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the seq axis - ring and Ulysses attention, ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SEQ_MESH_LINE = "# mesh = data:2,seq:2\n"
+# taken out of seq_mnist.conf for 19a, as 18d takes MNIST_CONV.conf's:
+# each device draws its masks from its own generator
+SEQ_MNIST_DROPOUT = "layer[14->14] = dropout\n  threshold = 0.2\n"
+# 19b: the whole sequence; each of two ranks holds half of it
+SP_SHAPE = (1, 8, 8192, 128)
+SP_BLOCK = (1, 8, 4096, 128)
+SP_ITERS = 3
+ZERO_SEQ_TEXT = ("composes with 'data'/'model' mesh axes only; axes "
+                 "['seq']")
+
+
+def sp_conf(work: str) -> str:
+    """seq_mnist.conf with its own mesh line uncommented and its dropout
+    layer taken out, written into work."""
+    with open(SEQ_CONF) as f:
+        text = f.read()
+    if SEQ_MESH_LINE not in text or SEQ_MNIST_DROPOUT not in text:
+        raise AssertionError("seq_mnist.conf's mesh line or dropout layer "
+                             "moved")
+    path = os.path.join(work, "seq_mnist_seq.conf")
+    with open(path, "w") as f:
+        f.write(text.replace(SEQ_MESH_LINE, SEQ_MESH_LINE[2:])
+                .replace(SEQ_MNIST_DROPOUT, ""))
+    return path
+
+
+# 19a's float32 pair and 19c: (label, dev, extra keys), run by the CLI's
+# LearnTask one after the other in each of four rank processes
+SP_INPROC_JOBS = (("gpu:0", "gpu:0", ("num_round=2", "max_round=2",
+                                      "dtype=float32")),
+                  ("cpu", "cpu", ("num_round=2", "max_round=2",
+                                  "dtype=float32")),
+                  # the refusal is the trainer's, whatever the device
+                  ("zero2", "cpu", ("num_round=1", "max_round=1",
+                                    "zero_stage=2")))
+
+
+def sp_cli_args(conf: str, dev: str, extra) -> list:
+    return [conf, "save_model=1", f"dev={dev}", "param_server=dist",
+            "test_on_server=1", "silent=0", *extra]
+
+
+def leg_sp_cli_worker(torch, card, work):
+    """A rank of 19a's float32 pair and of 19c (`chip_smoke.py --leg 19r
+    OUT WORK`, under the CXN_* variables of a four-rank job): the CLI's
+    LearnTask.run on the conf sp_cli wrote, for each of SP_INPROC_JOBS
+    one after the other in this process (one process a rank for all
+    three jobs: sixteen interpreters' start-up would crowd the host),
+    each in its own directory, its output captured; a job that raises
+    is recorded. The result is printed as one `sp-cli-result` line."""
+    import io
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.main import LearnTask
+    conf = os.path.join(work, "seq_mnist_seq.conf")
+    out = {}
+    for label, dev, extra in SP_INPROC_JOBS:
+        kernels.reset_launches()
+        err, std = io.StringIO(), io.StringIO()
+        here = os.getcwd()
+        os.chdir(os.path.join(work, "seq_" + label.replace(":", "")))
+        error = ""
+        try:
+            with contextlib.redirect_stderr(err), \
+                    contextlib.redirect_stdout(std):
+                LearnTask().run(sp_cli_args(conf, dev, extra))
+        except Exception as e:  # noqa: BLE001 - recorded, judged by sp_cli
+            error = f"{type(e).__name__}: {e}"
+        finally:
+            os.chdir(here)
+        out[label] = {"stderr": err.getvalue(), "stdout": std.getvalue(),
+                      "error": error}
+    sys.stdout.write("sp-cli-result " + json.dumps(out) + "\n")
+    sys.stdout.flush()
+    return out
+
+
+def sp_cli(work: str):
+    """19a and 19c: seq_mnist.conf at its own mesh = data:2,seq:2
+    (dropout taken out), four ranks, 2 rounds, test_on_server = 1: on
+    the card as shipped through the CLI (b100, 4 heads, bfloat16; four
+    processes under tools/launch_dist: the round lines, finite weights,
+    each rank's K2 launches), and, in four worker processes running the
+    CLI's LearnTask (leg_sp_cli_worker), on the card and on the CPU in
+    float32 - the card's round lines within 0.01 of the CPU's and rank
+    0's last checkpoint within rtol 1e-3 / atol 1e-5 of the CPU's (a
+    bfloat16 pair cannot be held to that bar: its trajectories part by
+    rounding alone, PERF.md §6) - then the same conf at zero_stage =
+    2, which every rank must refuse with the JAX trainer's text."""
+    import numpy as np
+    from cxxnet_tpu_torch.nnet import checkpoint
+    conf = sp_conf(work)
+    # one thread a rank: eight ranks run beside phase 16a-c
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    dirs = {}
+    for label in ("bf16",) + tuple(j[0] for j in SP_INPROC_JOBS):
+        d = os.path.join(work, "seq_" + label.replace(":", ""))
+        os.makedirs(os.path.join(d, "data"))
+        # a weaker class signal than the default: the round lines stay
+        # off 0 (a wrong path would move them). 2 steps a round: at eta
+        # 0.1 the float32 card / CPU pair parts by rounding, growing with
+        # the steps (7.4e-05 max abs after 12, PERF.md §6)
+        write_mnist(os.path.join(d, "data"), 200, 35, prefix="train",
+                    gain=35.0)
+        write_mnist(os.path.join(d, "data"), 500, 36, gain=35.0)
+        dirs[label] = d
+    t0 = time.perf_counter()
+    bf16 = subprocess.Popen(
+        [sys.executable, "-m", "cxxnet_tpu_torch.tools.launch_dist", "-n",
+         "4", "--coordinator", f"127.0.0.1:{free_port()}", "--",
+         sys.executable, "-m", "cxxnet_tpu_torch.main",
+         *sp_cli_args(conf, "gpu:0", ("num_round=2", "max_round=2"))],
+        cwd=dirs["bf16"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        ranks = dp_workers(work, "19r", (), "sp-cli-result ", n=4,
+                           threads="1")
+    finally:
+        bf16_out = bf16.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    say("== phase 19a: examples/LongSeq/seq_mnist.conf at its own mesh = "
+        "data:2,seq:2 (dropout taken out), four ranks, dev = gpu:0 "
+        "(gloo): as shipped (b100, 4 heads, bfloat16) through the CLI, and "
+        "in float32 against dev = cpu; 19c: the same at zero_stage = 2 ==")
+    if bf16.returncode != 0:
+        raise AssertionError(f"seq_mnist.conf at data:2,seq:2 (bf16) "
+                             f"exited {bf16.returncode}:\n"
+                             f"{bf16_out[1][-3000:]}")
+    outs = {"bf16": bf16_out}
+    for label in ("gpu:0", "cpu"):
+        bad = [r[label]["error"] for r in ranks if r[label]["error"]]
+        if bad:
+            raise AssertionError(f"seq_mnist.conf at data:2,seq:2 "
+                                 f"({label}, float32): {bad[0]}\n"
+                                 f"{ranks[0][label]['stderr'][-3000:]}")
+        outs[label] = ("".join(r[label]["stdout"] for r in ranks),
+                       "".join(r[label]["stderr"] for r in ranks))
+    for ln in bf16_out[1].splitlines():
+        if ln.startswith("param_server=dist"):
+            say("  " + ln)
+    rounds = {k: dp_rounds(outs[k][1]) for k in ("bf16", "gpu:0", "cpu")}
+    if any(len(r) != 2 for r in rounds.values()):
+        raise AssertionError(f"expected 2 round lines each: {rounds}")
+    worst_err = 0.0
+    for lg, lc in zip(rounds["gpu:0"], rounds["cpu"]):
+        vg = [float(t.split(":")[1]) for t in lg.split("\t")[1:]]
+        vc = [float(t.split(":")[1]) for t in lc.split("\t")[1:]]
+        worst_err = max(worst_err, *(abs(a - b) for a, b in zip(vg, vc)))
+    blobs = {}
+    for k in ("bf16", "gpu:0", "cpu"):
+        with open(os.path.join(dirs[k], "models", "0002.model"), "rb") as f:
+            blobs[k] = checkpoint.load_model(f)["params"]
+    worst, off = 0.0, []
+    for lk, dd in blobs["cpu"].items():
+        for pn, want in dd.items():
+            for k in ("bf16", "gpu:0"):
+                got = blobs[k][lk][pn]
+                if got.shape != want.shape or not np.isfinite(got).all():
+                    raise AssertionError(f"0002.model ({k}) {lk}/{pn}: "
+                                         f"shape {got.shape} vs "
+                                         f"{want.shape} or non-finite")
+            got = blobs["gpu:0"][lk][pn]
+            err = float(np.abs(got - want).max())
+            worst = max(worst, err)
+            if not np.allclose(got, want, rtol=1e-3, atol=1e-5):
+                off.append(f"{lk}/{pn} max abs {err:.3e}")
+    if off or worst_err > 0.01:
+        raise AssertionError(f"19a float32: card {rounds['gpu:0']} vs CPU "
+                             f"{rounds['cpu']} (bar 0.01, worst "
+                             f"{worst_err:g}); 0002.model outside rtol "
+                             f"1e-3 / atol 1e-5: {off}")
+    counts = {k: [ast.literal_eval(m) for m in re.findall(
+        r"kernel launches (\{.*\})", outs[k][0])] for k in ("bf16", "gpu:0")}
+    for k, cs in counts.items():
+        if len(cs) != 4 or any(c[n] == 0 for c in cs for n in K2):
+            raise AssertionError(f"19a ({k}): K2 launches per rank {cs}")
+    refused = sum(ZERO_SEQ_TEXT in r["zero2"]["error"] for r in ranks)
+    if refused != 4:
+        raise AssertionError(f"19c: zero_stage = 2 on data:2,seq:2 refused "
+                             f"with the JAX text by {refused} of 4 ranks: "
+                             f"{[r['zero2']['error'] for r in ranks]}")
+    k2 = {k: [{n: c[n] for n in K2} for c in cs] for k, cs in counts.items()}
+    say(f"as shipped (bfloat16): {rounds['bf16']}, every weight finite, "
+        f"K2 launches per rank {k2['bf16']}; float32 card: "
+        f"{rounds['gpu:0']}; float32 CPU: {rounds['cpu']}; test_on_server "
+        f"= 1 held every round on the four ranks of each; the float32 "
+        f"round lines differ by at most {worst_err:g} (bar 0.01); rank "
+        f"0's 0002.model card vs CPU: max abs {worst:.3e} (rtol 1e-3, "
+        f"atol 1e-5); 19c: all 4 ranks refused zero_stage = 2 with the JAX "
+        f"text; the jobs in {secs:.1f} s")
+    return {"rounds_bf16": rounds["bf16"], "rounds_card": rounds["gpu:0"],
+            "rounds_cpu": rounds["cpu"], "max_abs_checkpoint": worst,
+            "max_round_diff": worst_err, "counts": k2["bf16"],
+            "counts_f32": k2["gpu:0"], "secs": secs}
+
+
+def sp_case(torch, mesh, scheme: str, causal: bool, rank: int):
+    """One 19b case on this rank: the ring or Ulysses on its half of
+    SP_SHAPE (bfloat16) against flash_attention on the whole sequence in
+    this process, output and q / k / v gradients under attn_close's
+    bfloat16 bar; its launches, a step's time (forward + backward) and
+    its exchanges' (the ring's hop of K and V, Ulysses' all-to-all of q,
+    k and v), with CUDA events and the host clock."""
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.ops import flash_attention as FA
+    from cxxnet_tpu_torch.parallel import distributed, ring
+    g = torch.Generator(device="cuda").manual_seed(19)
+    whole = [torch.randn(SP_SHAPE, generator=g, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(4)]
+    s = SP_SHAPE[2] // 2
+    blk = slice(rank * s, (rank + 1) * s)
+    leaves = [t.clone().requires_grad_(True) for t in whole[:3]]
+    o_ref = FA.flash_attention(*leaves, causal)
+    o_ref.backward(whole[3])
+    refs = [o_ref.detach()] + [t.grad for t in leaves]
+    mine = [t[:, :, blk].contiguous() for t in whole]
+
+    def step():
+        qkv = [t.clone().requires_grad_(True) for t in mine[:3]]
+        o = ring.seq_parallel_attention(*qkv, mesh, scheme, causal=causal)
+        o.backward(mine[3])
+        return [o.detach()] + [t.grad for t in qkv]
+
+    torch.cuda.synchronize()
+    k0 = kernels.launches()
+    got = step()
+    torch.cuda.synchronize()
+    k1 = kernels.launches()
+    launches = {n: k1[n] - k0[n] for n in K2}
+    errs, ok = [], []
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, refs):
+        b = b[:, :, blk]
+        errs.append(float((a.float() - b.float()).abs().max()))
+        ok.append(attn_close(torch, a, b, grad=name != "o"))
+    if not all(ok):
+        raise AssertionError(f"19b {scheme} causal={causal} rank {rank}: "
+                             f"o/dq/dk/dv within the bar {ok}, max abs "
+                             f"{errs}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.distributed.barrier(mesh.seq_group)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(SP_ITERS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return (start.elapsed_time(end) / SP_ITERS,
+                (time.perf_counter() - t0) * 1e3 / SP_ITERS)
+
+    step_ms, step_host_ms = timed(step)
+    peers = mesh.seq_peers
+    if scheme == "ring":
+        def exchange():
+            distributed.ring_hop(mine[1:3], mesh.seq_group,
+                                 peers[(rank + 1) % 2],
+                                 peers[(rank - 1) % 2]).wait()
+    else:
+        stacked = torch.stack(mine[:3])
+
+        def exchange():
+            ring._to_heads(stacked, mesh.seq_group, 2)
+    xchg_ms, xchg_host_ms = timed(exchange)
+    return {"scheme": scheme, "causal": causal, "launches": launches,
+            "max_abs_err": errs, "step_ms": step_ms,
+            "step_host_ms": step_host_ms, "exchange_ms": xchg_ms,
+            "exchange_host_ms": xchg_host_ms}
+
+
+def sp_rank(torch, rank: int, calls):
+    """Phase 19b on this rank of a two-rank job over the card (gloo):
+    mesh = seq:2, the ring and Ulysses, causal and not (sp_case); then
+    K2 alone (flash_attention, forward + backward) on one rank's block.
+    `calls` (dp_count_plain's) also counts the plain versions of the
+    ring's own route from here on."""
+    from cxxnet_tpu_torch.ops import attention as attn_ops
+    from cxxnet_tpu_torch.ops import flash_attention as FA
+    from cxxnet_tpu_torch.parallel import distributed
+    from cxxnet_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    for mod, name in ((attn_ops, "attention_partial"),
+                      (FA, "flash_dq_reference"),
+                      (FA, "flash_dkv_reference")):
+        def counted(*a, __fn=getattr(mod, name), __name=name, **k):
+            calls[__name] += 1
+            return __fn(*a, **k)
+        calls[name] = 0
+        setattr(mod, name, counted)
+    mesh = build_mesh(MeshSpec(axes=[("seq", 2)]), 1, 2, rank)
+    staged = distributed.host_staged[0]
+    cases = [sp_case(torch, mesh, scheme, causal, rank)
+             for scheme in ("ring", "ulysses") for causal in (False, True)]
+    g = torch.Generator(device="cuda").manual_seed(23)
+    qkv = [torch.randn(SP_BLOCK, generator=g, device="cuda",
+                       dtype=torch.bfloat16).requires_grad_(True)
+           for _ in range(3)]
+    do = torch.randn(SP_BLOCK, generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    alone = {}
+    for causal in (False, True):
+        def k2():
+            torch.autograd.grad(FA.flash_attention(*qkv, causal), qkv, do)
+        alone[str(causal)] = time_warm(torch, k2, SP_ITERS)
+    return {"rank": rank, "cases": cases, "k2_alone_ms": alone,
+            "plain_calls": dict(calls), "backend": distributed.backend(),
+            "host_staged": distributed.host_staged[0] - staged}
+
+
+def leg_sp_worker(torch, card, work):
+    """A rank of phase 19b (`chip_smoke.py --leg 19w OUT WORK`, under the
+    CXN_* variables phase 19 sets): sp_rank. The result is also printed
+    as one `sp-result` line. (In the whole script 19b runs in phase
+    18a's two workers, after 18a.)"""
+    from cxxnet_tpu_torch.parallel import distributed
+    rank = int(os.environ["CXN_WORKER_RANK"])
+    calls = dp_count_plain(torch)
+    distributed.init_distributed(device=torch.device("cuda:0"),
+                                 spec="gpu:0", deadline=120)
+    out = sp_rank(torch, rank, calls)
+    sys.stdout.write("sp-result " + json.dumps(out) + "\n")
+    sys.stdout.flush()
+    return out
+
+
+def phase_seq_parallel(torch, card, work=None, ranks=None):
+    """Phase 19 (`chip_smoke.py --leg 19 OUT [WORK]`): 19b alone (it
+    times its exchanges) in two workers of its own, or its `ranks`'
+    results when phase 18a's workers ran it; with WORK, 19a / 19c are
+    what `--leg 19u` left there (run beside phase 16a-c), and alone they
+    run here first."""
+    t19 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if work is None:
+            work = stack.enter_context(tempfile.TemporaryDirectory())
+            cli = sp_untimed(torch, card, work)
+        else:
+            with open(os.path.join(work, "sp_untimed.json")) as f:
+                cli = json.load(f)
+        say(f"== phase 19b: ring and Ulysses attention at mesh = seq:2, two "
+            f"ranks sharing the card (gloo), {SP_SHAPE} bfloat16 (each rank "
+            f"{SP_BLOCK}), causal and not, against flash_attention on the "
+            "whole sequence in each rank's process ==")
+        if ranks is None:
+            ranks = dp_workers(work, "19w", (), "sp-result ")
+    for res in ranks:
+        if any(res["plain_calls"].values()):
+            raise AssertionError(f"19b rank {res['rank']}: plain versions "
+                                 f"or SDPA ran: {res['plain_calls']}")
+        if res["backend"] != "gloo" or res["host_staged"] == 0:
+            raise AssertionError(f"19b rank {res['rank']}: backend "
+                                 f"{res['backend']}, staged "
+                                 f"{res['host_staged']}")
+        for c in res["cases"]:
+            n = (1 if c["scheme"] == "ulysses"
+                 else 1 if (c["causal"] and res["rank"] == 0) else 2)
+            if c["launches"] != {k: n for k in K2}:
+                raise AssertionError(f"19b rank {res['rank']} {c['scheme']}"
+                                     f" causal={c['causal']}: launches "
+                                     f"{c['launches']}, want {n} each")
+            say(f"19b rank {res['rank']} {c['scheme']} causal="
+                f"{int(c['causal'])}: launches {c['launches']}; max abs "
+                f"o/dq/dk/dv {[f'{e:.3e}' for e in c['max_abs_err']]} "
+                f"(attn_close's bfloat16 bar: 1e-2 |ref| + 1e-2 max|ref| + "
+                f"1e-5); a step (forward + backward) {c['step_ms']:.3f} ms "
+                f"by CUDA events, {c['step_host_ms']:.3f} ms by the host "
+                f"clock; its exchange ({'the hop of K and V' if c['scheme'] == 'ring' else 'the all-to-all of q, k, v'}, "
+                f"staged through pinned host memory) "
+                f"{c['exchange_ms']:.3f} / {c['exchange_host_ms']:.3f} ms")
+        say(f"19b rank {res['rank']}: K2 alone (flash_attention forward + "
+            f"backward) at {SP_BLOCK} bfloat16: "
+            f"{res['k2_alone_ms']['False']:.3f} ms, causal "
+            f"{res['k2_alone_ms']['True']:.3f} ms (CUDA events, L2 warm)")
+    say("times are of ranks sharing one card (gloo's host path), not a "
+        f"multi-GPU scaling figure; {card}")
+    secs = time.perf_counter() - t19
+    say(f"phase 19 took {secs:.1f} s (19b; 19a and 19c beside phase "
+        f"16a-c: {cli['secs']:.1f} s)")
+    return {"cli": cli, "ranks": ranks, "secs": secs}
+
+
+def sp_untimed(torch, card, work):
+    """The work of phase 19 that checks and times nothing (`--leg 19u OUT
+    WORK`, beside phase 16a-c with 18u): 19a and 19c (sp_cli). Its
+    result is also saved in WORK as sp_untimed.json."""
+    out = sp_cli(work)
+    with open(os.path.join(work, "sp_untimed.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
 LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "11b": phase_googlenet_step, "11d": phase_stack_moe,
         "12": phase_front, "13": phase_surface, "14": phase_native,
         "14u": native_checks,
         "15": phase_dispatch, "16": phase_analysis,
         "17": phase_data_parallel, "17w": leg_dp_worker,
-        "18": phase_tensor_zero, "18u": tz_untimed, "18w": leg_tz_worker}
+        "18": phase_tensor_zero, "18u": tz_untimed, "18w": leg_tz_worker,
+        "1718w": leg_all_worker, "19r": leg_sp_cli_worker,
+        "19": phase_seq_parallel, "19u": sp_untimed, "19w": leg_sp_worker}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
@@ -6911,35 +7371,49 @@ def main() -> int:
     # the parts of 13-15 that check and time nothing run beside phase
     # 10's CLI runs; the legs then skip them
     fmt = image_format_used()[0]
-    (cli_counts, g_cli, moe["cli_counts"], beside), timing, \
-        (surface, nat, disp) = phase_image_pipeline(
-            torch, card, (lambda d: phase_cli(), lambda d: phase_cli_train(),
-                          lambda d: phase_seq_cli(),
-                          lambda d: surface_cli_tails(),
-                          lambda d: run_leg(torch, "14u"),
-                          lambda d: dispatch_seq_cli(torch, card),
-                          dispatch_profile_cli),
-            lambda d: (run_leg(torch, "13", d, "0"),
-                       run_leg(torch, "14", d, fmt, "0"),
-                       run_leg(torch, "15", d, "0")))
-    surface["cli"] = beside[3]
-    nat.update(beside[4])
-    disp["seq_cli"], disp["profile_cli"] = beside[5], beside[6]
-    native_cli(cli_counts)
-    front = run_leg(torch, "12")
-    front_launches = (front["in_process"]["lrn_fwd"]
-                      + front["http"]["lrn_fwd"])
-    front_batches = (front["in_process"]["batches"]
-                     + front["http"]["batches"])
-    # phases 17-18's untimed work (--leg 18u) runs beside 16a-c, which
-    # checks and times nothing either; 17b and 18a (timed) run alone
-    # after, over its references
     tz_work = tempfile.mkdtemp(prefix="chip_smoke_tz_")
     try:
+        (cli_counts, g_cli, moe["cli_counts"], beside), timing, \
+            (surface, nat, disp) = phase_image_pipeline(
+                torch, card, (lambda d: phase_cli(),
+                              lambda d: phase_cli_train(),
+                              lambda d: phase_seq_cli(),
+                              lambda d: surface_cli_tails(),
+                              lambda d: run_leg(torch, "14u"),
+                              lambda d: dispatch_seq_cli(torch, card),
+                              dispatch_profile_cli),
+                lambda d: (run_leg(torch, "13", d, "0"),
+                           run_leg(torch, "14", d, fmt, "0"),
+                           run_leg(torch, "15", d, "0")))
+        surface["cli"] = beside[3]
+        nat.update(beside[4])
+        disp["seq_cli"], disp["profile_cli"] = beside[5], beside[6]
+        native_cli(cli_counts)
+        front = run_leg(torch, "12")
+        front_launches = (front["in_process"]["lrn_fwd"]
+                          + front["http"]["lrn_fwd"])
+        front_batches = (front["in_process"]["batches"]
+                         + front["http"]["batches"])
+        # phases 17-19's untimed work (--leg 18u, --leg 19u) runs beside
+        # 16a-c, which checks and times nothing either; 17b, 18a and 19b
+        # (timed) run alone after, over what they left, from this process
+        # (their ranks are workers of their own; 19b runs in 18a's two)
         analysis = phase_analysis(
-            torch, card, beside=lambda: run_leg(torch, "18u", tz_work))
-        dp = run_leg(torch, "17", tz_work)
-        tz = run_leg(torch, "18", tz_work)
+            torch, card, beside=lambda: side_by_side(
+                lambda: run_leg(torch, "18u", tz_work),
+                lambda: run_leg(torch, "19u", tz_work)))
+
+        def plain(result):
+            return json.loads(json.dumps(result, default=lambda v: v.item()))
+        say("== phases 17b-c, 18a and 19b: one pair of workers sharing the "
+            "card (gloo), the phases one after the other ==")
+        both = dp_workers(tz_work, "1718w", (), "all-result ")
+        dp = plain(phase_data_parallel(torch, card, tz_work,
+                                       [b["dp"] for b in both]))
+        tz = plain(phase_tensor_zero(torch, card, tz_work,
+                                     [b["tz"] for b in both]))
+        sp = phase_seq_parallel(torch, card, tz_work,
+                                [b["tz"]["sp"] for b in both])
     finally:
         shutil.rmtree(tz_work, ignore_errors=True)
 
@@ -7055,6 +7529,29 @@ def main() -> int:
                              "data:2, zero_stage = 3, 128 rows a rank, "
                              f"{DP_STEPS} steps, per rank (phase 18a)"}
 
+    def seq_parallel(name):
+        """Phase 19: K2 on the seq axis - each rank's launches in 19a's
+        CLI job and in one 19b call of each scheme."""
+        cases = {(c["scheme"], c["causal"]): c["launches"][name]
+                 for c in sp["ranks"][0]["cases"]}
+        cases1 = {(c["scheme"], c["causal"]): c["launches"][name]
+                  for c in sp["ranks"][1]["cases"]}
+        return {"seq_launches": [c[name] for c in sp["cli"]["counts"]],
+                "seq_unit": "seq_mnist.conf (no dropout, bfloat16 as "
+                            "shipped) at its own mesh = data:2,seq:2 "
+                            "through the CLI, four ranks sharing the card, "
+                            "2 rounds of 200 images and 500 test images, "
+                            "per rank (phase 19a)",
+                "seq_ring_launches": [cases[("ring", False)],
+                                      cases1[("ring", False)]],
+                "seq_ring_causal_launches": [cases[("ring", True)],
+                                             cases1[("ring", True)]],
+                "seq_ulysses_launches": [cases[("ulysses", False)],
+                                         cases1[("ulysses", False)]],
+                "seq_call_unit": f"one forward + backward at {SP_SHAPE} "
+                                 "bfloat16 over seq:2, per rank (phase "
+                                 "19b)"}
+
     def stack_moe(name):
         """K2 on stack_moe.conf's path (11d)."""
         out = {"stack_moe_replaces": "cxxnet_tpu/layers/transformer_stack"
@@ -7137,7 +7634,7 @@ def main() -> int:
         **tensor_zero("lrn_bwd"),
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
                **stack_moe(n), **dispatch(n), **data_parallel(n),
-               **tensor_zero(n))
+               **tensor_zero(n), **seq_parallel(n))
           for n in K2] + [dict(int8_entry(k3_rows, int8_served, 0),
                                front_launches=front["int8"]["int8_mm"],
                                front_batches=front["int8"]["batches"],
@@ -7189,6 +7686,16 @@ def main() -> int:
         "model": [{k: leg[k] for k in ("dtype", "losses", "conv_fc_bytes",
                                        "conv_fc_whole_bytes")}
                   for leg in tz["model"][0]["alexnet"]]}))
+    say("phase 19 summary " + json.dumps({
+        "secs": sp["secs"], "untimed_secs": sp["cli"]["secs"],
+        "cli": {k: sp["cli"][k] for k in ("rounds_bf16", "rounds_card",
+                                          "rounds_cpu", "max_abs_checkpoint",
+                                          "max_round_diff")},
+        "ranks": [{"k2_alone_ms": r["k2_alone_ms"],
+                   "cases": [{k: c[k] for k in (
+                       "scheme", "causal", "step_ms", "step_host_ms",
+                       "exchange_ms", "exchange_host_ms", "max_abs_err")}
+                       for c in r["cases"]]} for r in sp["ranks"]]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({

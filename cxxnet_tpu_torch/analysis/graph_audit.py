@@ -76,6 +76,15 @@ Checks (the JAX audit's names where the meaning carries over):
   its cut between steps. Under model:2 every column-parallel layer
   pairs tensor.enter with tensor.gather, the row-parallel projection
   closes with tensor.reduce, and no data-group collective runs.
+- **seq-audit**: two ranks at `mesh = seq:2` run seq_mnist.conf (on the
+  card as shipped, b100 bf16; on the CPU at b8 in float32), ring and
+  then Ulysses in the same job, one probed step each. The ring: one hop forward and three in
+  all, two partials each way on each rank (the conf is not causal) and
+  no all-to-all; Ulysses: four all-to-alls and no hop; in both the only
+  all-gathers are the network's sequence gathers (one, before flatten)
+  - none inside attention. On the card each rank launches K2-fwd,
+  K2-dq and K2-dkv twice a step under the ring and once under Ulysses,
+  with no plain-version call and no `aten::_scaled_dot_product_*`.
 
 Targets run over the tiny-MLP conf of the JAX audit (`_CONF`) and the
 pass / quant confs beside it; `run_audit(device)` runs on the card
@@ -1223,8 +1232,80 @@ def _zero_worker() -> None:
     }), flush=True)
 
 
+# the seq audit's job and its schemes, run one after the other in it
+SEQ_CASE = "seq-audit[seq:2]"
+SEQ_SCHEMES = ("ring", "ulysses")
+
+
+def _seq_worker() -> None:
+    """One rank of the seq audit (as _zero_worker): for each scheme,
+    seq_mnist.conf at mesh = seq:2 with that seq_parallel, a warm-up
+    step, then one probed step with the port's collectives counted.
+    Prints one JSON report, a scheme's under its name."""
+    import json
+    device = torch.device(os.environ["CXN_AUDIT_DEVICE"])
+    print(json.dumps({scheme: _seq_probe(scheme, device)
+                      for scheme in SEQ_SCHEMES}), flush=True)
+
+
+def _seq_probe(scheme: str, device) -> Dict[str, Any]:
+    """One scheme's probed step of the seq audit, on this rank."""
+    import tempfile
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.parallel import distributed, ring
+    with open(SEQ_MNIST) as f:
+        text = f.read().replace("  nhead = 4\n",
+                                f"  nhead = 4\n  seq_parallel = {scheme}\n")
+    over = ["mesh=seq:2", "param_server=dist", "dist_init_deadline=60",
+            f"dev={'gpu:0' if device.type == 'cuda' else 'cpu'}"]
+    if device.type != "cuda":
+        over += ["dtype=float32", "batch_size=8"]
+    with tempfile.NamedTemporaryFile("w", suffix=".conf",
+                                     delete=False) as f:
+        f.write(text)
+    try:
+        tr = conf_trainer(f.name, over)
+    finally:
+        os.unlink(f.name)
+    rng = np.random.RandomState(1)
+
+    def batch():
+        return DataBatch(
+            data=rng.rand(tr.batch_size, *tr.net_cfg.input_shape)
+            .astype(np.float32),
+            label=rng.randint(0, 10, (tr.batch_size, 1)).astype(np.float32))
+
+    tr.update(batch())
+    staged = tr.stage_batch(batch())
+    gathers = [0]
+    patches = _Patches()
+    real = distributed.all_gather
+
+    def counted(*a, **k):
+        gathers[0] += 1
+        return real(*a, **k)
+
+    patches.patch(distributed, "all_gather", counted)
+    for k in ring.calls:
+        ring.calls[k] = 0
+    for k in distributed.seq_exchanges:
+        distributed.seq_exchanges[k] = 0
+    _sync(device)
+    try:
+        with Probe(device, sync_mode=None) as p:
+            tr.update(staged)
+    finally:
+        patches.restore()
+    return {"error": p.error, "launches": p.launches,
+            "plain": {n: c for n, c in p.plain.items() if c},
+            "forbidden": p.forbidden(), "calls": dict(ring.calls),
+            "exchanges": dict(distributed.seq_exchanges),
+            "all_gathers": gathers[0]}
+
+
 def _start_zero_case(case: str, device) -> List[Any]:
-    """Start the two ranks of one zero-audit case (not waited for)."""
+    """Start the two ranks of one zero-audit or seq-audit case (not
+    waited for)."""
     import socket
     import subprocess
     import sys
@@ -1246,7 +1327,8 @@ def _start_zero_case(case: str, device) -> List[Any]:
         env.pop("CXN_LOCAL_RANK", None)
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "cxxnet_tpu_torch.analysis.graph_audit",
-             "--zero-worker"], env=env, stdout=subprocess.PIPE,
+             "--seq-worker" if case == SEQ_CASE else "--zero-worker"],
+            env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     return procs
 
@@ -1271,13 +1353,60 @@ def _finish_zero_case(case: str, procs) -> List[Dict[str, Any]]:
     return reps
 
 
-def _zero_audit(device, checks) -> Dict[str, Any]:
-    """The zero audit (see the module docstring) over ZERO_CASES."""
+def _seq_checks(scheme: str, reps, device, checks) -> Dict[str, Any]:
+    """The seq audit's checks of one scheme's two reports."""
+    ring_case = scheme == "ring"
+    for r, rep in enumerate(reps):
+        tgt = f"seq-audit/{scheme}[seq:2]/rank{r}"
+        c, x = rep["calls"], rep["exchanges"]
+        parts = 2 if ring_case else 0
+        checks.append(_check(
+            tgt, "seq-schedule",
+            not rep["error"] and c["partials"] == parts
+            and c["backward_partials"] == parts
+            and c["hops"] == (1 if ring_case else 0)
+            and x == ({"hop": 3, "all_to_all": 0} if ring_case
+                      else {"hop": 0, "all_to_all": 4}),
+            rep["error"] or f"calls {c}, exchanges {x}"))
+        checks.append(_check(
+            tgt, "seq-no-all-gather-in-attention",
+            rep["all_gathers"] == c["gather"] == 1,
+            f"all-gathers {rep['all_gathers']}, the network's sequence "
+            f"gathers {c['gather']} (want 1 and 1)"))
+        if device.type == "cuda":
+            n = 2 if ring_case else 1
+            want = {"attn_fwd": n, "attn_dq": n, "attn_dkv": n}
+            got = {k: rep["launches"].get(k, 0) for k in want}
+            checks.append(_check(
+                tgt, "kernel-routing",
+                got == want and not rep["plain"] and not rep["forbidden"],
+                f"launches {got} (want {want}); plain versions "
+                f"{rep['plain'] or 'none'}; library kernels "
+                f"{rep['forbidden'] or 'none'}"))
+    return {"calls": reps[0]["calls"], "launches": reps[0]["launches"]}
+
+
+def _start_rank_jobs(device) -> Dict[str, List[Any]]:
+    """Start the two-rank jobs of the zero and seq audits, side by side
+    (each case its own store and group); _zero_audit waits for them."""
+    return {case: _start_zero_case(case, device)
+            for case in list(ZERO_CASES) + [SEQ_CASE]}
+
+
+def _zero_audit(device, checks, started=None) -> Dict[str, Any]:
+    """The zero audit and the seq audit (see the module docstring) over
+    ZERO_CASES and SEQ_CASE: the jobs `started` (_start_rank_jobs), or
+    started here."""
     counts: Dict[str, Any] = {}
-    # the cases' jobs side by side (each case its own store and group)
-    started = {case: _start_zero_case(case, device) for case in ZERO_CASES}
+    if started is None:
+        started = _start_rank_jobs(device)
     for case, procs in started.items():
         reps = _finish_zero_case(case, procs)
+        if case == SEQ_CASE:
+            for scheme in SEQ_SCHEMES:
+                counts[f"seq-audit/{scheme}[seq:2]"] = _seq_checks(
+                    scheme, [rep[scheme] for rep in reps], device, checks)
+            continue
         counts[case] = {"log": reps[0]["log"], "calls": reps[0]["calls"]}
         for r, rep in enumerate(reps):
             tgt = f"{case}/rank{r}"
@@ -1332,18 +1461,27 @@ def run_audit(device: str = DEFAULT_DEVICE,
     dev = resolve_device(device)
     checks: List[Dict[str, Any]] = []
     counts: Dict[str, Any] = {}
-    _train_targets(dev, checks)
-    _eval_targets(dev, checks)
-    counts.update(_recompile_audit(dev, checks))
-    counts.update(_serve_audit(dev, checks))
-    counts.update(_pass_audit(dev, checks))
-    counts.update(_quant_audit(dev, checks))
-    _executables_audit(checks)
-    if routing is None:
-        routing = dev.type == "cuda"
-    if routing:
-        counts["kernel_routing"] = _kernel_routing(dev, checks)
-    counts["zero_audit"] = _zero_audit(dev, checks)
+    # the rank jobs count their own dispatch, not this process's: they
+    # run while the single-process targets do
+    started = _start_rank_jobs(dev)
+    try:
+        _train_targets(dev, checks)
+        _eval_targets(dev, checks)
+        counts.update(_recompile_audit(dev, checks))
+        counts.update(_serve_audit(dev, checks))
+        counts.update(_pass_audit(dev, checks))
+        counts.update(_quant_audit(dev, checks))
+        _executables_audit(checks)
+        if routing is None:
+            routing = dev.type == "cuda"
+        if routing:
+            counts["kernel_routing"] = _kernel_routing(dev, checks)
+    except BaseException:
+        for procs in started.values():
+            for p in procs:
+                p.kill()
+        raise
+    counts["zero_audit"] = _zero_audit(dev, checks, started)
     return {
         "platform": "gpu" if dev.type == "cuda" else "cpu",
         "device": (torch.cuda.get_device_name(dev)
@@ -1359,3 +1497,5 @@ if __name__ == "__main__":
     import sys as _sys
     if _sys.argv[1:] == ["--zero-worker"]:
         _zero_worker()
+    if _sys.argv[1:] == ["--seq-worker"]:
+        _seq_worker()

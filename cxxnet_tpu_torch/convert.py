@@ -138,7 +138,8 @@ def train_state_from_numpy(trainer, state: Mapping) -> None:
     through jax.device_get, the updater state whole) into a port
     NetTrainer built from the same conf (a JAX state of any ZeRO stage
     and mesh is whole once device_get has it); each rank keeps its
-    model shard and ZeRO cut of it. The gradient accumulator and counters start
+    model shard and ZeRO cut of it (a seq axis cuts nothing: its ranks
+    each keep the whole). The gradient accumulator and counters start
     empty."""
     params = params_from_numpy(state["params"], trainer.net.param_shapes(),
                                trainer.device)

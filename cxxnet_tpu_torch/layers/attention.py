@@ -14,10 +14,12 @@ attention  multi-head self-attention. Params: qkv projection `wmat`
            their plain versions on the CPU; on a data mesh each rank
            runs them on its own rows (the port of the JAX package's
            `flash_attention_sharded`, a shard_map with no collective).
-           `seq_parallel` and `kv_block` are accepted: the first acts
-           only under a `seq` mesh axis (not ported: the axis raises),
-           the second tiles the JAX package's XLA path and does not
-           change the function.
+           On a seq-sharded block (a `seq` mesh axis, nnet/network.py)
+           the core is ring or Ulysses attention over the seq ranks
+           (parallel/ring.py), as `seq_parallel = ring|ulysses` says;
+           `seq_parallel = none` makes the network gather the sequence
+           first and the layer runs whole. `kv_block` tiles the JAX
+           package's XLA path and does not change the function.
 attention_naive  the same layer with the full-matrix naive core - the
            trusted side of the pairtest harness.
 seq_fullc  position-wise fully connected, (b,1,s,e) -> (b,1,s,nhidden).
@@ -34,7 +36,12 @@ Where nhead % M != 0 every rank runs every head and takes its block of
 the heads' output before the projection.
 layernorm  per-position normalisation over the embed dim with learnable
            slope/bias (eps 1e-5).
-pos_embed  learned additive positional embedding `wmat` (seq, embed).
+pos_embed  learned additive positional embedding `wmat` (seq, embed);
+           on a seq-sharded block the rank adds its block of the table.
+
+seq_fullc, layernorm and pos_embed are position-wise and run on a
+seq-sharded block as they are (`seq_local`); attention_naive is not
+(its core takes the whole sequence).
 """
 
 from __future__ import annotations
@@ -43,13 +50,14 @@ from typing import Dict, List
 
 import torch
 
-from cxxnet_tpu_torch.layers.base import Layer, Params, Shape, register_layer
+from cxxnet_tpu_torch.layers.base import (
+    Layer, Params, Shape, register_layer, seq_block_mesh)
 from cxxnet_tpu_torch.ops import attention as attn_ops
 from cxxnet_tpu_torch.ops.flash_attention import flash_attention
 from cxxnet_tpu_torch.parallel import tensor as tp
 from cxxnet_tpu_torch.parallel.mesh import model_axis_size
-
-SEQ_SCHEMES = ("ring", "ulysses", "none")
+from cxxnet_tpu_torch.parallel.ring import (
+    SEQ_SCHEMES, seq_parallel_attention)
 
 
 def layer_norm(x: torch.Tensor, slope: torch.Tensor, bias: torch.Tensor,
@@ -147,7 +155,18 @@ class AttentionLayer(Layer):
         # row parallel (closed by one all-reduce)
         return {"wmat": 0, "bias": 0, "wproj": 1}
 
+    def seq_local(self) -> bool:
+        return self.seq_parallel != "none"
+
     def core(self, q, k, v):
+        """The attention core on (b, h, s, d) heads: ring / Ulysses
+        attention on a seq-sharded block, else K2 (the plain versions on
+        the CPU)."""
+        o = seq_parallel_attention(q, k, v, seq_block_mesh(),
+                                   self.seq_parallel,
+                                   causal=bool(self.causal))
+        if o is not None:
+            return o
         return flash_attention(q, k, v, bool(self.causal))
 
     def forward(self, params, inputs, train=False, gen=None, keep=None):
@@ -204,6 +223,9 @@ class AttentionNaiveLayer(AttentionLayer):
 
     type_name = "attention_naive"
 
+    def seq_local(self) -> bool:
+        return False
+
     def core(self, q, k, v):
         return attn_ops.naive_attention(q, k, v, causal=bool(self.causal))
 
@@ -245,6 +267,9 @@ class SeqFullcLayer(Layer):
 
     def model_shard_dims(self) -> Dict[str, int]:
         return {"wmat": 0, "bias": 0}
+
+    def seq_local(self) -> bool:
+        return True
 
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
@@ -300,6 +325,9 @@ class LayerNormLayer(Layer):
         # batch_norm's visitor tags: slope under wmat, bias under bias
         return {"slope": "wmat", "bias": "bias"}
 
+    def seq_local(self) -> bool:
+        return True
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         return [layer_norm(inputs[0], params["slope"], params["bias"],
                            self.eps)]
@@ -327,6 +355,14 @@ class PosEmbedLayer(Layer):
     def param_tags(self) -> Dict[str, str]:
         return {"wmat": "wmat"}
 
+    def seq_local(self) -> bool:
+        return True
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
-        return [x + params["wmat"][None, None, :, :].to(x.dtype)]
+        w = params["wmat"]
+        mesh = seq_block_mesh()
+        if mesh is not None:
+            s = x.shape[2]
+            w = w[mesh.seq_rank * s:(mesh.seq_rank + 1) * s]
+        return [x + w[None, None, :, :].to(x.dtype)]

@@ -207,6 +207,15 @@ class Layer(nn.Module):
         (parallel/sharding.py); {} - every param replicated."""
         return {}
 
+    def seq_local(self) -> bool:
+        """Whether the layer runs on a seq-sharded block of a sequence
+        node (the 'seq' mesh axis, nnet/network.py): it computes each
+        position from that position alone, or runs its own
+        sequence-parallel route (ring / Ulysses attention). False - the
+        default - makes the network gather its inputs along the sequence
+        first, so the layer sees the whole of it."""
+        return False
+
     # --- compute ---------------------------------------------------------
     def forward(self, params: Params, inputs: List[torch.Tensor],
                 train: bool = False, gen: Optional[torch.Generator] = None,
@@ -236,17 +245,29 @@ def rank_rand(shape, gen: Optional[torch.Generator],
     the whole global batch's and this rank takes its rows of it, so each
     rank draws what a one-process run draws for those rows (every rank's
     generator is seeded alike; without the cut they would all draw one
-    mask)."""
+    mask). In a layer on a seq-sharded block (seq_block_mesh) `shape`'s
+    y dim is this rank's sequence block: the draw is the whole
+    sequence's and the rank takes its block of it. A draw after the
+    sequence is gathered is the same on every seq rank of a data
+    index."""
     from cxxnet_tpu_torch.parallel.mesh import data_axis_size, get_active_mesh
     mesh = get_active_mesh()
     n = data_axis_size(mesh)
-    if n <= 1:
+    sm = seq_block_mesh()
+    ns = 1 if sm is None else sm.shape["seq"]
+    if n <= 1 and ns <= 1:
         return torch.rand(tuple(shape), generator=gen, dtype=dtype,
                           device=device)
-    b = shape[0]
-    full = torch.rand((b * n,) + tuple(shape[1:]), generator=gen,
-                      dtype=dtype, device=device)
-    return full[mesh.rank * b:(mesh.rank + 1) * b]
+    b, r = shape[0], (mesh.rank if n > 1 else 0)
+    if ns <= 1:
+        full = torch.rand((b * n,) + tuple(shape[1:]), generator=gen,
+                          dtype=dtype, device=device)
+        return full[r * b:(r + 1) * b]
+    s = shape[2]
+    full = torch.rand((b * n, shape[1], s * ns) + tuple(shape[3:]),
+                      generator=gen, dtype=dtype, device=device)
+    q = sm.seq_rank
+    return full[r * b:(r + 1) * b, :, q * s:(q + 1) * s]
 
 
 def uniform_draw(shape, dtype: torch.dtype, device,
@@ -293,6 +314,35 @@ class active_step:
 
 def get_active_step() -> Optional[int]:
     return _ACTIVE_STEP[-1]
+
+
+_SEQ_BLOCK: List[Optional[object]] = [None]
+
+
+class seq_block:
+    """Context binding the mesh whose 'seq' axis cuts the sequence of the
+    layer running in it (None: the layer sees whole sequences). The
+    network enters it around a layer whose inputs are seq-sharded, so
+    pos_embed takes its block of the table, the attention layers run
+    ring / Ulysses attention and rank_rand takes its block of a
+    draw."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        _SEQ_BLOCK.append(self.mesh)
+        return self.mesh
+
+    def __exit__(self, *exc):
+        _SEQ_BLOCK.pop()
+        return False
+
+
+def seq_block_mesh():
+    """The mesh of the seq-sharded layer running now (seq_block), or
+    None."""
+    return _SEQ_BLOCK[-1]
 
 
 # ---------------------------------------------------------------------------

@@ -531,6 +531,9 @@ class ActivationLayer(Layer):
         self.check_one_to_one(in_shapes)
         return [in_shapes[0]]
 
+    def seq_local(self) -> bool:
+        return True
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         return [self.fn(inputs[0])]
 
@@ -715,6 +718,9 @@ class PReluLayer(Layer):
 
     def model_shard_dims(self) -> Dict[str, int]:
         return {"slope": 0}
+
+    def seq_local(self) -> bool:
+        return True
 
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
@@ -916,6 +922,9 @@ class DropoutLayer(Layer):
             raise ValueError("DropoutLayer: invalid dropout threshold")
         return [in_shapes[0]]
 
+    def seq_local(self) -> bool:
+        return True
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         x = inputs[0]
         if not train or self.threshold == 0.0:
@@ -985,6 +994,9 @@ class SplitLayer(Layer):
     def infer_shapes(self, in_shapes: List[Shape]) -> List[Shape]:
         return [in_shapes[0]] * self.num_out
 
+    def seq_local(self) -> bool:
+        return True
+
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         return [inputs[0]] * self.num_out
 
@@ -1010,6 +1022,10 @@ class ConcatBase(Layer):
                     raise ValueError("Concat shape doesn't match")
         out[self.dim] = total
         return [tuple(out)]
+
+    def seq_local(self) -> bool:
+        # joins along the channel or feature dim, never the sequence
+        return True
 
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         return [torch.cat(inputs, dim=self.dim)]
@@ -1045,6 +1061,9 @@ class AddLayer(Layer):
                 raise ValueError(
                     f"add: input shapes differ: {in_shapes}")
         return [in_shapes[0]]
+
+    def seq_local(self) -> bool:
+        return True
 
     def forward(self, params, inputs, train=False, gen=None, keep=None):
         out = inputs[0]

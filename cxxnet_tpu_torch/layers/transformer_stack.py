@@ -15,9 +15,14 @@ function the JAX package's blockwise core computes.
 
 Config keys: nlayer, nhead, nhidden (the FFN width), causal, eps, and
 the JAX package's pipeline / sequence-parallel keys microbatch,
-kv_block and seq_parallel, validated as there. They act only under a
-`pipe` or `seq` mesh axis, and `mesh` is not ported, so they change
-nothing here.
+kv_block and seq_parallel, validated as there. On a seq-sharded block
+(a `seq` mesh axis, nnet/network.py) every block's attention core is
+ring or Ulysses attention over the seq ranks (parallel/ring.py), as
+`seq_parallel` says - the JAX package's sequential route with its
+`seq_mesh`; `seq_parallel = none` makes the network gather the
+sequence first. microbatch acts only under a `pipe` axis, which is not
+ported (it raises); kv_block tiles the JAX package's XLA core and does
+not change the function.
 """
 
 from __future__ import annotations
@@ -27,10 +32,13 @@ from typing import Dict, List
 import torch
 
 from cxxnet_tpu_torch.layers.attention import (
-    SEQ_SCHEMES, heads_proj, layer_norm, qkv_heads)
-from cxxnet_tpu_torch.layers.base import Layer, Params, Shape, register_layer
+    heads_proj, layer_norm, qkv_heads)
+from cxxnet_tpu_torch.layers.base import (
+    Layer, Params, Shape, register_layer, seq_block_mesh)
 from cxxnet_tpu_torch.ops import nn as nn_ops
 from cxxnet_tpu_torch.ops.flash_attention import flash_attention
+from cxxnet_tpu_torch.parallel.ring import (
+    SEQ_SCHEMES, seq_parallel_attention)
 
 # the stacked params, in the JAX package's order
 _PARAMS = ("ln1_s", "ln1_b", "wqkv", "bqkv", "wproj", "ln2_s", "ln2_b",
@@ -117,14 +125,22 @@ class TransformerStackLayer(Layer):
                 "bqkv": "bias", "b1": "bias", "b2": "bias",
                 "ln1_b": "bias", "ln2_b": "bias"}
 
+    def seq_local(self) -> bool:
+        return self.seq_parallel != "none"
+
     def block(self, bp: Params, x: torch.Tensor) -> torch.Tensor:
-        """One block; bp's tensors have no layer dim; x (b, s, e). The
-        weights are cast to x's dtype before each product, as in the
-        JAX package's `_block`."""
+        """One block; bp's tensors have no layer dim; x (b, s, e) - this
+        rank's sequence block on a seq-sharded node. The weights are
+        cast to x's dtype before each product, as in the JAX package's
+        `_block`."""
         h = layer_norm(x, bp["ln1_s"], bp["ln1_b"], self.eps)
         q, k, v = qkv_heads(h, bp["wqkv"], bp["bqkv"], self.nhead)
-        x = x + heads_proj(flash_attention(q, k, v, bool(self.causal)),
-                           bp["wproj"])
+        o = seq_parallel_attention(q, k, v, seq_block_mesh(),
+                                   self.seq_parallel,
+                                   causal=bool(self.causal))
+        if o is None:
+            o = flash_attention(q, k, v, bool(self.causal))
+        x = x + heads_proj(o, bp["wproj"])
         h2 = layer_norm(x, bp["ln2_s"], bp["ln2_b"], self.eps)
         f = h2 @ bp["w1"].to(x.dtype).t()
         f = nn_ops.relu(f + bp["b1"].to(x.dtype)[None, None])

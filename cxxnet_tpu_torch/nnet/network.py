@@ -25,22 +25,50 @@ around the whole forward would recompute every activation at once
 before the backward and lower nothing. Random layers draw from
 generators made anew from (seed, step, layer index) on each call, so
 the recompute draws the same masks.
+
+The 'seq' mesh axis (parallel/mesh.py, the JAX package's input
+sharding `P(data, None, seq, None)`): where the active mesh has a seq
+axis of n > 1 that divides the input's y dim, every rank gets its data
+index's whole rows and the network cuts its sequence block of node 0.
+A node stays seq-sharded through the layers that declare `seq_local`
+(position-wise layers, and the attention layers' ring / Ulysses
+routes), which run on the block under `seq_block`; before any other
+layer reads a seq-sharded node - flatten, fullc or pooling on a
+sequence node, the losses - it is gathered along the sequence
+(ring.seq_gather: all-gather forward, reduce-scatter backward), and
+that layer and every layer after it compute the same values on every
+seq rank. The nodes a caller keeps (`keep_nodes`) come back whole.
+`seq_plan` is that decision, made once per structure from the layers'
+declarations; a y dim the axis does not divide shards nothing (every
+layer sees the whole sequence, the JAX package's fallback).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
 from cxxnet_tpu_torch.layers import create_layer
-from cxxnet_tpu_torch.layers.base import Layer, Shape
+from cxxnet_tpu_torch.layers.base import Layer, Shape, seq_block
 from cxxnet_tpu_torch.layers.common import SplitLayer
 from cxxnet_tpu_torch.layers.loss import LossLayer
 from cxxnet_tpu_torch.nnet.net_config import NetConfig
+from cxxnet_tpu_torch.parallel.mesh import get_active_mesh, seq_axis_size
+
+
+class SeqPlan(NamedTuple):
+    """Where a seq-sharded forward runs on blocks: per connection,
+    whether it runs on the block (`local`) and which of its input nodes
+    it gathers first (`gather`); `sharded` - the nodes still sharded
+    after the last connection."""
+    local: Tuple[bool, ...]
+    gather: Tuple[Tuple[int, ...], ...]
+    sharded: frozenset
 
 
 def param_key(cfg: NetConfig, layer_index: int) -> str:
@@ -58,6 +86,7 @@ class Network(nn.Module):
         self.layer_objs = nn.ModuleList()
         self.node_shapes: List[Optional[Shape]] = [None] * cfg.num_nodes
         self.dtype_plan: Optional[Dict[int, torch.dtype]] = None
+        self._seq_plans: Dict[int, Optional[SeqPlan]] = {}
 
         c, y, x = cfg.input_shape
         if c * y * x == 0:
@@ -186,8 +215,42 @@ class Network(nn.Module):
                 best = (cost, segs)
         return best[1]
 
+    def seq_plan(self, nseq: int) -> Optional[SeqPlan]:
+        """The seq-sharded forward at a seq axis of `nseq` (None: nothing
+        is sharded - no axis, or one that does not divide the input's y
+        dim). Node 0 starts sharded; a connection runs on the block when
+        every input it reads is sharded and its layer is seq_local, and
+        then writes sharded nodes; any other connection gathers its
+        sharded inputs and writes whole nodes."""
+        if nseq <= 1 or self.cfg.input_shape[1] % nseq:
+            return None
+        if nseq in self._seq_plans:
+            return self._seq_plans[nseq]
+        sharded = {0}
+        local, gather = [], []
+        for idx, info in enumerate(self.cfg.layers):
+            ins = [j for j in info.nindex_in if j in sharded]
+            run_local = (bool(ins) and len(ins) == len(info.nindex_in)
+                         and self.layer_objs[idx].seq_local())
+            local.append(run_local)
+            gather.append(() if run_local else tuple(ins))
+            if run_local:
+                sharded.update(info.nindex_out)
+            else:
+                sharded.difference_update(info.nindex_out)
+        plan = SeqPlan(tuple(local), tuple(gather), frozenset(sharded))
+        self._seq_plans[nseq] = plan
+        return plan
+
+    def _seq(self) -> Tuple[Optional[object], Optional[SeqPlan]]:
+        """(the active mesh, its seq plan) - (None, None) outside a seq
+        mesh."""
+        mesh = get_active_mesh()
+        plan = self.seq_plan(seq_axis_size(mesh))
+        return (mesh, plan) if plan is not None else (None, None)
+
     def _run_layer(self, idx, values, params, train, gens, keep, labels,
-                   mask, taps):
+                   mask, taps, seq=(None, None)):
         """One connection: reads its input nodes from `values`, writes
         its output nodes there; returns its contribution to the loss
         (None when it adds none)."""
@@ -197,6 +260,12 @@ class Network(nn.Module):
         pkey = param_key(
             cfg, info.primary_layer_index if info.is_shared else idx)
         xs = [values[j] for j in info.nindex_in]
+        smesh, plan = seq
+        local = plan is not None and plan.local[idx]
+        if plan is not None and plan.gather[idx]:
+            from cxxnet_tpu_torch.parallel.ring import seq_gather
+            xs = [seq_gather(x, smesh) if j in plan.gather[idx] else x
+                  for j, x in zip(info.nindex_in, xs)]
         p = params.get(pkey, {})
         want = (self.dtype_plan.get(idx)
                 if self.dtype_plan is not None else None)
@@ -215,16 +284,23 @@ class Network(nn.Module):
                 per_ex = per_ex * mask
             loss = layer.grad_scale * torch.sum(per_ex)
         lkeep = keep.get(idx) if (train and keep) else None
+        if local and lkeep is not None and lkeep.dim() == 4 \
+                and lkeep.shape[2] != xs[0].shape[2]:
+            # a whole-sequence draw injected into a seq-sharded layer:
+            # this rank's block of it
+            s = xs[0].shape[2]
+            lkeep = lkeep[:, :, smesh.seq_rank * s:(smesh.seq_rank + 1) * s]
         gen = (gens(idx) if (train and layer.uses_rng and lkeep is None
                              and gens is not None) else None)
-        if train and layer.has_aux:
-            # an auxiliary loss term (moe's load balance) joins the
-            # total the loss layers accumulate
-            outs, aux = layer.forward_with_aux(
-                p, xs, train=train, gen=gen, keep=lkeep, mask=mask)
-            loss = aux if loss is None else loss + aux
-        else:
-            outs = layer(p, xs, train=train, gen=gen, keep=lkeep)
+        with seq_block(smesh if local else None):
+            if train and layer.has_aux:
+                # an auxiliary loss term (moe's load balance) joins the
+                # total the loss layers accumulate
+                outs, aux = layer.forward_with_aux(
+                    p, xs, train=train, gen=gen, keep=lkeep, mask=mask)
+                loss = aux if loss is None else loss + aux
+            else:
+                outs = layer(p, xs, train=train, gen=gen, keep=lkeep)
         for j, o in zip(info.nindex_out, outs):
             values[j] = o
         return loss
@@ -264,30 +340,43 @@ class Network(nn.Module):
         remat_segments (training only): run under checkpoint in these
         segments (remat_segments()); the returned values then hold only
         the `keep_nodes` and the nodes read by the last segment.
+        keep_nodes: the nodes the caller reads; under a seq mesh they
+        come back whole (gathered), every other node as the forward
+        left it.
 
         Returns (every node's value - None for nodes never written -,
         total_loss as a float32 scalar). A loss layer writes its
         forward_transform into its node, as in the JAX package."""
         cfg = self.cfg
         values: List[Optional[torch.Tensor]] = [None] * cfg.num_nodes
+        seq = self._seq()
+        if seq[1] is not None:
+            # this rank's sequence block of its rows
+            s = data.shape[2] // seq_axis_size(seq[0])
+            data = data[:, :, seq[0].seq_rank * s:(seq[0].seq_rank + 1) * s]
         values[0] = data
         for i, e in enumerate(extras):
             values[1 + i] = e
         total_loss = torch.zeros((), dtype=torch.float32,
                                  device=data.device)
         if train and remat_segments:
-            return self._forward_remat(values, total_loss, params,
-                                       remat_segments, keep_nodes, gens,
-                                       keep, labels, mask)
-        for idx in range(len(cfg.layers)):
-            loss = self._run_layer(idx, values, params, train, gens, keep,
-                                   labels, mask, taps)
-            if loss is not None:
-                total_loss = total_loss + loss
+            values, total_loss = self._forward_remat(
+                values, total_loss, params, remat_segments, keep_nodes,
+                gens, keep, labels, mask, seq)
+        else:
+            for idx in range(len(cfg.layers)):
+                loss = self._run_layer(idx, values, params, train, gens,
+                                       keep, labels, mask, taps, seq)
+                if loss is not None:
+                    total_loss = total_loss + loss
+        if seq[1] is not None:
+            from cxxnet_tpu_torch.parallel.ring import seq_gather
+            for j in set(keep_nodes) & seq[1].sharded:
+                values[j] = seq_gather(values[j], seq[0])
         return values, total_loss
 
     def _forward_remat(self, values, total_loss, params, segments,
-                       keep_nodes, gens, keep, labels, mask):
+                       keep_nodes, gens, keep, labels, mask, seq):
         """The training forward segment by segment under checkpoint: a
         segment's inputs are the nodes it reads that an earlier one
         wrote, its outputs the nodes it writes that a later connection
@@ -319,7 +408,7 @@ class Network(nn.Module):
                                    device=total_loss.device)
                 for idx in seg:
                     part = self._run_layer(idx, vals, params, True, gens,
-                                           keep, labels, mask, None)
+                                           keep, labels, mask, None, seq)
                     if part is not None:
                         loss = loss + part
                 return (loss, *(vals[j] for j in outs))

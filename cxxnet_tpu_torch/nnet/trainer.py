@@ -132,6 +132,20 @@ data replica feed the same rows (the data index picks them).
 Checkpoints, get_weight and convert.train_state_to_numpy gather the
 model and ZeRO cuts, so a file is the same bytes at every stage and
 mesh; loads and set_weight cut again.
+
+The seq axis (`mesh = seq:N`, `data:D,seq:N`, `data:D,model:M,seq:N`;
+parallel/ring.py): the N ranks of one data index feed its whole rows
+and the network cuts each rank's sequence block of the input
+(nnet/network.py); params and updater state are whole on every seq
+rank. The layers before the sequence gather see only their block's
+positions, the layers after it compute the same values on every seq
+rank, so the loss is scaled by 1 / N and the gather's backward is a
+reduce-scatter: each rank's gradient is then its share, and one
+all-reduce over the gradient group (data x seq) takes the place of the
+data group's (a fullc_gather weight's gradient, whole on every rank
+already, is scaled back by N). The train metric counts seq rank 0's
+rows; evaluation sums over the data group. zero_stage >= 2 with a seq
+axis raises, as in the JAX package; ZeRO-1 cuts over the data axis.
 """
 
 from __future__ import annotations
@@ -341,7 +355,8 @@ class InferGraph:
         """The forward on staged rows (and staged extra inputs) with
         explicit compute params."""
         return self.net(cparams, self.trainer._model_input(data),
-                        extras=extras)[0][self.node].float()
+                        extras=extras,
+                        keep_nodes=[self.node])[0][self.node].float()
 
     def __call__(self, data: torch.Tensor,
                  extras: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
@@ -733,14 +748,20 @@ class NetTrainer:
         """The model axis's size (1 = no tensor parallelism)."""
         return 1 if self.mesh is None else self.mesh.shape.get("model", 1)
 
+    @property
+    def _nseq(self) -> int:
+        """The seq axis's size (1 = no sequence parallelism)."""
+        return 1 if self.mesh is None else self.mesh.shape.get("seq", 1)
+
     def _mesh_scope(self) -> active_mesh:
         """The mesh every forward runs under, as the JAX trainer binds
         self.mesh around its train, eval, inference and calibration
         forwards: sync-BN's and fullc_gather's collectives, the global
         batch's random draws (layers/base.py rank_rand), the model
-        axis's collectives (parallel/tensor.py)."""
-        return active_mesh(self.mesh if self._dsize > 1 or self._msize > 1
-                           else None)
+        axis's collectives (parallel/tensor.py), the seq axis's cut of
+        the input and its ring / Ulysses attention (nnet/network.py)."""
+        return active_mesh(self.mesh if (self._dsize > 1 or self._msize > 1
+                                         or self._nseq > 1) else None)
 
     def _build_mesh(self) -> None:
         """Join the job (param_server = dist) and build the data mesh:
@@ -1663,7 +1684,7 @@ class NetTrainer:
         # anneal), as the JAX train step binds it
         progress = (self.epoch * period + self._count if dc is None
                     else dc.epoch * period + dc.count)
-        mesh = self.mesh if self._dsize > 1 else None
+        mesh = self.mesh if self._dsize * self._nseq > 1 else None
         # the backward (and a remat recompute) runs inside the mesh too:
         # sync-BN and fullc_gather call collectives in both passes
         with torch.enable_grad(), active_step(progress), self._mesh_scope():
@@ -1674,7 +1695,11 @@ class NetTrainer:
                 keep=keep, labels=labels, mask=mask,
                 remat_segments=self._remat_segments,
                 keep_nodes=[nid for _, nid in self.eval_nodes])
-            loss = total.float() * (1.0 / (self.batch_size * period))
+            # under a seq axis every seq rank of a data index computes
+            # the loss of the same rows: 1 / nseq of it each, so the
+            # gradient sum over data x seq counts it once
+            loss = total.float() * (1.0 / (self.batch_size * period
+                                           * self._nseq))
             flat = _tree_leaves(leaves)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
         it = iter(torch.zeros_like(t) if g is None else g
@@ -1686,6 +1711,10 @@ class NetTrainer:
             with torch.no_grad(), self._mesh_scope():
                 rows = self._metric_rows(self.train_metric, values, labels,
                                          mask, seed, step, 1000)
+                if self._nseq > 1 and self.mesh.seq_rank:
+                    # the seq ranks of a data index hold the same rows:
+                    # the sum over data x seq counts seq rank 0's
+                    rows = torch.zeros_like(rows)
         loss = loss.detach()
         if self._zero_run >= 3:
             # stage 3 keeps only its cut between steps: drop the
@@ -1705,11 +1734,12 @@ class NetTrainer:
     def _reduce_step(self, loss, gtree, rows):
         """Sum this microstep's loss, gradients (all but the
         fullc_gather weights', full on every rank already) and
-        train-metric rows over the data group in one all-reduce, in
-        place; under zero_stage >= 2 the cut weights' gradients instead
-        travel by one reduce-scatter, which leaves this rank its slice
-        of each sum. Returns the global (loss, rows) and the gradients
-        (cut where they were reduce-scattered)."""
+        train-metric rows over the gradient group (the data group, or
+        data x seq under a seq axis) in one all-reduce, in place; under
+        zero_stage >= 2 the cut weights' gradients instead travel by one
+        reduce-scatter over the data group, which leaves this rank its
+        slice of each sum. Returns the global (loss, rows) and the
+        gradients (cut where they were reduce-scattered)."""
         z = self._zero if self._zero_run >= 2 else None
         if z is not None:
             gtree = {lk: dict(d) for lk, d in gtree.items()}
@@ -1730,7 +1760,12 @@ class NetTrainer:
         if rows is not None:
             parts.append(rows.reshape(-1))
         flat = torch.cat(parts)
-        distributed.all_reduce_(flat, self.mesh.group)
+        distributed.all_reduce_(flat, self.mesh.grad_group)
+        if self._nseq > 1:
+            # a fullc_gather weight's gradient is whole on every rank,
+            # from the 1 / nseq-scaled loss of its seq rank
+            for lk, pn in self._gathered:
+                gtree[lk][pn].mul_(self._nseq)
         off = 1
         for lk, pn in keys:
             g = gtree[lk][pn]
@@ -2011,7 +2046,9 @@ class NetTrainer:
                 nbytes=gdata.numel() * gdata.element_size()), \
                 torch.inference_mode(), self._mesh_scope():
             values = self.net(params, self._model_input(gdata),
-                              extras=staged.extras)[0]
+                              extras=staged.extras,
+                              keep_nodes=[nid for _, nid in
+                                          self.eval_nodes])[0]
             return self._metric_rows(self.metric, values, staged.labels,
                                      staged.mask, self.seed + 200, step,
                                      2000)
@@ -2046,8 +2083,8 @@ class NetTrainer:
 
         def fn(params: Params, data: torch.Tensor,
                extras: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
-            return net(params, self._model_input(data),
-                       extras=extras)[0][node].float()
+            return net(params, self._model_input(data), extras=extras,
+                       keep_nodes=[node])[0][node].float()
         return fn
 
     def infer_graph(self, node: int) -> InferGraph:
@@ -2549,6 +2586,10 @@ class NetTrainer:
             bad += distributed.check_replicated(
                 params, group=self.mesh.model_group,
                 skip=[f"[{lk!r}][{pn!r}]" for lk, pn in mc.dims])
+        if self._nseq > 1:
+            # every param is replicated over the seq ranks
+            bad += distributed.check_replicated(
+                params, group=self.mesh.seq_group)
         return bad
 
     def _weight_key(self, layer_name: str, tag: str) -> Tuple[str, str]:

@@ -1,4 +1,4 @@
-"""Parallelism: the data and model axes on torch.distributed
+"""Parallelism: the data, model and seq axes on torch.distributed
 (counterpart of cxxnet_tpu/parallel/).
 
 The reference's multi-device story (one model replica per GPU,
@@ -8,9 +8,10 @@ global batch and the summed gradient rides an all-reduce; `zero_stage
 = 1|2|3` (`update_on_server = 1` is stage 1) cuts the updater state,
 then the gradients, then the weights over the data axis (sharding.py).
 The model axis splits each replica's weights over its ranks (Megatron
-column / row parallelism, tensor.py). The seq, pipe and expert axes
-and the elastic coordinator raise NotImplementedError naming
-themselves.
+column / row parallelism, tensor.py); the seq axis splits each
+sequence over its ranks (ring and Ulysses attention, ring.py). The
+pipe and expert axes and the elastic coordinator raise
+NotImplementedError naming themselves.
 """
 
 from cxxnet_tpu_torch.parallel.mesh import (

@@ -61,6 +61,8 @@ EXIT_WAIT_SECS = 30.0
 host_staged = [0]
 # reduce-scatters run (ZeRO stage >= 2's gradients)
 reduce_scatters = [0]
+# the seq axis's exchanges: ring hops and all-to-alls
+seq_exchanges = {"hop": 0, "all_to_all": 0}
 
 
 def local_rank() -> int:
@@ -169,18 +171,23 @@ def init_distributed(coordinator: Optional[str] = None,
 
 
 def _shutdown(rank: int, num_workers: int) -> None:
-    """At exit: each rank checks out at the store and drops the process
-    group; rank 0 serves the store, so it waits (bounded) until every
-    rank has checked out before it goes - a peer still tearing down its
-    group would otherwise lose the store and abort."""
+    """At exit: every peer drops its process group first and then checks
+    out at the store; rank 0, which serves the store, waits (bounded by
+    EXIT_WAIT_SECS) until every peer has checked out, and only then
+    drops its own group and leaves. A peer never tears its group down
+    after the store is gone (a rank that checked out before its own
+    teardown could lose the store to rank 0 halfway through it)."""
     store = _state["store"]
+    if rank != 0 and is_initialized():
+        torch.distributed.destroy_process_group()
     try:
-        store.add("cxn_exit", 1)
         if rank == 0:
             end = time.monotonic() + EXIT_WAIT_SECS
-            while (store.add("cxn_exit", 0) < num_workers
+            while (store.add("cxn_exit", 0) < num_workers - 1
                    and time.monotonic() < end):
                 time.sleep(0.05)
+        else:
+            store.add("cxn_exit", 1)
     except RuntimeError:
         pass  # a peer already gone: nothing left to wait for
     if is_initialized():
@@ -267,6 +274,95 @@ def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty(t.numel() // n, dtype=t.dtype, device=src.device)
     torch.distributed.reduce_scatter_tensor(out, src, group=group)
     return out.to(t.device, non_blocking=True) if staged else out
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether `t` crosses through pinned host memory: a CUDA tensor
+    over gloo (gloo moves host tensors only, but for its reduce and
+    broadcast)."""
+    return t.is_cuda and torch.distributed.get_backend(group) == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    host_staged[0] += 1
+    return host
+
+
+def _as_bytes(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The tensors' bytes back to back (any dtypes): one buffer, one
+    transfer."""
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in ts])
+
+
+def _from_bytes(buf: torch.Tensor, like: Sequence[torch.Tensor]
+                ) -> List[torch.Tensor]:
+    out, off = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        part = buf[off:off + n]
+        if off % t.element_size():
+            part = part.clone()  # a view must start on its dtype's size
+        out.append(part.view(t.dtype).view(t.shape))
+        off += n
+    return out
+
+
+def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """`t` laid out as N equal chunks along dim 0 (N = the group's
+    size): chunk j goes to the group's rank j, and chunk j of the result
+    came from rank j. Any dtype (the bytes move). Under gloo a CUDA
+    tensor goes through pinned host memory."""
+    n = torch.distributed.get_world_size(group)
+    if t.shape[0] % n:
+        raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does not "
+                         f"split into {n} chunks")
+    seq_exchanges["all_to_all"] += 1
+    src = _as_bytes([t]).view(n, -1)
+    if _staged(src, group):
+        src = _to_host(src)
+    out = torch.empty_like(src)
+    torch.distributed.all_to_all_single(out, src, group=group)
+    return _from_bytes(out.reshape(-1).to(t.device, non_blocking=True),
+                       [t])[0]
+
+
+class Hop:
+    """One ring hop in flight (ring_hop): `wait()` returns the tensors
+    received from the previous rank, shaped and typed as those sent."""
+
+    def __init__(self, reqs, send: torch.Tensor, recv: torch.Tensor, like,
+                 device):
+        self._reqs, self._send, self._recv = reqs, send, recv
+        self._like, self._device = like, device
+
+    def wait(self) -> List[torch.Tensor]:
+        for r in self._reqs:
+            r.wait()
+        return _from_bytes(self._recv.to(self._device, non_blocking=True),
+                           self._like)
+
+
+def ring_hop(ts: Sequence[torch.Tensor], group, dst: int, src: int) -> Hop:
+    """Send the tensors to job rank `dst` and receive as many bytes from
+    job rank `src`, as one batch_isend_irecv over `group`, packed into
+    one buffer; returns at once (the compute of the step overlaps the
+    transfer). Under gloo a CUDA tensor goes through pinned host
+    memory."""
+    seq_exchanges["hop"] += 1
+    buf = _as_bytes(ts)
+    device = buf.device
+    if _staged(buf, group):
+        buf = _to_host(buf)
+        recv = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    else:
+        recv = torch.empty_like(buf)
+    reqs = torch.distributed.batch_isend_irecv([
+        torch.distributed.P2POp(torch.distributed.isend, buf, dst, group),
+        torch.distributed.P2POp(torch.distributed.irecv, recv, src, group)])
+    return Hop(reqs, buf, recv, list(ts), device)
 
 
 def host_sum(arr: np.ndarray, group=None) -> np.ndarray:

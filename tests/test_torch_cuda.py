@@ -1946,3 +1946,107 @@ def test_collectives_two_ranks_on_the_card(cuda_device, tmp_path, what):
         else:
             assert rep["tp_equal"] == [True, True, True], rep
             assert rep["tp_calls"] == {"enter": 2, "gather": 2, "reduce": 0}
+
+
+SEQ_WORKER = r"""
+import json, os, sys
+import torch
+sys.path.insert(0, os.environ["CXN_TEST_REPO"])
+from cxxnet_tpu_torch import kernels
+from cxxnet_tpu_torch.parallel import distributed, ring
+from cxxnet_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+distributed.init_distributed(device=torch.device("cuda:0"), spec="gpu:0",
+                             deadline=60)
+r = distributed.process_index()
+mesh = build_mesh(MeshSpec(axes=[("seq", 2)]), 1, 2, r)
+out = {"backend": distributed.backend(), "cases": []}
+
+
+def close(got, ref, grad=False):
+    # _attn_close's bars (the card against the plain version)
+    g, f = got.float(), ref.float()
+    if ref.dtype == torch.float32:
+        return bool(torch.allclose(g, f, rtol=1e-4 if grad else 1e-5,
+                                   atol=1e-5))
+    bar = 1e-2 * f.abs() + 1e-2 * f.abs().max() + 1e-5
+    return bool(torch.all((g - f).abs() <= bar))
+
+
+for dtype in (torch.float32, torch.bfloat16):
+    for scheme in ("ring", "ulysses"):
+        for causal in (False, True):
+            g = torch.Generator().manual_seed(11)
+            # (2, 4, 512, 64): this rank's block of 256 positions
+            q, k, v, do = (torch.randn(2, 4, 512, 64, generator=g)
+                           [:, :, r * 256:(r + 1) * 256].to(dtype)
+                           for _ in range(4))
+
+            def run(dev):
+                leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+                o = ring.seq_parallel_attention(*leaves, mesh, scheme,
+                                                causal=causal)
+                o.backward(do.to(dev))
+                return [t.detach().cpu() for t in
+                        [o] + [x.grad for x in leaves]]
+
+            k0 = kernels.launches()
+            card = run("cuda:0")
+            k1 = kernels.launches()
+            cpu = run("cpu")
+            out["cases"].append({
+                "dtype": str(dtype), "scheme": scheme, "causal": causal,
+                "launches": {n: k1[n] - k0[n] for n in
+                             ("attn_fwd", "attn_dq", "attn_dkv")},
+                "close": [close(a, b, grad=i > 0)
+                          for i, (a, b) in enumerate(zip(card, cpu))]})
+out["staged"] = distributed.host_staged[0]
+print(json.dumps(out), flush=True)
+"""
+
+
+def test_seq_parallel_two_ranks_on_the_card(cuda_device, tmp_path):
+    """Two ranks sharing the card over gloo at mesh = seq:2: ring and
+    Ulysses attention on CUDA tensors (K2-fwd / K2-dq / K2-dkv per
+    block, the exchanges staged through pinned host memory) against the
+    same ranks' plain versions on the CPU, on the same inputs, float32
+    and bfloat16, causal and not (the _attn_close bars); the ring
+    launches K2-fwd twice a call (once on seq rank 0 under causal),
+    Ulysses once."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "seq_worker.py"
+    script.write_text(SEQ_WORKER)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=repo, CXN_TEST_REPO=repo,
+                 CXN_COORDINATOR=f"127.0.0.1:{port}", CXN_NUM_WORKER="2",
+                 CXN_WORKER_RANK=str(r), CXN_LOCAL_RANK=str(r)))
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out
+        rep = json.loads(out.strip().splitlines()[-1])
+        assert rep["backend"] == "gloo" and rep["staged"] > 0
+        assert len(rep["cases"]) == 8
+        for case in rep["cases"]:
+            assert case["close"] == [True] * 4, case
+            n = (1 if case["scheme"] == "ulysses"
+                 else 1 if (case["causal"] and r == 0) else 2)
+            assert case["launches"] == {"attn_fwd": n, "attn_dq": n,
+                                        "attn_dkv": n}, case["launches"]

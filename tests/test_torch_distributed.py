@@ -517,3 +517,43 @@ def test_dropout_draws_equal_one_process(tmp_path):
     ports = [dict(np.load(str(tmp_path / f"port.{r}.npz"))) for r in (0, 1)]
     reps = [json.loads(out.strip().splitlines()[-1]) for _, out in res]
     assert_held(want, ports, reps)
+
+
+SLOW_TEARDOWN = r"""
+import os, sys, time
+sys.path.insert(0, os.environ["CXN_TEST_REPO"])
+import torch
+import torch.distributed as dist
+from cxxnet_tpu_torch.parallel import distributed
+
+distributed.init_distributed(deadline=60)
+distributed.all_reduce_(torch.ones(4))
+if distributed.process_index() == int(os.environ["CXN_SLOW_RANK"]):
+    real = dist.destroy_process_group
+
+    def slow(*a, **k):
+        # a teardown that takes its time: the exit order must keep the
+        # store up until it is done
+        time.sleep(float(os.environ["CXN_SLOW_SECS"]))
+        return real(*a, **k)
+
+    dist.destroy_process_group = slow
+print("ranks joined", flush=True)
+"""
+
+
+@pytest.mark.parametrize("slow_rank", [0, 1])
+def test_exit_waits_for_a_slow_teardown(tmp_path, slow_rank):
+    """At exit every peer drops its process group before it checks out
+    at the store, and rank 0 (which serves the store) leaves only after
+    every peer checked out: a rank whose teardown takes a second still
+    exits 0, whichever rank it is."""
+    script = tmp_path / "slow.py"
+    script.write_text(SLOW_TEARDOWN)
+    res = spawn([sys.executable, str(script)], timeout=120,
+                extra={"CXN_SLOW_RANK": str(slow_rank),
+                       "CXN_SLOW_SECS": "1.0"})
+    for rc, out in res:
+        assert rc == 0, out
+        assert "ranks joined" in out
+        assert "terminate called" not in out, out

@@ -163,3 +163,19 @@ def test_data_path_products_split_int_and_float():
         torch.mm(a.to(torch.int32), torch.ones(3, 2, dtype=torch.int32))
         torch.mm(torch.ones(2, 3), torch.ones(3, 5))    # not batch-led
     assert p.data_path_products(4) == (1, 1)
+
+
+@pytest.mark.parametrize("case", ["ring", "ulysses"])
+@pytest.mark.parametrize("check", ["seq-schedule",
+                                   "seq-no-all-gather-in-attention"])
+def test_seq_audit_checks_pass(audit, case, check):
+    """The seq audit: seq_mnist.conf at mesh = seq:2 on two ranks, one
+    probed step each - the ring's hops and partials or Ulysses'
+    all-to-alls as the schedule says, and no all-gather but the
+    network's sequence gather (kernel-routing joins these on the
+    card)."""
+    hits = [c for c in audit["checks"] if c["check"] == check
+            and c["target"].startswith(f"seq-audit/{case}[seq:2]/rank")]
+    assert len(hits) == 2, hits
+    for c in hits:
+        assert c["ok"], c["detail"]

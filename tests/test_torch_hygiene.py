@@ -188,13 +188,17 @@ def test_multi_device_specs_raise(spec):
 @pytest.mark.parametrize("key,val,exc,match", [
     ("mesh", "pipe:2", NotImplementedError, "pipe"),
     ("mesh", "expert:2", NotImplementedError, "expert"),
-    ("mesh", "seq:2", NotImplementedError, "seq"),
+    # the seq axis is ported: in one process its mesh raises at the
+    # build, as a data or model axis does (the id it had while the axis
+    # itself raised)
+    pytest.param("mesh", "seq:2", ValueError, "param_server = dist",
+                 id="mesh-seq:2-NotImplementedError-seq"),
     ("mesh", "model:2", ValueError, "param_server = dist"),
     ("mesh", "data:2", ValueError, "param_server = dist"),
 ])
 def test_result_changing_keys_raise(key, val, exc, match):
     """What the parallelism slices do not port raises naming itself:
-    the seq, pipe and expert axes at set_param; a data or model axis
+    the pipe and expert axes at set_param; a data, model or seq axis
     larger than the job (one process here) at the net's build."""
     tr = NetTrainer(device="cpu", cfg=SMALL_NET)
     with pytest.raises(exc, match=match):
