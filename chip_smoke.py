@@ -235,7 +235,7 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    (`chip_smoke.py --leg 17 OUT` runs it alone): (a)
    examples/MNIST/dist.conf, unedited (param_server = dist, mesh =
    data:2, update_on_server = 1: ZeRO-1), under tools/launch_dist -n 2
-   with num_round = 2 over 1,000 images, dev = gpu:0 and test_on_server
+   with num_round = 2 over 500 images, dev = gpu:0 and test_on_server
    = 1, beside the same job with dev = cpu: the round lines and rank 0's
    last checkpoint held to the CPU's; (b) AlexNet.conf at full width,
    global batch 256 (128 a rank), DP_STEPS steps a leg (1; 2 before the
@@ -260,7 +260,7 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    within UPDATE_BAR) and bfloat16 holding the global loss, each rank's
    conv / fc weight bytes, and (c) seq_mnist.conf (nhead 4) at model:2,
    K2 1-1-1 a step on each rank on its 2 heads; from the start, side by
-   side with them, 17a, (d) examples/MNIST/MNIST_CONV.conf (1,000
+   side with them, 17a, (d) examples/MNIST/MNIST_CONV.conf (500
    images) at mesh = data:2,model:2 under zero_stage = 3, four ranks under
    tools/launch_dist on the card beside the same job with dev = cpu
    (its dropout layer taken out; round lines and rank 0's last
@@ -274,16 +274,16 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    F.local_response_norm, no SDPA.
 19. the seq axis, ranks sharing the one card over gloo (`chip_smoke.py
    --leg 19 OUT` runs it alone). What checks and times nothing runs in
-   `--leg 19u OUT WORK`, beside phase 16a-c with 18u: (a)
-   examples/LongSeq/seq_mnist.conf with its own `mesh = data:2,seq:2`
-   line uncommented (its dropout layer taken out, as 18d's), four ranks,
-   dev = gpu:0, 2 rounds, test_on_server = 1: as shipped (b100, 4
-   heads, bfloat16) through the CLI under tools/launch_dist (round
-   lines, finite weights, each rank's K2 launches), and beside it, in
+   `--leg 19u OUT WORK`, beside phase 16a-c with 18u (and before 20u):
+   (a) examples/LongSeq/seq_mnist.conf with its own `mesh =
+   data:2,seq:2` line uncommented (its dropout layer taken out, as
+   18d's), four ranks, dev = gpu:0, 2 rounds, test_on_server = 1, in
    four worker processes that run the CLI's LearnTask one job after
-   the other (`--leg 19r`), in float32 on the card and on the CPU: the
-   round lines within 0.01 and rank 0's last checkpoint within rtol
-   1e-3 / atol 1e-5 of the CPU's; then (c) the same conf at zero_stage
+   the other (`--leg 19r`): as shipped (b100, 4 heads, bfloat16; round
+   lines, finite weights, each rank's K2 launches), then in float32 on
+   the card and on the CPU: the round lines within 0.01 and rank 0's
+   last checkpoint within rtol 1e-3 / atol 1e-5 of the CPU's; then (c)
+   the same conf at zero_stage
    = 2, refused by every rank with the JAX trainer's text. Then, alone after 18: (b) ring and Ulysses attention
    at mesh = seq:2 over two workers (`--leg 19w`), (1,8,8192,128)
    bfloat16, causal and not: each rank's output block and q / k / v
@@ -296,6 +296,26 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    script, run from the script's own process after 18). 16a's graph audit adds its seq
    audit (seq_mnist.conf at seq:2 on two ranks, ring then Ulysses,
    kernel-routing on each rank).
+20. the pipe and expert axes, eight ranks sharing the one card over gloo
+   (`chip_smoke.py --leg 20 OUT` runs it alone). What checks and times
+   nothing runs in `--leg 20u OUT WORK`, beside phase 16a-c with 18u,
+   after 19u: eight worker processes (`--leg 20r`), each a rank running the
+   CLI's LearnTask for six jobs one after the other, each
+   examples/LongSeq/stack_moe.conf with one of its own mesh lines
+   uncommented, 2 rounds, dev = gpu:0, test_on_server = 1: (a) `mesh =
+   data:2,pipe:4` and (b) `mesh = data:2,seq:2,expert:2` as shipped
+   (b100, bfloat16, dropout): the round lines, rank 0's last checkpoint
+   finite, each rank's stage (a quarter of the stack's params) or
+   experts (2 of 4, the gate whole), K2-fwd / K2-dq / K2-dkv a rank 2-2-2
+   a step under pipe (1 block a stage, M = 2 microbatches of 50 rows)
+   and 8-8-8 under seq x expert (4 blocks, a ring of 2), no plain
+   version, no SDPA; (c) each line in float32 without its dropout layer
+   on the card and on the CPU: the round lines within 0.01 and rank 0's
+   last checkpoint within rtol 1e-3 / atol 1e-5 of the CPU's. Then,
+   alone in phase 18a's two workers after 19b: (d) a step of
+   stack_moe.conf b100 bfloat16 at mesh = pipe:2 (K2 4-4-4 a step a
+   rank) and its stage hop of (50, 28, 28) bfloat16, with CUDA events
+   and the host clock.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -308,6 +328,7 @@ import ast
 import contextlib
 import gzip
 import json
+import math
 import os
 import re
 import shutil
@@ -5945,8 +5966,10 @@ def dp_dist_conf(work: str):
     for dev in ("gpu:0", "cpu"):
         d = os.path.join(work, dev.replace(":", ""))
         os.makedirs(os.path.join(d, "data"))
-        write_mnist(os.path.join(d, "data"), 1000, 31, prefix="train")
-        write_mnist(os.path.join(d, "data"), 500, 32)
+        # 500 + 200 images (1,000 + 500 before phase 20 joined the
+        # budget): the rounds part the card from the CPU if a path is wrong
+        write_mnist(os.path.join(d, "data"), 500, 31, prefix="train")
+        write_mnist(os.path.join(d, "data"), 200, 32)
         dirs[dev] = d
     t0 = time.perf_counter()
     procs = {dev: dp_cli(d, dev) for dev, d in dirs.items()}
@@ -6479,7 +6502,7 @@ def tz_alexnet_leg(torch, dtype: str, stage: int, mesh: str, batch,
         out["allgather_mib"] = sum(t.numel() * 4
                                    for t in cut.values()) / 2 ** 20
         del cut, slices
-    if tr._mcut is not None:
+    if tr._pcut is not None:
         local = sum(t.numel() * t.element_size()
                     for lk, d in tr.state["params"].items()
                     for pn, t in d.items() if lk.startswith(("conv", "fc")))
@@ -6533,14 +6556,18 @@ def tz_seq_leg(torch, rank: int):
 
 
 def leg_all_worker(torch, card, work):
-    """A rank of phases 17b-c, 18a and 19b (`chip_smoke.py --leg 1718w
-    OUT WORK`, the whole script's one pair of workers for them): 17b-c
-    (leg_dp_worker), then 18a with 19b after it (leg_tz_worker, MODE
-    zerosp), one after the other - each alone on the card as when its
-    phase runs its own workers. The results are also printed as one
-    `all-result` line."""
+    """A rank of phases 17b-c, 18a, 19b and 20d (`chip_smoke.py --leg
+    1718w OUT WORK`, the whole script's one pair of workers for them):
+    17b-c (leg_dp_worker), then 18a with 19b after it (leg_tz_worker,
+    MODE zerosp), then 20d (px_rank), one after the other - each alone
+    on the card as when its phase runs its own workers. The results are
+    also printed as one `all-result` line."""
     out = {"dp": leg_dp_worker(torch, card, work),
            "tz": leg_tz_worker(torch, card, work, "zerosp")}
+    # phase 20d, alone after 19b in the same two ranks
+    torch.cuda.empty_cache()
+    out["px"] = px_rank(torch, int(os.environ["CXN_WORKER_RANK"]),
+                        dp_count_plain(torch))
     sys.stdout.write("all-result " + json.dumps(out) + "\n")
     sys.stdout.flush()
     return out
@@ -6609,8 +6636,9 @@ def tz_mnist_conv(work: str):
     for dev in ("gpu:0", "cpu"):
         d = os.path.join(work, "conv_" + dev.replace(":", ""))
         os.makedirs(os.path.join(d, "data"))
-        write_mnist(os.path.join(d, "data"), 1000, 33, prefix="train")
-        write_mnist(os.path.join(d, "data"), 500, 34)
+        # 500 + 200 images, as 17a's
+        write_mnist(os.path.join(d, "data"), 500, 33, prefix="train")
+        write_mnist(os.path.join(d, "data"), 200, 34)
         dirs[dev] = d
         procs[dev] = subprocess.Popen(
             [sys.executable, "-m", "cxxnet_tpu_torch.tools.launch_dist",
@@ -6889,9 +6917,11 @@ def sp_conf(work: str) -> str:
     return path
 
 
-# 19a's float32 pair and 19c: (label, dev, extra keys), run by the CLI's
-# LearnTask one after the other in each of four rank processes
-SP_INPROC_JOBS = (("gpu:0", "gpu:0", ("num_round=2", "max_round=2",
+# 19a (as shipped, then its float32 pair) and 19c: (label, dev, extra
+# keys), run by the CLI's LearnTask one after the other in each of four
+# rank processes
+SP_INPROC_JOBS = (("bf16", "gpu:0", ("num_round=2", "max_round=2")),
+                  ("gpu:0", "gpu:0", ("num_round=2", "max_round=2",
                                       "dtype=float32")),
                   ("cpu", "cpu", ("num_round=2", "max_round=2",
                                   "dtype=float32")),
@@ -6906,11 +6936,11 @@ def sp_cli_args(conf: str, dev: str, extra) -> list:
 
 
 def leg_sp_cli_worker(torch, card, work):
-    """A rank of 19a's float32 pair and of 19c (`chip_smoke.py --leg 19r
-    OUT WORK`, under the CXN_* variables of a four-rank job): the CLI's
-    LearnTask.run on the conf sp_cli wrote, for each of SP_INPROC_JOBS
-    one after the other in this process (one process a rank for all
-    three jobs: sixteen interpreters' start-up would crowd the host),
+    """A rank of 19a and of 19c (`chip_smoke.py --leg 19r OUT WORK`, under
+    the CXN_* variables of a four-rank job): the CLI's LearnTask.run on
+    the conf sp_cli wrote, for each of SP_INPROC_JOBS one after the
+    other in this process (one process a rank for all four jobs: more
+    interpreters' start-up and card contexts would crowd the host),
     each in its own directory, its output captured; a job that raises
     is recorded. The result is printed as one `sp-cli-result` line."""
     import io
@@ -6941,12 +6971,12 @@ def leg_sp_cli_worker(torch, card, work):
 
 def sp_cli(work: str):
     """19a and 19c: seq_mnist.conf at its own mesh = data:2,seq:2
-    (dropout taken out), four ranks, 2 rounds, test_on_server = 1: on
-    the card as shipped through the CLI (b100, 4 heads, bfloat16; four
-    processes under tools/launch_dist: the round lines, finite weights,
-    each rank's K2 launches), and, in four worker processes running the
-    CLI's LearnTask (leg_sp_cli_worker), on the card and on the CPU in
-    float32 - the card's round lines within 0.01 of the CPU's and rank
+    (dropout taken out), four ranks, 2 rounds, test_on_server = 1, in
+    four worker processes running the CLI's LearnTask
+    (leg_sp_cli_worker): on the card as shipped (b100, 4 heads,
+    bfloat16: the round lines, finite weights, each rank's K2
+    launches), and on the card and on the CPU in float32 - the card's
+    round lines within 0.01 of the CPU's and rank
     0's last checkpoint within rtol 1e-3 / atol 1e-5 of the CPU's (a
     bfloat16 pair cannot be held to that bar: its trajectories part by
     rounding alone, PERF.md §6) - then the same conf at zero_stage =
@@ -6954,11 +6984,8 @@ def sp_cli(work: str):
     import numpy as np
     from cxxnet_tpu_torch.nnet import checkpoint
     conf = sp_conf(work)
-    # one thread a rank: eight ranks run beside phase 16a-c
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
     dirs = {}
-    for label in ("bf16",) + tuple(j[0] for j in SP_INPROC_JOBS):
+    for label in tuple(j[0] for j in SP_INPROC_JOBS):
         d = os.path.join(work, "seq_" + label.replace(":", ""))
         os.makedirs(os.path.join(d, "data"))
         # a weaker class signal than the default: the round lines stay
@@ -6967,40 +6994,28 @@ def sp_cli(work: str):
         # the steps (7.4e-05 max abs after 12, PERF.md §6)
         write_mnist(os.path.join(d, "data"), 200, 35, prefix="train",
                     gain=35.0)
-        write_mnist(os.path.join(d, "data"), 500, 36, gain=35.0)
+        # 200 test images (500 before phase 20 joined the budget)
+        write_mnist(os.path.join(d, "data"), 200, 36, gain=35.0)
         dirs[label] = d
     t0 = time.perf_counter()
-    bf16 = subprocess.Popen(
-        [sys.executable, "-m", "cxxnet_tpu_torch.tools.launch_dist", "-n",
-         "4", "--coordinator", f"127.0.0.1:{free_port()}", "--",
-         sys.executable, "-m", "cxxnet_tpu_torch.main",
-         *sp_cli_args(conf, "gpu:0", ("num_round=2", "max_round=2"))],
-        cwd=dirs["bf16"], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-    try:
-        ranks = dp_workers(work, "19r", (), "sp-cli-result ", n=4,
-                           threads="1")
-    finally:
-        bf16_out = bf16.communicate(timeout=600)
+    # one thread a rank: they run beside phase 16a-c
+    ranks = dp_workers(work, "19r", (), "sp-cli-result ", n=4, threads="1")
     secs = time.perf_counter() - t0
     say("== phase 19a: examples/LongSeq/seq_mnist.conf at its own mesh = "
         "data:2,seq:2 (dropout taken out), four ranks, dev = gpu:0 "
-        "(gloo): as shipped (b100, 4 heads, bfloat16) through the CLI, and "
-        "in float32 against dev = cpu; 19c: the same at zero_stage = 2 ==")
-    if bf16.returncode != 0:
-        raise AssertionError(f"seq_mnist.conf at data:2,seq:2 (bf16) "
-                             f"exited {bf16.returncode}:\n"
-                             f"{bf16_out[1][-3000:]}")
-    outs = {"bf16": bf16_out}
-    for label in ("gpu:0", "cpu"):
+        "(gloo): as shipped (b100, 4 heads, bfloat16) through the CLI's "
+        "LearnTask, and in float32 against dev = cpu; 19c: the same at "
+        "zero_stage = 2 ==")
+    outs = {}
+    for label in ("bf16", "gpu:0", "cpu"):
         bad = [r[label]["error"] for r in ranks if r[label]["error"]]
         if bad:
             raise AssertionError(f"seq_mnist.conf at data:2,seq:2 "
-                                 f"({label}, float32): {bad[0]}\n"
+                                 f"({label}): {bad[0]}\n"
                                  f"{ranks[0][label]['stderr'][-3000:]}")
         outs[label] = ("".join(r[label]["stdout"] for r in ranks),
                        "".join(r[label]["stderr"] for r in ranks))
-    for ln in bf16_out[1].splitlines():
+    for ln in outs["bf16"][1].splitlines():
         if ln.startswith("param_server=dist"):
             say("  " + ln)
     rounds = {k: dp_rounds(outs[k][1]) for k in ("bf16", "gpu:0", "cpu")}
@@ -7255,6 +7270,389 @@ def sp_untimed(torch, card, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the pipe and expert axes - stack_moe.conf at its own mesh lines
+# ---------------------------------------------------------------------------
+
+PIPE_MESH_LINE = "# mesh = data:2,pipe:4"
+EXPERT_MESH_LINE = "# mesh = data:2,seq:2,expert:2"
+# taken out of stack_moe.conf for 20c's float32 pairs, as 19a takes
+# seq_mnist.conf's: each device draws its masks from its own generator
+STACK_MOE_DROPOUT = "layer[5->5] = dropout\n  threshold = 0.2\n"
+# the synthetic set of 20a-c: 1 step and 1 eval batch a round at b100
+PX_TRAIN, PX_TEST, PX_ROUNDS = 100, 100, 2
+PX_ITERS = 3
+# each job of the eight 20r workers: (label, mesh line, dev, float32 with
+# the dropout layer taken out)
+PX_JOBS = (("pipe_bf16", PIPE_MESH_LINE, "gpu:0", False),
+           ("pipe_gpu", PIPE_MESH_LINE, "gpu:0", True),
+           ("pipe_cpu", PIPE_MESH_LINE, "cpu", True),
+           ("expert_bf16", EXPERT_MESH_LINE, "gpu:0", False),
+           ("expert_gpu", EXPERT_MESH_LINE, "gpu:0", True),
+           ("expert_cpu", EXPERT_MESH_LINE, "cpu", True))
+
+
+def px_conf_path(work: str, line: str, f32: bool) -> str:
+    """Where px_conf writes the conf of (line, f32)."""
+    name = ("pipe" if line == PIPE_MESH_LINE else "expert") + (
+        "_f32" if f32 else "")
+    return os.path.join(work, f"stack_moe_{name}.conf")
+
+
+def px_conf(work: str, line: str, f32: bool) -> str:
+    """stack_moe.conf with `line` uncommented (and, for a float32 pair,
+    its dropout layer taken out), written into work."""
+    with open(STACK_CONF) as f:
+        text = f.read()
+    if line not in text or STACK_MOE_DROPOUT not in text:
+        raise AssertionError("stack_moe.conf's mesh line or dropout layer "
+                             "moved")
+    text = text.replace(line, line[2:])
+    if f32:
+        text = text.replace(STACK_MOE_DROPOUT, "")
+    path = px_conf_path(work, line, f32)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def px_expected(line: str):
+    """K2-fwd, K2-dq, K2-dkv a rank over a 20a-c job: at data:2,pipe:4
+    each stage runs its 1 of 4 blocks on M = 2 microbatches of its 50
+    rows (2 each a step, 2 K2-fwd an eval batch); at
+    data:2,seq:2,expert:2 each of the 4 blocks runs the ring over 2
+    sequence blocks (8 each a step, 8 K2-fwd an eval batch)."""
+    per = 2 if line == PIPE_MESH_LINE else 8
+    steps = PX_ROUNDS * (PX_TRAIN // 100)
+    evals = PX_ROUNDS * -(-PX_TEST // 100)
+    return {"attn_fwd": per * (steps + evals), "attn_dq": per * steps,
+            "attn_dkv": per * steps}
+
+
+def leg_px_cli_worker(torch, card, work):
+    """A rank of 20a-c (`chip_smoke.py --leg 20r OUT WORK`, under the CXN_*
+    variables of an eight-rank job): the CLI's LearnTask.run on the
+    confs px_cli wrote, for each of PX_JOBS one after the other in this
+    process (one process a rank for all six jobs), each in its own
+    directory, its output captured; after each job the kernels it
+    launched, the plain versions it called and what its trainer holds.
+    A job that raises ends the rank at once (its peers would wait in a
+    collective). The result is printed as one `px-result` line."""
+    import io
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.parallel import distributed
+    calls = dp_count_plain(torch)
+    out = {}
+    for label, line, dev, f32 in PX_JOBS:
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        for k in calls:
+            calls[k] = 0
+        err, std = io.StringIO(), io.StringIO()
+        here = os.getcwd()
+        os.chdir(os.path.join(work, "px_" + label))
+        task = LearnTask()
+        try:
+            with contextlib.redirect_stderr(err), \
+                    contextlib.redirect_stdout(std):
+                task.run([px_conf_path(work, line, f32), "save_model=1",
+                          f"dev={dev}", "param_server=dist",
+                          "test_on_server=1", f"num_round={PX_ROUNDS}",
+                          f"max_round={PX_ROUNDS}"]
+                         + (["dtype=float32"] if f32 else []))
+        except Exception as e:  # noqa: BLE001 - reported, then the rank ends
+            sys.stdout.write(f"20 {label}: {type(e).__name__}: {e}\n"
+                             f"{err.getvalue()[-3000:]}\n")
+            sys.stdout.flush()
+            os._exit(3)
+        finally:
+            os.chdir(here)
+        tr = task.net_trainer
+        p = tr.state["params"]
+        whole = tr.net.param_shapes()
+        out[label] = {
+            "stderr": err.getvalue(), "launches": kernels.launches(),
+            "plain_calls": dict(calls), "backend": distributed.backend(),
+            "stage_bytes": sum(t.numel() * t.element_size()
+                               for t in p["ts1"].values()),
+            "stack_bytes": 4 * sum(math.prod(s)
+                                   for s in whole["ts1"].values()),
+            "experts": p["moe1"]["w1"].shape[0],
+            "gate": list(p["moe1"]["gate"].shape),
+            "secs": time.perf_counter() - t0}
+        del task, tr, p
+    sys.stdout.write("px-result " + json.dumps(out) + "\n")
+    sys.stdout.flush()
+    return out
+
+
+def px_resaved(conf: str, path: str) -> bool:
+    """Whether a one-process trainer on the CPU that loads the checkpoint
+    at `path` saves it again as the same bytes (the ranks' checkpoint
+    holds every stage and expert whole)."""
+    import io
+    tr = conf_trainer(conf, ["dev=cpu", "mesh=data:1"])
+    with open(path, "rb") as f:
+        tr.load_model(f)
+    buf = io.BytesIO()
+    tr.save_model(buf)
+    with open(path, "rb") as f:
+        return buf.getvalue() == f.read()
+
+
+def px_cli(work: str):
+    """20a-c: stack_moe.conf at its own `mesh = data:2,pipe:4` and `mesh =
+    data:2,seq:2,expert:2` lines, eight ranks sharing the card (gloo,
+    dev = gpu:0), 2 rounds, test_on_server = 1, in eight worker
+    processes running the CLI's LearnTask (leg_px_cli_worker): (a), (b)
+    each line as shipped (b100, bfloat16, dropout) - the round lines,
+    every weight of rank 0's last checkpoint finite, each rank's stage
+    (a quarter of the stack's params) or experts (2 of 4, the gate
+    whole), K2 launched as px_expected says, no plain version and no
+    SDPA, the last checkpoint the bytes a one-process trainer saves of
+    it; (c) each line in float32 without its dropout layer on the card
+    and on the CPU - the round lines within 0.01 and rank 0's last
+    checkpoint within rtol 1e-3 / atol 1e-5 of the CPU's."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.nnet import checkpoint
+    # built once here, not by eight ranks at their first step
+    kernels.build_all(list(K2))
+    for label, line, _, f32 in PX_JOBS:
+        d = os.path.join(work, "px_" + label)
+        os.makedirs(os.path.join(d, "data"))
+        # 19a's weaker class signal: the round lines stay off 0
+        write_mnist(os.path.join(d, "data"), PX_TRAIN, 35, prefix="train",
+                    gain=35.0)
+        write_mnist(os.path.join(d, "data"), PX_TEST, 36, gain=35.0)
+        px_conf(work, line, f32)
+    t0 = time.perf_counter()
+    ranks = dp_workers(work, "20r", (), "px-result ", n=8, threads="1")
+    secs = time.perf_counter() - t0
+    say("== phase 20a-c: examples/LongSeq/stack_moe.conf at its own mesh "
+        "lines, eight ranks, dev = gpu:0 (gloo): as shipped (b100, "
+        "bfloat16) and in float32 (dropout taken out) against dev = cpu ==")
+    out = {"secs": secs}
+    for kind, line in (("pipe", PIPE_MESH_LINE), ("expert", EXPERT_MESH_LINE)):
+        want = px_expected(line)
+        rounds = {j: dp_rounds("".join(r[f"{kind}_{j}"]["stderr"]
+                                       for r in ranks))
+                  for j in ("bf16", "gpu", "cpu")}
+        if any(len(v) != PX_ROUNDS for v in rounds.values()):
+            raise AssertionError(f"20 {kind}: expected {PX_ROUNDS} round "
+                                 f"lines each: {rounds}")
+        for j in ("bf16", "gpu"):
+            for r, res in enumerate(ranks):
+                job = res[f"{kind}_{j}"]
+                got = {n: job["launches"][n] for n in K2}
+                if got != want or any(job["plain_calls"].values()):
+                    raise AssertionError(
+                        f"20 {kind} {j} rank {r}: K2 {got} (want {want}), "
+                        f"plain versions / SDPA {job['plain_calls']}")
+                if job["backend"] != "gloo":
+                    raise AssertionError(f"20 {kind} rank {r}: backend "
+                                         f"{job['backend']}")
+                if kind == "pipe" and 4 * job["stage_bytes"] != \
+                        job["stack_bytes"]:
+                    raise AssertionError(
+                        f"20a rank {r}: stage {job['stage_bytes']} B of the "
+                        f"stack's {job['stack_bytes']} B")
+                if kind == "expert" and (job["experts"] != 2
+                                         or job["gate"] != [4, 28]):
+                    raise AssertionError(
+                        f"20b rank {r}: {job['experts']} experts, gate "
+                        f"{job['gate']}")
+        worst_round = 0.0
+        for lg, lc in zip(rounds["gpu"], rounds["cpu"]):
+            vg = [float(t.split(":")[1]) for t in lg.split("\t")[1:]]
+            vc = [float(t.split(":")[1]) for t in lc.split("\t")[1:]]
+            worst_round = max(worst_round,
+                              *(abs(a - b) for a, b in zip(vg, vc)))
+        blobs = {}
+        for j in ("bf16", "gpu", "cpu"):
+            path = os.path.join(work, f"px_{kind}_{j}", "models",
+                                f"{PX_ROUNDS:04d}.model")
+            with open(path, "rb") as f:
+                blobs[j] = checkpoint.load_model(f)["params"]
+        worst, off = 0.0, []
+        for lk, dd in blobs["cpu"].items():
+            for pn, want_t in dd.items():
+                for j in ("bf16", "gpu"):
+                    got = blobs[j][lk][pn]
+                    if (got.shape != want_t.shape
+                            or not np.isfinite(got).all()):
+                        raise AssertionError(f"20 {kind} {j} {lk}/{pn}: "
+                                             f"shape {got.shape} vs "
+                                             f"{want_t.shape} or non-finite")
+                got = blobs["gpu"][lk][pn]
+                err = float(np.abs(got - want_t).max())
+                worst = max(worst, err)
+                if not np.allclose(got, want_t, rtol=1e-3, atol=1e-5):
+                    off.append(f"{lk}/{pn} max abs {err:.3e}")
+        last = os.path.join(work, f"px_{kind}_bf16", "models",
+                            f"{PX_ROUNDS:04d}.model")
+        if not px_resaved(px_conf_path(work, line, False), last):
+            raise AssertionError(f"20 {kind}: a one-process trainer saves "
+                                 f"{last} as other bytes")
+        if off or worst_round > 0.01:
+            raise AssertionError(f"20c {kind} float32: card {rounds['gpu']} "
+                                 f"vs CPU {rounds['cpu']} (bar 0.01, worst "
+                                 f"{worst_round:g}); the checkpoint outside "
+                                 f"rtol 1e-3 / atol 1e-5: {off}")
+        counts = [{n: r[f"{kind}_bf16"]["launches"][n] for n in K2}
+                  for r in ranks]
+        held = ([r["pipe_bf16"]["stage_bytes"] for r in ranks]
+                if kind == "pipe" else
+                [r["expert_bf16"]["experts"] for r in ranks])
+        say(f"20{'a' if kind == 'pipe' else 'b'} "
+            f"{(PIPE_MESH_LINE if kind == 'pipe' else EXPERT_MESH_LINE)[2:]}"
+            f" as shipped (bfloat16): {rounds['bf16']}, every weight finite; "
+            + (f"each rank's stage {held[0]} B of the stack's "
+               f"{ranks[0]['pipe_bf16']['stack_bytes']} B"
+               if kind == "pipe" else
+               f"each rank's experts {held} of 4, the gate whole")
+            + f"; K2 a rank {counts[0]} on every rank ({want} over "
+            f"{PX_ROUNDS * PX_TRAIN // 100} steps and "
+            f"{PX_ROUNDS * -(-PX_TEST // 100)} eval batches), no plain "
+            f"version, no SDPA; the checkpoint is the bytes one process "
+            f"saves of it; 20c float32 card {rounds['gpu']}, CPU "
+            f"{rounds['cpu']}: round lines at most {worst_round:g} apart "
+            f"(bar 0.01), rank 0's checkpoint max abs {worst:.3e} (rtol "
+            f"1e-3, atol 1e-5)")
+        out[kind] = {"rounds_bf16": rounds["bf16"],
+                     "rounds_card": rounds["gpu"],
+                     "rounds_cpu": rounds["cpu"], "counts": counts,
+                     "counts_f32": [{n: r[f"{kind}_gpu"]["launches"][n]
+                                     for n in K2} for r in ranks],
+                     "held": held, "max_abs_checkpoint": worst,
+                     "max_round_diff": worst_round}
+    say(f"20a-c: the six jobs in {secs:.1f} s; rank 0's jobs "
+        + ", ".join(f"{label} {ranks[0][label]['secs']:.1f} s"
+                    for label, _, _, _ in PX_JOBS))
+    return out
+
+
+def px_rank(torch, rank: int, calls):
+    """20d on this rank of a two-rank job over the card (gloo): a
+    pipeline step - stack_moe.conf as shipped (b100, bfloat16) at mesh =
+    pipe:2, each stage 2 of the 4 blocks on M = 2 microbatches of all 100
+    rows - and its stage hop (one microbatch's activations, (50, 28, 28)
+    bfloat16, from stage 0 to stage 1), each with CUDA events and the
+    host clock; K2's launches a step."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.parallel import distributed
+    plain0 = dict(calls)
+    tr = conf_trainer(STACK_CONF, ["mesh=pipe:2", "param_server=dist",
+                                   "dev=gpu:0"])
+    rng = np.random.RandomState(29)
+    batch = DataBatch(data=rng.rand(100, 1, 28, 28).astype(np.float32),
+                      label=rng.randint(0, 10, (100, 1)).astype(np.float32))
+    tr.update(batch)
+    mesh = tr.mesh
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.distributed.barrier(mesh.pipe_group)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(PX_ITERS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return (start.elapsed_time(end) / PX_ITERS,
+                (time.perf_counter() - t0) * 1e3 / PX_ITERS)
+
+    k0 = kernels.launches()
+    step_ms, step_host_ms = timed(lambda: tr.update(batch))
+    k1 = kernels.launches()
+    act = torch.randn((50, 28, 28), device="cuda").to(torch.bfloat16)
+    like = [torch.empty(act.shape, dtype=act.dtype, device="meta")]
+    peers = mesh.pipe_peers
+
+    def hop():
+        if rank == 0:
+            distributed.send([act], mesh.pipe_group, peers[1]).wait()
+        else:
+            distributed.recv(like, mesh.pipe_group, peers[0], act.device)
+    hop_ms, hop_host_ms = timed(hop)
+    launches = {n: (k1[n] - k0[n]) / PX_ITERS for n in K2}
+    plain = {k: calls[k] - plain0.get(k, 0) for k in calls}
+    if launches != {n: 4.0 for n in K2} or any(plain.values()):
+        raise AssertionError(f"20d rank {rank}: K2 a step {launches} (want "
+                             f"4 each), plain versions / SDPA {plain}")
+    out = {"rank": rank, "step_ms": step_ms, "step_host_ms": step_host_ms,
+           "hop_ms": hop_ms, "hop_host_ms": hop_host_ms,
+           "launches": launches, "stage_bytes": sum(
+               t.numel() * t.element_size()
+               for t in tr.state["params"]["ts1"].values())}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def leg_px_worker(torch, card, work):
+    """A rank of 20d alone (`chip_smoke.py --leg 20w OUT WORK`): px_rank,
+    also printed as one `px-time` line. (In the whole script 20d runs in
+    phase 18a's two workers, after 19b.)"""
+    from cxxnet_tpu_torch.parallel import distributed
+    rank = int(os.environ["CXN_WORKER_RANK"])
+    calls = dp_count_plain(torch)
+    distributed.init_distributed(device=torch.device("cuda:0"),
+                                 spec="gpu:0", deadline=120)
+    out = px_rank(torch, rank, calls)
+    sys.stdout.write("px-time " + json.dumps(out) + "\n")
+    sys.stdout.flush()
+    return out
+
+
+def px_untimed(torch, card, work):
+    """The work of phase 20 that checks and times nothing (`--leg 20u OUT
+    WORK`, beside phase 16a-c with 18u, after 19u): 20a-c (px_cli). Its
+    result is also saved in WORK as px_untimed.json."""
+    out = px_cli(work)
+    with open(os.path.join(work, "px_untimed.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
+def phase_pipe_expert(torch, card, work=None, ranks=None):
+    """Phase 20 (`chip_smoke.py --leg 20 OUT [WORK]`): 20d alone (it times
+    a pipeline step and a stage hop) in two workers of its own, or its
+    `ranks`' results when phase 18a's workers ran it; with WORK, 20a-c
+    are what `--leg 20u` left there (run beside phase 16a-c), and alone
+    they run here first."""
+    t20 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if work is None:
+            work = stack.enter_context(tempfile.TemporaryDirectory())
+            cli = px_untimed(torch, card, work)
+        else:
+            with open(os.path.join(work, "px_untimed.json")) as f:
+                cli = json.load(f)
+        say("== phase 20d: a pipeline step of stack_moe.conf (b100, "
+            "bfloat16) at mesh = pipe:2 and its stage hop, two ranks sharing "
+            "the card (gloo) ==")
+        if ranks is None:
+            ranks = dp_workers(work, "20w", (), "px-time ")
+    for res in ranks:
+        say(f"20d rank {res['rank']}: a step {res['step_ms']:.3f} ms by CUDA "
+            f"events, {res['step_host_ms']:.3f} ms by the host clock (K2 a "
+            f"step {res['launches']}, stage {res['stage_bytes']} B); the "
+            f"stage hop of (50, 28, 28) bfloat16 (staged through pinned host "
+            f"memory) {res['hop_ms']:.3f} / {res['hop_host_ms']:.3f} ms")
+    say("times are of ranks sharing one card (gloo's host path), not a "
+        f"multi-GPU scaling figure; {card}")
+    secs = time.perf_counter() - t20
+    say(f"phase 20 took {secs:.1f} s (20d; 20a-c beside phase 16a-c: "
+        f"{cli['secs']:.1f} s)")
+    return {"cli": cli, "ranks": ranks, "secs": secs}
+
+
 LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "11b": phase_googlenet_step, "11d": phase_stack_moe,
         "12": phase_front, "13": phase_surface, "14": phase_native,
@@ -7263,7 +7661,9 @@ LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "17": phase_data_parallel, "17w": leg_dp_worker,
         "18": phase_tensor_zero, "18u": tz_untimed, "18w": leg_tz_worker,
         "1718w": leg_all_worker, "19r": leg_sp_cli_worker,
-        "19": phase_seq_parallel, "19u": sp_untimed, "19w": leg_sp_worker}
+        "19": phase_seq_parallel, "19u": sp_untimed, "19w": leg_sp_worker,
+        "20": phase_pipe_expert, "20u": px_untimed, "20r": leg_px_cli_worker,
+        "20w": leg_px_worker}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
@@ -7291,14 +7691,23 @@ def run_leg(torch, name: str, *args: str):
 
 def leg_main(name: str, out: str, args) -> int:
     """The body of `chip_smoke.py --leg NAME OUT [ARGS]`: run one leg of
-    LEGS, write its result to OUT as JSON."""
+    LEGS, write its result to OUT as JSON; its last line says the CPU
+    time it took with the processes it started and waited for (what
+    the legs run side by side compete for)."""
+    import resource
     import torch
     sys.path.insert(0, REPO)
+    t0 = time.perf_counter()
     try:
         result = LEGS[name](torch, card_line(), *args)
     except ProfilerLost as e:
         sys.stderr.write(f"chip_smoke: phase {name}: {e}\n")
         return LEG_LOST
+    cpu = sum(r.ru_utime + r.ru_stime for r in (
+        resource.getrusage(resource.RUSAGE_SELF),
+        resource.getrusage(resource.RUSAGE_CHILDREN)))
+    say(f"leg {name}: {cpu:.1f} s of CPU in {time.perf_counter() - t0:.1f} "
+        "s (with the processes it waited for)")
     with open(out, "w") as f:
         json.dump(result, f, default=lambda v: v.item())  # numpy scalars
     return 0
@@ -7394,19 +7803,24 @@ def main() -> int:
                           + front["http"]["lrn_fwd"])
         front_batches = (front["in_process"]["batches"]
                          + front["http"]["batches"])
-        # phases 17-19's untimed work (--leg 18u, --leg 19u) runs beside
-        # 16a-c, which checks and times nothing either; 17b, 18a and 19b
-        # (timed) run alone after, over what they left, from this process
-        # (their ranks are workers of their own; 19b runs in 18a's two)
+        # phases 17-20's untimed work (--leg 18u, 19u, 20u) runs beside
+        # 16a-c, which checks and times nothing either; 17b, 18a, 19b and
+        # 20d (timed) run alone after, over what they left, from this
+        # process (their ranks are workers of their own; 19b and 20d run
+        # in 18a's two)
         analysis = phase_analysis(
             torch, card, beside=lambda: side_by_side(
                 lambda: run_leg(torch, "18u", tz_work),
-                lambda: run_leg(torch, "19u", tz_work)))
+                # one after the other: each holds its ranks' card
+                # contexts, and the more contexts share the card the
+                # longer every one of them waits at each sync
+                lambda: (run_leg(torch, "19u", tz_work),
+                         run_leg(torch, "20u", tz_work))))
 
         def plain(result):
             return json.loads(json.dumps(result, default=lambda v: v.item()))
-        say("== phases 17b-c, 18a and 19b: one pair of workers sharing the "
-            "card (gloo), the phases one after the other ==")
+        say("== phases 17b-c, 18a, 19b and 20d: one pair of workers sharing "
+            "the card (gloo), the phases one after the other ==")
         both = dp_workers(tz_work, "1718w", (), "all-result ")
         dp = plain(phase_data_parallel(torch, card, tz_work,
                                        [b["dp"] for b in both]))
@@ -7414,6 +7828,7 @@ def main() -> int:
                                      [b["tz"] for b in both]))
         sp = phase_seq_parallel(torch, card, tz_work,
                                 [b["tz"]["sp"] for b in both])
+        px = phase_pipe_expert(torch, card, tz_work, [b["px"] for b in both])
     finally:
         shutil.rmtree(tz_work, ignore_errors=True)
 
@@ -7540,7 +7955,7 @@ def main() -> int:
                 "seq_unit": "seq_mnist.conf (no dropout, bfloat16 as "
                             "shipped) at its own mesh = data:2,seq:2 "
                             "through the CLI, four ranks sharing the card, "
-                            "2 rounds of 200 images and 500 test images, "
+                            "2 rounds of 200 images and 200 test images, "
                             "per rank (phase 19a)",
                 "seq_ring_launches": [cases[("ring", False)],
                                       cases1[("ring", False)]],
@@ -7551,6 +7966,29 @@ def main() -> int:
                 "seq_call_unit": f"one forward + backward at {SP_SHAPE} "
                                  "bfloat16 over seq:2, per rank (phase "
                                  "19b)"}
+
+    def pipe_expert(name):
+        """Phase 20: K2 a rank on stack_moe.conf's own mesh lines, as
+        shipped through the CLI (20a-b), and a pipeline step's (20d)."""
+        return {"pp_launches": [c[name] for c in px["cli"]["pipe"]["counts"]],
+                "pp_unit": "stack_moe.conf (bfloat16, dropout, as shipped) "
+                           "at its own mesh = data:2,pipe:4 through the CLI, "
+                           "eight ranks sharing the card, 2 rounds of "
+                           f"{PX_TRAIN} images and {PX_TEST} test images, "
+                           "per rank: 2 a training step and an eval batch "
+                           "(1 block a stage, M = 2) (phase 20a)",
+                "ep_launches": [c[name]
+                                for c in px["cli"]["expert"]["counts"]],
+                "ep_unit": "stack_moe.conf as shipped at its own mesh = "
+                           "data:2,seq:2,expert:2 through the CLI, eight "
+                           "ranks, the same data, per rank: 8 a training "
+                           "step and an eval batch (4 blocks, a ring of 2) "
+                           "(phase 20b)",
+                "pp_step_launches": [r["launches"][name]
+                                     for r in px["ranks"]],
+                "pp_step_unit": "one step of stack_moe.conf b100 bfloat16 "
+                                "at mesh = pipe:2, per rank (2 blocks a "
+                                "stage, M = 2; phase 20d)"}
 
     def stack_moe(name):
         """K2 on stack_moe.conf's path (11d)."""
@@ -7634,7 +8072,7 @@ def main() -> int:
         **tensor_zero("lrn_bwd"),
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
                **stack_moe(n), **dispatch(n), **data_parallel(n),
-               **tensor_zero(n), **seq_parallel(n))
+               **tensor_zero(n), **seq_parallel(n), **pipe_expert(n))
           for n in K2] + [dict(int8_entry(k3_rows, int8_served, 0),
                                front_launches=front["int8"]["int8_mm"],
                                front_batches=front["int8"]["batches"],
@@ -7696,6 +8134,14 @@ def main() -> int:
                        "scheme", "causal", "step_ms", "step_host_ms",
                        "exchange_ms", "exchange_host_ms", "max_abs_err")}
                        for c in r["cases"]]} for r in sp["ranks"]]}))
+    say("phase 20 summary " + json.dumps({
+        "secs": px["secs"], "untimed_secs": px["cli"]["secs"],
+        "cli": {k: {f: px["cli"][k][f] for f in (
+            "rounds_bf16", "rounds_card", "rounds_cpu",
+            "max_abs_checkpoint", "max_round_diff")}
+            for k in ("pipe", "expert")},
+        "ranks": [{k: r[k] for k in ("step_ms", "step_host_ms", "hop_ms",
+                                     "hop_host_ms")} for r in px["ranks"]]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({

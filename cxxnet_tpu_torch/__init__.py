@@ -80,13 +80,13 @@ Ground rules:
   (`cuda:0`, or `cuda:<local rank>` in a multi-worker job) unless the
   caller asks for the CPU (`device="cpu"`, or `dev = cpu` in a conf);
   with no card they raise instead of carrying on on the CPU.
-- Data parallelism (`parallel/`): a data axis of N is N processes, one
+- Parallelism (`parallel/`): a mesh of N devices is N processes, one
   device each, in one torch.distributed process group (param_server =
-  dist under tools/launch_dist, mesh = data:N, a device list), with
-  ZeRO-1 (update_on_server), sharded iterators, test_on_server, sync-BN
-  and fullc_gather. Config values that change results and that the
-  port does not implement yet - ZeRO stages 2-3, the model / seq / pipe
-  / expert axes, elastic and its keys, serving with a data axis - raise
+  dist under tools/launch_dist, `mesh`, a device list): the data axis
+  with ZeRO 1-3, sharded iterators, test_on_server, sync-BN and
+  fullc_gather; the model, seq, expert and pipe axes. Config values
+  that change results and that the port does not implement yet -
+  elastic and its keys, serving with a data axis - raise
   NotImplementedError naming the key; they are never silently ignored.
   Every single-device key is ported.
 - PyTorch idiom inside: plain functions on tensors and modules with an

@@ -125,8 +125,8 @@ def ustate_to_numpy(tree: Mapping) -> Dict[str, Any]:
 def train_state_to_numpy(trainer) -> Dict[str, Any]:
     """{"params", "ustate", "epoch"} of a port NetTrainer, as numpy, the
     params and updater state whole: under a ZeRO cut (zero_stage >= 1)
-    or a model axis each cut tensor is gathered from the ranks' slices,
-    so every rank calls this together."""
+    or a model, expert or pipe axis each cut tensor is gathered from the
+    ranks' slices, so every rank calls this together."""
     return {"params": params_to_numpy(trainer._whole_params(),
                                       trainer.net.param_shapes()),
             "ustate": ustate_to_numpy(trainer._full_ustate()),
@@ -138,9 +138,9 @@ def train_state_from_numpy(trainer, state: Mapping) -> None:
     through jax.device_get, the updater state whole) into a port
     NetTrainer built from the same conf (a JAX state of any ZeRO stage
     and mesh is whole once device_get has it); each rank keeps its
-    model shard and ZeRO cut of it (a seq axis cuts nothing: its ranks
-    each keep the whole). The gradient accumulator and counters start
-    empty."""
+    model, expert and pipe shards and its ZeRO cut of it (a seq axis cuts
+    nothing: its ranks each keep the whole). The gradient accumulator
+    and counters start empty."""
     params = params_from_numpy(state["params"], trainer.net.param_shapes(),
                                trainer.device)
     trainer.set_train_state(

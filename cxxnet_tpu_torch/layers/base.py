@@ -207,6 +207,16 @@ class Layer(nn.Module):
         (parallel/sharding.py); {} - every param replicated."""
         return {}
 
+    def expert_shard_dims(self) -> Dict[str, int]:
+        """{param name: the dim that rides the 'expert' mesh axis} (moe's
+        stacked expert weights); {} - none."""
+        return {}
+
+    def pipe_shard_dims(self) -> Dict[str, int]:
+        """{param name: the dim that rides the 'pipe' mesh axis}
+        (transformer_stack's stacked layer dim); {} - none."""
+        return {}
+
     def seq_local(self) -> bool:
         """Whether the layer runs on a seq-sharded block of a sequence
         node (the 'seq' mesh axis, nnet/network.py): it computes each

@@ -22,6 +22,29 @@ the valid rows (`mask`), scaled by moe_aux * batch, comes back from
 expert products are plain torch matmuls (the JAX package computes them
 outside any Pallas kernel too).
 
+On a mesh (parallel/), as the JAX package's GSPMD program computes the
+layer on the global batch:
+
+- a data axis: each rank holds its contiguous block of the rows, in
+  rank order. The load-balance statistics (the valid-token count, the
+  sums of the top-1 assignments and of the probabilities) are summed
+  over the data group (tensor.shared_sum), so the term is the global
+  product and the ranks' summed gradients are the global term's. The
+  capacity route takes C from the global token count and each (token,
+  slot)'s place from the global slot-major arrival order: one
+  all-gather of every rank's per-(slot, expert) counts gives the
+  arrivals before this rank's.
+- an expert axis (`expert_shard_dims`: w1, w2, b1, b2 on dim 0, the
+  gate replicated): each rank holds E/n experts and runs them on every
+  token of its rows, masked by its columns of the routing weights -
+  the all-to-all-free layout of the JAX package's docstring. The
+  tokens and the routing weights `enter` the expert region (their
+  gradient is summed over the expert group) and the local products'
+  sum is `reduce`d (parallel/tensor.py). The gate, the route and the
+  aux term are the same on every expert rank. nexpert % n != 0 leaves
+  the expert weights whole (sharding.py's fallback) and the layer runs
+  them all.
+
 Config keys: nexpert, nhidden (each expert's FFN width), moe_top_k
 (default 1), moe_aux (default 0.01), moe_capacity (0 = dense), no_bias.
 """
@@ -37,6 +60,10 @@ import torch.nn.functional as F
 
 from cxxnet_tpu_torch.layers.base import Layer, Params, Shape, register_layer
 from cxxnet_tpu_torch.ops import nn as nn_ops
+from cxxnet_tpu_torch.parallel import distributed
+from cxxnet_tpu_torch.parallel.mesh import (
+    EXPERT_AXIS, data_axis_size, get_active_mesh)
+from cxxnet_tpu_torch.parallel.tensor import enter, reduce, shared_sum
 
 
 @register_layer
@@ -108,18 +135,28 @@ class MoELayer(Layer):
         return {"gate": "wmat", "w1": "wmat", "w2": "wmat",
                 "b1": "bias", "b2": "bias"}
 
+    def expert_shard_dims(self) -> Dict[str, int]:
+        # the gate stays replicated: every expert rank routes every token
+        return {"w1": 0, "w2": 0, "b1": 0, "b2": 0}
+
     # ------------------------------------------------------------------
     def route(self, probs: torch.Tensor, mask: Optional[torch.Tensor] = None,
-              need_combine: bool = True):
-        """(b, s, E) float32 probs -> (combine (b, s, E) or None, aux,
-        topv (b, s, k), topi (b, s, k)). Padding rows (mask 0) stay out
-        of the load-balance statistics."""
+              need_combine: bool = True, need_aux: bool = True):
+        """(b, s, E) float32 probs -> (combine (b, s, E) or None, aux (None
+        without need_aux), topv (b, s, k), topi (b, s, k)). Padding rows
+        (mask 0) stay out of the load-balance statistics; on a data mesh
+        they are the global batch's."""
         topv, topi = torch.topk(probs, self.top_k, dim=-1)
         onehot = F.one_hot(topi, self.nexpert).to(probs.dtype)  # b,s,k,E
         combine = ((onehot * topv[..., None]).sum(dim=2)
                    if need_combine else None)
+        if not need_aux:
+            return combine, None, topv, topi
         top1 = onehot[:, :, 0]                                  # b,s,E
-        if mask is not None:
+        mesh = get_active_mesh()
+        if data_axis_size(mesh) > 1:
+            frac, mean_p = self._global_stats(probs, top1, mask, mesh)
+        elif mask is not None:
             w = mask.to(probs.dtype)[:, None, None]
             total = torch.clamp(w.sum() * probs.shape[1], min=1.0)
             frac = (top1 * w).sum(dim=(0, 1)) / total
@@ -130,13 +167,47 @@ class MoELayer(Layer):
         aux = self.nexpert * (frac * mean_p).sum()
         return combine, aux, topv, topi
 
+    def _global_stats(self, probs, top1, mask, mesh):
+        """(frac, mean_p) of the global batch on a data mesh: this rank's
+        valid-token count and sums, summed over the data group."""
+        b, s, E = probs.shape
+        if mask is not None:
+            w = mask.to(probs.dtype)[:, None, None]
+            cnt = (w.sum() * s).reshape(1)
+            top1, probs = top1 * w, probs * w
+        else:
+            cnt = torch.full((1,), float(b * s), dtype=probs.dtype,
+                             device=probs.device)
+        stats = shared_sum(torch.cat([cnt, top1.sum(dim=(0, 1)),
+                                      probs.sum(dim=(0, 1))]), mesh)
+        total = stats[0]
+        if mask is not None:
+            total = torch.clamp(total, min=1.0)
+        return stats[1:1 + E] / total, stats[1 + E:] / total
+
+    def _experts(self, params: Params):
+        """(the mesh of the expert region or None, the index of this
+        rank's first expert, its expert count): None when the rank holds
+        every expert."""
+        el = params["w1"].shape[0]
+        if el == self.nexpert:
+            return None, 0, el
+        mesh = get_active_mesh()
+        return mesh, mesh.expert_rank * el, el
+
     def _ffn_bias(self, params: Params, name: str, dt: torch.dtype):
         return params[name].to(dt) if name in params else None
 
     def dense_compute(self, params: Params, xs: torch.Tensor,
                       combine: torch.Tensor) -> torch.Tensor:
-        """Every expert on every token, masked by `combine` (b, s, E)."""
+        """Every expert on every token, masked by `combine` (b, s, E); on
+        an expert mesh this rank's experts, their sum reduced over the
+        expert group."""
         dt = xs.dtype
+        emesh, lo, el = self._experts(params)
+        if emesh is not None:
+            xs = enter(xs, emesh, EXPERT_AXIS)
+            combine = enter(combine, emesh, EXPERT_AXIS)[..., lo:lo + el]
         h1 = torch.einsum("bse,ghe->bsgh", xs, params["w1"].to(dt))
         b1 = self._ffn_bias(params, "b1", dt)
         if b1 is not None:
@@ -146,17 +217,23 @@ class MoELayer(Layer):
         b2 = self._ffn_bias(params, "b2", dt)
         if b2 is not None:
             ye = ye + b2[None, None]
-        return torch.einsum("bsge,bsg->bse", ye, combine.to(dt))
+        out = torch.einsum("bsge,bsg->bse", ye, combine.to(dt))
+        return out if emesh is None else reduce(out, emesh, EXPERT_AXIS)
 
     def sparse_compute(self, params: Params, xs: torch.Tensor,
                        topv: torch.Tensor, topi: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Capacity dispatch: expert buffers of C slots filled in
-        (slot-major, token) order; padding rows claim no slot."""
+        (slot-major, token) order; padding rows claim no slot. On a data
+        mesh C and the order are the global batch's; on an expert mesh
+        this rank fills and runs its experts' buffers only."""
         b, s, e = xs.shape
         t = b * s
         E, k = self.nexpert, self.top_k
-        cap = max(1, min(int(math.ceil(k * t / E * self.capacity)), t))
+        mesh = get_active_mesh()
+        nd = data_axis_size(mesh)
+        cap = max(1, min(int(math.ceil(k * t * nd / E * self.capacity)),
+                         t * nd))
         xt = xs.reshape(t, e)
         dt = topv.dtype
         topv = topv.reshape(t, k)
@@ -164,16 +241,31 @@ class MoELayer(Layer):
         if mask is not None:
             tok = mask.to(dt).repeat_interleave(s)
             assign = assign * tok[:, None, None]
-        flat = assign.transpose(0, 1).reshape(k * t, E)
-        pos = torch.cumsum(flat, dim=0) - flat                 # arrivals
-        pos = pos.reshape(k, t, E).transpose(0, 1)             # t,k,E
+        if nd == 1:
+            flat = assign.transpose(0, 1).reshape(k * t, E)
+            pos = torch.cumsum(flat, dim=0) - flat             # arrivals
+            pos = pos.reshape(k, t, E).transpose(0, 1)         # t,k,E
+        else:
+            # arrivals before this rank's: every rank's in an earlier
+            # slot, and the earlier ranks' in this slot
+            every = torch.stack(distributed.all_gather(
+                assign.sum(dim=0), mesh.group))                # nd,k,E
+            tot = every.sum(dim=0)
+            base = torch.cumsum(tot, dim=0) - tot + every[:mesh.rank].sum(0)
+            pos = torch.cumsum(assign, dim=0) - assign + base[None]
         pos = (pos * assign).sum(dim=2).to(torch.int64)         # t,k
         keep = (pos < cap).to(dt)
         # a position past the buffer gets slot cap-1 here and is zeroed
         # by `keep` in the dispatch (jax.nn.one_hot gives it no slot)
         slot = F.one_hot(pos.clamp(max=cap - 1), cap).to(dt)   # t,k,cap
+        emesh, lo, el = self._experts(params)
+        if emesh is not None:
+            xt = enter(xt, emesh, EXPERT_AXIS)
+            topv = enter(topv, emesh, EXPERT_AXIS)
         disp = torch.einsum("tke,tkc,tk->tec", assign, slot, keep)
         comb = torch.einsum("tec,tk,tke->tec", disp, topv, assign)
+        if emesh is not None:
+            disp, comb = disp[:, lo:lo + el], comb[:, lo:lo + el]
         xdt = xt.dtype
         ein = torch.einsum("tec,td->ecd", disp.to(xdt), xt)
         h1 = torch.einsum("ecd,ehd->ech", ein, params["w1"].to(xdt))
@@ -186,6 +278,8 @@ class MoELayer(Layer):
         if b2 is not None:
             ye = ye + b2[:, None]
         out = torch.einsum("tec,ecd->td", comb.to(xdt), ye)
+        if emesh is not None:
+            out = reduce(out, emesh, EXPERT_AXIS)
         return out.reshape(b, s, e)
 
     def forward_with_aux(self, params, inputs, train=False, gen=None,
@@ -197,15 +291,19 @@ class MoELayer(Layer):
         logits = xs @ params["gate"].to(x.dtype).t()
         probs = torch.softmax(logits.float(), dim=-1)
         sparse = self.capacity > 0
-        combine, aux, topv, topi = self.route(probs, mask,
-                                              need_combine=not sparse)
+        # inference has no use for the aux term: its statistics (a
+        # collective on a data mesh) are taken in training only
+        need_aux = train and bool(self.aux_scale)
+        combine, aux, topv, topi = self.route(
+            probs, mask, need_combine=not sparse, need_aux=need_aux)
         if sparse:
             out = self.sparse_compute(params, xs, topv, topi, mask)
         else:
             out = self.dense_compute(params, xs, combine)
-        # scaled by batch: the trainer's 1/(batch*update_period) leaves
-        # the aux term batch-size-invariant
-        aux_term = ((self.aux_scale * b) * aux if self.aux_scale
+        # scaled by this rank's rows: the trainer's 1/(batch *
+        # update_period) leaves the aux term batch-size-invariant, and
+        # on a data mesh the ranks' terms add up to the global one
+        aux_term = ((self.aux_scale * b) * aux if need_aux
                     else torch.zeros((), device=x.device))
         return [out.reshape(b, 1, s, e)], aux_term.float()
 

@@ -69,8 +69,10 @@ launcher set up (`python -m cxxnet_tpu_torch.tools.launch_dist -n N --
 python -m cxxnet_tpu_torch.main conf`) before any device is touched.
 Each iterator's batch_size / dist_num_worker / dist_worker_rank are
 wired from the trainer's local rows - the rows of its data index, so
-the model and seq ranks of one data index read the same rows and no
-shard is applied across them (the JAX CLI's wiring) - unless the conf
+the model, seq, expert and pipe ranks of one data index read the same
+rows and no shard is applied across them (the JAX CLI's wiring) - with
+any of the mesh's axes (`mesh = data:2,pipe:4`, `mesh =
+data:2,seq:2,expert:2`, ...) - unless the conf
 sets dist_num_worker; `test_on_server = 1` checks every round that the
 ranks' weights agree; every rank writes the checkpoint through the
 atomic writer (its own temporary file). Started alone with a

@@ -38,9 +38,16 @@ sequence node, the losses - it is gathered along the sequence
 (ring.seq_gather: all-gather forward, reduce-scatter backward), and
 that layer and every layer after it compute the same values on every
 seq rank. The nodes a caller keeps (`keep_nodes`) come back whole.
-`seq_plan` is that decision, made once per structure from the layers'
-declarations; a y dim the axis does not divide shards nothing (every
-layer sees the whole sequence, the JAX package's fallback).
+`seq_plan` is that decision, made once per structure and pipe axis
+from the layers' declarations (a transformer_stack pipelined over a
+`pipe` axis is not seq_local: the sequence is gathered before it); a y
+dim the axis does not divide shards nothing (every layer sees the whole
+sequence, the JAX package's fallback).
+
+The expert and pipe axes need nothing of the network: their ranks of
+one data index run every layer but moe's experts and the stack's stages
+on the same rows, and a random layer draws the same mask on each (the
+draw follows the data index, layers/base.py rank_rand).
 """
 
 from __future__ import annotations
@@ -58,7 +65,8 @@ from cxxnet_tpu_torch.layers.base import Layer, Shape, seq_block
 from cxxnet_tpu_torch.layers.common import SplitLayer
 from cxxnet_tpu_torch.layers.loss import LossLayer
 from cxxnet_tpu_torch.nnet.net_config import NetConfig
-from cxxnet_tpu_torch.parallel.mesh import get_active_mesh, seq_axis_size
+from cxxnet_tpu_torch.parallel.mesh import (
+    get_active_mesh, pipe_axis_size, seq_axis_size)
 
 
 class SeqPlan(NamedTuple):
@@ -86,7 +94,7 @@ class Network(nn.Module):
         self.layer_objs = nn.ModuleList()
         self.node_shapes: List[Optional[Shape]] = [None] * cfg.num_nodes
         self.dtype_plan: Optional[Dict[int, torch.dtype]] = None
-        self._seq_plans: Dict[int, Optional[SeqPlan]] = {}
+        self._seq_plans: Dict[Tuple[int, int], Optional[SeqPlan]] = {}
 
         c, y, x = cfg.input_shape
         if c * y * x == 0:
@@ -216,16 +224,17 @@ class Network(nn.Module):
         return best[1]
 
     def seq_plan(self, nseq: int) -> Optional[SeqPlan]:
-        """The seq-sharded forward at a seq axis of `nseq` (None: nothing
-        is sharded - no axis, or one that does not divide the input's y
-        dim). Node 0 starts sharded; a connection runs on the block when
-        every input it reads is sharded and its layer is seq_local, and
-        then writes sharded nodes; any other connection gathers its
-        sharded inputs and writes whole nodes."""
+        """The seq-sharded forward at a seq axis of `nseq` on the active
+        mesh (None: nothing is sharded - no axis, or one that does not
+        divide the input's y dim). Node 0 starts sharded; a connection
+        runs on the block when every input it reads is sharded and its
+        layer is seq_local, and then writes sharded nodes; any other
+        connection gathers its sharded inputs and writes whole nodes."""
         if nseq <= 1 or self.cfg.input_shape[1] % nseq:
             return None
-        if nseq in self._seq_plans:
-            return self._seq_plans[nseq]
+        key = (nseq, pipe_axis_size(get_active_mesh()))
+        if key in self._seq_plans:
+            return self._seq_plans[key]
         sharded = {0}
         local, gather = [], []
         for idx, info in enumerate(self.cfg.layers):
@@ -239,7 +248,7 @@ class Network(nn.Module):
             else:
                 sharded.difference_update(info.nindex_out)
         plan = SeqPlan(tuple(local), tuple(gather), frozenset(sharded))
-        self._seq_plans[nseq] = plan
+        self._seq_plans[key] = plan
         return plan
 
     def _seq(self) -> Tuple[Optional[object], Optional[SeqPlan]]:

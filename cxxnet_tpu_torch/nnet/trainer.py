@@ -124,14 +124,27 @@ most 1, as in the JAX package.
 
 The model axis (`mesh = model:M`, `mesh = data:N,model:M`;
 parallel/tensor.py): each rank stores its model shard of every weight
-its layer places on 'model' (sharding.py: ModelCut; every rank draws
+its layer places on 'model' (sharding.py: ParamCut; every rank draws
 the same whole seeded init and keeps its block), the layers run on
 their blocks and close with the model group's collectives, and the
 gradients are reduced over the data group only. The M ranks of one
 data replica feed the same rows (the data index picks them).
 Checkpoints, get_weight and convert.train_state_to_numpy gather the
-model and ZeRO cuts, so a file is the same bytes at every stage and
-mesh; loads and set_weight cut again.
+model, expert, pipe and ZeRO cuts, so a file is the same bytes at
+every stage and mesh; loads and set_weight cut again.
+
+The expert and pipe axes (`mesh = data:2,seq:2,expert:2`, `mesh =
+data:2,pipe:4`, ...): ParamCut also cuts moe's expert weights over the
+expert ranks and a transformer_stack's stacked layers over the pipe
+ranks (each stage holds L/P of them); the ranks of one data index feed
+the same rows, the moe layer closes its local experts with the expert
+group's collectives and the stack runs a GPipe schedule over the pipe
+group (layers/moe.py, layers/transformer_stack.py). Both leave every
+other param replicated and computed alike on those ranks, so the
+gradient group stays data x seq; a mesh without a data axis replicates
+the batch. zero_stage >= 2 with either axis raises, as in the JAX
+package; ZeRO-1 cuts over the data axis on the first dim the placement
+left free.
 
 The seq axis (`mesh = seq:N`, `data:D,seq:N`, `data:D,model:M,seq:N`;
 parallel/ring.py): the N ranks of one data index feed its whole rows
@@ -175,10 +188,10 @@ from cxxnet_tpu_torch.ops.augment import AUGMENT_STREAM, make_device_augment
 from cxxnet_tpu_torch.ops.int8 import per_channel_scale
 from cxxnet_tpu_torch.parallel import distributed
 from cxxnet_tpu_torch.parallel.mesh import (
-    MeshSpec, active_mesh, build_mesh, check_axes, parse_device_spec,
-    parse_mesh_spec)
+    EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, MeshSpec, active_mesh, build_mesh,
+    check_axes, parse_device_spec, parse_mesh_spec)
 from cxxnet_tpu_torch.parallel.sharding import (
-    ModelCut, ZeroCut, shardings_for, zero_partition_dims)
+    ParamCut, ZeroCut, shardings_for, zero_partition_dims)
 from cxxnet_tpu_torch.telemetry.flight import fingerprint
 from cxxnet_tpu_torch.updater import (UpdaterParam, create_updater,
                                       schedule_table)
@@ -391,7 +404,7 @@ class NetTrainer:
         # without a data axis) and its cut; the model axis's cut
         self._zero_run = 0
         self._zero: Optional[ZeroCut] = None
-        self._mcut: Optional[ModelCut] = None
+        self._pcut: Optional[ParamCut] = None
         # model-local param shapes (the whole shapes without a model
         # axis); gradient bytes this rank held after the last reduce
         self._local_shapes: Dict[str, Dict[str, Tuple[int, ...]]] = {}
@@ -753,15 +766,21 @@ class NetTrainer:
         """The seq axis's size (1 = no sequence parallelism)."""
         return 1 if self.mesh is None else self.mesh.shape.get("seq", 1)
 
+    @property
+    def _meshed(self) -> bool:
+        """Whether the mesh has any axis above size 1."""
+        return self.mesh is not None and any(
+            n > 1 for _, n in self.mesh.axes)
+
     def _mesh_scope(self) -> active_mesh:
         """The mesh every forward runs under, as the JAX trainer binds
         self.mesh around its train, eval, inference and calibration
         forwards: sync-BN's and fullc_gather's collectives, the global
-        batch's random draws (layers/base.py rank_rand), the model
-        axis's collectives (parallel/tensor.py), the seq axis's cut of
-        the input and its ring / Ulysses attention (nnet/network.py)."""
-        return active_mesh(self.mesh if (self._dsize > 1 or self._msize > 1
-                                         or self._nseq > 1) else None)
+        batch's random draws (layers/base.py rank_rand), the model and
+        expert axes' collectives (parallel/tensor.py), the seq axis's
+        cut of the input and its ring / Ulysses attention
+        (nnet/network.py), the pipe axis's stages."""
+        return active_mesh(self.mesh if self._meshed else None)
 
     def _build_mesh(self) -> None:
         """Join the job (param_server = dist) and build the data mesh:
@@ -1091,7 +1110,7 @@ class NetTrainer:
         ZeRO cut of the state (stage >= 1) and of the weights (stage
         3). The cut tensors are copies, so the whole ones are freed."""
         self._plan(params)
-        mc, z = self._mcut, self._zero
+        mc, z = self._pcut, self._zero
         if mc is not None:
             ustate = {lk: {pn: {f: mc.local(t, lk, pn)
                                 for f, t in st.items()}
@@ -1106,19 +1125,21 @@ class NetTrainer:
         self.state = {"params": self._cut_params(params), "ustate": ustate}
 
     def _plan(self, params: Params) -> None:
-        """The model cut (a model axis above 1) and the ZeRO cut (None
+        """The param cut (the params placed on a model, expert or pipe
+        axis above 1; None when nothing is cut) and the ZeRO cut (None
         without a data axis or under zero_stage = 0) of whole params:
         the placements of parallel/sharding.py, the JAX helpers'."""
         shapes = {lk: {pn: tuple(t.shape) for pn, t in d.items()}
                   for lk, d in params.items()}
-        self._mcut = self._zero = None
+        self._pcut = self._zero = None
         self._local_shapes = shapes
-        if self.mesh is None or (self._dsize == 1 and self._msize == 1):
+        if not self._meshed:
             return
         specs = shardings_for(self.mesh, shapes, self.net)
-        if self._msize > 1:
-            self._mcut = ModelCut(self.mesh, specs, shapes)
-            self._local_shapes = self._mcut.local_shapes()
+        cut = ParamCut(self.mesh, specs, shapes)
+        if cut.dims:
+            self._pcut = cut
+            self._local_shapes = cut.local_shapes()
         if self.zero_stage >= 1 and self._dsize > 1:
             self._zero = ZeroCut(self.mesh, zero_partition_dims(
                 self.mesh, shapes, specs), self._local_shapes)
@@ -1141,7 +1162,7 @@ class NetTrainer:
         """Every param whole on every rank (gathered over the ZeRO and
         model cuts; collectives on a mesh)."""
         params = self._local_params()
-        return params if self._mcut is None else self._mcut.gather(params)
+        return params if self._pcut is None else self._pcut.gather(params)
 
     def _full_ustate(self):
         """The whole updater state on every rank (collectives under a
@@ -1166,7 +1187,7 @@ class NetTrainer:
                 z.gather({key: ustate[key[0]][key[1]][f] for key in into},
                          into)
             ustate = out
-        mc = self._mcut
+        mc = self._pcut
         if mc is None:
             return ustate
         fields = sorted({f for d in ustate.values() for st in d.values()
@@ -1210,7 +1231,7 @@ class NetTrainer:
     def _cut_params(self, params: Params) -> Params:
         """Whole params -> what this rank stores: its model shard, and
         under zero_stage = 3 the ZeRO cut of the cut weights."""
-        mc, z = self._mcut, self._zero
+        mc, z = self._pcut, self._zero
         if mc is not None:
             params = mc.local_tree(params)
         if z is not None and self._zero_run >= 3:
@@ -1867,7 +1888,7 @@ class NetTrainer:
             fin = torch.isfinite(w_new).all()
             ok = ok & (fin if do is None else (~do | fin))
         if self.mesh is not None and (
-                self._mcut is not None
+                self._pcut is not None
                 or (z is not None and self._zero_run >= 2)):
             # each rank saw only its cut of the weights (and of the
             # accumulator): the step is kept only where it is finite on
@@ -2546,7 +2567,7 @@ class NetTrainer:
         calls this together)."""
         lk, pn = self._weight_key(layer_name, tag)
         t = self.state["params"][lk][pn]
-        z, mc = self._zero, self._mcut
+        z, mc = self._zero, self._pcut
         if z is not None and self._zero_run >= 3 and z.is_cut(lk, pn):
             t = z.gather_full({(lk, pn): t})[(lk, pn)]
         if mc is not None and mc.is_cut(lk, pn):
@@ -2569,23 +2590,28 @@ class NetTrainer:
         """test_on_server (async_updater-inl.hpp:144-153): what is
         replicated must be bitwise the same on every rank that holds
         it - each param over the data group (but a weight cut there
-        under zero_stage = 3), each param not cut over 'model' over the
-        model group; returns a description of each that differs ([] on
-        one rank)."""
+        under zero_stage = 3), each param not cut over the model, expert
+        or pipe axis over that axis's group, every param over the seq
+        group; returns a description of each that differs ([] on one
+        rank)."""
         if self.mesh is None:
             return []
         params = self.state["params"]
-        z, mc = self._zero, self._mcut
+        z, mc = self._zero, self._pcut
         bad = []
         if self._dsize > 1:
             skip = ([f"[{lk!r}][{pn!r}]" for lk, pn, _, _ in z.cut]
                     if z is not None and self._zero_run >= 3 else [])
             bad += distributed.check_replicated(
                 params, group=self.mesh.group, skip=skip)
-        if mc is not None:
-            bad += distributed.check_replicated(
-                params, group=self.mesh.model_group,
-                skip=[f"[{lk!r}][{pn!r}]" for lk, pn in mc.dims])
+        for axis in (MODEL_AXIS, EXPERT_AXIS, PIPE_AXIS):
+            if self.mesh.shape.get(axis, 1) > 1:
+                # what is not cut over the axis is replicated over it
+                bad += distributed.check_replicated(
+                    params, group=self.mesh.group_of(axis),
+                    skip=[f"[{lk!r}][{pn!r}]" for lk, d in params.items()
+                          for pn in d
+                          if mc is not None and mc.is_cut(lk, pn, axis)])
         if self._nseq > 1:
             # every param is replicated over the seq ranks
             bad += distributed.check_replicated(

@@ -1,5 +1,5 @@
-"""Parallelism: the data, model and seq axes on torch.distributed
-(counterpart of cxxnet_tpu/parallel/).
+"""Parallelism: the data, model, seq, expert and pipe axes on
+torch.distributed (counterpart of cxxnet_tpu/parallel/).
 
 The reference's multi-device story (one model replica per GPU,
 gradients synced through a parameter server) maps to N processes with
@@ -9,9 +9,11 @@ global batch and the summed gradient rides an all-reduce; `zero_stage
 then the gradients, then the weights over the data axis (sharding.py).
 The model axis splits each replica's weights over its ranks (Megatron
 column / row parallelism, tensor.py); the seq axis splits each
-sequence over its ranks (ring and Ulysses attention, ring.py). The
-pipe and expert axes and the elastic coordinator raise
-NotImplementedError naming themselves.
+sequence over its ranks (ring and Ulysses attention, ring.py); the
+expert axis splits moe's experts (tensor.py's enter / reduce over the
+expert group); the pipe axis splits a transformer_stack's layers into
+stages run as a GPipe schedule (layers/transformer_stack.py, the stage
+hops of distributed.py). The elastic coordinator is not ported.
 """
 
 from cxxnet_tpu_torch.parallel.mesh import (

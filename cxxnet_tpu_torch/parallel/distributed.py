@@ -63,6 +63,9 @@ host_staged = [0]
 reduce_scatters = [0]
 # the seq axis's exchanges: ring hops and all-to-alls
 seq_exchanges = {"hop": 0, "all_to_all": 0}
+# the pipe axis's exchanges: stage-to-stage sends and receives, and the
+# broadcasts of the last stage's output and stage 0's input gradient
+pipe_exchanges = {"send": 0, "recv": 0, "broadcast": 0}
 
 
 def local_rank() -> int:
@@ -363,6 +366,67 @@ def ring_hop(ts: Sequence[torch.Tensor], group, dst: int, src: int) -> Hop:
         torch.distributed.P2POp(torch.distributed.isend, buf, dst, group),
         torch.distributed.P2POp(torch.distributed.irecv, recv, src, group)])
     return Hop(reqs, buf, recv, list(ts), device)
+
+
+class Sent:
+    """A stage send in flight (send): `wait()` blocks until it is out.
+    It holds the buffer until then."""
+
+    def __init__(self, reqs, buf: torch.Tensor):
+        self._reqs, self._buf = reqs, buf
+
+    def wait(self) -> None:
+        for r in self._reqs:
+            r.wait()
+
+
+def _p2p(op, buf: torch.Tensor, peer: int, group):
+    return torch.distributed.batch_isend_irecv(
+        [torch.distributed.P2POp(op, buf, peer, group)])
+
+
+def send(ts: Sequence[torch.Tensor], group, dst: int) -> Sent:
+    """Send the tensors to job rank `dst` of `group`, packed into one
+    buffer of bytes, as one batch_isend_irecv; returns at once (the
+    caller waits before it reuses or frees what it sent). Under gloo a
+    CUDA tensor goes through pinned host memory."""
+    pipe_exchanges["send"] += 1
+    buf = _as_bytes(ts)
+    if _staged(buf, group):
+        buf = _to_host(buf)
+    return Sent(_p2p(torch.distributed.isend, buf, dst, group), buf)
+
+
+def recv(like: Sequence[torch.Tensor], group, src: int,
+         device: torch.device) -> List[torch.Tensor]:
+    """Receive what job rank `src` sent with `send`: tensors shaped and
+    typed as `like` (their shapes and dtypes are read; meta tensors do),
+    on `device`."""
+    pipe_exchanges["recv"] += 1
+    n = sum(t.numel() * t.element_size() for t in like)
+    staged = (device.type == "cuda"
+              and torch.distributed.get_backend(group) == "gloo")
+    buf = torch.empty(n, dtype=torch.uint8, pin_memory=staged,
+                      device="cpu" if staged else device)
+    for r in _p2p(torch.distributed.irecv, buf, src, group):
+        r.wait()
+    return _from_bytes(buf.to(device, non_blocking=True), like)
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Job rank `src`'s `t` on every rank of `group` (the others pass a
+    tensor of the same shape and dtype to receive into); any dtype (the
+    bytes move). Under gloo a CUDA tensor goes through pinned host
+    memory."""
+    pipe_exchanges["broadcast"] += 1
+    buf = _as_bytes([t])
+    staged = _staged(buf, group)
+    if staged:
+        buf = _to_host(buf)
+    torch.distributed.broadcast(buf, src, group=group)
+    if not staged and torch.distributed.get_rank() == src:
+        return t
+    return _from_bytes(buf.to(t.device, non_blocking=True), [t])[0]
 
 
 def host_sum(arr: np.ndarray, group=None) -> np.ndarray:

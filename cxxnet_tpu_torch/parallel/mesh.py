@@ -1,31 +1,33 @@
-"""Device-spec parsing and the data x model x seq mesh (counterpart of
-cxxnet_tpu/parallel/mesh.py).
+"""Device-spec parsing and the data x model x seq x expert x pipe mesh
+(counterpart of cxxnet_tpu/parallel/mesh.py).
 
 Config surface as in the JAX package: `dev = gpu:0-3`, `dev = cpu:0,2`,
 `mesh = data:8`, `mesh = model:2`, `mesh = data:2,model:2`, `mesh =
-seq:2`, `mesh = data:2,seq:2`. In PyTorch's idiom a mesh of N devices
-is N processes with one device each. The ranks are laid out row-major
-in the spec's axis order, as `np.asarray(devices).reshape(sizes)` lays
-out the JAX package's mesh: under `data:N,model:M` rank = d * M + m,
-under `data:D,seq:S` rank = d * S + s. Each axis has one process group
-per line of the mesh along it - the data group of a rank holds the
-ranks that differ from it in the data index only (they hold the same
-model shard and sequence block and sum their batch statistics), the
-model group the ranks of one replica and sequence block that split its
-weights, the seq group the ranks of one replica and model shard that
-split the sequence (ring and Ulysses attention, parallel/ring.py) - and
-the gradient group holds every rank of one model shard (data x seq:
+seq:2`, `mesh = data:2,seq:2`, `mesh = data:2,pipe:4`, `mesh =
+data:2,seq:2,expert:2`. In PyTorch's idiom a mesh of N devices is N
+processes with one device each. The ranks are laid out row-major in
+the spec's axis order, as `np.asarray(devices).reshape(sizes)` lays out
+the JAX package's mesh: under `data:N,model:M` rank = d * M + m, under
+`data:D,pipe:P` rank = d * P + p. Each axis has one process group per
+line of the mesh along it - the data group of a rank holds the ranks
+that differ from it in the data index only (they hold the same shards
+and sequence block and sum their batch statistics), the model group the
+ranks of one replica and sequence block that split its weights, the seq
+group the ranks that split the sequence (ring and Ulysses attention,
+parallel/ring.py), the expert group the ranks that split the experts of
+a moe layer, the pipe group the stages of a pipelined
+transformer_stack, in stage order (`pipe_peers`) - and the gradient
+group holds the ranks of one model / expert / pipe index (data x seq:
 the ranks whose gradients add up to the replica's). Every rank creates
 every group, in one order. `Mesh` carries the axis sizes, this
 process's index on each axis and its groups (None = the default group
 of torch.distributed, used where a group spans the whole job). A
-one-process mesh has no group at all.
+one-process mesh has no group at all. A mesh without a data axis
+replicates the batch: every rank feeds all of its rows.
 
-The data, model and seq axes are ported; `pipe` and `expert` above
-size 1 raise NotImplementedError naming the axis. The JAX package's
-pruning rule is carried over as it is: a single-controller job shrinks
-the data axis to the largest size that divides the batch; a
-multi-controller job refuses an indivisible batch.
+The JAX package's pruning rule is carried over as it is: a
+single-controller job shrinks the data axis to the largest size that
+divides the batch; a multi-controller job refuses an indivisible batch.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
-_PORTED_AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS)
-_OTHER_AXES = ("pipe", "expert")
+EXPERT_AXIS = "expert"
+PIPE_AXIS = "pipe"
+AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, EXPERT_AXIS, PIPE_AXIS)
 
 _ACTIVE_MESH: List[Optional["Mesh"]] = [None]
 
@@ -46,11 +49,12 @@ _ACTIVE_MESH: List[Optional["Mesh"]] = [None]
 @dataclass
 class Mesh:
     """The mesh of one process: axis names and sizes, this process's
-    index on the data axis (`rank`), the model axis (`model_rank`) and
-    the seq axis (`seq_rank`), the process group of each (None =
+    index on the data axis (`rank`), the model, seq, expert and pipe
+    axes (`model_rank`, ...), the process group of each (None =
     torch.distributed's default group), the job ranks of its seq group
-    in seq order (`seq_peers`, the ring's neighbours) and the gradient
-    group (data x seq)."""
+    in seq order (`seq_peers`, the ring's neighbours) and of its pipe
+    group in stage order (`pipe_peers`), and the gradient group (data x
+    seq)."""
     axes: Tuple[Tuple[str, int], ...]
     rank: int = 0
     group: object = None
@@ -60,10 +64,25 @@ class Mesh:
     seq_group: object = None
     seq_peers: Tuple[int, ...] = ()
     grad_group: object = None
+    expert_rank: int = 0
+    expert_group: object = None
+    pipe_rank: int = 0
+    pipe_group: object = None
+    pipe_peers: Tuple[int, ...] = ()
 
     @property
     def shape(self) -> dict:
         return dict(self.axes)
+
+    def index(self, axis: str) -> int:
+        """This process's index on `axis`."""
+        return self.rank if axis == DATA_AXIS else getattr(
+            self, f"{axis}_rank")
+
+    def group_of(self, axis: str):
+        """The process group of this process's line along `axis`."""
+        return self.group if axis == DATA_AXIS else getattr(
+            self, f"{axis}_group")
 
 
 class active_mesh:
@@ -107,6 +126,12 @@ def seq_axis_size(mesh: Optional[Mesh]) -> int:
     return mesh.shape.get(SEQ_AXIS, 1)
 
 
+def pipe_axis_size(mesh: Optional[Mesh]) -> int:
+    if mesh is None:
+        return 1
+    return mesh.shape.get(PIPE_AXIS, 1)
+
+
 def batch_shardable(mesh: Optional[Mesh], batch: int) -> bool:
     """The JAX package's eligibility rule for the per-shard op routes
     (LRN, attention, per-shard batch_norm): a real data axis whose size
@@ -144,15 +169,9 @@ def parse_mesh_spec(val: str) -> List[Tuple[str, int]]:
 
 
 def check_axes(axes) -> None:
-    """Refuse every axis but `data`, `model` and `seq` at a size above
-    1."""
+    """Refuse an axis that is not one of the mesh's five."""
     for name, size in axes:
-        if name not in _PORTED_AXES and size > 1:
-            if name in _OTHER_AXES:
-                raise NotImplementedError(
-                    f"mesh = ...,{name}:{size}: the '{name}' axis is not "
-                    "ported to cxxnet_tpu_torch yet (the data, model and "
-                    "seq axes are; see ROADMAP)")
+        if name not in AXES and size > 1:
             raise ValueError(f"unknown mesh axis {name!r}")
 
 
@@ -238,38 +257,38 @@ def _line_groups(order, world: int, rank: int, axes: Sequence[str]):
 def build_mesh(spec: MeshSpec, batch_size: int, world: int = 1,
                rank: int = 0, group=None) -> Mesh:
     """The mesh of a job of `world` processes, this one `rank`
-    (data_axis sizes the data axis, `mesh` the model and seq axes). The
-    mesh must equal the process group: one rank per device."""
+    (data_axis sizes the data axis, `mesh` the others). The mesh must
+    equal the process group: one rank per device."""
     dsize = data_axis(spec, batch_size, world)
-    msize = dict(spec.axes).get(MODEL_AXIS, 1)
-    nseq = dict(spec.axes).get(SEQ_AXIS, 1)
-    size = dsize * msize * nseq
+    given = dict(spec.axes)
+    sizes = {a: (dsize if a == DATA_AXIS else given.get(a, 1))
+             for a in AXES}
+    size = math.prod(sizes.values())
     if size != world:
         if world == 1:
             raise ValueError(
                 f"a mesh of {size} devices needs {size} processes, one "
                 "per device: run the job with param_server = dist under "
                 f"tools/launch_dist -n {size} (this process is alone)")
-        dims = " x ".join(str(n) for n in
-                          (dsize, msize) + ((nseq,) if nseq > 1 else ()))
+        dims = " x ".join(str(sizes[a]) for a in AXES
+                          if a in (DATA_AXIS, MODEL_AXIS) or sizes[a] > 1)
         raise ValueError(
             f"the mesh ({dims} = {size}) must equal the job's "
             f"process count ({world}): one rank per device")
     if world == 1:
         return Mesh(((DATA_AXIS, 1),))
-    sizes = {DATA_AXIS: dsize, MODEL_AXIS: msize, SEQ_AXIS: nseq}
     axes = ((DATA_AXIS, dsize),) + tuple(
-        (a, sizes[a]) for a in (MODEL_AXIS, SEQ_AXIS) if sizes[a] > 1)
+        (a, sizes[a]) for a in AXES[1:] if sizes[a] > 1)
     if len(axes) == 1:
         return Mesh(axes, rank, group, grad_group=group)
     names = [a for a, _ in spec.axes if a in sizes]
     order = [(a, sizes[a]) for a in names] + [
-        (a, sizes[a]) for a in _PORTED_AXES if a not in names]
+        (a, sizes[a]) for a in AXES if a not in names]
     at = coords_of(rank, order)
-    data_group, _ = _line_groups(order, world, rank, [DATA_AXIS])
-    model_group, _ = _line_groups(order, world, rank, [MODEL_AXIS])
-    seq_group, peers = _line_groups(order, world, rank, [SEQ_AXIS])
+    lines = {a: _line_groups(order, world, rank, [a]) for a in AXES}
     grad_group, _ = _line_groups(order, world, rank, [DATA_AXIS, SEQ_AXIS])
-    return Mesh(axes, at[DATA_AXIS], data_group, at[MODEL_AXIS],
-                model_group, at[SEQ_AXIS], seq_group, tuple(peers),
-                grad_group)
+    return Mesh(axes, at[DATA_AXIS], lines[DATA_AXIS][0], at[MODEL_AXIS],
+                lines[MODEL_AXIS][0], at[SEQ_AXIS], lines[SEQ_AXIS][0],
+                tuple(lines[SEQ_AXIS][1]), grad_group, at[EXPERT_AXIS],
+                lines[EXPERT_AXIS][0], at[PIPE_AXIS], lines[PIPE_AXIS][0],
+                tuple(lines[PIPE_AXIS][1]))

@@ -1,17 +1,22 @@
-"""Per-parameter placement on the data x model mesh (counterpart of
+"""Per-parameter placement on the mesh (counterpart of
 cxxnet_tpu/parallel/sharding.py).
 
 Placements are PartitionSpec-like tuples, one axis name or None per
 dim (() = replicated), computed by the JAX package's rules:
 
-- the model axis (tensor parallelism): each layer declares which dim of
-  each param rides 'model' (`Layer.model_shard_dims()`: fullc / conv /
-  seq_fullc / attention's qkv rows on dim 0, attention's `wproj` on
-  dim 1, prelu's and batch_norm's per-channel params on dim 0). A
-  param falls back to replication where the axis is absent, has size
-  1, or does not divide the dim (`shardings_for`). A rank stores its
-  contiguous block of the model dim (`ModelCut`); the layers run on
-  their blocks and close with the collectives of parallel/tensor.py.
+- the model, expert and pipe axes: each layer declares which dim of
+  each param rides each of them (`Layer.model_shard_dims()`: fullc /
+  conv / seq_fullc / attention's qkv rows on dim 0, attention's `wproj`
+  on dim 1, prelu's and batch_norm's per-channel params on dim 0;
+  `expert_shard_dims()`: moe's w1 / w2 / b1 / b2 on dim 0, its gate
+  replicated; `pipe_shard_dims()`: every stacked param of a
+  transformer_stack on dim 0). Model is asked first, then expert, then
+  pipe, and the first axis to claim a dim keeps it. A param falls back
+  to replication on an axis that is absent, has size 1, or does not
+  divide the dim (`shardings_for`). A rank stores its contiguous block
+  of each cut dim (`ParamCut`); the layers run on their blocks and
+  close with the collectives of parallel/tensor.py (model, expert) or
+  the stage hops of layers/transformer_stack.py (pipe).
 - the ZeRO cut over the data axis: one tree (`zero_partition_dims`)
   drives all three stages, so updater state (stage 1), gradients and
   the update_period accumulator (stage 2) and the weights between steps
@@ -30,7 +35,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from cxxnet_tpu_torch.parallel import distributed
-from cxxnet_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from cxxnet_tpu_torch.parallel.mesh import (
+    DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh)
+
+# the axes a layer places params on, in the order they claim a dim
+SHARD_AXES = (MODEL_AXIS, EXPERT_AXIS, PIPE_AXIS)
 
 Shapes = Dict[str, Dict[str, Tuple[int, ...]]]
 Key = Tuple[str, str]
@@ -45,25 +54,30 @@ def _spec(spec) -> tuple:
 
 
 def param_pspecs(shapes: Shapes, net=None) -> Dict[str, Dict[str, tuple]]:
-    """The declared placement of every param: the model axis on the dim
-    its layer's `model_shard_dims` names, else () - replicated. Without
-    a net (or on a layer declaring nothing) every param is
-    replicated."""
-    dims_of: Dict[str, Dict[str, int]] = {}
+    """The declared placement of every param: each of the model, expert
+    and pipe axes on the dim its layer's `model_shard_dims`,
+    `expert_shard_dims`, `pipe_shard_dims` names, unless an axis asked
+    before it claimed that dim; else () - replicated. Without a net (or
+    on a layer declaring nothing) every param is replicated."""
+    dims_of: Dict[str, Tuple[Tuple[str, Dict[str, int]], ...]] = {}
     if net is not None:
         from cxxnet_tpu_torch.nnet.network import param_key
         for idx, info in enumerate(net.cfg.layers):
             if not info.is_shared:
+                lay = net.layer_objs[idx]
                 dims_of[param_key(net.cfg, idx)] = (
-                    net.layer_objs[idx].model_shard_dims())
+                    (MODEL_AXIS, lay.model_shard_dims()),
+                    (EXPERT_AXIS, lay.expert_shard_dims()),
+                    (PIPE_AXIS, lay.pipe_shard_dims()))
     out: Dict[str, Dict[str, tuple]] = {}
     for lk, d in shapes.items():
         out[lk] = {}
         for pn, shape in d.items():
             spec = [None] * len(shape)
-            i = dims_of.get(lk, {}).get(pn)
-            if i is not None:
-                spec[i] = MODEL_AXIS
+            for axis, dims in dims_of.get(lk, ()):
+                i = dims.get(pn)
+                if i is not None and spec[i] is None:
+                    spec[i] = axis
             out[lk][pn] = _spec(spec)
     return out
 
@@ -162,31 +176,36 @@ def zero_region_specs(mesh: Mesh, shapes: Shapes, pspecs=None,
     return scatter, gather
 
 
-class ModelCut:
-    """This rank's model shard of every param placed on 'model': its dim
-    and this rank's contiguous block of it. `local(t, lk, pn)` cuts a
-    full tensor to the block (a copy); `gather(local)` all-gathers the
-    blocks over the model group back into full tensors."""
+class ParamCut:
+    """This rank's shard of every param placed on the model, expert or
+    pipe axis: for each cut dim its axis and this rank's contiguous
+    block of it (the rank's index on that axis). `local(t, lk, pn)`
+    cuts a full tensor to its blocks (a copy); `gather(local)`
+    all-gathers the blocks over each axis's group back into full
+    tensors."""
 
     def __init__(self, mesh: Mesh, specs: Dict[str, Dict[str, tuple]],
                  shapes: Shapes):
         self.mesh = mesh
-        self.n = mesh.shape.get(MODEL_AXIS, 1)
-        self.rank = mesh.model_rank
-        self.dims: Dict[Key, int] = {
-            (lk, pn): spec.index(MODEL_AXIS)
-            for lk, d in specs.items() for pn, spec in d.items()
-            if MODEL_AXIS in spec}
+        self.sizes = {a: mesh.shape.get(a, 1) for a in SHARD_AXES}
+        # (lk, pn) -> ((dim, axis), ...) of every cut param
+        self.dims: Dict[Key, Tuple[Tuple[int, str], ...]] = {}
+        for lk, d in specs.items():
+            for pn, spec in d.items():
+                cut = tuple((i, ax) for i, ax in enumerate(spec)
+                            if ax in SHARD_AXES)
+                if cut:
+                    self.dims[(lk, pn)] = cut
         self.full_shapes = shapes
 
-    def is_cut(self, lk: str, pn: str) -> bool:
-        return (lk, pn) in self.dims
+    def is_cut(self, lk: str, pn: str, axis: Optional[str] = None) -> bool:
+        """Whether (lk, pn) is cut (over `axis`, when given)."""
+        return any(axis in (None, ax) for _, ax in self.dims.get((lk, pn), ()))
 
     def local_shape(self, lk: str, pn: str) -> Tuple[int, ...]:
         shape = list(self.full_shapes[lk][pn])
-        i = self.dims.get((lk, pn))
-        if i is not None:
-            shape[i] //= self.n
+        for i, ax in self.dims.get((lk, pn), ()):
+            shape[i] //= self.sizes[ax]
         return tuple(shape)
 
     def local_shapes(self) -> Shapes:
@@ -194,34 +213,38 @@ class ModelCut:
                 for lk, d in self.full_shapes.items()}
 
     def local(self, t: torch.Tensor, lk: str, pn: str) -> torch.Tensor:
-        i = self.dims.get((lk, pn))
-        if i is None:
+        cut = self.dims.get((lk, pn))
+        if cut is None:
             return t
-        k = t.shape[i] // self.n
-        return t.narrow(i, self.rank * k, k).contiguous()
+        for i, ax in cut:
+            k = t.shape[i] // self.sizes[ax]
+            t = t.narrow(i, self.mesh.index(ax) * k, k)
+        return t.contiguous()
 
     def local_tree(self, tree):
         return {lk: {pn: self.local(t, lk, pn) for pn, t in d.items()}
                 for lk, d in tree.items()}
 
     def gather(self, tree):
-        """Full tensors from this rank's blocks (one all-gather over the
-        model group for every cut param); the rest as they are."""
-        keys = [(lk, pn) for lk in sorted(tree) for pn in sorted(tree[lk])
-                if (lk, pn) in self.dims]
+        """Full tensors from this rank's blocks (one all-gather over each
+        axis's group for every param cut over it); the rest as they
+        are."""
         out = {lk: dict(d) for lk, d in tree.items()}
-        if not keys:
-            return out
-        flat = torch.cat([tree[lk][pn].reshape(-1) for lk, pn in keys])
-        parts = distributed.all_gather(flat, self.mesh.model_group)
-        off = 0
-        for lk, pn in keys:
-            t = tree[lk][pn]
-            n = t.numel()
-            out[lk][pn] = torch.cat(
-                [p[off:off + n].view(t.shape) for p in parts],
-                dim=self.dims[(lk, pn)])
-            off += n
+        for axis in SHARD_AXES:
+            keys = [(lk, pn) for lk in sorted(out) for pn in sorted(out[lk])
+                    if self.is_cut(lk, pn, axis)]
+            if not keys:
+                continue
+            flat = torch.cat([out[lk][pn].reshape(-1) for lk, pn in keys])
+            parts = distributed.all_gather(flat, self.mesh.group_of(axis))
+            off = 0
+            for lk, pn in keys:
+                t = out[lk][pn]
+                n = t.numel()
+                i = next(i for i, ax in self.dims[(lk, pn)] if ax == axis)
+                out[lk][pn] = torch.cat(
+                    [p[off:off + n].view(t.shape) for p in parts], dim=i)
+                off += n
         return out
 
 

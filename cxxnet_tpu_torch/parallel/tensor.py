@@ -1,13 +1,14 @@
-"""The model axis's collectives: tensor parallelism by hand (the JAX
-package lets GSPMD insert these from the parameter placements of
-parallel/sharding.py).
+"""The model and expert axes' collectives: tensor and expert
+parallelism by hand (the JAX package lets GSPMD insert these from the
+parameter placements of parallel/sharding.py).
 
 Between layers every activation is whole and the same on the model
-ranks of one data replica. A layer whose weight is cut over 'model'
-runs on its block and closes with one of three differentiable
+(expert) ranks of one data replica. A layer whose weight is cut over
+'model' runs on its block and closes with one of three differentiable
 collectives over the model group - Megatron's pair and the
 row-parallel reduce (`column` wraps the pair around a column-parallel
-layer's local op):
+layer's local op); moe's local experts close with `enter` and `reduce`
+over the expert group (`axis = "expert"`):
 
 - `enter(x)`: identity forward; all-reduce of the gradient backward.
   Where a replicated activation enters a cut weight, each rank's
@@ -18,7 +19,16 @@ layer's local op):
 - `reduce(y)`: all-reduce forward (each rank's partial product of a
   row-parallel contraction); identity backward.
 
-`calls` counts each collective's forward (the graph audit reads it).
+`shared_sum(x, mesh)` is the data axis's: the sum over the data group
+of a statistic each rank takes of its own rows (moe's load-balance
+counts), which every rank then uses alike, each rank's loss holding
+its 1/n share of the term it feeds; its backward multiplies the
+gradient by n - the sum over the ranks of their (equal) gradients, so
+each rank's parameters get the whole term's gradient through its own
+rows.
+
+`calls` counts enter / gather / reduce forwards (the graph audit reads
+it).
 bfloat16 values cross as their bits (a gather) or in float32 (a sum).
 """
 
@@ -30,7 +40,7 @@ import torch
 
 from cxxnet_tpu_torch.parallel import distributed
 from cxxnet_tpu_torch.parallel.mesh import (
-    Mesh, get_active_mesh, model_axis_size)
+    MODEL_AXIS, Mesh, data_axis_size, get_active_mesh, model_axis_size)
 
 calls = {"enter": 0, "gather": 0, "reduce": 0}
 
@@ -90,9 +100,21 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
-def enter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+class _SharedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.n = n
+        return _sum_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.n, None, None
+
+
+def enter(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS
+          ) -> torch.Tensor:
     calls["enter"] += 1
-    return _Enter.apply(x, mesh.model_group)
+    return _Enter.apply(x, mesh.group_of(axis))
 
 
 def gather(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
@@ -100,9 +122,14 @@ def gather(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
     return _Gather.apply(x, dim, mesh.model_group, mesh.model_rank)
 
 
-def reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def reduce(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS
+           ) -> torch.Tensor:
     calls["reduce"] += 1
-    return _Reduce.apply(x, mesh.model_group)
+    return _Reduce.apply(x, mesh.group_of(axis))
+
+
+def shared_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _SharedSum.apply(x, mesh.group, data_axis_size(mesh))
 
 
 def column(x: torch.Tensor, dim: int, mesh: Mesh,

@@ -2050,3 +2050,166 @@ def test_seq_parallel_two_ranks_on_the_card(cuda_device, tmp_path):
                  else 1 if (case["causal"] and r == 0) else 2)
             assert case["launches"] == {"attn_fwd": n, "attn_dq": n,
                                         "attn_dkv": n}, case["launches"]
+
+
+PX_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+sys.path.insert(0, os.environ["CXN_TEST_REPO"])
+from cxxnet_tpu_torch import kernels
+from cxxnet_tpu_torch.io.data import DataBatch
+from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+from cxxnet_tpu_torch.parallel import distributed
+work = os.environ["CXN_TEST_WORK"]
+with open(os.path.join(work, "spec.json")) as f:
+    spec = json.load(f)
+t = NetTrainer(device="cuda:0", cfg=spec["cfg"] + '''
+param_server = dist
+mesh = ''' + spec["mesh"] + "\n")
+with open(os.path.join(work, "init.model"), "rb") as f:
+    t.load_model(f)
+lb, lo = t._local_batch, t._local_row_start
+z = np.load(os.path.join(work, "batch.npz"))
+kernels.reset_launches()
+for i in range(2):
+    t.update(DataBatch(data=z["x"][i, lo:lo + lb],
+                       label=z["y"][i, lo:lo + lb]))
+launches = kernels.launches()
+out = {f"{k}/{n}": v.cpu().numpy() for k, d in t._whole_params().items()
+       for n, v in d.items()}
+np.savez(os.path.join(work, f"rank{distributed.process_index()}.npz"), **out)
+print(json.dumps({
+    "launches": launches, "bad": t.check_weights(),
+    "backend": distributed.backend(),
+    "exchanges": dict(distributed.pipe_exchanges),
+    "shapes": {f"{k}/{n}": list(v.shape)
+               for k, d in t.state["params"].items()
+               for n, v in d.items()}}), flush=True)
+"""
+
+PX_STACK = """
+netconfig=start
+layer[0->1] = pos_embed:pe
+layer[1->2] = transformer_stack:ts1
+  nlayer = {nlayer}
+  nhead = 4
+  nhidden = 112
+layer[2->3] = layernorm:lnf
+layer[3->4] = moe:moe1
+  nexpert = 4
+  nhidden = 56
+  moe_top_k = 2
+layer[4->5] = flatten
+layer[5->6] = fullc:head
+  nhidden = 10
+  init_sigma = 0.01
+layer[6->6] = softmax
+netconfig=end
+input_shape = 1,28,28
+random_type = xavier
+batch_size = 16
+dtype = float32
+eta = 0.05
+momentum = 0.9
+dev = gpu:0
+silent = 1
+"""
+
+
+def _two_ranks_against_one(tmp_path, cfg: str, mesh: str):
+    """(one process's params before and after 2 steps of 16 rows on the
+    card, each of two ranks' report and whole params after the same
+    steps at `mesh`, sharing the card over gloo)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(21)
+    x = rng.randn(2, 16, 1, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, size=(2, 16, 1)).astype(np.float32)
+    np.savez(tmp_path / "batch.npz", x=x, y=y)
+    with open(tmp_path / "spec.json", "w") as f:
+        json.dump({"cfg": cfg, "mesh": mesh}, f)
+    t = NetTrainer(device="cuda:0", cfg=cfg)
+    t.init_model()
+    with open(tmp_path / "init.model", "wb") as f:
+        t.save_model(f)
+    before = {f"{k}/{n}": v.cpu().numpy().copy()
+              for k, d in t.state["params"].items() for n, v in d.items()}
+    for i in range(2):
+        t.update(DataBatch(data=x[i], label=y[i]))
+    ref = {f"{k}/{n}": v.cpu().numpy()
+           for k, d in t.state["params"].items() for n, v in d.items()}
+    del t
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "px_worker.py"
+    script.write_text(PX_WORKER)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=repo, CXN_TEST_REPO=repo,
+                 CXN_TEST_WORK=str(tmp_path),
+                 CXN_COORDINATOR=f"127.0.0.1:{port}", CXN_NUM_WORKER="2",
+                 CXN_WORKER_RANK=str(r), CXN_LOCAL_RANK=str(r)))
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    reps = []
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+        reps.append(json.loads(out.strip().splitlines()[-1]))
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    for key, b in before.items():
+        np.testing.assert_array_equal(ranks[0][key], ranks[1][key])
+        d_ref, d_px = ref[key] - b, ranks[0][key] - b
+        den = float(np.linalg.norm(d_ref))
+        rel = float(np.linalg.norm(d_px - d_ref)) / den if den else 0.0
+        assert rel <= 2e-3, (key, rel)
+    return reps
+
+
+def test_pipe_parallel_two_ranks_on_the_card(cuda_device, tmp_path):
+    """A stack_moe-like net (2 blocks, float32) at mesh = pipe:2 as two
+    ranks sharing the card over gloo, 2 steps of 16 rows, against one
+    process on the card: each param's update within 2e-3 of its norm,
+    the ranks' weights equal; each stage holds 1 of the 2 blocks and
+    launches K2-fwd / K2-dq / K2-dkv once per microbatch (M = 2) a step;
+    the stage hops and broadcasts staged through pinned host memory."""
+    reps = _two_ranks_against_one(tmp_path, PX_STACK.format(nlayer=2),
+                                  "pipe:2")
+    for r, rep in enumerate(reps):
+        assert rep["backend"] == "gloo" and rep["bad"] == [], rep
+        assert rep["shapes"]["ts1/wqkv"] == [1, 84, 28]
+        assert {n: rep["launches"][n] for n in
+                ("attn_fwd", "attn_dq", "attn_dkv")} == {
+                    "attn_fwd": 4, "attn_dq": 4, "attn_dkv": 4}, rep
+        assert rep["exchanges"] == {"send": 4, "recv": 4,
+                                    "broadcast": 4}, rep
+
+
+def test_expert_parallel_two_ranks_on_the_card(cuda_device, tmp_path):
+    """The same net with 1 block at mesh = expert:2: each rank runs 2 of
+    the 4 experts on every row, the gate whole; updates within 2e-3 of
+    one process's, weights equal; K2 once a step on each rank."""
+    reps = _two_ranks_against_one(tmp_path, PX_STACK.format(nlayer=1),
+                                  "expert:2")
+    for rep in reps:
+        assert rep["backend"] == "gloo" and rep["bad"] == [], rep
+        assert rep["shapes"]["moe1/w1"] == [2, 56, 28]
+        assert rep["shapes"]["moe1/gate"] == [4, 28]
+        assert {n: rep["launches"][n] for n in
+                ("attn_fwd", "attn_dq", "attn_dkv")} == {
+                    "attn_fwd": 2, "attn_dq": 2, "attn_dkv": 2}, rep

@@ -186,20 +186,22 @@ def test_multi_device_specs_raise(spec):
 
 
 @pytest.mark.parametrize("key,val,exc,match", [
-    ("mesh", "pipe:2", NotImplementedError, "pipe"),
-    ("mesh", "expert:2", NotImplementedError, "expert"),
-    # the seq axis is ported: in one process its mesh raises at the
-    # build, as a data or model axis does (the id it had while the axis
-    # itself raised)
+    # the pipe, expert and seq axes are ported: in one process their
+    # meshes raise at the build, as a data or model axis does (the ids
+    # they had while the axes themselves raised)
+    pytest.param("mesh", "pipe:2", ValueError, "param_server = dist",
+                 id="mesh-pipe:2-NotImplementedError-pipe"),
+    pytest.param("mesh", "expert:2", ValueError, "param_server = dist",
+                 id="mesh-expert:2-NotImplementedError-expert"),
     pytest.param("mesh", "seq:2", ValueError, "param_server = dist",
                  id="mesh-seq:2-NotImplementedError-seq"),
     ("mesh", "model:2", ValueError, "param_server = dist"),
     ("mesh", "data:2", ValueError, "param_server = dist"),
 ])
 def test_result_changing_keys_raise(key, val, exc, match):
-    """What the parallelism slices do not port raises naming itself:
-    the pipe and expert axes at set_param; a data, model or seq axis
-    larger than the job (one process here) at the net's build."""
+    """A mesh larger than the job (one process here) raises at the net's
+    build, naming param_server = dist: a data, model, seq, pipe or
+    expert axis alike."""
     tr = NetTrainer(device="cpu", cfg=SMALL_NET)
     with pytest.raises(exc, match=match):
         tr.set_param(key, val)

@@ -319,21 +319,17 @@ def test_launch_dist_ends_a_job_whose_rank_died(tmp_path):
     ("mesh", "data:2,model:2,expert:2", "expert"), ("mesh", "seq:2", "seq"),
     ("mesh", "pipe:2", "pipe"), ("mesh", "expert:2", "expert")])
 def test_unported_parallelism_raises(key, val, match):
-    """The pipe and expert axes raise at set_param, naming themselves.
-    The seq axis is ported: set_param takes it, and in one process its
-    mesh raises at the net's build naming param_server = dist, as a data
-    or model axis larger than the job does (tests/test_torch_seq_parallel
-    .py runs it as ranks)."""
-    if match == "seq":
-        tr = NetTrainer(device="cpu", cfg=SMALL_MLP.format(fg=0))
-        tr.set_param(key, val)
-        assert dict(tr.mesh_spec.axes)["seq"] == 2
-        with pytest.raises(ValueError, match="param_server = dist"):
-            tr.init_model()
-        return
-    tr = NetTrainer(device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tr.set_param(key, val)
+    """The seq, pipe and expert axes are ported (the case ids are those
+    of the refusals they replaced): set_param takes the mesh, and in one
+    process it raises at the net's build naming param_server = dist, as
+    a data or model axis larger than the job does
+    (tests/test_torch_seq_parallel.py, test_torch_pipe_parallel.py and
+    test_torch_expert_parallel.py run them as ranks)."""
+    tr = NetTrainer(device="cpu", cfg=SMALL_MLP.format(fg=0))
+    tr.set_param(key, val)
+    assert dict(tr.mesh_spec.axes)[match] == 2
+    with pytest.raises(ValueError, match="param_server = dist"):
+        tr.init_model()
 
 
 def test_alias_after_explicit_zero_stage_is_ignored(capsys):

@@ -341,7 +341,11 @@ for step, (d, l) in enumerate(zip(data["data"], data["label"])):
 report["bad"] = t.check_weights()
 report["train"] = t.eval_train_metric()
 report["ring_calls"] = dict(ring.calls)
+report["pipe_exchanges"] = dict(distributed.pipe_exchanges)
 report["ustate_bytes"] = t.ustate_bytes()
+report["shapes"] = {f"{lk}/{pn}": list(a.shape)
+                    for lk, dd in t.state["params"].items()
+                    for pn, a in dd.items()}
 out = t._host_params()
 np.savez(f"{spec['out']}.{rank}.npz",
          **{f"{lk}/{pn}": a for lk, dd in out.items() for pn, a in dd.items()})
@@ -357,7 +361,7 @@ if spec.get("evals"):
             np.concatenate([t.predict_dist(b) for b in evals]))
     # a node the network holds seq-sharded comes back whole
     np.save(f"{spec['out']}.{rank}.extract.npy",
-            np.concatenate([t.extract_feature(b, "top[-5]")
+            np.concatenate([t.extract_feature(b, spec["extract"])
                             for b in evals]))
 print(json.dumps(report), flush=True)
 """
@@ -392,12 +396,14 @@ def _jax_keeps(jt, steps: int) -> dict:
 
 
 def run_seq(tmp_path, cfg, mesh, shape, steps=3, evals=0, save=False,
-            save_init=False, jax_cfg=None, train=True):
+            save_init=False, jax_cfg=None, train=True, extract="top[-5]",
+            shift=0.0):
     """(JAX trainer after `steps` updates at `mesh`, each port rank's
     whole params, each rank's report). The ranks start from the JAX
     trainer's checkpoint, feed the rows of their data index of the same
-    global batches (numpy, seeded) and take the JAX trainer's dropout
-    masks."""
+    global batches (numpy, seeded; `shift` added to the first 4
+    features of the first half of the rows, so that two data shards
+    differ) and take the JAX trainer's dropout masks."""
     import jax
     from cxxnet_tpu.io.data import DataBatch
     sizes = dict(_sizes(mesh))
@@ -407,10 +413,13 @@ def run_seq(tmp_path, cfg, mesh, shape, steps=3, evals=0, save=False,
             "init": str(tmp_path / "init.model"),
             "batches": str(tmp_path / "batches.npz"),
             "out": str(tmp_path / "port"), "save": save,
-            "save_init": save_init}
+            "save_init": save_init, "extract": extract}
     with open(spec["init"], "wb") as f:
         jt.save_model(f)
     data, label = make_batches(spec["batches"], shape, 4, steps)
+    if shift:
+        data[:, :4, ..., :4] += shift
+        np.savez(spec["batches"], data=data, label=label)
     keeps = _jax_keeps(jt, steps)
     if keeps:
         spec["keeps"] = str(tmp_path / "keeps.npz")
@@ -445,15 +454,15 @@ def run_seq(tmp_path, cfg, mesh, shape, steps=3, evals=0, save=False,
         eb = [DataBatch(data=d, label=l) for d, l in zip(edata, elabel)]
         jt.jax_eval = jt.evaluate(Batches(eb), "test")
         jt.jax_pred = np.concatenate([jt.predict_dist(b) for b in eb])
-        jt.jax_extract = np.concatenate([jt.extract_feature(b, "top[-5]")
+        jt.jax_extract = np.concatenate([jt.extract_feature(b, extract)
                                          for b in eb])
     return jt, jparams, ports, reports
 
 
-def assert_held(jparams, ports, reports):
+def assert_held(jparams, ports, reports, rtol=RTOL, atol=ATOL):
     """Every rank's params bitwise equal to rank 0's (check_weights
-    clean, over the data, model and seq groups) and within the bar of
-    the JAX trainer's."""
+    clean, over the data, model, seq, expert and pipe groups) and within
+    the bar (`rtol` / `atol`) of the JAX trainer's."""
     for rep in reports:
         assert rep["bad"] == [], rep
     for r in range(1, len(ports)):
@@ -464,7 +473,7 @@ def assert_held(jparams, ports, reports):
     for key in ports[0]:
         lk, pn = key.split("/")
         np.testing.assert_allclose(ports[0][key], np.asarray(jparams[lk][pn]),
-                                   rtol=RTOL, atol=ATOL, err_msg=key)
+                                   rtol=rtol, atol=atol, err_msg=key)
 
 
 @pytest.mark.parametrize("mesh", ["data:1,seq:2", "data:2,seq:2"])
