@@ -107,8 +107,8 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    since in a long-lived process torch.profiler can lose the card's
    kernel events; there a trace without kernel events fails the leg,
    which runs once more in another fresh process and then fails the
-   script. (a) runs after phase 3b, (b) and (d) after phase 9, (c) and
-   (d)'s CLI after phase 10: (a) K1-fwd and K1-bwd at GoogLeNet.conf's b256
+   script. (a) runs after phase 3b, (b) and (d) in a lane beside the
+   legs of 10g-15, (c) and (d)'s CLI beside phase 10's CLI runs: (a) K1-fwd and K1-bwd at GoogLeNet.conf's b256
    LRN shapes (256,64,56,56) and (256,192,56,56), float32 and bfloat16,
    against their plain versions, with the plan, times, device time and
    the bound; (b) examples/ImageNet/GoogLeNet.conf unedited (b256,
@@ -172,7 +172,7 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    10's CLI runs: it checks and times nothing);
 14. the native image decoder (`use_native`, io/native.py over
    csrc/nvjpeg_io.cu), in a fresh process (`chip_smoke.py --leg 14 OUT
-   [DIR FMT]`, run inside phase 10's directory after 13; alone it makes
+   [DIR FMT]`, run inside phase 10's directory after 10g; alone it makes
    its own timing set): (a) the library built, its backend, nvJPEG's
    version and path, the hardware decoder's facts, and its kernel
    YccToRgb against its plain version bitwise at 256 x 256 (4:2:0 and
@@ -316,6 +316,31 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    stack_moe.conf b100 bfloat16 at mesh = pipe:2 (K2 4-4-4 a step a
    rank) and its stage hop of (50, 28, 28) bfloat16, with CUDA events
    and the host clock.
+21. elastic training and serving on a mesh (`chip_smoke.py --leg 21 OUT`
+   runs both alone): (a) after 20d, with no other rank alive,
+   tools/elastic_smoke.py on the card - examples/LongSeq/seq_mnist.conf
+   as shipped (b100, bfloat16, dropout) on 200 + 100 synthetic images, 3
+   rounds, a 2-member pod on cuda:0 over gloo, the leader (member 0,
+   which serves the job's store) killed at its 3rd dispatched step
+   (round 2's first), elastic_respawn = 0: a 2 -> 1 reshape with member
+   1 the new leader, one publisher a round and no orphan temporary
+   file, the final checkpoint's sha256 equal to an uninterrupted
+   1-member run's from the same rollback checkpoint, the eval lines
+   equal after it; each generation's members, leader, publishers,
+   seconds from spawn to first step and teardown seconds, and K2-fwd /
+   K2-dq / K2-dkv launched by every member in every generation, K2-dq
+   once a trained step; (b) inside phase 4's process, AlexNet.conf
+   served by a one-process trainer at mesh = data:2 through the Server:
+   the buckets the data axis gives, phase 4's first requests' rows
+   against the Server without a mesh at phase 4's bfloat16 bar, K1-fwd
+   twice a batch, no plain version.
+
+The timed single-process legs of 10-15 run in three lanes side by side,
+each lane's legs one after the other: 10g, 14 and 15, which the host's
+decode and augment pace, beside 13 and 12, and beside 11b and 11d.
+Their times are taken beside the other lanes' work; the kernels' own
+times (phases 3, 3b and 3c), 16c and 17-21 are taken with nothing else
+on the card.
 
 It prints one JSON line with every kernel's numbers, then, as the last
 line, {"ok": true, "device": {...}}. With no card, or outside a
@@ -964,16 +989,22 @@ def say_tc_instances(built) -> None:
                 if spill != ("0", "0"):
                     raise AssertionError(f"{name} {desc} spills registers")
                 cur = None
+    from concurrent.futures import ThreadPoolExecutor
     from cxxnet_tpu_torch import kernels
     tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         say("cuobjdump not found beside nvcc: SASS not inspected")
         return
-    for name, op in TC_OPCODE.items():
-        sass = subprocess.run([tool, "-sass", kernels._lib_path(name)],
+
+    def sass(name):
+        return subprocess.run([tool, "-sass", kernels._lib_path(name)],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
-        n = sass.count(op)
+    # one cuobjdump a library, all started together
+    with ThreadPoolExecutor(len(TC_OPCODE)) as pool:
+        listings = dict(zip(TC_OPCODE, pool.map(sass, TC_OPCODE)))
+    for name, op in TC_OPCODE.items():
+        n = listings[name].count(op)
         say(f"{name}: {n} {op} instructions in the library's SASS")
         if n == 0:
             raise AssertionError(f"{name} has no {op} instruction: not on "
@@ -1323,6 +1354,8 @@ def phase_serving(torch, card):
         f"{fwd_ms:.3f} ms (CUDA events, {64 / fwd_ms * 1e3:.0f} rows/s "
         f"device-only) on {card}")
     served["forward_ms"] = fwd_ms
+
+    served["mesh"] = serve_on_a_mesh(torch, card, reqs[:6], results[:6])
 
     rtol, atol = BF16_RTOL, BF16_ATOL
     worst, worst_rel, undecided, flipped = check_bf16_rows(tr, reqs,
@@ -3381,12 +3414,13 @@ def timed_settings(torch, tr, block, tdir, device_ms, card, results,
 
 def phase_image_pipeline(torch, card, cli_phases=(), then=None):
     """Phase 10: the image data pipeline on the card; then `then(d)`
-    (phases 13-15) while phase 10's imgbin set under `d` still exists.
-    The CLI runs of 10c, 10d, 11c (GoogLeNet.conf on the same set), 11d
-    (stack_moe.conf) and `cli_phases`, functions of `d` (5, 7, 8c, 13f,
-    14b-c, 15b and 15d) check and time nothing: they run side by side.
-    Returns ((AlexNet's, GoogLeNet's and stack_moe's CLI launches, the
-    cli_phases' results), 10g's timing, then's result)."""
+    while phase 10's imgbin set under `d` still exists - or, without
+    `then`, leg 10g. The CLI runs of 10c, 10d, 11c (GoogLeNet.conf on
+    the same set), 11d (stack_moe.conf) and `cli_phases`, functions of
+    `d` (5, 7, 8c, 13f, 14b-c, 15b and 15d) check and time nothing: they
+    run side by side. Returns ((AlexNet's, GoogLeNet's and stack_moe's
+    CLI launches, the cli_phases' results), then's result or 10g's
+    timing)."""
     import scipy
     say("== phase 10a: environment of the image pipeline ==")
     fmt, pil = image_format_used()
@@ -3417,10 +3451,12 @@ def phase_image_pipeline(torch, card, cli_phases=(), then=None):
         counts = (counts[0], counts[2], counts[3], counts[4:])
         phase_staged_vs_streamed(torch, d)
         phase_device_augment_vs_host(torch, d)
-        timing = run_leg(torch, "10g", d, fmt)
-        say(f"phase 10 took {time.perf_counter() - t10:.1f} s")
-        after = then(d) if then is not None else None
-    return counts, timing, after
+        if then is None:
+            after = run_leg(torch, "10g", d, fmt)
+            say(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+        else:
+            after = then(d)
+    return counts, after
 
 
 # ---------------------------------------------------------------------------
@@ -6058,9 +6094,11 @@ def dp_references(torch, work: str, images, labels):
     return losses
 
 
-def dp_count_plain(torch):
+def dp_count_plain(torch, undo=None):
     """Count calls of what must not run on the main path: the plain
-    versions of K1 and K2, F.local_response_norm and SDPA."""
+    versions of K1 and K2, F.local_response_norm and SDPA. With a list
+    `undo`, each (module, name, function) wrapped is appended to it, so
+    the caller can put the functions back."""
     import torch.nn.functional as F
     from cxxnet_tpu_torch.ops import flash_attention as FA
     from cxxnet_tpu_torch.ops import lrn as L
@@ -6069,6 +6107,8 @@ def dp_count_plain(torch):
     def wrap(mod, name):
         fn = getattr(mod, name)
         calls[name] = 0
+        if undo is not None:
+            undo.append((mod, name, fn))
 
         def counted(*a, **k):
             calls[name] += 1
@@ -7653,6 +7693,146 @@ def phase_pipe_expert(torch, card, work=None, ranks=None):
     return {"cli": cli, "ranks": ranks, "secs": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: elastic training, and serving on a one-process mesh
+# ---------------------------------------------------------------------------
+
+def serve_on_a_mesh(torch, card, reqs, ref_rows):
+    """21b: AlexNet.conf served by a one-process trainer at mesh = data:2
+    (task = serve's trainer: the params whole, the data axis sizing the
+    buckets) to `reqs`; their rows held to `ref_rows` (the same requests
+    through a Server without a mesh) at phase 4's bfloat16 bar."""
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.serve import Server
+    say("== phase 21b: AlexNet.conf served on a one-process mesh (mesh = "
+        "data:2, task = serve's trainer) ==")
+    tr = alexnet_trainer(["task=serve", "mesh=data:2"])
+    if not tr.one_process or tr.serve_data_axis != 2:
+        raise AssertionError(f"21b: one_process {tr.one_process}, data "
+                             f"axis {tr.serve_data_axis}; want True, 2")
+    srv = Server(tr, max_batch=64)
+    want = (2, 4, 8, 16, 32, 64)
+    if tuple(srv.buckets) != want:
+        raise AssertionError(f"21b buckets {srv.buckets}, want {want}")
+    srv.warmup()
+    kernels.reset_launches()
+    undo = []
+    calls = dp_count_plain(torch, undo)
+    try:
+        srv.start()
+        rows = [srv.submit(r).result(timeout=300) for r in reqs]
+        stats = srv.stop()
+    finally:
+        for mod, name, fn in undo:
+            setattr(mod, name, fn)
+    launches = kernels.launches()["lrn_fwd"]
+    if any(calls.values()):
+        raise AssertionError(f"21b: plain versions ran: {calls}")
+    if launches != 2 * stats["batches"] or not stats["batches"]:
+        raise AssertionError(f"21b: lrn_fwd {launches} over "
+                             f"{stats['batches']} batches, want 2 a batch")
+    worst, worst_rel, undecided, flipped = check_bf16_rows(
+        tr, reqs, rows, ref_rows)
+    sizes = [int(r.shape[0]) for r in reqs]
+    say(f"21b buckets {list(srv.buckets)} (data axis 2; without a mesh "
+        f"1, 2, 4, ..., 64); {len(reqs)} requests of {sizes} rows in "
+        f"{stats['batches']} batches ({stats['padding_rows']} padding "
+        f"rows), lrn_fwd {launches} = 2 a batch, plain versions {calls}")
+    say(f"21b rows against the same requests through the Server without "
+        f"a mesh: max abs {worst:.3e}, max rel {worst_rel:.3e} where p >= "
+        f"1e-3 (bar rtol {BF16_RTOL}, atol {BF16_ATOL}); {undecided} rows "
+        f"within the bar of a tie, {flipped} argmax flips; {card}")
+    out = {"buckets": list(srv.buckets), "launches": launches,
+           "batches": stats["batches"], "max_abs": worst,
+           "max_rel": worst_rel, "plain_calls": calls}
+    del tr, srv
+    torch.cuda.empty_cache()
+    return out
+
+
+ELASTIC_ROUNDS, ELASTIC_KILL_HIT = 3, 3
+
+
+def phase_elastic(torch, card):
+    """21a: tools/elastic_smoke.py on the card (see the module
+    docstring); returns its summary."""
+    say("== phase 21a: elastic training - seq_mnist.conf as shipped as a "
+        "2-member pod on the card (gloo), the leader killed at its "
+        f"{ELASTIC_KILL_HIT}rd dispatched step, elastic_respawn = 0 ==")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "summary.json")
+        log = os.path.join(d, "elastic_smoke.log")
+        (rc, secs), = run_procs([(
+            "elastic", tool_cmd(
+                "cxxnet_tpu_torch.tools.elastic_smoke", "--dev", "gpu:0",
+                "--out", os.path.join(d, "pod"), "--conf", SEQ_CONF,
+                "--nproc", "2", "--rounds", str(ELASTIC_ROUNDS),
+                "--kill-hit", str(ELASTIC_KILL_HIT), "--train", "200",
+                "--test", "100", "--json", out), log)],
+            timeout=600).values()
+        for ln in tail(log, 40).splitlines():
+            if ln.startswith(("  [", "elastic-smoke:")):
+                say("21a " + ln.strip())
+        if rc != 0:
+            raise AssertionError(f"phase 21a: elastic_smoke exit code {rc}:"
+                                 f"\n{tail(log, 60)}")
+        with open(out) as f:
+            s = json.load(f)
+    if s["generations"] != {"0": [0, 1], "1": [1]}:
+        raise AssertionError(f"21a generations {s['generations']}")
+    if s["rollback_round"] != 1:
+        raise AssertionError(f"21a rollback round {s['rollback_round']}")
+    for g, members in sorted(s["generations"].items()):
+        leaders = sorted({ld for gg, ld in s["leaders"] if str(gg) == g})
+        t = s["timing"][g]
+        say(f"21a generation {g}: members {members}, leader {leaders}, "
+            f"spawn to first step {t['spawn_to_first_step_s']} s, teardown "
+            f"{t['teardown_s']} s")
+    say(f"21a publishers a round {s['publishers']}; rollback round "
+        f"{s['rollback_round']}")
+    say(f"21a sha256 interrupted {s['sha256']['interrupted']}, "
+        f"uninterrupted {s['sha256']['uninterrupted']}")
+    for rnd in sorted(s["eval_lines"]["interrupted"], key=int):
+        say(f"21a eval {s['eval_lines']['interrupted'][rnd]!r} | "
+            f"{s['eval_lines']['uninterrupted'].get(rnd)!r}")
+    launches = dict(s["launches_a"], **{f"ref.{k}": v for k, v in
+                                        s["launches_b"].items()})
+    if sorted(s["launches_a"]) != ["m0.g0", "m1.g0", "m1.g1"]:
+        raise AssertionError(f"21a round records {sorted(s['launches_a'])}")
+    for tag, rec in sorted(launches.items()):
+        n = {k: rec["launches"][k] for k in K2}
+        if not (n["attn_fwd"] > 0 and n["attn_dq"] == n["attn_dkv"]
+                == rec["steps"] > 0):
+            raise AssertionError(f"21a {tag}: K2 {n} over {rec['steps']} "
+                                 "trained steps; want K2-dq = K2-dkv = "
+                                 "steps and K2-fwd > 0")
+        say(f"21a {tag} (to round {rec['round']}, {rec['steps']} steps): "
+            f"K2 {n}")
+    s["secs"] = time.perf_counter() - t0
+    say(f"21a took {s['secs']:.1f} s; every K2 launch is a CUDA kernel's "
+        f"(on a CUDA tensor the wrappers launch or raise); {card}")
+    return s
+
+
+def leg_elastic(torch, card):
+    """`chip_smoke.py --leg 21 OUT`: 21a, then 21b with phase 4's first
+    six requests served without a mesh for its reference."""
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.serve import Server
+    kernels.build_all()   # built by phase 2; run as a leg, built here
+    el = phase_elastic(torch, card)
+    tr = alexnet_trainer([])
+    rng = np.random.RandomState(11)
+    reqs = [(rng.rand(n, 3, 227, 227) * 255.0 - 128.0).astype(np.float32)
+            for n in (64, 1, 3, 17, 40, 7)]
+    with Server(tr, max_batch=64) as srv:
+        ref = [srv.submit(r).result(timeout=300) for r in reqs]
+    del tr, srv
+    return {"elastic": el, "mesh": serve_on_a_mesh(torch, card, reqs, ref)}
+
+
 LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "11b": phase_googlenet_step, "11d": phase_stack_moe,
         "12": phase_front, "13": phase_surface, "14": phase_native,
@@ -7663,7 +7843,7 @@ LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "1718w": leg_all_worker, "19r": leg_sp_cli_worker,
         "19": phase_seq_parallel, "19u": sp_untimed, "19w": leg_sp_worker,
         "20": phase_pipe_expert, "20u": px_untimed, "20r": leg_px_cli_worker,
-        "20w": leg_px_worker}
+        "20w": leg_px_worker, "21": leg_elastic}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 
@@ -7671,14 +7851,27 @@ def run_leg(torch, name: str, *args: str):
     """Phase `name` in a fresh python process (this script with --leg,
     then `args`), its lines printed as they come; returns its result. A
     leg whose trace lost the card's kernel events runs once more in
-    another fresh process; any other failure raises."""
+    another fresh process; any other failure raises. Inside
+    side_by_side its lines are held with the phase's own, so that the
+    legs of two lanes do not interleave."""
     torch.cuda.empty_cache()
+    held = getattr(_HELD, "lines", None)
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "result.json")
         for attempt in (1, 2):
-            rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                 "--leg", name, out, *args],
-                                timeout=900).returncode
+            try:
+                proc = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__), "--leg", name,
+                     out, *args], timeout=900, text=True,
+                    stdout=None if held is None else subprocess.PIPE)
+            except subprocess.TimeoutExpired as e:
+                if held is not None and e.stdout:
+                    held.extend((e.stdout if isinstance(e.stdout, str) else
+                                 e.stdout.decode()).splitlines())
+                raise
+            if held is not None:
+                held.extend(proc.stdout.splitlines())
+            rc = proc.returncode
             if rc == 0:
                 with open(out) as f:
                     return json.load(f)
@@ -7772,18 +7965,19 @@ def main() -> int:
     phase_int8_mlp(torch, card)
     phase_int8_cli()
     say(f"phase 9 took {time.perf_counter() - t9:.1f} s")
-    t11 = time.perf_counter()
-    g_step = run_leg(torch, "11b")
-    moe = run_leg(torch, "11d")
-    say(f"phase 11b and 11d on the card took "
-        f"{time.perf_counter() - t11:.1f} s")
     # the parts of 13-15 that check and time nothing run beside phase
     # 10's CLI runs; the legs then skip them
     fmt = image_format_used()[0]
     tz_work = tempfile.mkdtemp(prefix="chip_smoke_tz_")
     try:
-        (cli_counts, g_cli, moe["cli_counts"], beside), timing, \
-            (surface, nat, disp) = phase_image_pipeline(
+        # the timed single-process legs run in three lanes side by side:
+        # the image legs, which the host's decode and augment pace (10g,
+        # then 14, then 15), beside the surface and the serving front
+        # (13, then 12) and GoogLeNet's and stack_moe's steps (11b, then
+        # 11d); each leg's times are taken beside the other lanes'
+        (cli_counts, g_cli, moe_cli, beside), \
+            ((timing, nat, disp), (surface, front), (g_step, moe)) = \
+            phase_image_pipeline(
                 torch, card, (lambda d: phase_cli(),
                               lambda d: phase_cli_train(),
                               lambda d: phase_seq_cli(),
@@ -7791,14 +7985,18 @@ def main() -> int:
                               lambda d: run_leg(torch, "14u"),
                               lambda d: dispatch_seq_cli(torch, card),
                               dispatch_profile_cli),
-                lambda d: (run_leg(torch, "13", d, "0"),
-                           run_leg(torch, "14", d, fmt, "0"),
-                           run_leg(torch, "15", d, "0")))
+                lambda d: side_by_side(
+                    lambda: (run_leg(torch, "10g", d, fmt),
+                             run_leg(torch, "14", d, fmt, "0"),
+                             run_leg(torch, "15", d, "0")),
+                    lambda: (run_leg(torch, "13", d, "0"),
+                             run_leg(torch, "12")),
+                    lambda: (run_leg(torch, "11b"), run_leg(torch, "11d"))))
+        moe["cli_counts"] = moe_cli
         surface["cli"] = beside[3]
         nat.update(beside[4])
         disp["seq_cli"], disp["profile_cli"] = beside[5], beside[6]
         native_cli(cli_counts)
-        front = run_leg(torch, "12")
         front_launches = (front["in_process"]["lrn_fwd"]
                           + front["http"]["lrn_fwd"])
         front_batches = (front["in_process"]["batches"]
@@ -7831,6 +8029,9 @@ def main() -> int:
         px = phase_pipe_expert(torch, card, tz_work, [b["px"] for b in both])
     finally:
         shutil.rmtree(tz_work, ignore_errors=True)
+    # after 20d, with no other rank alive: each generation's ranks start
+    # beside no other card context
+    elastic = phase_elastic(torch, card)
 
     # the kernels line: the LRN's two launches of one served AlexNet
     # batch (b64, bfloat16), warm L2, summed - the main path's unit
@@ -7990,6 +8191,19 @@ def main() -> int:
                                 "at mesh = pipe:2, per rank (2 blocks a "
                                 "stage, M = 2; phase 20d)"}
 
+    def elastic_pod(name):
+        """Phase 21a: K2 of every member of the elastic pod, each
+        generation, at its last whole round."""
+        return {"elastic_launches": {
+            tag: rec["launches"][name]
+            for tag, rec in sorted(elastic["launches_a"].items())},
+            "elastic_unit": "seq_mnist.conf b100 bfloat16 as shipped as "
+                            "an elastic pod on the card: member m of "
+                            "generation g (m<M>.g<G>), its process's "
+                            "launches at its last whole round (1 round "
+                            "in generation 0, rounds 2-3 in 1), training "
+                            "and eval (phase 21a)"}
+
     def stack_moe(name):
         """K2 on stack_moe.conf's path (11d)."""
         out = {"stack_moe_replaces": "cxxnet_tpu/layers/transformer_stack"
@@ -8045,6 +8259,11 @@ def main() -> int:
         **dispatch("lrn_fwd"),
         **data_parallel("lrn_fwd"),
         **tensor_zero("lrn_fwd"),
+        "mesh_serve_launches": float_served["mesh"]["launches"],
+        "mesh_serve_batches": float_served["mesh"]["batches"],
+        "mesh_serve_unit": "AlexNet.conf served by a one-process trainer "
+                           "at mesh = data:2, 6 requests, 2 a batch "
+                           "(phase 21b)",
     }, {
         "name": "lrn_bwd",
         "route": "cuda",
@@ -8072,7 +8291,8 @@ def main() -> int:
         **tensor_zero("lrn_bwd"),
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
                **stack_moe(n), **dispatch(n), **data_parallel(n),
-               **tensor_zero(n), **seq_parallel(n), **pipe_expert(n))
+               **tensor_zero(n), **seq_parallel(n), **pipe_expert(n),
+               **elastic_pod(n))
           for n in K2] + [dict(int8_entry(k3_rows, int8_served, 0),
                                front_launches=front["int8"]["int8_mm"],
                                front_batches=front["int8"]["batches"],
@@ -8142,6 +8362,11 @@ def main() -> int:
             for k in ("pipe", "expert")},
         "ranks": [{k: r[k] for k in ("step_ms", "step_host_ms", "hop_ms",
                                      "hop_host_ms")} for r in px["ranks"]]}))
+    say("phase 21 summary " + json.dumps({
+        "elastic": {k: elastic[k] for k in (
+            "generations", "leaders", "publishers", "rollback_round",
+            "sha256", "timing", "secs")},
+        "mesh_serve": float_served["mesh"]}))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({

@@ -84,11 +84,11 @@ Ground rules:
   device each, in one torch.distributed process group (param_server =
   dist under tools/launch_dist, `mesh`, a device list): the data axis
   with ZeRO 1-3, sharded iterators, test_on_server, sync-BN and
-  fullc_gather; the model, seq, expert and pipe axes. Config values
-  that change results and that the port does not implement yet -
-  elastic and its keys, serving with a data axis - raise
-  NotImplementedError naming the key; they are never silently ignored.
-  Every single-device key is ported.
+  fullc_gather; the model, seq, expert and pipe axes; elastic training
+  (`parallel/coordinator.py`, `parallel/elastic.py`: round barriers,
+  the leader's one checkpoint, respawn or reshape of a pod that loses a
+  member). `task = serve` serves in one process whose mesh only sizes
+  the buckets. Every key of the JAX package is ported.
 - PyTorch idiom inside: plain functions on tensors and modules with an
   explicit device, an explicit `torch.Generator` for every random draw,
   `torch.autograd.Function` where a kernel needs a gradient (the

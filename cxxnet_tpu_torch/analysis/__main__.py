@@ -238,8 +238,6 @@ def main(argv=None) -> int:
                   f"acq={site['acquisitions']} "
                   f"wait={site['wait_total_ms']:.1f}ms "
                   f"held_max={site['held_max_ms']:.1f}ms")
-        for d in audit["deferred"]:
-            print(f"  [deferred] {d['target']}: {d['reason']}")
         print(f"lock-audit: {len(audit['checks'])} checks, "
               f"{audit['failed']} failed; {audit['sites']} lock "
               f"sites, {len(audit['edges'])} order edges, "

@@ -20,6 +20,22 @@ Rules (stable ids - the waiver contract):
   ``.get`` on a cfg-like dict whose key the port's config schema
   registry (analysis/schema.py) does not recognize - a typo'd key
   silently reads the default forever.
+- **GL007 unsharded-large-intermediate** (the torch form): in a
+  mesh-aware module - one under ``parallel/``, or one that imports the
+  cut placements ``ZeroCut`` / ``ParamCut`` (parallel/sharding.py) - an
+  allocator (``zeros_like`` / ``empty_like`` / ``full_like`` /
+  ``ones_like``) of a weight-named value (params, grads, accumulator,
+  updater state, moments, the master weights ``master`` / ``w``, the
+  gradient tree ``gtree`` / ``g``), directly or as the function a
+  ``map`` / ``_tree_map`` applies, in a statement that does not go
+  through the cut (no ``local`` / ``local_tree`` / ``owned`` /
+  ``cut_shape`` / ``local_shape`` / ``reduce_scatter`` call). The
+  allocation takes the shape of what it is given: where a rank holds
+  only its cut of that value, an allocation from the whole tensor
+  builds on every rank the whole tensor the ZeRO stages and the model,
+  expert and pipe cuts exist to keep off it. A waiver names what keeps
+  the tensor whole there (the stage that holds it whole, the gather
+  that fills it).
 - **GL008 metric-name-style**: a string-literal metric/beacon name
   passed to a telemetry instrument call (``telemetry.inc`` /
   ``set_gauge`` / ``observe`` / ``span`` / ``counter`` / ``gauge`` /
@@ -51,9 +67,7 @@ Rules of the JAX package's lint that do not carry over:
   on a tensor is a host read, which GL002 covers on the hot paths;
 - GL005 (donated-arg-reuse): there is no buffer donation in eager
   PyTorch - the trainer updates its tensors in place, and the graph
-  audit (analysis/graph_audit.py, ``update-in-place``) checks that;
-- GL007 (unsharded-large-intermediate) needs a device mesh and comes
-  with the parallelism slice.
+  audit (analysis/graph_audit.py, ``update-in-place``) checks that.
 
 Waiver syntax, per line::
 
@@ -83,6 +97,7 @@ RULES: Dict[str, str] = {
     "GL002": "host-sync-in-hot-path",
     "GL004": "wallclock-duration",
     "GL006": "unknown-config-key",
+    "GL007": "unsharded-large-intermediate",
     "GL008": "metric-name-style",
     "GL010": "bare-acquire",
     "GL011": "thread-daemon-missing",
@@ -96,7 +111,7 @@ RULES: Dict[str, str] = {
 }
 
 # the JAX package's rule ids this lint does not carry (module docstring)
-NOT_CARRIED = ("GL001", "GL003", "GL005", "GL007")
+NOT_CARRIED = ("GL001", "GL003", "GL005")
 
 # the GL01x subset: the concurrency tier (together with waiver hygiene, which cannot be waived)
 CONCURRENCY_RULES = ("GL010", "GL011", "GL012", "GL013", "GL014",
@@ -118,6 +133,18 @@ _SYNC_METHODS = frozenset({"item", "cpu", "tolist", "numpy",
                            "synchronize"})
 _NP_NAMES = frozenset({"np", "numpy", "onp"})
 _CAST_BUILTINS = frozenset({"float", "int", "bool"})
+# GL007: allocators that take the shape of a (possibly cut) tensor; the
+# names of the values a rank may hold only its cut of; the cut's calls
+# that make a statement go through it; the cut placements whose import
+# makes a module mesh-aware
+_ALLOCATORS = frozenset({"zeros_like", "ones_like", "full_like",
+                         "empty_like"})
+_WEIGHTY_RE = re.compile(
+    r"param|grad|accum|ustate|state|weight|moment|master|gtree|^[wg]$",
+    re.IGNORECASE)
+_CUT_CALLS = frozenset({"local", "local_tree", "owned", "cut_shape",
+                        "local_shape", "reduce_scatter"})
+_CUT_NAMES = frozenset({"ZeroCut", "ParamCut"})
 
 
 @dataclass
@@ -153,6 +180,7 @@ class _FileCtx:
     path: str
     rel: str
     tree: ast.AST
+    mesh_aware: bool = False
     waivers: List[_Waiver] = field(default_factory=list)
     hot_lines: Set[int] = field(default_factory=set)
     # raw `# guarded-by:` notes: (target_line, lock_text, comment_line)
@@ -1030,14 +1058,93 @@ def _concurrency_pass(ctx: _FileCtx) -> None:
 
 
 # ---------------------------------------------------------------------------
+# GL007 unsharded-large-intermediate (the torch form)
+# ---------------------------------------------------------------------------
+def _mesh_aware(ctx: _FileCtx) -> bool:
+    """A module under parallel/, or one that imports a cut placement."""
+    parts = os.path.normpath(ctx.rel).split(os.sep)
+    if "parallel" in parts[:-1]:
+        return True
+    return any(isinstance(n, ast.ImportFrom)
+               and any(al.name in _CUT_NAMES for al in n.names)
+               for n in ast.walk(ctx.tree))
+
+
+def _value_names(expr: ast.expr) -> Set[str]:
+    """The names an expression reads a value from (an attribute's last
+    name, a subscript's base), not the names of the calls it makes."""
+    out: Set[str] = set()
+    for n in ast.walk(expr):
+        if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load):
+            out.add(n.id)
+        elif isinstance(n, ast.Attribute):
+            out.add(n.attr)
+    for n in ast.walk(expr):
+        if isinstance(n, ast.Call):
+            out.discard(_last_name(n.func))
+    return out
+
+
+def _rule_unsharded_intermediate(ctx: _FileCtx, fn: ast.AST) -> None:
+    fname = getattr(fn, "name", "<lambda>")
+
+    def weighty(exprs: Sequence[ast.expr]) -> str:
+        for e in exprs:
+            for name in sorted(_value_names(e)):
+                if _WEIGHTY_RE.search(name):
+                    return name
+        return ""
+
+    for st in _walk_no_funcs_inclusive(fn):
+        # simple statements only: the smallest enclosing statement is
+        # the waiver / cut granularity
+        if not isinstance(st, (ast.Assign, ast.AugAssign,
+                               ast.AnnAssign, ast.Return, ast.Expr)):
+            continue
+        calls = [n for n in _walk_no_funcs_inclusive(st)
+                 if isinstance(n, ast.Call)]
+        if any(_last_name(n.func) in _CUT_CALLS for n in calls):
+            continue
+        for n in calls:
+            call = _last_name(n.func)
+            args = list(n.args) + [kw.value for kw in n.keywords]
+            if call in _ALLOCATORS:
+                src = weighty(args)
+                if src:
+                    ctx.emit(
+                        "GL007", n,
+                        f"{call}('{src}') in '{fname}' of a mesh-aware "
+                        "module builds the whole tensor where a rank may "
+                        "hold only its cut; take the shape through the "
+                        "cut (ParamCut.local / ZeroCut.owned), or waive "
+                        "naming what keeps the tensor whole here")
+            elif call.endswith("map") and any(
+                    isinstance(a, (ast.Name, ast.Attribute))
+                    and _last_name(a) in _ALLOCATORS for a in n.args):
+                src = weighty(n.args[1:])
+                if src:
+                    ctx.emit(
+                        "GL007", n,
+                        f"{call} of an allocator over '{src}' in "
+                        f"'{fname}' of a mesh-aware module builds a "
+                        "whole tensor a leaf where a rank may hold only "
+                        "its cut; take the shapes through the cut, or "
+                        "waive naming what keeps the tree whole here")
+
+
+# ---------------------------------------------------------------------------
 # driver
 # ---------------------------------------------------------------------------
 def _function_visits(ctx: _FileCtx) -> None:
     """Visit every function: the config-key rule everywhere, the
-    host-sync rule in hot-path marked ones."""
+    allocation rule in mesh-aware modules, the host-sync rule in
+    hot-path marked ones."""
+    ctx.mesh_aware = _mesh_aware(ctx)
     for node in ast.walk(ctx.tree):
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             _rule_cfg_keys(ctx, node)
+            if ctx.mesh_aware:
+                _rule_unsharded_intermediate(ctx, node)
             if node.lineno in ctx.hot_lines:
                 _rule_host_sync(ctx, node)
 

@@ -44,8 +44,10 @@ The audited paths are the real exercised ones:
   on the card, ``PlainBinReader`` (its plain version, a decode pool) on
   the CPU - the code the JAX package threads in native/cxxnet_io.cc.
 
-The JAX audit's ``elastic-coordinator`` scenario needs the port's
-parallel package and is not run (ROADMAP queue 1 item 6).
+- ``elastic-coordinator``: two members' lease-heartbeat threads plus
+  concurrent barrier() calls from their training threads
+  (parallel/coordinator.py): barriers, one leader, a publish, a
+  conviction.
 
 ``--seed-inversion`` (CLI) injects a deliberate two-lock ABBA fixture -
 the gate's self-test: the audit MUST fail on it, proving the cycle
@@ -827,6 +829,89 @@ def _scenario_native_decode(aud: LockAuditor, path: str,
     return checks
 
 
+def _scenario_elastic_coordinator(aud: LockAuditor) -> List[Dict[str, Any]]:
+    """The elastic coordinator's threads (parallel/coordinator.py)
+    under audit: two members' lease-heartbeat threads plus concurrent
+    barrier() calls from their training threads - a completed barrier
+    with a single elected leader, a publish, then a conviction (one
+    member stops arriving). It keeps the coordinator's cross-thread
+    lock order in the audited graph."""
+    import tempfile
+
+    from cxxnet_tpu_torch.parallel.coordinator import (
+        ControlPlane, Coordinator, PodReshapeRequired)
+
+    checks: List[Dict[str, Any]] = []
+    with tempfile.TemporaryDirectory() as td:
+        plane = ControlPlane(td)
+        c0 = Coordinator(plane, 0, [0, 1], barrier_secs=5.0,
+                         lease_secs=0.2, poll_secs=0.01)
+        c1 = Coordinator(plane, 1, [0, 1], barrier_secs=5.0,
+                         lease_secs=0.2, poll_secs=0.01)
+        results: Dict[int, Any] = {}
+        errors: List[str] = []
+        res_lock = threading.Lock()
+
+        def trainer(coord: Coordinator) -> None:
+            try:
+                for rnd in range(3):
+                    r = coord.barrier(rnd)
+                    with res_lock:
+                        results[(coord.member, rnd)] = r
+                    if r.is_leader:
+                        path = os.path.join(td, f"{rnd:04d}.model")
+                        with open(path, "wb") as f:
+                            f.write(b"x" * 16)
+                        coord.publish(r, rnd, path, "0" * 64, 16)
+            except Exception as e:  # noqa: BLE001 - reported below
+                with res_lock:
+                    errors.append(f"{type(e).__name__}: {e}")
+
+        with c0, c1:
+            threads = [threading.Thread(target=trainer, args=(c,),
+                                        name=f"elastic-m{c.member}",
+                                        daemon=True)
+                       for c in (c0, c1)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=30.0)
+            # conviction path: member 0 barriers alone at round 3
+            c0.barrier_secs = 0.3
+            try:
+                c0.barrier(3)
+                convicted = False
+            except PodReshapeRequired as e:
+                convicted = e.missing == [1]
+            # heartbeats must have renewed leases while the barriers
+            # ran (sampled after the conviction wait - the barriers
+            # themselves can complete inside one renewal period)
+            renewed = c0.renewals > 0 and c1.renewals > 0
+        leaders = {r.leader for r in results.values()}
+        publishers = [r for r in results.values() if r.is_leader]
+        manifest = plane.read_manifest()
+        checks.append(_check(
+            "elastic-coordinator", "barriers-completed",
+            not errors and len(results) == 6,
+            errors[0] if errors else f"{len(results)}/6 barriers"))
+        checks.append(_check(
+            "elastic-coordinator", "single-leader",
+            leaders == {0} and len(publishers) == 3,
+            f"leaders={sorted(leaders)}, "
+            f"{len(publishers)} leader-side results"))
+        checks.append(_check(
+            "elastic-coordinator", "published",
+            manifest is not None and manifest.get("epoch") == 3,
+            f"manifest={manifest}"))
+        checks.append(_check(
+            "elastic-coordinator", "lease-renewed", renewed,
+            f"renewals: m0={c0.renewals} m1={c1.renewals}"))
+        checks.append(_check(
+            "elastic-coordinator", "conviction-raised", convicted,
+            "absent member convicted at the timed-out barrier"))
+    return checks
+
+
 def _scenario_seeded_inversion(
         aud: LockAuditor) -> List[Dict[str, Any]]:
     """The deliberate ABBA fixture: thread 1 takes A then B, thread 2
@@ -855,7 +940,7 @@ def _scenario_seeded_inversion(
 
 
 SCENARIOS = ("prefetch-round", "watchdog-stall", "serve-storm",
-             "native-decode")
+             "native-decode", "elastic-coordinator")
 
 
 # ---------------------------------------------------------------------------
@@ -894,6 +979,8 @@ def run_lock_audit(scenarios: Optional[Sequence[str]] = None,
                                                      device),
         "native-decode": lambda: _scenario_native_decode(aud, binfile,
                                                          device),
+        "elastic-coordinator":
+            lambda: _scenario_elastic_coordinator(aud),
     }
     with aud.installed():
         for name in names:
@@ -925,10 +1012,6 @@ def run_lock_audit(scenarios: Optional[Sequence[str]] = None,
     shutil.rmtree(tmpd, ignore_errors=True)
     rep["scenarios"] = list(names)
     rep["device"] = device
-    rep["deferred"] = [{
-        "target": "elastic-coordinator",
-        "reason": "needs the port's parallel package (ROADMAP queue 1 "
-                  "item 6); not run, not passed"}]
     rep["seed_inversion"] = bool(seed_inversion)
     rep["checks"] = checks
     rep["failed"] = sum(1 for c in checks if not c["ok"])

@@ -78,7 +78,18 @@ ranks' weights agree; every rank writes the checkpoint through the
 atomic writer (its own temporary file). Started alone with a
 multi-device `dev` (`dev = gpu:0-3`), the CLI starts the N workers
 itself through launch_dist, each on the card the list names for it.
-`task = serve` with a data axis is not ported.
+`task = serve` serves in one process on a one-process mesh: `mesh` or a
+device list sizes the data axis its buckets are multiples of
+(`serve_max_batch` must be one), the params stay whole; in a
+multi-process job the Server refuses, as the JAX Server does.
+
+Elastic training (`elastic = 1`, `python -m
+cxxnet_tpu_torch.parallel.elastic conf elastic_nproc=N`): every round
+boundary is a barrier over the `coord_dir` control plane (default
+`<model_dir>/coord`; `barrier_secs`, `leader_lease_secs`), the elected
+leader alone writes and publishes the round's checkpoint, and a member
+that misses a barrier is convicted: the worker exits 118 and the
+supervisor rolls the pod back and rebuilds it (parallel/elastic.py).
 """
 
 from __future__ import annotations
@@ -97,7 +108,8 @@ from cxxnet_tpu_torch import kernels, telemetry
 from cxxnet_tpu_torch.io import DataBatch, create_iterator
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer, StagedChunk
 from cxxnet_tpu_torch.parallel import distributed
-from cxxnet_tpu_torch.parallel.mesh import parse_device_spec, parse_mesh_spec
+from cxxnet_tpu_torch.parallel.mesh import (check_device_list,
+                                            parse_device_spec)
 from cxxnet_tpu_torch.utils.config import (check_ported, parse_config_file,
                                            validate_known_keys)
 from cxxnet_tpu_torch.utils.device import (check_spec, device_from_spec,
@@ -107,17 +119,10 @@ from cxxnet_tpu_torch.utils.fault import DivergenceError, atomic_writer
 TASKS = ("train", "finetune", "pred", "pred_raw", "extract", "serve")
 _PRED_TASKS = ("pred", "pred_raw", "extract", "serve")
 
-# task-level keys of the JAX CLI that the port does not implement yet;
-# any value but the inert ones raises NotImplementedError naming the key
-_NOT_PORTED = {
-    "elastic": ("0",),
-    "barrier_secs": ("30",), "leader_lease_secs": ("10",),
-    "coord_dir": ("",),
-    "elastic_nproc": ("2",), "elastic_respawn": ("1",),
-    "elastic_max_generations": ("8",), "elastic_grace_secs": ("5",),
-    "elastic_poll_secs": ("0.2",), "elastic_absence_secs": ("60",),
-    "elastic_stale_secs": ("60",), "elastic_fault": ("",),
-}
+# task-level keys of the JAX CLI that the port does not implement (none
+# since elastic training was ported); any value but the inert ones
+# would raise NotImplementedError naming the key
+_NOT_PORTED: dict = {}
 
 
 def _eval_values(text: str) -> dict:
@@ -203,6 +208,18 @@ class LearnTask:
         # test_on_server = 1: the ranks' weights are checked equal after
         # every round (CheckWeight_)
         self.test_on_server = 0
+        # elastic pod training (parallel/coordinator.py, elastic.py):
+        # elastic = 1 arms the coordinated-checkpoint barrier at every
+        # round boundary - the pod elects a leader over the coord_dir
+        # control plane (default <model_dir>/coord), only the leader
+        # writes and publishes the round's checkpoint, and an absent
+        # member is convicted so the supervisor can roll back and
+        # reshape. Inert under task = serve, as in the JAX CLI
+        self.elastic = 0
+        self.barrier_secs = 30.0
+        self.leader_lease_secs = 10.0
+        self.coord_dir = ""
+        self._coordinator = None
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
         self.itr_evals = []
@@ -242,17 +259,12 @@ class LearnTask:
                 f"(ported: {', '.join(TASKS)})")
         ids = parse_device_spec(self.device)
         workers = len(ids) if ids and len(ids) > 1 else 1
-        meshed = any(k == "mesh" and any(n > 1 for _, n in
-                                         parse_mesh_spec(v))
-                     for k, v in self.cfg)
-        if self.task == "serve" and (workers > 1 or meshed
-                                     or distributed.process_count() > 1
-                                     or self._param_server() == "dist"):
-            raise NotImplementedError(
-                f"task = serve with a mesh (param_server = dist, `mesh`, "
-                f"or a multi-device dev = {self.device}) is not ported to "
-                "cxxnet_tpu_torch yet (see ROADMAP)")
-        if workers > 1 and int(os.environ.get("CXN_NUM_WORKER", "1")) <= 1:
+        if self.task == "serve":
+            # task = serve serves in one process: a device list or a
+            # mesh shapes its buckets (NetTrainer one_process), as the
+            # JAX CLI serves on a single-process mesh over the devices
+            check_device_list(self.device)
+        elif workers > 1 and int(os.environ.get("CXN_NUM_WORKER", "1")) <= 1:
             return self._launch_workers(argv, workers)
         # arm telemetry before init() so model loads are on the record;
         # with no sink key set this returns the process to the disabled
@@ -298,6 +310,8 @@ class LearnTask:
                 self.task_serve()
             return 0
         finally:
+            if self._coordinator is not None:
+                self._coordinator.close()
             # final snapshot + clean close even on an aborting task
             telemetry.event("run_end", task=self.task,
                             secs=time.monotonic() - t_run)
@@ -329,6 +343,14 @@ class LearnTask:
         check_ported(_NOT_PORTED, name, val)
         if name == "test_on_server":
             self.test_on_server = int(val)
+        if name == "elastic":
+            self.elastic = int(val)
+        if name == "barrier_secs":
+            self.barrier_secs = float(val)
+        if name == "leader_lease_secs":
+            self.leader_lease_secs = float(val)
+        if name == "coord_dir":
+            self.coord_dir = val
         if name == "net_type":
             self.net_type = int(val)
         if name == "keep_latest":
@@ -483,7 +505,8 @@ class LearnTask:
         feed = defcfg + (train or [])
         if self.task in _PRED_TASKS:
             feed = feed + (pred or [])
-        net = NetTrainer(device=device_from_spec(self.device))
+        net = NetTrainer(device=device_from_spec(self.device),
+                         one_process=self.task == "serve")
         for k, v in feed:
             net.set_param(k, v)
         self._check_daug_blocks(net, feed, defcfg, train, evals, pred)
@@ -564,6 +587,8 @@ class LearnTask:
         if distributed.process_count() > 1:
             telemetry.set_tags(proc=distributed.process_index())
         if self.task in ("train", "finetune"):
+            if self.elastic:
+                self._start_coordinator()
             self._init_train()
             return
         if self.name_model_in == "NULL":
@@ -635,6 +660,36 @@ class LearnTask:
         imgbin's use_native (the card: nvJPEG; cpu: the PIL path, or the
         native path's plain version under use_native = 1)."""
         return create_iterator(block, device=device_from_spec(self.device))
+
+    def _start_coordinator(self) -> None:
+        """Arm the elastic coordinator (parallel/coordinator.py):
+        membership comes from the supervisor's generation.json when
+        present (the record names this pod generation's members; this
+        worker's member id arrives in CXN_MEMBER_ID), and degrades to
+        rank-as-member for a job launched without a supervisor."""
+        from cxxnet_tpu_torch.parallel.coordinator import (ControlPlane,
+                                                           Coordinator)
+        coord_dir = self.coord_dir or os.path.join(
+            self.name_model_dir, "coord")
+        os.makedirs(coord_dir, exist_ok=True)
+        generation = 0
+        members = list(range(distributed.process_count()))
+        if os.path.exists(os.path.join(coord_dir, "generation.json")):
+            rec = distributed.read_membership(coord_dir)
+            generation = int(rec.get("generation", 0))
+            members = [int(m) for m in rec["members"]]
+        member_env = os.environ.get("CXN_MEMBER_ID")
+        if member_env is not None:
+            member = int(member_env)
+        else:
+            member = members[distributed.process_index()]
+        self._coordinator = Coordinator(
+            ControlPlane(coord_dir), member, members,
+            generation=generation, barrier_secs=self.barrier_secs,
+            lease_secs=self.leader_lease_secs)
+        self._coordinator.start()
+        telemetry.event("coord", op="start", member=member,
+                        generation=generation, members=members)
 
     def _model_name(self, counter: int) -> str:
         return os.path.join(self.name_model_dir, f"{counter:04d}.model")
@@ -711,14 +766,25 @@ class LearnTask:
         # counter (cxxnet_main.cpp:173-176)
         counter = self.start_counter
         self.start_counter += 1
+        barrier = None
+        if self._coordinator is not None:
+            # elastic pod: every round boundary is a barrier (an absent
+            # member is convicted promptly, not only on save rounds),
+            # and on save rounds only the elected leader writes
+            barrier = self._pod_barrier(counter)
         if self.save_period == 0 or self.start_counter % self.save_period:
+            return
+        if barrier is not None and not barrier.is_leader:
+            telemetry.event("checkpoint", op="skip_nonleader",
+                            round=counter, leader=barrier.leader)
             return
         os.makedirs(self.name_model_dir, exist_ok=True)
         path = self._model_name(counter)
         t0 = time.perf_counter()
-        # every rank writes the (identical) file, each through its own
-        # temporary file
-        with atomic_writer(path, tmp_suffix=self._tmp_suffix()) as fo:
+        # outside a pod every rank writes the (identical) file, each
+        # through its own temporary file; in a pod the leader alone
+        with atomic_writer(path, tmp_suffix=(
+                ".tmp" if barrier is not None else self._tmp_suffix())) as fo:
             self.net_trainer.save_model(fo)
         # end-to-end save cost incl. fsync + rename
         secs = time.perf_counter() - t0
@@ -726,16 +792,42 @@ class LearnTask:
         telemetry.observe("checkpoint.save_s", secs)
         # a round spent fsyncing a large checkpoint is slow, not hung
         telemetry.beacon("checkpoint.save")
+        nbytes = os.path.getsize(path)
         telemetry.event("checkpoint", op="save", round=counter,
-                        path=path, secs=secs,
-                        bytes=os.path.getsize(path))
+                        path=path, secs=secs, bytes=nbytes)
+        if barrier is not None:
+            # the pod-wide publish manifest: the checkpoint the pod
+            # agrees on, stamped with the pod epoch (what a restarted or
+            # reshaped generation resumes from)
+            from cxxnet_tpu_torch.parallel.coordinator import file_sha256
+            self._coordinator.publish(barrier, counter, path,
+                                      file_sha256(path), nbytes)
         self._rotate_models(counter)
-        if self.name_publish and distributed.process_index() == 0:
+        if self.name_publish and (barrier is not None
+                                  or distributed.process_index() == 0):
             # atomic copy to the swap_watch'd path AFTER the round file
-            # is durable; rank 0's alone (the ranks' files are equal, and
-            # one publish path takes one writer)
+            # is durable; one writer (the ranks' files are equal, and
+            # one publish path takes one writer): the pod's leader, else
+            # rank 0
             from cxxnet_tpu_torch.nnet import checkpoint
             checkpoint.publish_model(path, self.name_publish)
+
+    def _pod_barrier(self, counter: int):
+        """One coordinated checkpoint barrier; a conviction exits this
+        worker with RESHAPE_EXIT_CODE so the supervisor rolls the pod
+        back to the published checkpoint and rebuilds it around the
+        missing member."""
+        from cxxnet_tpu_torch.parallel.coordinator import PodReshapeRequired
+        from cxxnet_tpu_torch.utils.fault import RESHAPE_EXIT_CODE
+        try:
+            return self._coordinator.barrier(counter)
+        except PodReshapeRequired as e:
+            telemetry.stderr(
+                f"elastic: {e}; exiting for pod reshape\n",
+                event_kind="coord", op="reshape_exit", round=counter,
+                missing=e.missing, dead=e.dead)
+            sys.stderr.flush()
+            sys.exit(RESHAPE_EXIT_CODE)
 
     @staticmethod
     def _tmp_suffix() -> str:
@@ -899,8 +991,11 @@ class LearnTask:
                 # one registry snapshot, after _save_model so the
                 # round's own save lands in its row
                 telemetry.event("round", round=round_label, **stats)
+                # the metrics record also carries the process's kernel
+                # launches so far (a worker that dies mid-run leaves its
+                # last round's count on the record)
                 telemetry.emit_metrics(kind="round", round=round_label,
-                                       **stats)
+                                       launches=kernels.launches(), **stats)
 
     # ------------------------------------------------------------------
     def _write_atomic(self, lines) -> None:

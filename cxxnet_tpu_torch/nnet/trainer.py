@@ -107,7 +107,10 @@ same update and makes the same check_nan decision. Every rank starts
 from the same seeded init (nothing is broadcast: check_weights proves
 the ranks agree). Evaluation sums its metric rows over the ranks. A
 mesh larger than the job raises, naming param_server = dist and
-tools/launch_dist.
+tools/launch_dist - except in an inference trainer of one process
+(`one_process = True`, the CLI's task = serve), where the mesh cuts
+nothing and its data axis only sizes the serving buckets
+(`serve_data_axis`), as the JAX package serves on a one-process mesh.
 
 ZeRO (parallel/sharding.py: ZeroCut, one cut tree for every stage):
 `zero_stage = 1` (`shard_optimizer`, or `update_on_server = 1`) cuts
@@ -189,7 +192,8 @@ from cxxnet_tpu_torch.ops.int8 import per_channel_scale
 from cxxnet_tpu_torch.parallel import distributed
 from cxxnet_tpu_torch.parallel.mesh import (
     EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, MeshSpec, active_mesh, build_mesh,
-    check_axes, parse_device_spec, parse_mesh_spec)
+    check_axes, check_device_list, data_axis, parse_device_spec,
+    parse_mesh_spec)
 from cxxnet_tpu_torch.parallel.sharding import (
     ParamCut, ZeroCut, shardings_for, zero_partition_dims)
 from cxxnet_tpu_torch.telemetry.flight import fingerprint
@@ -380,7 +384,7 @@ class NetTrainer:
     """Config-driven trainer for one network."""
 
     def __init__(self, dev: str = "", cfg: str = "",
-                 device: Optional[str] = None):
+                 device: Optional[str] = None, one_process: bool = False):
         pairs = parse_config_string(cfg) if cfg else []
         spec = dev
         for k, v in pairs:
@@ -397,6 +401,11 @@ class NetTrainer:
         self._dev_spec = spec
         self.mesh_spec = MeshSpec()
         self.mesh = None
+        # an inference trainer of one process (the CLI's task = serve):
+        # a mesh it is given shapes the serving buckets (the data
+        # axis's size, `serve_data_axis`) and cuts nothing
+        self.one_process = one_process
+        self.serve_data_axis = 1
         self.param_server = "local"
         self.zero_stage = 0
         self._zero_src = ""
@@ -789,6 +798,9 @@ class NetTrainer:
         distributed.init_from_config(self.cfg_pairs, self.device,
                                      self._dev_spec)
         world = distributed.process_count()
+        if self.one_process and world == 1:
+            self._one_process_mesh()
+            return
         self.mesh = build_mesh(self.mesh_spec, self.batch_size, world,
                                distributed.process_index())
         n = self._dsize
@@ -802,6 +814,22 @@ class NetTrainer:
                         and getattr(lay, "fullc_gather", 0)):
                     self._gathered.add((param_key(self.net_cfg, idx),
                                         "wmat"))
+
+    def _one_process_mesh(self) -> None:
+        """The mesh of a one-process inference trainer (one_process):
+        where the JAX package lays a mesh over the devices of one
+        process, here the process holds the params whole on its one
+        device, and the mesh's data axis - `mesh = data:N` or a device
+        list, pruned to divide the batch as the single-controller JAX
+        package prunes it - only sizes the serving buckets. A device
+        list naming a card this machine lacks raises as the JAX mesh
+        does."""
+        spec = MeshSpec(axes=self.mesh_spec.axes,
+                        device_indices=check_device_list(self._dev_spec))
+        self.serve_data_axis = data_axis(spec, self.batch_size, 1)
+        self.mesh = build_mesh(MeshSpec(), self.batch_size)
+        self._local_rows = (self.batch_size, 0)
+        self._gathered = set()
 
     # ------------------------------------------------------------------
     # model lifecycle
@@ -867,7 +895,10 @@ class NetTrainer:
         self._build_updaters()
         self._zero_run = (self.zero_stage if self._dsize > 1
                           else min(self.zero_stage, 1))
-        self._check_zero(self._zero_run,
+        # a one-process inference trainer cuts nothing, but refuses the
+        # stage its mesh's data axis would run, as the JAX trainer does
+        self._check_zero(self.zero_stage if self.serve_data_axis > 1
+                         else self._zero_run,
                          self.mesh.axes + tuple(self.mesh_spec.axes))
         self._remat_segments = (self.net.remat_segments() if self.remat
                                 else None)
@@ -1558,6 +1589,12 @@ class NetTrainer:
             if self.profiler is not None:
                 self.profiler.add_data(data_s)
             t0 = t1
+        # collective-scope fault point (the elastic pod's proofs): the
+        # step carries the job's gradient all-reduce, so kill_rank /
+        # hang_rank / delay_collective armed here murder or wedge one
+        # worker at a deterministic step - every rank hits this point
+        # in the same order, so @N names the same step on every worker
+        fault.fault_point("collective")
         data = batch.data
         # the master params are updated in place: the port's form of
         # the JAX step's donated state
@@ -1622,6 +1659,9 @@ class NetTrainer:
             if self.profiler is not None:
                 self.profiler.add_data(data_s)
             t0 = t1
+        # the same collective-scope fault point as update()'s: one hit
+        # a dispatch (K microsteps), still rank-deterministic
+        fault.fault_point("collective")
         data = chunk.data
         with self._flight_record(
                 ("train_chunk", k, tuple(data.shape)), kind="train",
@@ -1856,6 +1896,7 @@ class NetTrainer:
             accum = gtree
         else:
             if self._accum is None:
+                # graftlint: disable=GL007 gtree is the reduced tree, cut by _reduce_step's reduce_scatter under zero_stage >= 2: each leaf is whole only where its gradient is
                 self._accum = _tree_map(torch.zeros_like, gtree)
             fresh = dc.count == 0
             accum = {lk: {pn: torch.where(fresh, g, self._accum[lk][pn] + g)
@@ -1878,6 +1919,7 @@ class NetTrainer:
             if wv is not w:
                 # this rank's slice; the all-gather below makes it whole
                 cut_new[(lk, pn)] = w_new
+                # graftlint: disable=GL007 the all-gather below fills it: zero_stage 1-2 keep the weights whole (stage 3 steps the stored slice and never gets here)
                 w_new = torch.empty_like(w)
             new.append((w, w_new, ustate[lk][pn], st))
         if cut_new:

@@ -13,7 +13,11 @@ sequence over its ranks (ring and Ulysses attention, ring.py); the
 expert axis splits moe's experts (tensor.py's enter / reduce over the
 expert group); the pipe axis splits a transformer_stack's layers into
 stages run as a GPipe schedule (layers/transformer_stack.py, the stage
-hops of distributed.py). The elastic coordinator is not ported.
+hops of distributed.py). Elastic training runs generations of such
+jobs: a coordinator in each worker barriers every round over a shared
+directory and the leader publishes one checkpoint (coordinator.py); a
+supervisor respawns or drops a lost member and restarts the pod from
+that checkpoint (elastic.py).
 """
 
 from cxxnet_tpu_torch.parallel.mesh import (

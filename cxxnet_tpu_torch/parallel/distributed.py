@@ -32,10 +32,11 @@ from __future__ import annotations
 
 import atexit
 import datetime
+import json
 import os
 import time
 import sys
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -215,6 +216,41 @@ def init_from_config(pairs: Sequence[Tuple[str, str]],
         backoff=float(cfg.get("dist_init_backoff", INIT_BACKOFF)),
         deadline=float(cfg.get("dist_init_deadline", INIT_DEADLINE)),
         device=device, spec=spec or cfg.get("dev", ""))
+
+
+def read_membership(coord_dir: str, attempts: int = INIT_ATTEMPTS,
+                    backoff: float = INIT_BACKOFF,
+                    deadline: float = INIT_DEADLINE) -> Dict[str, Any]:
+    """The pod membership record (``generation.json`` - written by the
+    elastic supervisor before each launch, parallel/coordinator.py),
+    read with the same bounded retry discipline as the job's init: the
+    record may lag the worker by a beat at generation start, and on a
+    network filesystem a read can transiently fail - but a coord_dir
+    that never produces a record must become a clear ConfigError, not
+    a silent hang or a crash on the first ENOENT."""
+    path = os.path.join(coord_dir, "generation.json")
+
+    @retry(attempts=max(1, attempts), backoff=backoff,
+           jitter=backoff / 2, retry_on=(OSError,), deadline=deadline)
+    def _read() -> Dict[str, Any]:
+        with open(path, "r", encoding="utf-8") as f:
+            try:
+                rec = json.load(f)
+            except ValueError as e:
+                # torn read on close-to-open-consistency filesystems:
+                # transient, retry-absorbable like the OSError path
+                raise OSError(f"unparseable membership record: {e}")
+        if not isinstance(rec, dict) or "members" not in rec:
+            raise OSError(f"membership record missing 'members': {rec}")
+        return rec
+
+    try:
+        return _read()
+    except OSError as e:
+        raise ConfigError(
+            f"elastic: cannot read pod membership record {path} "
+            f"after {attempts} attempts (deadline {deadline:g}s): {e}"
+        ) from e
 
 
 def process_count() -> int:

@@ -159,6 +159,23 @@ def parse_device_spec(val: str) -> Optional[List[int]]:
     return [int(t) for t in spec.split(",")]
 
 
+def check_device_list(spec: str) -> Optional[List[int]]:
+    """The device list a `dev` spec names (None without one), refusing
+    a card this machine lacks with the JAX mesh's text (CPU lists name
+    no card and always pass)."""
+    ids = parse_device_spec(spec) if spec else None
+    if not ids or len(ids) < 2:
+        return None
+    if not spec.strip().lower().startswith("cpu"):
+        import torch
+        have = torch.cuda.device_count()
+        if max(ids) >= have:
+            raise ValueError(
+                f"device spec requests index {max(ids)} but only "
+                f"{have} devices are available")
+    return ids
+
+
 def parse_mesh_spec(val: str) -> List[Tuple[str, int]]:
     """`data:8` or `data:8,model:4` -> [(axis, size), ...]."""
     axes = []

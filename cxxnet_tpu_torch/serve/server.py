@@ -126,44 +126,61 @@ class DeadlineExpiredError(RuntimeError):
     dropped before dispatch. HTTP callers see 504."""
 
 
-def _check_max_batch(max_batch: int) -> None:
+def _check_max_batch(max_batch: int, data_axis: int) -> None:
     if max_batch < 1:
         raise ValueError("serve_max_batch must be >= 1")
+    if max_batch % max(data_axis, 1):
+        raise ValueError(
+            f"serve_max_batch={max_batch} must be a multiple of the "
+            f"mesh's data-axis size ({data_axis}) - every bucket "
+            "dispatches over that axis")
 
 
-def bucket_sizes(max_batch: int) -> Tuple[int, ...]:
-    """The padded-batch bucket set: powers of two up to `max_batch`,
-    plus `max_batch` itself."""
-    _check_max_batch(max_batch)
+def bucket_sizes(max_batch: int, data_axis: int = 1) -> Tuple[int, ...]:
+    """The padded-batch bucket set: powers of two up to `max_batch`
+    that the mesh's data axis divides (a bucket's rows must split
+    evenly over the axis), plus `max_batch` itself. At least one
+    bucket must exist - a `max_batch` the data axis does not divide is
+    rejected here, at configure time."""
+    _check_max_batch(max_batch, data_axis)
     out = set()
     b = 1
     while b <= max_batch:
-        out.add(b)
+        if b % data_axis == 0:
+            out.add(b)
         b *= 2
     out.add(max_batch)
     return tuple(sorted(out))
 
 
-def ladder_buckets(ladder: Sequence[int], max_batch: int) -> Tuple[int, ...]:
-    """An explicit bucket ladder (`serve_bucket_ladder =`) folded into a
-    valid bucket set: rungs outside [1, max_batch] are dropped, and
-    `max_batch` closes the ladder."""
-    _check_max_batch(max_batch)
-    out = {int(b) for b in ladder if 1 <= int(b) <= max_batch}
+def ladder_buckets(ladder: Sequence[int], max_batch: int,
+                   data_axis: int = 1) -> Tuple[int, ...]:
+    """An explicit bucket ladder (`serve_bucket_ladder =`, or the
+    autotuner's rungs) folded into a valid bucket set: rungs outside [1,
+    max_batch] or not divisible by the mesh's data axis are dropped (a
+    ladder shaped on one mesh must not break another), and `max_batch`
+    closes the ladder. The max_batch / data-axis contract is
+    bucket_sizes'."""
+    _check_max_batch(max_batch, data_axis)
+    axis = max(data_axis, 1)
+    out = {int(b) for b in ladder
+           if 1 <= int(b) <= max_batch and int(b) % axis == 0}
     out.add(max_batch)
     return tuple(sorted(out))
 
 
-def ladder_from_histogram(hist, max_batch: int,
+def ladder_from_histogram(hist, max_batch: int, data_axis: int = 1,
                           rungs: int = 4) -> Tuple[int, ...]:
     """Shape a bucket ladder from an observed request-size histogram
     ({size: count}, the Server's `request_sizes` stat): one rung at
-    each 1/rungs quantile of the size distribution, closed by
-    `max_batch`. Falls back to bucket_sizes on an empty histogram."""
+    each 1/rungs quantile of the size distribution, rounded up to the
+    data axis, closed by `max_batch`. Falls back to bucket_sizes on an
+    empty histogram."""
     sizes = sorted((int(s), int(c)) for s, c in dict(hist).items()
                    if int(c) > 0 and int(s) >= 1)
     if not sizes:
-        return bucket_sizes(max_batch)
+        return bucket_sizes(max_batch, data_axis)
+    axis = max(data_axis, 1)
     total = sum(c for _, c in sizes)
     ladder = []
     for r in range(1, max(rungs, 1) + 1):
@@ -172,9 +189,9 @@ def ladder_from_histogram(hist, max_batch: int,
         for s, c in sizes:
             acc += c
             if acc >= target:
-                ladder.append(s)
+                ladder.append(-(-s // axis) * axis)  # ceil to axis
                 break
-    return ladder_buckets(ladder, max_batch)
+    return ladder_buckets(ladder, max_batch, data_axis)
 
 
 def predictions_from_rows(rows: np.ndarray) -> np.ndarray:
@@ -411,7 +428,9 @@ class Server:
     start() spawns the dispatcher replicas (warmup() first, so the
     first requests do not pay the setup); submit() from any thread;
     stop() drains the queue, joins the replicas and returns stats().
-    Usable as a context manager."""
+    Usable as a context manager. Every bucket is a multiple of the
+    trainer's one-process data axis (`serve_data_axis`); a job of
+    several processes is refused, as the JAX Server refuses one."""
 
     def __init__(self, trainer, max_batch: int = 0,
                  max_wait_ms: Optional[float] = None,
@@ -440,6 +459,11 @@ class Server:
             raise ValueError(
                 f"Server(device={device!r}) but the trainer lives on "
                 f"{trainer.device}; build both on one device")
+        from cxxnet_tpu_torch.parallel import distributed
+        if distributed.process_count() > 1:
+            raise RuntimeError(
+                "serving a multi-controller job is not supported; run "
+                "the server on a single-process mesh")
         self.trainer = trainer
         self.device = dev
         self.max_batch = int(max_batch or trainer.serve_max_batch
@@ -451,10 +475,13 @@ class Server:
         if self.replicas < 1:
             raise ValueError("serve_replicas must be >= 1")
         self.node = node if node >= 0 else trainer.net_cfg.num_nodes - 1
+        # the data axis of the trainer's one-process mesh: every bucket
+        # is a multiple of it (the params are whole in this process)
+        dsize = trainer.serve_data_axis
         lad = (ladder if ladder is not None
                else getattr(trainer, "serve_ladder", None))
-        self.buckets = (ladder_buckets(lad, self.max_batch) if lad
-                        else bucket_sizes(self.max_batch))
+        self.buckets = (ladder_buckets(lad, self.max_batch, dsize) if lad
+                        else bucket_sizes(self.max_batch, dsize))
         if trainer.passes_need_calibration():
             # the Server serves the graph of the calibration epoch it
             # is built at: warmup rows of zeros must never become the

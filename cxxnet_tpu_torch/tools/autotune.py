@@ -428,8 +428,10 @@ def search(conf_pairs: Sequence[Tuple[str, str]], budget_s: float,
         measured["serve_rows_per_s"] = round(sbest[1], 2)
         # ladder shaped from the storm's own request-size telemetry
         # (docs/SERVING.md "bucket ladder"): adopted only when it does
-        # not lose to the power-of-two set at the winning ceiling
-        shaped = ladder_from_histogram(hist, sbest[0])
+        # not lose to the power-of-two set at the winning ceiling;
+        # rungs ceil to the trainer's data axis so the measured ladder
+        # is the persisted one
+        shaped = ladder_from_histogram(hist, sbest[0], tr.serve_data_axis)
         rows2, _st = measure_serve_rows(tr, sbest[0], per_mb,
                                         ladder=shaped)
         grid["serve_shaped_ladder"] = round(rows2, 2)

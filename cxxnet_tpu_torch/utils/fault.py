@@ -10,7 +10,9 @@ fault-injection registry and the atomic file writer.
   fault points deterministically (the serving front's
   ``serve_dispatch_delay``, ``serve_dispatch_error``,
   ``swap_torn_checkpoint``, ``canary_divergence``,
-  ``canary_judge_error``, ``serve_slow_client``, ...).
+  ``canary_judge_error``, ``serve_slow_client``, ...), and the
+  rank-scoped modes (``kill_rank``, ``hang_rank``, ``delay_collective``)
+  the elastic pod's end-to-end proofs murder one worker with.
 - ``atomic_writer``: tmp-file + fsync + ``os.replace`` (+ a directory
   fsync) so a file either appears complete or not at all.
 """
@@ -108,6 +110,37 @@ def retry(attempts: int = 3, backoff: float = 0.05, jitter: float = 0.05,
 # ---------------------------------------------------------------------------
 FAULT_ENV = "CXXNET_FAULT"
 KILL_EXIT_CODE = 117  # distinctive: assertable from subprocess tests
+# a worker that convicts an absent peer at a checkpoint barrier exits
+# with this code so the elastic supervisor (parallel/elastic.py) knows
+# to reshape the pod rather than treat it as a crash
+RESHAPE_EXIT_CODE = 118
+
+
+def current_rank() -> int:
+    """This process's identity for the rank-scoped fault modes
+    (kill_rank / hang_rank / delay_collective). Under the elastic
+    supervisor this is the stable pod member id (CXN_MEMBER_ID) -
+    generation ranks renumber after a reshape, so a spec pinned to a
+    plain rank would fire on a different worker in every generation;
+    otherwise the launcher's CXN_WORKER_RANK. The env vars exist before
+    any process group does; torch.distributed's rank is read only when
+    the group is already up (a fault point must never be what
+    initialises anything)."""
+    for key in ("CXN_MEMBER_ID", "CXN_WORKER_RANK"):
+        v = os.environ.get(key)
+        if v is not None:
+            try:
+                return int(v)
+            except ValueError:
+                return 0
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None:
+        try:
+            if dist.is_available() and dist.is_initialized():
+                return int(dist.get_rank())
+        except Exception:  # noqa: BLE001 - no group to ask: rank 0
+            return 0
+    return 0
 
 
 class _Fault:
@@ -140,6 +173,21 @@ class FaultRegistry:
                   cleanup handlers run, exactly like SIGKILL
     - ``ioerror`` raise InjectedIOError (transient; retry-absorbable)
     - ``delay``   sleep arg seconds (default 0.05)
+
+    Collective-scope (rank-aware) modes, for murdering one worker of a
+    multi-process pod deterministically (the elastic pod's end-to-end
+    proofs). The same spec is exported to every worker; only the named
+    rank acts, and hits are counted per process (every rank hits the
+    trainer's ``collective`` point once a dispatched step, in the same
+    order, so ``@N`` picks the same step on every worker):
+
+    - ``kill_rank=R``        ``kill``, only when current_rank() == R
+    - ``hang_rank=R``        wedge the calling thread forever (a live
+                             but stalled worker - the absence-alert /
+                             STALE-verdict detection path), only on
+                             rank R
+    - ``delay_collective=S`` sleep S seconds (straggler injection);
+      ``delay_collective=R:S`` restricts the delay to rank R
 
     Any other mode (``corrupt``, ...) is returned to the CALLER, which
     gives each fault point site-specific sabotage: checkpoint.py
@@ -249,6 +297,32 @@ class FaultRegistry:
                     f"injected transient IO error at {point!r} (hit {hit})")
             if f.mode == "delay":
                 time.sleep(float(f.arg) if f.arg else 0.05)
+                continue
+            if f.mode == "kill_rank":
+                if f.arg is not None and current_rank() == int(f.arg):
+                    sys.stderr.write(
+                        f"fault: killing rank {f.arg} at fault point "
+                        f"{point!r} (hit {hit})\n")
+                    sys.stderr.flush()
+                    os._exit(KILL_EXIT_CODE)
+                continue
+            if f.mode == "hang_rank":
+                if f.arg is not None and current_rank() == int(f.arg):
+                    sys.stderr.write(
+                        f"fault: hanging rank {f.arg} at fault point "
+                        f"{point!r} (hit {hit})\n")
+                    sys.stderr.flush()
+                    while True:  # wedged, not dead: detection's job
+                        time.sleep(0.5)
+                continue
+            if f.mode == "delay_collective":
+                spec = f.arg or "0.05"
+                if ":" in spec:
+                    rk, secs = spec.split(":", 1)
+                    if current_rank() == int(rk):
+                        time.sleep(float(secs))
+                else:
+                    time.sleep(float(spec))
                 continue
             return f.mode  # site-handled action (e.g. "corrupt")
         return None

@@ -4,7 +4,7 @@ held to the JAX package's lint.
 - every fixture snippet of tests/test_graftlint.py and
   tests/test_concurrency_lint.py, linted by both packages, gives the
   same findings (rule, line, column, waived) for the rules they share;
-- GL002 in its torch form gets its own cases;
+- GL002 and GL007 in their torch forms get their own cases;
 - the port's tree has zero unwaived findings, every waiver a reason;
 - the CLI's exit codes: 0 clean, 1 findings, 2 usage or a vacuous scan.
 """
@@ -23,12 +23,13 @@ from cxxnet_tpu_torch.analysis import astlint as port_lint
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "cxxnet_tpu_torch")
 
-# the rules both lints carry with one meaning (GL002 has its torch form,
-# tested below; GL090/GL091 are compared where a snippet's waivers name
-# no rule the port does not carry)
+# the rules both lints carry with one meaning (GL002 and GL007 have
+# their torch forms, tested below; GL090/GL091 are compared where a
+# snippet's waivers name no rule the two lints do not share)
 SHARED = ("GL004", "GL006", "GL008", "GL010", "GL011", "GL012", "GL013",
           "GL014", "GL015", "GL016")
-NOT_SHARED = ("GL001", "GL002", "GL003", "GL005", "GL007")
+TORCH_FORM = ("GL002", "GL007")
+NOT_SHARED = ("GL001", "GL003", "GL005") + TORCH_FORM
 
 
 def _snippets():
@@ -196,6 +197,116 @@ def step(loss):  # graftlint: hot-path
     return loss.item()
 """)
     assert _rules(fs) == ["GL002"]
+
+
+# ---------------------------------------------------------------------------
+# GL007 in its torch form
+# ---------------------------------------------------------------------------
+_GL007_HEADER = """
+import torch
+from cxxnet_tpu_torch.parallel.sharding import ParamCut, ZeroCut
+"""
+
+
+@pytest.mark.parametrize("stmt,what", [
+    ("acc = torch.zeros_like(grads)", "zeros_like('grads')"),
+    ("acc = torch.empty_like(self.params[lk][pn])",
+     "empty_like('params')"),
+    ("acc = torch.full_like(master[lk][pn], 0.5)", "full_like('master')"),
+    ("acc = torch.ones_like(w)", "ones_like('w')"),
+    ("return torch.zeros_like(ustate[lk])", "zeros_like('ustate')"),
+])
+def test_gl007_allocator_of_a_weight_flags(tmp_path, stmt, what):
+    fs = _lint(tmp_path, _GL007_HEADER + f"""
+def step(self, grads, master, w, ustate, lk, pn):
+    {stmt}
+    return acc
+""")
+    assert _rules(fs) == ["GL007"]
+    assert what in fs[0].message and "'step'" in fs[0].message
+
+
+def test_gl007_mapped_allocator_flags(tmp_path):
+    fs = _lint(tmp_path, _GL007_HEADER + """
+def step(self, gtree):
+    self._accum = _tree_map(torch.zeros_like, gtree)
+    moments = list(map(torch.empty_like, self.moments))
+""")
+    assert _rules(fs) == ["GL007", "GL007"]
+    assert "'gtree'" in fs[0].message and "_tree_map" in fs[0].message
+
+
+@pytest.mark.parametrize("stmt", [
+    "acc = cut.owned(torch.zeros_like(grads), lk, pn)",
+    "acc = torch.zeros(cut.cut_shape(lk, pn)) + torch.zeros_like(grads)",
+    "tree = cut.local_tree({k: torch.zeros_like(v) for k, v in params})",
+    "acc = z.reduce_scatter({k: torch.zeros_like(g) for k, g in grads})",
+])
+def test_gl007_statement_through_the_cut_ok(tmp_path, stmt):
+    fs = _lint(tmp_path, _GL007_HEADER + f"""
+def step(cut, z, grads, params, lk, pn):
+    {stmt}
+""")
+    assert _rules(fs) == []
+
+
+def test_gl007_mesh_less_module_not_flagged(tmp_path):
+    # no cut imported and not under parallel/: a rank holds whole tensors
+    fs = _lint(tmp_path, """
+import torch
+
+def step(params, grads):
+    return torch.zeros_like(params), torch.empty_like(grads)
+""")
+    assert _rules(fs) == []
+
+
+def test_gl007_modules_under_parallel_are_mesh_aware(tmp_path):
+    src = """
+import torch
+
+def step(grads):
+    return torch.zeros_like(grads)
+"""
+    d = tmp_path / "pkg" / "parallel"
+    d.mkdir(parents=True)
+    (d / "m.py").write_text(src)
+    fs = port_lint.lint_file(str(d / "m.py"), os.path.join(
+        "pkg", "parallel", "m.py"))
+    assert _rules(fs) == ["GL007"]
+    assert _rules(_lint(tmp_path, src)) == []
+
+
+def test_gl007_small_values_and_shapes_ok(tmp_path):
+    fs = _lint(tmp_path, _GL007_HEADER + """
+def step(x, rows, buf):
+    y = torch.zeros_like(x)      # 'x' is not weight-named
+    z = torch.empty_like(rows)
+    return y, z, torch.empty_like(buf)
+""")
+    assert _rules(fs) == []
+
+
+def test_gl007_waivable_and_stale_waiver_reported(tmp_path):
+    fs = _lint(tmp_path, _GL007_HEADER + """
+def step(grads, x):
+    # graftlint: disable=GL007 stage 1 keeps the gradients whole
+    acc = torch.zeros_like(grads)
+    # graftlint: disable=GL007 nothing to excuse here
+    y = torch.zeros_like(x)
+    return acc, y
+""")
+    assert _rules(fs, waived=True) == ["GL007"]
+    assert _rules(fs) == ["GL091"]
+
+
+def test_gl007_finds_of_the_port_tree_carry_their_reasons():
+    """The port lints clean under GL007: its two finds (the trainer's
+    accumulator and the gather target of a cut update) carry reasoned
+    waivers naming what keeps the tensor whole."""
+    findings, _, _ = port_lint.lint_paths([PKG], rules=["GL007"])
+    assert findings and all(f.waived and f.reason for f in findings)
+    assert {os.path.basename(f.path) for f in findings} == {"trainer.py"}
 
 
 def test_jax_only_rules_are_unknown_waivers(tmp_path):

@@ -170,8 +170,9 @@ def _setters():
 # the tables that refuse no key any more, each with a key it refused
 # and the module whose handler now takes it: the data pipeline's since
 # use_native was ported, the trainer's and the layers' since the data
-# axis was (mesh, fullc_gather)
+# axis was (mesh, fullc_gather), the CLI's since elastic training was
 _EMPTIED = {
+    "cxxnet_tpu_torch/main.py": ("elastic", "cxxnet_tpu_torch/main.py"),
     "cxxnet_tpu_torch/io/iterators.py": ("use_native",
                                          "cxxnet_tpu_torch/io/iter_img.py"),
     "cxxnet_tpu_torch/nnet/trainer.py": ("mesh",

@@ -2213,3 +2213,70 @@ def test_expert_parallel_two_ranks_on_the_card(cuda_device, tmp_path):
         assert {n: rep["launches"][n] for n in
                 ("attn_fwd", "attn_dq", "attn_dkv")} == {
                     "attn_fwd": 2, "attn_dq": 2, "attn_dkv": 2}, rep
+
+
+def test_elastic_pod_two_members_on_the_card(cuda_device, tmp_path):
+    """tools/elastic_smoke.py on the card: examples/LongSeq/seq_mnist.conf
+    as shipped (b100, bfloat16, dropout) as a 2-member pod on cuda:0 over
+    gloo, the leader killed at its 3rd dispatched step (round 2's
+    first): a 2 -> 1 reshape with member 1 the new leader, one publisher
+    a round, the final sha256 equal to an uninterrupted 1-member run's
+    from the same rollback checkpoint, and K2-fwd / K2-dq / K2-dkv
+    launched by every member in every generation, K2-dq once a trained
+    step (no plain version on a CUDA tensor)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CXN_MEMBER_ID", "CXN_WORKER_RANK", "CXXNET_FAULT",
+                        "CXN_NUM_WORKER", "CXN_COORDINATOR")}
+    env["PYTHONPATH"] = repo
+    p = subprocess.run(
+        [sys.executable, "-m", "cxxnet_tpu_torch.tools.elastic_smoke",
+         "--dev", "gpu:0", "--out", str(tmp_path / "out"), "--conf",
+         os.path.join(repo, "examples", "LongSeq", "seq_mnist.conf"),
+         "--nproc", "2", "--rounds", "2", "--kill-hit", "3", "--train",
+         "200", "--test", "100", "--json", str(tmp_path / "s.json")],
+        env=env, cwd=repo, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stdout[-4000:] + p.stderr[-4000:]
+    s = json.load(open(tmp_path / "s.json"))
+    assert s["generations"] == {"0": [0, 1], "1": [1]}
+    assert s["rollback_round"] == 1
+    assert s["sha256"]["interrupted"] == s["sha256"]["uninterrupted"]
+    recs = dict(s["launches_a"], **{f"b.{k}": v
+                                    for k, v in s["launches_b"].items()})
+    assert sorted(s["launches_a"]) == ["m0.g0", "m1.g0", "m1.g1"]
+    for tag, rec in recs.items():
+        n = rec["launches"]
+        assert n["attn_fwd"] > 0 and n["attn_dkv"] == n["attn_dq"], (tag,
+                                                                      rec)
+        assert n["attn_dq"] == rec["steps"] > 0, (tag, rec)
+
+
+def test_serve_on_a_mesh_on_the_card(cuda_device):
+    """The narrow AlexNet-shaped net served on the card by a one-process
+    trainer at mesh = data:2: buckets the multiples of 2 of the default
+    set, rows equal to the same Server's without a mesh (one process,
+    one function), K1-fwd launched on every batch."""
+    cfg = NARROW_ALEXNET.replace("dev = cpu", "dev = gpu")
+    plain = NetTrainer(device="cuda:0", cfg=cfg)
+    plain.init_model()
+    meshed = NetTrainer(device="cuda:0", cfg=cfg + "mesh = data:2\n",
+                        one_process=True)
+    meshed.init_model()
+    meshed._set_params(plain.state["params"])
+    reqs = [_x((n, 3, 35, 35), 40 + n) for n in (1, 3, 2, 5, 8)]
+    outs = {}
+    for tag, tr in (("plain", plain), ("mesh", meshed)):
+        with Server(tr, device="cuda:0") as srv:
+            before = kernels.launches()["lrn_fwd"]
+            outs[tag] = [srv.submit(r).result(timeout=120) for r in reqs]
+            outs[tag + "_launches"] = kernels.launches()["lrn_fwd"] - before
+            outs[tag + "_buckets"] = srv.buckets
+    assert outs["plain_buckets"] == (1, 2, 4, 8)
+    assert outs["mesh_buckets"] == (2, 4, 8)
+    assert outs["mesh_launches"] > 0 and outs["plain_launches"] > 0
+    for g, w in zip(outs["mesh"], outs["plain"]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)

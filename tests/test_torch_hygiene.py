@@ -35,7 +35,7 @@ ANALYSIS_AND_TOOLS = (
 # the entry points among them that run on a device
 DEVICE_TOOLS = ("telemetry_smoke", "trace_smoke", "obs_smoke",
                 "serve_smoke", "serve_http_smoke", "canary_smoke",
-                "pass_smoke", "bench_attn", "bench_pool")
+                "pass_smoke", "bench_attn", "bench_pool", "elastic_smoke")
 
 
 def _modules():
@@ -83,6 +83,60 @@ def test_sources_import_no_jax_and_no_cxxnet_tpu():
     assert hits == []
     with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as fh:
         assert not pat.search(fh.read())
+
+
+# a module of the JAX package named in a string: a command line's
+# `-m cxxnet_tpu...`, or a dotted `cxxnet_tpu.<module>` target of runpy /
+# importlib / a child's argv (paths like cxxnet_tpu/main.py are not
+# module names)
+JAX_MODULE_NAME = re.compile(
+    r"-m\s+cxxnet_tpu\b|\bcxxnet_tpu\.[A-Za-z_]|^cxxnet_tpu$")
+
+
+def _jax_module_strings(source: str, path: str):
+    """(line, text) of every string literal of `source` - docstrings
+    aside, f-string parts included - that names a JAX package module."""
+    import ast
+    tree = ast.parse(source, path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            b = node.body
+            if (b and isinstance(b[0], ast.Expr)
+                    and isinstance(b[0].value, ast.Constant)
+                    and isinstance(b[0].value.value, str)):
+                docs.add(id(b[0].value))
+    return [(n.lineno, n.value) for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs and JAX_MODULE_NAME.search(n.value)]
+
+
+def test_no_string_names_a_jax_module():
+    """The import scans cannot see a string: a child's command line
+    (`-m cxxnet_tpu.main`, the elastic supervisor's alert hook) or a
+    runpy / importlib target naming the JAX package would run it
+    silently. No string literal of the port or chip_smoke.py names one
+    (docstrings citing a JAX file as the counterpart stay)."""
+    hits = []
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(root, f) for root, _, files in os.walk(PKG)
+        for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path, encoding="utf-8") as fh:
+            hits += [f"{path}:{ln}: {text!r}"
+                     for ln, text in _jax_module_strings(fh.read(), path)]
+    assert hits == []
+    # the scan has teeth: the JAX supervisor's own command lines
+    with open(os.path.join(REPO, "cxxnet_tpu", "parallel", "elastic.py"),
+              encoding="utf-8") as fh:
+        found = [t for _, t in _jax_module_strings(fh.read(), "elastic")]
+    assert "cxxnet_tpu.main" in found
+    assert any("-m cxxnet_tpu.parallel.elastic" in t for t in found)
+    assert _jax_module_strings(
+        'import runpy\nrunpy.run_module("cxxnet_tpu.main")\n'
+        'importlib.import_module("cxxnet_tpu")\n', "x") == [
+            (2, "cxxnet_tpu.main"), (3, "cxxnet_tpu")]
 
 
 def test_surface_modules_stand_alone():
