@@ -64,7 +64,12 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    temporary directory; (d) the
    Server over (a)'s trainer, answering ragged requests of 1-100 rows
    from two threads, one K2-fwd per dispatched batch. (d) runs before
-   (c);
+   (c); (e) a sparse CSR batch: 100 images with about 81% zero pixels
+   and their CSR view, two trainers loaded from one in-memory checkpoint
+   of (a)'s trainer taking the same 3 steps, one from each - the params'
+   sha256 equal, 3 launches of each K2 kernel per run, predict and
+   predict_dist on the CSR view bitwise the dense batch's, and the host
+   time to densify one b100 CSR batch;
 9. int8 (K3) and the graph passes: (a) K3 against its plain version,
    bitwise, at AlexNet's fullc shapes (m = 64), bench.py's int8 MLP
    (m = 16), ragged shapes, AlexNet b64's convolution GEMMs, the
@@ -81,7 +86,8 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    card against the CPU; (d) bench.py's int8 MLP pair at b16
    (int8_over_fold, argmax agreement on 256 rows); (e) the CLI's task =
    pred and task = serve with the int8 passes (identical outputs,
-   pass_calibration_batches and pass_calibration_iter);
+   pass_calibration_batches and pass_calibration_iter), which checks
+   and times nothing and so runs beside phase 10's CLI runs;
 10. the image data pipeline: (a) whether PIL imports, scipy's version,
    the CPU count and the synthetic set's format (JPEG where PIL is
    present, else binary P6); (b) 256 x 256 imgbin sets packed with the
@@ -352,6 +358,7 @@ from __future__ import annotations
 import ast
 import contextlib
 import gzip
+import hashlib
 import json
 import math
 import os
@@ -2028,6 +2035,106 @@ def phase_seq_serving(torch, card, tr):
     return launches, batches
 
 
+def csr_view(images, labels):
+    """The sparse CSR view (DataBatch with data None) of (b, c, y, x)
+    rows: every nonzero pixel an entry, in row-major order."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+    flat = images.reshape(len(images), -1)
+    nz = flat != 0
+    return DataBatch(
+        label=labels,
+        sparse_row_ptr=np.concatenate([[0], np.cumsum(nz.sum(1))]).astype(
+            np.int64),
+        sparse_findex=np.nonzero(nz)[1].astype(np.uint32),
+        sparse_fvalue=flat[nz])
+
+
+def params_sha256(torch, tr) -> str:
+    """sha256 over every param's bytes, in sorted layer / name order."""
+    h = hashlib.sha256()
+    for lk in sorted(tr.state["params"]):
+        for pn in sorted(tr.state["params"][lk]):
+            t = tr.state["params"][lk][pn].detach().contiguous().cpu()
+            h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_seq_csr(torch, card, tr):
+    """8e: seq_mnist.conf (b100 bfloat16 on cuda:0, as shipped) trained
+    from a sparse CSR batch against its dense batch. Two trainers load
+    one in-memory checkpoint of `tr` (phase 8a's trainer) and take the
+    same 3 steps, one from each form: the densified rows are the dense
+    rows' float32 bits, so the params' sha256 must be equal and
+    predict / predict_dist on the CSR view bitwise the dense batch's.
+    Each run must launch each K2 kernel 3 times (the counts set to 0
+    just before the steps and read just after). Returns the launches,
+    the sha256s, the zero share and the host ms to densify one batch."""
+    import io
+    import numpy as np
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.io.data import DataBatch
+    say("== phase 8e: seq_mnist.conf from a sparse CSR batch against its "
+        "dense batch ==")
+    rng = np.random.RandomState(25)
+    # about 81% zeros, as MNIST's pixels are
+    images = rng.rand(100, 1, 28, 28).astype(np.float32)
+    images[rng.rand(*images.shape) < 0.81] = 0.0
+    labels = rng.randint(0, 10, size=(100, 1)).astype(np.float32)
+    dense, csr = DataBatch(data=images, label=labels), csr_view(images,
+                                                                labels)
+    shape = tr.net_cfg.input_shape
+    if not np.array_equal(csr.densified(shape).data, images):
+        raise AssertionError("the CSR view does not densify to its rows")
+    csr.densified(shape)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        csr.densified(shape)
+    densify_ms = (time.perf_counter() - t0) * 1e3 / 20
+    buf = io.BytesIO()
+    tr.save_model(buf)
+    out = {"zero_share": float(1.0 - csr.sparse_fvalue.size / images.size),
+           "nnz": int(csr.sparse_fvalue.size), "densify_ms": densify_ms,
+           "launches": {}, "sha256": {}}
+    trainers = {}
+    for form, batch in (("dense", dense), ("csr", csr)):
+        t2 = seq_trainer([])
+        buf.seek(0)
+        t2.load_model(buf)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        losses = [t2.update(batch) for _ in range(3)]
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        if not all(np.isfinite([float(v) for v in losses])):
+            raise AssertionError(f"8e {form}: non-finite loss {losses}")
+        if any(counts[n] != 3 for n in K2):
+            raise AssertionError(f"8e {form}: 3 steps launched {counts}, "
+                                 "expected 3 of each K2 kernel")
+        out["launches"][form] = {n: counts[n] for n in K2}
+        out["sha256"][form] = params_sha256(torch, t2)
+        trainers[form] = t2
+    if out["sha256"]["dense"] != out["sha256"]["csr"]:
+        raise AssertionError(f"8e: params differ after 3 steps: "
+                             f"{out['sha256']}")
+    if out["sha256"]["dense"] == params_sha256(torch, tr):
+        raise AssertionError("8e: 3 steps left the params unchanged")
+    t2 = trainers["csr"]
+    for fn in (t2.predict, t2.predict_dist):
+        a, b = fn(csr), fn(dense)
+        if a.shape[0] != 100 or not np.array_equal(a, b):
+            raise AssertionError(f"8e: {fn.__name__} on the CSR view "
+                                 "differs from the dense batch's")
+    del trainers, t2
+    say(f"8e: {out['nnz']} entries ({out['zero_share']:.4f} of the pixels "
+        f"zero); 3 steps from each form launched {out['launches']['csr']}; "
+        f"params sha256 dense {out['sha256']['dense']}, CSR "
+        f"{out['sha256']['csr']}; predict and predict_dist bitwise equal")
+    say(f"8e: densifying one b100 CSR batch to (100, 1, 28, 28) takes "
+        f"{densify_ms:.4f} ms on the host (mean of 20) on {card}")
+    return out
+
+
 def serve_burst(torch, card, tr, per_batch: int, label: str):
     """The Server over `tr` (a sequence-family trainer on MNIST-shaped
     rows, `per_batch` K2-fwd launches a batch): 40 requests of 1-100
@@ -3417,7 +3524,7 @@ def phase_image_pipeline(torch, card, cli_phases=(), then=None):
     while phase 10's imgbin set under `d` still exists - or, without
     `then`, leg 10g. The CLI runs of 10c, 10d, 11c (GoogLeNet.conf on
     the same set), 11d (stack_moe.conf) and `cli_phases`, functions of
-    `d` (5, 7, 8c, 13f, 14b-c, 15b and 15d) check and time nothing: they
+    `d` (5, 7, 8c, 9e, 13f, 14b-c, 15b and 15d) check and time nothing: they
     run side by side. Returns ((AlexNet's, GoogLeNet's and stack_moe's
     CLI launches, the cli_phases' results), then's result or 10g's
     timing)."""
@@ -7954,6 +8061,7 @@ def main() -> int:
     train_counts = phase_training(torch, card)
     seq_counts, seq_step_ms, seq_tr = phase_seq_training(torch, card)
     seq_serve_launches, seq_batches = phase_seq_serving(torch, card, seq_tr)
+    seq_csr = phase_seq_csr(torch, card, seq_tr)
     del seq_tr
     t9 = time.perf_counter()
     k3_rows = phase_int8_kernel(torch, card)
@@ -7963,8 +8071,8 @@ def main() -> int:
     del int8_tr
     torch.cuda.empty_cache()
     phase_int8_mlp(torch, card)
-    phase_int8_cli()
-    say(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+    say(f"phase 9 took {time.perf_counter() - t9:.1f} s (9e beside phase "
+        f"10's CLI runs)")
     # the parts of 13-15 that check and time nothing run beside phase
     # 10's CLI runs; the legs then skip them
     fmt = image_format_used()[0]
@@ -7984,7 +8092,8 @@ def main() -> int:
                               lambda d: surface_cli_tails(),
                               lambda d: run_leg(torch, "14u"),
                               lambda d: dispatch_seq_cli(torch, card),
-                              dispatch_profile_cli),
+                              dispatch_profile_cli,
+                              lambda d: phase_int8_cli()),
                 lambda d: side_by_side(
                     lambda: (run_leg(torch, "10g", d, fmt),
                              run_leg(torch, "14", d, fmt, "0"),
@@ -8292,7 +8401,9 @@ def main() -> int:
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
                **stack_moe(n), **dispatch(n), **data_parallel(n),
                **tensor_zero(n), **seq_parallel(n), **pipe_expert(n),
-               **elastic_pod(n))
+               **elastic_pod(n), csr_launches=seq_csr["launches"]["csr"][n],
+               csr_unit="seq_mnist.conf b100 bfloat16, 3 steps from a "
+                        "sparse CSR batch densified on the host (phase 8e)")
           for n in K2] + [dict(int8_entry(k3_rows, int8_served, 0),
                                front_launches=front["int8"]["int8_mm"],
                                front_batches=front["int8"]["batches"],
@@ -8367,6 +8478,7 @@ def main() -> int:
             "generations", "leaders", "publishers", "rollback_round",
             "sha256", "timing", "secs")},
         "mesh_serve": float_served["mesh"]}))
+    say("phase 8e summary " + json.dumps(seq_csr))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({

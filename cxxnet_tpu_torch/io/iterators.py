@@ -1,7 +1,7 @@
 """IIterator base protocol (src/io/data.h:18-38), the transient-IO retry
-wrapper and the per-worker shard quota (counterpart of
-cxxnet_tpu/io/iterators.py; the fault-injection points of the JAX
-package's wrapper are not ported)."""
+wrapper with the JAX package's fault points `io.next` and
+`io.before_first`, and the per-worker shard quota (counterpart of
+cxxnet_tpu/io/iterators.py)."""
 
 from __future__ import annotations
 

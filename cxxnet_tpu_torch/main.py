@@ -1044,16 +1044,23 @@ class LearnTask:
         if n <= 1 and not self.pass_calibration_iter:
             return False
         it, src = self._calibration_source()
+
+        def copy(a):
+            return None if a is None else np.array(a)
         batches = []
         it.before_first()
         while len(batches) < n and it.next():
             b = it.value()
             # iterators may reuse their buffers across next(): copy
+            # every field, the extra inputs and the CSR view included
             batches.append(DataBatch(
-                data=np.array(b.data), label=np.array(b.label),
-                inst_index=(None if b.inst_index is None
-                            else np.array(b.inst_index)),
-                num_batch_padd=b.num_batch_padd))
+                data=copy(b.data), label=copy(b.label),
+                inst_index=copy(b.inst_index),
+                num_batch_padd=b.num_batch_padd,
+                extra_data=[np.array(e) for e in b.extra_data],
+                sparse_row_ptr=copy(b.sparse_row_ptr),
+                sparse_findex=copy(b.sparse_findex),
+                sparse_fvalue=copy(b.sparse_fvalue)))
         it.before_first()
         if not batches:
             return False
@@ -1150,9 +1157,11 @@ class LearnTask:
                         yield f"{v:g}\n"
             self.itr_pred.before_first()
             while not term.is_set() and self.itr_pred.next():
-                batch = self.itr_pred.value()
+                # a CSR batch is densified before its rows are cut
+                batch = self.itr_pred.value().densified(
+                    tr.net_cfg.input_shape)
                 valid = batch.batch_size - batch.num_batch_padd
-                data = batch.data[:valid]
+                data = np.asarray(batch.data)[:valid]
                 extras = [np.asarray(e)[:valid] for e in
                           batch.extra_data[:tr.net_cfg.extra_data_num]]
                 lo = 0

@@ -1333,7 +1333,10 @@ class NetTrainer:
         `train`: every DELIVERED row is valid - num_batch_padd marks
         round_batch wrap-fill rows, real instances the reference trains
         and trims only from eval/pred (nnet_impl-inl.hpp:239); eval
-        masks them. Rows padded up to batch_size are always masked."""
+        masks them. Rows padded up to batch_size are always masked. A
+        sparse CSR batch (data.h:96-181) is densified to the net's
+        input shape first, as in the JAX trainer."""
+        batch = batch.densified(self.net_cfg.input_shape)
         b = batch.batch_size
         if b > self._local_batch:
             raise ValueError("batch larger than configured batch_size")
@@ -1421,7 +1424,8 @@ class NetTrainer:
         the step)."""
         if fault.fault_point("stage_batch") == "corrupt":
             batch = DataBatch(
-                data=np.full(np.shape(batch.data), np.nan, np.float32),
+                data=np.full(np.shape(batch.densified(
+                    self.net_cfg.input_shape).data), np.nan, np.float32),
                 label=batch.label, inst_index=batch.inst_index,
                 num_batch_padd=batch.num_batch_padd,
                 extra_data=batch.extra_data)

@@ -3,7 +3,8 @@ flash-attention K2-fwd, K2-dq, K2-dkv, and the int8 dot K3) against
 their plain versions, and the serving and training paths through them
 (AlexNet-shaped, seq_mnist, GoogLeNet.conf and stack_moe.conf steps
 against the CPU), and the native image decoder (nvJPEG and its kernel
-YccToRgb) against PIL and its plain versions. Every test here needs an
+YccToRgb) against PIL and its plain versions, and sparse CSR batches
+against their dense batches. Every test here needs an
 NVIDIA card and skips without one (marker `cuda`). This file imports no
 jax, so it runs where only the port's dependencies are installed:
 
@@ -1219,6 +1220,69 @@ def test_extra_inputs_on_the_card(cuda_device):
                 rtol=1e-4, atol=1e-6)
         with pytest.raises(ValueError, match="extra inputs"):
             srv.submit(reqs[0][0])
+
+
+def _seq_conf(batch):
+    import os
+    conf_path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                             "LongSeq", "seq_mnist.conf")
+    with open(conf_path) as f:
+        net = "netconfig=start" + f.read().split("netconfig=start", 1)[1]
+    return (net.replace("batch_size = 100", f"batch_size = {batch}")
+            + "\nsilent = 1\nseed = 3\n")
+
+
+@pytest.mark.parametrize("net", ["extra_net", "seq_mnist"])
+def test_csr_batch_trains_as_its_dense_batch_on_the_card(cuda_device, net):
+    """A sparse CSR batch on cuda:0 (densified on the host, staged as
+    any batch) trains bit for bit as its dense batch: EXTRA_NET
+    (float32, with its extra input) and seq_mnist.conf's net (bfloat16
+    as shipped, batch 8, about 81% zero pixels; a step launches each K2
+    kernel once), 3 steps from the same weights; predict_dist on the
+    CSR view equals the dense batch's bitwise."""
+    from torch_port_util import EXTRA_NET, csr_of, extra_batches
+    if net == "extra_net":
+        conf = EXTRA_NET
+        steps = [(x, y, [e]) for x, e, y in extra_batches(3, 9)]
+    else:
+        conf = _seq_conf(8)
+        rng = np.random.RandomState(5)
+        steps = []
+        for _ in range(3):
+            x = rng.rand(8, 1, 28, 28).astype(np.float32)
+            x[rng.rand(*x.shape) < 0.81] = 0.0
+            steps.append((x, rng.randint(0, 10, size=(8, 1)).astype(
+                np.float32), []))
+    trainers = []
+    for _ in range(2):
+        tr = NetTrainer(cfg=conf, device="cuda:0")
+        tr.init_model()
+        trainers.append(tr)
+    dense, csr = trainers
+    csr._set_params({k: {n: t.clone() for n, t in d.items()}
+                     for k, d in dense.state["params"].items()})
+
+    def view(x, y, extras):
+        return csr_of(x, DataBatch, label=y, extra_data=extras)
+    counts = []
+    for tr, make in ((dense, lambda x, y, e: DataBatch(
+            data=x, label=y, extra_data=e)), (csr, view)):
+        kernels.reset_launches()
+        for x, y, e in steps:
+            tr.update(make(x, y, e))
+        torch.cuda.synchronize()
+        counts.append(kernels.launches())
+    assert counts[0] == counts[1]
+    if net == "seq_mnist":
+        assert [counts[1][n] for n in ("attn_fwd", "attn_dq",
+                                       "attn_dkv")] == [3, 3, 3]
+    for lk, d in dense.state["params"].items():
+        for pn, t in d.items():
+            assert torch.equal(t, csr.state["params"][lk][pn]), (lk, pn)
+    x, y, e = steps[0]
+    assert np.array_equal(csr.predict_dist(view(x, y, e)),
+                          dense.predict_dist(DataBatch(data=x, label=y,
+                                                       extra_data=e)))
 
 
 def test_legacy_checkpoint_and_extract_on_the_card(cuda_device):

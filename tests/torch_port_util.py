@@ -168,3 +168,15 @@ def extra_batches(n, seed, rows=8):
         y = (e.reshape(rows, 4).sum(1) > 0).astype(np.float32)
         out.append((x, e, y.reshape(rows, 1)))
     return out
+
+
+def csr_of(data, cls, **kw):
+    """The sparse CSR view of dense rows (every nonzero entry, row-major)
+    as a batch of `cls` (either package's DataBatch) with `data` None;
+    `kw` fills the other fields."""
+    flat = np.asarray(data, np.float32).reshape(len(data), -1)
+    nz = flat != 0
+    return cls(sparse_row_ptr=np.concatenate(
+                   [[0], np.cumsum(nz.sum(1))]).astype(np.int64),
+               sparse_findex=np.nonzero(nz)[1].astype(np.uint32),
+               sparse_fvalue=flat[nz], **kw)
