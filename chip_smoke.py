@@ -31,12 +31,17 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
 3c. flash attention: K2-fwd, K2-dq and K2-dkv against their plain
    versions at seq_mnist's shape (100,4,28,7), at ragged shapes, at
    head_dim 12 and 200, at Sq != Sk, on 2-byte-aligned views and at the
-   JAX package's measuring shape (4,8,4096,128); every K2 kernel
-   launched twice gives the same bits. Times (CUDA events, warm and
-   L2-cold), the bound and scaled_dot_product_attention's forward and
-   backward as the library yardstick, the backward pair's factor
-   against that one backward call, and forward + backward through
-   autograd beside SDPA's; K2-fwd's tile plan at each timed shape;
+   JAX package's measuring shape (4,8,4096,128); the kernels' wide route
+   (head_dim > 256) at 257, 320, 512, 576 and 1024 in both dtypes
+   (ragged lengths, Sq != Sk, 2-byte-aligned views), 2048 at one small
+   shape, wide_head's core (100,2,28,512) and (4,8,4096,512); every K2
+   kernel launched twice gives the same bits, and the errors are
+   printed by route and dtype. Times (CUDA events, warm and L2-cold),
+   the bound and scaled_dot_product_attention's forward and backward
+   as the library yardstick (at head_dim 512 with the backend PyTorch
+   picks named), the backward pair's factor against that one backward
+   call, and forward + backward through autograd beside SDPA's and its
+   bound; the three kernels' tile plans at each timed shape;
 4. serving: examples/ImageNet/AlexNet.conf at full width (bfloat16, as
    the file says) through the port's NetTrainer and Server - ragged
    requests from two threads, served rows against predict_dist, the
@@ -69,7 +74,17 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    of (a)'s trainer taking the same 3 steps, one from each - the params'
    sha256 equal, 3 launches of each K2 kernel per run, predict and
    predict_dist on the CSR view bitwise the dense batch's, and the host
-   time to densify one b100 CSR batch;
+   time to densify one b100 CSR batch; (f) wide_head - seq_mnist.conf
+   with its block widened to 1,024 features, two heads of 512 (a
+   non-causal attention layer, a causal 2-block transformer_stack):
+   3 b100 bfloat16 steps (3 launches of each K2 kernel a step, on their
+   wide route), 5 timed steps each from the initial weights, one more
+   step under the graph audit's probe (no plain version, no SDPA op), a
+   float32 step card vs CPU, the float32 divergence at batch 8 card vs
+   CPU (seq_mnist.conf's updater does not train wide_head; the port and
+   the JAX trainer diverge alike, tests/test_torch_wide_head_train.py),
+   the Server over the initial weights, and beside phase 10's CLI runs
+   task = train (1 round) and task = pred through the CLI;
 9. int8 (K3) and the graph passes: (a) K3 against its plain version,
    bitwise, at AlexNet's fullc shapes (m = 64), bench.py's int8 MLP
    (m = 16), ragged shapes, AlexNet b64's convolution GEMMs, the
@@ -422,6 +437,10 @@ VIEW_BASE = (2, 13, 5, 7)
 # and the JAX package's flash-attention measuring shape (bench.py:420)
 SEQ_ATTN_SHAPE = (100, 4, 28, 7)
 MEASURE_ATTN_SHAPE = (4, 8, 4096, 128)
+# the measuring shape at head_dim 512 (K2's wide route), and wide_head's
+# core on its main path (phase 8f: b100, 2 heads of 512, 28 steps)
+WIDE_ATTN_SHAPE = (4, 8, 4096, 512)
+WIDE_PATH_SHAPE = (100, 2, 28, 512)
 
 
 _T0 = time.monotonic()
@@ -907,6 +926,29 @@ def attn_close(torch, got, ref, grad=False, long=False):
     return bool(torch.all((g - r).abs() <= bar))
 
 
+def fwd_bwd_bound_ms(shape, causal: bool) -> float:
+    """Least time for one forward + backward of attention in bfloat16:
+    the forward's operations (4 B H S^2 D) and the backward's, 2.5 times
+    those (the five products of a flash backward), over the bfloat16
+    tensor-core peak; under causal half of it (S(S+1)/2 visible
+    entries). Operations bound it at every shape this is used for."""
+    return 3.5 * attn_flops("attn_fwd", shape, causal) / BF16_FLOPS_PER_S \
+        * 1e3
+
+
+def sdpa_backend(torch, q, k, v, causal: bool) -> str:
+    """The backend scaled_dot_product_attention's dispatcher picks for
+    these inputs (its flash backend refuses head_dims past 256)."""
+    from torch.nn.attention import SDPBackend
+    try:
+        idx = int(torch._fused_sdp_choice(q, k, v, None, 0.0, causal))
+    except (AttributeError, RuntimeError, TypeError) as e:
+        return f"not known ({type(e).__name__})"
+    names = [name for name, b in SDPBackend.__members__.items()
+             if int(b) == idx]
+    return names[0] if names else f"index {idx}"
+
+
 def misaligned_view(torch, t):
     """A contiguous copy of t that is a view one element into its
     storage: 2-byte aligned in bfloat16, so the kernels must take their
@@ -936,18 +978,22 @@ def time_fwd_bwd(torch, F, FA, q, k, v, do, causal, iters: int = 10):
             "library": time_warm(torch, library, iters)}
 
 
-# the tensor-core instances in the compiler's report: kernel name ->
-# (mangled-name pattern, fields of its template arguments)
-TC_INSTANCES = {
-    "attn_fwd": (re.compile(r"attn_fwd_tcILi(\d+)ELb([01])ELi([12])E"),
-                 ("DP", "load", "warpgroups")),
-    "attn_dq": (re.compile(r"attn_dq_tcILi(\d+)ELb([01])E"),
-                ("DP", "load")),
-    "attn_dkv": (re.compile(r"attn_dkv_tcILi(\d+)ELb([01])E"),
-                 ("DP", "load")),
-    "int8_mm": (re.compile(r"int8_mm_tcILi(\d+)ELb([01])E"),
-                ("BN", "load")),
-}
+# the tensor-core instances in the compiler's report: (kernel name,
+# mangled-name pattern, fields of its template arguments); the K2
+# kernels' wide route (head_dim > 256) has the load path only
+TC_INSTANCES = (
+    ("attn_fwd", re.compile(r"attn_fwd_tcILi(\d+)ELb([01])ELi([12])E"),
+     ("DP", "load", "warpgroups")),
+    ("attn_dq", re.compile(r"attn_dq_tcILi(\d+)ELb([01])E"),
+     ("DP", "load")),
+    ("attn_dkv", re.compile(r"attn_dkv_tcILi(\d+)ELb([01])E"),
+     ("DP", "load")),
+    ("attn_fwd", re.compile(r"attn_fwd_wide_tcILb([01])E"), ("load",)),
+    ("attn_dq", re.compile(r"attn_dq_wide_tcILb([01])E"), ("load",)),
+    ("attn_dkv", re.compile(r"attn_dkv_wide_tcILb([01])E"), ("load",)),
+    ("int8_mm", re.compile(r"int8_mm_tcILi(\d+)ELb([01])E"),
+     ("BN", "load")),
+)
 # the SASS opcode of each library's tensor-core products: bf16 (HGMMA)
 # for the attention kernels, int8 (IGMMA) for K3
 TC_OPCODE = {"attn_fwd": "HGMMA", "attn_dq": "HGMMA", "attn_dkv": "HGMMA",
@@ -961,6 +1007,8 @@ def tc_smem(name: str, fields) -> str:
     from cxxnet_tpu_torch.ops import flash_attention as FA
     if name == "int8_mm":
         return str(4 * (128 + fields["BN"]) * 128 + 1024)
+    if "DP" not in fields:  # the wide route: one plan at any head_dim
+        return str(FA.tc_plan(name, 512)["smem_bytes"])
     sq = 28 if fields.get("warpgroups") == 1 else 4096
     return str(FA.tc_plan(name, fields["DP"], sq)["smem_bytes"])
 
@@ -971,7 +1019,7 @@ def say_tc_instances(built) -> None:
     memory it asks for, the registers and spills that nvcc -Xptxas -v
     reported; then the count of warpgroup tensor-core instructions
     (HGMMA / IGMMA) in each library's SASS, which must not be 0."""
-    for name, (pat, keys) in TC_INSTANCES.items():
+    for name, pat, keys in TC_INSTANCES:
         log = built.get(name, (0.0, ""))[1]
         if log == "cached":
             say(f"{name}: library cached, no ptxas report")
@@ -988,7 +1036,8 @@ def say_tc_instances(built) -> None:
                 regs = re.search(r"Used (\d+) registers", ln).group(1)
                 fields = dict(zip(keys, (int(x) for x in cur.groups())))
                 path = "cp.async" if fields.pop("load") else "element"
-                desc = " ".join(f"{k}={v}" for k, v in fields.items())
+                desc = " ".join(f"{k}={v}" for k, v in fields.items()) \
+                    or "wide route (head_dim > 256)"
                 say(f"{name} tensor-core instance {desc} load={path}: "
                     f"{regs} registers, spill stores {spill[0]} B, spill "
                     f"loads {spill[1]} B, dynamic shared memory "
@@ -1028,6 +1077,11 @@ def phase_attention_kernels(torch, card):
     gen = torch.Generator(device="cuda").manual_seed(2468)
     names = ("attn_fwd", "attn_dq", "attn_dkv")
     max_err = {n: 0.0 for n in names}
+    # by route and dtype: head_dim <= 256 (the cases of earlier runs,
+    # drawn first, so on the same inputs) and the wide route
+    by_route = {(r, dt): {n: 0.0 for n in names}
+                for r in ("d<=256", "wide")
+                for dt in ("float32", "bfloat16")}
     rows = {}
     fwd_bwd = {}
     # (q shape, dtype, causal, scale, Sk (None: Sq), misaligned view)
@@ -1058,6 +1112,26 @@ def phase_attention_kernels(torch, card):
               for c in (False, True)]
     cases.append((MEASURE_ATTN_SHAPE, torch.float32, False, None, None,
                   False))
+    # the wide route (head_dim > 256): 257 (element loads, a last chunk
+    # of one column), 320 and 576 (a last chunk of 64), 512 and 1024 at
+    # ragged lengths in both dtypes; Sq != Sk and views 2 bytes off
+    # alignment under both masks; 2048 at one small shape; wide_head's
+    # main-path shape and the measuring shape at 512
+    for c in (False, True):
+        for d in (257, 320, 512, 576, 1024):
+            for dt in (torch.bfloat16, torch.float32):
+                cases.append(((1, 2, 100 if d < 1024 else 33, d), dt, c,
+                              None, None, False))
+        cases += [((1, 2, 100, 320), torch.bfloat16, c, None, 257, False),
+                  ((1, 2, 257, 576), torch.float32, c, None, 100, False),
+                  ((1, 2, 96, 512), torch.bfloat16, c, None, None, True),
+                  ((2, 1, 33, 257), torch.float32, c, None, None, True)]
+    cases += [((1, 1, 70, 2048), dt, True, None, None, False)
+              for dt in (torch.bfloat16, torch.float32)]
+    cases += [(WIDE_PATH_SHAPE, dt, False, None, None, False)
+              for dt in (torch.bfloat16, torch.float32)]
+    cases += [(WIDE_ATTN_SHAPE, torch.bfloat16, c, None, None, False)
+              for c in (False, True)]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for shape, dt, causal, scale, sk, misaligned in cases:
         kshape = shape[:2] + (sk or shape[2], shape[3])
@@ -1107,17 +1181,27 @@ def phase_attention_kernels(torch, card):
                         f"abs {err:.3e} (max |ref| "
                         f"{float(ref.float().abs().max()):.3e})")
                 max_err[n] = max(max_err[n], err)
+                key = ("wide" if shape[3] > 256 else "d<=256",
+                       str(dt).replace("torch.", ""))
+                by_route[key][n] = max(by_route[key][n], err)
         del ro, rlse, rdq, rdk, rdv
-        timed = (shape in (SEQ_ATTN_SHAPE, MEASURE_ATTN_SHAPE)
+        timed = (shape in (SEQ_ATTN_SHAPE, MEASURE_ATTN_SHAPE,
+                           WIDE_ATTN_SHAPE, WIDE_PATH_SHAPE)
                  and dt == torch.bfloat16)
-        if shape == MEASURE_ATTN_SHAPE and dt == torch.bfloat16:
-            fwd_bwd[causal] = time_fwd_bwd(torch, F, FA, q, k, v, do,
-                                           causal)
+        if shape in (MEASURE_ATTN_SHAPE, WIDE_ATTN_SHAPE) \
+                and dt == torch.bfloat16:
+            fwd_bwd[(shape, causal)] = time_fwd_bwd(torch, F, FA, q, k, v,
+                                                    do, causal)
         if not timed:
             continue
         say(f"{shape} bf16 causal={causal}: max abs err " + ", ".join(
-            f"{w} {e:.3e}" for w, e in errs.items()) + "; K2-fwd plan "
-            + str(FA.tc_plan("attn_fwd", shape[3], shape[2])))
+            f"{w} {e:.3e}" for w, e in errs.items()) + "; plans "
+            + str({n: FA.tc_plan(n, shape[3], shape[2]) if n == "attn_fwd"
+                   else FA.tc_plan(n, shape[3]) for n in names}))
+        backend = sdpa_backend(torch, q, k, v, causal)
+        if shape[3] > 256:
+            say(f"{shape} bf16 causal={causal}: scaled_dot_product_"
+                f"attention's backend (PyTorch's pick): {backend}")
         # the library yardstick: one scaled_dot_product_attention call
         # and its backward on the same inputs (never on the port's path)
         ql, kl, vl = (t.detach().clone().requires_grad_(True)
@@ -1143,7 +1227,7 @@ def phase_attention_kernels(torch, card):
                                                         delta, causal, scale),
                          None),
         }
-        iters = 10 if shape == MEASURE_ATTN_SHAPE else 50
+        iters = 10 if shape[2] == 4096 else 50
         for n, (kern, plain, lib) in fns.items():
             bound, by = attn_bound_ms(n, shape, q.element_size(), causal)
             t = {"kernel": time_warm(torch, kern, iters),
@@ -1153,6 +1237,7 @@ def phase_attention_kernels(torch, card):
                  "flops": attn_flops(n, shape, causal)}
             if lib is not None:
                 t["library"] = time_warm(torch, lib, iters)
+                t["library_backend"] = backend
             tflops = t["flops"] / t["kernel"] / 1e9
             lib_txt = (f", library {t['library']:.4f} ms" if lib is not None
                        else "")
@@ -1167,32 +1252,38 @@ def phase_attention_kernels(torch, card):
     for key in list(rows):
         n, shape, causal = key
         if n == "attn_dkv":
-            rows[key]["library"] = rows[("attn_dq", shape, causal)][
-                "library"]
+            for f in ("library", "library_backend"):
+                rows[key][f] = rows[("attn_dq", shape, causal)][f]
     del flush
     say(f"attention kernels: {len(cases)} cases agree and K2-fwd / K2-dq "
-        f"/ K2-dkv repeat bitwise (f32, bf16; S = 1, 12, 28, 33, 100, 257, "
-        f"4096; D = 7 .. 256 incl. 12, 200; Sq != Sk; 2-byte-aligned views; "
+        f"/ K2-dkv repeat bitwise (f32, bf16; S = 1, 12, 28, 33, 70, 100, "
+        f"257, 4096; D = 7 .. 256 incl. 12, 200, and the wide route 257, "
+        f"320, 512, 576, 1024, 2048; Sq != Sk; 2-byte-aligned views; "
         f"causal and not); max abs err "
         + ", ".join(f"{n} {e:.3e}" for n, e in max_err.items()))
-    for causal in (False, True):
-        m = MEASURE_ATTN_SHAPE
-        pair = rows[("attn_dq", m, causal)]["kernel"] + rows[
-            ("attn_dkv", m, causal)]["kernel"]
-        lib_bwd = rows[("attn_dq", m, causal)]["library"]
-        flops = (attn_flops("attn_dq", m, causal)
-                 + attn_flops("attn_dkv", m, causal))
-        say(f"K2-dq + K2-dkv {m} bf16 causal={causal}: {pair:.4f} ms "
-            f"({flops / pair / 1e9:.2f} TFLOP/s) = "
-            f"{pair / lib_bwd:.3f} x the backward of "
-            f"scaled_dot_product_attention ({lib_bwd:.4f} ms) on {card}")
-        fb = fwd_bwd[causal]
-        say(f"flash_attention forward+backward (autograd) {m} bf16 "
-            f"causal={causal}: {fb['port']:.4f} ms; "
-            f"scaled_dot_product_attention forward+backward "
-            f"{fb['library']:.4f} ms ({fb['port'] / fb['library']:.3f} x) "
-            f"on {card}")
-        rows[("attn_dkv", m, causal)]["fwd_bwd"] = fb
+    for (route, dt), errs in by_route.items():
+        say(f"max abs err, {route} {dt}: " + ", ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()))
+    for m in (MEASURE_ATTN_SHAPE, WIDE_ATTN_SHAPE):
+        for causal in (False, True):
+            pair = rows[("attn_dq", m, causal)]["kernel"] + rows[
+                ("attn_dkv", m, causal)]["kernel"]
+            lib_bwd = rows[("attn_dq", m, causal)]["library"]
+            flops = (attn_flops("attn_dq", m, causal)
+                     + attn_flops("attn_dkv", m, causal))
+            say(f"K2-dq + K2-dkv {m} bf16 causal={causal}: {pair:.4f} ms "
+                f"({flops / pair / 1e9:.2f} TFLOP/s) = "
+                f"{pair / lib_bwd:.3f} x the backward of "
+                f"scaled_dot_product_attention ({lib_bwd:.4f} ms) on {card}")
+            fb = fwd_bwd[(m, causal)]
+            fb["bound"] = fwd_bwd_bound_ms(m, causal)
+            say(f"flash_attention forward+backward (autograd) {m} bf16 "
+                f"causal={causal}: {fb['port']:.4f} ms; "
+                f"scaled_dot_product_attention forward+backward "
+                f"{fb['library']:.4f} ms ({fb['port'] / fb['library']:.3f} "
+                f"x); bound {fb['bound']:.4f} ms (operations: forward 4 B H "
+                f"S^2 D, backward 2.5x it) on {card}")
+            rows[("attn_dkv", m, causal)]["fwd_bwd"] = fb
     return max_err, rows
 
 
@@ -1656,18 +1747,33 @@ def say_profile(profiled, n_steps: int, card: str) -> None:
 
 
 def train_steps(torch, tr, batch, per_step, timed=10, staged=None):
+    """run_steps, and then the repeated batch must have been fitted
+    (softmax cross-entropy under predict_dist fell). Returns (counts,
+    step ms on the host clock, peak device memory in bytes)."""
+    ce_before = softmax_ce(tr, batch)
+    counts, step_ms, peak, _ = run_steps(torch, tr, batch, per_step, timed,
+                                         staged)
+    ce_after = softmax_ce(tr, batch)
+    if not ce_after < ce_before:
+        raise AssertionError(f"the repeated batch was not fitted: "
+                             f"cross-entropy {ce_before:.4f} -> "
+                             f"{ce_after:.4f}")
+    say(f"repeated batch, predict_dist (dropout off): cross-entropy "
+        f"{ce_before:.4f} before -> {ce_after:.4f} after the steps")
+    return counts, step_ms, peak
+
+
+def run_steps(torch, tr, batch, per_step, timed=10, staged=None):
     """2 warm-up and `timed` timed steps of tr.update (on `staged`, a
     StagedBatch of `batch`, where given) with the launch counts set to 0
     just before and read just after. Raises unless every loss is finite,
     each kernel launched `per_step[name]` times per step (0 for the
-    others), every param moved and the repeated batch was fitted
-    (softmax cross-entropy under predict_dist fell). Returns (counts,
-    step ms on the host clock, peak device memory in bytes)."""
+    others) and every param moved. Returns (counts, step ms on the host
+    clock, peak device memory in bytes, the losses)."""
     import numpy as np
     from cxxnet_tpu_torch import kernels
     src = batch if staged is None else staged
     total = 2 + timed
-    ce_before = softmax_ce(tr, batch)
     start = {k: {n: t.clone() for n, t in d.items()}
              for k, d in tr.state["params"].items()}
     torch.cuda.synchronize()
@@ -1695,19 +1801,12 @@ def train_steps(torch, tr, batch, per_step, timed=10, staged=None):
         raise AssertionError(f"params unchanged by {total} steps: "
                              f"{unmoved}")
     del start
-    ce_after = softmax_ce(tr, batch)
-    if not ce_after < ce_before:
-        raise AssertionError(f"the repeated batch was not fitted: "
-                             f"cross-entropy {ce_before:.4f} -> "
-                             f"{ce_after:.4f}")
     say(f"{total} steps (2 warm-up + {timed} timed), losses "
         f"{loss_vals[0]:.4f} .. "
         f"{loss_vals[-1]:.4f}, all finite; launches "
         f"{ {n: c for n, c in counts.items() if c} } = {per_step} per "
         "step; every param moved")
-    say(f"repeated batch, predict_dist (dropout off): cross-entropy "
-        f"{ce_before:.4f} before -> {ce_after:.4f} after the steps")
-    return counts, step_ms, peak
+    return counts, step_ms, peak, loss_vals
 
 
 def f32_step_card_vs_cpu(torch, make_trainer, images, labels, per_step):
@@ -2133,6 +2232,227 @@ def phase_seq_csr(torch, card, tr):
     say(f"8e: densifying one b100 CSR batch to (100, 1, 28, 28) takes "
         f"{densify_ms:.4f} ms on the host (mean of 20) on {card}")
     return out
+
+
+# phase 8f: wide_head - examples/LongSeq/seq_mnist.conf with its block
+# widened so that its heads are 512 wide (K2's wide route on the main
+# path); its data, iterators, input_shape, batch_size, dtype and updater
+# are the file's own
+WIDE_HEAD_NET = """netconfig=start
+layer[0->1] = seq_fullc:wide
+  nhidden = 1024
+layer[1->2] = pos_embed:pe
+  init_sigma = 0.02
+layer[2->3,4] = split
+layer[3->5] = layernorm:ln1
+layer[5->6] = attention:att1
+  nhead = 2
+  causal = 0
+layer[6,4->7] = add
+layer[7->8] = transformer_stack:ts1
+  nlayer = 2
+  nhead = 2
+  nhidden = 4096
+  causal = 1
+layer[8->9] = flatten
+layer[9->10] = fullc:head
+  nhidden = 10
+  init_sigma = 0.01
+layer[10->10] = softmax
+netconfig=end"""
+# K2 launches of one wide_head step: the attention layer and each of the
+# stack's 2 blocks
+WIDE_PER_STEP = {n: 3 for n in K2}
+
+
+def wide_head_conf(d: str, extra: str = "") -> str:
+    """Write wide_head.conf into `d` (seq_mnist.conf with WIDE_HEAD_NET
+    in place of its netconfig, then `extra`); its path."""
+    with open(SEQ_CONF) as f:
+        text = f.read()
+    head, rest = text.split("netconfig=start", 1)
+    path = os.path.join(d, "wide_head.conf")
+    with open(path, "w") as f:
+        f.write(head + WIDE_HEAD_NET + rest.split("netconfig=end", 1)[1]
+                + extra)
+    return path
+
+
+def phase_wide_head(torch, card):
+    """8f: wide_head (b100 bfloat16 on cuda:0, two heads of 512 in the
+    non-causal attention layer and in each block of the causal
+    transformer_stack): 3 NetTrainer.update steps (3 launches of each K2
+    kernel a step), then 5 steps timed, each from the initial weights;
+    one more step under the graph audit's probe (no plain version
+    called, no SDPA op); a float32 step, card vs CPU; the divergence,
+    card vs CPU (wide_head_diverges_as_on_cpu); the Server over a
+    trainer fresh from the conf's seed (3 K2-fwd a batch). With
+    seq_mnist.conf's updater (eta 0.1, momentum 0.9) wide_head diverges
+    within a few steps (tests/test_torch_wide_head_train.py: the port
+    and the JAX trainer alike), so no fitting is asked of these steps
+    and the Server gets the initial weights. The CLI's train and pred
+    are phase_wide_cli, beside phase 10's CLI runs. Returns the
+    launches, step ms, served batches and seconds."""
+    import numpy as np
+    from cxxnet_tpu_torch.analysis.graph_audit import Probe
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import _tree_leaves
+    say("== phase 8f: wide_head (seq_mnist.conf, two heads of 512) trained, "
+        "audited and served on the card ==")
+    t8 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        conf = wide_head_conf(d)
+        tr = conf_trainer(conf, [])
+        att = tr.net.layer_objs[4]
+        width = tr.net.node_shapes[tr.net_cfg.layers[4].nindex_in[0]][-1]
+        if (tr.compute_dtype != torch.bfloat16 or str(tr.device) != "cuda:0"
+                or tr.batch_size != 100 or width // att.nhead != 512):
+            raise AssertionError(
+                f"wide_head should train b100 bfloat16 on cuda:0 with heads "
+                f"of 512, got b{tr.batch_size} {tr.compute_dtype} on "
+                f"{tr.device}, {att.nhead} heads of {width}")
+        rng = np.random.RandomState(27)
+        images = rng.rand(100, 1, 28, 28).astype(np.float32)
+        labels = rng.randint(0, 10, size=(100, 1)).astype(np.float32)
+        batch = DataBatch(data=images, label=labels)
+        initial = [t.clone() for t in _tree_leaves(tr.state)]
+        counts, _, peak, losses = run_steps(torch, tr, batch, WIDE_PER_STEP,
+                                            timed=1)
+        say("wide_head b100 bfloat16 losses of the 3 steps: "
+            + ", ".join(f"{v:.4f}" for v in losses))
+        times = []
+        for _ in range(5):
+            with torch.no_grad():
+                for t, t_init in zip(_tree_leaves(tr.state), initial):
+                    t.copy_(t_init)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.update(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        del initial
+        step_ms = sum(times) / len(times)
+        say(f"wide_head b100 bfloat16 training step: {step_ms:.3f} ms (host "
+            f"clock, CUDA-synchronised, mean of 5 steps each from the "
+            f"initial weights: " + ", ".join(f"{v:.3f}" for v in times)
+            + f"); peak memory {peak / 2 ** 20:.1f} MiB; on {card}")
+        with Probe(torch.device("cuda:0"), sync_mode=None) as probe:
+            tr.update(batch)
+        if (probe.error or any(probe.plain.values()) or probe.forbidden()
+                or {n: probe.launches.get(n, 0) for n in K2}
+                != WIDE_PER_STEP):
+            raise AssertionError(
+                f"8f audited step: error {probe.error!r}, plain versions "
+                f"{probe.plain}, library ops {probe.forbidden()}, launches "
+                f"{probe.launches}")
+        say(f"8f audited step: {len(probe.ops)} aten ops, K2 launches "
+            f"{ {n: probe.launches[n] for n in K2} }, plain-version calls "
+            f"0, scaled_dot_product ops 0")
+        del tr
+        say("== phase 8f: a float32 wide_head step, card vs CPU ==")
+        f32_step_card_vs_cpu(torch, lambda ov: conf_trainer(conf, ov),
+                             images, labels, WIDE_PER_STEP)
+        say("== phase 8f: wide_head's divergence, card vs CPU ==")
+        wide_head_diverges_as_on_cpu(torch, lambda ov: conf_trainer(conf, ov),
+                                     images, labels)
+        say("== phase 8f: wide_head served (bfloat16, max_batch 100), "
+            "initial weights ==")
+        launches, batches, _ = serve_burst(torch, card,
+                                           conf_trainer(conf, []), 3,
+                                           "wide_head")
+    secs = time.perf_counter() - t8
+    say(f"phase 8f took {secs:.1f} s")
+    return {"launches": {n: counts[n] for n in K2}, "step_ms": step_ms,
+            "serve_launches": launches, "serve_batches": batches,
+            "secs": secs}
+
+
+# wide_head's divergence, card vs CPU: the same batch of 8 rows in
+# float32 (TF32 off) from the conf's seed, the cross-entropy under
+# predict_dist before and after each of the first DIVERGE_HELD steps
+# within DIVERGE_CE_RTOL (later steps amplify rounding as the weights
+# grow; tests/test_torch_wide_head_train.py holds the port against the
+# JAX trainer so), non-finite at the same step within DIVERGE_STEPS
+DIVERGE_STEPS, DIVERGE_HELD, DIVERGE_CE_RTOL = 6, 2, 1e-3
+
+
+def wide_head_diverges_as_on_cpu(torch, make_trainer, images, labels):
+    """wide_head's float32 trajectory on the card against the port's on
+    the CPU, until both go non-finite: the card must diverge as the
+    port does on the CPU (and the JAX trainer, the CPU test shows),
+    step for step, or a kernel fault hides in the divergence."""
+    import numpy as np
+    from cxxnet_tpu_torch.io.data import DataBatch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = 8
+    small = DataBatch(data=images[:rows], label=labels[:rows])
+    legs = {}
+    for dev in ("gpu", "cpu"):
+        t = make_trainer(["dtype=float32", f"batch_size={rows}"]
+                         + (["dev=cpu"] if dev == "cpu" else []))
+        ces = [softmax_ce(t, small)]
+        for _ in range(DIVERGE_STEPS):
+            t.update(small)
+            p = t.predict_dist(small)
+            if not np.isfinite(p).all():
+                ces.append(None)
+                break
+            ces.append(softmax_ce(t, small))
+        legs[dev] = ces
+        del t
+    card, cpu = legs["gpu"], legs["cpu"]
+    if len(card) != len(cpu) or card[-1] is not None:
+        raise AssertionError(f"wide_head float32 cross-entropy by step, "
+                             f"card {card} vs CPU {cpu}: not non-finite "
+                             f"at one step within {DIVERGE_STEPS}")
+    if len(card) < DIVERGE_HELD + 2 or not card[1] > 2 * card[0]:
+        raise AssertionError(f"wide_head did not diverge as on the CPU: "
+                             f"card {card}, CPU {cpu}")
+    for step, (a, b) in enumerate(zip(card[:DIVERGE_HELD + 1],
+                                      cpu[:DIVERGE_HELD + 1])):
+        if not np.isclose(a, b, rtol=DIVERGE_CE_RTOL):
+            raise AssertionError(f"wide_head float32 step {step}: "
+                                 f"cross-entropy card {a} vs CPU {b}")
+    say(f"float32 (TF32 off) at batch {rows}, the same batch each step, "
+        f"cross-entropy under predict_dist before and after each step, "
+        f"card " + ", ".join(f"{v:.6f}" for v in card[:-1]) + ", CPU "
+        + ", ".join(f"{v:.6f}" for v in cpu[:-1]) + f" (rtol "
+        f"{DIVERGE_CE_RTOL} to step {DIVERGE_HELD}); non-finite after "
+        f"step {len(card) - 1} on both")
+
+
+def phase_wide_cli():
+    """8f's CLI leg: wide_head.conf through the CLI on synthetic MNIST
+    data under ./data/, task = train for 1 round (K2 launched) and task
+    = pred from its model (one line a test image)."""
+    say("== phase 8f: wide_head.conf through the CLI, task = train then "
+        "task = pred ==")
+    with tempfile.TemporaryDirectory() as d:
+        os.makedirs(os.path.join(d, "data"))
+        write_mnist(os.path.join(d, "data"), 300, 5, "train")
+        write_mnist(os.path.join(d, "data"), 200, 6, "t10k")
+        conf = wide_head_conf(d, SEQ_PRED_BLOCK.format(out="pred.txt"))
+        proc = run_cli([conf, "silent=0", "num_round=1", "max_round=1"],
+                       cwd=d)
+        m = re.search(r"kernel launches (\{.*\})", proc.stdout)
+        counts = ast.literal_eval(m.group(1)) if m else {}
+        errs = round_errors(proc.stderr)
+        if any(counts.get(n, 0) <= 0 for n in K2) or 1 not in errs \
+                or not os.path.exists(os.path.join(d, "models",
+                                                   "0001.model")):
+            raise AssertionError(f"wide_head CLI training: launches "
+                                 f"{counts}, rounds {errs}\n{proc.stderr}")
+        say(f"task=train: round 1 test-error {errs[1]:g}, kernel launches "
+            f"{ {n: counts[n] for n in K2} }")
+        run_cli([conf, "task=pred", "model_in=models/0001.model"], cwd=d)
+        with open(os.path.join(d, "pred.txt")) as f:
+            preds = f.read().split()
+        if len(preds) != 200:
+            raise AssertionError(f"wide_head task=pred wrote {len(preds)} "
+                                 "lines")
+        say(f"task=pred: {len(preds)} lines, one per test image")
+        return {n: counts[n] for n in K2}
 
 
 def serve_burst(torch, card, tr, per_batch: int, label: str):
@@ -2803,6 +3123,49 @@ def int8_entry(k3_rows, served, max_err: int):
 ATTN_SOURCES = {"attn_fwd": ("attn_fwd.cu", 90, "_fwd_kernel"),
                 "attn_dq": ("attn_dq.cu", 172, "_dq_kernel"),
                 "attn_dkv": ("attn_dkv.cu", 211, "_dkv_kernel")}
+
+
+def wide_fields(name: str, rows, wide):
+    """A K2 kernel's wide-route keys of the kernels line: one launch at
+    (4,8,4096,512) bfloat16 (phase 3c), at wide_head's main-path shape
+    (100,2,28,512), and its launches on wide_head's paths (phase 8f)."""
+    m = rows[(name, WIDE_ATTN_SHAPE, False)]
+    c = rows[(name, WIDE_ATTN_SHAPE, True)]
+    p = rows[(name, WIDE_PATH_SHAPE, False)]
+    out = {
+        "wide_unit": "one launch at (4,8,4096,512) bfloat16, non-causal, "
+                     "L2 warm: the wide route (head_dim > 256)",
+        "wide_ms": round(m["kernel"], 6),
+        "wide_cold_ms": round(m["kernel_cold"], 6),
+        "wide_tflops": round(m["flops"] / m["kernel"] / 1e9, 3),
+        "wide_plain_ms": round(m["plain"], 6),
+        "wide_bound_ms": round(m["bound"], 6),
+        "wide_bound_by": m["by"],
+        "wide_library_ms": round(m["library"], 6),
+        "wide_library_backend": m["library_backend"],
+        "wide_causal_ms": round(c["kernel"], 6),
+        "wide_causal_bound_ms": round(c["bound"], 6),
+        "wide_causal_library_ms": round(c["library"], 6),
+        "wide_path_unit": "one launch at (100,2,28,512) bfloat16, "
+                          "non-causal: wide_head's attention core",
+        "wide_path_ms": round(p["kernel"], 6),
+        "wide_path_plain_ms": round(p["plain"], 6),
+        "wide_path_bound_ms": round(p["bound"], 6),
+        "wide_path_library_ms": round(p["library"], 6),
+        "wide_launches": wide["launches"][name],
+        "wide_launches_unit": "wide_head.conf b100 bfloat16, 3 steps, 3 "
+                              "launches a step (phase 8f)",
+        "wide_cli_launches": wide["cli_launches"][name],
+    }
+    if name == "attn_fwd":
+        out.update({"wide_serve_launches": wide["serve_launches"],
+                    "wide_serve_batches": wide["serve_batches"]})
+    else:
+        fb = rows[("attn_dkv", WIDE_ATTN_SHAPE, False)]["fwd_bwd"]
+        out.update({"wide_fwd_bwd_ms": round(fb["port"], 6),
+                    "wide_fwd_bwd_bound_ms": round(fb["bound"], 6),
+                    "wide_library_fwd_bwd_ms": round(fb["library"], 6)})
+    return out
 
 
 def attn_entry(name: str, rows, max_err: float, launches: int):
@@ -8063,6 +8426,8 @@ def main() -> int:
     seq_serve_launches, seq_batches = phase_seq_serving(torch, card, seq_tr)
     seq_csr = phase_seq_csr(torch, card, seq_tr)
     del seq_tr
+    wide = phase_wide_head(torch, card)
+    torch.cuda.empty_cache()
     t9 = time.perf_counter()
     k3_rows = phase_int8_kernel(torch, card)
     int8_tr, int8_reqs, int8_served = phase_int8_serving(torch, card,
@@ -8093,7 +8458,8 @@ def main() -> int:
                               lambda d: run_leg(torch, "14u"),
                               lambda d: dispatch_seq_cli(torch, card),
                               dispatch_profile_cli,
-                              lambda d: phase_int8_cli()),
+                              lambda d: phase_int8_cli(),
+                              lambda d: phase_wide_cli()),
                 lambda d: side_by_side(
                     lambda: (run_leg(torch, "10g", d, fmt),
                              run_leg(torch, "14", d, fmt, "0"),
@@ -8105,6 +8471,7 @@ def main() -> int:
         surface["cli"] = beside[3]
         nat.update(beside[4])
         disp["seq_cli"], disp["profile_cli"] = beside[5], beside[6]
+        wide["cli_launches"] = beside[8]
         native_cli(cli_counts)
         front_launches = (front["in_process"]["lrn_fwd"]
                           + front["http"]["lrn_fwd"])
@@ -8401,7 +8768,8 @@ def main() -> int:
     }] + [dict(attn_entry(n, attn_rows, attn_err[n], seq_counts[n]),
                **stack_moe(n), **dispatch(n), **data_parallel(n),
                **tensor_zero(n), **seq_parallel(n), **pipe_expert(n),
-               **elastic_pod(n), csr_launches=seq_csr["launches"]["csr"][n],
+               **elastic_pod(n), **wide_fields(n, attn_rows, wide),
+               csr_launches=seq_csr["launches"]["csr"][n],
                csr_unit="seq_mnist.conf b100 bfloat16, 3 steps from a "
                         "sparse CSR batch densified on the host (phase 8e)")
           for n in K2] + [dict(int8_entry(k3_rows, int8_served, 0),
@@ -8479,6 +8847,7 @@ def main() -> int:
             "sha256", "timing", "secs")},
         "mesh_serve": float_served["mesh"]}))
     say("phase 8e summary " + json.dumps(seq_csr))
+    say("phase 8f summary " + json.dumps(wide))
     say(f"seq_mnist: {seq_serve_launches} attn_fwd launches over "
         f"{seq_batches} served batches; training step {seq_step_ms:.3f} ms")
     say("phase 11 summary " + json.dumps({

@@ -25,8 +25,9 @@ A second package beside `cxxnet_tpu`, ported in slices:
    K2-dq and K2-dkv, the flash-attention forward and its two gradients
    (`csrc/attn_fwd.cu`, `attn_dq.cu`, `attn_dkv.cu`, wrapped by the
    autograd Function of `ops/flash_attention.py`) - on the card at
-   every head_dim up to 256 and every length, where the JAX package
-   takes its TPU kernel only for Mosaic-tileable shapes.
+   every head_dim (past 256 on the kernels' wide route) and every
+   length, where the JAX package takes its TPU kernel only for
+   Mosaic-tileable shapes.
 4. The graph passes and int8 serving (`nnet/passes.py`, K3
    `csrc/int8_mm.cu`).
 5. The image data pipeline (`io/`: img, imgbin / imgbinx, the host

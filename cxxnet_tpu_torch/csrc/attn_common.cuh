@@ -18,10 +18,17 @@
 // banks. Padding columns (>= d) and rows past the sequence are zero, so
 // they change no dot product; rows past the sequence are also masked
 // (p = 0) and never stored.
+//
+// The wide route (head_dim > 256, where a 64 x (d + 1) float32 tile per
+// operand no longer fits a block's shared memory): d is cut into chunks
+// of kWide columns. The score products (q.k^T, do.v^T) sum over the
+// chunks, staged one pair at a time (tile_dot_acc); a block owns the
+// kWide output columns [c0, c0 + kWide) of its rows and recomputes the
+// score tile it needs, so the d / kWide blocks of one row range share no
+// state and need no atomics.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace attn {
@@ -30,61 +37,46 @@ constexpr int kTile = 64;        // query rows and key rows per tile
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kPLd = kTile + 1;  // row stride of the 64 x 64 score tile
 constexpr float kNeg = -1e30f;   // the masked score, as in the JAX package
+constexpr int kWide = 128;       // columns of a chunk on the wide route
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch casts
-}
-
-// v rounded to the working type T and widened back: the rounding point
-// of p and ds before their products (p.astype(v.dtype) in the TPU
-// kernels).
-template <typename T>
-__device__ __forceinline__ float round_t(float v) {
-  return to_f(from_f<T>(v));
+// Stage rows [row0, row0 + kTile) and columns [col0, col0 + w) of a
+// row-major (rows, ld) matrix as a kTile x (W + 1) float32 tile; rows >=
+// `rows` and columns >= w are 0. Neighbouring threads read neighbouring
+// columns of one row.
+template <int W>
+__device__ __forceinline__ void load_cols(float* __restrict__ dst,
+                                          const float* __restrict__ src,
+                                          int row0, int rows, int ld,
+                                          int col0, int w) {
+  constexpr int tld = W + 1;
+  for (int idx = threadIdx.x; idx < kTile * W; idx += kThreads) {
+    int r = idx / W;
+    int c = idx - r * W;
+    int gr = row0 + r;
+    float val = 0.f;
+    if (gr < rows && c < w) val = src[(long long)gr * ld + col0 + c];
+    dst[r * tld + c] = val;
+  }
 }
 
 // Stage rows [row0, row0 + kTile) of a row-major (rows, d) matrix as a
 // kTile x (DP + 1) float32 tile; rows >= `rows` and columns >= d are 0.
-// Neighbouring threads read neighbouring columns of one row.
-template <typename T, int DP>
+template <int DP>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int row0, int rows, int d) {
-  constexpr int ld = DP + 1;
-  for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
-    int r = idx / DP;
-    int c = idx - r * DP;
-    int gr = row0 + r;
-    float val = 0.f;
-    if (gr < rows && c < d) val = to_f(src[(long long)gr * d + c]);
-    dst[r * ld + c] = val;
-  }
+  load_cols<DP>(dst, src, row0, rows, d, 0, d);
 }
 
-// s[r][c] = sum_{e < d} A[ty + 16 r][e] * B[tx + 16 c][e] over two staged
-// tiles: a score tile A . B^T in float32.
+// s[r][c] += sum_{e < d} A[ty + 16 r][e] * B[tx + 16 c][e] over two
+// staged tiles: a score tile A . B^T in float32, or one chunk's share of
+// it on the wide route.
 template <int DP>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4],
-                                         const float* __restrict__ A,
-                                         const float* __restrict__ B, int d,
-                                         int ty, int tx) {
+__device__ __forceinline__ void tile_dot_acc(float (&s)[4][4],
+                                             const float* __restrict__ A,
+                                             const float* __restrict__ B,
+                                             int d, int ty, int tx) {
   constexpr int ld = DP + 1;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
 #pragma unroll 4
   for (int e = 0; e < d; ++e) {
     float a[4], b[4];
@@ -96,6 +88,39 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4],
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], b[c], s[r][c]);
+  }
+}
+
+// s = A . B^T over e < d (tile_dot_acc from zero).
+template <int DP>
+__device__ __forceinline__ void tile_dot(float (&s)[4][4],
+                                         const float* __restrict__ A,
+                                         const float* __restrict__ B, int d,
+                                         int ty, int tx) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+  tile_dot_acc<DP>(s, A, B, d, ty, tx);
+}
+
+// One score product of the wide route: s = A[a0 rows] . B[b0 rows]^T
+// summed over the kWide-column chunks of d, each pair staged in As, Bs.
+__device__ __forceinline__ void wide_dot(float (&s)[4][4], float* As,
+                                         float* Bs, const float* a, int a0,
+                                         int arows, const float* b, int b0,
+                                         int brows, int d, int ty, int tx) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+  for (int e0 = 0; e0 < d; e0 += kWide) {
+    const int w = d - e0 < kWide ? d - e0 : kWide;
+    __syncthreads();  // the last chunk's (or tile's) reads are done
+    load_cols<kWide>(As, a, a0, arows, d, e0, w);
+    load_cols<kWide>(Bs, b, b0, brows, d, e0, w);
+    __syncthreads();
+    tile_dot_acc<kWide>(s, As, Bs, w, ty, tx);
   }
 }
 
@@ -144,8 +169,18 @@ int launch(long long blocks, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-// The head_dim padded to a power of two: the template instance to run.
-#define ATTN_DISPATCH_DP(d, CALL) \
+// Bytes of dynamic shared memory of a wide-route kernel: two staged
+// 64 x (kWide + 1) chunks and one 64 x 64 score tile.
+constexpr size_t kWideSmem = smem_bytes<kWide>(2);
+
+// Chunks of kWide columns in a row of d.
+__host__ __device__ inline int wide_chunks(int d) {
+  return (d + kWide - 1) / kWide;
+}
+
+// The head_dim padded to a power of two: the template instance to run;
+// past 256 the wide route, WIDE.
+#define ATTN_DISPATCH_DP(d, CALL, WIDE) \
   do {                            \
     if ((d) <= 16) {              \
       constexpr int DP = 16;      \
@@ -167,7 +202,7 @@ int launch(long long blocks, size_t smem, cudaStream_t stream,
       constexpr int DP = 256;     \
       return CALL;                \
     }                             \
-    return (int)cudaErrorInvalidValue; \
+    return WIDE;                  \
   } while (0)
 
 }  // namespace attn

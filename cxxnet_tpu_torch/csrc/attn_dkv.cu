@@ -54,6 +54,21 @@
 // p^T and ds^T are written to shared memory as the row-major left
 // operand of the two products; one staging buffer takes Q, then dO, then
 // Q again (head_dim 256 in float32 fits in 214 KB).
+//
+// head_dim > 256, the wide route (attn_dkv_wide_tc in bfloat16,
+// attn_dkv_wide in float32; the chunking is described in attn_tc.cuh and
+// attn_common.cuh): a block owns 64 key rows and 128 columns of both dk
+// and dv, one of d / 128 column blocks. For every query tile it sums
+// s^T = k . q^T and dp^T = v . do^T over the 128-column chunks, forms
+// p^T and ds^T, and adds p^T . do and ds^T . q over its own 128 columns
+// of do and q (both staged in the last step's stage). Each column block
+// recomputes both score products: (4 d / 128 + 4) B H Sq Sk 128 flops
+// in place of 8 B H Sq Sk d (1.5x at d 512). lse and delta are read by
+// each thread for its 16 query columns. bfloat16: one warpgroup a
+// block, 2 x 64 accumulator floats a thread; p^T waits out the dp^T
+// steps in shared memory (32 floats a thread), which keeps the
+// accumulators, dp^T and the copies in flight within 255 registers with
+// no spill: 82,944 B of shared memory. float32: 256 threads, 82,688 B.
 
 #include "attn_common.cuh"
 #include "attn_tc.cuh"
@@ -62,13 +77,14 @@ namespace {
 
 using namespace attn;
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    attn_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    attn_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int nkt, int sq, int sk, int d,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int nkt, int sq, int sk, int d,
                     int causal, float scale) {
   extern __shared__ float smem[];
   constexpr int ld = DP + 1;
@@ -81,13 +97,13 @@ __global__ void __launch_bounds__(kThreads)
   const long long bh = blockIdx.x / nkt;
   const int k0 = (int)(blockIdx.x - bh * nkt) * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qb = q + bh * sq * d;
-  const T* db = dout + bh * sq * d;
+  const float* qb = q + bh * sq * d;
+  const float* db = dout + bh * sq * d;
   const float* lseb = lse + bh * sq;
   const float* deltab = delta + bh * sq;
 
-  load_tile<T, DP>(Ks, k + bh * sk * d, k0, sk, d);
-  load_tile<T, DP>(Vs, v + bh * sk * d, k0, sk, d);
+  load_tile<DP>(Ks, k + bh * sk * d, k0, sk, d);
+  load_tile<DP>(Vs, v + bh * sk * d, k0, sk, d);
 
   float acck[4][NC], accv[4][NC];
 #pragma unroll
@@ -108,12 +124,12 @@ __global__ void __launch_bounds__(kThreads)
       col_delta[c] = qi < sq ? deltab[qi] : 0.f;
     }
     __syncthreads();  // the last tile's ds^T.q is done with Xs and Ts
-    load_tile<T, DP>(Xs, qb, q0, sq, d);
+    load_tile<DP>(Xs, qb, q0, sq, d);
     __syncthreads();
     float s[4][4];  // s[r][c] = k[ty + 16 r] . q[tx + 16 c]
     tile_dot<DP>(s, Ks, Xs, d, ty, tx);
     __syncthreads();
-    load_tile<T, DP>(Xs, db, q0, sq, d);
+    load_tile<DP>(Xs, db, q0, sq, d);
     __syncthreads();
     float dov[4][4];  // (do . v^T) transposed
     tile_dot<DP>(dov, Vs, Xs, d, ty, tx);
@@ -127,7 +143,7 @@ __global__ void __launch_bounds__(kThreads)
         const bool masked = qi >= sq || kj >= sk || (causal && kj > qi);
         const float p = masked ? 0.f : expf(s[r][c] * scale - col_lse[c]);
         ds[r][c] = p * (dov[r][c] - col_delta[c]);
-        Ts[(ty + 16 * r) * kPLd + tx + 16 * c] = round_t<T>(p);
+        Ts[(ty + 16 * r) * kPLd + tx + 16 * c] = p;
       }
     }
     __syncthreads();  // p^T is written
@@ -138,14 +154,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        Ts[(ty + 16 * r) * kPLd + tx + 16 * c] = round_t<T>(ds[r][c]);
-    load_tile<T, DP>(Xs, qb, q0, sq, d);
+        Ts[(ty + 16 * r) * kPLd + tx + 16 * c] = ds[r][c];
+    load_tile<DP>(Xs, qb, q0, sq, d);
     __syncthreads();
     tile_acc<DP>(acck, Ts, Xs, n, ty, tx);  // dk += ds^T . q
   }
 
-  T* dkb = dk + bh * sk * d;
-  T* dvb = dv + bh * sk * d;
+  float* dkb = dk + bh * sk * d;
+  float* dvb = dv + bh * sk * d;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int kj = k0 + ty + 16 * r;
@@ -154,25 +170,123 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < NC; ++c) {
       const int dc = tx + 16 * c;
       if (dc < d) {
-        dkb[(long long)kj * d + dc] = from_f<T>(scale * acck[r][c]);
-        dvb[(long long)kj * d + dc] = from_f<T>(accv[r][c]);
+        dkb[(long long)kj * d + dc] = scale * acck[r][c];
+        dvb[(long long)kj * d + dc] = accv[r][c];
       }
     }
   }
 }
 
-template <typename T>
-int run(const void* q, const void* k, const void* v, const void* dout,
-        const float* lse, const float* delta, void* dk, void* dv,
+// float32, head_dim > 256 (the wide route; see the header): block
+// (bh, key tile, column chunk cc), the chunk index fastest.
+__global__ void __launch_bounds__(kThreads)
+    attn_dkv_wide(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, int nkt, int nch, int sq, int sk,
+                  int d, int causal, float scale) {
+  extern __shared__ float smem[];
+  constexpr int ld = kWide + 1;
+  constexpr int NC = kWide / 16;
+  float* As = smem;
+  float* Bs = As + kTile * ld;
+  float* Ts = Bs + kTile * ld;
+
+  const int cc = (int)(blockIdx.x % nch);
+  const long long kt = blockIdx.x / nch;
+  const long long bh = kt / nkt;
+  const int k0 = (int)(kt - bh * nkt) * kTile;
+  const int c0 = cc * kWide;
+  const int w0 = d - c0 < kWide ? d - c0 : kWide;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* qb = q + bh * sq * d;
+  const float* db = dout + bh * sq * d;
+  const float* kb = k + bh * sk * d;
+  const float* vb = v + bh * sk * d;
+  const float* lseb = lse + bh * sq;
+  const float* deltab = delta + bh * sq;
+
+  float acck[4][NC], accv[4][NC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acck[r][c] = accv[r][c] = 0.f;
+
+  const int nqt = (sq + kTile - 1) / kTile;
+  // under causal, query tiles with q0 + kTile - 1 >= k0
+  const int t0 = causal ? k0 / kTile : 0;
+  for (int t = t0; t < nqt; ++t) {
+    const int q0 = t * kTile;
+    float col_lse[4], col_delta[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int qi = q0 + tx + 16 * c;
+      col_lse[c] = qi < sq ? lseb[qi] : 0.f;
+      col_delta[c] = qi < sq ? deltab[qi] : 0.f;
+    }
+    float s[4][4], dov[4][4];  // k . q^T and (do . v^T) transposed
+    wide_dot(s, As, Bs, kb, k0, sk, qb, q0, sq, d, ty, tx);
+    wide_dot(dov, As, Bs, vb, k0, sk, db, q0, sq, d, ty, tx);
+    float ds[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int kj = k0 + ty + 16 * r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = q0 + tx + 16 * c;
+        const bool masked = qi >= sq || kj >= sk || (causal && kj > qi);
+        const float p = masked ? 0.f : expf(s[r][c] * scale - col_lse[c]);
+        ds[r][c] = p * (dov[r][c] - col_delta[c]);
+        Ts[(ty + 16 * r) * kPLd + tx + 16 * c] = p;
+      }
+    }
+    __syncthreads();  // p^T is written; every thread is done with Bs
+    load_cols<kWide>(Bs, db, q0, sq, d, c0, w0);
+    __syncthreads();
+    const int n = sq - q0 < kTile ? sq - q0 : kTile;
+    tile_acc<kWide>(accv, Ts, Bs, n, ty, tx);  // dv += p^T . do
+    __syncthreads();  // every thread is done reading p^T and dO
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        Ts[(ty + 16 * r) * kPLd + tx + 16 * c] = ds[r][c];
+    load_cols<kWide>(Bs, qb, q0, sq, d, c0, w0);
+    __syncthreads();
+    tile_acc<kWide>(acck, Ts, Bs, n, ty, tx);  // dk += ds^T . q
+  }
+
+  float* dkb = dk + bh * sk * d;
+  float* dvb = dv + bh * sk * d;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int kj = k0 + ty + 16 * r;
+    if (kj >= sk) continue;  // padding rows are never stored
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int dc = c0 + tx + 16 * c;
+      if (dc < d) {
+        dkb[(long long)kj * d + dc] = scale * acck[r][c];
+        dvb[(long long)kj * d + dc] = accv[r][c];
+      }
+    }
+  }
+}
+
+int run(const float* q, const float* k, const float* v, const float* dout,
+        const float* lse, const float* delta, float* dk, float* dv,
         long long bh, int sq, int sk, int d, int causal, float scale,
         cudaStream_t stream) {
   const int nkt = (sk + kTile - 1) / kTile;
+  const int nch = wide_chunks(d);
   ATTN_DISPATCH_DP(
-      d, (launch<attn_dkv_kernel<T, DP>>(
-             bh * nkt, smem_bytes<DP>(3), stream, static_cast<const T*>(q),
-             static_cast<const T*>(k), static_cast<const T*>(v),
-             static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-             static_cast<T*>(dv), nkt, sq, sk, d, causal, scale)));
+      d, (launch<attn_dkv_kernel<DP>>(bh * nkt, smem_bytes<DP>(3), stream, q,
+                                      k, v, dout, lse, delta, dk, dv, nkt,
+                                      sq, sk, d, causal, scale)),
+      (launch<attn_dkv_wide>(bh * nkt * nch, kWideSmem, stream, q, k, v,
+                             dout, lse, delta, dk, dv, nkt, nch, sq, sk, d,
+                             causal, scale)));
 }
 
 // bfloat16 on the tensor cores: see the header and attn_tc.cuh.
@@ -307,20 +421,198 @@ template <int DP>
 constexpr size_t kSmemTc =
     attn_tc::smem_bytes<DP>(2 * attn_tc::kStages * attn_tc::kRows);
 
+// bfloat16, head_dim > 256 (the wide route; see the header and
+// attn_tc.cuh): one warpgroup a block, block (bh, key tile, column chunk
+// cc) with the chunk index fastest. The steps of a query tile: nch
+// chunks of s^T (k and q chunk e), nch chunks of dp^T (v and do chunk
+// e), then do's and q's columns [c0, c0 + 128) for dv += p^T . do and
+// dk += ds^T . q.
+template <bool VEC>
+__global__ void __launch_bounds__(attn_tc::kWideThreads, 2)
+    attn_dkv_wide_tc(const attn_tc::bf16* __restrict__ q,
+                     const attn_tc::bf16* __restrict__ k,
+                     const attn_tc::bf16* __restrict__ v,
+                     const attn_tc::bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     attn_tc::bf16* __restrict__ dk,
+                     attn_tc::bf16* __restrict__ dv, int nkt, int nch, int sq,
+                     int sk, int d, int causal, float scale) {
+  using namespace attn_tc;
+  constexpr int TE = kWideTE;
+  constexpr int NJ = kWideCols / 8;
+  extern __shared__ unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(align_smem(tc_smem));  // 2 TE a stage
+  // p^T during the dp^T steps: element (jj, e) of thread x at
+  // (4 jj + e) * kWideThreads + x
+  float* park = reinterpret_cast<float*>(ring + 2 * kStages * TE);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int cc = (int)(blockIdx.x % nch);
+  const long long kt = blockIdx.x / nch;
+  const long long bh = kt / nkt;
+  const int k0 = (int)(kt - bh * nkt) * kRows;
+  const int c0 = cc * kWideCols;
+  const bf16* qp = q + bh * sq * d;
+  const bf16* dop = dout + bh * sq * d;
+  const bf16* kp = k + bh * sk * d;
+  const bf16* vp = v + bh * sk * d;
+  const float* lseb = lse + bh * sq;
+  const float* deltab = delta + bh * sq;
+
+  const int nqt = (sq + kRows - 1) / kRows;
+  // under causal, query tiles with q0 + kRows - 1 >= k0
+  const int t0 = causal ? k0 / kRows : 0;
+  const int per = 2 * nch + 1;  // steps a query tile
+  const int total = t0 < nqt ? (nqt - t0) * per : 0;
+  auto load_step = [&](int i, int st) {
+    const int ti = i / per, j = i - ti * per;
+    const int q0 = (t0 + ti) * kRows;
+    bf16* dst = ring + 2 * st * TE;
+    if (j < nch) {
+      stage_chunk<VEC>(dst, kp, k0, sk, d, j * kWideCols);
+      stage_chunk<VEC>(dst + TE, qp, q0, sq, d, j * kWideCols);
+    } else if (j < 2 * nch) {
+      stage_chunk<VEC>(dst, vp, k0, sk, d, (j - nch) * kWideCols);
+      stage_chunk<VEC>(dst + TE, dop, q0, sq, d, (j - nch) * kWideCols);
+    } else {
+      stage_chunk<VEC>(dst, dop, q0, sq, d, c0);
+      stage_chunk<VEC>(dst + TE, qp, q0, sq, d, c0);
+    }
+  };
+  if (total > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float acck[NJ][4], accv[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[j][e] = accv[j][e] = 0.f;
+  float s[kRows / 8][4], dp[kRows / 8][4];
+  uint32_t ap[kRows / 16][4], ads[kRows / 16][4];
+
+  const float sl2 = scale * kLog2e;
+  // the key position of fragment rows e < 2
+  const int kw = k0 + warp * 16 + g;
+  for (int i = 0; i < total; ++i) {
+    const int st = i & 1;
+    if (i + 1 < total) load_step(i + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // step i has landed (this thread's copies)
+    fence_proxy_async();  // ... visible to the tensor cores
+    __syncthreads();      // ... and every other thread's
+    const int ti = i / per, j = i - ti * per;
+    const int q0 = (t0 + ti) * kRows;
+    const bf16* A = ring + 2 * st * TE;
+    const bool edge = q0 + kRows > sq || k0 + kRows > sk ||
+                      (causal && k0 + kRows - 1 > q0);
+    if (j < nch) {
+      wg_score_chunk(s, opaque(desc_k(A)), opaque(desc_k(A + TE)), j == 0);
+      wg_commit();
+      wg_wait<0>();
+      keep(s);
+      if (j == nch - 1) {  // s^T -> p^T = exp(s^T - lse)
+#pragma unroll
+        for (int jj = 0; jj < kRows / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + 8 * jj + 2 * t4 + (e & 1);
+            const float lv = qi < sq ? lseb[qi] : 0.f;
+            float p = ex2(fmaf(s[jj][e], sl2, -lv * kLog2e));
+            if (edge) {
+              const int kj = kw + 8 * (e >> 1);
+              if (qi >= sq || kj >= sk || (causal && kj > qi)) p = 0.f;
+            }
+            park[(4 * jj + e) * kWideThreads + threadIdx.x] = p;
+            // a constant until the next query tile's first chunk: the
+            // wgmma operand constraints would otherwise keep s^T live
+            // through every dp^T step
+            s[jj][e] = 0.f;
+          }
+        }
+      }
+    } else if (j < 2 * nch) {
+      wg_score_chunk(dp, opaque(desc_k(A)), opaque(desc_k(A + TE)),
+                     j == nch);
+      wg_commit();
+      wg_wait<0>();
+      keep(dp);
+      if (j == 2 * nch - 1) {  // ds^T = p^T * (dp^T - delta)
+        auto pk = [&](int jj, int e) {
+          return park[(4 * jj + e) * kWideThreads + threadIdx.x];
+        };
+#pragma unroll
+        for (int jj = 0; jj < kRows / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + 8 * jj + 2 * t4 + (e & 1);
+            const float dl = qi < sq ? deltab[qi] : 0.f;
+            dp[jj][e] = pk(jj, e) * (dp[jj][e] - dl);
+          }
+        }
+        // p^T as pack_a lays out a score fragment, from its park
+#pragma unroll
+        for (int ks = 0; ks < kRows / 16; ++ks) {
+          ap[ks][0] = pack_bf16(pk(2 * ks, 0), pk(2 * ks, 1));
+          ap[ks][1] = pack_bf16(pk(2 * ks, 2), pk(2 * ks, 3));
+          ap[ks][2] = pack_bf16(pk(2 * ks + 1, 0), pk(2 * ks + 1, 1));
+          ap[ks][3] = pack_bf16(pk(2 * ks + 1, 2), pk(2 * ks + 1, 3));
+        }
+        pack_a(ads, dp);
+#pragma unroll
+        for (int jj = 0; jj < kRows / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[jj][e] = 0.f;  // as s^T above
+      }
+    } else {
+      wg_fence();
+      wg_acc<kWideCols>(accv, ap, opaque(desc_mn(A, 0)));  // dv += p^T . do
+      wg_acc<kWideCols>(acck, ads, opaque(desc_mn(A + TE, 0)));  // dk
+      wg_commit();
+      wg_wait<0>();
+      keep(accv);
+      keep(acck);
+      keep(ap);
+      keep(ads);
+    }
+    __syncthreads();  // every warp is done with stage st before refill
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  const long long ob = bh * sk * d;
+  const int r0 = k0 + warp * 16;
+  store_rows<kWideCols, VEC>(dk + ob, acck, r0, sk, d, c0, scale, lane);
+  store_rows<kWideCols, VEC>(dv + ob, accv, r0, sk, d, c0, 1.f, lane);
+}
+
+// Dynamic shared memory of the wide instance: the ring and p^T's park.
+constexpr size_t kSmemWide =
+    attn_tc::kWideTcSmem + (size_t)attn_tc::kRows * attn_tc::kRows * 4;
+
 int run_tc(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dk, void* dv,
            long long bh, int sq, int sk, int d, int causal, float scale,
            cudaStream_t stream) {
   using attn_tc::bf16;
   const bool vec = attn_tc::vec_ok(d, {q, k, v, dout, dk, dv});
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* db = static_cast<const bf16*>(dout);
+  bf16* dkb = static_cast<bf16*>(dk);
+  bf16* dvb = static_cast<bf16*>(dv);
+  const int nkt = (sk + attn_tc::kRows - 1) / attn_tc::kRows;
+  const int nch = attn_tc::wide_chunks(d);
   ATTN_TC_DISPATCH(
       d, vec,
       (attn_tc::launch<attn_dkv_tc<DP, VEC>>(
           bh * attn_tc::own_tiles(sk, DP), attn_tc::kTcThreads,
-          kSmemTc<DP>, stream, static_cast<const bf16*>(q),
-          static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), attn_tc::own_tiles(sk, DP), sq, sk, d,
+          kSmemTc<DP>, stream, qb, kb, vb, db, lse, delta, dkb, dvb,
+          attn_tc::own_tiles(sk, DP), sq, sk, d, causal, scale)),
+      (attn_tc::launch<attn_dkv_wide_tc<VEC>>(
+          bh * nkt * nch, attn_tc::kWideThreads, kSmemWide,
+          stream, qb, kb, vb, db, lse, delta, dkb, dvb, nkt, nch, sq, sk, d,
           causal, scale)));
 }
 
@@ -329,7 +621,10 @@ int plan_tc(int d, int* plan) {
   ATTN_TC_DISPATCH(
       d, true,
       (plan[0] = DP, plan[1] = attn_tc::kTcThreads,
-       plan[2] = (int)kSmemTc<DP>, (void)VEC, 0));
+       plan[2] = (int)kSmemTc<DP>, plan[3] = DP, (void)VEC, 0),
+      (plan[0] = attn_tc::wide_chunks(d) * attn_tc::kWideCols,
+       plan[1] = attn_tc::kWideThreads, plan[2] = (int)kSmemWide,
+       plan[3] = attn_tc::kWideCols, (void)VEC, 0));
 }
 
 }  // namespace
@@ -349,17 +644,19 @@ extern "C" int attn_dkv(const void* q, const void* k, const void* v,
   const float* lf = static_cast<const float*>(lse);
   const float* df = static_cast<const float*>(delta);
   if (dtype == 0)
-    return run<float>(q, k, v, dout, lf, df, dk, dv, bh, sq, sk, d, causal,
-                      scale, s);
+    return run(static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v),
+               static_cast<const float*>(dout), lf, df,
+               static_cast<float*>(dk), static_cast<float*>(dv), bh, sq, sk,
+               d, causal, scale, s);
   if (dtype == 1)
     return run_tc(q, k, v, dout, lf, df, dk, dv, bh, sq, sk, d, causal, scale,
                   s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The bfloat16 instance's tile plan for head_dim d: plan[0..2] = DP,
-// threads per block, dynamic shared memory bytes. Returns 0, or
-// cudaErrorInvalidValue for d > 256.
+// The bfloat16 instance's tile plan for head_dim d: plan[0..3] as for
+// attn_dq_plan. Returns 0.
 extern "C" int attn_dkv_plan(int d, int* plan) {
   return plan_tc(d, plan);
 }

@@ -60,6 +60,19 @@
 // cores with float32 tiles, 64 query rows a block, as first written. Its
 // bar against the plain version (rtol 1e-5) rules out TF32, and it serves
 // the float32 agreement legs only.
+//
+// head_dim > 256, the wide route (attn_fwd_wide_tc in bfloat16,
+// attn_fwd_wide in float32; the chunking is described in attn_tc.cuh and
+// attn_common.cuh): a block owns 64 query rows and 128 output columns,
+// one of d / 128 column blocks of those rows. For every key tile it sums
+// s over the 128-column chunks of q and k, runs the online softmax on
+// the whole score tile, and adds p . v over its own 128 columns of v.
+// Each column block recomputes the scores, so the wide route does
+// (2 d / 128 + 2) B H Sq Sk 128 flops in place of 4 B H Sq Sk d (1.5x at
+// d 512: the price of a float32 accumulator that fits). The block of
+// column chunk 0 writes lse. bfloat16: one warpgroup a block, 66,560 B
+// of shared memory (a 2-stage ring of two 64 x 128 chunks); float32:
+// 256 threads, 82,688 B.
 
 #include "attn_common.cuh"
 #include "attn_tc.cuh"
@@ -68,10 +81,10 @@ namespace {
 
 using namespace attn;
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-    attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
+    attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
                     float* __restrict__ lse, int nqt, int sq, int sk, int d,
                     int causal, float scale) {
   extern __shared__ float smem[];
@@ -84,11 +97,11 @@ __global__ void __launch_bounds__(kThreads)
   const long long bh = blockIdx.x / nqt;
   const int q0 = (int)(blockIdx.x - bh * nqt) * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qb = q + bh * sq * d;
-  const T* kb = k + bh * sk * d;
-  const T* vb = v + bh * sk * d;
+  const float* qb = q + bh * sq * d;
+  const float* kb = k + bh * sk * d;
+  const float* vb = v + bh * sk * d;
 
-  load_tile<T, DP>(Qs, qb, q0, sq, d);
+  load_tile<DP>(Qs, qb, q0, sq, d);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -108,7 +121,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < nkt; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the last tile's P.V is done with KVs and Ps
-    load_tile<T, DP>(KVs, kb, k0, sk, d);
+    load_tile<DP>(KVs, kb, k0, sk, d);
     __syncthreads();
     float s[4][4];
     tile_dot<DP>(s, Qs, KVs, d, ty, tx);
@@ -136,7 +149,7 @@ __global__ void __launch_bounds__(kThreads)
         const bool masked = kj >= sk || (causal && kj > qi);
         const float p = masked ? 0.f : expf(s[r][c] - m_new);
         rs += p;
-        Ps[(ty + 16 * r) * kPLd + tx + 16 * c] = round_t<T>(p);
+        Ps[(ty + 16 * r) * kPLd + tx + 16 * c] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -147,13 +160,13 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
     }
     __syncthreads();  // every thread is done reading K; Ps is written
-    load_tile<T, DP>(KVs, vb, k0, sk, d);
+    load_tile<DP>(KVs, vb, k0, sk, d);
     __syncthreads();
     const int n = sk - k0 < kTile ? sk - k0 : kTile;
     tile_acc<DP>(acc, Ps, KVs, n, ty, tx);
   }
 
-  T* ob = o + bh * sq * d;
+  float* ob = o + bh * sq * d;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + ty + 16 * r;
@@ -162,22 +175,121 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int dc = tx + 16 * c;
-      if (dc < d) ob[(long long)qi * d + dc] = from_f<T>(acc[r][c] / safe);
+      if (dc < d) ob[(long long)qi * d + dc] = acc[r][c] / safe;
     }
     if (tx == 0) lse[bh * sq + qi] = m[r] + logf(safe);
   }
 }
 
-template <typename T>
-int run(const void* q, const void* k, const void* v, void* o, float* lse,
-        long long bh, int sq, int sk, int d, int causal, float scale,
-        cudaStream_t stream) {
+// float32, head_dim > 256 (the wide route; see the header): block
+// (bh, query tile, column chunk cc), the chunk index fastest.
+__global__ void __launch_bounds__(kThreads)
+    attn_fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int nqt, int nch, int sq, int sk,
+                  int d, int causal, float scale) {
+  extern __shared__ float smem[];
+  constexpr int ld = kWide + 1;
+  constexpr int NC = kWide / 16;
+  float* As = smem;
+  float* Bs = As + kTile * ld;
+  float* Ps = Bs + kTile * ld;
+
+  const int cc = (int)(blockIdx.x % nch);
+  const long long qt = blockIdx.x / nch;
+  const long long bh = qt / nqt;
+  const int q0 = (int)(qt - bh * nqt) * kTile;
+  const int c0 = cc * kWide;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* qb = q + bh * sq * d;
+  const float* kb = k + bh * sk * d;
+  const float* vb = v + bh * sk * d;
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = kNeg;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  }
+
+  int nkt = (sk + kTile - 1) / kTile;
+  if (causal) {
+    int last = (q0 + kTile - 1) / kTile + 1;
+    nkt = nkt < last ? nkt : last;
+  }
+  for (int t = 0; t < nkt; ++t) {
+    const int k0 = t * kTile;
+    float s[4][4];
+    wide_dot(s, As, Bs, qb, q0, sq, kb, k0, sk, d, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int qi = q0 + ty + 16 * r;
+      float mx = kNeg;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kj = k0 + tx + 16 * c;
+        const bool masked = kj >= sk || (causal && kj > qi);
+        s[r][c] = masked ? kNeg : s[r][c] * scale;
+        mx = fmaxf(mx, s[r][c]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = expf(m[r] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kj = k0 + tx + 16 * c;
+        const bool masked = kj >= sk || (causal && kj > qi);
+        const float p = masked ? 0.f : expf(s[r][c] - m_new);
+        rs += p;
+        Ps[(ty + 16 * r) * kPLd + tx + 16 * c] = p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[r] = l[r] * corr + rs;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
+    }
+    __syncthreads();  // every thread is done reading K; Ps is written
+    load_cols<kWide>(Bs, vb, k0, sk, d, c0,
+                     d - c0 < kWide ? d - c0 : kWide);
+    __syncthreads();
+    const int n = sk - k0 < kTile ? sk - k0 : kTile;
+    tile_acc<kWide>(acc, Ps, Bs, n, ty, tx);
+  }
+
+  float* ob = o + bh * sq * d;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qi = q0 + ty + 16 * r;
+    if (qi >= sq) continue;  // padding rows are never stored
+    const float safe = l[r] > 0.f ? l[r] : 1.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int dc = c0 + tx + 16 * c;
+      if (dc < d) ob[(long long)qi * d + dc] = acc[r][c] / safe;
+    }
+    if (tx == 0 && cc == 0) lse[bh * sq + qi] = m[r] + logf(safe);
+  }
+}
+
+int run(const float* q, const float* k, const float* v, float* o,
+        float* lse, long long bh, int sq, int sk, int d, int causal,
+        float scale, cudaStream_t stream) {
   const int nqt = (sq + kTile - 1) / kTile;
+  const int nch = wide_chunks(d);
   ATTN_DISPATCH_DP(
-      d, (launch<attn_fwd_kernel<T, DP>>(
-             bh * nqt, smem_bytes<DP>(2), stream, static_cast<const T*>(q),
-             static_cast<const T*>(k), static_cast<const T*>(v),
-             static_cast<T*>(o), lse, nqt, sq, sk, d, causal, scale)));
+      d, (launch<attn_fwd_kernel<DP>>(bh * nqt, smem_bytes<DP>(2), stream,
+                                      q, k, v, o, lse, nqt, sq, sk, d,
+                                      causal, scale)),
+      (launch<attn_fwd_wide>(bh * nqt * nch, kWideSmem, stream, q, k, v, o,
+                             lse, nqt, nch, sq, sk, d, causal, scale)));
 }
 
 // bfloat16 on the tensor cores: see the header and attn_tc.cuh. WG
@@ -402,30 +514,224 @@ int run_tc_dp(const attn_tc::bf16* q, const attn_tc::bf16* k,
       d, causal, scale);
 }
 
+// bfloat16, head_dim > 256 (the wide route; see the header and
+// attn_tc.cuh): one warpgroup a block, block (bh, query tile, column
+// chunk cc) with the chunk index fastest, so that the column blocks of
+// one query tile run side by side and share q's and k's chunks in L2.
+// The steps of a key tile: its nch score chunks (q and k chunk e in one
+// stage), then v's columns [c0, c0 + 128).
+template <bool VEC>
+__global__ void __launch_bounds__(attn_tc::kWideThreads, 3)
+    attn_fwd_wide_tc(const attn_tc::bf16* __restrict__ q,
+                     const attn_tc::bf16* __restrict__ k,
+                     const attn_tc::bf16* __restrict__ v,
+                     attn_tc::bf16* __restrict__ o, float* __restrict__ lse,
+                     int nqt, int nch, int sq, int sk, int d, int causal,
+                     float scale) {
+  using namespace attn_tc;
+  constexpr int TE = kWideTE;
+  constexpr int NJ = kWideCols / 8;
+  extern __shared__ unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(align_smem(tc_smem));  // 2 TE a stage
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int cc = (int)(blockIdx.x % nch);
+  const long long qt = blockIdx.x / nch;
+  const long long bh = qt / nqt;
+  // under causal the last query tiles have the most key tiles: first
+  const int qb = (int)(qt - bh * nqt);
+  const int q0 = (causal ? nqt - 1 - qb : qb) * kRows;
+  const int c0 = cc * kWideCols;
+  const bf16* qp = q + bh * sq * d;
+  const bf16* kp = k + bh * sk * d;
+  const bf16* vp = v + bh * sk * d;
+
+  int nkt = (sk + kRows - 1) / kRows;
+  if (causal) {  // key tiles with k0 <= q0 + kRows - 1
+    const int last = (q0 + kRows - 1) / kRows + 1;
+    nkt = nkt < last ? nkt : last;
+  }
+  const int per = nch + 1;  // steps a key tile
+  const int total = nkt * per;
+  auto load_step = [&](int i, int st) {
+    const int t = i / per, j = i - t * per;
+    bf16* dst = ring + 2 * st * TE;
+    if (j < nch) {
+      stage_chunk<VEC>(dst, qp, q0, sq, d, j * kWideCols);
+      stage_chunk<VEC>(dst + TE, kp, t * kRows, sk, d, j * kWideCols);
+    } else {
+      stage_chunk<VEC>(dst, vp, t * kRows, sk, d, c0);
+    }
+  };
+  if (total > 0) load_step(0, 0);
+  cp_async_commit();
+
+  const int wrow = q0 + warp * 16;
+  int qrow[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qrow[h] = wrow + g + 8 * h;
+    m[h] = attn::kNeg;
+    l[h] = 0.f;
+  }
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float s[kRows / 8][4];
+  uint32_t a[kRows / 16][4];
+
+  for (int i = 0; i < total; ++i) {
+    const int st = i & 1;
+    if (i + 1 < total) load_step(i + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // step i has landed (this thread's copies)
+    fence_proxy_async();  // ... visible to the tensor cores
+    __syncthreads();      // ... and every other thread's
+    const int t = i / per, j = i - t * per;
+    const bf16* A = ring + 2 * st * TE;
+    if (j < nch) {
+      wg_score_chunk(s, opaque(desc_k(A)), opaque(desc_k(A + TE)), j == 0);
+      wg_commit();
+      wg_wait<0>();
+      keep(s);
+      if (j == nch - 1) {  // the whole score tile: the online softmax
+        const int k0 = t * kRows;
+        const bool edge =
+            k0 + kRows > sk || (causal && k0 + kRows - 1 > wrow);
+        float mx[2] = {attn::kNeg, attn::kNeg};
+#pragma unroll
+        for (int jj = 0; jj < kRows / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[jj][e] * scale;
+            if (edge) {
+              const int kj = k0 + 8 * jj + 2 * t4 + (e & 1);
+              if (kj >= sk || (causal && kj > qrow[e >> 1])) x = attn::kNeg;
+            }
+            s[jj][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        }
+        float corr[2], ml2[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float mn = fmaxf(m[h], mx[h]);
+          corr[h] = ex2((m[h] - mn) * kLog2e);
+          ml2[h] = mn * kLog2e;
+          m[h] = mn;
+        }
+#pragma unroll
+        for (int jj = 0; jj < kRows / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            float p = ex2(fmaf(s[jj][e], kLog2e, -ml2[h]));
+            if (edge && s[jj][e] <= 0.5f * attn::kNeg) p = 0.f;
+            s[jj][e] = p;
+            rs[h] += p;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+          rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+          l[h] = l[h] * corr[h] + rs[h];
+        }
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          acc[jj][0] *= corr[0];
+          acc[jj][1] *= corr[0];
+          acc[jj][2] *= corr[1];
+          acc[jj][3] *= corr[1];
+        }
+        pack_a(a, s);  // p.astype(v.dtype)
+      }
+    } else {
+      wg_fence();
+      wg_acc<kWideCols>(acc, a, opaque(desc_mn(A, 0)));  // acc += p . v
+      wg_commit();
+      wg_wait<0>();
+      keep(acc);
+      keep(a);
+    }
+    __syncthreads();  // every warp is done with stage st before refill
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  bf16* ob = o + bh * sq * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qrow[h];
+    if (r >= sq) continue;  // padding rows are never stored
+    const float safe = l[h] > 0.f ? l[h] : 1.f;
+    bf16* orow = ob + (long long)r * d;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = c0 + 8 * j + 2 * t4;
+      const float v0 = acc[j][2 * h] / safe;
+      const float v1 = acc[j][2 * h + 1] / safe;
+      if constexpr (VEC) {
+        if (c < d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (c < d) orow[c] = __float2bfloat16(v0);
+        if (c + 1 < d) orow[c + 1] = __float2bfloat16(v1);
+      }
+    }
+    if (t4 == 0 && cc == 0) lse[bh * sq + r] = m[h] + logf(safe);
+  }
+}
+
+template <bool VEC>
+int run_wide_tc(const attn_tc::bf16* q, const attn_tc::bf16* k,
+                const attn_tc::bf16* v, attn_tc::bf16* o, float* lse,
+                long long bh, int sq, int sk, int d, int causal, float scale,
+                cudaStream_t stream) {
+  const int nqt = (sq + attn_tc::kRows - 1) / attn_tc::kRows;
+  const int nch = attn_tc::wide_chunks(d);
+  return attn_tc::launch<attn_fwd_wide_tc<VEC>>(
+      bh * nqt * nch, attn_tc::kWideThreads, attn_tc::kWideTcSmem, stream, q,
+      k, v, o, lse, nqt, nch, sq, sk, d, causal, scale);
+}
+
 int run_tc(const void* q, const void* k, const void* v, void* o, float* lse,
            long long bh, int sq, int sk, int d, int causal, float scale,
            cudaStream_t stream) {
   using attn_tc::bf16;
   const bool vec = attn_tc::vec_ok(d, {q, k, v, o});
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
   ATTN_TC_DISPATCH(
       d, vec,
-      (run_tc_dp<DP, VEC>(static_cast<const bf16*>(q),
-                          static_cast<const bf16*>(k),
-                          static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                          lse, bh, sq, sk, d, causal, scale, stream)));
+      (run_tc_dp<DP, VEC>(qb, kb, vb, ob, lse, bh, sq, sk, d, causal, scale,
+                          stream)),
+      (run_wide_tc<VEC>(qb, kb, vb, ob, lse, bh, sq, sk, d, causal, scale,
+                        stream)));
 }
 
 int plan_tc(int d, int sq, int* plan) {
   // the plan does not depend on the load path
   ATTN_TC_DISPATCH(
       d, true,
-      (plan[0] = DP, (void)VEC,
+      (plan[0] = DP, (void)VEC, plan[4] = DP,
        (DP <= 128 && sq <= attn_tc::kRows)
            ? (plan[1] = 128, plan[2] = (int)kSmemFwd<DP, 1>,
               plan[3] = attn_tc::kRows)
            : (plan[1] = 256, plan[2] = (int)kSmemFwd<DP, 2>,
               plan[3] = attn_tc::kRows * fwd_rowg<DP, 2>()),
-       0));
+       0),
+      (plan[0] = attn_tc::wide_chunks(d) * attn_tc::kWideCols, (void)VEC,
+       plan[1] = attn_tc::kWideThreads, plan[2] = (int)attn_tc::kWideTcSmem,
+       plan[3] = attn_tc::kRows, plan[4] = attn_tc::kWideCols, 0));
 }
 
 }  // namespace
@@ -442,15 +748,19 @@ extern "C" int attn_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lf = static_cast<float*>(lse);
   if (dtype == 0)
-    return run<float>(q, k, v, o, lf, bh, sq, sk, d, causal, scale, s);
+    return run(static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v), static_cast<float*>(o), lf, bh,
+               sq, sk, d, causal, scale, s);
   if (dtype == 1)
     return run_tc(q, k, v, o, lf, bh, sq, sk, d, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The bfloat16 instance's tile plan for head_dim d and Sq query rows:
-// plan[0..3] = DP, threads per block, dynamic shared memory bytes, query
-// rows a block. Returns 0, or cudaErrorInvalidValue for d > 256.
+// plan[0..4] = DP (past 256: d rounded up to whole 128-column chunks),
+// threads per block, dynamic shared memory bytes, query rows a block,
+// the head_dim columns a staged tile holds (DP, or 128 on the wide
+// route). Returns 0.
 extern "C" int attn_fwd_plan(int d, int sq, int* plan) {
   return plan_tc(d, sq, plan);
 }

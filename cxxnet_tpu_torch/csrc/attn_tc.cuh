@@ -41,6 +41,22 @@
 //         a view with a storage offset may be 2-byte aligned): element
 //         loads into the zero-padded tile, and element stores.
 // Both paths compute the same products on the tensor cores.
+//
+// The wide route (head_dim > 256): neither the resident 64 x DP tiles
+// nor a warpgroup's float32 accumulator over all of d fit any more (a
+// 64 x 512 accumulator is 256 floats a thread). So d is cut into chunks
+// of kWideCols = 128 columns, the geometry of the DP 128 instances (two
+// swizzled 64-column blocks a tile). A block is one warpgroup that owns
+// 64 rows and the 128 output columns [c0, c0 + 128) of them; the
+// d / 128 blocks of one row range each recompute the score tiles they
+// need. Each score product (q.k^T, do.v^T) is summed chunk by chunk into
+// its float32 accumulator (wg_score_chunk), the chunk pair staged in one
+// stage of a 2-stage ring of asynchronous copies; the step after the
+// last chunk stages the 128 columns of the accumulating product's B
+// operand (v, k, or do and q). Every step is one stage of two 64 x 128
+// tiles, so tile i + 1 of the step sequence is in flight while tile i is
+// multiplied. stage_chunk zero-fills columns past d and rows past the
+// sequence on both load paths.
 
 #pragma once
 
@@ -379,6 +395,72 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out,
   }
 }
 
+// The wide route (see the header): chunk width, threads a block (one
+// warpgroup), elements of a staged chunk, and the dynamic shared memory
+// of every wide kernel: 2 stages of 2 chunks and 1 KB of alignment
+// slack.
+constexpr int kWideCols = 128;
+constexpr int kWideThreads = 128;
+constexpr int kWideTE = kRows * kWideCols;
+constexpr size_t kWideTcSmem =
+    (size_t)2 * kStages * kWideTE * sizeof(bf16) + 1024;
+
+// Chunks of kWideCols columns in a row of d.
+__host__ __device__ inline int wide_chunks(int d) {
+  return (d + kWideCols - 1) / kWideCols;
+}
+
+// Stage rows [row0, row0 + kRows) and columns [col0, col0 + kWideCols) of
+// a row-major (rows, ld) bf16 matrix as a swizzled 64 x 128 tile; rows
+// >= `rows` and columns >= ld are zero. VEC: 16-byte cp.async pieces
+// (ld % 8 == 0 and col0 % 8 == 0, so a piece lies wholly inside or
+// wholly past the row), zero-filled where they lie outside; else element
+// loads.
+template <bool VEC>
+__device__ __forceinline__ void stage_chunk(bf16* __restrict__ dst,
+                                            const bf16* __restrict__ src,
+                                            int row0, int rows, int ld,
+                                            int col0) {
+  char* base = reinterpret_cast<char*>(dst);
+  if constexpr (VEC) {
+    for (int i = threadIdx.x; i < kRows * (kWideCols / 8);
+         i += kWideThreads) {
+      const int r = i / (kWideCols / 8);
+      const int c = (i - r * (kWideCols / 8)) << 3;
+      const int gr = row0 + r;
+      const bool ok = gr < rows && col0 + c < ld;
+      cp_async16(base + swz(r, c),
+                 ok ? src + (long long)gr * ld + col0 + c : src, ok);
+    }
+  } else {
+    // kept rolled: the wide kernels stage while their accumulators
+    // (2 x 64 floats a thread in K2-dkv) are live
+#pragma unroll 1
+    for (int i = threadIdx.x; i < kWideTE; i += kWideThreads) {
+      const int r = i / kWideCols;
+      const int c = i - r * kWideCols;
+      const int gr = row0 + r;
+      bf16 val = __float2bfloat16(0.f);
+      if (gr < rows && col0 + c < ld)
+        val = src[(long long)gr * ld + col0 + c];
+      *reinterpret_cast<bf16*>(base + swz(r, c)) = val;
+    }
+  }
+}
+
+// One chunk's share of a score product of one warpgroup, issued, not
+// waited on: acc (64 x 64) += A[64 rows] . B[64 rows]^T over the 128
+// columns of two staged chunks (both K-major), or = when `first` (the
+// first chunk). a and b are desc_k of the chunks.
+__device__ __forceinline__ void wg_score_chunk(float (&acc)[kRows / 8][4],
+                                               uint64_t a, uint64_t b,
+                                               bool first) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kWideCols / 16; ++kk)
+    wgmma_ss(acc, a + kstep(kk), b + kstep(kk), kk > 0 || !first);
+}
+
 // True when the VEC load path may run: every pointer 16-byte aligned and
 // rows of a whole number of 16-byte pieces.
 inline bool vec_ok(int d, std::initializer_list<const void*> ptrs) {
@@ -389,8 +471,8 @@ inline bool vec_ok(int d, std::initializer_list<const void*> ptrs) {
 }
 
 // The instance for head_dim d: DP and the load path; CALL sees DP and
-// VEC as constants.
-#define ATTN_TC_DISPATCH(d, vec, CALL) \
+// VEC as constants; past 256 the wide route, WIDE, which sees VEC.
+#define ATTN_TC_DISPATCH(d, vec, CALL, WIDE) \
   do {                                 \
     if ((d) <= 64) {                   \
       constexpr int DP = 64;           \
@@ -404,7 +486,7 @@ inline bool vec_ok(int d, std::initializer_list<const void*> ptrs) {
       constexpr int DP = 256;          \
       ATTN_TC_VEC(vec, CALL);          \
     }                                  \
-    return (int)cudaErrorInvalidValue; \
+    ATTN_TC_VEC(vec, WIDE);            \
   } while (0)
 
 #define ATTN_TC_VEC(vec, CALL)   \

@@ -237,12 +237,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "attn_fwd":
         lib.attn_fwd.argtypes = [vp] * 5 + dims
         lib.attn_fwd.restype = i32
-        lib.attn_fwd_plan.argtypes = [i32, i32, vp]  # (d, Sq, int[4] out)
+        lib.attn_fwd_plan.argtypes = [i32, i32, vp]  # (d, Sq, int[5] out)
         lib.attn_fwd_plan.restype = i32
     if name == "attn_dq":
         lib.attn_dq.argtypes = [vp] * 7 + dims
         lib.attn_dq.restype = i32
-        lib.attn_dq_plan.argtypes = [i32, vp]  # (d, int[3] out)
+        lib.attn_dq_plan.argtypes = [i32, vp]  # (d, int[4] out)
         lib.attn_dq_plan.restype = i32
     if name == "attn_dkv":
         lib.attn_dkv.argtypes = [vp] * 8 + dims

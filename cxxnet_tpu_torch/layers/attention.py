@@ -9,8 +9,9 @@ attention  multi-head self-attention. Params: qkv projection `wmat`
            optional `bias` (3*embed,). `causal = 1` masks the future;
            `nhead` sets the heads. The core is ops/flash_attention.py:
            the hand-written kernels K2-fwd / K2-dq / K2-dkv on the card,
-           at every head_dim up to 256 and every length (the JAX package
-           takes the TPU kernel only where Mosaic can tile the shapes),
+           at every head_dim and every length (past 256 on the kernels'
+           wide route; the JAX package takes the TPU kernel only where
+           Mosaic can tile the shapes),
            their plain versions on the CPU; on a data mesh each rank
            runs them on its own rows (the port of the JAX package's
            `flash_attention_sharded`, a shard_map with no collective).

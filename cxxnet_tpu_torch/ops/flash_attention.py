@@ -30,6 +30,11 @@ runs on the tensor cores (wgmma with float32 accumulators,
 csrc/attn_tc.cuh), float32 on the CUDA cores, whose float32 products
 keep the float32 bar of the plain versions (TF32 would not). A bfloat16
 CUDA tensor always takes the tensor-core instance; nothing falls back.
+Past head_dim 256 both dtypes take the kernels' wide route: head_dim
+is cut into chunks of 128 columns, the score products are summed chunk
+by chunk, and each block owns 128 output columns and recomputes the
+score tiles it needs (csrc/attn_tc.cuh, csrc/attn_common.cuh). The
+lse and delta layouts are the same on both routes.
 
 `flash_attention` is the public entry, one autograd Function for both
 devices: a CUDA tensor runs the kernels (its backward launches K2-dq
@@ -39,7 +44,7 @@ with p recomputed from lse, not autodiff of the forward; it is
 `flash_dq_reference` + `flash_dkv_reference`, one plain version per
 kernel). The kernels' own wrappers are `attn_fwd`, `attn_dq` and
 `attn_dkv`. Any sequence
-length is taken and any head_dim up to 256; a longer head_dim raises.
+length and any head_dim are taken, as the TPU kernel takes them.
 """
 
 from __future__ import annotations
@@ -51,8 +56,6 @@ import torch
 
 from cxxnet_tpu_torch import kernels
 from cxxnet_tpu_torch.ops.attention import _NEG, _causal_bias, _mm, _scale
-
-MAX_HEAD_DIM = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -158,9 +161,6 @@ def _check_qkv(q, k, v, what: str) -> None:
                          f"v {tuple(v.shape)} do not fit")
     if q.device != k.device or q.device != v.device:
         raise ValueError(f"{what}: q, k, v on different devices")
-    if q.shape[3] > MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head_dim {q.shape[3]} exceeds the "
-                         f"kernels' limit of {MAX_HEAD_DIM}")
 
 
 def _check_like(t: torch.Tensor, shape, dtype, name: str, what: str):
@@ -247,22 +247,27 @@ def attn_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def tc_plan(name: str, d: int, sq: Optional[int] = None) -> dict:
     """The tile plan of the bfloat16 (tensor-core) instance of `name`
     ("attn_fwd", "attn_dq" or "attn_dkv") at head_dim d, as its C entry
-    reports it: DP (d rounded up to a power of two of at least 64),
-    threads per block and dynamic shared memory bytes; for attn_fwd also
-    the query rows a block owns at `sq` query rows (default: a long
-    sequence), since a sequence of at most 64 takes one warpgroup. Needs
-    the card's toolchain (it loads the kernel's library)."""
+    reports it: DP (d rounded up to a power of two of at least 64; past
+    256, on the wide route, to whole chunks of 128), threads per block,
+    dynamic shared memory bytes and `chunk`, the head_dim columns a
+    staged tile holds (DP, or 128 on the wide route, where a block owns
+    128 output columns); for attn_fwd also the query rows a block owns
+    at `sq` query rows (default: a long sequence), since a sequence of
+    at most 64 takes one warpgroup. Needs the card's toolchain (it
+    loads the kernel's library)."""
     if name not in ("attn_fwd", "attn_dq", "attn_dkv"):
         raise ValueError(f"tc_plan: no tensor-core plan for {name}")
+    if d < 1:
+        raise ValueError(f"tc_plan: {name} takes no head_dim {d}")
     lib = kernels.load(name)
-    keys = ["dp", "threads", "smem_bytes"]
     if name == "attn_fwd":
-        keys.append("rows")
-        out = (ctypes.c_int * 4)()
+        keys = ["dp", "threads", "smem_bytes", "rows", "chunk"]
+        out = (ctypes.c_int * 5)()
         rc = lib.attn_fwd_plan(int(d), int(1 << 30 if sq is None else sq),
                                out)
     else:
-        out = (ctypes.c_int * 3)()
+        keys = ["dp", "threads", "smem_bytes", "chunk"]
+        out = (ctypes.c_int * 4)()
         rc = getattr(lib, f"{name}_plan")(int(d), out)
     if rc != 0:
         raise ValueError(f"tc_plan: {name} takes no head_dim {d}")
@@ -311,11 +316,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q.k^T * scale [+ causal mask]).v, semantics ==
     ops.attention.naive_attention: the kernels K2-fwd (and K2-dq, K2-dkv
-    in the backward) for CUDA tensors, the plain versions for CPU ones.
-    head_dim above 256 raises on either device, so the two agree on what
-    they take."""
-    if q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head_dim {q.shape[-1]} exceeds "
-                         f"the kernels' limit of {MAX_HEAD_DIM}")
+    in the backward) for CUDA tensors, the plain versions for CPU ones,
+    at any head_dim on either device."""
     return _FlashAttention.apply(q, k, v, bool(causal),
                                  None if scale is None else float(scale))

@@ -29,7 +29,10 @@ ring_attention    n - 1 hops send the resident K/V block to the next
                   ring one more hop takes them home. Only the block
                   pairs the forward computed are computed. K2 reads p
                   back from the row's global lse, which is what a
-                  per-block backward needs, so no kernel is new.
+                  per-block backward needs, so no kernel is new. At
+                  head_dim past 256 the kernels' wide route keeps the
+                  same lse and delta layouts, so the merge and the
+                  per-block backward are unchanged.
 ulysses_attention one all-to-all reshards [B, H, S/n, D] to [B, H/n, S,
                   D] (q, k and v together), flash_attention (K2-fwd, and
                   K2-dq / K2-dkv in the backward, on the card) runs over

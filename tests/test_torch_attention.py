@@ -186,8 +186,9 @@ def test_bf16_reference_rounds_p_to_the_working_type():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_wide_heads():
-    """A CPU tensor never reaches the loader; head_dim over 256 raises on
-    either device."""
+    """A CPU tensor never reaches the loader; head_dims 257 and 1024,
+    past the tensor-core tiles, compute on the CPU (the plain version),
+    as the kernels' wide route takes them on the card."""
     q, k, v = _t(*_qkv(1, 1, 4, 8))
     lse = torch.zeros(1, 1, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -196,9 +197,15 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_wide_heads():
         FA.attn_dq(q, k, v, q, lse, lse)
     with pytest.raises(ValueError, match="CUDA tensor"):
         FA.attn_dkv(q, k, v, q, lse, lse)
-    wide = torch.zeros(1, 1, 4, 257)
-    with pytest.raises(ValueError, match="head_dim 257 exceeds"):
-        FA.flash_attention(wide, wide, wide)
+    for d in (257, 1024):
+        wq, wk, wv = _t(*_qkv(1, 1, 4, d, seed=7))
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            FA.attn_fwd(wq, wk, wv)
+        got = FA.flash_attention(wq, wk, wv)
+        assert got.shape == (1, 1, 4, d)
+        assert torch.equal(got, FA.flash_fwd_reference(wq, wk, wv)[0])
+        np.testing.assert_allclose(
+            got.numpy(), A.naive_attention(wq, wk, wv).numpy(), **FWD_TOL)
     for name in ("attn_fwd", "attn_dq", "attn_dkv"):
         assert name in kernels.SOURCES and name in kernels.LAUNCHES
         assert name not in kernels._libs or torch.cuda.is_available()

@@ -587,20 +587,32 @@ def test_bf16_backward_kernels_on_the_tensor_cores(cuda_device, b, h, sq,
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
+# the wide route (head_dim > 256): d rounded up to whole 128-column
+# chunks, one warpgroup a block, a 2-stage ring of two 64 x 128 bf16
+# chunks and 1 KB of alignment slack (K2-dkv: and 64 x 64 float32 for
+# p^T)
+WIDE_PLAN = {"threads": 128, "smem_bytes": 2 * 2 * 64 * 128 * 2 + 1024,
+             "chunk": 128}
+WIDE_DKV_SMEM = WIDE_PLAN["smem_bytes"] + 64 * 64 * 4
+
+
 def test_bf16_backward_tile_plans(cuda_device):
     """The tensor-core instances' plans: DP is d rounded up to a power of
     two of at least 64 (one 128-byte swizzle row), 2 warpgroups a block,
-    shared memory within a block's 232,448 bytes, and head_dim 257
-    refused."""
+    shared memory within a block's 232,448 bytes; past head_dim 256 the
+    wide route's plan (WIDE_PLAN)."""
     for d, dp in ((7, 64), (12, 64), (32, 64), (64, 64), (96, 128),
                   (128, 128), (200, 256), (256, 256)):
         for name in ("attn_dq", "attn_dkv"):
             plan = FA.tc_plan(name, d)
             assert plan["dp"] == dp, (name, d)
-            assert plan["threads"] == 256
+            assert plan["threads"] == 256 and plan["chunk"] == dp
             assert 0 < plan["smem_bytes"] <= 232448
-    with pytest.raises(ValueError, match="head_dim 257"):
-        FA.tc_plan("attn_dq", 257)
+    for d, dp in ((257, 384), (320, 384), (512, 512), (576, 640),
+                  (1024, 1024), (2048, 2048)):
+        assert FA.tc_plan("attn_dq", d) == dict(WIDE_PLAN, dp=dp), d
+        assert FA.tc_plan("attn_dkv", d) == dict(
+            WIDE_PLAN, dp=dp, smem_bytes=WIDE_DKV_SMEM), d
 
 
 # the K2-fwd tensor-core instance's edges: head_dim 7, 12, 64, 128, 200
@@ -670,8 +682,73 @@ def test_bf16_forward_tile_plans(cuda_device):
             assert 0 < plan["smem_bytes"] <= 232448
     assert FA.tc_plan("attn_fwd", 128, 65)["rows"] == 128
     assert FA.tc_plan("attn_fwd", 128, 64)["rows"] == 64
-    with pytest.raises(ValueError, match="head_dim 257"):
-        FA.tc_plan("attn_fwd", 257)
+    # the wide route: 64 query rows a block at any length
+    for d, dp in ((257, 384), (512, 512), (576, 640), (2048, 2048)):
+        for sq in (None, 28):
+            assert FA.tc_plan("attn_fwd", d, sq) == dict(
+                WIDE_PLAN, dp=dp, rows=64), (d, sq)
+
+
+# the wide route (head_dim > 256) in both dtypes: head_dim 257 (element
+# loads, a last chunk of one column), 320 and 576 (a last chunk of 64),
+# 512, 1024; ragged lengths, Sq != Sk under both masks (the blocks the
+# ring hands K2), one query row, and views 2 bytes off alignment
+WIDE_CASES = [
+    # (B, H, Sq, Sk, D, causal, misaligned)
+    (1, 2, 100, 100, 257, True, False),
+    (2, 1, 70, 70, 320, False, False),
+    (1, 2, 130, 130, 512, True, False),
+    (1, 1, 65, 65, 576, False, False),
+    (1, 1, 33, 33, 1024, True, False),
+    (1, 2, 100, 257, 320, False, False),
+    (1, 2, 100, 257, 512, True, False),
+    (1, 2, 257, 100, 576, True, False),
+    (1, 1, 1, 1, 1024, False, False),
+    (1, 2, 96, 96, 512, False, True),
+    (2, 1, 33, 33, 257, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,misaligned", WIDE_CASES)
+def test_wide_head_kernels_match_reference(cuda_device, b, h, sq, sk, d,
+                                           causal, misaligned, dtype):
+    """K2-fwd, K2-dq and K2-dkv past head_dim 256 (the wide route)
+    against flash_fwd_reference / flash_dq_reference /
+    flash_dkv_reference on the same inputs, at _attn_close's bars and lse
+    within rtol 1e-5: one launch per call, and a second launch gives the
+    same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(sq * 3 + sk + d)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=cuda_device)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, h, sk, d, generator=g, device=cuda_device)
+            .to(dtype) for _ in range(2))
+    if misaligned:
+        q, k, v, do = (_misaligned(t) for t in (q, k, v, do))
+    before = kernels.launches()
+    o, lse = FA.attn_fwd(q, k, v, causal)
+    delta = FA.flash_delta(o, do)
+    dq = FA.attn_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = FA.attn_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert [after[n] - before[n] for n in ("attn_fwd", "attn_dq",
+                                           "attn_dkv")] == [1, 1, 1]
+    ro, rlse = FA.flash_fwd_reference(q, k, v, causal)
+    rdq = FA.flash_dq_reference(q, k, v, do, lse, delta, causal)
+    rdk, rdv = FA.flash_dkv_reference(q, k, v, do, lse, delta, causal)
+    assert o.dtype == dtype and o.shape == ro.shape
+    assert _attn_close(o, ro)
+    assert torch.allclose(lse, rlse, rtol=1e-5, atol=1e-5)
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                           ("dv", dv, rdv)):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        assert _attn_close(got, ref, grad=True), name
+    o2, lse2 = FA.attn_fwd(q, k, v, causal)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    assert torch.equal(FA.attn_dq(q, k, v, do, lse, delta, causal), dq)
+    dk2, dv2 = FA.attn_dkv(q, k, v, do, lse, delta, causal)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
 @pytest.mark.parametrize("name", ["attn_fwd", "int8_mm"])
@@ -714,12 +791,16 @@ def test_attn_fwd_build_failure_raises(cuda_device, monkeypatch, tmp_path):
 
 
 def test_attention_kernels_refuse_what_they_cannot_take(cuda_device):
+    """What the kernels cannot take raises; head_dim 257, which they
+    refused before the wide route, launches K2-fwd and computes."""
     x = torch.zeros(1, 2, 8, 16, device=cuda_device)
-    wide = torch.zeros(1, 2, 8, 257, device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim 257 exceeds"):
-        FA.attn_fwd(wide, wide, wide)
-    with pytest.raises(ValueError, match="head_dim 257 exceeds"):
-        FA.flash_attention(wide, wide, wide)
+    wide = torch.ones(1, 2, 8, 257, device=cuda_device)
+    before = kernels.launches()["attn_fwd"]
+    o, _ = FA.attn_fwd(wide, wide, wide)
+    out = FA.flash_attention(wide, wide, wide)
+    torch.cuda.synchronize()
+    assert kernels.launches()["attn_fwd"] == before + 2
+    assert torch.equal(o, wide) and torch.equal(out, wide)
     with pytest.raises(ValueError, match="dtype"):
         FA.attn_fwd(x.half(), x.half(), x.half())
     with pytest.raises(ValueError, match="dtypes differ"):
