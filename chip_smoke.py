@@ -32,16 +32,26 @@ CUDA toolkit (nvcc). Phases, each of which raises on failure:
    versions at seq_mnist's shape (100,4,28,7), at ragged shapes, at
    head_dim 12 and 200, at Sq != Sk, on 2-byte-aligned views and at the
    JAX package's measuring shape (4,8,4096,128); the kernels' wide route
-   (head_dim > 256) at 257, 320, 512, 576 and 1024 in both dtypes
-   (ragged lengths, Sq != Sk, 2-byte-aligned views), 2048 at one small
-   shape, wide_head's core (100,2,28,512) and (4,8,4096,512); every K2
+   (head_dim > 256: in bfloat16 K2-fwd's and K2-dkv's whole-head route
+   up to 512, the chunked route past it and K2-dq's) at 257, 320, 384,
+   512, 576 and 1024 in both dtypes (ragged lengths, Sq != Sk,
+   2-byte-aligned views), 640 and 2048 at one small shape, wide_head's
+   core (100,2,28,512) and (4,8,4096,512); every K2
    kernel launched twice gives the same bits, and the errors are
-   printed by route and dtype. Times (CUDA events, warm and L2-cold),
+   printed by route and dtype. Times (CUDA events, warm and L2-cold;
+   at (100,2,28,512) also with the launches queued behind a sleep, the
+   device's time apart from the host's enqueue rate),
    the bound and scaled_dot_product_attention's forward and backward
    as the library yardstick (at head_dim 512 with the backend PyTorch
    picks named), the backward pair's factor against that one backward
    call, and forward + backward through autograd beside SDPA's and its
-   bound; the three kernels' tile plans at each timed shape;
+   bound; the three kernels' tile plans at each timed shape.
+   `chip_smoke.py --leg 3p OUT DIR` (not part of the whole script) builds
+   K2 from another tree's csrc/ (DIR, e.g. the parent commit's, unpacked
+   with git archive) and holds this tree's instances that the whole-head
+   route left as they were to its bits on phase 3c's cases, then times
+   both builds' bfloat16 K2 in turns at (100,2,28,512) and
+   (4,8,4096,512);
 4. serving: examples/ImageNet/AlexNet.conf at full width (bfloat16, as
    the file says) through the port's NetTrainer and Server - ragged
    requests from two threads, served rows against predict_dist, the
@@ -543,6 +553,36 @@ def time_cold(torch, fn, flush, iters: int = 20) -> float:
     return total / iters
 
 
+def time_queued(torch, fn, iters: int = 200, reps: int = 7) -> dict:
+    """Device ms per call where the host cannot keep up with the kernel
+    (a launch of a few microseconds behind a Python wrapper): `iters`
+    calls are enqueued behind torch.cuda._sleep, which holds the card
+    for 3x the host's measured enqueue time (at most 2 GHz, so at least
+    that long), so the events time the launches back to back. Min,
+    median and max over `reps` such runs."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(3 * host * 2e9))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    runs.sort()
+    return {"min": runs[0], "median": runs[len(runs) // 2],
+            "max": runs[-1]}
+
+
 def lrn_bound_ms(shape, itemsize: int, n: int):
     """Least time for one LRN: the larger of its bytes (each input read
     once, each output written once) over the memory rate and its
@@ -979,36 +1019,48 @@ def time_fwd_bwd(torch, F, FA, q, k, v, do, causal, iters: int = 10):
 
 
 # the tensor-core instances in the compiler's report: (kernel name,
-# mangled-name pattern, fields of its template arguments); the K2
-# kernels' wide route (head_dim > 256) has the load path only
+# mangled-name pattern, fields of its template arguments, wide route);
+# the K2 kernels' wide routes, the whole-head route (K2-fwd, K2-dkv;
+# 256 < head_dim <= 512) and the chunked route (past 512; K2-dq past
+# 256), have one instance a load path
 TC_INSTANCES = (
     ("attn_fwd", re.compile(r"attn_fwd_tcILi(\d+)ELb([01])ELi([12])E"),
-     ("DP", "load", "warpgroups")),
+     ("DP", "load", "warpgroups"), None),
     ("attn_dq", re.compile(r"attn_dq_tcILi(\d+)ELb([01])E"),
-     ("DP", "load")),
+     ("DP", "load"), None),
     ("attn_dkv", re.compile(r"attn_dkv_tcILi(\d+)ELb([01])E"),
-     ("DP", "load")),
-    ("attn_fwd", re.compile(r"attn_fwd_wide_tcILb([01])E"), ("load",)),
-    ("attn_dq", re.compile(r"attn_dq_wide_tcILb([01])E"), ("load",)),
-    ("attn_dkv", re.compile(r"attn_dkv_wide_tcILb([01])E"), ("load",)),
+     ("DP", "load"), None),
+    ("attn_fwd", re.compile(r"attn_fwd_head_tcILb([01])E"), ("load",),
+     "whole-head"),
+    ("attn_dkv", re.compile(r"attn_dkv_head_tcILb([01])E"), ("load",),
+     "whole-head"),
+    ("attn_fwd", re.compile(r"attn_fwd_wide_tcILb([01])E"), ("load",),
+     "chunked"),
+    ("attn_dq", re.compile(r"attn_dq_wide_tcILb([01])E"), ("load",),
+     "chunked"),
+    ("attn_dkv", re.compile(r"attn_dkv_wide_tcILb([01])E"), ("load",),
+     "chunked"),
     ("int8_mm", re.compile(r"int8_mm_tcILi(\d+)ELb([01])E"),
-     ("BN", "load")),
+     ("BN", "load"), None),
 )
+# a head_dim that each wide route serves, whose plan is the route's
+WIDE_ROUTE_D = {"whole-head": 512, "chunked": 1024}
 # the SASS opcode of each library's tensor-core products: bf16 (HGMMA)
 # for the attention kernels, int8 (IGMMA) for K3
 TC_OPCODE = {"attn_fwd": "HGMMA", "attn_dq": "HGMMA", "attn_dkv": "HGMMA",
              "int8_mm": "IGMMA"}
 
 
-def tc_smem(name: str, fields) -> str:
+def tc_smem(name: str, fields, route=None) -> str:
     """Dynamic shared memory of one tensor-core instance: K2's as its C
-    entry reports it, K3's from its tile (csrc/int8_mm.cu: 4 stages of
-    128 + BN rows of 128 bytes, and 1 KB of alignment slack)."""
+    entry reports it (a wide route's at a head_dim it serves), K3's from
+    its tile (csrc/int8_mm.cu: 4 stages of 128 + BN rows of 128 bytes,
+    and 1 KB of alignment slack)."""
     from cxxnet_tpu_torch.ops import flash_attention as FA
     if name == "int8_mm":
         return str(4 * (128 + fields["BN"]) * 128 + 1024)
-    if "DP" not in fields:  # the wide route: one plan at any head_dim
-        return str(FA.tc_plan(name, 512)["smem_bytes"])
+    if route is not None:
+        return str(FA.tc_plan(name, WIDE_ROUTE_D[route])["smem_bytes"])
     sq = 28 if fields.get("warpgroups") == 1 else 4096
     return str(FA.tc_plan(name, fields["DP"], sq)["smem_bytes"])
 
@@ -1019,7 +1071,7 @@ def say_tc_instances(built) -> None:
     memory it asks for, the registers and spills that nvcc -Xptxas -v
     reported; then the count of warpgroup tensor-core instructions
     (HGMMA / IGMMA) in each library's SASS, which must not be 0."""
-    for name, pat, keys in TC_INSTANCES:
+    for name, pat, keys, route in TC_INSTANCES:
         log = built.get(name, (0.0, ""))[1]
         if log == "cached":
             say(f"{name}: library cached, no ptxas report")
@@ -1037,11 +1089,14 @@ def say_tc_instances(built) -> None:
                 fields = dict(zip(keys, (int(x) for x in cur.groups())))
                 path = "cp.async" if fields.pop("load") else "element"
                 desc = " ".join(f"{k}={v}" for k, v in fields.items()) \
-                    or "wide route (head_dim > 256)"
+                    or {"whole-head": "whole-head route (256 < head_dim "
+                                      "<= 512)",
+                        "chunked": "chunked route (head_dim > 512; K2-dq "
+                                   "> 256)"}[route]
                 say(f"{name} tensor-core instance {desc} load={path}: "
                     f"{regs} registers, spill stores {spill[0]} B, spill "
                     f"loads {spill[1]} B, dynamic shared memory "
-                    f"{tc_smem(name, fields)} B")
+                    f"{tc_smem(name, fields, route)} B")
                 if spill != ("0", "0"):
                     raise AssertionError(f"{name} {desc} spills registers")
                 cur = None
@@ -1067,24 +1122,9 @@ def say_tc_instances(built) -> None:
                                  f"the tensor cores")
 
 
-def phase_attention_kernels(torch, card):
-    import torch.nn.functional as F
-    from cxxnet_tpu_torch import kernels
-    from cxxnet_tpu_torch.ops import flash_attention as FA
-
-    say("== phase 3c: flash attention kernels (K2-fwd, K2-dq, K2-dkv) vs "
-        "plain versions ==")
-    gen = torch.Generator(device="cuda").manual_seed(2468)
-    names = ("attn_fwd", "attn_dq", "attn_dkv")
-    max_err = {n: 0.0 for n in names}
-    # by route and dtype: head_dim <= 256 (the cases of earlier runs,
-    # drawn first, so on the same inputs) and the wide route
-    by_route = {(r, dt): {n: 0.0 for n in names}
-                for r in ("d<=256", "wide")
-                for dt in ("float32", "bfloat16")}
-    rows = {}
-    fwd_bwd = {}
-    # (q shape, dtype, causal, scale, Sk (None: Sq), misaligned view)
+def attn_cases(torch):
+    """Phase 3c's cases, in the order their inputs are drawn: (q shape,
+    dtype, causal, scale, Sk (None: Sq), misaligned view)."""
     cases = [(SEQ_ATTN_SHAPE, dt, False, None, None, False)
              for dt in (torch.bfloat16, torch.float32)]
     for s in (1, 12, 28, 33, 100, 257):
@@ -1132,6 +1172,145 @@ def phase_attention_kernels(torch, card):
               for dt in (torch.bfloat16, torch.float32)]
     cases += [(WIDE_ATTN_SHAPE, torch.bfloat16, c, None, None, False)
               for c in (False, True)]
+    # the whole-head route at 384 (Sq != Sk under causal) and the chunked
+    # route at 640
+    cases += [((1, 2, 100, 384), dt, c, None, 257 if c else None, False)
+              for c in (False, True)
+              for dt in (torch.bfloat16, torch.float32)]
+    cases.append(((1, 1, 130, 640), torch.bfloat16, True, None, 65, False))
+    return cases
+
+
+def leg_k2_parent(torch, card, other: str):
+    """`chip_smoke.py --leg 3p OUT DIR`: K2's three libraries built from
+    another tree's csrc/ (DIR: e.g. the parent commit's
+    cxxnet_tpu_torch/csrc, unpacked with `git archive`) against this
+    tree's, on the same inputs: bitwise equal outputs of every kernel
+    instance this tree leaves as it was - phase 3c's head_dim <= 256
+    cases (K2-fwd, K2-dq, K2-dkv, both dtypes), K2-dq on all its wide
+    cases, float32 K2-fwd and K2-dkv past 256 and bfloat16 past 512
+    (the chunked route). Raises on the first difference. Then times the
+    three bfloat16 kernels of both builds in turns (other, this, this,
+    other) at wide_head's (100,2,28,512) (time_queued) and at
+    (4,8,4096,512) (time_warm), non-causal."""
+    import ctypes
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.ops import flash_attention as FA
+    names = ("attn_fwd", "attn_dq", "attn_dkv")
+    say(f"== phase 3p: K2 of this tree against K2 built from {other} ==")
+    mine = {n: kernels.load(n) for n in names}
+    theirs = {}
+    with tempfile.TemporaryDirectory() as d:
+        procs = {n: subprocess.Popen(
+            [kernels.nvcc_path()] + kernels.source_flags(n)
+            + ["-o", os.path.join(d, f"lib{n}.so"),
+               os.path.join(other, kernels.SOURCES[n])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in names}
+        for n, p in procs.items():
+            log = p.communicate(timeout=600)[0]
+            if p.returncode != 0:
+                raise AssertionError(f"the other tree's {n} does not build:"
+                                     f"\n{log}")
+            theirs[n] = ctypes.CDLL(os.path.join(d, f"lib{n}.so"))
+            kernels._bind(n, theirs[n])
+
+    def run(libs, q, k, v, do, lse, delta, causal, scale, which):
+        kernels._libs.update(libs)
+        out = {}
+        if "attn_fwd" in which:
+            out["o"], out["lse"] = FA.attn_fwd(q, k, v, causal, scale)
+        if "attn_dq" in which:
+            out["dq"] = FA.attn_dq(q, k, v, do, lse, delta, causal, scale)
+        if "attn_dkv" in which:
+            out["dk"], out["dv"] = FA.attn_dkv(q, k, v, do, lse, delta,
+                                               causal, scale)
+        torch.cuda.synchronize()
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    counts = {n: 0 for n in names}
+    try:
+        for shape, dt, causal, scale, sk, misaligned in attn_cases(torch):
+            kshape = shape[:2] + (sk or shape[2], shape[3])
+            q, k, v, do = (torch.randn(sh, generator=gen,
+                                       device="cuda").to(dt)
+                           for sh in (shape, kshape, kshape, shape))
+            # the whole-head route (bfloat16, 257-512) is new
+            which = (("attn_dq",) if dt == torch.bfloat16
+                     and 256 < shape[3] <= 512 else names)
+            if shape[2] == 4096:
+                continue  # the timed shapes: covered at smaller lengths
+            if misaligned:
+                q, k, v, do = (misaligned_view(torch, t)
+                               for t in (q, k, v, do))
+            kernels._libs.update(mine)
+            o, lse = FA.attn_fwd(q, k, v, causal, scale)
+            delta = FA.flash_delta(o, do)
+            a = run(mine, q, k, v, do, lse, delta, causal, scale, which)
+            b = run(theirs, q, k, v, do, lse, delta, causal, scale, which)
+            for key in a:
+                if not torch.equal(a[key], b[key]):
+                    raise AssertionError(
+                        f"{key} differs from the other tree's at {shape} "
+                        f"Sk={sk} {dt} causal={causal} scale={scale} "
+                        f"misaligned={misaligned}")
+            for n in which:
+                counts[n] += 1
+    finally:
+        kernels._libs.update(mine)
+    say(f"phase 3p: bitwise equal to the other tree's build on {counts} "
+        f"cases on {card}")
+    times = {}
+    try:
+        for shape in (WIDE_PATH_SHAPE, WIDE_ATTN_SHAPE):
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                           .bfloat16() for _ in range(4))
+            kernels._libs.update(mine)
+            o, lse = FA.attn_fwd(q, k, v, False)
+            delta = FA.flash_delta(o, do)
+            fns = {"attn_fwd": lambda: FA.attn_fwd(q, k, v, False),
+                   "attn_dq": lambda: FA.attn_dq(q, k, v, do, lse, delta,
+                                                 False),
+                   "attn_dkv": lambda: FA.attn_dkv(q, k, v, do, lse, delta,
+                                                   False)}
+            for n, fn in fns.items():
+                got = {"other": [], "this": []}
+                for who in ("other", "this", "this", "other"):
+                    kernels._libs.update(theirs if who == "other" else mine)
+                    got[who].append(
+                        time_queued(torch, fn)["median"]
+                        if shape == WIDE_PATH_SHAPE
+                        else time_warm(torch, fn, 10))
+                times[f"{n} {shape}"] = got
+                say(f"phase 3p: {n} {shape} bf16 ms a call, in turns: the "
+                    f"other tree's {got['other'][0]:.4f}, this tree's "
+                    f"{got['this'][0]:.4f}, {got['this'][1]:.4f}, the other "
+                    f"tree's {got['other'][1]:.4f} on {card}")
+            del q, k, v, do, o, lse, delta
+    finally:
+        kernels._libs.update(mine)
+    return {"cases": counts, "times": times}
+
+
+def phase_attention_kernels(torch, card):
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch import kernels
+    from cxxnet_tpu_torch.ops import flash_attention as FA
+
+    say("== phase 3c: flash attention kernels (K2-fwd, K2-dq, K2-dkv) vs "
+        "plain versions ==")
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    names = ("attn_fwd", "attn_dq", "attn_dkv")
+    max_err = {n: 0.0 for n in names}
+    # by route and dtype: head_dim <= 256 (the cases of earlier runs,
+    # drawn first, so on the same inputs) and the wide route
+    by_route = {(r, dt): {n: 0.0 for n in names}
+                for r in ("d<=256", "wide")
+                for dt in ("float32", "bfloat16")}
+    rows = {}
+    fwd_bwd = {}
+    cases = attn_cases(torch)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for shape, dt, causal, scale, sk, misaligned in cases:
         kshape = shape[:2] + (sk or shape[2], shape[3])
@@ -1245,6 +1424,17 @@ def phase_attention_kernels(torch, card):
                 f" ms ({tflops:.2f} TFLOP/s), L2 cold {t['kernel_cold']:.4f}"
                 f" ms, plain {t['plain']:.4f} ms{lib_txt}; bound "
                 f"{bound:.4f} ms ({by}) on {card}")
+            if shape == WIDE_PATH_SHAPE:
+                # back-to-back calls time the host here: queue them
+                t["queued"] = time_queued(torch, kern)
+                qtxt = ("{median:.4f} ms (min {min:.4f}, max {max:.4f})"
+                        .format(**t["queued"]))
+                if lib is not None:
+                    t["library_queued"] = time_queued(torch, lib)
+                    qtxt += (", library {median:.4f} (min {min:.4f}, max "
+                             "{max:.4f})".format(**t["library_queued"]))
+                say(f"{n} {shape} bf16: device time a call, launches "
+                    f"queued (7 runs of 200): kernel {qtxt} on {card}")
             rows[(n, shape, causal)] = t
         del ql, kl, vl, lib_out
     # the library's backward computes dq, dk and dv in one call: it
@@ -1252,13 +1442,15 @@ def phase_attention_kernels(torch, card):
     for key in list(rows):
         n, shape, causal = key
         if n == "attn_dkv":
-            for f in ("library", "library_backend"):
-                rows[key][f] = rows[("attn_dq", shape, causal)][f]
+            for f in ("library", "library_backend", "library_queued"):
+                if f in rows[("attn_dq", shape, causal)]:
+                    rows[key][f] = rows[("attn_dq", shape, causal)][f]
     del flush
     say(f"attention kernels: {len(cases)} cases agree and K2-fwd / K2-dq "
         f"/ K2-dkv repeat bitwise (f32, bf16; S = 1, 12, 28, 33, 70, 100, "
         f"257, 4096; D = 7 .. 256 incl. 12, 200, and the wide route 257, "
-        f"320, 512, 576, 1024, 2048; Sq != Sk; 2-byte-aligned views; "
+        f"320, 384, 512, 576, 640, 1024, 2048; Sq != Sk; 2-byte-aligned "
+        f"views; "
         f"causal and not); max abs err "
         + ", ".join(f"{n} {e:.3e}" for n, e in max_err.items()))
     for (route, dt), errs in by_route.items():
@@ -3135,6 +3327,8 @@ def wide_fields(name: str, rows, wide):
     out = {
         "wide_unit": "one launch at (4,8,4096,512) bfloat16, non-causal, "
                      "L2 warm: the wide route (head_dim > 256)",
+        "wide_route": ("chunked (128-column blocks)" if name == "attn_dq"
+                       else "whole-head (256 < head_dim <= 512)"),
         "wide_ms": round(m["kernel"], 6),
         "wide_cold_ms": round(m["kernel_cold"], 6),
         "wide_tflops": round(m["flops"] / m["kernel"] / 1e9, 3),
@@ -3152,6 +3346,14 @@ def wide_fields(name: str, rows, wide):
         "wide_path_plain_ms": round(p["plain"], 6),
         "wide_path_bound_ms": round(p["bound"], 6),
         "wide_path_library_ms": round(p["library"], 6),
+        "wide_path_queued_unit": "device ms a call at (100,2,28,512) "
+                                 "with 200 launches queued behind a sleep "
+                                 "(the median of 7 runs; wide_path_ms "
+                                 "times back-to-back calls, the host's "
+                                 "rate at this size)",
+        "wide_path_queued_ms": round(p["queued"]["median"], 6),
+        "wide_path_library_queued_ms": round(
+            p["library_queued"]["median"], 6),
         "wide_launches": wide["launches"][name],
         "wide_launches_unit": "wide_head.conf b100 bfloat16, 3 steps, 3 "
                               "launches a step (phase 8f)",
@@ -8313,7 +8515,7 @@ LEGS = {"10g": leg_image_timing, "11a": phase_googlenet_lrn,
         "1718w": leg_all_worker, "19r": leg_sp_cli_worker,
         "19": phase_seq_parallel, "19u": sp_untimed, "19w": leg_sp_worker,
         "20": phase_pipe_expert, "20u": px_untimed, "20r": leg_px_cli_worker,
-        "20w": leg_px_worker, "21": leg_elastic}
+        "20w": leg_px_worker, "21": leg_elastic, "3p": leg_k2_parent}
 LEG_LOST = 75  # a leg's exit code when its profiler lost the kernel events
 
 

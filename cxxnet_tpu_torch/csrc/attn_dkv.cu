@@ -55,18 +55,38 @@
 // operand of the two products; one staging buffer takes Q, then dO, then
 // Q again (head_dim 256 in float32 fits in 214 KB).
 //
-// head_dim > 256, the wide route (attn_dkv_wide_tc in bfloat16,
-// attn_dkv_wide in float32; the chunking is described in attn_tc.cuh and
-// attn_common.cuh): a block owns 64 key rows and 128 columns of both dk
+// head_dim > 256, the wide route (both routes are described in
+// attn_tc.cuh, the float32 chunking in attn_common.cuh):
+//
+// bfloat16 up to 512, the whole-head route (attn_dkv_head_tc): dk and
+// dv of 64 key rows take 2 x 64 x 512 float32 accumulators, the whole
+// register file of a multiprocessor, so a cluster of two blocks owns
+// them, block r the columns [256 r, 256 r + 256). Each keeps its half
+// of k and v resident and streams its half of q and do in tiles of 32
+// queries (a 3-stage ring, with their lse and delta). Its warpgroup 0
+// sums its half of s^T = k . q^T and dp^T = v . do^T, the two blocks
+// exchange these 64 x 32 float32 shares through distributed shared
+// memory and each adds the other's (float addition commutes: both hold
+// the same s^T and dp^T), forms p^T and ds^T and writes them (bf16) to
+// shared memory while its next share products run; warpgroups 1 and 2
+// stage the tiles, own 128 of the block's columns each and add p^T . do
+// and ds^T . q, taking p^T and ds^T as their A operand from shared
+// memory. One cluster barrier a step. It executes the 8 B H Sq Sk d
+// useful flops once (at d 512) and stages q and do once per 64 key rows:
+// 384 threads and 206,592 B of shared memory a block, one block a
+// multiprocessor.
+//
+// bfloat16 past 512, the chunked route (attn_dkv_wide_tc), and float32
+// (attn_dkv_wide): a block owns 64 key rows and 128 columns of both dk
 // and dv, one of d / 128 column blocks. For every query tile it sums
 // s^T = k . q^T and dp^T = v . do^T over the 128-column chunks, forms
 // p^T and ds^T, and adds p^T . do and ds^T . q over its own 128 columns
 // of do and q (both staged in the last step's stage). Each column block
-// recomputes both score products: (4 d / 128 + 4) B H Sq Sk 128 flops
-// in place of 8 B H Sq Sk d (1.5x at d 512). lse and delta are read by
-// each thread for its 16 query columns. bfloat16: one warpgroup a
-// block, 2 x 64 accumulator floats a thread; p^T waits out the dp^T
-// steps in shared memory (32 floats a thread), which keeps the
+// recomputes both score products: (d / 128) (4 d + 512) B H Sq Sk flops
+// in place of 8 B H Sq Sk d (2.5x at d 512, 4.5x at 1024). lse and
+// delta are read by each thread for its 16 query columns. bfloat16: one
+// warpgroup a block, 2 x 64 accumulator floats a thread; p^T waits out
+// the dp^T steps in shared memory (32 floats a thread), which keeps the
 // accumulators, dp^T and the copies in flight within 255 registers with
 // no spill: 82,944 B of shared memory. float32: 256 threads, 82,688 B.
 
@@ -421,7 +441,7 @@ template <int DP>
 constexpr size_t kSmemTc =
     attn_tc::smem_bytes<DP>(2 * attn_tc::kStages * attn_tc::kRows);
 
-// bfloat16, head_dim > 256 (the wide route; see the header and
+// bfloat16, head_dim > 512 (the chunked route; see the header and
 // attn_tc.cuh): one warpgroup a block, block (bh, key tile, column chunk
 // cc) with the chunk index fastest. The steps of a query tile: nch
 // chunks of s^T (k and q chunk e), nch chunks of dp^T (v and do chunk
@@ -590,6 +610,245 @@ __global__ void __launch_bounds__(attn_tc::kWideThreads, 2)
 constexpr size_t kSmemWide =
     attn_tc::kWideTcSmem + (size_t)attn_tc::kRows * attn_tc::kRows * 4;
 
+// The cluster of the whole-head route: this block's rank, a barrier of
+// every thread of both blocks (release / acquire at cluster scope, from
+// any code path), and 16-byte reads of the other block's shared memory.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" :::
+                   "memory");
+}
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(attn_tc::smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 peer_load4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// bfloat16, 256 < head_dim <= 512: the whole-head route (see the header
+// and attn_tc.cuh). A cluster of two blocks owns 64 key rows; block r
+// owns the columns [256 r, 256 r + 256) of d (those past d are zero and
+// never stored): its half of k and v stays resident, and its half of q and do
+// streams in tiles of kHeadRows queries through a ring of 3 stages (with
+// their lse and delta), staged by warpgroups 1 and 2. Warpgroup 0 sums
+// the block's share of s^T = k . q^T and dp^T = v . do^T and leaves it
+// in shared memory for the other block; warpgroups 1 and 2 own 128 of
+// the block's columns of dk and dv each and add p^T . do and ds^T . q
+// over them. Step i opens with a cluster barrier (tile i has landed;
+// both blocks' shares of tile i - 1 are written): warpgroup 0 issues the
+// share products of tile i, and while they run adds the other block's
+// share of tile i - 1 to its own (distributed shared memory; the same
+// sum in both blocks, since float addition commutes), writes p^T and
+// ds^T (bf16) and hands them to warpgroups 1 and 2 (a named barrier),
+// which add the products of tile i - 1; the copies of tile i + 1 are in
+// flight. A last cluster barrier keeps each block's shared memory alive
+// until the other block's last reads of it have ended.
+constexpr int kDkvHeadThreads = 384;
+constexpr int kBarPds = 1;  // p^T and ds^T of the step are written
+
+constexpr size_t kSmemHead =
+    (2 * (size_t)attn_tc::kRows * attn_tc::kHalf +
+     3 * 2 * (size_t)attn_tc::kHeadRows * attn_tc::kHalf +
+     (size_t)attn_tc::kRows * 64) *
+        sizeof(attn_tc::bf16) +
+    (3 * 2 * attn_tc::kHeadRows + 4 * attn_tc::kRows * attn_tc::kHeadRows) *
+        sizeof(float) +
+    1024;
+
+template <bool VEC>
+__global__ void __cluster_dims__(2, 1, 1)
+    __launch_bounds__(kDkvHeadThreads, 1)
+    attn_dkv_head_tc(const attn_tc::bf16* __restrict__ q,
+                     const attn_tc::bf16* __restrict__ k,
+                     const attn_tc::bf16* __restrict__ v,
+                     const attn_tc::bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     attn_tc::bf16* __restrict__ dk,
+                     attn_tc::bf16* __restrict__ dv, int nkt, int sq, int sk,
+                     int d, int causal, float scale) {
+  using namespace attn_tc;
+  constexpr int NT = kDkvHeadThreads;
+  constexpr int NO = NT - 128;     // threads that stage: warpgroups 1-2
+  constexpr int BM = kHeadRows;    // queries of a streamed tile
+  constexpr int HW = kHalf;        // columns of a block
+  constexpr int KE = kRows * HW;   // elements of the k or v half
+  constexpr int SE = BM * HW;      // of a streamed q or do half
+  constexpr int NS = 3;            // stages of the ring
+  constexpr int NJ = BM / 8;       // fragment columns of a score tile
+  extern __shared__ unsigned char tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(align_smem(tc_smem));
+  bf16* Vs = Ks + KE;
+  bf16* ring = Vs + KE;  // stage s: q at 2 s SE, do at (2 s + 1) SE
+  bf16* PDs = ring + NS * 2 * SE;  // p^T in columns [0, BM), ds^T [BM, 2 BM)
+  float* stats = reinterpret_cast<float*>(PDs + kRows * 64);  // lse, delta
+  // two buffers of the shares of s^T and dp^T: fragment column j of
+  // thread t at float4 X + b XB + j * 128 + t (s^T), + (NJ + j) * 128 + t
+  // (dp^T)
+  constexpr int XB = 2 * NJ * 128;
+  float4* X = reinterpret_cast<float4*>(stats + NS * 2 * BM);
+
+  const uint32_t rank = cluster_rank();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16 + g;  // the fragment's key rows r0, r0 + 8
+  const long long kt = blockIdx.x >> 1;
+  const long long bh = kt / nkt;
+  const int k0 = (int)(kt - bh * nkt) * kRows;
+  const int c0 = (int)rank * HW;
+  const bf16* qp = q + bh * sq * d;
+  const bf16* dop = dout + bh * sq * d;
+  const float* lseb = lse + bh * sq;
+  const float* deltab = delta + bh * sq;
+
+  const int nqt = (sq + BM - 1) / BM;
+  // under causal, query tiles with q0 + BM - 1 >= k0
+  const int t0 = causal ? k0 / BM : 0;
+  const int n = t0 < nqt ? nqt - t0 : 0;  // tiles: the same in both blocks
+  const int tid = threadIdx.x - 128;      // of the staging threads
+  auto load_tile = [&](int j, int st) {
+    const int r = (t0 + j) * BM;
+    stage_rows<BM, HW, NO, VEC>(ring + 2 * st * SE, qp, r, sq, d, c0, tid);
+    stage_rows<BM, HW, NO, VEC>(ring + (2 * st + 1) * SE, dop, r, sq, d, c0,
+                                tid);
+    load_stats32<NO>(stats + 2 * st * BM, lseb, r, sq, tid);
+    load_stats32<NO>(stats + (2 * st + 1) * BM, deltab, r, sq, tid);
+  };
+  if (wg > 0) {
+    stage_rows<kRows, HW, NO, VEC>(Ks, k + bh * sk * d, k0, sk, d, c0, tid);
+    stage_rows<kRows, HW, NO, VEC>(Vs, v + bh * sk * d, k0, sk, d, c0, tid);
+    if (n > 0) load_tile(0, 0);
+    cp_async_commit();
+  }
+
+  if (wg == 0) {  // the shares of s^T, dp^T; then p^T, ds^T
+    const uint32_t xpeer = peer_addr(X, rank ^ 1u);
+    const float sl2 = scale * kLog2e;
+    const int kw = k0 + r0;  // the key position of fragment rows e < 2
+    const uint64_t kd = desc_k(Ks), vd = desc_k(Vs);
+    for (int i = 0; i <= n && n > 0; ++i) {
+      cluster_sync();  // tile i has landed; the shares of i - 1 are written
+      float s[NJ][4], dp[NJ][4];
+      if (i < n) {  // issued here, waited on after p^T and ds^T of i - 1
+        const bf16* Qt = ring + 2 * (i % NS) * SE;
+        const uint64_t qd = opaque(desc_k(Qt)), dd = opaque(desc_k(Qt + SE));
+        wg_score32<HW / 16>(s, opaque(kd), qd);
+        wg_score32<HW / 16>(dp, opaque(vd), dd);
+        wg_commit();
+      }
+      if (i > 0) {  // p^T and ds^T of tile i - 1
+        const int b = (i - 1) & 1;
+        const float4* own = X + b * XB + threadIdx.x;
+        float4 xs[NJ], xd[NJ];  // both blocks' shares, all loads in flight
+        float4 ys[NJ], yd[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          xs[j] = peer_load4(xpeer + ((b * XB + j * 128 + threadIdx.x) << 4));
+          xd[j] = peer_load4(
+              xpeer + ((b * XB + (NJ + j) * 128 + threadIdx.x) << 4));
+          ys[j] = own[j * 128];
+          yd[j] = own[(NJ + j) * 128];
+        }
+        const int st = (i - 1) % NS;
+        const int q0 = (t0 + i - 1) * BM;
+        const float* L = stats + 2 * st * BM;
+        const float* Dl = L + BM;
+        const bool edge = q0 + BM > sq || k0 + kRows > sk ||
+                          (causal && k0 + kRows - 1 > q0);
+        float pt[NJ][4], dst[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int ql = 8 * j + 2 * t4;  // local query column, e even
+          const float2 Lv = *reinterpret_cast<const float2*>(L + ql);
+          const float2 Dv = *reinterpret_cast<const float2*>(Dl + ql);
+          const float ss[4] = {ys[j].x + xs[j].x, ys[j].y + xs[j].y,
+                               ys[j].z + xs[j].z, ys[j].w + xs[j].w};
+          const float sd[4] = {yd[j].x + xd[j].x, yd[j].y + xd[j].y,
+                               yd[j].z + xd[j].z, yd[j].w + xd[j].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lv = (e & 1) ? Lv.y : Lv.x;
+            const float dl = (e & 1) ? Dv.y : Dv.x;
+            float p = ex2(fmaf(ss[e], sl2, -lv * kLog2e));
+            if (edge) {
+              const int qi = q0 + ql + (e & 1);
+              const int kj = kw + 8 * (e >> 1);
+              if (qi >= sq || kj >= sk || (causal && kj > qi)) p = 0.f;
+            }
+            pt[j][e] = p;
+            dst[j][e] = p * (sd[e] - dl);
+          }
+        }
+        put_a32(PDs, pt, r0, 0, t4);    // p.astype(do.dtype)^T
+        put_a32(PDs, dst, r0, BM, t4);  // ds.astype(q.dtype)^T
+        fence_proxy_async();  // ... for the output side's tensor cores
+        bar_arrive(kBarPds, NT);
+      }
+      if (i < n) {  // this block's shares of tile i, for step i + 1
+        wg_wait<0>();
+        keep(s);
+        keep(dp);
+        float4* mine = X + (i & 1) * XB + threadIdx.x;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          mine[j * 128] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+          mine[(NJ + j) * 128] =
+              make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]);
+        }
+      }
+    }
+  } else {  // the copies; dv += p^T . do, dk += ds^T . q over 128 columns
+    const int cw = (wg - 1) * 128;  // within the block's half
+    float acck[16][4], accv[16][4];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acck[j][e] = accv[j][e] = 0.f;
+    for (int i = 0; i <= n && n > 0; ++i) {
+      cp_async_wait<0>();   // tile i (at i = 0 also k and v) has landed
+      fence_proxy_async();  // ... visible to the tensor cores
+      cluster_sync();
+      // stage (i + 1) % NS last held tile i - 2, whose products ended in
+      // step i - 1
+      if (i + 1 < n) load_tile(i + 1, (i + 1) % NS);
+      cp_async_commit();
+      if (i == 0) continue;
+      bar_sync(kBarPds, NT);  // p^T and ds^T of tile i - 1
+      const bf16* Qt = ring + 2 * ((i - 1) % NS) * SE;
+      const uint64_t pd = opaque(desc_k(PDs));
+      wg_fence();
+      wg_acc32<128>(accv, pd, opaque(desc_mn32(Qt + SE, cw)));
+      wg_acc32<128>(acck, pd + (BM * 2 >> 4), opaque(desc_mn32(Qt, cw)));
+      wg_commit();
+      wg_wait<0>();
+      keep(accv);
+      keep(acck);
+    }
+    const long long ob = bh * sk * d;
+    store_rows<128, VEC>(dk + ob, acck, k0 + warp * 16, sk, d, c0 + cw,
+                         scale, lane);
+    store_rows<128, VEC>(dv + ob, accv, k0 + warp * 16, sk, d, c0 + cw, 1.f,
+                         lane);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  // every thread of both blocks: the other block's last reads of this
+  // block's shares (step n) end before either block exits
+  cluster_sync();
+}
+
 int run_tc(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dk, void* dv,
            long long bh, int sq, int sk, int d, int causal, float scale,
@@ -604,6 +863,12 @@ int run_tc(const void* q, const void* k, const void* v, const void* dout,
   bf16* dvb = static_cast<bf16*>(dv);
   const int nkt = (sk + attn_tc::kRows - 1) / attn_tc::kRows;
   const int nch = attn_tc::wide_chunks(d);
+  if (d > 256 && d <= attn_tc::kHeadMax) {
+    ATTN_TC_VEC(vec, (attn_tc::launch<attn_dkv_head_tc<VEC>>(
+                         bh * nkt * 2, kDkvHeadThreads, kSmemHead, stream, qb,
+                         kb, vb, db, lse, delta, dkb, dvb, nkt, sq, sk, d,
+                         causal, scale)));
+  }
   ATTN_TC_DISPATCH(
       d, vec,
       (attn_tc::launch<attn_dkv_tc<DP, VEC>>(
@@ -618,6 +883,15 @@ int run_tc(const void* q, const void* k, const void* v, const void* dout,
 
 int plan_tc(int d, int* plan) {
   // the plan does not depend on the load path
+  if (d > 256 && d <= attn_tc::kHeadMax) {
+    plan[0] = attn_tc::kHeadMax;
+    plan[1] = kDkvHeadThreads;
+    plan[2] = (int)kSmemHead;
+    plan[3] = attn_tc::kHalf;
+    plan[4] = 2;
+    return 0;
+  }
+  plan[4] = 1;  // no cluster
   ATTN_TC_DISPATCH(
       d, true,
       (plan[0] = DP, plan[1] = attn_tc::kTcThreads,
@@ -656,7 +930,9 @@ extern "C" int attn_dkv(const void* q, const void* k, const void* v,
 }
 
 // The bfloat16 instance's tile plan for head_dim d: plan[0..3] as for
-// attn_dq_plan. Returns 0.
+// attn_dq_plan (on the whole-head route, 257-512: DP 512 and the 256
+// columns of a block's half), plan[4] the blocks a cluster (2 on the
+// whole-head route, else 1). Returns 0.
 extern "C" int attn_dkv_plan(int d, int* plan) {
   return plan_tc(d, plan);
 }

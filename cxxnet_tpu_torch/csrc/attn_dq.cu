@@ -55,8 +55,10 @@
 // of d / 128 column blocks. For every key tile it sums s over the
 // 128-column chunks of q and k, turns it into p, sums do . v^T over the
 // chunks of do and v, forms ds and adds ds . k over its own 128 columns
-// of k. Each column block recomputes both score products: (4 d / 128 +
-// 2) B H Sq Sk 128 flops in place of 6 B H Sq Sk d (1.67x at d 512).
+// of k. Each column block recomputes both score products: (d / 128)
+// (4 d + 256) B H Sq Sk flops in place of 6 B H Sq Sk d (3.0x at d 512,
+// 5.7x at 1024; K2-fwd and K2-dkv compute each score tile once up to
+// 512, the whole-head route of attn_tc.cuh).
 // bfloat16: one warpgroup a block, 66,560 B of shared memory; float32:
 // 256 threads, 82,688 B.
 

@@ -61,15 +61,33 @@
 // bar against the plain version (rtol 1e-5) rules out TF32, and it serves
 // the float32 agreement legs only.
 //
-// head_dim > 256, the wide route (attn_fwd_wide_tc in bfloat16,
-// attn_fwd_wide in float32; the chunking is described in attn_tc.cuh and
-// attn_common.cuh): a block owns 64 query rows and 128 output columns,
-// one of d / 128 column blocks of those rows. For every key tile it sums
-// s over the 128-column chunks of q and k, runs the online softmax on
-// the whole score tile, and adds p . v over its own 128 columns of v.
-// Each column block recomputes the scores, so the wide route does
-// (2 d / 128 + 2) B H Sq Sk 128 flops in place of 4 B H Sq Sk d (1.5x at
-// d 512: the price of a float32 accumulator that fits). The block of
+// head_dim > 256, the wide route (both routes are described in
+// attn_tc.cuh, the float32 chunking in attn_common.cuh):
+//
+// bfloat16 up to 512, the whole-head route (attn_fwd_head_tc): a block
+// owns 64 query rows and all d output columns. Warpgroup 0 computes each
+// 64 x 32 score tile once, over all of d, runs the online softmax and
+// writes p (bf16) and the rows' rescale to shared memory; the other two
+// warpgroups each own 256 output columns (those past d are zero and
+// never stored) and add p . v over them with p as their A operand from
+// shared memory. q is staged once and held in warpgroup 0's registers (the A
+// operand of its score products; setmaxnreg moves registers to it from
+// the others); k and v stream in tiles of 32 keys through 3-tile rings
+// (two of the slots first hold q), so the score work of key tile i runs
+// beside the p . v of tile i - 1 while k's tile i + 2 and v's tile i + 1
+// are in flight. It executes the 4 B H Sq Sk d useful flops once (at d
+// 512), stages q once and k and v once per 64 query rows; warpgroup 0
+// writes lse. 384 threads and 214,784 B of shared memory: one block a
+// multiprocessor.
+//
+// bfloat16 past 512, the chunked route (attn_fwd_wide_tc), and float32
+// (attn_fwd_wide): a block owns 64 query rows and 128 output columns, one
+// of d / 128 column blocks of those rows. For every key tile it sums s
+// over the 128-column chunks of q and k, runs the online softmax on the
+// whole score tile, and adds p . v over its own 128 columns of v. Each
+// column block recomputes the scores, so the route executes (d / 128)
+// (2 d + 256) B H Sq Sk flops in place of 4 B H Sq Sk d (2.5x at d 512,
+// 4.5x at 1024: the price of a float32 accumulator that fits). The block of
 // column chunk 0 writes lse. bfloat16: one warpgroup a block, 66,560 B
 // of shared memory (a 2-stage ring of two 64 x 128 chunks); float32:
 // 256 threads, 82,688 B.
@@ -514,7 +532,7 @@ int run_tc_dp(const attn_tc::bf16* q, const attn_tc::bf16* k,
       d, causal, scale);
 }
 
-// bfloat16, head_dim > 256 (the wide route; see the header and
+// bfloat16, head_dim > 512 (the chunked route; see the header and
 // attn_tc.cuh): one warpgroup a block, block (bh, query tile, column
 // chunk cc) with the chunk index fastest, so that the column blocks of
 // one query tile run side by side and share q's and k's chunks in L2.
@@ -701,6 +719,254 @@ int run_wide_tc(const attn_tc::bf16* q, const attn_tc::bf16* k,
       k, v, o, lse, nqt, nch, sq, sk, d, causal, scale);
 }
 
+// bfloat16, 256 < head_dim <= 512: the whole-head route (see the header
+// and attn_tc.cuh). Block (bh, 64 query rows), 3 warpgroups:
+// warpgroup 0 holds q's fragments in its registers (setmaxnreg moves
+// them from the others), computes each score tile q . k^T over all of d
+// with q as the A operand from registers and runs the online softmax,
+// writing p (bf16) and the rows' rescale to shared memory; warpgroup
+// 1 + c stages every tile and owns the output columns [c HC, (c + 1)
+// HC), adding p . v over them. k and v stream in tiles of kHeadRows keys
+// through 3-tile rings (q is staged over two of the slots and read into
+// registers before they fill): at step i the score warpgroup takes key
+// tile i, the others p . v of tile i - 1, and the copies of k's tile
+// i + 2 and v's tile i + 1 start.
+constexpr int kHeadCols = 256;  // output columns of a warpgroup
+constexpr int kFwdHeadThreads =
+    (attn_tc::kHeadMax / kHeadCols + 1) * 128;
+
+// six tile slots of kHeadRows x kHeadMax, two p tiles and 3 x 64 floats
+constexpr size_t kSmemHead =
+    (6 * (size_t)attn_tc::kHeadRows * attn_tc::kHeadMax +
+     2 * (size_t)attn_tc::kRows * 64) *
+        sizeof(attn_tc::bf16) +
+    3 * attn_tc::kRows * sizeof(float) + 1024;
+
+// registers a thread of the score warpgroup and of the others after
+// setmaxnreg (the launch gives each of the 384 threads 168)
+constexpr int kScoreRegs = 184;
+constexpr int kOutRegs = 160;
+
+template <bool VEC>
+__global__ void __launch_bounds__(kFwdHeadThreads, 1)
+    attn_fwd_head_tc(const attn_tc::bf16* __restrict__ q,
+                     const attn_tc::bf16* __restrict__ k,
+                     const attn_tc::bf16* __restrict__ v,
+                     attn_tc::bf16* __restrict__ o, float* __restrict__ lse,
+                     int nqt, int sq, int sk, int d, int causal,
+                     float scale) {
+  using namespace attn_tc;
+  constexpr int NT = kFwdHeadThreads;
+  constexpr int DQ = kHeadMax;            // columns of a staged tile
+  constexpr int HC = kHeadCols;
+  constexpr int NO = NT - 128;            // threads of the output side
+  constexpr int BN = kHeadRows;           // keys of a streamed tile
+  constexpr int KE = BN * DQ;             // elements of a k or v tile
+  constexpr int PE = kRows * 64;          // of a p tile (columns [0, BN))
+  constexpr int NK = DQ / 16;             // k-steps of a score tile
+  extern __shared__ unsigned char tc_smem[];
+  // k's ring at slots 0, 1, 4, v's at 2, 3, 5; q over slots 4 and 5
+  bf16* base = reinterpret_cast<bf16*>(align_smem(tc_smem));
+  auto kslot = [&](int s) { return base + (s == 2 ? 4 : s) * KE; };
+  auto vslot = [&](int s) { return base + (s == 2 ? 5 : s + 2) * KE; };
+  bf16* Qs = base + 4 * KE;
+  bf16* Ps = base + 6 * KE;  // 2 tiles
+  float* Cs = reinterpret_cast<float*>(Ps + 2 * PE);  // 2 x 64 rescales
+  float* Ls = Cs + 2 * kRows;                         // the final row sums
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16 + g;  // the fragment's rows r0, r0 + 8
+  const long long bh = blockIdx.x / nqt;
+  // under causal the last query tiles have the most key tiles: first
+  const int qb = (int)(blockIdx.x - bh * nqt);
+  const int q0 = (causal ? nqt - 1 - qb : qb) * kRows;
+  int nkt = (sk + BN - 1) / BN;
+  if (causal) {  // key tiles with k0 <= q0 + kRows - 1
+    const int last = (q0 + kRows - 1) / BN + 1;
+    nkt = nkt < last ? nkt : last;
+  }
+
+  // each side runs on its own path to the end (setmaxnreg needs it);
+  // barrier 0 of all NT threads opens every step
+  if (wg == 0) {  // the scores and the online softmax
+    reg_raise<kScoreRegs>();
+    bar_sync(0, NT);  // q and the first tiles have landed
+    uint32_t qa[NK][4];  // q, the A operand of every score tile
+    load_a<NK>(qa, Qs, r0, t4);
+    const int wrow = q0 + warp * 16;
+    int qrow[2];
+    float m[2], l[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      qrow[h] = wrow + g + 8 * h;
+      m[h] = attn::kNeg;
+      l[h] = 0.f;
+    }
+    for (int i = 0; i < nkt; ++i) {
+      bar_sync(0, NT);  // k's tile i has landed; q's slots may fill
+      const int b = i & 1;
+      float s[BN / 8][4];
+      const uint64_t kd = opaque(desc_k(kslot(i % 3)));
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk)
+        wgmma_rs32(s, qa[kk], kd + kstep_r<BN>(kk), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      keep(s);
+      keep(qa);
+      const int k0 = i * BN;
+      // the warp's 16 rows need a mask only on the key padding or the
+      // causal diagonal
+      const bool edge = k0 + BN > sk || (causal && k0 + BN - 1 > wrow);
+      float mx[2] = {attn::kNeg, attn::kNeg};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale;
+          if (edge) {
+            const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+            if (kj >= sk || (causal && kj > qrow[e >> 1])) x = attn::kNeg;
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      // a row's 32 scores sit on the 4 lanes of a quad
+      float corr[2], ml2[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float mn = fmaxf(m[h], mx[h]);
+        corr[h] = ex2((m[h] - mn) * kLog2e);
+        ml2[h] = mn * kLog2e;
+        m[h] = mn;
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float p = ex2(fmaf(s[j][e], kLog2e, -ml2[h]));
+          if (edge && s[j][e] <= 0.5f * attn::kNeg) p = 0.f;
+          s[j][e] = p;
+          rs[h] += p;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+        l[h] = l[h] * corr[h] + rs[h];
+        if (t4 == 0) Cs[b * kRows + r0 + 8 * h] = corr[h];
+      }
+      put_a32(Ps + b * PE, s, r0, 0, t4);  // p.astype(v.dtype)
+      fence_proxy_async();  // p, for the output side's tensor cores
+    }
+    bar_sync(0, NT);  // the last p . v step
+    float safe[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      safe[h] = l[h] > 0.f ? l[h] : 1.f;
+      if (t4 == 0) Ls[r0 + 8 * h] = safe[h];
+    }
+    bar_sync(0, NT);  // the row sums are written
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (t4 == 0 && qrow[h] < sq)
+        lse[bh * sq + qrow[h]] = m[h] + logf(safe[h]);
+  } else {  // every copy; acc += p . v over the warpgroup's HC columns
+    reg_lower<kOutRegs>();
+    const int tid = threadIdx.x - 128;
+    const bf16* kp = k + bh * sk * d;
+    const bf16* vp = v + bh * sk * d;
+    stage_rows<kRows, DQ, NO, VEC>(Qs, q + bh * sq * d, q0, sq, d, 0, tid);
+    stage_rows<BN, DQ, NO, VEC>(kslot(0), kp, 0, sk, d, 0, tid);
+    if (nkt > 1) stage_rows<BN, DQ, NO, VEC>(kslot(1), kp, BN, sk, d, 0, tid);
+    stage_rows<BN, DQ, NO, VEC>(vslot(0), vp, 0, sk, d, 0, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    bar_sync(0, NT);  // q and the first tiles have landed
+    const int col0 = (wg - 1) * HC;
+    float acc[HC / 8][4];
+#pragma unroll
+    for (int j = 0; j < HC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int i = 0; i <= nkt; ++i) {
+      if (i > 0) {
+        cp_async_wait<1>();  // all but step i - 1's copies
+        fence_proxy_async();
+      }
+      bar_sync(0, NT);
+      // the slots' last readers were in step i - 1 (q's: before step 0)
+      if (i + 2 < nkt)
+        stage_rows<BN, DQ, NO, VEC>(kslot((i + 2) % 3), kp, (i + 2) * BN, sk,
+                                    d, 0, tid);
+      if (i + 1 < nkt)
+        stage_rows<BN, DQ, NO, VEC>(vslot((i + 1) % 3), vp, (i + 1) * BN, sk,
+                                    d, 0, tid);
+      cp_async_commit();
+      if (i == 0) continue;
+      const int b = (i - 1) & 1;
+      const float c0 = Cs[b * kRows + r0], c1 = Cs[b * kRows + r0 + 8];
+#pragma unroll
+      for (int j = 0; j < HC / 8; ++j) {
+        acc[j][0] *= c0;
+        acc[j][1] *= c0;
+        acc[j][2] *= c1;
+        acc[j][3] *= c1;
+      }
+      wg_fence();
+      wg_acc32<HC>(acc, opaque(desc_k(Ps + b * PE)),
+                   opaque(desc_mn32(vslot((i - 1) % 3), col0)));
+      wg_commit();
+      wg_wait<0>();
+      keep(acc);
+    }
+    cp_async_wait<0>();  // no copy outlives the block
+    bar_sync(0, NT);  // the row sums are written
+    bf16* ob = o + bh * sq * d;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + r0 + 8 * h;
+      if (r >= sq) continue;  // padding rows are never stored
+      const float safe = Ls[r0 + 8 * h];
+      bf16* orow = ob + (long long)r * d;
+#pragma unroll
+      for (int j = 0; j < HC / 8; ++j) {
+        const int c = col0 + 8 * j + 2 * t4;
+        const float v0 = acc[j][2 * h] / safe;
+        const float v1 = acc[j][2 * h + 1] / safe;
+        if constexpr (VEC) {
+          if (c < d)
+            *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+                __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (c < d) orow[c] = __float2bfloat16(v0);
+          if (c + 1 < d) orow[c + 1] = __float2bfloat16(v1);
+        }
+      }
+    }
+  }
+}
+
+template <bool VEC>
+int run_head_tc(const attn_tc::bf16* q, const attn_tc::bf16* k,
+                const attn_tc::bf16* v, attn_tc::bf16* o, float* lse,
+                long long bh, int sq, int sk, int d, int causal, float scale,
+                cudaStream_t stream) {
+  const int nqt = (sq + attn_tc::kRows - 1) / attn_tc::kRows;
+  return attn_tc::launch<attn_fwd_head_tc<VEC>>(
+      bh * nqt, kFwdHeadThreads, kSmemHead, stream, q, k, v, o, lse, nqt,
+      sq, sk, d, causal, scale);
+}
+
 int run_tc(const void* q, const void* k, const void* v, void* o, float* lse,
            long long bh, int sq, int sk, int d, int causal, float scale,
            cudaStream_t stream) {
@@ -710,6 +976,9 @@ int run_tc(const void* q, const void* k, const void* v, void* o, float* lse,
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
+  if (d > 256 && d <= attn_tc::kHeadMax)
+    ATTN_TC_VEC(vec, (run_head_tc<VEC>(qb, kb, vb, ob, lse, bh, sq, sk, d,
+                                       causal, scale, stream)));
   ATTN_TC_DISPATCH(
       d, vec,
       (run_tc_dp<DP, VEC>(qb, kb, vb, ob, lse, bh, sq, sk, d, causal, scale,
@@ -720,6 +989,13 @@ int run_tc(const void* q, const void* k, const void* v, void* o, float* lse,
 
 int plan_tc(int d, int sq, int* plan) {
   // the plan does not depend on the load path
+  if (d > 256 && d <= attn_tc::kHeadMax) {
+    plan[0] = plan[4] = attn_tc::kHeadMax;
+    plan[1] = kFwdHeadThreads;
+    plan[2] = (int)kSmemHead;
+    plan[3] = attn_tc::kRows;
+    return 0;
+  }
   ATTN_TC_DISPATCH(
       d, true,
       (plan[0] = DP, (void)VEC, plan[4] = DP,
@@ -757,10 +1033,10 @@ extern "C" int attn_fwd(const void* q, const void* k, const void* v,
 }
 
 // The bfloat16 instance's tile plan for head_dim d and Sq query rows:
-// plan[0..4] = DP (past 256: d rounded up to whole 128-column chunks),
-// threads per block, dynamic shared memory bytes, query rows a block,
-// the head_dim columns a staged tile holds (DP, or 128 on the wide
-// route). Returns 0.
+// plan[0..4] = DP (512 on the whole-head route, 257-512; past 512: d
+// rounded up to whole 128-column chunks), threads per block, dynamic
+// shared memory bytes, query rows a block, the head_dim columns a staged
+// tile holds (DP, or 128 on the chunked route). Returns 0.
 extern "C" int attn_fwd_plan(int d, int sq, int* plan) {
   return plan_tc(d, sq, plan);
 }

@@ -42,21 +42,43 @@
 //         loads into the zero-padded tile, and element stores.
 // Both paths compute the same products on the tensor cores.
 //
-// The wide route (head_dim > 256): neither the resident 64 x DP tiles
-// nor a warpgroup's float32 accumulator over all of d fit any more (a
-// 64 x 512 accumulator is 256 floats a thread). So d is cut into chunks
-// of kWideCols = 128 columns, the geometry of the DP 128 instances (two
-// swizzled 64-column blocks a tile). A block is one warpgroup that owns
-// 64 rows and the 128 output columns [c0, c0 + 128) of them; the
-// d / 128 blocks of one row range each recompute the score tiles they
-// need. Each score product (q.k^T, do.v^T) is summed chunk by chunk into
-// its float32 accumulator (wg_score_chunk), the chunk pair staged in one
+// Past head_dim 256 neither the resident 64 x DP tiles nor one
+// warpgroup's float32 accumulator over all of d fit any more (a 64 x 512
+// accumulator is 256 floats a thread). Two routes take such heads:
+//
+// The whole-head route (256 < head_dim <= 512; K2-fwd and K2-dkv): a
+// block spans the whole head (K2-dkv: a cluster of two blocks, one half
+// each), so every score tile is computed once. One warpgroup computes
+// the score tiles over all of d; the block's other warpgroups each own
+// a slice of the output columns and take p (or p^T and ds^T), rounded
+// to bf16, from shared memory as the A operand of their products. The
+// operands fixed for the block's life are staged once (K2-fwd: q, then
+// held as A fragments in the score warpgroup's registers; K2-dkv: the
+// block's half of k and v); the streamed tiles (k and v; q, do, lse and
+// delta) have kHeadRows = 32 rows, so that three stages of the stream,
+// the resident tiles and the p tiles fit a block's shared memory. A
+// step of the block's loop is one streamed tile: the score
+// warpgroup takes tile i while the others multiply with tile i - 1 and
+// the copies of the next tile are in flight; a barrier (K2-dkv: a
+// cluster barrier) opens each step. Tiles are the swizzled 64-column
+// blocks below, of 64 or 32 rows (swz_r, kstep_r).
+//
+// The chunked route (head_dim > 512, and K2-dq past 256): d is cut
+// into chunks of kWideCols = 128 columns, the geometry of the DP 128
+// instances (two swizzled 64-column blocks a tile). A block is one
+// warpgroup that owns 64 rows and the 128 output columns [c0, c0 + 128)
+// of them; the d / 128 blocks of one row range each recompute the score
+// tiles they need, so the route executes (d + 128) / 256 x the useful
+// products in K2-fwd, (d + 64) / 192 x in K2-dq and (d + 128) / 256 x in
+// K2-dkv (2.5x, 3.0x and 2.5x at d 512). Each
+// score product (q.k^T, do.v^T) is summed chunk by chunk into its
+// float32 accumulator (wg_score_chunk), the chunk pair staged in one
 // stage of a 2-stage ring of asynchronous copies; the step after the
 // last chunk stages the 128 columns of the accumulating product's B
 // operand (v, k, or do and q). Every step is one stage of two 64 x 128
 // tiles, so tile i + 1 of the step sequence is in flight while tile i is
-// multiplied. stage_chunk zero-fills columns past d and rows past the
-// sequence on both load paths.
+// multiplied. stage_chunk (stage_rows) zero-fills columns past d and
+// rows past the sequence on both load paths.
 
 #pragma once
 
@@ -395,9 +417,9 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out,
   }
 }
 
-// The wide route (see the header): chunk width, threads a block (one
+// The chunked route (see the header): chunk width, threads a block (one
 // warpgroup), elements of a staged chunk, and the dynamic shared memory
-// of every wide kernel: 2 stages of 2 chunks and 1 KB of alignment
+// of every chunked kernel: 2 stages of 2 chunks and 1 KB of alignment
 // slack.
 constexpr int kWideCols = 128;
 constexpr int kWideThreads = 128;
@@ -410,42 +432,70 @@ __host__ __device__ inline int wide_chunks(int d) {
   return (d + kWideCols - 1) / kWideCols;
 }
 
-// Stage rows [row0, row0 + kRows) and columns [col0, col0 + kWideCols) of
-// a row-major (rows, ld) bf16 matrix as a swizzled 64 x 128 tile; rows
-// >= `rows` and columns >= ld are zero. VEC: 16-byte cp.async pieces
-// (ld % 8 == 0 and col0 % 8 == 0, so a piece lies wholly inside or
-// wholly past the row), zero-filled where they lie outside; else element
-// loads.
+// Byte offset of element (r, c) in a swizzled tile of R rows: 64-column
+// blocks of R rows x 128 bytes, the 128-byte swizzle inside each (swz is
+// swz_r<64>).
+template <int R>
+__device__ __forceinline__ int swz_r(int r, int c) {
+  return (c >> 6) * (R * 128) + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+         ((c & 7) << 1);
+}
+
+// Stage rows [row0, row0 + R) and columns [col0, col0 + W) of a
+// row-major (rows, ld) bf16 matrix as an R x W swizzled tile; rows >=
+// `rows` and columns >= ld are zero. VEC: 16-byte cp.async pieces (ld
+// and col0 multiples of 8), zero-filled where they lie outside; else
+// element loads. NT threads, this one tid of them. The element loop is
+// kept rolled (the kernels stage while their accumulators are live);
+// ROLLED keeps the cp.async loop rolled too (the whole-head route,
+// whose staging warpgroups hold their accumulators within their
+// setmaxnreg share), while the chunked route leaves it to the compiler
+// to unroll, which K2-dq's chunked instance measured faster.
+template <int R, int W, int NT, bool VEC, bool ROLLED = true>
+__device__ __forceinline__ void stage_rows(bf16* __restrict__ dst,
+                                           const bf16* __restrict__ src,
+                                           int row0, int rows, int ld,
+                                           int col0, int tid) {
+  char* base = reinterpret_cast<char*>(dst);
+  if constexpr (VEC) {
+    constexpr int PR = W / 8;  // pieces a row
+    auto piece = [&](int i) {
+      const int r = i / PR;
+      const int c = (i - r * PR) << 3;
+      const int gr = row0 + r;
+      const bool ok = gr < rows && col0 + c < ld;
+      cp_async16(base + swz_r<R>(r, c),
+                 ok ? src + (long long)gr * ld + col0 + c : src, ok);
+    };
+    if constexpr (ROLLED) {
+#pragma unroll 1
+      for (int i = tid; i < R * PR; i += NT) piece(i);
+    } else {
+      for (int i = tid; i < R * PR; i += NT) piece(i);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = tid; i < R * W; i += NT) {
+      const int r = i / W;
+      const int c = i - r * W;
+      const int gr = row0 + r;
+      bf16 val = __float2bfloat16(0.f);
+      if (gr < rows && col0 + c < ld)
+        val = src[(long long)gr * ld + col0 + c];
+      *reinterpret_cast<bf16*>(base + swz_r<R>(r, c)) = val;
+    }
+  }
+}
+
+// One 64 x 128 chunk of the chunked route, staged by the block's one
+// warpgroup: stage_rows with its cp.async loop unrolled.
 template <bool VEC>
 __device__ __forceinline__ void stage_chunk(bf16* __restrict__ dst,
                                             const bf16* __restrict__ src,
                                             int row0, int rows, int ld,
                                             int col0) {
-  char* base = reinterpret_cast<char*>(dst);
-  if constexpr (VEC) {
-    for (int i = threadIdx.x; i < kRows * (kWideCols / 8);
-         i += kWideThreads) {
-      const int r = i / (kWideCols / 8);
-      const int c = (i - r * (kWideCols / 8)) << 3;
-      const int gr = row0 + r;
-      const bool ok = gr < rows && col0 + c < ld;
-      cp_async16(base + swz(r, c),
-                 ok ? src + (long long)gr * ld + col0 + c : src, ok);
-    }
-  } else {
-    // kept rolled: the wide kernels stage while their accumulators
-    // (2 x 64 floats a thread in K2-dkv) are live
-#pragma unroll 1
-    for (int i = threadIdx.x; i < kWideTE; i += kWideThreads) {
-      const int r = i / kWideCols;
-      const int c = i - r * kWideCols;
-      const int gr = row0 + r;
-      bf16 val = __float2bfloat16(0.f);
-      if (gr < rows && col0 + c < ld)
-        val = src[(long long)gr * ld + col0 + c];
-      *reinterpret_cast<bf16*>(base + swz(r, c)) = val;
-    }
-  }
+  stage_rows<kRows, kWideCols, kWideThreads, VEC, false>(
+      dst, src, row0, rows, ld, col0, threadIdx.x);
 }
 
 // One chunk's share of a score product of one warpgroup, issued, not
@@ -471,7 +521,8 @@ inline bool vec_ok(int d, std::initializer_list<const void*> ptrs) {
 }
 
 // The instance for head_dim d: DP and the load path; CALL sees DP and
-// VEC as constants; past 256 the wide route, WIDE, which sees VEC.
+// VEC as constants; past 256 the chunked route, WIDE, which sees VEC
+// (K2-fwd and K2-dkv take the whole-head route up to 512 before this).
 #define ATTN_TC_DISPATCH(d, vec, CALL, WIDE) \
   do {                                 \
     if ((d) <= 64) {                   \
@@ -498,5 +549,235 @@ inline bool vec_ok(int d, std::initializer_list<const void*> ptrs) {
     constexpr bool VEC = false;  \
     return CALL;                 \
   } while (0)
+
+
+// ---------------------------------------------------------------------------
+// The whole-head route (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kHeadRows = 32;   // rows of a streamed tile (keys or queries)
+constexpr int kHeadMax = 512;   // the widest head the route takes
+constexpr int kHalf = 256;      // columns of a K2-dkv block (one of two)
+
+// The start-address step of k-step kk of a K-major R-row tile (kstep is
+// kstep_r<64>).
+template <int R>
+__host__ __device__ constexpr uint64_t kstep_r(int kk) {
+  return (uint64_t)(((kk >> 2) * R * 128 + (kk & 3) * 32) >> 4);
+}
+
+// MN-major operand of a 32-row tile: columns from col0 (a multiple of
+// 64); 64-column blocks are 4,096 bytes apart (leading offset).
+__device__ __forceinline__ uint64_t desc_mn32(const bf16* tile, int col0) {
+  return desc(reinterpret_cast<const char*>(tile) +
+                  (col0 >> 6) * (kHeadRows * 128),
+              kHeadRows * 128, 1024);
+}
+
+// kHeadRows float32 values [row0, row0 + kHeadRows) of a (rows,) vector,
+// asynchronously, zero past `rows`. NT threads, this one tid of them.
+template <int NT>
+__device__ __forceinline__ void load_stats32(float* __restrict__ dst,
+                                             const float* __restrict__ src,
+                                             int row0, int rows, int tid) {
+  for (int i = tid; i < kHeadRows; i += NT) {
+    const int gr = row0 + i;
+    const bool ok = gr < rows;
+    cp_async4(dst + i, ok ? src + gr : src, ok);
+  }
+}
+
+// Named barriers between the warpgroups of a block, reached from their
+// own code paths (so without the .aligned promise): bar_sync waits until
+// `n` threads have reached barrier `id`, bar_arrive counts this thread
+// and goes on.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("barrier.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("barrier.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+#define ATTN_TC_F4(i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+
+// d (64 x 32, float32) = A (64 x 16, smem) . B (32 x 16, smem)^T, plus d
+// itself when `accumulate`; both K-major.
+__device__ __forceinline__ void wgmma_ss32(float (&d)[4][4], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : ATTN_TC_F4(0), ATTN_TC_F4(1), ATTN_TC_F4(2),
+        ATTN_TC_F4(3)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, float32) += A (64 x 16, smem, K-major) . B (16 x 128,
+// smem, MN-major: transposed).
+__device__ __forceinline__ void wgmma_sst(float (&d)[16][4], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : ATTN_TC_F4(0), ATTN_TC_F4(1), ATTN_TC_F4(2),
+        ATTN_TC_F4(3), ATTN_TC_F4(4), ATTN_TC_F4(5),
+        ATTN_TC_F4(6), ATTN_TC_F4(7), ATTN_TC_F4(8),
+        ATTN_TC_F4(9), ATTN_TC_F4(10), ATTN_TC_F4(11),
+        ATTN_TC_F4(12), ATTN_TC_F4(13), ATTN_TC_F4(14),
+        ATTN_TC_F4(15)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 256, float32) += A (64 x 16, smem, K-major) . B (16 x 256,
+// smem, MN-major: transposed).
+__device__ __forceinline__ void wgmma_sst(float (&d)[32][4], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : ATTN_TC_F4(0), ATTN_TC_F4(1), ATTN_TC_F4(2),
+        ATTN_TC_F4(3), ATTN_TC_F4(4), ATTN_TC_F4(5),
+        ATTN_TC_F4(6), ATTN_TC_F4(7), ATTN_TC_F4(8),
+        ATTN_TC_F4(9), ATTN_TC_F4(10), ATTN_TC_F4(11),
+        ATTN_TC_F4(12), ATTN_TC_F4(13), ATTN_TC_F4(14),
+        ATTN_TC_F4(15), ATTN_TC_F4(16), ATTN_TC_F4(17),
+        ATTN_TC_F4(18), ATTN_TC_F4(19), ATTN_TC_F4(20),
+        ATTN_TC_F4(21), ATTN_TC_F4(22), ATTN_TC_F4(23),
+        ATTN_TC_F4(24), ATTN_TC_F4(25), ATTN_TC_F4(26),
+        ATTN_TC_F4(27), ATTN_TC_F4(28), ATTN_TC_F4(29),
+        ATTN_TC_F4(30), ATTN_TC_F4(31)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+#undef ATTN_TC_F4
+
+// A score tile of the whole-head route, issued, not waited on: s (64 x
+// 32) = A[64 rows] . B[32 rows]^T over NK k-steps of 16 columns, A a
+// 64-row tile and B a 32-row one, both K-major (a and b: desc_k). The
+// fragment of thread (warp w, lane 4 g + t): s[j] holds rows 16 w + g,
+// 16 w + g + 8 and columns 8 j + 2 t, 8 j + 2 t + 1, as wg_score's.
+template <int NK>
+__device__ __forceinline__ void wg_score32(float (&s)[kHeadRows / 8][4],
+                                           uint64_t a, uint64_t b) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+    wgmma_ss32(s, a + kstep_r<kRows>(kk), b + kstep_r<kHeadRows>(kk),
+               kk > 0);
+}
+
+// An accumulating product of the whole-head route, issued, not waited
+// on: acc (64 x N) += A (64 rows x 32, K-major: a = desc_k of a 64 x 64
+// tile, plus 4 per 32 columns the A operand starts further) . X (32 rows
+// x N, MN-major: x = desc_mn32).
+template <int N>
+__device__ __forceinline__ void wg_acc32(float (&acc)[N / 8][4], uint64_t a,
+                                         uint64_t x) {
+#pragma unroll
+  for (int kk = 0; kk < kHeadRows / 16; ++kk)
+    wgmma_sst(acc, a + 2 * kk, x + (uint64_t)(kk * 16 * 128 >> 4));
+}
+
+// Store a 16 x 32 fragment pair of one warp (rows r0, r0 + 8 of a 64 x
+// 64 tile, columns col0 + 8 j + 2 t (+ 1)) as bf16 into the swizzled
+// tile: the A operand of wg_acc32.
+__device__ __forceinline__ void put_a32(bf16* __restrict__ tile,
+                                        const float (&x)[kHeadRows / 8][4],
+                                        int r0, int col0, int t4) {
+  char* base = reinterpret_cast<char*>(tile);
+#pragma unroll
+  for (int j = 0; j < kHeadRows / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(base +
+                                   swz_r<kRows>(r0 + 8 * h,
+                                                col0 + 8 * j + 2 * t4)) =
+          pack_bf16(x[j][2 * h], x[j][2 * h + 1]);
+}
+
+// d (64 x 32, float32) = A (64 x 16, bf16 fragments in registers) . B (32
+// x 16, smem, K-major)^T, plus d itself when `accumulate`.
+__device__ __forceinline__ void wgmma_rs32(float (&d)[4][4],
+                                           const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// Move registers between the warpgroups of a block (the whole warpgroup
+// executes it): raise this warpgroup's limit to N a thread, or lower it.
+template <int N>
+__device__ __forceinline__ void reg_raise() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_lower() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The A fragments of rows [0, 64) x columns [16 kk, 16 kk + 16) of a
+// swizzled 64-row tile, for each k-step kk < NK: thread (warp w, lane
+// 4 g + t) holds rows 16 w + g (+ 8), columns 16 kk + 2 t (+ 1), + 8 (+ 1),
+// the layout pack_a gives a score fragment.
+template <int NK>
+__device__ __forceinline__ void load_a(uint32_t (&a)[NK][4],
+                                       const bf16* __restrict__ tile,
+                                       int r0, int t4) {
+  const char* base = reinterpret_cast<const char*>(tile);
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const int c = 16 * kk + 2 * t4;
+    a[kk][0] = *reinterpret_cast<const uint32_t*>(base + swz_r<kRows>(r0, c));
+    a[kk][1] =
+        *reinterpret_cast<const uint32_t*>(base + swz_r<kRows>(r0 + 8, c));
+    a[kk][2] =
+        *reinterpret_cast<const uint32_t*>(base + swz_r<kRows>(r0, c + 8));
+    a[kk][3] = *reinterpret_cast<const uint32_t*>(
+        base + swz_r<kRows>(r0 + 8, c + 8));
+  }
+}
 
 }  // namespace attn_tc

@@ -30,11 +30,17 @@ runs on the tensor cores (wgmma with float32 accumulators,
 csrc/attn_tc.cuh), float32 on the CUDA cores, whose float32 products
 keep the float32 bar of the plain versions (TF32 would not). A bfloat16
 CUDA tensor always takes the tensor-core instance; nothing falls back.
-Past head_dim 256 both dtypes take the kernels' wide route: head_dim
-is cut into chunks of 128 columns, the score products are summed chunk
-by chunk, and each block owns 128 output columns and recomputes the
-score tiles it needs (csrc/attn_tc.cuh, csrc/attn_common.cuh). The
-lse and delta layouts are the same on both routes.
+Past head_dim 256 both dtypes take the kernels' wide route. In
+bfloat16, K2-fwd and K2-dkv up to head_dim 512 take the whole-head
+route: a block (K2-dkv: a cluster of two blocks) spans the head, one
+warpgroup computes each score tile once and the others take p from
+shared memory for their slice of the output columns. Past 512, and for
+K2-dq past 256, head_dim is cut into chunks of 128 columns, the score
+products are summed chunk by chunk, and each block owns 128 output
+columns and recomputes the score tiles it needs (the chunked route);
+float32 takes the chunked route of csrc/attn_common.cuh
+(csrc/attn_tc.cuh has both bfloat16 routes). The lse and delta
+layouts are the same on every route.
 
 `flash_attention` is the public entry, one autograd Function for both
 devices: a CUDA tensor runs the kernels (its backward launches K2-dq
@@ -248,13 +254,17 @@ def tc_plan(name: str, d: int, sq: Optional[int] = None) -> dict:
     """The tile plan of the bfloat16 (tensor-core) instance of `name`
     ("attn_fwd", "attn_dq" or "attn_dkv") at head_dim d, as its C entry
     reports it: DP (d rounded up to a power of two of at least 64; past
-    256, on the wide route, to whole chunks of 128), threads per block,
-    dynamic shared memory bytes and `chunk`, the head_dim columns a
-    staged tile holds (DP, or 128 on the wide route, where a block owns
-    128 output columns); for attn_fwd also the query rows a block owns
-    at `sq` query rows (default: a long sequence), since a sequence of
-    at most 64 takes one warpgroup. Needs the card's toolchain (it
-    loads the kernel's library)."""
+    256 on the whole-head route of attn_fwd and attn_dkv, up to 512, to
+    512; on the chunked route, past 512 and K2-dq's past 256, to whole
+    chunks of 128), threads per block, dynamic shared memory bytes and
+    `chunk`, the head_dim columns a staged tile holds (DP; 256, a
+    block's half, on attn_dkv's whole-head route; 128 on the chunked
+    route, where a block owns 128 output columns); for attn_fwd also the
+    query rows a block owns at `sq` query rows (default: a long
+    sequence), since a sequence of at most 64 takes one warpgroup; for
+    attn_dkv `cluster`, the blocks of a cluster (2 on its whole-head
+    route, else 1). Needs the card's toolchain (it loads the kernel's
+    library)."""
     if name not in ("attn_fwd", "attn_dq", "attn_dkv"):
         raise ValueError(f"tc_plan: no tensor-core plan for {name}")
     if d < 1:
@@ -262,12 +272,13 @@ def tc_plan(name: str, d: int, sq: Optional[int] = None) -> dict:
     lib = kernels.load(name)
     if name == "attn_fwd":
         keys = ["dp", "threads", "smem_bytes", "rows", "chunk"]
-        out = (ctypes.c_int * 5)()
+        out = (ctypes.c_int * len(keys))()
         rc = lib.attn_fwd_plan(int(d), int(1 << 30 if sq is None else sq),
                                out)
     else:
-        keys = ["dp", "threads", "smem_bytes", "chunk"]
-        out = (ctypes.c_int * 4)()
+        keys = ["dp", "threads", "smem_bytes", "chunk"] + (
+            ["cluster"] if name == "attn_dkv" else [])
+        out = (ctypes.c_int * len(keys))()
         rc = getattr(lib, f"{name}_plan")(int(d), out)
     if rc != 0:
         raise ValueError(f"tc_plan: {name} takes no head_dim {d}")

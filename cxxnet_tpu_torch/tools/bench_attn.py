@@ -15,8 +15,9 @@ the realized half of the work), the ratio to SDPA and the tile plan.
 The JAX tool sweeps the Pallas kernel's (BLOCK_Q, BLOCK_K); K2's tile
 plans are fixed when its sources are built (`ops/flash_attention.py`
 `tc_plan`: 64 query rows a warpgroup, the key tile and the head padded
-to a power of two; past head_dim 256 the wide route's 128-column
-chunks), so this tool reports the one plan of each kernel at this
+to a power of two; past head_dim 256 the wide route: up to 512 the
+whole-head plan of K2-fwd and K2-dkv, else 128-column chunks), so this
+tool reports the one plan of each kernel at this
 head_dim, under the config name `k2`. `--shape 4,8,4096,512` times the
 wide route (SDPA's flash backend refuses head_dims past 256, and PyTorch
 then picks another). `--quick` times the same configs with fewer steps. On the card the times are CUDA events around

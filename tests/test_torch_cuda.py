@@ -587,32 +587,55 @@ def test_bf16_backward_kernels_on_the_tensor_cores(cuda_device, b, h, sq,
     assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
-# the wide route (head_dim > 256): d rounded up to whole 128-column
-# chunks, one warpgroup a block, a 2-stage ring of two 64 x 128 bf16
-# chunks and 1 KB of alignment slack (K2-dkv: and 64 x 64 float32 for
-# p^T)
+# the chunked route (K2-dq past head_dim 256, K2-fwd and K2-dkv past
+# 512): d rounded up to whole 128-column chunks, one warpgroup a block, a
+# 2-stage ring of two 64 x 128 bf16 chunks and 1 KB of alignment slack
+# (K2-dkv: and 64 x 64 float32 for p^T)
 WIDE_PLAN = {"threads": 128, "smem_bytes": 2 * 2 * 64 * 128 * 2 + 1024,
              "chunk": 128}
 WIDE_DKV_SMEM = WIDE_PLAN["smem_bytes"] + 64 * 64 * 4
+# the whole-head route of K2-fwd (257-512, one DP 512 instance): q
+# resident (64 x 512), two k and two v tiles of 32 keys, two 64 x 64 p
+# tiles, 3 x 64 float32 row values and 1 KB of slack; a score warpgroup
+# and two warpgroups of 256 output columns
+HEAD_FWD_PLAN = {"dp": 512, "threads": 384, "rows": 64, "chunk": 512,
+                 "smem_bytes": (64 * 512 + 4 * 32 * 512 + 2 * 64 * 64) * 2
+                 + 3 * 64 * 4 + 1024}
+# ... and of K2-dkv (DP 512): a cluster of two blocks of 3 warpgroups,
+# each with its 256 columns of k and v resident (64 rows), a 3-stage ring
+# of 32 x 256 q and do tiles with their lse and delta, the 64 x 64 p^T /
+# ds^T tile, two buffers of the 2 x 64 x 32 float32 score shares and 1
+# KB of slack
+HEAD_DKV_PLAN = {"dp": 512, "threads": 384, "chunk": 256, "cluster": 2,
+                 "smem_bytes": (2 * 64 * 256 + 3 * 2 * 32 * 256 + 64 * 64)
+                 * 2 + (3 * 2 * 32 + 2 * 2 * 64 * 32) * 4 + 1024}
+SMEM_LIMIT = 232448  # a block's dynamic shared memory on the H100
 
 
 def test_bf16_backward_tile_plans(cuda_device):
     """The tensor-core instances' plans: DP is d rounded up to a power of
     two of at least 64 (one 128-byte swizzle row), 2 warpgroups a block,
-    shared memory within a block's 232,448 bytes; past head_dim 256 the
-    wide route's plan (WIDE_PLAN)."""
+    shared memory within a block's 232,448 bytes; past head_dim 256
+    K2-dq's chunked plan (WIDE_PLAN) and K2-dkv's whole-head plan up to
+    512 (HEAD_DKV_PLAN), its chunked plan past it."""
     for d, dp in ((7, 64), (12, 64), (32, 64), (64, 64), (96, 128),
                   (128, 128), (200, 256), (256, 256)):
         for name in ("attn_dq", "attn_dkv"):
             plan = FA.tc_plan(name, d)
             assert plan["dp"] == dp, (name, d)
             assert plan["threads"] == 256 and plan["chunk"] == dp
-            assert 0 < plan["smem_bytes"] <= 232448
-    for d, dp in ((257, 384), (320, 384), (512, 512), (576, 640),
-                  (1024, 1024), (2048, 2048)):
+            assert 0 < plan["smem_bytes"] <= SMEM_LIMIT
+            assert plan.get("cluster", 1) == 1
+    for d, dp in ((257, 384), (320, 384), (384, 384), (512, 512),
+                  (576, 640), (640, 640), (1024, 1024), (2048, 2048)):
         assert FA.tc_plan("attn_dq", d) == dict(WIDE_PLAN, dp=dp), d
-        assert FA.tc_plan("attn_dkv", d) == dict(
-            WIDE_PLAN, dp=dp, smem_bytes=WIDE_DKV_SMEM), d
+        dkv = FA.tc_plan("attn_dkv", d)
+        if d <= 512:
+            assert dkv == HEAD_DKV_PLAN, d
+        else:
+            assert dkv == dict(WIDE_PLAN, dp=dp, smem_bytes=WIDE_DKV_SMEM,
+                               cluster=1), d
+        assert dkv["smem_bytes"] <= SMEM_LIMIT, d
 
 
 # the K2-fwd tensor-core instance's edges: head_dim 7, 12, 64, 128, 200
@@ -682,17 +705,25 @@ def test_bf16_forward_tile_plans(cuda_device):
             assert 0 < plan["smem_bytes"] <= 232448
     assert FA.tc_plan("attn_fwd", 128, 65)["rows"] == 128
     assert FA.tc_plan("attn_fwd", 128, 64)["rows"] == 64
-    # the wide route: 64 query rows a block at any length
-    for d, dp in ((257, 384), (512, 512), (576, 640), (2048, 2048)):
+    # the wide route: 64 query rows a block at any length; the whole-head
+    # plan up to 512, the chunked one past it
+    for d, dp in ((257, 512), (384, 512), (385, 512), (512, 512),
+                  (576, 640), (2048, 2048)):
         for sq in (None, 28):
-            assert FA.tc_plan("attn_fwd", d, sq) == dict(
-                WIDE_PLAN, dp=dp, rows=64), (d, sq)
+            plan = FA.tc_plan("attn_fwd", d, sq)
+            if d <= 512:
+                assert plan == HEAD_FWD_PLAN, (d, sq)
+            else:
+                assert plan == dict(WIDE_PLAN, dp=dp, rows=64), (d, sq)
+            assert plan["smem_bytes"] <= SMEM_LIMIT, (d, sq)
 
 
 # the wide route (head_dim > 256) in both dtypes: head_dim 257 (element
 # loads, a last chunk of one column), 320 and 576 (a last chunk of 64),
-# 512, 1024; ragged lengths, Sq != Sk under both masks (the blocks the
-# ring hands K2), one query row, and views 2 bytes off alignment
+# 384 and 512 (the whole-head route), 640, 1024 and 2048
+# (the chunked route); ragged lengths, Sq != Sk under both masks (the
+# blocks the ring hands K2), one query row, and views 2 bytes off
+# alignment
 WIDE_CASES = [
     # (B, H, Sq, Sk, D, causal, misaligned)
     (1, 2, 100, 100, 257, True, False),
@@ -706,6 +737,10 @@ WIDE_CASES = [
     (1, 1, 1, 1, 1024, False, False),
     (1, 2, 96, 96, 512, False, True),
     (2, 1, 33, 33, 257, True, True),
+    (2, 1, 97, 97, 384, False, False),
+    (1, 2, 100, 257, 384, True, False),
+    (1, 1, 130, 65, 640, True, False),
+    (1, 1, 40, 70, 2048, True, False),
 ]
 
 
